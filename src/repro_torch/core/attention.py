@@ -1,0 +1,94 @@
+"""Attention cores.
+
+``attention_xla`` — q-chunked attention in plain tensor ops (memory
+    O(chunk * SK)); the prefill path. In overlap mode it consumes packed
+    keep bits made by a producer; the fused mode (bits generated inside
+    each chunk) is not ported yet.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.core import dropout_rng
+from repro_torch.core.overlap import DropoutPlan
+
+_NEG = -1e30
+
+
+def _chunk_attend(qc, k, v, q_start, sk, causal, local_window, scale,
+                  keep_mask, dropout_p, probs_dtype=torch.float32):
+    """One q-chunk: qc (B,H,cq,D) vs k,v (B,H,SK,D) (kv pre-repeated).
+    Query row i sits at position q_start + i, keys at 0..SK-1."""
+    scores = torch.einsum("bhqd,bhkd->bhqk", qc, k).to(torch.float32) * scale
+    cq = qc.shape[2]
+    if causal or local_window:
+        dev = qc.device
+        q_pos = q_start + torch.arange(cq, device=dev).reshape(cq, 1)
+        k_pos = torch.arange(sk, device=dev).reshape(1, sk)
+        valid = None
+        if causal:
+            valid = k_pos <= q_pos
+        if local_window:
+            local_ok = k_pos > q_pos - local_window
+            valid = local_ok if valid is None else valid & local_ok
+        scores = scores.masked_fill(~valid, _NEG)
+    m = torch.amax(scores, dim=-1, keepdim=True)
+    p = torch.exp(scores - m)
+    denom = torch.sum(p, dim=-1, keepdim=True)
+    p = (p / denom).to(probs_dtype)
+    if keep_mask is not None:
+        p = p.masked_fill(~keep_mask, 0.0) / (1.0 - dropout_p)
+    return torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype), v)
+
+
+def attention_xla(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool = True, local_window: int = 0,
+                  plan: Optional[DropoutPlan] = None,
+                  layer_idx=0, step=0,
+                  packed_mask: Optional[torch.Tensor] = None,
+                  chunk_q: int = 1024,
+                  scale: Optional[float] = None,
+                  probs_dtype=torch.float32) -> torch.Tensor:
+    """q (B,H,SQ,D); k,v (B,KV,SK,D); H % KV == 0. Returns (B,H,SQ,D).
+
+    With an enabled ``plan``, ``packed_mask`` carries the producer's
+    packed keep bits (overlap mode)."""
+    b, h, sq, d = q.shape
+    kv, sk = k.shape[1], k.shape[2]
+    g = h // kv
+    if scale is None:
+        scale = 1.0 / (d ** 0.5)
+    dropped = plan is not None and plan.enabled
+    p_drop = plan.cfg.p if dropped else 0.0
+    if dropped and packed_mask is None:
+        raise NotImplementedError(
+            "fused-mode dropout inside attention_xla is not ported yet "
+            "(ROADMAP: port queue)")
+    if g > 1:
+        k = torch.repeat_interleave(k, g, dim=1)
+        v = torch.repeat_interleave(v, g, dim=1)
+    cq = min(chunk_q, sq)
+    pad = (-sq) % cq
+    if pad:
+        # padded query rows produce garbage rows that are sliced off below
+        q = torch.nn.functional.pad(q, (0, 0, 0, pad))
+        if dropped:
+            # keep the last chunk's mask rows aligned with its queries
+            packed_mask = torch.nn.functional.pad(packed_mask,
+                                                  (0, 0, 0, pad // 32))
+    n_chunks = (sq + pad) // cq
+    outs = []
+    for ci in range(n_chunks):
+        q_start = ci * cq
+        qc = q[:, :, q_start:q_start + cq]
+        keep = None
+        if dropped:
+            pm = packed_mask[:, :, ci * (cq // 32):(ci + 1) * (cq // 32)]
+            keep = dropout_rng.unpack_block(pm, cq)
+        outs.append(_chunk_attend(qc, k, v, q_start, sk, causal,
+                                  local_window, scale, keep, p_drop,
+                                  probs_dtype))
+    out = outs[0] if n_chunks == 1 else torch.cat(outs, dim=2)
+    return out[:, :, :sq] if pad else out
