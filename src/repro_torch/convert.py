@@ -15,6 +15,7 @@ import torch
 from repro_torch.config.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.transformer import build_stacks
+from repro_torch.tree import leaves
 
 
 def _convert(node, device):
@@ -39,19 +40,9 @@ def params_from_jax(np_tree: Any, cfg: ModelConfig,
         if sorted(stack) != [f"l{j}" for j in range(len(spec.unit))]:
             raise ValueError(f"stack keys {sorted(stack)} do not match the "
                              f"unit of {cfg.name}")
-        for leaf in _leaves(stack):
+        for leaf in leaves(stack):
             if np.shape(leaf)[0] != spec.count:
                 raise ValueError(f"stacked leaf {np.shape(leaf)} lacks the "
                                  f"leading count {spec.count}")
     return _convert(np_tree, resolve_device(device))
 
-
-def _leaves(node):
-    if isinstance(node, dict):
-        for v in node.values():
-            yield from _leaves(v)
-    elif isinstance(node, (list, tuple)):
-        for v in node:
-            yield from _leaves(v)
-    else:
-        yield node

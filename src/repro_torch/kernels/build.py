@@ -26,8 +26,13 @@ from typing import Dict, List
 CSRC = Path(__file__).resolve().parent / "csrc"
 _REPO_ROOT = Path(__file__).resolve().parents[3]
 
+# --fmad=false: a float multiply and add contract into one FMA only where
+# the source writes fmaf, so every template instantiation of a kernel does
+# the same float arithmetic (the flash kernels' dropout modes are bitwise
+# interchangeable because of it).
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
 

@@ -68,4 +68,73 @@ REPRO_HD uint32_t global_bh(uint32_t local_bh, uint32_t heads_local,
          local_bh % heads_local;
 }
 
+// The same chain with the round count a run-time argument, for kernels
+// whose main work is not the RNG (flash attention), where one binary per
+// round count is not worth its build time.
+REPRO_HD Words philox4x32_n(uint32_t x0, uint32_t x1, uint32_t x2,
+                            uint32_t x3, uint32_t k0, uint32_t k1,
+                            int rounds) {
+  for (int r = 0; r < rounds; ++r) {
+    const uint32_t hi0 = mulhi32(kM0, x0);
+    const uint32_t lo0 = kM0 * x0;
+    const uint32_t hi1 = mulhi32(kM1, x2);
+    const uint32_t lo1 = kM1 * x2;
+    const uint32_t y0 = hi1 ^ x1 ^ k0;
+    const uint32_t y2 = hi0 ^ x3 ^ k1;
+    x0 = y0;
+    x1 = lo1;
+    x2 = y2;
+    x3 = lo0;
+    k0 += kW0;
+    k1 += kW1;
+  }
+  return Words{x0, x1, x2, x3};
+}
+
+REPRO_HD uint32_t keep_nibble_of(const Words& u, uint32_t threshold) {
+  return static_cast<uint32_t>(u.w0 >= threshold) |
+         (static_cast<uint32_t>(u.w1 >= threshold) << 1) |
+         (static_cast<uint32_t>(u.w2 >= threshold) << 2) |
+         (static_cast<uint32_t>(u.w3 >= threshold) << 3);
+}
+
+// Keep bits of the four query rows 4*q4 .. 4*q4+3 at key column k of the
+// (global) head row bh: bit w is row 4*q4 + w.
+REPRO_HD uint32_t keep_nibble(uint32_t k, uint32_t q4, uint32_t bh,
+                              uint32_t salt, uint32_t k0, uint32_t k1,
+                              uint32_t threshold, int rounds) {
+  return keep_nibble_of(philox4x32_n(k, q4, bh, salt, k0, k1, rounds),
+                        threshold);
+}
+
+// One keep bit at (q, k) of head row bh.
+REPRO_HD bool keep_bit(uint32_t q, uint32_t k, uint32_t bh, uint32_t salt,
+                       uint32_t k0, uint32_t k1, uint32_t threshold,
+                       int rounds) {
+  return (keep_nibble(k, q >> 2, bh, salt, k0, k1, threshold, rounds) >>
+          (q & 3u)) & 1u;
+}
+
+// One packed word of the flattened mask layout (BH * SQ32, SK): row r
+// holds packed row r % sq32 of local head row r / sq32 (remapped to the
+// global counter index by global_bh); bit q % 32 of the word is query
+// row (r % sq32) * 32 + q % 32.
+template <int ROUNDS>
+REPRO_HD uint32_t packed_word(uint32_t r, uint32_t k, uint32_t sq32,
+                              uint32_t heads_local, uint32_t heads_global,
+                              uint32_t bh_offset, uint32_t salt,
+                              uint32_t k0, uint32_t k1,
+                              uint32_t threshold) {
+  const uint32_t bh =
+      global_bh(r / sq32, heads_local, heads_global, bh_offset);
+  const uint32_t q32 = r % sq32;
+  uint32_t word = 0;
+#pragma unroll
+  for (uint32_t t = 0; t < 8; ++t) {
+    const Words u = philox4x32<ROUNDS>(k, q32 * 8u + t, bh, salt, k0, k1);
+    word |= keep_nibble_of(u, threshold) << (4u * t);
+  }
+  return word;
+}
+
 }  // namespace repro_philox

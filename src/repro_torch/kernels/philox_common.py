@@ -155,3 +155,108 @@ def to_int32_bits(words: torch.Tensor) -> torch.Tensor:
 def from_int32_bits(words: torch.Tensor) -> torch.Tensor:
     """int32 bit patterns -> int64 values in [0, 2**32)."""
     return words.to(torch.int64) & U32_MASK
+
+
+def seed_salt_words(seed, salt, bh_offset=0) -> Tuple[int, int, int, int]:
+    """(key_lo, key_hi, salt, bh_offset) as Python ints in [0, 2**32): the
+    four words every counter-based kernel of the port takes by value.
+    ``seed`` keys through ``split_seed`` (a 0-d tensor seed has key_hi =
+    0); ``salt`` / ``bh_offset`` may be ints or 0-d CPU tensors."""
+    k0, k1 = split_seed(seed)
+    return k0, k1, int(salt) & U32_MASK, int(bh_offset) & U32_MASK
+
+
+def seed_salt_smem(seed, salt, bh_offset=0) -> torch.Tensor:
+    """(4,) int32 CPU tensor [key_lo, key_hi, salt, bh_offset] (uint32 bit
+    patterns): the counterpart of the JAX package's SMEM operand of the
+    dynamic-seed kernels. The CUDA kernels read it on the host and take the
+    words by value, so it stays on the CPU and costs no device sync."""
+    words = torch.tensor(seed_salt_words(seed, salt, bh_offset),
+                         dtype=torch.int64)
+    return to_int32_bits(words)
+
+
+def tile_random_u32(q_start: int, k_start: int, bh: IntOrTensor, salt: int,
+                    k0: int, k1: int, bq: int, bk: int, rounds: int = 7,
+                    device=None) -> torch.Tensor:
+    """Random uint32 (as int64 in [0, 2**32)) for the score tile rows
+    [q_start, q_start + bq) x cols [k_start, k_start + bk); bq % 4 == 0.
+    One Philox call covers 4 consecutive q rows: out[4g + w, k] =
+    word_w(x0=k, x1=q_start//4 + g)."""
+    if bq % 4:
+        raise ValueError(f"tile q-size {bq} must be a multiple of 4")
+    dev = device if device is not None else (
+        bh.device if isinstance(bh, torch.Tensor) else None)
+    q4 = (as_u32(q_start) >> 2) + torch.arange(
+        bq // 4, device=dev, dtype=torch.int64).reshape(-1, 1)
+    kk = as_u32(k_start) + torch.arange(bk, device=dev,
+                                        dtype=torch.int64).reshape(1, -1)
+    w = philox4x32(kk, q4, bh, salt, k0, k1, rounds)
+    w = [x.expand(bq // 4, bk) for x in w]
+    return torch.stack(w, dim=1).reshape(bq, bk)
+
+
+def tile_keep_mask(q_start: int, k_start: int, bh: IntOrTensor, salt: int,
+                   k0: int, k1: int, threshold: int, bq: int, bk: int,
+                   rounds: int = 7, device=None) -> torch.Tensor:
+    """Bool keep mask (True = keep) of one score tile."""
+    return tile_random_u32(q_start, k_start, bh, salt, k0, k1, bq, bk,
+                           rounds, device) >= as_u32(threshold)
+
+
+def pack_bits_q32(bits: torch.Tensor) -> torch.Tensor:
+    """(bq, bk) bool -> (bq//32, bk) int64 words in [0, 2**32); bit (q % 32)
+    of word q // 32."""
+    bq, bk = bits.shape
+    if bq % 32:
+        raise ValueError(f"bq={bq} must be a multiple of 32")
+    b = bits.reshape(bq // 32, 32, bk).to(torch.int64)
+    shifts = torch.arange(32, device=bits.device,
+                          dtype=torch.int64).reshape(1, 32, 1)
+    return (b << shifts).sum(dim=1)
+
+
+def unpack_bits_q32(packed: torch.Tensor, bq: int) -> torch.Tensor:
+    """(bq//32, bk) int32 bit patterns (or int64 words) -> (bq, bk) bool.
+    ``(w >> s) & 1`` is exact under int32's arithmetic shift."""
+    n32, bk = packed.shape
+    if n32 * 32 != bq:
+        raise ValueError(f"{n32} packed rows do not hold bq={bq}")
+    rep = torch.repeat_interleave(packed, 32, dim=0)
+    shifts = (torch.arange(bq, device=packed.device, dtype=packed.dtype)
+              % 32).reshape(bq, 1)
+    return ((rep >> shifts) & 1).to(torch.bool)
+
+
+def packed_rows_tile(r_start: int, k_start: int, sq32: int, salt: int,
+                     k0: int, k1: int, threshold: int, rows: int, bk: int,
+                     rounds: int = 7, heads_local: int = 0,
+                     heads_global: int = 0, bh_offset: int = 0,
+                     device=None) -> torch.Tensor:
+    """Packed keep words for ``rows`` packed rows of the flattened mask
+    layout (BH*SQ32, SK), from global packed row ``r_start`` and column
+    ``k_start``: (rows, bk) int64 in [0, 2**32). Rows may cross (b, h)
+    boundaries: row r belongs to bh = r // sq32 (remapped through
+    ``global_bh`` when ``heads_local`` is set) and packed row r % sq32.
+    The fused GEMM+RNG kernel's emission follows this layout."""
+    sub = torch.arange(rows * 8, device=device,
+                       dtype=torch.int64).reshape(-1, 1)   # r_local*8 + t
+    r_glob = as_u32(r_start) + (sub >> 3)
+    t = sub & 7
+    q32 = r_glob % sq32
+    bh = r_glob // sq32
+    if heads_local:
+        bh = global_bh(bh, heads_local, heads_global or heads_local,
+                       bh_offset)
+    x1 = q32 * 8 + t                                          # q // 4
+    kk = as_u32(k_start) + torch.arange(bk, device=device,
+                                        dtype=torch.int64).reshape(1, -1)
+    words = philox4x32(kk, x1, bh, salt, k0, k1, rounds)
+    thr = as_u32(threshold)
+    shifts = (torch.arange(8, device=device, dtype=torch.int64)
+              .reshape(1, 8, 1) * 4)
+    packed = torch.zeros((rows, bk), dtype=torch.int64, device=device)
+    for w, word in enumerate(words):
+        bits = (word.expand(rows * 8, bk) >= thr).to(torch.int64)
+        packed |= (bits.reshape(rows, 8, bk) << (shifts + w)).sum(dim=1)
+    return packed

@@ -1,10 +1,13 @@
-"""Decoder model for the serving path (dense full-attention stacks)."""
+"""Decoder model for the serving and training paths (dense full-attention
+stacks)."""
 from repro_torch.models.transformer import (
     Runtime,
     StackSpec,
+    block_apply,
     build_stacks,
     decode_step_paged,
     embed_inputs,
+    forward,
     model_init,
     paged_kv_write,
     paged_pools_init,
@@ -16,9 +19,11 @@ from repro_torch.models.transformer import (
 __all__ = [
     "Runtime",
     "StackSpec",
+    "block_apply",
     "build_stacks",
     "decode_step_paged",
     "embed_inputs",
+    "forward",
     "model_init",
     "paged_kv_write",
     "paged_pools_init",

@@ -1,5 +1,13 @@
-"""GQA attention block: projections, rope, qk-norm, prefill with cache
-construction, and decode against a paged KV pool."""
+"""GQA attention block: projections, rope, qk-norm, the training forward
+with the dropout plan (``attn_apply``), prefill with cache construction,
+and decode against a paged KV pool.
+
+This is where the paper's topology lives: with site "qkv" the packed
+dropout plane is made under the QKV projection by the fused GEMM+RNG
+kernel and consumed by flash attention -- read from the plane (premask),
+or re-derived from the same counters in the kernels (replay, with the
+plane discarded).
+"""
 from __future__ import annotations
 
 from typing import Any, Dict, Optional, Tuple
@@ -7,7 +15,14 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.config.base import AttentionKind, ModelConfig
+from repro_torch.core import producer
 from repro_torch.core.attention import _NEG, attention_xla
+from repro_torch.core.overlap import DropoutPlan
+from repro_torch.kernels.flash_attention import (
+    flash_attention_mosaic,
+    kernel_shape_unsupported_reason,
+)
+from repro_torch.kernels.philox_common import seed_salt_smem
 from repro_torch.models.layers import apply_rope, dense_init, rms_head_norm
 
 
@@ -59,6 +74,128 @@ def _project_qkv(p, x, cfg: ModelConfig, positions):
     k = x @ p["w_k"].to(dt)
     v = x @ p["w_v"].to(dt)
     return _finish_qkv(p, q, k, v, b, s, cfg, positions)
+
+
+def _project_qkv_fused(p, x, cfg: ModelConfig, positions, plan, layer_idx,
+                       step, how):
+    """Fused QKV projection: one concatenated GEMM with this layer's packed
+    dropout plane made under it (the paper's ``qkv+RNG`` site) by ``how``,
+    the schedule's planned producer. Returns (q, k, v, plane)."""
+    b, s, d = x.shape
+    nq, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    dt = x.dtype
+    w_qkv = torch.cat([p["w_q"].to(dt), p["w_k"].to(dt), p["w_v"].to(dt)],
+                      dim=1)
+    y2d, packed = producer.gemm_with_mask(
+        x.reshape(b * s, d), w_qkv, plan, (b, nq, s, s), layer_idx, step,
+        how=how)
+    y = y2d.reshape(b, s, -1)
+    q = y[..., :nq * hd]
+    k = y[..., nq * hd:(nq + nkv) * hd]
+    v = y[..., (nq + nkv) * hd:]
+    q, k, v = _finish_qkv(p, q, k, v, b, s, cfg, positions)
+    return q, k, v, packed
+
+
+def attn_apply(p, x, cfg: ModelConfig, *, kind: AttentionKind,
+               plan: Optional[DropoutPlan], layer_idx, step,
+               chunk_q: int = 1024, probs_dtype=None, impl: str = "xla",
+               asg=None):
+    """Training forward of one attention layer over the full sequence;
+    x (B, S, D) -> (B, S, D).
+
+    ``asg`` -- this layer's HostAssignment from the compiled schedule --
+    names the mask producer: site "xla" makes the bits with tensor ops
+    next to the plain QKV projection, site "qkv" under the fused QKV
+    GEMM+RNG kernel. With ``asg.how == "replay"`` the flash kernels
+    re-derive the bits from the counters and a retained qkv host's plane
+    is discarded. ``impl="pallas"`` (the JAX knob's name) runs the CUDA
+    flash kernels, and raises where they cannot take the call; ``"xla"``
+    runs the chunked tensor-op attention. Direct calls may omit ``asg``: a
+    single-layer assignment is compiled on the spot. Carried sites and
+    sharding policies are not ported (the schedule compiler refuses
+    them)."""
+    b, s, _ = x.shape
+    if impl == "pallas":
+        reason = _flash_unsupported_reason(plan, s, cfg.head_dim)
+        if reason is not None:
+            raise NotImplementedError(f"attn_impl='pallas': {reason}")
+    positions = torch.arange(s, dtype=torch.int32, device=x.device)
+    local = cfg.local_window if kind == AttentionKind.LOCAL else 0
+    overlap = plan is not None and plan.enabled and plan.overlapped
+    if overlap and asg is None:
+        from repro_torch.core import schedule as schedule_mod
+        asg = schedule_mod.inline_assignment(cfg, plan, b, s,
+                                             attn_impl=impl)
+    site = asg.site if overlap else "xla"
+    replay = overlap and asg.how == producer.HOW_REPLAY
+    if replay and impl != "pallas":
+        raise ValueError("a replay assignment needs the flash kernels "
+                         f"(attn_impl='pallas'), got attn_impl={impl!r}")
+
+    packed = None
+    if replay:
+        if site == "qkv" and asg.host_how:
+            # the RNG still runs under the GEMM; its plane is discarded
+            q, k, v, _discarded = _project_qkv_fused(
+                p, x, cfg, positions, plan, layer_idx, step,
+                how=asg.host_how)
+        else:
+            q, k, v = _project_qkv(p, x, cfg, positions)
+    elif overlap and site == "qkv":
+        q, k, v, packed = _project_qkv_fused(
+            p, x, cfg, positions, plan, layer_idx, step, how=asg.how)
+    else:
+        q, k, v = _project_qkv(p, x, cfg, positions)
+        if overlap:
+            packed = plan.precompute_mask(b, cfg.n_heads, s, s, layer_idx,
+                                          step, device=x.device)
+
+    if impl == "pallas":
+        out = _attn_pallas_sharded(
+            q, k, v, packed, plan, local,
+            replay_key=(layer_idx, step) if replay else None)
+    else:
+        out = attention_xla(
+            q, k, v, causal=True, local_window=local, plan=plan,
+            layer_idx=layer_idx, step=step, packed_mask=packed,
+            chunk_q=chunk_q, probs_dtype=probs_dtype or torch.float32)
+    out = out.transpose(1, 2).reshape(b, s, -1)
+    return out @ p["w_o"].to(x.dtype)
+
+
+def _flash_unsupported_reason(plan, s: int, head_dim: int) -> Optional[str]:
+    """Why the flash kernels cannot run this layer, None when they can.
+    The CUDA kernels' own limits, where the JAX package's ``_pallas_ok``
+    has its TPU grid's (s % 128) and hands such a layer to the tensor-op
+    attention: in the port, ``attn_impl="pallas"`` always means the
+    kernels. Fused-mode (in-attention RNG) training is not ported on
+    either attention path."""
+    if plan is not None and plan.enabled and not plan.overlapped:
+        return (f"dropout mode={plan.cfg.mode!r} is not ported yet "
+                "(ROADMAP: port queue, fused-mode dropout)")
+    return kernel_shape_unsupported_reason(s, s, head_dim)
+
+
+def _attn_pallas_sharded(q, k, v, packed, plan, local, replay_key=None):
+    """The flash kernels on one device (the no-policy branch of the JAX
+    function). ``replay_key`` = (layer_idx, step) selects mode "replay":
+    the only dropout operand is the (4,) seed-salt word."""
+    p_drop = plan.cfg.p if (plan is not None and plan.enabled) else 0.0
+    if replay_key is not None and p_drop > 0.0:
+        mode = "replay"
+    elif packed is not None and p_drop > 0.0:
+        mode = "premask"
+    else:
+        mode = "none"
+    rounds = plan.cfg.philox_rounds if plan is not None else 7
+    if mode == "replay":
+        layer_idx, step = replay_key
+        operand = seed_salt_smem(plan.step_seed(step), plan.salt(layer_idx))
+    else:
+        operand = packed if mode == "premask" else None
+    return flash_attention_mosaic(q, k, v, operand, True, local, p_drop,
+                                  mode, 0, 0, rounds)
 
 
 def attn_prefill(p, x, cfg: ModelConfig, *, kind: AttentionKind,

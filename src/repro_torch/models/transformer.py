@@ -1,9 +1,11 @@
-"""Model assembly for the serving path: stacks of layer units, init,
-prefill, and decode through paged KV pools.
+"""Model assembly: stacks of layer units, init, the training forward,
+prefill, and decode through paged KV pools (dense full-attention stacks).
 
 Parameters mirror the JAX package's pytree: ``params["stacks"][i]`` holds
 a stack's repeating unit with every tensor carrying a leading ``count``
-dimension; the JAX layer scan becomes a Python loop that indexes it.
+dimension; the JAX layer scan becomes a Python loop that indexes it, and
+its ``jax.checkpoint`` (remat="block") a ``torch.utils.checkpoint`` of
+each unit.
 """
 from __future__ import annotations
 
@@ -11,11 +13,14 @@ import dataclasses
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config.base import AttentionKind, ModelConfig
 from repro_torch.core.overlap import DropoutPlan
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.attention import (
+    attn_apply,
     attn_decode_paged,
     attn_init,
     attn_prefill,
@@ -31,11 +36,20 @@ from repro_torch.models.layers import (
 
 @dataclasses.dataclass
 class Runtime:
-    """Per-call execution context threaded through the model."""
+    """Per-call execution context threaded through the model.
+
+    ``step`` is a host int: the plan folds it into the Philox key on the
+    host, so no layer reads a value back from the card. ``schedule`` is
+    the compiled DropoutSchedule; when None and a plan is set, ``forward``
+    compiles one from the plan's site sugar. ``attn_impl="pallas"`` runs
+    the CUDA flash kernels."""
     plan: Optional[DropoutPlan] = None
-    step: Any = 0
+    step: int = 0
     compute_dtype: Any = torch.float32
     chunk_q: int = 1024
+    remat: str = "none"            # none | block
+    attn_impl: str = "xla"         # xla | pallas
+    schedule: Optional[Any] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -127,7 +141,9 @@ def model_init(cfg: ModelConfig, seed: int = 0,
 def embed_inputs(params, cfg: ModelConfig, inputs: torch.Tensor,
                  rt: Runtime) -> torch.Tensor:
     if cfg.frontend == "token":
-        x = params["embed"][inputs.long()]
+        # F.embedding's backward sums rows without atomics: bitwise
+        # reproducible on the card
+        x = F.embedding(inputs.long(), params["embed"])
     else:
         x = inputs                                  # precomputed embeddings
     return x.to(rt.compute_dtype)
@@ -136,6 +152,91 @@ def embed_inputs(params, cfg: ModelConfig, inputs: torch.Tensor,
 def unembed(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     w = params["embed"].T if cfg.tie_embeddings else params["unembed"]
     return x.to(torch.float32) @ w.to(torch.float32)
+
+
+# --------------------------------------------------------------------------
+# block forward (training)
+# --------------------------------------------------------------------------
+
+def _not_ported(what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported yet (ROADMAP: port queue, carried sites / "
+        "LOCAL, MoE and recurrent layers)")
+
+
+def _mix_forward(p, x, cfg: ModelConfig, rt: Runtime, kind, layer_idx,
+                 asg=None):
+    if kind not in (AttentionKind.FULL, AttentionKind.LOCAL):
+        raise _not_ported(f"{kind.value} mixers")
+    return attn_apply(p, x, cfg, kind=kind, plan=rt.plan,
+                      layer_idx=layer_idx, step=rt.step, chunk_q=rt.chunk_q,
+                      impl=rt.attn_impl, asg=asg)
+
+
+def _ffn_forward(p, x, cfg: ModelConfig, tag):
+    """The dense, un-hosted FFN (no ported schedule hosts a mask there)."""
+    if tag != "dense":
+        raise _not_ported("MoE FFNs")
+    return ffn_apply(p["ffn"], x, cfg)
+
+
+def block_apply(p, x, cfg: ModelConfig, rt: Runtime, kind, tag, layer_idx,
+                asg=None):
+    """One pre-norm block: x + mix(norm(x)), then + ffn(norm(x)). ``asg``
+    is the block's HostAssignment from the compiled schedule."""
+    h = norm_apply(p["norm_mix"], x, cfg)
+    x = x + _mix_forward(p["mix"], h, cfg, rt, kind, layer_idx, asg=asg)
+    h2 = norm_apply(p["norm_ffn"], x, cfg)
+    return x + _ffn_forward(p, h2, cfg, tag)
+
+
+def forward(params, cfg: ModelConfig, rt: Runtime, inputs
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Training / eval forward. inputs: tokens (B, S) or embeddings
+    (B, S, D). Returns (logits f32 (B, S, V), aux loss).
+
+    Mask production follows the compiled DropoutSchedule (rt.schedule, or
+    compiled here from the plan). With remat="block" every stack unit runs
+    under ``torch.utils.checkpoint`` and is recomputed in the backward: its
+    GEMM+RNG and flash forward launch again there, and the keep bits come
+    out the same because the counters are position-based."""
+    x = embed_inputs(params, cfg, inputs, rt)
+    sched = rt.schedule
+    if sched is not None and (sched.batch, sched.seq) != (x.shape[0],
+                                                          x.shape[1]):
+        sched = None               # stale artifact: recompile for shape
+    if sched is None and rt.plan is not None:
+        from repro_torch.core import schedule as schedule_mod
+        sched = schedule_mod.compile_schedule(
+            cfg, rt.plan.cfg, x.shape[0], x.shape[1],
+            attn_impl=rt.attn_impl)
+    active = sched is not None and sched.active
+    if active and sched.carried:
+        raise _not_ported("carried-site schedules")
+    for spec, stack_params in zip(build_stacks(cfg), params["stacks"]):
+        unit_len = len(spec.unit)
+        unit_asgs = tuple(sched.for_layer(spec.base + j) if active else None
+                          for j in range(unit_len))
+        for pos in range(spec.count):
+            up = _index(stack_params, pos)
+
+            def unit_apply(x, _up=up, _pos=pos, _spec=spec, _ul=unit_len,
+                           _asgs=unit_asgs):
+                for j, (kind, tag) in enumerate(_spec.unit):
+                    x = block_apply(_up[f"l{j}"], x, cfg, rt, kind, tag,
+                                    _spec.base + _pos * _ul + j,
+                                    asg=_asgs[j])
+                return x
+
+            if rt.remat == "block":
+                x = checkpoint(unit_apply, x, use_reentrant=False)
+            else:
+                x = unit_apply(x)
+    x = norm_apply(params["final_norm"], x, cfg)
+    # the aux (router) loss of MoE stacks; the dense stacks ported so far
+    # have none
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return unembed(params, cfg, x), aux
 
 
 # --------------------------------------------------------------------------

@@ -189,7 +189,7 @@ def test_launch_counter_stays_zero_on_cpu():
     out = torch.empty((1, 2, 1, 64), dtype=torch.int32)
     philox.philox_mask_into(out, key_lo=1, key_hi=0, salt=0,
                             threshold=tpc.threshold_from_p(0.1))
-    assert launch_counts() == {"philox_mask": 0}
+    assert set(launch_counts().values()) == {0}
     with pytest.raises(ValueError):
         philox.philox_mask_into(out.to(torch.int64), key_lo=1, key_hi=0,
                                 salt=0, threshold=0)
@@ -215,4 +215,5 @@ def test_kernel_bitwise_vs_plain_on_gpu():
             bh_offset=off, device="cuda")
         torch.cuda.synchronize()
         assert torch.equal(got, want), shape
-    assert launch_counts() == {"philox_mask": 3}
+    counts = launch_counts()
+    assert counts.pop("philox_mask") == 3 and set(counts.values()) == {0}

@@ -237,13 +237,13 @@ def test_engine_defaults_to_cuda():
 def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="speculative"):
         _engine(spec_k=4)
-    for plan in (DropoutPlanConfig(mode="overlap", site="qkv"),
+    for plan in (DropoutPlanConfig(mode="overlap", site="auto"),
                  DropoutPlanConfig(mode="overlap", site="prev_gemm")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             compile_schedule(_cfg(), plan, 1, 64)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         compile_schedule(_cfg(), DropoutPlanConfig(mode="overlap"), 1, 64,
-                         attn_impl="pallas")
+                         policy=object())
     inert = compile_schedule(_cfg(), DropoutPlanConfig(mode="none"), 1, 64,
                              attn_impl="pallas")
     assert not inert.active
