@@ -36,7 +36,22 @@ Phases (each raises on failure; nothing is caught):
      plane the fused kernel emits for layer 0 equals the plain version;
      step 0 agrees with the same step through tensor ops only (site
      "xla", attn_impl "xla"); step time, tokens/s, peak memory and a
-     profiler trace of one step.
+     profiler trace of one step;
+  6. the fp8 host and the carried sites at the same width: site "ffn_up"
+     with gemm_dtype "fp8" (the next layer's plane made under each
+     block's gate+up GEMM by the e4m3 kernel), 3 replay steps and step 0
+     again under premask (bootstrap plane from the Philox kernel, carried
+     planes), bitwise equal as in 5; launches against the schedule's
+     formula; then one step each of prev_gemm/fp8, ffn_down/fp8, qkv/fp8
+     and ffn_up/f32, whose step-0 losses agree with the f32 ones (1e-4 in
+     f32, within the e4m3 error in fp8).
+
+Phase 2 also checks the e4m3 GEMM+RNG kernel against its plain version
+at the four host shapes of phase 6 (QKV, out-projection, gate+up, down;
+plane bitwise, also against the f32 kernel's; C within 1e-3 of the plain
+version and under 0.06 of the f32 product), at two scale-tile shapes and
+with a Region-3 call that emits nothing; phase 4 adds the reduced llama2
+at prev_gemm/f32 and ffn_up/fp8, card against CPU.
 
 The second-to-last lines are the kernels' JSON record and the card's
 ``nvidia-smi`` name and power limit; the last line is the
@@ -74,6 +89,8 @@ from repro_torch.tree import leaves, tree_map  # noqa: E402
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 F32_FLOPS_PER_S = 67e12            # H100 SXM data sheet, f32 without
                                    # tensor cores (the port's f32 kernels)
+FP8_FLOPS_PER_S = 1979e12          # H100 SXM data sheet, dense e4m3 on
+                                   # the tensor cores
 ISSUE_LANES_PER_SM = 128           # 4 warp schedulers x 32 lanes a clock
 
 SERVE_SHAPE = (1, 32, 512, 512)    # llama2-7b plane at max_model_len 512
@@ -507,6 +524,172 @@ def phase_kernels_train(state) -> None:
         log(f"[kernels] flash_fwd causal {mode}: {ms:.4f} ms a launch")
 
 
+# the fp8 host at the four host GEMMs of a llama2-7b block at B=2, S=2048,
+# each with the training plane; "gate_up" hosts the ffn_up main path
+FP8_SHAPES = (("qkv", QKV_SHAPE), ("out_proj", (4096, 4096, 4096)),
+              ("gate_up", (4096, 22016, 4096)),
+              ("down", (4096, 4096, 11008)))
+FP8_MAIN = "gate_up"
+# scale-tile shapes: a 192-row logical block (taller than the kernel's
+# 128-row CTA tile, so its scale rows cut across CTAs) and bk = 344 (K =
+# 11008 = 32 x 344): (m, k, n), (bm, bn, bk), plane, mask columns
+FP8_SCALE_TILES = (((192, 64, 256), (192, 256, 64), (1, 2, 64, 128), 128),
+                   ((64, 11008, 64), (64, 64, 344), (1, 1, 32, 64), 64))
+
+
+def gemm_rng_fp8_bound(m, n, k, blocks, mask_words, rounds, ops_rate):
+    """(bound_ms, bound_by): e4m3 operands, f32 scales, the f32 result and
+    the plane each read / written once against HBM; the product at the
+    dense e4m3 tensor-core rate plus the plane's Philox instructions at
+    the issue rate."""
+    bm, bn, bk = blocks
+    scales = (m // bm) * (k // bk) + (k // bk) * (n // bn)
+    t_bytes = (m * k + k * n + 4 * (scales + m * n + mask_words)) \
+        / HBM_BYTES_PER_S
+    t_ops = (2 * m * n * k / FP8_FLOPS_PER_S
+             + mask_words * 8 * (4 * rounds + 8) / ops_rate)
+    return max(t_bytes, t_ops) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def _fp8_call(m, n, k, blocks, plane, cols, gen):
+    """Random operands, their quantization and the emission of one fp8
+    host call: (a, w, (a_q, a_s, w_q, w_s), emission, keyword args)."""
+    from repro_torch.kernels import quant
+    mb, mh, sq, sk = plane
+    kw = dict(mask_batch=mb, mask_heads=mh, mask_sq=sq, mask_sk=sk, p=0.1,
+              seed=torch.tensor(77), salt=5, block_m=blocks[0],
+              block_n=blocks[1], block_k=blocks[2], mask_block_cols=cols)
+    a = torch.randn((m, k), generator=gen, device="cuda")
+    w = torch.randn((k, n), generator=gen, device="cuda")
+    _, em = gemm_rng._emission(
+        a, w, mb, mh, sq, sk, kw["p"], kw["seed"], kw["salt"], 7, *blocks,
+        cols, 256, 0, 0)
+    ops = (*quant.quantize_tiled(a, blocks[0], blocks[2]),
+           *quant.quantize_tiled(w, blocks[2], blocks[1]))
+    return a, w, ops, em, kw
+
+
+def _check_fp8(label, a, w, ops, em, kw, blocks, state, plane=None):
+    """The kernel against its plain version on the same e4m3 operands: C
+    within GEMM_TOL, the plane bitwise (against ``plane`` when given, the
+    plain version's otherwise), and C under 0.06 Frobenius-relative of the
+    f32 product. Returns (C max abs err, relative error, plane)."""
+    from repro_torch.kernels import quant
+    c, mask = gemm_rng.gemm_with_rng_fp8(a, w, **kw)
+    want_c = gemm_rng.gemm_fp8_plain(*ops, blocks)
+    if plane is None:
+        plane = gemm_rng._plain_plane(em, "cuda").reshape(mask.shape)
+    torch.cuda.synchronize()
+    if not torch.equal(mask, plane):
+        raise AssertionError(f"gemm_rng_fp8 {label}: plane != plain")
+    err = _close(f"gemm_rng_fp8 {label} C", c, want_c, GEMM_TOL, state,
+                 "gemm_rng_fp8")
+    ref = a @ w
+    rel = float((c - ref).norm() / ref.norm())
+    if not rel < quant.quantize_error_bound():
+        raise AssertionError(f"gemm_rng_fp8 {label}: {rel} of f32")
+    return err, rel, plane
+
+
+def phase_kernels_fp8(state) -> None:
+    """The e4m3 GEMM+RNG kernel (and its emission-off variant) against its
+    plain version, then timed at the host shapes of the training path."""
+    from repro_torch.core.producer import pick_gemm_blocks
+    from repro_torch.kernels import quant
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    ops_rate = issue_ops_per_s()
+    mb, mh, sq = QKV_MASK
+    plane_shape = (mb, mh, sq, sq)
+    words = mb * mh * (sq // 32) * sq
+    fp8_key = gemm_rng.KERNEL_FP8
+    rows, plane = {}, None
+    for label, (m, n, k) in FP8_SHAPES:
+        blocks = pick_gemm_blocks(m, n, k)
+        a, w, ops, em, kw = _fp8_call(m, n, k, blocks, plane_shape, 2048,
+                                      gen)
+        if plane is None:
+            # the f32 host (kernel 2) emits the same plane
+            _, plane32 = gemm_rng.gemm_with_rng(a, w, **kw)
+            err, rel, plane = _check_fp8(label, a, w, ops, em, kw, blocks,
+                                         state)
+            if not torch.equal(plane, plane32):
+                raise AssertionError("fp8 plane != the f32 host's plane")
+            del plane32
+        else:
+            err, rel, _ = _check_fp8(label, a, w, ops, em, kw, blocks,
+                                     state, plane)
+        launch = lambda: gemm_rng.gemm_rng_fp8_quantized(  # noqa: E731
+            *ops, blocks, em)
+        launch_off = lambda: gemm_rng.gemm_rng_fp8_quantized(  # noqa: E731
+            *ops, blocks, None)
+        runs = {"rng": [], "plain": []}
+        for variant in ("rng", "plain", "plain", "rng"):   # in turns
+            runs[variant].append(cuda_time_ms(
+                launch if variant == "rng" else launch_off, 3))
+        ms, off_ms = (float(np.mean(runs[v])) for v in ("rng", "plain"))
+        plain_ms = cuda_time_ms(
+            lambda: gemm_rng._plain_fp8(*ops, blocks, em), 1, warmup=1)
+        a_d = quant.dequantize_tiled(ops[0], ops[1], blocks[0], blocks[2])
+        w_d = quant.dequantize_tiled(ops[2], ops[3], blocks[2], blocks[1])
+        dequant_ms = cuda_time_ms(lambda: a_d @ w_d, 5)
+        # per-tensor scales on the same e4m3 bytes: another function
+        one = torch.ones((), device="cuda")
+        w_cm = ops[2].t().contiguous().t()
+        scaled_ms = cuda_time_ms(lambda: torch._scaled_mm(
+            ops[0], w_cm, scale_a=one, scale_b=one,
+            out_dtype=torch.float32), 5)
+        bound_ms, bound_by = gemm_rng_fp8_bound(m, n, k, blocks, words, 7,
+                                                ops_rate)
+        off_bound, _ = gemm_rng_fp8_bound(m, n, k, blocks, 0, 7, ops_rate)
+        rows[label] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                           bound_by=bound_by, library_ms=None,
+                           scaled_mm_ms=scaled_ms, dequant_matmul_ms=dequant_ms,
+                           plain_variant_ms=off_ms,
+                           plain_variant_bound_ms=off_bound,
+                           shape=[m, n, k], blocks=list(blocks))
+        log(f"[kernels] gemm_rng_fp8 {label} {m}x{n}x{k} blocks {blocks} + "
+            f"plane {mb}x{mh}x{sq // 32}x{sq}: plane == plain and == the "
+            f"f32 host's bitwise, C max abs err {err:.3g} (tol {GEMM_TOL} x "
+            f"(1+|C|)), {rel:.4f} of f32 (bound "
+            f"{quant.quantize_error_bound()}); "
+            f"{ms:.4f} ms a launch (CUDA events, in turns {runs['rng']}), "
+            f"{2 * m * n * k / ms / 1e9:.1f} TFLOP/s; emission off "
+            f"{off_ms:.4f} ms (in turns {runs['plain']}); plain version "
+            f"{plain_ms:.2f} ms; bound {bound_ms:.4f} ms by {bound_by}, "
+            f"kernel at {bound_ms / ms * 100:.2f}% of bound; no PyTorch "
+            f"call computes per-tile-scaled e4m3; torch._scaled_mm "
+            f"(per-tensor scales) {scaled_ms:.4f} ms, torch.matmul f32 on "
+            f"the dequantized operands {dequant_ms:.4f} ms | {state['smi']}")
+        del a, w, ops, a_d, w_d, w_cm
+        gc.collect()
+        torch.cuda.empty_cache()
+    for (m, k, n), blocks, shape, cols in FP8_SCALE_TILES:
+        a, w, ops, em, kw = _fp8_call(m, n, k, blocks, shape, cols, gen)
+        err, rel, _ = _check_fp8(f"{m}x{n}x{k}", a, w, ops, em, kw, blocks,
+                                 state)
+        log(f"[kernels] gemm_rng_fp8 scale tiles {blocks} on {m}x{n}x{k}: "
+            f"plane == plain bitwise, C max abs err {err:.3g}, {rel:.4f} "
+            "of f32")
+    # Region 3: a one-tile grid cannot host 4096 packed rows, so the
+    # emission is off
+    m3, n3, k3, (b3, h3, s3) = REGION3
+    a, w, ops, em, kw = _fp8_call(m3, n3, k3, (256, 256, 64),
+                                  (b3, h3, s3, s3), 256, gen)
+    before = gemm_rng.variant_counts(fp8_key)["plain"]
+    c3, none = gemm_rng.gemm_with_rng_fp8(a, w, **kw)
+    if em is not None or none is not None or \
+            gemm_rng.variant_counts(fp8_key)["plain"] != before + 1:
+        raise AssertionError("the Region-3 fp8 call emitted a plane")
+    err3 = _close("gemm_rng_fp8 Region 3", c3,
+                  gemm_rng.gemm_fp8_plain(*ops, (256, 256, 64)), GEMM_TOL,
+                  state, "gemm_rng_fp8")
+    log(f"[kernels] gemm_rng_fp8 Region 3 {m3}x{n3}x{k3}: plane None, "
+        f"emission-off launch counted, C max abs err {err3:.3g}")
+    state.setdefault("timing", {})[fp8_key] = dict(rows[FP8_MAIN],
+                                                   rows=rows)
+
+
 # ------------------------------------------------------------------ phase 3
 def _run_engine(cfg, serve, params, device, plens, max_new, seed):
     from repro_torch.serve import ServeEngine
@@ -636,9 +819,10 @@ def _profile_serve(engine, cfg, state) -> None:
 TRAIN_LAYERS, TRAIN_B, TRAIN_S = 4, 2, 2048
 
 
-def _train_run(cfg, replay, batch, seq, remat="block", opt=None):
-    """site "qkv" on the flash kernels. ``opt`` None is the repo's default
-    OptimizerConfig (lr 3e-4 after a 100-step warm-up)."""
+def _train_run(cfg, replay, batch, seq, remat="block", opt=None,
+               site="qkv", gemm_dtype="f32"):
+    """A training RunConfig on the flash kernels. ``opt`` None is the
+    repo's default OptimizerConfig (lr 3e-4 after a 100-step warm-up)."""
     from repro_torch.config.base import (
         DropoutPlanConfig,
         OptimizerConfig,
@@ -651,8 +835,9 @@ def _train_run(cfg, replay, batch, seq, remat="block", opt=None):
     return RunConfig(
         model=cfg, shape=ShapeConfig("smoke", seq, batch, StepKind.TRAIN),
         sharding=ShardingConfig(attn_impl="pallas", remat=remat),
-        dropout=DropoutPlanConfig(mode="overlap", site="qkv", p=0.1,
-                                  attn_replay=replay, seed=0),
+        dropout=DropoutPlanConfig(mode="overlap", site=site, p=0.1,
+                                  gemm_dtype=gemm_dtype, attn_replay=replay,
+                                  seed=0),
         train=TrainConfig(optimizer=opt or OptimizerConfig()))
 
 
@@ -663,55 +848,117 @@ def _batches(cfg, run, device, n):
             for i in range(n)]
 
 
+# reduced-model runs at the full rate from step 1, so the weights move
+# measurably
+REF_OPT = dict(lr=1e-3, warmup_steps=1)
+# fp8 after the first update: an activation that differs in its last f32
+# bit between the card and the CPU now and then rounds to the other e4m3
+# neighbour, and Adam turns a flipped near-zero gradient into a weight
+# difference of up to lr a step (tests/test_torch_sites.py measures the
+# same against JAX); step 0, from equal weights, stays at 1e-4
+FP8_REF_TOL = 1e-3
+
+
+def _card_vs_cpu(cfg, run, master, label) -> None:
+    """3 make_train_step steps on the card and on the CPU from the same
+    weights: loss and grad norm of every step within 1e-4 (fp8: 1e-3 after
+    step 0) and the final weights within 1e-4 (fp8: 3 x lr)."""
+    from repro_torch.optim import adamw_init
+    from repro_torch.train import make_train_step
+    fp8 = run.dropout.gemm_dtype == "fp8"
+    step_fn = make_train_step(cfg, run)
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        st = {"master": to_device(master, dev), "step": 0}
+        st["opt"] = adamw_init(st["master"])
+        ms = []
+        for x, y in _batches(cfg, run, dev, 3):
+            st, m = step_fn(st, x, y)
+            ms.append((float(m["loss"]), float(m["grad_norm"])))
+        runs[dev] = (st, ms)
+    for i, ((lc, gc_), (lg, gg)) in enumerate(zip(runs["cpu"][1],
+                                                  runs["cuda"][1])):
+        tol = FP8_REF_TOL if fp8 and i > 0 else 1e-4
+        if abs(lc - lg) > tol * (1 + abs(lc)) or \
+                abs(gc_ - gg) > tol * (1 + abs(gc_)):
+            raise AssertionError(f"{label} step {i}: card {(lg, gg)} != "
+                                 f"CPU {(lc, gc_)}")
+    wtol = dict(atol=3 * REF_OPT["lr"], rtol=0) if fp8 else \
+        dict(atol=1e-4, rtol=1e-4)
+    for a, b in zip(leaves(runs["cpu"][0]["master"]),
+                    leaves(runs["cuda"][0]["master"])):
+        torch.testing.assert_close(b.cpu(), a, **wtol)
+    card_losses = [round(loss, 6) for loss, _ in runs["cuda"][1]]
+    log(f"[train-ref] {cfg.name} B=2 S=256 {label}: 3 steps card == CPU "
+        f"(losses {card_losses}; grad norms and weights "
+        f"{'1e-4 at step 0, then fp8 tolerances' if fp8 else 'within 1e-4'})")
+
+
 def phase_train_reference(state) -> None:
     """Reduced llama2 and yi through make_train_step on the card and on
-    the CPU: 3 steps, replay and premask, allclose at 1e-4."""
+    the CPU: 3 steps at site qkv, replay and premask, allclose at 1e-4;
+    the reduced llama2 also at prev_gemm/f32 and ffn_up/fp8 (premask, so
+    the carried planes feed attention)."""
     from repro_torch.config import get_arch
     from repro_torch.config.base import OptimizerConfig
-    from repro_torch.optim import adamw_init
-    from repro_torch.train import init_train_state, make_train_step
+    from repro_torch.train import init_train_state
+    opt = OptimizerConfig(**REF_OPT)
     for arch in ("llama2-7b", "yi-6b"):
         cfg = get_arch(arch, reduced=True)
         master = init_train_state(cfg, seed=1, device="cpu")["master"]
         for replay in ("auto", "off"):
-            # the full rate from step 1, so the weights move measurably
-            run = _train_run(cfg, replay, 2, 256,
-                             opt=OptimizerConfig(lr=1e-3, warmup_steps=1))
-            step_fn = make_train_step(cfg, run)
-            runs = {}
-            for dev in ("cpu", "cuda"):
-                st = {"master": to_device(master, dev), "step": 0}
-                st["opt"] = adamw_init(st["master"])
-                ms = []
-                for x, y in _batches(cfg, run, dev, 3):
-                    st, m = step_fn(st, x, y)
-                    ms.append((float(m["loss"]), float(m["grad_norm"])))
-                runs[dev] = (st, ms)
-            for (lc, gc_), (lg, gg) in zip(runs["cpu"][1], runs["cuda"][1]):
-                if abs(lc - lg) > 1e-4 * (1 + abs(lc)) or \
-                        abs(gc_ - gg) > 1e-4 * (1 + abs(gc_)):
-                    raise AssertionError(f"{arch} {replay}: card "
-                                         f"{(lg, gg)} != CPU {(lc, gc_)}")
-            for a, b in zip(leaves(runs["cpu"][0]["master"]),
-                            leaves(runs["cuda"][0]["master"])):
-                torch.testing.assert_close(b.cpu(), a, atol=1e-4, rtol=1e-4)
-            card_losses = [round(loss, 6) for loss, _ in runs["cuda"][1]]
-            log(f"[train-ref] {cfg.name} B=2 S=256 attn_replay={replay}: "
-                f"3 steps card == CPU (losses {card_losses}, grad norms, "
-                f"weights allclose 1e-4)")
+            _card_vs_cpu(cfg, _train_run(cfg, replay, 2, 256, opt=opt),
+                         master, f"qkv/f32 attn_replay={replay}")
+        if arch == "llama2-7b":
+            for site, dtype in (("prev_gemm", "f32"), ("ffn_up", "fp8")):
+                run = _train_run(cfg, "off", 2, 256, opt=opt, site=site,
+                                 gemm_dtype=dtype)
+                _card_vs_cpu(cfg, run, master,
+                             f"{site}/{dtype} attn_replay=off")
 
 
 # ------------------------------------------------------------------ phase 5
-def _expected_launches(n_layers: int, remat: str, steps: int):
-    """Kernel launches of ``steps`` training steps with site "qkv": each
-    layer's forward runs the fused GEMM+RNG kernel (replay keeps it as the
-    host, premask reads its plane) and the flash forward; remat="block"
-    runs both again when the backward recomputes the unit; the backward
-    runs dq and dkv once a layer. No Region 3 here, so no Philox kernel."""
-    fwd = n_layers * (2 if remat == "block" else 1)
-    return {"philox_mask": 0, "gemm_rng": steps * fwd,
-            "flash_fwd": steps * fwd, "flash_dq": steps * n_layers,
-            "flash_dkv": steps * n_layers}
+def _expected_launches(sched, remat: str, steps: int):
+    """Kernel launches of ``steps`` training steps under the compiled
+    schedule ``sched`` (one attention layer a stack unit). Each layer's
+    forward runs flash_fwd and its host GEMM -- the in-layer QKV host
+    (kept as the host under replay) or the carried emission for the next
+    layer -- and remat="block" runs both again when the backward
+    recomputes the unit; the backward runs dq and dkv once a layer. A
+    GEMM host launches the kernel of the plan's gemm_dtype, a standalone
+    (Region-3) host its emission-off variant and the Philox kernel. A
+    carried schedule under premask makes the first layer's plane with
+    the Philox kernel once a forward (outside the recomputed units)."""
+    from repro_torch.core import producer
+    f = 2 if remat == "block" else 1
+    host = (gemm_rng.KERNEL_FP8 if sched.plan.gemm_dtype == "fp8"
+            else gemm_rng.KERNEL)
+    n = {k: 0 for k in (philox.KERNEL, gemm_rng.KERNEL, gemm_rng.KERNEL_FP8,
+                        flash.KERNEL, flash_bwd.KERNEL_DQ,
+                        flash_bwd.KERNEL_DKV)}
+    for a in sched.assignments:
+        if not a.consumes:
+            continue
+        n[flash.KERNEL] += f
+        n[flash_bwd.KERNEL_DQ] += 1
+        n[flash_bwd.KERNEL_DKV] += 1
+        hows = [a.emit_how] if a.emit_site else []
+        if a.site == "qkv":
+            hows.append(a.host_how if a.how == producer.HOW_REPLAY
+                        else a.how)
+        for how in hows:
+            if how in (producer.HOW_GEMM, producer.HOW_STANDALONE):
+                n[host] += f
+            if how == producer.HOW_STANDALONE:
+                n[philox.KERNEL] += f
+    if sched.carried and not sched.replay and sched.for_layer(
+            sched.first_consumer).how == producer.HOW_STANDALONE:
+        n[philox.KERNEL] += 1
+    return {k: v * steps for k, v in n.items()}
+
+
+def _add_counts(*counts):
+    return {k: sum(c[k] for c in counts) for k in counts[0]}
 
 
 def _bitwise_equal_trees(a, b) -> bool:
@@ -739,9 +986,10 @@ def phase_train(state) -> None:
             cfg.vocab_size) == (4096, 32, 128, 11008, 32000)
     run_r = _train_run(cfg, "auto", TRAIN_B, TRAIN_S)
     run_p = _train_run(cfg, "off", TRAIN_B, TRAIN_S)
+    scheds = {}
     for run, how, host in ((run_r, "replay", "gemm_rng"),
                            (run_p, "gemm_rng", "")):
-        sched = compile_run_schedule(cfg, run)
+        sched = scheds[how] = compile_run_schedule(cfg, run)
         bad = [a for a in sched.assignments
                if (a.how, a.host_how) != (how, host)]
         if bad:
@@ -832,7 +1080,10 @@ def phase_train(state) -> None:
             abs(gn_x - losses[0][2]) > 1e-3 * abs(gn_x):
         raise AssertionError(f"step 0 on the kernels {losses[0]} != on "
                              f"tensor ops {(loss_x, gn_x)}")
-    want_counts = _expected_launches(TRAIN_LAYERS, run_r.sharding.remat, 4)
+    remat = run_r.sharding.remat
+    want_counts = _add_counts(_expected_launches(scheds["replay"], remat, 3),
+                              _expected_launches(scheds["gemm_rng"], remat,
+                                                 1))
     if counts != want_counts:
         raise AssertionError(f"launches {counts} != {want_counts}")
     state["train_launches"] = counts
@@ -843,24 +1094,25 @@ def phase_train(state) -> None:
     tokens = TRAIN_B * TRAIN_S
     state["train"] = dict(step_s=step_s, tokens_per_s=tokens / step_s,
                           peak_gib=peak)
+    state["loss0"] = {"qkv/f32": losses[0][0]}
     log(f"[train] 3 steps (replay) + step 0 (premask): (loss, ce, grad "
         f"norm) {losses}; replay and premask step 0 bitwise equal (loss, "
         f"grad norm, updated weights)")
     log(f"[train] step 0 through tensor ops (site xla, attn_impl xla): "
         f"loss {loss_x:.7f}, grad norm {gn_x:.6f}; the kernels' step 0 "
         f"within 1e-4 (loss) and 1e-3 (grad norm) relative")
-    log(f"[train] launches {counts} == 4 steps x (per layer: gemm_rng and "
-        f"flash_fwd x2 for remat='block', dq and dkv x1) x "
-        f"{TRAIN_LAYERS} layers")
+    log(f"[train] launches {counts} == the schedule's formula: 4 steps x "
+        f"(per layer: gemm_rng and flash_fwd x2 for remat='block', dq and "
+        f"dkv x1) x {TRAIN_LAYERS} layers")
     log(f"[train] step times {[round(t, 4) for t in times]} s (host clock "
         f"to a synchronize; step 0 includes first-call set-up); steady "
         f"step {step_s:.4f} s = {tokens / step_s:.1f} tokens/s; peak "
         f"memory {peak:.2f} GiB | {state['smi']}")
     del state0
-    _profile_train(step_r, st, batches[0], state)
+    _profile_train(step_r, st, batches[0], state["train"], state["smi"])
 
 
-def _profile_train(step_fn, st, batch, state) -> None:
+def _profile_train(step_fn, st, batch, record, smi) -> None:
     """Where a training step's time goes: a torch.profiler trace of one
     more step; device busy share = summed kernel and copy time over the
     wall time."""
@@ -876,11 +1128,177 @@ def _profile_train(step_fn, st, batch, state) -> None:
                             getattr(e, "cuda_time_total", 0.0)), e.count,
                     e.key) for e in prof.key_averages()), reverse=True)
     busy = sum(r[0] for r in rows) / 1e6
-    state["train"]["busy_share"] = busy / wall
+    record["busy_share"] = busy / wall
     log(f"[train-profile] one step: wall {wall:.3f}s, device busy "
-        f"{busy:.3f}s ({busy / wall * 100:.1f}%) | {state['smi']}")
+        f"{busy:.3f}s ({busy / wall * 100:.1f}%) | {smi}")
     for us, count, key in rows[:8]:
         log(f"[train-profile]   {us / 1e3:10.2f} ms {count:7d}x {key[:90]}")
+
+
+# ------------------------------------------------------------------ phase 6
+# one step each of the other carried sites and dtypes, after the main run
+SITE_STEPS = (("prev_gemm", "fp8"), ("ffn_down", "fp8"), ("qkv", "fp8"),
+              ("ffn_up", "f32"))
+# step-0 losses of sites of one gemm_dtype see the same keep bits: in f32
+# they differ by GEMM accumulation order only (1e-4 relative, as the
+# kernels against tensor ops in phase 5); an fp8 host quantizes one GEMM a
+# layer (within 0.06 of that GEMM's f32 product), which moved the reduced
+# llama2's step-0 loss by 2.5e-4 relative on the CPU: 1e-2 relative
+F32_LOSS_REL = 1e-4
+FP8_LOSS_REL = 1e-2
+
+
+def phase_train_sites(state) -> None:
+    """The fp8 host and the carried sites at llama2-7b width: the ffn_up /
+    fp8 main path (3 replay steps, step 0 again under premask, bitwise
+    equal), then one step of each SITE_STEPS plan."""
+    from repro_torch.config import get_arch
+    from repro_torch.core import producer
+    from repro_torch.train import (
+        compile_run_schedule,
+        init_train_state,
+        make_grad_fn,
+        make_train_step,
+    )
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(get_arch("llama2-7b"), n_layers=TRAIN_LAYERS)
+    run_r = _train_run(cfg, "auto", TRAIN_B, TRAIN_S, site="ffn_up",
+                       gemm_dtype="fp8")
+    run_p = _train_run(cfg, "off", TRAIN_B, TRAIN_S, site="ffn_up",
+                       gemm_dtype="fp8")
+    sched_r = compile_run_schedule(cfg, run_r)
+    sched_p = compile_run_schedule(cfg, run_p)
+    for sched, first, rest in (
+            (sched_r, ("replay", ""), ("replay", producer.HOW_GEMM)),
+            (sched_p, (producer.HOW_STANDALONE, ""),
+             (producer.HOW_GEMM, ""))):
+        hows = [(a.how, a.host_how) for a in sched.assignments]
+        emits = {(a.emit_site, a.emit_how) for a in sched.assignments}
+        if not sched.carried or hows != [first] + [rest] * (
+                TRAIN_LAYERS - 1) or emits != {("ffn_up", producer.HOW_GEMM)}:
+            raise AssertionError(f"unexpected schedule:\n{sched.explain()}")
+        log(f"[train-fp8] {sched.explain()}")
+    state0 = init_train_state(cfg, seed=0, device="cuda")
+    batches = _batches(cfg, run_r, "cuda", 3)
+    x0, y0 = batches[0]
+
+    # step 0 gradients under both plans: bitwise equal
+    loss_r, _, grads_r = make_grad_fn(cfg, run_r)(state0["master"], x0, y0,
+                                                  0)
+    loss_p, _, grads_p = make_grad_fn(cfg, run_p)(state0["master"], x0, y0,
+                                                  0)
+    torch.cuda.synchronize()
+    if not (torch.equal(loss_r, loss_p)
+            and _bitwise_equal_trees(grads_r, grads_p)):
+        raise AssertionError("ffn_up/fp8: replay and premask step-0 loss / "
+                             "gradients differ")
+    if not all(bool(torch.isfinite(g).all()) for g in leaves(grads_r)):
+        raise AssertionError("ffn_up/fp8: non-finite step-0 gradients")
+    log(f"[train-fp8] step 0: replay and premask loss {float(loss_r):.7f} "
+        f"and all {len(leaves(grads_r))} gradient tensors bitwise equal, "
+        "finite")
+    del grads_r, grads_p
+
+    # the main path: 3 replay steps and step 0 again under premask
+    step_r = make_train_step(cfg, run_r)
+    step_p = make_train_step(cfg, run_p)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    times, losses = [], []
+    st = state0
+    for i, (x, y) in enumerate(batches):
+        t0 = time.perf_counter()
+        new, m = step_r(st, x, y)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append((float(m["loss"]), float(m["ce"]),
+                       float(m["grad_norm"])))
+        if i == 0:
+            new_p, m_p = step_p(state0, x, y)
+            torch.cuda.synchronize()
+            if not (torch.equal(m["loss"], m_p["loss"])
+                    and torch.equal(m["grad_norm"], m_p["grad_norm"])
+                    and _bitwise_equal_trees(new["master"],
+                                             new_p["master"])):
+                raise AssertionError("ffn_up/fp8: replay and premask step 0 "
+                                     "differ")
+            del new_p
+        st = new
+    counts = launch_counts()
+    remat = run_r.sharding.remat
+    want = _add_counts(_expected_launches(sched_r, remat, 3),
+                       _expected_launches(sched_p, remat, 1))
+    if counts != want:
+        raise AssertionError(f"ffn_up/fp8 launches {counts} != {want}")
+    if not all(np.isfinite(v) for row in losses for v in row):
+        raise AssertionError(f"non-finite metrics {losses}")
+    state["fp8_launches"] = counts
+    state["fp8_variants"] = gemm_rng.variant_counts(gemm_rng.KERNEL_FP8)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    step_s = float(np.mean(times[1:]))
+    tokens = TRAIN_B * TRAIN_S
+    rec = state["train_fp8"] = dict(step_s=step_s,
+                                    tokens_per_s=tokens / step_s,
+                                    peak_gib=peak)
+    loss0 = dict(state["loss0"], **{"ffn_up/fp8": losses[0][0]})
+    log(f"[train-fp8] ffn_up/fp8: 3 steps (replay) + step 0 (premask): "
+        f"(loss, ce, grad norm) {losses}; replay and premask step 0 "
+        f"bitwise equal (loss, grad norm, updated weights)")
+    log(f"[train-fp8] launches {counts} == the schedule's formula (per "
+        f"step and layer: gemm_rng_fp8 under the gate+up GEMM and flash_fwd "
+        f"x2 for remat='block', dq and dkv x1; the premask step's "
+        f"bootstrap plane from philox_mask)")
+    log(f"[train-fp8] step times {[round(t, 4) for t in times]} s; steady "
+        f"step {step_s:.4f} s = {tokens / step_s:.1f} tokens/s; peak "
+        f"memory {peak:.2f} GiB | {state['smi']}")
+    _profile_train(step_r, st, batches[0], rec, state["smi"])
+    del st, new
+
+    for site, dtype in SITE_STEPS:
+        run = _train_run(cfg, "auto", TRAIN_B, TRAIN_S, site=site,
+                         gemm_dtype=dtype)
+        sched = compile_run_schedule(cfg, run)
+        step_fn = make_train_step(cfg, run)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        new, m = step_fn(state0, x0, y0)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = launch_counts()
+        want = _expected_launches(sched, run.sharding.remat, 1)
+        if counts != want:
+            raise AssertionError(f"{site}/{dtype} launches {counts} != "
+                                 f"{want}\n{sched.explain()}")
+        loss = float(m["loss"])
+        if not np.isfinite(loss):
+            raise AssertionError(f"{site}/{dtype}: loss {loss}")
+        loss0[f"{site}/{dtype}"] = loss
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        state.setdefault("site_steps", {})[f"{site}/{dtype}"] = dict(
+            step_s=dt, tokens_per_s=tokens / dt, peak_gib=peak, loss=loss)
+        log(f"[train-sites] {site}/{dtype} ({sched.for_layer(1).how}, "
+            f"emission {sched.for_layer(0).emit_how or '-'}): one step "
+            f"{dt:.4f} s = {tokens / dt:.1f} tokens/s, peak {peak:.2f} GiB, "
+            f"loss {loss:.7f}, launches {counts} == the schedule's formula "
+            f"| {state['smi']}")
+        del new
+
+    ref = loss0["qkv/f32"]
+    for key, loss in loss0.items():
+        rel = abs(loss - ref) / abs(ref)
+        bound = F32_LOSS_REL if key.endswith("f32") else FP8_LOSS_REL
+        if rel > bound:
+            raise AssertionError(f"step-0 loss {key} {loss} vs qkv/f32 "
+                                 f"{ref}: {rel} > {bound}")
+    log(f"[train-sites] step-0 losses {loss0}: f32 sites within "
+        f"{F32_LOSS_REL} relative of qkv/f32, fp8 within {FP8_LOSS_REL}")
+    state["loss0"] = loss0
 
 
 KERNEL_RECORDS = (
@@ -889,6 +1307,8 @@ KERNEL_RECORDS = (
      "serve"),
     (gemm_rng.KERNEL, "gemm_rng.cu", "src/repro/kernels/gemm_rng.py:143",
      "train"),
+    (gemm_rng.KERNEL_FP8, "gemm_rng_fp8.cu",
+     "src/repro/kernels/gemm_rng.py:373", "train_fp8"),
     (flash.KERNEL, "flash_fwd.cu",
      "src/repro/kernels/flash_attention.py:58", "train"),
     (flash_bwd.KERNEL_DQ, "flash_bwd.cu",
@@ -906,7 +1326,9 @@ def kernel_records(state):
             launches, err = state["philox_launches"], state["philox_err"]
         else:
             t = state["timing"][name]
-            launches = state["train_launches"][name]
+            counts = state["fp8_launches" if path == "train_fp8"
+                           else "train_launches"]
+            launches = counts[name]
             err = state["errs"][name]
         rec = {"name": name, "route": "cuda",
                "source": f"src/repro_torch/kernels/csrc/{src}",
@@ -914,17 +1336,26 @@ def kernel_records(state):
                "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
                "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                "library_ms": t["library_ms"], "path": path}
-        if name == gemm_rng.KERNEL:
+        if name in (gemm_rng.KERNEL, gemm_rng.KERNEL_FP8):
             # its plain-GEMM variant (Region 3) is the same kernel with the
             # emission switched off; checked and timed in phase 2
-            launches_by = state["gemm_variants"]
+            fp8 = name == gemm_rng.KERNEL_FP8
+            launches_by = state["fp8_variants" if fp8 else "gemm_variants"]
             rec["variants"] = {
-                "rng": {"replaces": "src/repro/kernels/gemm_rng.py:143",
+                "rng": {"replaces": replaces,
                         "launches": launches_by["rng"], "ms": t["ms"]},
-                "plain": {"replaces": "src/repro/kernels/gemm_rng.py:304",
+                "plain": {"replaces": ("src/repro/kernels/gemm_rng.py:933"
+                                       if fp8 else
+                                       "src/repro/kernels/gemm_rng.py:304"),
                           "launches": launches_by["plain"],
                           "ms": t["plain_variant_ms"],
                           "bound_ms": t["plain_variant_bound_ms"]}}
+        if name == gemm_rng.KERNEL_FP8:
+            # no PyTorch call computes per-tile-scaled e4m3; two other
+            # functions on the same operands, for scale
+            rec["shape"] = t["shape"]
+            rec["scaled_mm_ms"] = t["scaled_mm_ms"]
+            rec["dequant_matmul_ms"] = t["dequant_matmul_ms"]
         recs.append(rec)
     return recs
 
@@ -936,8 +1367,9 @@ def main() -> int:
     state = {"philox_err": 0}
     t0 = time.perf_counter()
     for phase in (phase_card, phase_build, phase_kernels,
-                  phase_kernels_train, phase_serve_reference, phase_serve,
-                  phase_train_reference, phase_train):
+                  phase_kernels_train, phase_kernels_fp8,
+                  phase_serve_reference, phase_serve, phase_train_reference,
+                  phase_train, phase_train_sites):
         phase(state)
         log(f"[time] {phase.__name__} done at "
             f"{time.perf_counter() - t0:.1f}s")

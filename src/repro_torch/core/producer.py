@@ -2,7 +2,9 @@
 ``DropoutSchedule`` (core/schedule.py) tags each layer's mask with.
 
   "gemm_rng"         -- inside the fused GEMM+RNG kernel
-                        (kernels/gemm_rng.py, csrc/gemm_rng.cu)
+                        (kernels/gemm_rng.py: csrc/gemm_rng.cu for f32
+                        operands, csrc/gemm_rng_fp8.cu for the
+                        per-tile-scaled e4m3 host of gemm_dtype="fp8")
   "gemm_rng_grouped" -- inside a grouped expert-GEMM kernel (not ported)
   "standalone"       -- the standalone Philox kernel (kernels/philox.py):
                         the paper's Region 3, where the GEMM cannot host
@@ -16,12 +18,16 @@
 
 Every producer is bit-identical for the same (seed, salt, layer, step).
 The capability predicates and shape helpers are the JAX package's, so the
-port plans the same producer for the same cell. Shard-local producers
-(a sharding policy) are not ported yet.
+port plans the same producer for the same cell. The host GEMM sits in the
+consuming layer (site "qkv") or, for the carried sites, in the previous
+attention block: its out-projection ("prev_gemm", models/attention.py) or
+an FFN GEMM ("ffn_up" / "ffn_down", ``FFNHost`` -> models/layers.py).
+Shard-local producers (a sharding policy) are not ported yet.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+import dataclasses
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -29,7 +35,7 @@ from repro_torch.config.base import FFNKind, ModelConfig
 from repro_torch.core import dropout_rng
 from repro_torch.core.overlap import DropoutPlan
 from repro_torch.device import DeviceLike
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, quant
 
 HOW_GEMM = "gemm_rng"
 HOW_GEMM_GROUPED = "gemm_rng_grouped"
@@ -106,16 +112,20 @@ def mask_kernel_unsupported_reason(plan: DropoutPlan, sq: int, sk: int,
 
 
 def standalone_packed_mask(plan: DropoutPlan, batch: int, n_heads: int,
-                           sq: int, sk: int, layer_idx, step, policy=None,
+                           sq: int, sk: int, layer_idx, step,
+                           use_kernel: bool = True, policy=None,
                            device: DeviceLike = None) -> torch.Tensor:
     """Packed (B, H, SQ//32, SK) int32 mask from a standalone producer: the
-    Philox kernel for 32-bit planes (its plain version on the CPU), else
-    the plain tensor-op producer. Same bits either way."""
+    Philox kernel for 32-bit planes when ``use_kernel`` (its plain version
+    on the CPU), else the plain tensor-op producer. Same bits either way.
+    Used for the Region-3 remainder and to bootstrap the first consumer of
+    a carried-site pipeline (no producer GEMM precedes it); the schedule's
+    planned ``how`` decides ``use_kernel``."""
     if policy is not None:
         raise _not_ported("a shard-local standalone producer")
     seed = plan.step_seed(step)
     salt = plan.salt(layer_idx)
-    if plan.cfg.philox_bits == 32:
+    if use_kernel and plan.cfg.philox_bits == 32:
         return ops.dropout_mask(batch, n_heads, sq, sk, plan.cfg.p, seed,
                                 salt, plan.cfg.philox_rounds, device=device)
     return dropout_rng.packed_mask(
@@ -144,20 +154,28 @@ def replay_unsupported_reason(plan: DropoutPlan, sq: int, sk: int,
 def _fused_gemm_call(x2d: torch.Tensor, w2d: torch.Tensor,
                      plan: DropoutPlan, mask_shape, seed, salt,
                      blocks: Tuple[int, int, int], gemm_dtype: str):
-    """One fused GEMM+RNG launch in the plan's host dtype (f32; bf16 and
-    fp8 hosts are not ported yet). Returns (y2d, plane or None)."""
-    if gemm_dtype != "f32":
-        raise NotImplementedError(
-            f"gemm_dtype={gemm_dtype!r} hosts are not ported yet (ROADMAP: "
-            "port queue, bf16 hosts / fp8 kernels)")
+    """One fused GEMM+RNG launch in the plan's host dtype: f32, or the
+    per-tile-scaled e4m3 kernel for "fp8" (bf16 hosts are not ported
+    yet). Returns (y2d, plane or None)."""
     batch, n_heads, sq, sk = mask_shape
     bm, bn, bk = blocks
-    y, mask = ops.fused_qkv_gemm_rng(
+    if gemm_dtype == "fp8":
+        if not quant.have_fp8():
+            raise NotImplementedError(
+                "gemm_dtype='fp8' needs torch.float8_e4m3fn, which this "
+                "torch build lacks")
+        fused = ops.fused_gemm_rng_fp8
+    elif gemm_dtype == "f32":
+        fused = ops.fused_qkv_gemm_rng
+    else:
+        raise NotImplementedError(
+            f"gemm_dtype={gemm_dtype!r} hosts are not ported yet (ROADMAP: "
+            "port queue, bf16 hosts)")
+    return fused(
         x2d, w2d, mask_batch=batch, mask_heads=n_heads, mask_sq=sq,
         mask_sk=sk, p=plan.cfg.p, seed=seed, salt=salt,
         rounds=plan.cfg.philox_rounds, block_m=bm, block_n=bn, block_k=bk,
         mask_block_cols=mask_cols_cap(sq, sk))
-    return y, mask
 
 
 def gemm_with_mask(x2d: torch.Tensor, w2d: torch.Tensor, plan: DropoutPlan,
@@ -198,6 +216,20 @@ def gemm_with_mask(x2d: torch.Tensor, w2d: torch.Tensor, plan: DropoutPlan,
         mask = standalone_packed_mask(plan, batch, n_heads, sq, sk,
                                       layer_idx, step, device=x2d.device)
     return y, mask
+
+
+@dataclasses.dataclass(frozen=True)
+class FFNHost:
+    """Instruction to a block's FFN half to host a mask producer under one
+    of its GEMMs (models/layers.ffn_apply). ``layer_idx`` is the CONSUMER
+    layer (the next attention layer: the plane rides the carry there);
+    ``how`` is the schedule's planned producer for the emission."""
+    plan: DropoutPlan
+    site: str                           # "ffn_up" | "ffn_down"
+    mask_shape: Tuple[int, int, int, int]
+    layer_idx: Any
+    step: Any
+    how: str = HOW_GEMM
 
 
 def block_gemm_shapes(cfg: ModelConfig, batch: int, seq: int,

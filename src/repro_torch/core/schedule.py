@@ -7,12 +7,16 @@ the flash consumer replays the counters instead of reading a plane, and --
 where a fused kernel was not chosen -- why. The rules are the JAX
 package's, so ``explain()`` renders the same text for the same cell.
 
-Ported: a single device, sites "xla" and "qkv", ``attn_impl`` "xla" and
-"pallas", the replay upgrade. ``attn_impl="pallas"`` keeps the knob's JAX
-name: in the port it selects the hand-written CUDA kernels (fused
-GEMM+RNG host, flash forward and backward). Carried sites ("prev_gemm",
-"ffn_up", "ffn_down"), "auto" and sharding policies raise
-``NotImplementedError`` naming the ROADMAP item.
+Ported: a single device; sites "xla", "qkv" and the carried sites
+("prev_gemm", "ffn_up", "ffn_down": layer l+1's mask is made under a GEMM
+of layer l's block and carried to it, the first consumer bootstrapping
+from the standalone producer); ``gemm_dtype`` "f32" and "fp8";
+``attn_impl`` "xla" and "pallas"; the replay upgrade.
+``attn_impl="pallas"`` keeps the knob's JAX name: in the port it selects
+the hand-written CUDA kernels (fused GEMM+RNG hosts, flash forward and
+backward). ``site="auto"``, bf16 hosts, grouped (MoE / RWKV channel-mix)
+hosts and sharding policies raise ``NotImplementedError`` naming the
+ROADMAP item.
 """
 from __future__ import annotations
 
@@ -24,10 +28,12 @@ from repro_torch.config.base import (
     CARRIED_DROPOUT_SITES,
     AttentionKind,
     DropoutPlanConfig,
+    FFNKind,
     ModelConfig,
 )
 from repro_torch.core import producer
 from repro_torch.core.overlap import DropoutPlan
+from repro_torch.kernels import quant
 from repro_torch.kernels.gemm_rng import mask_layout_feasible
 from repro_torch.kernels.philox_common import threshold_from_p
 
@@ -126,11 +132,15 @@ class DropoutSchedule:
                 self.plan.philox_bits)
 
     def records(self) -> Tuple[Tuple[str, str, str, str], ...]:
-        """Deduplicated (site, how, gemm_dtype, note) scheduling records.
-        (The JAX package adds its carried sites' emission rows; the port
-        has no carried sites yet.)"""
-        rows = [(a.site, a.how, self.plan.gemm_dtype, a.reason)
-                for a in self.assignments if a.consumes]
+        """Deduplicated (site, how, gemm_dtype, note) scheduling records,
+        consumption and emission rows in layer order."""
+        dtype = self.plan.gemm_dtype
+        rows = []
+        for a in self.assignments:
+            if a.consumes:
+                rows.append((a.site, a.how, dtype, a.reason))
+            if a.emit_site is not None:
+                rows.append((a.emit_site, a.emit_how, dtype, a.emit_reason))
         return tuple(dict.fromkeys(rows))
 
     def explain(self) -> str:
@@ -164,6 +174,16 @@ class DropoutSchedule:
                 row += " shard-local"
             if a.reason:
                 row += f" ({a.reason})"
+            if a.emit_site is not None:
+                tgt = a.layer + a.emit_stride
+                tgt_s = f"L{tgt}" if tgt < len(self.assignments) \
+                    else "dropped"
+                row += (f" | emits->{tgt_s} under {a.emit_site} "
+                        f"how={a.emit_how}")
+                # a bootstrap layer shares one reason between its consume
+                # and emit halves: print it once
+                if a.emit_reason and a.emit_reason != a.reason:
+                    row += f" ({a.emit_reason})"
             lines.append(row)
         return "\n".join(lines)
 
@@ -187,7 +207,10 @@ class DropoutSchedule:
                  "producer": a.producer, "how": a.how,
                  "sharded": a.sharded,
                  **({"host_how": a.host_how} if a.host_how else {}),
-                 **({"reason": a.reason} if a.reason else {})}
+                 **({"reason": a.reason} if a.reason else {}),
+                 **({"emit_site": a.emit_site,
+                     "emit_to": a.layer + a.emit_stride,
+                     "emit_how": a.emit_how} if a.emit_site else {})}
                 for a in self.assignments if a.consumes
             ],
         }
@@ -195,8 +218,19 @@ class DropoutSchedule:
 
 def _not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP: port queue, carried sites / "
-        "site='auto' / sharding policies)")
+        f"{what} is not ported yet (ROADMAP: port queue, site='auto' / "
+        "grouped hosts / sharding policies)")
+
+
+def _next_attn_stride(kinds: Tuple[AttentionKind, ...], period: int,
+                      l: int) -> int:
+    """Distance from layer l to the next attention layer in the periodic
+    extension of the block pattern. For the last attention layer this
+    walks past n_layers: its emission runs and has no consumer."""
+    for d in range(1, period + 1):
+        if kinds[(l + d) % period] in _ATTN:
+            return d
+    return 0
 
 
 def _kernel_host_gates(plan: DropoutPlan, cfg: ModelConfig, batch: int,
@@ -242,11 +276,28 @@ def _fused_capability(plan: DropoutPlan, cfg: ModelConfig, batch: int,
         return (HOW_STANDALONE, sharded,
                 f"Region 3: GEMM ({m},{n},{k}) too small for "
                 f"{b_loc}x{h_loc}x{seq}x{seq} mask")
-    if plan.cfg.gemm_dtype != "f32":
+    if plan.cfg.gemm_dtype == "bf16":
         raise NotImplementedError(
-            f"gemm_dtype={plan.cfg.gemm_dtype!r} hosts are not ported yet "
-            "(ROADMAP: port queue, bf16 hosts / fp8 kernels)")
+            "gemm_dtype='bf16' hosts are not ported yet (ROADMAP: port "
+            "queue, bf16 hosts)")
+    if plan.cfg.gemm_dtype == "fp8" and not quant.have_fp8():
+        raise NotImplementedError(
+            "gemm_dtype='fp8' needs torch.float8_e4m3fn, which this torch "
+            "build lacks")
     return HOW_GEMM, sharded, ""
+
+
+def _standalone_capability(plan: DropoutPlan, seq: int,
+                           attn_impl: str) -> Tuple[str, str]:
+    """(how, reason) for a standalone (bootstrap / Region-3) producer on
+    one device."""
+    if attn_impl != "pallas":
+        return HOW_XLA, "impl != pallas (no fused kernels)"
+    reason = producer.mask_kernel_unsupported_reason(plan, seq, seq,
+                                                     fused=False)
+    if reason is not None:
+        return HOW_XLA, reason
+    return HOW_STANDALONE, ""
 
 
 def _replay_reason(plan: DropoutPlan, cfg: ModelConfig, seq: int,
@@ -266,16 +317,22 @@ def _replay_reason(plan: DropoutPlan, cfg: ModelConfig, seq: int,
 
 def _replay_assignment(a: HostAssignment,
                        consume_sharded: bool) -> HostAssignment:
-    """One consuming assignment rewritten for counter-replay consumption:
-    HOW_REPLAY, with host_how keeping a fused GEMM host (run, its plane
-    discarded). (The JAX package also clears plane-only emissions of
-    carried sites, which the port does not have yet.)"""
-    if not a.consumes:
-        return a
-    host_how = a.how if a.how in (HOW_GEMM,
-                                  producer.HOW_GEMM_GROUPED) else ""
-    return dataclasses.replace(a, how=HOW_REPLAY, host_how=host_how,
-                               sharded=consume_sharded, reason="")
+    """One assignment rewritten for counter-replay consumption: the
+    consuming side becomes HOW_REPLAY, with host_how keeping a fused GEMM
+    host (run, its plane discarded); emissions whose only purpose was the
+    plane (standalone / tensor-op) are cleared, GEMM-hosted ones stay (the
+    RNG keeps hiding under the GEMM)."""
+    changes = {}
+    if a.consumes:
+        host_how = a.how if a.how in (HOW_GEMM,
+                                      producer.HOW_GEMM_GROUPED) else ""
+        changes.update(how=HOW_REPLAY, host_how=host_how,
+                       sharded=consume_sharded, reason="")
+    if a.emit_site is not None and a.emit_how not in (
+            HOW_GEMM, producer.HOW_GEMM_GROUPED):
+        changes.update(emit_site=None, emit_stride=0, emit_how="",
+                       emit_reason="")
+    return dataclasses.replace(a, **changes) if changes else a
 
 
 @functools.lru_cache(maxsize=256)
@@ -299,8 +356,14 @@ def _compile(cfg: ModelConfig, plan_cfg: DropoutPlanConfig, batch: int,
     site = plan_cfg.site
     if site == "auto":
         raise _not_ported("site='auto'")
-    if site in CARRIED_DROPOUT_SITES:
-        raise _not_ported(f"carried site {site!r}")
+    carried = site in CARRIED_DROPOUT_SITES
+    if site in ("ffn_up", "ffn_down") and (
+            cfg.moe is not None or cfg.ffn == FFNKind.RWKV_CHANNEL):
+        ffn = "MoE expert" if cfg.moe is not None else "RWKV channel-mix"
+        raise NotImplementedError(
+            f"site={site!r} on {ffn} FFNs hosts through the grouped kernel, "
+            "which is not ported yet (ROADMAP: port queue, grouped slice)")
+    period = len(cfg.block_pattern)
     asgs = []
     for l in range(cfg.n_layers):
         kind = kinds[l]
@@ -310,13 +373,36 @@ def _compile(cfg: ModelConfig, plan_cfg: DropoutPlanConfig, batch: int,
             asgs.append(HostAssignment(
                 layer=l, kind=kind.value, consumes=True, site="xla",
                 producer=l, how=HOW_XLA))
-        else:                                   # site == "qkv"
+        elif site == "qkv":
             how, sh, reason = _fused_capability(
                 plan, cfg, batch, seq, "qkv", shard, attn_impl)
             asgs.append(HostAssignment(
                 layer=l, kind=kind.value, consumes=True, site="qkv",
                 producer=l, how=how, sharded=sh and how != HOW_XLA,
                 reason=reason))
+        else:
+            # carried: my mask comes from the previous attention layer's
+            # emission (the standalone bootstrap for the first one), and
+            # my block emits the next attention layer's under its ``site``
+            # GEMM
+            e_how, _, e_reason = _fused_capability(
+                plan, cfg, batch, seq, site, shard, attn_impl)
+            emit = dict(emit_site=site,
+                        emit_stride=_next_attn_stride(kinds, period, l),
+                        emit_how=e_how, emit_reason=e_reason)
+            prev = max((a for a in attn_layers if a < l), default=-1)
+            if prev < 0:
+                how, reason = _standalone_capability(plan, seq, attn_impl)
+                asgs.append(HostAssignment(
+                    layer=l, kind=kind.value, consumes=True,
+                    site="standalone", producer=-1, how=how,
+                    reason=reason or "bootstrap: no producer GEMM before "
+                                     "the first attention layer", **emit))
+            else:
+                asgs.append(HostAssignment(
+                    layer=l, kind=kind.value, consumes=True, site=site,
+                    producer=prev, how=asgs[prev].emit_how,
+                    reason=asgs[prev].emit_reason, **emit))
     # zero-HBM upgrade: counter replay at the consumer wherever the flash
     # kernels can reconstruct the producer's counters exactly
     if _replay_reason(plan, cfg, seq, shard, attn_impl) is None:
@@ -324,7 +410,7 @@ def _compile(cfg: ModelConfig, plan_cfg: DropoutPlanConfig, batch: int,
         asgs = [_replay_assignment(a, consume_sharded) for a in asgs]
     sched = DropoutSchedule(
         model=cfg.name, plan=plan_cfg, resolved_site=site, batch=batch,
-        seq=seq, attn_impl=attn_impl, shard=shard, carried=False,
+        seq=seq, attn_impl=attn_impl, shard=shard, carried=carried,
         assignments=tuple(asgs), moe_seq_dispatch=moe_seq_dispatch)
     _check_scan_periodicity(cfg, sched)
     return sched
@@ -332,10 +418,16 @@ def _compile(cfg: ModelConfig, plan_cfg: DropoutPlanConfig, batch: int,
 
 def _scan_static_key(a: HostAssignment):
     """The parts of an assignment one stack's shared unit body branches
-    on (no carried sites in the port yet)."""
-    return (a.kind, a.consumes, a.site, a.how, a.sharded,
-            a.how == HOW_REPLAY, a.host_how, a.emit_site, a.emit_stride,
-            a.emit_how, a.emit_reason)
+    on. Consuming a carried mask and the standalone bootstrap are the same
+    code path (read the carry), so the bootstrap's consumption fields are
+    no periodicity violation; the emission side and the in-layer sites
+    must match exactly."""
+    carries = a.site in CARRIED_DROPOUT_SITES or a.site == "standalone"
+    return (a.kind, a.consumes, "carry" if carries else a.site,
+            None if carries else a.how,
+            None if carries else a.sharded,
+            a.how == HOW_REPLAY, None if carries else a.host_how,
+            a.emit_site, a.emit_stride, a.emit_how, a.emit_reason)
 
 
 def _check_scan_periodicity(cfg: ModelConfig, sched: DropoutSchedule):
@@ -376,13 +468,20 @@ def inline_assignment(model_cfg: ModelConfig, plan: DropoutPlan,
                       attn_impl: str = "xla") -> HostAssignment:
     """Single-layer sugar for a direct ``attn_apply`` call made without a
     compiled schedule: the first consumer's assignment of a uniform
-    schedule (carried sites are not ported, so there is no carry to
-    drop)."""
+    schedule, minus the carry (a lone call has no carried plane, so a
+    carried site degrades to the standalone producer, same bits)."""
     sched = compile_schedule(model_cfg, plan.cfg, batch, seq, policy=policy,
                              attn_impl=attn_impl)
     if not sched.active:
         return HostAssignment(layer=0, kind="full")
-    return sched.for_layer(sched.first_consumer)
+    asg = sched.for_layer(sched.first_consumer)
+    if asg.site in CARRIED_DROPOUT_SITES and asg.how != HOW_REPLAY:
+        # (a replay consumer needs no carry at all: keep it as it is)
+        how, reason = _standalone_capability(plan, seq, attn_impl)
+        asg = dataclasses.replace(
+            asg, site="standalone", how=how,
+            reason=reason or "no scan carry outside the model")
+    return asg
 
 
 @dataclasses.dataclass(frozen=True)

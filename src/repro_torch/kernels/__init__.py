@@ -3,8 +3,9 @@
 philox_common.py       -- Philox-4x32 counter math (plain mirror of
                           csrc/philox.cuh) and the tile / packed-row helpers
 philox.py              -- standalone dropout-RNG kernel (packed keep plane)
-gemm_rng.py            -- fused GEMM + dropout RNG (and its Region-3 plain
-                          GEMM variant)
+quant.py               -- per-tile e4m3 quantization (outside the kernels)
+gemm_rng.py            -- fused GEMM + dropout RNG in f32 and on e4m3
+                          operands (each with its Region-3 plain variant)
 flash_attention.py     -- flash-attention forward, dropout none / fused /
                           premask / replay; the differentiable
                           flash_attention_mosaic
@@ -24,7 +25,7 @@ from repro_torch.kernels import gemm_rng, philox
 
 def launch_counts() -> Dict[str, int]:
     return {philox.KERNEL: philox.launch_count(),
-            gemm_rng.KERNEL: gemm_rng.launch_count(),
+            **gemm_rng.launch_counts(),
             flash_attention.KERNEL: flash_attention.launch_count(),
             **flash_attention_bwd.launch_counts()}
 

@@ -1,0 +1,69 @@
+// The dropout-plane emission of the fused GEMM+RNG kernels (gemm_rng.cu,
+// f32 operands; gemm_rng_fp8.cu, e4m3 operands): both write exactly the
+// rectangles of the JAX emission layout, so a plane does not depend on the
+// dtype of the GEMM that hosts it.
+//
+// The plane is the flattened (rows_valid = B*H*SQ/32, SK) int32 layout, cut
+// into the rb x ck rectangles of gemm_rng.py::mask_emission_layout (judged
+// on the JAX logical GEMM grid by the Python wrapper): block s covers rows
+// [s / n_cb * rb, + rb) clipped to rows_valid and cols [s % n_cb * ck,
+// + ck). Bits are position-based (philox.cuh::packed_word), so they do not
+// depend on which CTA writes a block: CTA t (row-major over the CTA grid)
+// writes blocks t, t + n_ctas, ... < n_valid_blocks, before its k-loop --
+// the CUDA form of JAX's "kk == 0" emission. Only valid blocks are
+// written: the TPU's dummy overflow band is BlockSpec plumbing with no
+// bits.
+#pragma once
+
+#include <cstdint>
+
+#include "philox.cuh"
+
+namespace repro_gemm {
+
+struct Emit {
+  int32_t* mask;  // nullptr: plain GEMM (Region 3)
+  int rows_valid, sk, sq32, rb, ck, n_cb, n_valid_blocks;
+  uint32_t k0, k1, salt, bh_offset, heads_local, heads_global, threshold;
+};
+
+// The blocks CTA (blockIdx.x, blockIdx.y) owns, written by all its threads.
+template <int ROUNDS>
+__device__ void emit_blocks(const Emit& e) {
+  const int n_ctas = gridDim.x * gridDim.y;
+  const int t = blockIdx.y * gridDim.x + blockIdx.x;
+  for (int s = t; s < e.n_valid_blocks; s += n_ctas) {
+    const int r0 = (s / e.n_cb) * e.rb;
+    const int r1 = min(r0 + e.rb, e.rows_valid);
+    const int c0 = (s % e.n_cb) * e.ck;
+    const int words = (r1 - r0) * e.ck;
+    for (int i = threadIdx.x; i < words; i += blockDim.x) {
+      const int r = r0 + i / e.ck;
+      const int c = c0 + i % e.ck;
+      e.mask[static_cast<size_t>(r) * e.sk + c] =
+          static_cast<int32_t>(repro_philox::packed_word<ROUNDS>(
+              static_cast<uint32_t>(r), static_cast<uint32_t>(c),
+              static_cast<uint32_t>(e.sq32), e.heads_local, e.heads_global,
+              e.bh_offset, e.salt, e.k0, e.k1, e.threshold));
+    }
+  }
+}
+
+// The Emit of one launch from the C interface's arguments; false when a
+// plane is asked for with sizes the kernel cannot take.
+inline bool make_emit(void* mask, int rows_valid, int sk, int sq32, int rb,
+                      int ck, int n_cb, int n_valid_blocks, uint32_t key_lo,
+                      uint32_t key_hi, uint32_t salt, uint32_t bh_offset,
+                      int heads_local, int heads_global, uint32_t threshold,
+                      Emit* e) {
+  *e = Emit{static_cast<int32_t*>(mask), rows_valid, sk, sq32, rb, ck, n_cb,
+            n_valid_blocks, key_lo, key_hi, salt, bh_offset,
+            static_cast<uint32_t>(heads_local),
+            static_cast<uint32_t>(heads_global), threshold};
+  if (mask == nullptr) return true;
+  return rows_valid > 0 && sk > 0 && sq32 > 0 && rb > 0 && ck > 0 &&
+         n_cb > 0 && n_valid_blocks >= 0 && heads_local > 0 &&
+         heads_global > 0;
+}
+
+}  // namespace repro_gemm

@@ -11,16 +11,8 @@
 //
 // What it computes. A (M, K) and B (K, N) are row-major f32; C (M, N) is
 // row-major f32, each element one f32 sum over k in order of k-tiles. The
-// plane is the flattened (rows_valid = B*H*SQ/32, SK) int32 layout, cut
-// into the rb x ck rectangles of the JAX emission layout
-// (gemm_rng.py::mask_emission_layout, judged on the JAX logical GEMM grid
-// by the Python wrapper): block s covers rows [s / n_cb * rb, + rb) clipped
-// to rows_valid and cols [s % n_cb * ck, + ck). Bits are position-based
-// (philox.cuh::packed_word), so they do not depend on which CTA writes a
-// block: CTA t (row-major over the CTA grid) writes blocks t, t + n_ctas,
-// ... < n_valid_blocks, before its k-loop -- the CUDA form of JAX's
-// "kk == 0" emission. Only valid blocks are written: the TPU's dummy
-// overflow band (mask_rows_alloc) is BlockSpec plumbing with no bits.
+// plane's blocks are those of the JAX emission layout, written as
+// gemm_emit.cuh describes.
 //
 // What bounds it on an H100: f32 operations. The QKV product of a
 // llama2-7b training step at B=2, S=2048 (4096 x 12288 x 4096) is 412
@@ -38,42 +30,18 @@
 
 #include <cstdint>
 
-#include "philox.cuh"
+#include "gemm_emit.cuh"
 
 namespace {
+
+using repro_gemm::Emit;
+using repro_gemm::emit_blocks;
 
 constexpr int BM = 128;
 constexpr int BN = 128;
 constexpr int BKS = 8;  // k-slice depth
 constexpr int NT = 256;
 constexpr int PAD = 4;  // keeps float4 alignment of every smem row
-
-struct Emit {
-  int32_t* mask;  // nullptr: plain GEMM (Region 3)
-  int rows_valid, sk, sq32, rb, ck, n_cb, n_valid_blocks;
-  uint32_t k0, k1, salt, bh_offset, heads_local, heads_global, threshold;
-};
-
-template <int ROUNDS>
-__device__ void emit_blocks(const Emit& e) {
-  const int n_ctas = gridDim.x * gridDim.y;
-  const int t = blockIdx.y * gridDim.x + blockIdx.x;
-  for (int s = t; s < e.n_valid_blocks; s += n_ctas) {
-    const int r0 = (s / e.n_cb) * e.rb;
-    const int r1 = min(r0 + e.rb, e.rows_valid);
-    const int c0 = (s % e.n_cb) * e.ck;
-    const int words = (r1 - r0) * e.ck;
-    for (int i = threadIdx.x; i < words; i += NT) {
-      const int r = r0 + i / e.ck;
-      const int c = c0 + i % e.ck;
-      e.mask[static_cast<size_t>(r) * e.sk + c] =
-          static_cast<int32_t>(repro_philox::packed_word<ROUNDS>(
-              static_cast<uint32_t>(r), static_cast<uint32_t>(c),
-              static_cast<uint32_t>(e.sq32), e.heads_local, e.heads_global,
-              e.bh_offset, e.salt, e.k0, e.k1, e.threshold));
-    }
-  }
-}
 
 template <int ROUNDS>
 __global__ void __launch_bounds__(NT)
@@ -202,15 +170,12 @@ extern "C" int repro_gemm_rng(const void* a, const void* b, void* c, int M,
   const float* B = static_cast<const float*>(b);
   float* C = static_cast<float*>(c);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  Emit e{static_cast<int32_t*>(mask), rows_valid, sk, sq32, rb, ck, n_cb,
-         n_valid_blocks, key_lo, key_hi, salt, bh_offset,
-         static_cast<uint32_t>(heads_local),
-         static_cast<uint32_t>(heads_global), threshold};
-  if (mask == nullptr) return launch<7>(A, B, C, M, N, K, e, s);
-  if (rows_valid <= 0 || sk <= 0 || sq32 <= 0 || rb <= 0 || ck <= 0 ||
-      n_cb <= 0 || n_valid_blocks < 0 || heads_local <= 0 ||
-      heads_global <= 0)
+  Emit e;
+  if (!repro_gemm::make_emit(mask, rows_valid, sk, sq32, rb, ck, n_cb,
+                             n_valid_blocks, key_lo, key_hi, salt, bh_offset,
+                             heads_local, heads_global, threshold, &e))
     return static_cast<int>(cudaErrorInvalidValue);
+  if (mask == nullptr) return launch<7>(A, B, C, M, N, K, e, s);
   switch (rounds) {
     case 3: return launch<3>(A, B, C, M, N, K, e, s);
     case 5: return launch<5>(A, B, C, M, N, K, e, s);

@@ -1,6 +1,6 @@
 """Fused GEMM + dropout RNG: C = A @ B with the packed keep plane of one
-attention layer made under the product (the paper's overlap), and its
-plain PyTorch version.
+attention layer made under the product (the paper's overlap), in f32 and
+on per-tile-scaled e4m3 operands, and the plain PyTorch versions.
 
 ``gemm_with_rng`` launches the hand-written CUDA kernel
 ``csrc/gemm_rng.cu`` -- which replaces the TPU kernels
@@ -16,6 +16,12 @@ exactly; the CUDA kernel's own 128 x 128 CTA tiling of the product is
 independent of it. What bounds the kernel on an H100 (f32 operations) and
 which CTA writes which block: see the note in ``csrc/gemm_rng.cu``.
 
+``gemm_with_rng_fp8`` launches ``csrc/gemm_rng_fp8.cu`` -- which replaces
+``_gemm_rng_fp8_kernel`` and, with the emission off, ``_plain_fp8_kernel``
+-- on f32 operands that ``quant.quantize_tiled`` turns into e4m3 values and
+per-tile scales outside the kernel (the scale tiles are the logical GEMM
+blocks); its plane is bitwise the f32 host's.
+
 Operands are f32 only; other dtypes raise
 ``NotImplementedError`` (ROADMAP: port queue, bf16 hosts).
 """
@@ -27,7 +33,7 @@ from typing import Iterator, Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, quant
 from repro_torch.kernels.ref import gemm_ref
 from repro_torch.kernels.philox_common import (
     SUPPORTED_PHILOX_ROUNDS,
@@ -38,26 +44,31 @@ from repro_torch.kernels.philox_common import (
 )
 
 KERNEL = "gemm_rng"
+KERNEL_FP8 = "gemm_rng_fp8"
 # plain version: packed words per step (x 32 keep bits each)
 _PLAIN_CHUNK_WORDS = 1 << 17
 
-_launches = {"rng": 0, "plain": 0}
-_fn = None
+# launches by kernel and variant: "rng" (emission on), "plain" (Region 3)
+_launches = {KERNEL: {"rng": 0, "plain": 0},
+             KERNEL_FP8: {"rng": 0, "plain": 0}}
+_fns = {}
 
 
-def launch_count() -> int:
-    """Launches of the kernel, both variants."""
-    return _launches["rng"] + _launches["plain"]
+def launch_counts() -> dict:
+    """Launches of each kernel, both variants."""
+    return {name: sum(v.values()) for name, v in _launches.items()}
 
 
-def variant_counts() -> dict:
-    """Launches by variant: "rng" (emission on), "plain" (Region 3)."""
-    return dict(_launches)
+def variant_counts(kernel: str = KERNEL) -> dict:
+    """Launches of ``kernel`` by variant: "rng" (emission on), "plain"
+    (Region 3)."""
+    return dict(_launches[kernel])
 
 
 def reset_launch_count() -> None:
-    for key in _launches:
-        _launches[key] = 0
+    for counts in _launches.values():
+        for key in counts:
+            counts[key] = 0
 
 
 # --------------------------------------------------------------------------
@@ -161,23 +172,33 @@ class _Emission:
     rounds: int
 
 
-def _kernel_fn():
-    global _fn
-    if _fn is None:
-        fn = build.load(KERNEL).repro_gemm_rng
-        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
-                       + [ctypes.c_void_p] + [ctypes.c_int] * 7
-                       + [ctypes.c_uint32] * 4 + [ctypes.c_int] * 2
-                       + [ctypes.c_uint32, ctypes.c_int, ctypes.c_void_p])
+_EMIT_ARGTYPES = ([ctypes.c_void_p] + [ctypes.c_int] * 7
+                  + [ctypes.c_uint32] * 4 + [ctypes.c_int] * 2
+                  + [ctypes.c_uint32, ctypes.c_int, ctypes.c_void_p])
+
+
+def _kernel_fn(name: str):
+    """The C entry point of kernel ``name``, built on first use."""
+    fn = _fns.get(name)
+    if fn is None:
+        lib = build.load(name)
+        if name == KERNEL:
+            fn = lib.repro_gemm_rng
+            fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
+                           + _EMIT_ARGTYPES)
+        else:
+            fn = lib.repro_gemm_rng_fp8
+            fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+                           + _EMIT_ARGTYPES)
         fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+        _fns[name] = fn
+    return fn
 
 
-def _launch(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
-            mask: Optional[torch.Tensor], em: Optional[_Emission]) -> None:
-    m, k = a.shape
-    n = b.shape[1]
+def _launch(name: str, args, mask: Optional[torch.Tensor],
+            em: Optional[_Emission], device: torch.device) -> None:
+    """Launch kernel ``name`` on the current stream: ``args`` are its
+    leading (operand and size) arguments, the emission's follow."""
     if em is None:
         lay_args = [None, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 7]
     else:
@@ -186,13 +207,12 @@ def _launch(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
                     lay.ck, lay.n_cb, lay.n_valid_blocks, em.key_lo,
                     em.key_hi, em.salt, em.bh_offset, em.heads_local,
                     em.heads_global, em.threshold, em.rounds]
-    with torch.cuda.device(a.device):
-        err = _kernel_fn()(a.data_ptr(), b.data_ptr(), c.data_ptr(), m, n, k,
-                           *lay_args,
-                           torch.cuda.current_stream().cuda_stream)
+    with torch.cuda.device(device):
+        err = _kernel_fn(name)(*args, *lay_args,
+                               torch.cuda.current_stream().cuda_stream)
     if err != 0:
-        raise RuntimeError(f"gemm_rng kernel launch failed: cudaError {err}")
-    _launches["plain" if em is None else "rng"] += 1
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
+    _launches[name]["plain" if em is None else "rng"] += 1
 
 
 def _plain_plane(em: _Emission, device) -> torch.Tensor:
@@ -213,21 +233,35 @@ def _plain_plane(em: _Emission, device) -> torch.Tensor:
     return out
 
 
+def _outputs(a: torch.Tensor, n: int, em: Optional[_Emission]):
+    """Empty C (f32) and flattened plane (or None) for a launch."""
+    c = torch.empty((a.shape[0], n), dtype=torch.float32, device=a.device)
+    mask = None if em is None else torch.empty(
+        (em.layout.rows_valid, em.layout.sk), dtype=torch.int32,
+        device=a.device)
+    return c, mask
+
+
+def _check_device(a: torch.Tensor, name: str) -> bool:
+    """True for a CUDA tensor (launch the kernel), False for a CPU one (the
+    plain version); other devices raise."""
+    if a.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"no {name} kernel for device {a.device}")
+    return a.device.type == "cuda"
+
+
 def _forward(a: torch.Tensor, b: torch.Tensor, em: Optional[_Emission]
              ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """(C, flattened plane or None) on the operands' device."""
-    if a.device.type == "cuda":
-        a, b = a.contiguous(), b.contiguous()
-        c = torch.empty((a.shape[0], b.shape[1]), dtype=torch.float32,
-                        device=a.device)
-        mask = None if em is None else torch.empty(
-            (em.layout.rows_valid, em.layout.sk), dtype=torch.int32,
-            device=a.device)
-        _launch(a, b, c, mask, em)
-        return c, mask
-    if a.device.type != "cpu":
-        raise ValueError(f"no gemm_rng kernel for device {a.device}")
-    return _plain(a, b, em)
+    if not _check_device(a, KERNEL):
+        return _plain(a, b, em)
+    a, b = a.contiguous(), b.contiguous()
+    m, k = a.shape
+    n = b.shape[1]
+    c, mask = _outputs(a, n, em)
+    _launch(KERNEL, [a.data_ptr(), b.data_ptr(), c.data_ptr(), m, n, k],
+            mask, em, a.device)
+    return c, mask
 
 
 def _plain(a, b, em: Optional[_Emission]):
@@ -264,9 +298,11 @@ def _emission(a: torch.Tensor, b: torch.Tensor, mask_batch: int,
               mask_heads: int, mask_sq: int, mask_sk: int, p: float, seed,
               salt, rounds: int, block_m: int, block_n: int, block_k: int,
               mask_block_cols: int, max_mask_rows_per_block: int,
-              heads_global: int, bh_offset) -> Optional[_Emission]:
-    """Check the call as the JAX package does and resolve what the fused
-    launch writes: the emission, or None in Region 3."""
+              heads_global: int, bh_offset
+              ) -> Tuple[Tuple[int, int, int], Optional[_Emission]]:
+    """Check the call as the JAX package does and resolve the logical GEMM
+    blocks (bm, bn, bk) and what the fused launch writes: the emission, or
+    None in Region 3."""
     if a.dtype != torch.float32 or b.dtype != torch.float32:
         raise NotImplementedError(
             f"gemm_with_rng takes f32 operands, got {a.dtype} "
@@ -291,13 +327,21 @@ def _emission(a: torch.Tensor, b: torch.Tensor, mask_batch: int,
                                   mask_heads, mask_sq, mask_sk,
                                   mask_block_cols, max_mask_rows_per_block)
     if layout is None:
-        return None
+        return (bm, bn, bkk), None
     k0, k1, salt_w, off = seed_salt_words(seed, salt, bh_offset)
-    return _Emission(layout=layout, sq32=mask_sq // 32,
-                     heads_local=mask_heads,
-                     heads_global=heads_global or mask_heads, key_lo=k0,
-                     key_hi=k1, salt=salt_w, bh_offset=off,
-                     threshold=threshold_from_p(p), rounds=rounds)
+    return (bm, bn, bkk), _Emission(
+        layout=layout, sq32=mask_sq // 32, heads_local=mask_heads,
+        heads_global=heads_global or mask_heads, key_lo=k0, key_hi=k1,
+        salt=salt_w, bh_offset=off, threshold=threshold_from_p(p),
+        rounds=rounds)
+
+
+def _as_plane(mask: Optional[torch.Tensor], mask_batch: int,
+              mask_heads: int, mask_sq: int, mask_sk: int):
+    """The flattened plane as (B, H, SQ//32, SK), or None in Region 3."""
+    if mask is None:
+        return None
+    return mask.reshape(mask_batch, mask_heads, mask_sq // 32, mask_sk)
 
 
 def gemm_with_rng(a: torch.Tensor, b: torch.Tensor, *, mask_batch: int,
@@ -313,13 +357,12 @@ def gemm_with_rng(a: torch.Tensor, b: torch.Tensor, *, mask_batch: int,
     (64-bit key) or a 0-d CPU tensor (key_hi = 0); ``salt``/``bh_offset``
     ints or 0-d CPU tensors. ``heads_global``/``bh_offset`` make the call
     shard-local (see ``philox_common.global_bh``)."""
-    em = _emission(a, b, mask_batch, mask_heads, mask_sq, mask_sk, p, seed,
-                   salt, rounds, block_m, block_n, block_k, mask_block_cols,
-                   max_mask_rows_per_block, heads_global, bh_offset)
+    _, em = _emission(a, b, mask_batch, mask_heads, mask_sq, mask_sk, p,
+                      seed, salt, rounds, block_m, block_n, block_k,
+                      mask_block_cols, max_mask_rows_per_block, heads_global,
+                      bh_offset)
     c, mask = _GemmRng.apply(a, b, em)
-    if mask is None:
-        return c, None
-    return c, mask.reshape(mask_batch, mask_heads, mask_sq // 32, mask_sk)
+    return c, _as_plane(mask, mask_batch, mask_heads, mask_sq, mask_sk)
 
 
 def gemm_with_rng_plain(a: torch.Tensor, b: torch.Tensor, *, mask_batch: int,
@@ -332,10 +375,162 @@ def gemm_with_rng_plain(a: torch.Tensor, b: torch.Tensor, *, mask_batch: int,
                         ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """The plain version of ``gemm_with_rng`` on any device (no
     gradient)."""
-    em = _emission(a, b, mask_batch, mask_heads, mask_sq, mask_sk, p, seed,
-                   salt, rounds, block_m, block_n, block_k, mask_block_cols,
-                   max_mask_rows_per_block, heads_global, bh_offset)
+    _, em = _emission(a, b, mask_batch, mask_heads, mask_sq, mask_sk, p,
+                      seed, salt, rounds, block_m, block_n, block_k,
+                      mask_block_cols, max_mask_rows_per_block, heads_global,
+                      bh_offset)
     c, mask = _plain(a, b, em)
-    if mask is None:
-        return c, None
-    return c, mask.reshape(mask_batch, mask_heads, mask_sq // 32, mask_sk)
+    return c, _as_plane(mask, mask_batch, mask_heads, mask_sq, mask_sk)
+
+
+# --------------------------------------------------------------------------
+# the fp8 (e4m3) host
+# --------------------------------------------------------------------------
+
+def gemm_fp8_plain(a_q: torch.Tensor, a_s: torch.Tensor, b_q: torch.Tensor,
+                   b_s: torch.Tensor, blocks: Tuple[int, int, int]
+                   ) -> torch.Tensor:
+    """The plain version of the e4m3 tile product: for each k-block kb of
+    bk columns, C += (a_q[:, kb] @ b_q[kb, :]) * (a_s[i, kb] * b_s[kb, j])
+    in f32 on the exactly decoded e4m3 values -- the JAX kernel's order of
+    rounding (partial product, scale product, then the accumulate)."""
+    bm, bn, bk = blocks
+    a = a_q.to(torch.float32)
+    b = b_q.to(torch.float32)
+    acc = torch.zeros((a.shape[0], b.shape[1]), dtype=torch.float32,
+                      device=a.device)
+    for kb in range(a.shape[1] // bk):
+        part = a[:, kb * bk:(kb + 1) * bk] @ b[kb * bk:(kb + 1) * bk]
+        scale = (a_s[:, kb].repeat_interleave(bm)[:, None]
+                 * b_s[kb].repeat_interleave(bn)[None, :])
+        acc += part * scale
+    return acc
+
+
+def gemm_rng_fp8_quantized(a_q: torch.Tensor, a_s: torch.Tensor,
+                           b_q: torch.Tensor, b_s: torch.Tensor,
+                           blocks: Tuple[int, int, int],
+                           em: Optional[_Emission]
+                           ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The fp8 host on operands already quantized per logical block
+    ``blocks`` = (bm, bn, bk): (C, flattened plane or None). Launches the
+    kernel for CUDA tensors, the plain version for CPU ones."""
+    if not _check_device(a_q, KERNEL_FP8):
+        return _plain_fp8(a_q, a_s, b_q, b_s, blocks, em)
+    bm, bn, bk = blocks
+    m, k = a_q.shape
+    n = b_q.shape[1]
+    if bk % 8:
+        raise NotImplementedError(
+            f"the {KERNEL_FP8} kernel takes k-blocks of a multiple of 8, got "
+            f"{bk}")
+    ops = (a_q, a_s, b_q, b_s)
+    dtypes = (quant.fp8_dtype(), torch.float32) * 2
+    if (any(t.dtype != dt for t, dt in zip(ops, dtypes))
+            or any(not t.is_contiguous() or t.device != a_q.device
+                   for t in ops)
+            or b_q.shape[0] != k or m % bm or n % bn or k % bk
+            or a_s.shape != (m // bm, k // bk)
+            or b_s.shape != (k // bk, n // bn)):
+        raise ValueError(
+            f"{KERNEL_FP8} takes contiguous e4m3 operands and f32 scales of "
+            f"the ({bm},{bn},{bk}) blocks on one device, got "
+            f"{[(t.dtype, tuple(t.shape), t.device) for t in ops]}")
+    c, mask = _outputs(a_q, n, em)
+    _launch(KERNEL_FP8,
+            [a_q.data_ptr(), b_q.data_ptr(), a_s.data_ptr(), b_s.data_ptr(),
+             c.data_ptr(), m, n, k, bm, bn, bk], mask, em, a_q.device)
+    return c, mask
+
+
+def _forward_fp8(a: torch.Tensor, b: torch.Tensor,
+                 blocks: Tuple[int, int, int], em: Optional[_Emission]
+                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Quantize per logical block, then the fp8 host."""
+    bm, bn, bk = blocks
+    a_q, a_s = quant.quantize_tiled(a, bm, bk)
+    b_q, b_s = quant.quantize_tiled(b, bk, bn)
+    return gemm_rng_fp8_quantized(a_q, a_s, b_q, b_s, blocks, em)
+
+
+def _plain_fp8(a_q, a_s, b_q, b_s, blocks, em: Optional[_Emission]):
+    """The plain version of the fp8 host on any device."""
+    c = gemm_fp8_plain(a_q, a_s, b_q, b_s, blocks)
+    return c, None if em is None else _plain_plane(em, a_q.device)
+
+
+def _bf16_f32(t: torch.Tensor) -> torch.Tensor:
+    return t.to(torch.bfloat16).to(torch.float32)
+
+
+class _GemmRngFp8(torch.autograd.Function):
+    """Forward: quantize, then the fp8 kernel (or its plain version on the
+    CPU). Backward: straight-through quantization -- the gradients are
+    taken with respect to the unquantized operands, which the residual
+    keeps -- and the dgrad pair on bf16-rounded operands with f32
+    accumulation, as JAX's ``_dgrad_pair_bf16`` (XLA there, torch.matmul
+    here: a bf16 x bf16 torch.matmul would round its result to bf16)."""
+
+    @staticmethod
+    def forward(ctx, a, b, blocks, em):
+        c, mask = _forward_fp8(a, b, blocks, em)
+        ctx.save_for_backward(a, b)
+        if mask is not None:
+            ctx.mark_non_differentiable(mask)
+        return c, mask
+
+    @staticmethod
+    def backward(ctx, dc, _dmask):
+        a, b = ctx.saved_tensors
+        dcb = _bf16_f32(dc)
+        da = db = None
+        if ctx.needs_input_grad[0]:
+            da = dcb @ _bf16_f32(b).T
+        if ctx.needs_input_grad[1]:
+            db = _bf16_f32(a).T @ dcb
+        return da, db, None, None
+
+
+def gemm_with_rng_fp8(a: torch.Tensor, b: torch.Tensor, *, mask_batch: int,
+                      mask_heads: int, mask_sq: int, mask_sk: int, p: float,
+                      seed, salt=0, rounds: int = 7, block_m: int = 256,
+                      block_n: int = 256, block_k: int = 512,
+                      mask_block_cols: int = 2048,
+                      max_mask_rows_per_block: int = 256,
+                      heads_global: int = 0, bh_offset=0
+                      ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """C ~= a @ b computed on e4m3 operands quantized per logical block
+    (a per (bm, bk), b per (bk, bn)), and the packed keep plane made under
+    it -- bitwise the f32 host's plane. C is within
+    ``quant.quantize_error_bound()`` (Frobenius-relative) of the f32
+    product. The plane is None in Region 3 (the kernel runs with the
+    emission off). Differentiable: straight-through quantization, bf16
+    dgrad pair. Arguments as ``gemm_with_rng``."""
+    blocks, em = _emission(a, b, mask_batch, mask_heads, mask_sq, mask_sk,
+                           p, seed, salt, rounds, block_m, block_n, block_k,
+                           mask_block_cols, max_mask_rows_per_block,
+                           heads_global, bh_offset)
+    c, mask = _GemmRngFp8.apply(a, b, blocks, em)
+    return c, _as_plane(mask, mask_batch, mask_heads, mask_sq, mask_sk)
+
+
+def gemm_with_rng_fp8_plain(a: torch.Tensor, b: torch.Tensor, *,
+                            mask_batch: int, mask_heads: int, mask_sq: int,
+                            mask_sk: int, p: float, seed, salt=0,
+                            rounds: int = 7, block_m: int = 256,
+                            block_n: int = 256, block_k: int = 512,
+                            mask_block_cols: int = 2048,
+                            max_mask_rows_per_block: int = 256,
+                            heads_global: int = 0, bh_offset=0
+                            ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The plain version of ``gemm_with_rng_fp8`` on any device (no
+    gradient)."""
+    blocks, em = _emission(a, b, mask_batch, mask_heads, mask_sq, mask_sk,
+                           p, seed, salt, rounds, block_m, block_n, block_k,
+                           mask_block_cols, max_mask_rows_per_block,
+                           heads_global, bh_offset)
+    bm, bn, bk = blocks
+    a_q, a_s = quant.quantize_tiled(a, bm, bk)
+    b_q, b_s = quant.quantize_tiled(b, bk, bn)
+    c, mask = _plain_fp8(a_q, a_s, b_q, b_s, blocks, em)
+    return c, _as_plane(mask, mask_batch, mask_heads, mask_sq, mask_sk)

@@ -6,7 +6,8 @@ This is where the paper's topology lives: with site "qkv" the packed
 dropout plane is made under the QKV projection by the fused GEMM+RNG
 kernel and consumed by flash attention -- read from the plane (premask),
 or re-derived from the same counters in the kernels (replay, with the
-plane discarded).
+plane discarded). With site "prev_gemm" the NEXT attention layer's plane
+is made under this layer's out-projection and carried to it.
 """
 from __future__ import annotations
 
@@ -14,7 +15,11 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.config.base import AttentionKind, ModelConfig
+from repro_torch.config.base import (
+    CARRIED_DROPOUT_SITES,
+    AttentionKind,
+    ModelConfig,
+)
 from repro_torch.core import producer
 from repro_torch.core.attention import _NEG, attention_xla
 from repro_torch.core.overlap import DropoutPlan
@@ -100,21 +105,29 @@ def _project_qkv_fused(p, x, cfg: ModelConfig, positions, plan, layer_idx,
 def attn_apply(p, x, cfg: ModelConfig, *, kind: AttentionKind,
                plan: Optional[DropoutPlan], layer_idx, step,
                chunk_q: int = 1024, probs_dtype=None, impl: str = "xla",
-               asg=None):
+               mask_in=None, emit_next: bool = False, asg=None):
     """Training forward of one attention layer over the full sequence;
     x (B, S, D) -> (B, S, D).
 
     ``asg`` -- this layer's HostAssignment from the compiled schedule --
     names the mask producer: site "xla" makes the bits with tensor ops
     next to the plain QKV projection, site "qkv" under the fused QKV
-    GEMM+RNG kernel. With ``asg.how == "replay"`` the flash kernels
-    re-derive the bits from the counters and a retained qkv host's plane
-    is discarded. ``impl="pallas"`` (the JAX knob's name) runs the CUDA
-    flash kernels, and raises where they cannot take the call; ``"xla"``
-    runs the chunked tensor-op attention. Direct calls may omit ``asg``: a
-    single-layer assignment is compiled on the spot. Carried sites and
-    sharding policies are not ported (the schedule compiler refuses
-    them)."""
+    GEMM+RNG kernel. Under a carried site (or the "standalone" bootstrap)
+    ``mask_in`` carries this layer's plane, made under the previous
+    attention block's host GEMM; without one (a direct call) the
+    standalone producer makes the same bits here. With ``emit_next`` and
+    ``asg.emit_site == "prev_gemm"`` the NEXT attention layer's plane
+    (layer ``layer_idx + asg.emit_stride``) is made under this layer's
+    out-projection; "ffn_up" / "ffn_down" emissions happen in the FFN half
+    (models/transformer.py), so the carry passes through here. With
+    ``asg.how == "replay"`` the flash kernels re-derive the bits from the
+    counters and a retained qkv host's plane is discarded.
+    ``impl="pallas"`` (the JAX knob's name) runs the CUDA flash kernels,
+    and raises where they cannot take the call; ``"xla"`` runs the
+    chunked tensor-op attention. Direct calls may omit ``asg``: a
+    single-layer assignment is compiled on the spot. Sharding policies
+    are not ported (the schedule compiler refuses them). Returns y, or
+    (y, next plane) when ``emit_next``."""
     b, s, _ = x.shape
     if impl == "pallas":
         reason = _flash_unsupported_reason(plan, s, cfg.head_dim)
@@ -147,7 +160,17 @@ def attn_apply(p, x, cfg: ModelConfig, *, kind: AttentionKind,
             p, x, cfg, positions, plan, layer_idx, step, how=asg.how)
     else:
         q, k, v = _project_qkv(p, x, cfg, positions)
-        if overlap:
+        if overlap and (site in CARRIED_DROPOUT_SITES
+                        or site == "standalone"):
+            packed = mask_in
+            if packed is None:
+                # bootstrap or a direct call without a carry: the
+                # standalone producer makes the same bits in-layer
+                packed = producer.standalone_packed_mask(
+                    plan, b, cfg.n_heads, s, s, layer_idx, step,
+                    use_kernel=asg.how == producer.HOW_STANDALONE,
+                    device=x.device)
+        elif overlap:
             packed = plan.precompute_mask(b, cfg.n_heads, s, s, layer_idx,
                                           step, device=x.device)
 
@@ -161,7 +184,16 @@ def attn_apply(p, x, cfg: ModelConfig, *, kind: AttentionKind,
             layer_idx=layer_idx, step=step, packed_mask=packed,
             chunk_q=chunk_q, probs_dtype=probs_dtype or torch.float32)
     out = out.transpose(1, 2).reshape(b, s, -1)
-    return out @ p["w_o"].to(x.dtype)
+    w_o = p["w_o"].to(x.dtype)
+    if emit_next and overlap and asg.emit_site == "prev_gemm":
+        # the next attention layer's plane under this out-projection (the
+        # paper's "previous GEMM layers" site)
+        y2d, mask_next = producer.gemm_with_mask(
+            out.reshape(b * s, -1), w_o, plan, (b, cfg.n_heads, s, s),
+            layer_idx + asg.emit_stride, step, how=asg.emit_how)
+        return y2d.reshape(b, s, -1), mask_next
+    y = out @ w_o
+    return (y, mask_in) if emit_next else y
 
 
 def _flash_unsupported_reason(plan, s: int, head_dim: int) -> Optional[str]:

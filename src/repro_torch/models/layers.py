@@ -127,15 +127,26 @@ def ffn_init(gen: torch.Generator, cfg: ModelConfig,
         "recurrent paging)")
 
 
-def ffn_apply(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """x (..., d_model) through the un-hosted SwiGLU / GeGLU / GELU FFN."""
+def _ffn_act(cfg: ModelConfig):
+    return (F.silu if cfg.ffn == FFNKind.SWIGLU
+            else lambda t: F.gelu(t, approximate="tanh"))
+
+
+def ffn_apply(p, x: torch.Tensor, cfg: ModelConfig, host=None):
+    """x (..., d_model) through the SwiGLU / GeGLU / GELU FFN.
+
+    ``host`` (a core/producer.FFNHost) asks this FFN to host a dropout
+    mask producer under one of its GEMMs: "ffn_up" under the gate+up
+    projection (one concatenated GEMM for gated FFNs, the block's largest),
+    "ffn_down" under the down projection. With a host the return value is
+    (y, packed plane); the bits are those of every other producer site."""
+    if host is not None:
+        return _ffn_apply_hosted(p, x, cfg, host)
     dt = x.dtype
     if cfg.ffn in (FFNKind.SWIGLU, FFNKind.GEGLU):
         g = x @ p["w_gate"].to(dt)
         u = x @ p["w_up"].to(dt)
-        gf = g.to(torch.float32)
-        act = (F.silu(gf) if cfg.ffn == FFNKind.SWIGLU
-               else F.gelu(gf, approximate="tanh"))
+        act = _ffn_act(cfg)(g.to(torch.float32))
         return (act.to(dt) * u) @ p["w_down"].to(dt)
     if cfg.ffn == FFNKind.GELU:
         h = x @ p["w_up"].to(dt) + p["b_up"].to(dt)
@@ -143,3 +154,51 @@ def ffn_apply(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
         return h @ p["w_down"].to(dt) + p["b_down"].to(dt)
     raise NotImplementedError(
         f"ffn={cfg.ffn.value!r} is not ported yet (ROADMAP: port queue)")
+
+
+def _ffn_apply_hosted(p, x: torch.Tensor, cfg: ModelConfig, host):
+    """The FFN with the mask producer hosted under its up or down GEMM
+    (producer.gemm_with_mask, the schedule's planned ``host.how``).
+    Returns (y, packed plane)."""
+    from repro_torch.core import producer
+    dt = x.dtype
+    lead = x.shape[:-1]
+    x2d = x.reshape(-1, x.shape[-1])
+
+    def host_gemm(a2d, w):
+        return producer.gemm_with_mask(
+            a2d, w.to(dt), host.plan, host.mask_shape, host.layer_idx,
+            host.step, how=host.how)
+
+    if cfg.ffn in (FFNKind.SWIGLU, FFNKind.GEGLU):
+        act = _ffn_act(cfg)
+        f = p["w_gate"].shape[1]
+        if host.site == "ffn_up":
+            # one concatenated gate+up GEMM: the block's largest host
+            w_gu = torch.cat([p["w_gate"], p["w_up"]], dim=1)
+            gu, mask = host_gemm(x2d, w_gu)
+            g, u = gu[:, :f], gu[:, f:]
+            h = act(g.to(torch.float32)).to(dt) * u
+            y2d = h @ p["w_down"].to(dt)
+        else:
+            g = x2d @ p["w_gate"].to(dt)
+            u = x2d @ p["w_up"].to(dt)
+            h = act(g.to(torch.float32)).to(dt) * u
+            y2d, mask = host_gemm(h, p["w_down"])
+        return y2d.reshape(*lead, -1), mask
+    if cfg.ffn == FFNKind.GELU:
+        if host.site == "ffn_up":
+            h2d, mask = host_gemm(x2d, p["w_up"])
+            h = h2d + p["b_up"].to(dt)
+            h = F.gelu(h.to(torch.float32), approximate="tanh").to(dt)
+            y2d = h @ p["w_down"].to(dt)
+        else:
+            h = x2d @ p["w_up"].to(dt) + p["b_up"].to(dt)
+            h = F.gelu(h.to(torch.float32), approximate="tanh").to(dt)
+            y2d, mask = host_gemm(h, p["w_down"])
+        return (y2d + p["b_down"].to(dt)).reshape(*lead, -1), mask
+    # RWKV channel-mix: its key / value GEMMs host through the grouped
+    # kernel (E=1)
+    raise NotImplementedError(
+        f"ffn={cfg.ffn.value!r} hosts through the grouped kernel, which is "
+        "not ported yet (ROADMAP: port queue, grouped slice)")

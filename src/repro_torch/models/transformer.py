@@ -160,34 +160,72 @@ def unembed(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 
 def _not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP: port queue, carried sites / "
-        "LOCAL, MoE and recurrent layers)")
+        f"{what} is not ported yet (ROADMAP: port queue, LOCAL, MoE and "
+        "recurrent layers)")
 
 
 def _mix_forward(p, x, cfg: ModelConfig, rt: Runtime, kind, layer_idx,
-                 asg=None):
+                 mask_in=None, emit_next: bool = False, asg=None):
+    """Returns (y, next plane or None)."""
     if kind not in (AttentionKind.FULL, AttentionKind.LOCAL):
         raise _not_ported(f"{kind.value} mixers")
-    return attn_apply(p, x, cfg, kind=kind, plan=rt.plan,
-                      layer_idx=layer_idx, step=rt.step, chunk_q=rt.chunk_q,
-                      impl=rt.attn_impl, asg=asg)
+    y = attn_apply(p, x, cfg, kind=kind, plan=rt.plan, layer_idx=layer_idx,
+                   step=rt.step, chunk_q=rt.chunk_q, impl=rt.attn_impl,
+                   mask_in=mask_in, emit_next=emit_next, asg=asg)
+    return y if emit_next else (y, None)
 
 
-def _ffn_forward(p, x, cfg: ModelConfig, tag):
-    """The dense, un-hosted FFN (no ported schedule hosts a mask there)."""
+def _ffn_forward(p, x, cfg: ModelConfig, rt: Runtime, tag, layer_idx=0,
+                 asg=None, mask_shape=None):
+    """The dense FFN; returns (y, next plane or None). When the schedule
+    gives this block an FFN emission (asg.emit_site "ffn_up" /
+    "ffn_down"), the FFN hosts the NEXT attention layer's mask producer
+    under one of its GEMMs."""
+    from repro_torch.core import producer
     if tag != "dense":
         raise _not_ported("MoE FFNs")
-    return ffn_apply(p["ffn"], x, cfg)
+    if mask_shape is None:
+        return ffn_apply(p["ffn"], x, cfg), None
+    host = producer.FFNHost(
+        plan=rt.plan, site=asg.emit_site, mask_shape=mask_shape,
+        layer_idx=layer_idx + asg.emit_stride, step=rt.step,
+        how=asg.emit_how)
+    return ffn_apply(p["ffn"], x, cfg, host=host)
 
 
 def block_apply(p, x, cfg: ModelConfig, rt: Runtime, kind, tag, layer_idx,
-                asg=None):
-    """One pre-norm block: x + mix(norm(x)), then + ffn(norm(x)). ``asg``
-    is the block's HostAssignment from the compiled schedule."""
+                asg=None, mask_in=None, emit: bool = False):
+    """One pre-norm block: x + mix(norm(x)), then + ffn(norm(x)). Returns
+    (x, next plane or None). ``asg`` is the block's HostAssignment from
+    the compiled schedule; with ``emit`` (a carried-site schedule) the
+    block consumes ``mask_in`` and emits the next attention layer's plane
+    under its out-projection ("prev_gemm") or FFN GEMM ("ffn_up" /
+    "ffn_down")."""
+    is_attn = kind in (AttentionKind.FULL, AttentionKind.LOCAL)
+    ffn_hosts = (emit and is_attn and asg is not None
+                 and asg.emit_site in ("ffn_up", "ffn_down"))
     h = norm_apply(p["norm_mix"], x, cfg)
-    x = x + _mix_forward(p["mix"], h, cfg, rt, kind, layer_idx, asg=asg)
+    y, mask_next = _mix_forward(
+        p["mix"], h, cfg, rt, kind, layer_idx, mask_in=mask_in,
+        emit_next=emit and is_attn and not ffn_hosts, asg=asg)
+    x = x + y
     h2 = norm_apply(p["norm_ffn"], x, cfg)
-    return x + _ffn_forward(p, h2, cfg, tag)
+    if ffn_hosts:
+        b, s = x.shape[0], x.shape[1]
+        f, mask_next = _ffn_forward(p, h2, cfg, rt, tag,
+                                    layer_idx=layer_idx, asg=asg,
+                                    mask_shape=(b, cfg.n_heads, s, s))
+    else:
+        f, _ = _ffn_forward(p, h2, cfg, rt, tag)
+    if emit and not is_attn:
+        mask_next = mask_in        # the carry rides through mixer-only blocks
+    if mask_next is not None and asg is not None:
+        from repro_torch.core import producer
+        if asg.how == producer.HOW_REPLAY:
+            # replay-planned consumers never read a plane: a retained
+            # GEMM-hosted emission ran for the RNG-under-GEMM overlap only
+            mask_next = None
+    return x + f, mask_next
 
 
 def forward(params, cfg: ModelConfig, rt: Runtime, inputs
@@ -196,10 +234,18 @@ def forward(params, cfg: ModelConfig, rt: Runtime, inputs
     (B, S, D). Returns (logits f32 (B, S, V), aux loss).
 
     Mask production follows the compiled DropoutSchedule (rt.schedule, or
-    compiled here from the plan). With remat="block" every stack unit runs
-    under ``torch.utils.checkpoint`` and is recomputed in the backward: its
-    GEMM+RNG and flash forward launch again there, and the keep bits come
-    out the same because the counters are position-based."""
+    compiled here from the plan). With a carried site ("prev_gemm" /
+    "ffn_up" / "ffn_down") the layer loop also carries a packed plane: the
+    next attention layer's mask is made under the current block's
+    out-projection or FFN up / down GEMM, and the first consumer's comes
+    from the standalone producer (the bootstrap) -- unless consumption is
+    replay, which reads no plane (the GEMM-hosted emissions still run, and
+    their planes are dropped). The last attention layer's emission has no
+    consumer and is dropped, as in the JAX package, whose scan compiles one
+    body for every layer. With remat="block" every stack unit runs under
+    ``torch.utils.checkpoint`` and is recomputed in the backward: its
+    GEMM+RNG hosts and flash forward launch again there, and the keep bits
+    come out the same because the counters are position-based."""
     x = embed_inputs(params, cfg, inputs, rt)
     sched = rt.schedule
     if sched is not None and (sched.batch, sched.seq) != (x.shape[0],
@@ -211,8 +257,16 @@ def forward(params, cfg: ModelConfig, rt: Runtime, inputs
             cfg, rt.plan.cfg, x.shape[0], x.shape[1],
             attn_impl=rt.attn_impl)
     active = sched is not None and sched.active
-    if active and sched.carried:
-        raise _not_ported("carried-site schedules")
+    carry_mask = active and sched.carried
+    mask_buf = None
+    if carry_mask and not sched.replay:
+        from repro_torch.core import producer
+        basg = sched.for_layer(sched.first_consumer)
+        b, s = x.shape[0], x.shape[1]
+        mask_buf = producer.standalone_packed_mask(
+            rt.plan, b, cfg.n_heads, s, s, sched.first_consumer, rt.step,
+            use_kernel=basg.how == producer.HOW_STANDALONE,
+            device=x.device)
     for spec, stack_params in zip(build_stacks(cfg), params["stacks"]):
         unit_len = len(spec.unit)
         unit_asgs = tuple(sched.for_layer(spec.base + j) if active else None
@@ -220,18 +274,20 @@ def forward(params, cfg: ModelConfig, rt: Runtime, inputs
         for pos in range(spec.count):
             up = _index(stack_params, pos)
 
-            def unit_apply(x, _up=up, _pos=pos, _spec=spec, _ul=unit_len,
-                           _asgs=unit_asgs):
+            def unit_apply(x, mask, _up=up, _pos=pos, _spec=spec,
+                           _ul=unit_len, _asgs=unit_asgs):
                 for j, (kind, tag) in enumerate(_spec.unit):
-                    x = block_apply(_up[f"l{j}"], x, cfg, rt, kind, tag,
-                                    _spec.base + _pos * _ul + j,
-                                    asg=_asgs[j])
-                return x
+                    x, mask = block_apply(
+                        _up[f"l{j}"], x, cfg, rt, kind, tag,
+                        _spec.base + _pos * _ul + j, asg=_asgs[j],
+                        mask_in=mask, emit=carry_mask)
+                return x, mask
 
             if rt.remat == "block":
-                x = checkpoint(unit_apply, x, use_reentrant=False)
+                x, mask_buf = checkpoint(unit_apply, x, mask_buf,
+                                         use_reentrant=False)
             else:
-                x = unit_apply(x)
+                x, mask_buf = unit_apply(x, mask_buf)
     x = norm_apply(params["final_norm"], x, cfg)
     # the aux (router) loss of MoE stacks; the dense stacks ported so far
     # have none

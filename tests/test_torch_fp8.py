@@ -1,0 +1,218 @@
+"""The port's fp8 (e4m3) producer GEMM against the JAX package: per-tile
+quantization (e4m3 bytes and scales bitwise), the fused e4m3 GEMM+RNG
+(C within 3e-5, the plane bitwise and equal to the f32 host's), its
+Region-3 variant (no plane, C equal to JAX's plain fp8 GEMM), the
+straight-through bf16 dgrad (gradients within 1e-4) and the documented
+error bound (< 0.06 Frobenius-relative to f32). The cases are those of
+``tests/test_fp8_gemm.py`` plus the scale-tile shapes the CUDA kernel
+must get right: a logical block taller than its 128-row CTA tile (M =
+192) and a k-block that is not 512 (K = 11008 gives bk = 344). Inputs are
+made with numpy from a seed; the JAX kernels run in Pallas interpret mode
+on the CPU, the port's wrappers take their plain versions there.
+
+    PYTHONPATH=src python -m pytest -q tests/test_torch_fp8.py
+
+The ``gpu``-marked test holds the CUDA kernel against its plain version
+on the card and skips here.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.config.base import DropoutPlanConfig as JPlanConfig
+from repro.core import producer as jproducer
+from repro.core.overlap import plan_from_config
+from repro.kernels import quant as jquant
+from repro.kernels.gemm_rng import gemm_with_rng_fp8 as j_fp8
+from repro.kernels.ref import philox_mask_ref
+from repro_torch.config.base import DropoutPlanConfig
+from repro_torch.core import producer
+from repro_torch.core.overlap import DropoutPlan
+from repro_torch.kernels import gemm_rng as tg
+from repro_torch.kernels import launch_counts, quant, reset_launch_counts
+from repro_torch.kernels.ops import fused_gemm_rng_fp8
+
+C_TOL = dict(atol=3e-5, rtol=3e-5)
+GRAD_TOL = dict(atol=1e-4, rtol=1e-4)
+BOUND = quant.quantize_error_bound()
+
+
+def _u32(t: torch.Tensor) -> np.ndarray:
+    return t.numpy().view(np.uint32)
+
+
+def _rel_err(got, want) -> float:
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    return float(np.linalg.norm(got - want)
+                 / max(np.linalg.norm(want), 1e-12))
+
+
+def _operands(seed, m, k, n, scale=1.0):
+    rng = np.random.default_rng(seed)
+    return ((rng.standard_normal((m, k)) * scale).astype(np.float32),
+            rng.standard_normal((k, n)).astype(np.float32))
+
+
+@pytest.mark.parametrize("shape,tile,scale", [
+    ((256, 128), (64, 64), 1.0),
+    ((256, 384), (64, 128), 1e-3),
+    ((192, 256), (192, 256), 1e5),
+    ((64, 11008), (64, 344), 1.0)])
+def test_quantize_tiled_bitwise_equal_jax(shape, tile, scale):
+    x = (np.random.default_rng(1).standard_normal(shape) * scale
+         ).astype(np.float32)
+    x[:tile[0], :tile[1]] = 0.0                  # an all-zero tile
+    x[-tile[0]:, -tile[1]:] *= 1e-30             # subnormal-range values
+    q, s = quant.quantize_tiled(torch.from_numpy(x), *tile)
+    jq, js = jquant.quantize_tiled(jnp.asarray(x), *tile)
+    assert q.dtype == quant.fp8_dtype()
+    assert s.shape == (shape[0] // tile[0], shape[1] // tile[1])
+    np.testing.assert_array_equal(q.view(torch.uint8).numpy(),
+                                  np.asarray(jq).view(np.uint8))
+    np.testing.assert_array_equal(s.numpy().view(np.uint32),
+                                  np.asarray(js).view(np.uint32))
+    back = quant.dequantize_tiled(q, s, *tile)
+    np.testing.assert_array_equal(
+        back.numpy(), np.asarray(jquant.dequantize_tiled(jq, js, *tile)))
+    # |x_hat - x| <= 2**-4 * (tile amax); the zero tile round-trips exactly
+    assert float((back - torch.from_numpy(x)).abs().max()) <= \
+        2.0 ** -4 * float(np.abs(x).max())
+    assert not back[:tile[0], :tile[1]].any()
+
+
+# (m, k, n), logical blocks (bm, bn, bk), plane (B, H, SQ, SK), mask cols
+GEMM_CASES = [
+    ((256, 128, 256), (128, 128, 128), (2, 2, 64, 128), 128),
+    ((512, 512, 512), (128, 128, 128), (2, 2, 64, 128), 128),
+    # a logical block of 192 rows: taller than the kernel's 128-row CTA
+    # tile, so its scale rows cut across CTAs
+    ((192, 64, 256), (192, 256, 64), (1, 2, 64, 128), 128),
+    # ffn_down's K: bk = 344, 32 k-blocks
+    ((64, 11008, 64), (64, 64, 344), (1, 1, 32, 64), 64)]
+
+
+@pytest.mark.parametrize("dims,blocks,plane,cols", GEMM_CASES)
+def test_fp8_gemm_equals_jax(dims, blocks, plane, cols):
+    m, k, n = dims
+    a, b = _operands(sum(dims), m, k, n)
+    mb, mh, sq, sk = plane
+    kw = dict(mask_batch=mb, mask_heads=mh, mask_sq=sq, mask_sk=sk, p=0.25,
+              seed=4, salt=2, block_m=blocks[0], block_n=blocks[1],
+              block_k=blocks[2], mask_block_cols=cols)
+    c, mask = fused_gemm_rng_fp8(torch.from_numpy(a), torch.from_numpy(b),
+                                 **kw)
+    jc, jmask = j_fp8(jnp.asarray(a), jnp.asarray(b), **kw)
+    assert mask is not None and mask.shape == (mb, mh, sq // 32, sk)
+    np.testing.assert_array_equal(_u32(mask), np.asarray(jmask))
+    np.testing.assert_allclose(c.numpy(), np.asarray(jc), **C_TOL)
+    rel = _rel_err(c.numpy(), a @ b)
+    assert 0.0 < rel < BOUND, rel
+    # the plane does not depend on the host dtype
+    _, mask32 = tg.gemm_with_rng(torch.from_numpy(a), torch.from_numpy(b),
+                                 **kw)
+    assert torch.equal(mask, mask32)
+    np.testing.assert_array_equal(
+        _u32(mask), np.asarray(philox_mask_ref(mb, mh, sq, sk, 0.25, 4,
+                                               salt=2)))
+
+
+def test_fp8_region3_runs_the_plain_product():
+    """Grid too small for the plane: (quantized GEMM, None), C equal to
+    JAX's plain fp8 GEMM and within the error bound."""
+    a, b = _operands(3, 128, 128, 128)
+    kw = dict(mask_batch=8, mask_heads=16, mask_sq=2048, mask_sk=2048,
+              p=0.1, seed=0, block_m=128, block_n=128, block_k=128)
+    c, mask = tg.gemm_with_rng_fp8(torch.from_numpy(a), torch.from_numpy(b),
+                                   **kw)
+    jc, jmask = j_fp8(jnp.asarray(a), jnp.asarray(b), **kw)
+    assert mask is None and jmask is None
+    np.testing.assert_allclose(c.numpy(), np.asarray(jc), **C_TOL)
+    assert _rel_err(c.numpy(), a @ b) < BOUND
+
+
+@pytest.mark.parametrize("dims,blocks", [((128, 128, 128), (128, 128, 128)),
+                                         ((192, 64, 256), (192, 256, 64))])
+def test_fp8_grads_equal_jax(dims, blocks):
+    """Straight-through quantization and the bf16 dgrad pair: gradients of
+    sum(C**2) within 1e-4 of JAX's, and within 0.1 of the exact f32
+    gradients (the fp8 forward's error budget)."""
+    m, k, n = dims
+    a, b = _operands(7, m, k, n)
+    kw = dict(mask_batch=1, mask_heads=2, mask_sq=64, mask_sk=128, p=0.1,
+              seed=3, block_m=blocks[0], block_n=blocks[1],
+              block_k=blocks[2], mask_block_cols=128)
+    ta = torch.from_numpy(a).requires_grad_()
+    tb = torch.from_numpy(b).requires_grad_()
+    c, _ = tg.gemm_with_rng_fp8(ta, tb, **kw)
+    da, db = torch.autograd.grad(c.square().sum(), (ta, tb))
+
+    def loss(a_, b_):
+        return jnp.sum(jnp.square(j_fp8(a_, b_, **kw)[0]))
+
+    jda, jdb = jax.grad(loss, argnums=(0, 1))(jnp.asarray(a), jnp.asarray(b))
+    np.testing.assert_allclose(da.numpy(), np.asarray(jda), **GRAD_TOL)
+    np.testing.assert_allclose(db.numpy(), np.asarray(jdb), **GRAD_TOL)
+    exact = a @ b
+    assert _rel_err(da.numpy(), (2.0 * exact) @ b.T) < 0.1
+    assert _rel_err(db.numpy(), a.T @ (2.0 * exact)) < 0.1
+
+
+@pytest.mark.parametrize("how", [producer.HOW_GEMM,
+                                 producer.HOW_STANDALONE])
+def test_producer_routes_fp8(how):
+    """``gemm_dtype="fp8"`` routes ``gemm_with_mask`` through the fp8 host:
+    JAX's bits and GEMM, in the fused and the Region-3 case."""
+    kw = dict(mode="overlap", p=0.25, seed=5, site="qkv", gemm_dtype="fp8")
+    plan = DropoutPlan(DropoutPlanConfig(**kw))
+    jplan = plan_from_config(JPlanConfig(**kw))
+    b, h, s = (1, 2, 128) if how == producer.HOW_GEMM else (1, 64, 256)
+    x2d, w = _operands(11, b * s, 64, 192)
+    y, mask = producer.gemm_with_mask(
+        torch.from_numpy(x2d), torch.from_numpy(w), plan, (b, h, s, s), 3, 7,
+        how=how)
+    jy, jmask, jhow = jproducer.gemm_with_mask(
+        jnp.asarray(x2d), jnp.asarray(w), jplan, (b, h, s, s), 3, 7)
+    assert jhow == how
+    np.testing.assert_array_equal(_u32(mask), np.asarray(jmask))
+    np.testing.assert_allclose(y.numpy(), np.asarray(jy), **C_TOL)
+    assert 0.0 < _rel_err(y.numpy(), x2d @ w) < BOUND
+
+
+def test_fp8_checks_and_cpu_launches_nothing():
+    reset_launch_counts()
+    a = torch.zeros((64, 32))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tg.gemm_with_rng_fp8(a.to(torch.bfloat16), a.T.to(torch.bfloat16),
+                             mask_batch=1, mask_heads=1, mask_sq=32,
+                             mask_sk=32, p=0.1, seed=0)
+    with pytest.raises(ValueError, match="do not tile"):
+        tg.gemm_with_rng_fp8(a, a.T, mask_batch=1, mask_heads=1, mask_sq=32,
+                             mask_sk=32, p=0.1, seed=0, block_m=48)
+    c, _ = tg.gemm_with_rng_fp8(a, a.T, mask_batch=1, mask_heads=1,
+                                mask_sq=32, mask_sk=32, p=0.1, seed=0)
+    assert not c.any()                 # all-zero tiles stay finite and zero
+    assert set(launch_counts().values()) == {0}
+
+
+@pytest.mark.gpu
+def test_fp8_kernel_equals_plain_on_gpu():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA); none on this machine")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    reset_launch_counts()
+    for (m, k, n), blocks, (mb, mh, sq, sk), cols in GEMM_CASES:
+        a, b = (torch.from_numpy(t).cuda() for t in _operands(0, m, k, n))
+        kw = dict(mask_batch=mb, mask_heads=mh, mask_sq=sq, mask_sk=sk,
+                  p=0.1, seed=torch.tensor(7), salt=3, block_m=blocks[0],
+                  block_n=blocks[1], block_k=blocks[2], mask_block_cols=cols)
+        c, mask = tg.gemm_with_rng_fp8(a, b, **kw)
+        want_c, want = tg.gemm_with_rng_fp8_plain(a, b, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(mask, want)
+        torch.testing.assert_close(c, want_c, atol=1e-4, rtol=1e-4)
+    counts = launch_counts()
+    assert counts.pop("gemm_rng_fp8") == len(GEMM_CASES)
+    assert set(counts.values()) == {0}

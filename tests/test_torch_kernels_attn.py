@@ -329,5 +329,5 @@ def test_kernels_equal_plain_on_gpu():
     for got, want in zip(grads, (pdq, pdk, pdv)):
         torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
     assert launch_counts() == {"philox_mask": 0, "gemm_rng": 1,
-                               "flash_fwd": 1, "flash_dq": 1,
-                               "flash_dkv": 1}
+                               "gemm_rng_fp8": 0, "flash_fwd": 1,
+                               "flash_dq": 1, "flash_dkv": 1}

@@ -123,7 +123,8 @@ def test_gemm_planning_helpers_equal_jax(shape):
 
 def test_unported_sites_and_dtypes_raise():
     cfg = get_arch("llama2-7b", reduced=True)
-    for plan in (DropoutPlanConfig(mode="overlap", site="prev_gemm"),
+    for plan in (DropoutPlanConfig(mode="overlap", site="prev_gemm",
+                                   gemm_dtype="bf16"),
                  DropoutPlanConfig(mode="overlap", site="auto"),
                  DropoutPlanConfig(mode="overlap", site="qkv",
                                    gemm_dtype="bf16")):

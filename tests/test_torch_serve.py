@@ -238,9 +238,10 @@ def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="speculative"):
         _engine(spec_k=4)
     for plan in (DropoutPlanConfig(mode="overlap", site="auto"),
-                 DropoutPlanConfig(mode="overlap", site="prev_gemm")):
+                 DropoutPlanConfig(mode="overlap", site="prev_gemm",
+                                   gemm_dtype="bf16")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            compile_schedule(_cfg(), plan, 1, 64)
+            compile_schedule(_cfg(), plan, 1, 256, attn_impl="pallas")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         compile_schedule(_cfg(), DropoutPlanConfig(mode="overlap"), 1, 64,
                          policy=object())

@@ -177,7 +177,7 @@ def test_eval_step_and_unported_knobs():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         make_train_step(cfg, run, compute_dtype=torch.bfloat16)
     bad = dataclasses.replace(run, dropout=dataclasses.replace(
-        run.dropout, site="prev_gemm"))
+        run.dropout, gemm_dtype="bf16"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         make_train_step(cfg, bad)
     fused = dataclasses.replace(run, dropout=dataclasses.replace(
