@@ -44,14 +44,28 @@ Phases (each raises on failure; nothing is caught):
      planes), bitwise equal as in 5; launches against the schedule's
      formula; then one step each of prev_gemm/fp8, ffn_down/fp8, qkv/fp8
      and ffn_up/f32, whose step-0 losses agree with the f32 ones (1e-4 in
-     f32, within the e4m3 error in fp8).
+     f32, within the e4m3 error in fp8);
+  7. MoE training at width: moonshot-v1-16b-a3b at full width and 4 of
+     its 48 layers (L0 dense, L1-L3 MoE: 64 experts top-6, capacity 480;
+     2.46 B f32 parameters from a seed, the state donated to each step so
+     one copy of it fits on the card), B=2, S=2048, p=0.1,
+     remat="block", site "ffn_up" / fp8: the next layer's plane made under
+     L0's dense gate+up GEMM (the e4m3 kernel) and under L1-L3's grouped
+     expert gate einsum (the grouped e4m3 kernel); 3 replay steps and step
+     0 again under premask, bitwise equal (loss, gradients, updated
+     weights); launches against the schedule's formula; then one step
+     each of ffn_down/fp8, ffn_up/f32, ffn_down/f32 (the grouped f32
+     kernel) and qkv/f32, whose step-0 losses agree with ffn_up/f32's.
 
 Phase 2 also checks the e4m3 GEMM+RNG kernel against its plain version
 at the four host shapes of phase 6 (QKV, out-projection, gate+up, down;
 plane bitwise, also against the f32 kernel's; C within 1e-3 of the plain
 version and under 0.06 of the f32 product), at two scale-tile shapes and
-with a Region-3 call that emits nothing; phase 4 adds the reduced llama2
-at prev_gemm/f32 and ffn_up/fp8, card against CPU.
+with a Region-3 call that emits nothing, and the grouped kernels (f32,
+its emission-off variant, e4m3) at moonshot's two expert host shapes and
+rwkv6-7b's channel-mix key GEMM (E=1) in the same way; phase 4 adds the
+reduced llama2 at prev_gemm/f32 and ffn_up/fp8 and the reduced moonshot
+and arctic at ffn_up/f32 and ffn_down/fp8, card against CPU.
 
 The second-to-last lines are the kernels' JSON record and the card's
 ``nvidia-smi`` name and power limit; the last line is the
@@ -301,13 +315,15 @@ def _close(name, got, want, tol, state, key) -> float:
     return worst
 
 
-def gemm_rng_bound(m, n, k, mask_words, rounds, ops_rate):
-    """(bound_ms, bound_by): operands and result read / written once, the
-    plane written once, against HBM; the f32 FMAs at the f32 rate plus the
-    plane's Philox instructions (8 calls x (4 a round + 8) a word) at the
-    issue rate -- they share the SMs' issue slots."""
-    t_bytes = 4 * (m * k + k * n + m * n + mask_words) / HBM_BYTES_PER_S
-    t_ops = (2 * m * n * k / F32_FLOPS_PER_S
+def gemm_rng_bound(m, n, k, mask_words, rounds, ops_rate, groups=1):
+    """(bound_ms, bound_by) of ``groups`` (m, k) x (k, n) products and one
+    plane: operands and results read / written once, the plane written
+    once, against HBM; the f32 FMAs at the f32 rate plus the plane's Philox
+    instructions (8 calls x (4 a round + 8) a word) at the issue rate --
+    they share the SMs' issue slots."""
+    t_bytes = 4 * (groups * (m * k + k * n + m * n) + mask_words) \
+        / HBM_BYTES_PER_S
+    t_ops = (2 * groups * m * n * k / F32_FLOPS_PER_S
              + mask_words * 8 * (4 * rounds + 8) / ops_rate)
     return max(t_bytes, t_ops) * 1e3, ("operations" if t_ops >= t_bytes
                                        else "bytes")
@@ -402,11 +418,13 @@ def phase_kernels_train(state) -> None:
     lib_ms = cuda_time_ms(lambda: a @ w, 10)
     bound_ms, bound_by = gemm_rng_bound(m, n, k, mb * mh * (sq // 32) * sq,
                                         7, ops_rate)
-    plain3_bound, _ = gemm_rng_bound(m, n, k, 0, 7, ops_rate)
+    plain3_bound, plain3_by = gemm_rng_bound(m, n, k, 0, 7, ops_rate)
     timing["gemm_rng"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                               bound_by=bound_by, library_ms=lib_ms,
                               plain_variant_ms=plain3_ms,
-                              plain_variant_bound_ms=plain3_bound)
+                              plain_variant_bound_ms=plain3_bound,
+                              plain_variant_bound_by=plain3_by,
+                              plain_variant_plain_ms=lib_ms)
     log(f"[kernels] gemm_rng {m}x{n}x{k}: {ms:.4f} ms a launch (CUDA "
         f"events, in turns {runs['rng']}), {2 * m * n * k / ms / 1e9:.1f} "
         f"TFLOP/s; plain variant (Region 3, no plane) {plain3_ms:.4f} ms "
@@ -537,16 +555,18 @@ FP8_SCALE_TILES = (((192, 64, 256), (192, 256, 64), (1, 2, 64, 128), 128),
                    ((64, 11008, 64), (64, 64, 344), (1, 1, 32, 64), 64))
 
 
-def gemm_rng_fp8_bound(m, n, k, blocks, mask_words, rounds, ops_rate):
-    """(bound_ms, bound_by): e4m3 operands, f32 scales, the f32 result and
-    the plane each read / written once against HBM; the product at the
-    dense e4m3 tensor-core rate plus the plane's Philox instructions at
-    the issue rate."""
+def gemm_rng_fp8_bound(m, n, k, blocks, mask_words, rounds, ops_rate,
+                       groups=1):
+    """(bound_ms, bound_by) of ``groups`` products: e4m3 operands, f32
+    scales, the f32 results and the plane each read / written once against
+    HBM; the products at the dense e4m3 tensor-core rate plus the plane's
+    Philox instructions at the issue rate."""
     bm, bn, bk = blocks
-    scales = (m // bm) * (k // bk) + (k // bk) * (n // bn)
-    t_bytes = (m * k + k * n + 4 * (scales + m * n + mask_words)) \
+    scales = groups * ((m // bm) * (k // bk) + (k // bk) * (n // bn))
+    t_bytes = (groups * (m * k + k * n) + 4 * (scales + groups * m * n
+                                               + mask_words)) \
         / HBM_BYTES_PER_S
-    t_ops = (2 * m * n * k / FP8_FLOPS_PER_S
+    t_ops = (2 * groups * m * n * k / FP8_FLOPS_PER_S
              + mask_words * 8 * (4 * rounds + 8) / ops_rate)
     return max(t_bytes, t_ops) * 1e3, ("operations" if t_ops >= t_bytes
                                        else "bytes")
@@ -630,6 +650,8 @@ def phase_kernels_fp8(state) -> None:
         ms, off_ms = (float(np.mean(runs[v])) for v in ("rng", "plain"))
         plain_ms = cuda_time_ms(
             lambda: gemm_rng._plain_fp8(*ops, blocks, em), 1, warmup=1)
+        plain_gemm_ms = cuda_time_ms(
+            lambda: gemm_rng.gemm_fp8_plain(*ops, blocks), 1, warmup=1)
         a_d = quant.dequantize_tiled(ops[0], ops[1], blocks[0], blocks[2])
         w_d = quant.dequantize_tiled(ops[2], ops[3], blocks[2], blocks[1])
         dequant_ms = cuda_time_ms(lambda: a_d @ w_d, 5)
@@ -641,12 +663,15 @@ def phase_kernels_fp8(state) -> None:
             out_dtype=torch.float32), 5)
         bound_ms, bound_by = gemm_rng_fp8_bound(m, n, k, blocks, words, 7,
                                                 ops_rate)
-        off_bound, _ = gemm_rng_fp8_bound(m, n, k, blocks, 0, 7, ops_rate)
+        off_bound, off_by = gemm_rng_fp8_bound(m, n, k, blocks, 0, 7,
+                                               ops_rate)
         rows[label] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                            bound_by=bound_by, library_ms=None,
                            scaled_mm_ms=scaled_ms, dequant_matmul_ms=dequant_ms,
                            plain_variant_ms=off_ms,
                            plain_variant_bound_ms=off_bound,
+                           plain_variant_bound_by=off_by,
+                           plain_variant_plain_ms=plain_gemm_ms,
                            shape=[m, n, k], blocks=list(blocks))
         log(f"[kernels] gemm_rng_fp8 {label} {m}x{n}x{k} blocks {blocks} + "
             f"plane {mb}x{mh}x{sq // 32}x{sq}: plane == plain and == the "
@@ -688,6 +713,185 @@ def phase_kernels_fp8(state) -> None:
         f"emission-off launch counted, C max abs err {err3:.3g}")
     state.setdefault("timing", {})[fp8_key] = dict(rows[FP8_MAIN],
                                                    rows=rows)
+
+
+# the grouped hosts: moonshot-v1-16b-a3b's expert gate and down einsums at
+# B=2, S=2048 (64 experts, capacity 480) with its (2, 16, 2048) plane, and
+# rwkv6-7b's channel-mix key GEMM (E=1, 4096 tokens x 4096 x 14336) with
+# the (2, 32, 2048) plane of phase 2's dense host; "gate" hosts the
+# ffn_up main path of phase 7
+GROUPED_SHAPES = (("gate", (64, 480, 2048, 1408), (2, 16, 2048)),
+                  ("down", (64, 480, 1408, 2048), (2, 16, 2048)),
+                  ("channel_mix", (1, 4096, 4096, 14336), QKV_MASK))
+GROUPED_MAIN = "gate"
+# a Region-3 grouped grid: 2 expert tiles cannot host 1 x 32 x 1024 x 1024
+GROUPED_REGION3 = ((2, 128, 64, 8), (128, 8, 64), (1, 32, 1024))
+
+
+def _grouped_kw(blocks, plane):
+    mb, mh, sq = plane
+    return dict(mask_batch=mb, mask_heads=mh, mask_sq=sq, mask_sk=sq, p=0.1,
+                seed=torch.tensor(77), salt=5, block_m=blocks[0],
+                block_n=blocks[1], block_k=blocks[2])
+
+
+def _dense_plane(plane, gen):
+    """The f32 dense host's (kernel 2) plane for the same counters, under a
+    1024 x 256 x 1024 product whose 16-tile grid hosts it."""
+    a = torch.randn((1024, 256), generator=gen, device="cuda")
+    w = torch.randn((256, 1024), generator=gen, device="cuda")
+    _, mask = gemm_rng.gemm_with_rng(a, w, **_grouped_kw((256, 256, 256),
+                                                          plane))
+    return mask
+
+
+def phase_kernels_grouped(state) -> None:
+    """The grouped GEMM+RNG kernels -- f32 (TPU kernel 9), its emission-off
+    variant (10) and e4m3 (11) -- against their plain versions at the
+    grouped host shapes, then timed there."""
+    from repro_torch.core.producer import pick_gemm_blocks
+    from repro_torch.kernels import quant
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    ops_rate = issue_ops_per_s()
+    g32, g8 = gemm_rng.KERNEL_GROUPED, gemm_rng.KERNEL_GROUPED_FP8
+    rows = {g32: {}, g8: {}}
+    dense_planes = {}
+    for label, (e, m, k, n), plane in GROUPED_SHAPES:
+        blocks = pick_gemm_blocks(m, n, k)
+        kw = _grouped_kw(blocks, plane)
+        a = torch.randn((e, m, k), generator=gen, device="cuda")
+        w = torch.randn((e, k, n), generator=gen, device="cuda")
+        c, mask = gemm_rng.gemm_with_rng_grouped(a, w, **kw)
+        c8, mask8 = gemm_rng.gemm_with_rng_grouped_fp8(a, w, **kw)
+        want_c, want = gemm_rng.gemm_with_rng_grouped_plain(a, w, **kw)
+        ops8 = gemm_rng.quantize_grouped(a, w, blocks)
+        want_c8 = gemm_rng.gemm_grouped_fp8_plain(*ops8, blocks)
+        if plane not in dense_planes:
+            dense_planes[plane] = _dense_plane(plane, gen)
+        torch.cuda.synchronize()
+        if not (torch.equal(mask, want) and torch.equal(mask8, want)
+                and torch.equal(mask, dense_planes[plane])):
+            raise AssertionError(f"grouped {label}: planes differ (f32 "
+                                 f"kernel, e4m3 kernel, plain, dense host)")
+        err = _close(f"{g32} {label} C", c, want_c, GEMM_TOL, state, g32)
+        err8 = _close(f"{g8} {label} C", c8, want_c8, GEMM_TOL, state, g8)
+        ref = torch.bmm(a, w)
+        rel8 = float((c8 - ref).norm() / ref.norm())
+        if not rel8 < quant.quantize_error_bound():
+            raise AssertionError(f"{g8} {label}: {rel8} of f32")
+        bmm_err = float((c - ref).abs().max())
+        del c, c8, mask, mask8, want_c, want_c8, want, ref
+        # timing: each kernel in turns with its emission-off variant
+        _, em = gemm_rng._emission(a, w, plane[0], plane[1], plane[2],
+                                   plane[2], 0.1, kw["seed"], kw["salt"], 7,
+                                   *blocks, 2048, 256, 0, 0, grouped=True)
+        launches = {
+            "rng": lambda: gemm_rng.gemm_with_rng_grouped(a, w, **kw),
+            "plain": lambda: gemm_rng._forward_grouped(a, w, None),
+            "rng8": lambda: gemm_rng.gemm_rng_grouped_fp8_quantized(
+                *ops8, blocks, em),
+            "off8": lambda: gemm_rng.gemm_rng_grouped_fp8_quantized(
+                *ops8, blocks, None)}
+        runs = {v: [] for v in launches}
+        for v in ("rng", "plain", "plain", "rng", "rng8", "off8", "off8",
+                  "rng8"):
+            runs[v].append(cuda_time_ms(launches[v], 3))
+        ms = {v: float(np.mean(t)) for v, t in runs.items()}
+        plain_ms = cuda_time_ms(
+            lambda: gemm_rng.gemm_with_rng_grouped_plain(a, w, **kw), 1,
+            warmup=1)
+        plain_off_ms = cuda_time_ms(
+            lambda: gemm_rng.gemm_grouped_plain(a, w), 2, warmup=1)
+        plain8_ms = cuda_time_ms(
+            lambda: gemm_rng.gemm_with_rng_grouped_fp8_plain(a, w, **kw), 1,
+            warmup=1)
+        bmm_ms = cuda_time_ms(lambda: torch.bmm(a, w), 5)
+        bm, bn, bk = blocks
+        a_d = quant.dequantize_tiled(ops8[0].reshape(e * m, k), ops8[1], bm,
+                                     bk).reshape(e, m, k)
+        w_d = quant.dequantize_tiled(ops8[2].reshape(e * k, n), ops8[3], bk,
+                                     bn).reshape(e, k, n)
+        dequant_ms = cuda_time_ms(lambda: torch.bmm(a_d, w_d), 5)
+        # per-tensor scales on the same e4m3 bytes, one call an expert:
+        # another function
+        one = torch.ones((), device="cuda")
+        w_cm = [ops8[2][i].t().contiguous().t() for i in range(e)]
+
+        def scaled_mm():
+            for i in range(e):
+                torch._scaled_mm(ops8[0][i], w_cm[i], scale_a=one,
+                                 scale_b=one, out_dtype=torch.float32)
+
+        scaled_ms = cuda_time_ms(scaled_mm, 3)
+        words = plane[0] * plane[1] * (plane[2] // 32) * plane[2]
+        b32, by32 = gemm_rng_bound(m, n, k, words, 7, ops_rate, groups=e)
+        boff, boff_by = gemm_rng_bound(m, n, k, 0, 7, ops_rate, groups=e)
+        b8, by8 = gemm_rng_fp8_bound(m, n, k, blocks, words, 7, ops_rate,
+                                     groups=e)
+        shape = [e, m, n, k]
+        rows[g32][label] = dict(
+            ms=ms["rng"], plain_ms=plain_ms, bound_ms=b32, bound_by=by32,
+            library_ms=bmm_ms, plain_variant_ms=ms["plain"],
+            plain_variant_bound_ms=boff, plain_variant_bound_by=boff_by,
+            plain_variant_plain_ms=plain_off_ms,
+            shape=shape, blocks=list(blocks))
+        rows[g8][label] = dict(
+            ms=ms["rng8"], plain_ms=plain8_ms, bound_ms=b8, bound_by=by8,
+            library_ms=None, scaled_mm_ms=scaled_ms,
+            dequant_matmul_ms=dequant_ms, emission_off_ms=ms["off8"],
+            shape=shape, blocks=list(blocks))
+        flops = 2 * e * m * n * k
+        log(f"[kernels] grouped {label} {e}x({m}x{k})x({k}x{n}) blocks "
+            f"{blocks} + plane {plane[0]}x{plane[1]}x{plane[2] // 32}x"
+            f"{plane[2]}: planes of the f32 and e4m3 kernels == plain == the "
+            f"dense host's bitwise; C max abs err {err:.3g} (f32; "
+            f"{bmm_err:.3g} from torch.bmm) and {err8:.3g} (e4m3) against "
+            f"the plain versions (tol {GEMM_TOL} x (1+|C|)), e4m3 "
+            f"{rel8:.4f} of f32 (bound {quant.quantize_error_bound()})")
+        log(f"[kernels] {g32} {label}: {ms['rng']:.4f} ms a launch (CUDA "
+            f"events, in turns {runs['rng']}), {flops / ms['rng'] / 1e9:.1f} "
+            f"TFLOP/s; emission-off variant {ms['plain']:.4f} ms (in turns "
+            f"{runs['plain']}, bound {boff:.4f} ms); torch.bmm "
+            f"{bmm_ms:.4f} ms; plain version {plain_ms:.2f} ms (GEMM only "
+            f"{plain_off_ms:.2f} ms); bound {b32:.4f} ms by {by32}, kernel "
+            f"at {b32 / ms['rng'] * 100:.1f}% of bound | {state['smi']}")
+        log(f"[kernels] {g8} {label}: {ms['rng8']:.4f} ms a launch (in "
+            f"turns {runs['rng8']}), {flops / ms['rng8'] / 1e9:.1f} "
+            f"TFLOP/s; emission off {ms['off8']:.4f} ms (in turns "
+            f"{runs['off8']}); plain version {plain8_ms:.2f} ms; bound "
+            f"{b8:.4f} ms by {by8}, kernel at {b8 / ms['rng8'] * 100:.2f}% "
+            f"of bound; no PyTorch call computes per-tile-scaled e4m3; "
+            f"torch._scaled_mm a expert (per-tensor scales) {scaled_ms:.4f} "
+            f"ms, torch.bmm f32 on the dequantized operands "
+            f"{dequant_ms:.4f} ms | {state['smi']}")
+        del a, w, ops8, a_d, w_d, w_cm
+        gc.collect()
+        torch.cuda.empty_cache()
+    # Region 3: both hosts run the f32 grouped kernel with the emission
+    # off and return no plane
+    (e, m, k, n), blocks, plane = GROUPED_REGION3
+    a = torch.randn((e, m, k), generator=gen, device="cuda")
+    w = torch.randn((e, k, n), generator=gen, device="cuda")
+    kw = _grouped_kw(blocks, plane)
+    for fn in (gemm_rng.gemm_with_rng_grouped,
+               gemm_rng.gemm_with_rng_grouped_fp8):
+        before = {g: gemm_rng.variant_counts(g) for g in (g32, g8)}
+        c3, none = fn(a, w, **kw)
+        after = {g: gemm_rng.variant_counts(g) for g in (g32, g8)}
+        if none is not None or after[g32]["plain"] != \
+                before[g32]["plain"] + 1 or after[g8] != before[g8]:
+            raise AssertionError(f"{fn.__name__} Region 3 did not run the "
+                                 f"emission-off f32 grouped kernel alone")
+        err3 = _close(f"{fn.__name__} Region 3", c3,
+                      gemm_rng.gemm_grouped_plain(a, w), GEMM_TOL, state,
+                      g32)
+        log(f"[kernels] {fn.__name__} Region 3 {e}x({m}x{k})x({k}x{n}) "
+            f"with a {plane[0]}x{plane[1]}x{plane[2]} plane: no plane, the "
+            f"f32 grouped kernel with the emission off, C max abs err "
+            f"{err3:.3g}")
+    timing = state.setdefault("timing", {})
+    for name in (g32, g8):
+        timing[name] = dict(rows[name][GROUPED_MAIN], rows=rows[name])
 
 
 # ------------------------------------------------------------------ phase 3
@@ -857,12 +1061,18 @@ REF_OPT = dict(lr=1e-3, warmup_steps=1)
 # difference of up to lr a step (tests/test_torch_sites.py measures the
 # same against JAX); step 0, from equal weights, stays at 1e-4
 FP8_REF_TOL = 1e-3
+# ... and in a MoE model a weight that differs by about lr also moves the
+# router's choices and the gradients it routes: the reduced moonshot's
+# grad norm after two fp8 updates moved by up to 3.4e-3 relative against
+# JAX on the CPU (tests/test_torch_moe.py)
+MOE_FP8_GRAD_NORM_TOL = 1e-2
 
 
-def _card_vs_cpu(cfg, run, master, label) -> None:
+def _card_vs_cpu(cfg, run, master, label, gn_tol=FP8_REF_TOL) -> None:
     """3 make_train_step steps on the card and on the CPU from the same
-    weights: loss and grad norm of every step within 1e-4 (fp8: 1e-3 after
-    step 0) and the final weights within 1e-4 (fp8: 3 x lr)."""
+    weights: loss and grad norm of every step within 1e-4 (fp8: 1e-3 and
+    ``gn_tol`` after step 0) and the final weights within 1e-4 (fp8: 3 x
+    lr)."""
     from repro_torch.optim import adamw_init
     from repro_torch.train import make_train_step
     fp8 = run.dropout.gemm_dtype == "fp8"
@@ -878,9 +1088,9 @@ def _card_vs_cpu(cfg, run, master, label) -> None:
         runs[dev] = (st, ms)
     for i, ((lc, gc_), (lg, gg)) in enumerate(zip(runs["cpu"][1],
                                                   runs["cuda"][1])):
-        tol = FP8_REF_TOL if fp8 and i > 0 else 1e-4
+        tol, gtol = (FP8_REF_TOL, gn_tol) if fp8 and i > 0 else (1e-4, 1e-4)
         if abs(lc - lg) > tol * (1 + abs(lc)) or \
-                abs(gc_ - gg) > tol * (1 + abs(gc_)):
+                abs(gc_ - gg) > gtol * (1 + abs(gc_)):
             raise AssertionError(f"{label} step {i}: card {(lg, gg)} != "
                                  f"CPU {(lc, gc_)}")
     wtol = dict(atol=3 * REF_OPT["lr"], rtol=0) if fp8 else \
@@ -897,11 +1107,13 @@ def _card_vs_cpu(cfg, run, master, label) -> None:
 def phase_train_reference(state) -> None:
     """Reduced llama2 and yi through make_train_step on the card and on
     the CPU: 3 steps at site qkv, replay and premask, allclose at 1e-4;
-    the reduced llama2 also at prev_gemm/f32 and ffn_up/fp8 (premask, so
+    the reduced llama2 also at prev_gemm/f32 and ffn_up/fp8, the reduced
+    moonshot and arctic (MoE) at ffn_up/f32 and ffn_down/fp8 (premask, so
     the carried planes feed attention)."""
     from repro_torch.config import get_arch
     from repro_torch.config.base import OptimizerConfig
-    from repro_torch.train import init_train_state
+    from repro_torch.core import producer
+    from repro_torch.train import compile_run_schedule, init_train_state
     opt = OptimizerConfig(**REF_OPT)
     for arch in ("llama2-7b", "yi-6b"):
         cfg = get_arch(arch, reduced=True)
@@ -915,39 +1127,67 @@ def phase_train_reference(state) -> None:
                                  gemm_dtype=dtype)
                 _card_vs_cpu(cfg, run, master,
                              f"{site}/{dtype} attn_replay=off")
+    # the MoE stacks: the dense host at the first-dense layer and the
+    # grouped hosts at the expert einsums, premask so the carried planes
+    # feed attention
+    for arch in ("moonshot-v1-16b-a3b", "arctic-480b"):
+        cfg = get_arch(arch, reduced=True)
+        master = init_train_state(cfg, seed=1, device="cpu")["master"]
+        for site, dtype in (("ffn_up", "f32"), ("ffn_down", "fp8")):
+            run = _train_run(cfg, "off", 2, 256, opt=opt, site=site,
+                             gemm_dtype=dtype)
+            sched = compile_run_schedule(cfg, run)
+            if producer.HOW_GEMM_GROUPED not in {a.emit_how for a in
+                                                 sched.assignments}:
+                raise AssertionError(f"no grouped host:\n{sched.explain()}")
+            _card_vs_cpu(cfg, run, master, f"{site}/{dtype} attn_replay=off",
+                         gn_tol=MOE_FP8_GRAD_NORM_TOL)
 
 
 # ------------------------------------------------------------------ phase 5
-def _expected_launches(sched, remat: str, steps: int):
+def _expected_launches(sched, remat: str, steps: int, cfg=None):
     """Kernel launches of ``steps`` training steps under the compiled
     schedule ``sched`` (one attention layer a stack unit). Each layer's
     forward runs flash_fwd and its host GEMM -- the in-layer QKV host
     (kept as the host under replay) or the carried emission for the next
     layer -- and remat="block" runs both again when the backward
     recomputes the unit; the backward runs dq and dkv once a layer. A
-    GEMM host launches the kernel of the plan's gemm_dtype, a standalone
-    (Region-3) host its emission-off variant and the Philox kernel. A
-    carried schedule under premask makes the first layer's plane with
-    the Philox kernel once a forward (outside the recomputed units)."""
+    dense GEMM host launches the kernel of the plan's gemm_dtype, a
+    standalone (Region-3) dense host its emission-off variant and the
+    Philox kernel. A grouped host (the MoE expert einsum, ``cfg``'s MoE
+    layers) launches the grouped kernel of the plan's dtype; a grouped
+    block planned standalone runs its einsum as a tensor op and the Philox
+    kernel. A carried schedule under premask makes the first layer's plane
+    with the Philox kernel once a forward (outside the recomputed
+    units)."""
     from repro_torch.core import producer
     f = 2 if remat == "block" else 1
-    host = (gemm_rng.KERNEL_FP8 if sched.plan.gemm_dtype == "fp8"
-            else gemm_rng.KERNEL)
-    n = {k: 0 for k in (philox.KERNEL, gemm_rng.KERNEL, gemm_rng.KERNEL_FP8,
-                        flash.KERNEL, flash_bwd.KERNEL_DQ,
-                        flash_bwd.KERNEL_DKV)}
+    fp8 = sched.plan.gemm_dtype == "fp8"
+    host = gemm_rng.KERNEL_FP8 if fp8 else gemm_rng.KERNEL
+    grouped = gemm_rng.KERNEL_GROUPED_FP8 if fp8 else gemm_rng.KERNEL_GROUPED
+    first_dense = (cfg.moe.first_dense_layers
+                   if cfg is not None and cfg.moe is not None else None)
+    n = {k: 0 for k in launch_counts()}
     for a in sched.assignments:
         if not a.consumes:
             continue
         n[flash.KERNEL] += f
         n[flash_bwd.KERNEL_DQ] += 1
         n[flash_bwd.KERNEL_DKV] += 1
-        hows = [a.emit_how] if a.emit_site else []
+        # (producer how, whether its GEMM is a grouped block's)
+        hows = []
+        if a.emit_site:
+            hows.append((a.emit_how, a.emit_site in ("ffn_up", "ffn_down")
+                         and first_dense is not None
+                         and a.layer >= first_dense))
         if a.site == "qkv":
-            hows.append(a.host_how if a.how == producer.HOW_REPLAY
-                        else a.how)
-        for how in hows:
-            if how in (producer.HOW_GEMM, producer.HOW_STANDALONE):
+            hows.append((a.host_how if a.how == producer.HOW_REPLAY
+                         else a.how, False))
+        for how, grouped_block in hows:
+            if how == producer.HOW_GEMM_GROUPED:
+                n[grouped] += f
+            elif how in (producer.HOW_GEMM, producer.HOW_STANDALONE) \
+                    and not grouped_block:
                 n[host] += f
             if how == producer.HOW_STANDALONE:
                 n[philox.KERNEL] += f
@@ -1131,7 +1371,7 @@ def _profile_train(step_fn, st, batch, record, smi) -> None:
     record["busy_share"] = busy / wall
     log(f"[train-profile] one step: wall {wall:.3f}s, device busy "
         f"{busy:.3f}s ({busy / wall * 100:.1f}%) | {smi}")
-    for us, count, key in rows[:8]:
+    for us, count, key in rows[:12]:
         log(f"[train-profile]   {us / 1e3:10.2f} ms {count:7d}x {key[:90]}")
 
 
@@ -1301,62 +1541,269 @@ def phase_train_sites(state) -> None:
     state["loss0"] = loss0
 
 
-KERNEL_RECORDS = (
-    # name, source, replaced TPU kernel, the path whose run counts it
-    (philox.KERNEL, "philox_mask.cu", "src/repro/kernels/philox.py:40",
-     "serve"),
-    (gemm_rng.KERNEL, "gemm_rng.cu", "src/repro/kernels/gemm_rng.py:143",
-     "train"),
-    (gemm_rng.KERNEL_FP8, "gemm_rng_fp8.cu",
-     "src/repro/kernels/gemm_rng.py:373", "train_fp8"),
-    (flash.KERNEL, "flash_fwd.cu",
-     "src/repro/kernels/flash_attention.py:58", "train"),
-    (flash_bwd.KERNEL_DQ, "flash_bwd.cu",
-     "src/repro/kernels/flash_attention_bwd.py:77", "train"),
-    (flash_bwd.KERNEL_DKV, "flash_bwd.cu",
-     "src/repro/kernels/flash_attention_bwd.py:137", "train"),
-)
+# ------------------------------------------------------------------ phase 7
+MOE_LAYERS = 4
+# one step each of the other sites and dtypes on moonshot, after the main
+# run; ffn_up/f32 runs the grouped f32 kernel (TPU kernel 9) at every MoE
+# layer
+MOE_SITE_STEPS = (("ffn_down", "fp8"), ("ffn_up", "f32"), ("ffn_down", "f32"),
+                  ("qkv", "f32"))
+
+
+def _moe_state(cfg):
+    """moonshot's training state from seed 0 on the card: the same bits at
+    every call (a seeded generator on the card)."""
+    from repro_torch.train import init_train_state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return init_train_state(cfg, seed=0, device="cuda")
+
+
+def phase_train_moe(state) -> None:
+    """moonshot-v1-16b-a3b at full width, 4 layers: the ffn_up / fp8 main
+    path (3 replay steps, step 0 again under premask, bitwise equal) with
+    the next layer's plane made under L0's dense gate+up GEMM and L1-L3's
+    grouped expert gate einsum, then one step of each MOE_SITE_STEPS plan.
+    The state is donated to every step (updated in place, bitwise the
+    functional update): two copies of 2.46 B parameters, their gradients
+    and moments would not fit on the card."""
+    from repro_torch.config import get_arch
+    from repro_torch.core import producer
+    from repro_torch.core.producer import grouped_host_shapes
+    from repro_torch.train import (
+        compile_run_schedule,
+        make_grad_fn,
+        make_train_step,
+    )
+    cfg = dataclasses.replace(get_arch("moonshot-v1-16b-a3b"),
+                              n_layers=MOE_LAYERS)
+    m = cfg.moe
+    assert (cfg.d_model, cfg.n_heads, cfg.head_dim, cfg.vocab_size,
+            m.n_experts, m.top_k, m.d_ff_expert, m.n_shared_experts,
+            m.first_dense_layers, m.capacity_factor) == (
+        2048, 16, 128, 163840, 64, 6, 1408, 2, 1, 1.25)
+    assert grouped_host_shapes(cfg, TRAIN_B, TRAIN_S) == {
+        "ffn_up": (64, 480, 2048, 1408), "ffn_down": (64, 480, 1408, 2048)}
+    run_r = _train_run(cfg, "auto", TRAIN_B, TRAIN_S, site="ffn_up",
+                       gemm_dtype="fp8")
+    run_p = _train_run(cfg, "off", TRAIN_B, TRAIN_S, site="ffn_up",
+                       gemm_dtype="fp8")
+    sched_r = compile_run_schedule(cfg, run_r)
+    sched_p = compile_run_schedule(cfg, run_p)
+    emits = [(a.emit_site, a.emit_how) for a in sched_r.assignments]
+    if emits != [("ffn_up", producer.HOW_GEMM)] + [
+            ("ffn_up", producer.HOW_GEMM_GROUPED)] * (MOE_LAYERS - 1) or \
+            [(a.emit_site, a.emit_how) for a in sched_p.assignments] != \
+            emits or not (sched_r.replay and sched_p.carried
+                          and not sched_p.replay):
+        raise AssertionError(f"unexpected schedules:\n{sched_r.explain()}"
+                             f"\n{sched_p.explain()}")
+    for sched in (sched_r, sched_p):
+        log(f"[train-moe] {sched.explain()}")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    st = _moe_state(cfg)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in leaves(st["master"]))
+    log(f"[train-moe] {cfg.name} x{cfg.n_layers} layers (L0 dense, L1-L3 "
+        f"MoE {m.n_experts} experts top-{m.top_k}, capacity "
+        f"{grouped_host_shapes(cfg, TRAIN_B, TRAIN_S)['ffn_up'][1]}): "
+        f"{n_params / 1e9:.3f}B f32 params + AdamW moments on the card in "
+        f"{(time.perf_counter() - t0) * 1e3:.0f} ms")
+    batches = _batches(cfg, run_r, "cuda", 3)
+    x0, y0 = batches[0]
+
+    # step 0 gradients under both plans: bitwise equal
+    loss_r, _, grads_r = make_grad_fn(cfg, run_r)(st["master"], x0, y0, 0)
+    loss_p, _, grads_p = make_grad_fn(cfg, run_p)(st["master"], x0, y0, 0)
+    torch.cuda.synchronize()
+    if not (torch.equal(loss_r, loss_p)
+            and _bitwise_equal_trees(grads_r, grads_p)):
+        raise AssertionError("moonshot ffn_up/fp8: replay and premask "
+                             "step-0 loss / gradients differ")
+    if not all(bool(torch.isfinite(g).all()) for g in leaves(grads_r)):
+        raise AssertionError("moonshot ffn_up/fp8: non-finite gradients")
+    log(f"[train-moe] step 0: replay and premask loss {float(loss_r):.7f} "
+        f"and all {len(leaves(grads_r))} gradient tensors bitwise equal, "
+        "finite")
+    del grads_r, grads_p
+
+    # the main path: step 0 under premask (its updated weights kept on the
+    # host), then 3 replay steps from the same state
+    step_r = make_train_step(cfg, run_r, donate=True)
+    step_p = make_train_step(cfg, run_p, donate=True)
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    st, m_p = step_p(st, x0, y0)
+    updated_p = [t.cpu() for t in leaves(st["master"])]
+    counts_p = launch_counts()
+    del st
+    st = _moe_state(cfg)
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    times, losses = [], []
+    for i, (x, y) in enumerate(batches):
+        t0 = time.perf_counter()
+        st, mt = step_r(st, x, y)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append((float(mt["loss"]), float(mt["ce"]), float(mt["aux"]),
+                       float(mt["grad_norm"])))
+        if i == 0:
+            if not (torch.equal(mt["loss"], m_p["loss"])
+                    and torch.equal(mt["grad_norm"], m_p["grad_norm"])
+                    and all(torch.equal(t.cpu(), u) for t, u in zip(
+                        leaves(st["master"]), updated_p))):
+                raise AssertionError("moonshot ffn_up/fp8: replay and "
+                                     "premask step 0 differ")
+            del updated_p
+    counts = _add_counts(launch_counts(), counts_p)
+    remat = run_r.sharding.remat
+    want = _add_counts(_expected_launches(sched_r, remat, 3, cfg),
+                       _expected_launches(sched_p, remat, 1, cfg))
+    if counts != want:
+        raise AssertionError(f"moonshot ffn_up/fp8 launches {counts} != "
+                             f"{want}")
+    if not all(np.isfinite(v) for row in losses for v in row):
+        raise AssertionError(f"non-finite metrics {losses}")
+    state["moe_launches"] = counts
+    state["moe_variants"] = gemm_rng.variant_counts(gemm_rng.KERNEL_GROUPED)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    step_s = float(np.mean(times[1:]))
+    tokens = TRAIN_B * TRAIN_S
+    rec = state["train_moe"] = dict(step_s=step_s,
+                                    tokens_per_s=tokens / step_s,
+                                    peak_gib=peak)
+    loss0 = {"ffn_up/fp8": losses[0][0]}
+    log(f"[train-moe] ffn_up/fp8: step 0 (premask) + 3 steps (replay): "
+        f"(loss, ce, aux, grad norm) {losses}; replay and premask step 0 "
+        f"bitwise equal (loss, grad norm, all updated weights)")
+    log(f"[train-moe] launches {counts} == the schedule's formula (per step "
+        f"and layer: flash_fwd x2 for remat='block', dq and dkv x1; "
+        f"gemm_rng_fp8 x2 under L0's gate+up GEMM, gemm_rng_grouped_fp8 x2 "
+        f"under each MoE layer's expert gate einsum; the premask step's "
+        f"bootstrap plane from philox_mask)")
+    log(f"[train-moe] step times {[round(t, 4) for t in times]} s (step 0 "
+        f"includes first-call set-up); steady step {step_s:.4f} s = "
+        f"{tokens / step_s:.1f} tokens/s; peak memory {peak:.2f} GiB | "
+        f"{state['smi']}")
+    _profile_train(step_r, st, batches[0], rec, state["smi"])
+    del st
+
+    for site, dtype in MOE_SITE_STEPS:
+        run = _train_run(cfg, "auto", TRAIN_B, TRAIN_S, site=site,
+                         gemm_dtype=dtype)
+        sched = compile_run_schedule(cfg, run)
+        step_fn = make_train_step(cfg, run, donate=True)
+        st = _moe_state(cfg)
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st, mt = step_fn(st, x0, y0)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = launch_counts()
+        want = _expected_launches(sched, run.sharding.remat, 1, cfg)
+        if counts != want:
+            raise AssertionError(f"moonshot {site}/{dtype} launches {counts}"
+                                 f" != {want}\n{sched.explain()}")
+        loss = float(mt["loss"])
+        if not np.isfinite(loss):
+            raise AssertionError(f"moonshot {site}/{dtype}: loss {loss}")
+        loss0[f"{site}/{dtype}"] = loss
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        state.setdefault("moe_site_steps", {})[f"{site}/{dtype}"] = dict(
+            step_s=dt, tokens_per_s=tokens / dt, peak_gib=peak, loss=loss,
+            launches=counts)
+        log(f"[train-moe-sites] {site}/{dtype} (emissions "
+            f"{[a.emit_how for a in sched.assignments]}): one step "
+            f"{dt:.4f} s = {tokens / dt:.1f} tokens/s, peak {peak:.2f} GiB, "
+            f"loss {loss:.7f}, launches {counts} == the schedule's formula "
+            f"| {state['smi']}")
+        del st
+    ref = loss0["ffn_up/f32"]
+    for key, loss in loss0.items():
+        rel = abs(loss - ref) / abs(ref)
+        bound = F32_LOSS_REL if key.endswith("f32") else FP8_LOSS_REL
+        if rel > bound:
+            raise AssertionError(f"moonshot step-0 loss {key} {loss} vs "
+                                 f"ffn_up/f32 {ref}: {rel} > {bound}")
+    log(f"[train-moe-sites] step-0 losses {loss0}: f32 sites within "
+        f"{F32_LOSS_REL} relative of ffn_up/f32, fp8 within {FP8_LOSS_REL}")
+    state["moe_loss0"] = loss0
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def kernel_records(state):
+    """One record a TPU kernel (each function that reaches pl.pallas_call),
+    in the order of their table in PERF.md. ``launches`` counts the run of
+    the path that drives the kernel: serving (1), the qkv/f32 main run
+    (2-6), the ffn_up/fp8 main run (7, 8), the moonshot ffn_up/f32 step
+    (9), the moonshot ffn_up/fp8 main run (10, 11). The emission-off
+    variants (3, 8, 10) run only in Region 3, which none of these paths
+    plans: their launches are 0 there, and phase 2 launches and checks
+    them directly."""
+    t, errs = state["timing"], state["errs"]
+    g = "src/repro/kernels/gemm_rng.py"
+    k32, k8 = gemm_rng.KERNEL, gemm_rng.KERNEL_FP8
+    g32, g8 = gemm_rng.KERNEL_GROUPED, gemm_rng.KERNEL_GROUPED_FP8
+    moe_f32 = state["moe_site_steps"]["ffn_up/f32"]["launches"]
+
+    def variant(row):
+        return dict(ms=row["plain_variant_ms"],
+                    plain_ms=row["plain_variant_plain_ms"],
+                    bound_ms=row["plain_variant_bound_ms"],
+                    bound_by=row["plain_variant_bound_by"],
+                    library_ms=row["library_ms"])
+
+    def fp8_extras(row):
+        return dict(shape=row["shape"], scaled_mm_ms=row["scaled_mm_ms"],
+                    dequant_matmul_ms=row["dequant_matmul_ms"])
+
+    rows = [
+        (philox.KERNEL, "philox_mask.cu", "src/repro/kernels/philox.py:40",
+         "serve", state["philox_launches"], state["philox_err"],
+         dict(state["philox_timing"]["serve"], library_ms=None), {}),
+        (k32, "gemm_rng.cu", f"{g}:143", "train",
+         state["train_launches"][k32], errs[k32], t[k32], {}),
+        (f"{k32}_plain", "gemm_rng.cu", f"{g}:304", "train",
+         state["gemm_variants"]["plain"], errs[k32], variant(t[k32]), {}),
+        (flash.KERNEL, "flash_fwd.cu",
+         "src/repro/kernels/flash_attention.py:58", "train",
+         state["train_launches"][flash.KERNEL], errs[flash.KERNEL],
+         t[flash.KERNEL], {}),
+        (flash_bwd.KERNEL_DQ, "flash_bwd.cu",
+         "src/repro/kernels/flash_attention_bwd.py:77", "train",
+         state["train_launches"][flash_bwd.KERNEL_DQ],
+         errs[flash_bwd.KERNEL_DQ], t[flash_bwd.KERNEL_DQ], {}),
+        (flash_bwd.KERNEL_DKV, "flash_bwd.cu",
+         "src/repro/kernels/flash_attention_bwd.py:137", "train",
+         state["train_launches"][flash_bwd.KERNEL_DKV],
+         errs[flash_bwd.KERNEL_DKV], t[flash_bwd.KERNEL_DKV], {}),
+        (k8, "gemm_rng_fp8.cu", f"{g}:373", "train_fp8",
+         state["fp8_launches"][k8], errs[k8], t[k8], fp8_extras(t[k8])),
+        (f"{k8}_plain", "gemm_rng_fp8.cu", f"{g}:933", "train_fp8",
+         state["fp8_variants"]["plain"], errs[k8],
+         dict(variant(t[k8]), library_ms=None), fp8_extras(t[k8])),
+        (g32, "gemm_rng_grouped.cu", f"{g}:551", "train_moe_f32",
+         moe_f32[g32], errs[g32], t[g32], {"shape": t[g32]["shape"]}),
+        (f"{g32}_plain", "gemm_rng_grouped.cu", f"{g}:711", "train_moe",
+         state["moe_variants"]["plain"], errs[g32], variant(t[g32]),
+         {"shape": t[g32]["shape"]}),
+        (g8, "gemm_rng_grouped_fp8.cu", f"{g}:764", "train_moe",
+         state["moe_launches"][g8], errs[g8], t[g8], fp8_extras(t[g8])),
+    ]
     recs = []
-    for name, src, replaces, path in KERNEL_RECORDS:
-        if name == philox.KERNEL:
-            t = dict(state["philox_timing"]["serve"], library_ms=None)
-            launches, err = state["philox_launches"], state["philox_err"]
-        else:
-            t = state["timing"][name]
-            counts = state["fp8_launches" if path == "train_fp8"
-                           else "train_launches"]
-            launches = counts[name]
-            err = state["errs"][name]
-        rec = {"name": name, "route": "cuda",
-               "source": f"src/repro_torch/kernels/csrc/{src}",
-               "replaces": replaces, "launches": launches,
-               "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
-               "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-               "library_ms": t["library_ms"], "path": path}
-        if name in (gemm_rng.KERNEL, gemm_rng.KERNEL_FP8):
-            # its plain-GEMM variant (Region 3) is the same kernel with the
-            # emission switched off; checked and timed in phase 2
-            fp8 = name == gemm_rng.KERNEL_FP8
-            launches_by = state["fp8_variants" if fp8 else "gemm_variants"]
-            rec["variants"] = {
-                "rng": {"replaces": replaces,
-                        "launches": launches_by["rng"], "ms": t["ms"]},
-                "plain": {"replaces": ("src/repro/kernels/gemm_rng.py:933"
-                                       if fp8 else
-                                       "src/repro/kernels/gemm_rng.py:304"),
-                          "launches": launches_by["plain"],
-                          "ms": t["plain_variant_ms"],
-                          "bound_ms": t["plain_variant_bound_ms"]}}
-        if name == gemm_rng.KERNEL_FP8:
-            # no PyTorch call computes per-tile-scaled e4m3; two other
-            # functions on the same operands, for scale
-            rec["shape"] = t["shape"]
-            rec["scaled_mm_ms"] = t["scaled_mm_ms"]
-            rec["dequant_matmul_ms"] = t["dequant_matmul_ms"]
-        recs.append(rec)
+    for name, src, replaces, path, launches, err, tm, extra in rows:
+        recs.append({"name": name, "route": "cuda",
+                     "source": f"src/repro_torch/kernels/csrc/{src}",
+                     "replaces": replaces, "launches": launches,
+                     "max_abs_err": err, "ms": tm["ms"],
+                     "plain_ms": tm["plain_ms"], "bound_ms": tm["bound_ms"],
+                     "bound_by": tm["bound_by"],
+                     "library_ms": tm["library_ms"], "path": path, **extra})
     return recs
 
 
@@ -1368,8 +1815,9 @@ def main() -> int:
     t0 = time.perf_counter()
     for phase in (phase_card, phase_build, phase_kernels,
                   phase_kernels_train, phase_kernels_fp8,
-                  phase_serve_reference, phase_serve, phase_train_reference,
-                  phase_train, phase_train_sites):
+                  phase_kernels_grouped, phase_serve_reference, phase_serve,
+                  phase_train_reference, phase_train, phase_train_sites,
+                  phase_train_moe):
         phase(state)
         log(f"[time] {phase.__name__} done at "
             f"{time.perf_counter() - t0:.1f}s")

@@ -5,7 +5,11 @@
                         (kernels/gemm_rng.py: csrc/gemm_rng.cu for f32
                         operands, csrc/gemm_rng_fp8.cu for the
                         per-tile-scaled e4m3 host of gemm_dtype="fp8")
-  "gemm_rng_grouped" -- inside a grouped expert-GEMM kernel (not ported)
+  "gemm_rng_grouped" -- inside the grouped GEMM+RNG kernel (per-expert
+                        products: a MoE block's expert einsum, or E=1 for
+                        the RWKV channel-mix key / value GEMM;
+                        csrc/gemm_rng_grouped.cu in f32,
+                        csrc/gemm_rng_grouped_fp8.cu for fp8)
   "standalone"       -- the standalone Philox kernel (kernels/philox.py):
                         the paper's Region 3, where the GEMM cannot host
                         the RNG
@@ -21,7 +25,8 @@ The capability predicates and shape helpers are the JAX package's, so the
 port plans the same producer for the same cell. The host GEMM sits in the
 consuming layer (site "qkv") or, for the carried sites, in the previous
 attention block: its out-projection ("prev_gemm", models/attention.py) or
-an FFN GEMM ("ffn_up" / "ffn_down", ``FFNHost`` -> models/layers.py).
+an FFN GEMM ("ffn_up" / "ffn_down", ``FFNHost`` -> models/layers.py for
+dense and RWKV channel-mix FFNs, models/moe.py for MoE expert FFNs).
 Shard-local producers (a sharding policy) are not ported yet.
 """
 from __future__ import annotations
@@ -36,6 +41,7 @@ from repro_torch.core import dropout_rng
 from repro_torch.core.overlap import DropoutPlan
 from repro_torch.device import DeviceLike
 from repro_torch.kernels import ops, quant
+from repro_torch.kernels.gemm_rng import mask_layout_feasible
 
 HOW_GEMM = "gemm_rng"
 HOW_GEMM_GROUPED = "gemm_rng_grouped"
@@ -151,26 +157,31 @@ def replay_unsupported_reason(plan: DropoutPlan, sq: int, sk: int,
     return None
 
 
-def _fused_gemm_call(x2d: torch.Tensor, w2d: torch.Tensor,
-                     plan: DropoutPlan, mask_shape, seed, salt,
-                     blocks: Tuple[int, int, int], gemm_dtype: str):
-    """One fused GEMM+RNG launch in the plan's host dtype: f32, or the
-    per-tile-scaled e4m3 kernel for "fp8" (bf16 hosts are not ported
-    yet). Returns (y2d, plane or None)."""
-    batch, n_heads, sq, sk = mask_shape
-    bm, bn, bk = blocks
+def _host_kernel(gemm_dtype: str, f32_fn, fp8_fn):
+    """The fused host of the plan's dtype: f32, or the per-tile-scaled e4m3
+    kernel for "fp8" (bf16 hosts are not ported yet)."""
     if gemm_dtype == "fp8":
         if not quant.have_fp8():
             raise NotImplementedError(
                 "gemm_dtype='fp8' needs torch.float8_e4m3fn, which this "
                 "torch build lacks")
-        fused = ops.fused_gemm_rng_fp8
-    elif gemm_dtype == "f32":
-        fused = ops.fused_qkv_gemm_rng
-    else:
-        raise NotImplementedError(
-            f"gemm_dtype={gemm_dtype!r} hosts are not ported yet (ROADMAP: "
-            "port queue, bf16 hosts)")
+        return fp8_fn
+    if gemm_dtype == "f32":
+        return f32_fn
+    raise NotImplementedError(
+        f"gemm_dtype={gemm_dtype!r} hosts are not ported yet (ROADMAP: "
+        "port queue, bf16 hosts)")
+
+
+def _fused_gemm_call(x2d: torch.Tensor, w2d: torch.Tensor,
+                     plan: DropoutPlan, mask_shape, seed, salt,
+                     blocks: Tuple[int, int, int], gemm_dtype: str):
+    """One fused GEMM+RNG launch in the plan's host dtype. Returns (y2d,
+    plane or None)."""
+    batch, n_heads, sq, sk = mask_shape
+    bm, bn, bk = blocks
+    fused = _host_kernel(gemm_dtype, ops.fused_qkv_gemm_rng,
+                         ops.fused_gemm_rng_fp8)
     return fused(
         x2d, w2d, mask_batch=batch, mask_heads=n_heads, mask_sq=sq,
         mask_sk=sk, p=plan.cfg.p, seed=seed, salt=salt,
@@ -218,12 +229,112 @@ def gemm_with_mask(x2d: torch.Tensor, w2d: torch.Tensor, plan: DropoutPlan,
     return y, mask
 
 
+# --------------------------------------------------------------------------
+# grouped (MoE expert / RWKV channel-mix) hosting
+# --------------------------------------------------------------------------
+
+def grouped_layout_feasible(e: int, c: int, kdim: int, n: int, batch: int,
+                            n_heads: int, sq: int, sk: int
+                            ) -> Tuple[bool, Optional[Tuple[int, int, int]]]:
+    """(feasible, blocks) of hosting a (batch, n_heads, sq, sk) mask under
+    the combined grid of E (c, kdim) x (kdim, n) expert GEMMs: the exact
+    predicate the grouped kernel applies."""
+    blocks = pick_gemm_blocks(c, n, kdim)
+    if blocks is None:
+        return False, None
+    bm, bn, _ = blocks
+    n_steps = e * (c // bm) * (n // bn)
+    return mask_layout_feasible(
+        n_steps, batch, n_heads, sq, sk,
+        mask_block_cols=mask_cols_cap(sq, sk)), blocks
+
+
+def grouped_einsum(a3: torch.Tensor, b3: torch.Tensor) -> torch.Tensor:
+    """y[e] = a3[e] @ b3[e] as a tensor op (the non-hosted expert
+    product)."""
+    return torch.einsum("ecd,edf->ecf", a3, b3)
+
+
+def grouped_gemm_seeded(a3: torch.Tensor, b3: torch.Tensor,
+                        plan: DropoutPlan,
+                        mask_shape: Tuple[int, int, int, int], seed, salt,
+                        how: str, heads_global: int = 0, bh_offset=0
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """y[e] = a3[e] @ b3[e] with the packed plane for ``mask_shape`` = (B,
+    H, SQ, SK) made by the schedule's planned producer ``how``:
+    HOW_GEMM_GROUPED (the grouped GEMM+RNG kernel) or HOW_STANDALONE
+    (Region 3: the same kernel with emission off -- for an fp8 plan the
+    product unquantized, as JAX's is -- then the standalone Philox kernel).
+    ``seed`` / ``salt`` are the folded step seed and layer salt (the MoE
+    dispatch body's operands). Runs exactly that producer, and raises where
+    the GEMM does not tile or the kernel's own layout check disagrees with
+    the plan. Returns (y, plane)."""
+    batch, n_heads, sq, sk = mask_shape
+    e, c, kdim = a3.shape
+    n = b3.shape[2]
+    if how not in (HOW_GEMM_GROUPED, HOW_STANDALONE):
+        raise ValueError(f"no grouped producer {how!r}")
+    blocks = pick_gemm_blocks(c, n, kdim)
+    if blocks is None:
+        raise ValueError(f"producer {how!r} planned for grouped GEMM "
+                         f"{e}x({c},{kdim})x({kdim},{n}), which does not "
+                         f"tile")
+    bm, bn, bk = blocks
+    fused = _host_kernel(plan.cfg.gemm_dtype, ops.fused_gemm_rng_grouped,
+                         ops.fused_gemm_rng_grouped_fp8)
+    y, mask = fused(
+        a3, b3, mask_batch=batch, mask_heads=n_heads, mask_sq=sq,
+        mask_sk=sk, p=plan.cfg.p, seed=seed, salt=salt,
+        rounds=plan.cfg.philox_rounds, block_m=bm, block_n=bn, block_k=bk,
+        mask_block_cols=mask_cols_cap(sq, sk), heads_global=heads_global,
+        bh_offset=bh_offset)
+    if (mask is None) != (how == HOW_STANDALONE):
+        region = "is Region 3" if mask is None else "emits the plane"
+        raise RuntimeError(
+            f"producer {how!r} planned, but the grouped GEMM+RNG kernel's "
+            f"layout for {e}x({c},{kdim})x({kdim},{n}) and mask "
+            f"{mask_shape} {region}")
+    if mask is None:
+        mask = ops.dropout_mask(batch, n_heads, sq, sk, plan.cfg.p, seed,
+                                salt, plan.cfg.philox_rounds,
+                                heads_global=heads_global,
+                                bh_offset=bh_offset, device=a3.device)
+    return y, mask
+
+
+def grouped_gemm_with_mask(a3: torch.Tensor, b3: torch.Tensor,
+                           plan: DropoutPlan,
+                           mask_shape: Tuple[int, int, int, int],
+                           layer_idx, step, how: str
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Whole-plane grouped host: y[e] = a3[e] @ b3[e] plus the packed plane
+    for ``mask_shape``, made by the schedule's planned producer ``how``:
+    HOW_XLA (the tensor-op product and producer), or a grouped-kernel
+    producer as in ``grouped_gemm_seeded``. The direct-call / RWKV
+    channel-mix (E=1) entry point; the MoE dispatch calls
+    ``grouped_gemm_seeded``. Returns (y, plane). JAX's shard-local grouped
+    host (a policy) is not ported (ROADMAP: port queue item 13)."""
+    if how == HOW_XLA:
+        batch, n_heads, sq, sk = mask_shape
+        mask = dropout_rng.packed_mask(
+            batch, n_heads, sq, sk, plan.cfg.p, plan.step_seed(step),
+            plan.salt(layer_idx), plan.cfg.philox_rounds,
+            plan.cfg.philox_bits, device=a3.device)
+        return grouped_einsum(a3, b3), mask
+    return grouped_gemm_seeded(a3, b3, plan, mask_shape,
+                               plan.step_seed(step), plan.salt(layer_idx),
+                               how)
+
+
 @dataclasses.dataclass(frozen=True)
 class FFNHost:
     """Instruction to a block's FFN half to host a mask producer under one
-    of its GEMMs (models/layers.ffn_apply). ``layer_idx`` is the CONSUMER
-    layer (the next attention layer: the plane rides the carry there);
-    ``how`` is the schedule's planned producer for the emission."""
+    of its GEMMs: models/layers.ffn_apply for dense FFNs (the dense fused
+    kernel) and RWKV channel-mix (the grouped kernel, E=1),
+    models/moe.moe_apply for MoE expert FFNs (the grouped kernel over the
+    expert einsum). ``layer_idx`` is the CONSUMER layer (the next attention
+    layer: the plane rides the carry there); ``how`` is the schedule's
+    planned producer for the emission."""
     plan: DropoutPlan
     site: str                           # "ffn_up" | "ffn_down"
     mask_shape: Tuple[int, int, int, int]
@@ -252,3 +363,38 @@ def block_gemm_shapes(cfg: ModelConfig, batch: int, seq: int,
         shapes["ffn_up"] = (toks, (2 if gated else 1) * cfg.d_ff, d)
         shapes["ffn_down"] = (toks, d, cfg.d_ff)
     return shapes
+
+
+def moe_expert_capacity(moe, tokens: int) -> int:
+    """Per-source expert capacity C: the exact arithmetic of the dispatch
+    in models/moe.py, shared so the schedule plans the grouped host on the
+    (E, C) grid the dispatch walks."""
+    return max(1, -(-tokens * moe.top_k
+                    * int(round(moe.capacity_factor * 100))
+                    // (100 * moe.n_experts)))
+
+
+def grouped_host_shapes(cfg: ModelConfig, batch: int, seq: int,
+                        moe_block: Optional[bool] = None
+                        ) -> Dict[str, Tuple[int, int, int, int]]:
+    """(E, C, k, n) of the grouped candidate host GEMMs of a block whose FFN
+    has no dense 2D GEMM, on one device: the MoE expert einsum (E, C, D) x
+    (E, D, F) -- "ffn_up" under the gate projection, "ffn_down" under the
+    down projection -- and the RWKV channel-mix key / value GEMMs as E=1.
+    ``moe_block`` is the per-layer block kind (a MoE stack's first-dense
+    layers can carry an RWKV channel-mix FFN); None means cfg.moe is set.
+    (JAX's shard arguments estimate a sharded run's local grid; the port
+    plans one device.)"""
+    d = cfg.d_model
+    toks = batch * seq
+    if moe_block is None:
+        moe_block = cfg.moe is not None
+    if moe_block:
+        m = cfg.moe
+        cap = moe_expert_capacity(m, toks)
+        return {"ffn_up": (m.n_experts, cap, d, m.d_ff_expert),
+                "ffn_down": (m.n_experts, cap, m.d_ff_expert, d)}
+    if cfg.ffn == FFNKind.RWKV_CHANNEL:
+        return {"ffn_up": (1, toks, d, cfg.d_ff),
+                "ffn_down": (1, toks, cfg.d_ff, d)}
+    return {}

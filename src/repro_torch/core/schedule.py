@@ -10,13 +10,13 @@ package's, so ``explain()`` renders the same text for the same cell.
 Ported: a single device; sites "xla", "qkv" and the carried sites
 ("prev_gemm", "ffn_up", "ffn_down": layer l+1's mask is made under a GEMM
 of layer l's block and carried to it, the first consumer bootstrapping
-from the standalone producer); ``gemm_dtype`` "f32" and "fp8";
-``attn_impl`` "xla" and "pallas"; the replay upgrade.
+from the standalone producer), with MoE expert and RWKV channel-mix FFNs
+hosting "ffn_up" / "ffn_down" through the grouped kernel; ``gemm_dtype``
+"f32" and "fp8"; ``attn_impl`` "xla" and "pallas"; the replay upgrade.
 ``attn_impl="pallas"`` keeps the knob's JAX name: in the port it selects
-the hand-written CUDA kernels (fused GEMM+RNG hosts, flash forward and
-backward). ``site="auto"``, bf16 hosts, grouped (MoE / RWKV channel-mix)
-hosts and sharding policies raise ``NotImplementedError`` naming the
-ROADMAP item.
+the hand-written CUDA kernels (fused and grouped GEMM+RNG hosts, flash
+forward and backward). ``site="auto"``, bf16 hosts and sharding policies
+raise ``NotImplementedError`` naming the ROADMAP item.
 """
 from __future__ import annotations
 
@@ -38,6 +38,7 @@ from repro_torch.kernels.gemm_rng import mask_layout_feasible
 from repro_torch.kernels.philox_common import threshold_from_p
 
 HOW_GEMM = producer.HOW_GEMM
+HOW_GEMM_GROUPED = producer.HOW_GEMM_GROUPED
 HOW_STANDALONE = producer.HOW_STANDALONE
 HOW_XLA = producer.HOW_XLA
 HOW_REPLAY = producer.HOW_REPLAY
@@ -219,7 +220,7 @@ class DropoutSchedule:
 def _not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported yet (ROADMAP: port queue, site='auto' / "
-        "grouped hosts / sharding policies)")
+        "sharding policies)")
 
 
 def _next_attn_stride(kinds: Tuple[AttentionKind, ...], period: int,
@@ -276,6 +277,12 @@ def _fused_capability(plan: DropoutPlan, cfg: ModelConfig, batch: int,
         return (HOW_STANDALONE, sharded,
                 f"Region 3: GEMM ({m},{n},{k}) too small for "
                 f"{b_loc}x{h_loc}x{seq}x{seq} mask")
+    _check_host_dtype(plan)
+    return HOW_GEMM, sharded, ""
+
+
+def _check_host_dtype(plan: DropoutPlan) -> None:
+    """Raise for a host dtype the port has no kernel for."""
     if plan.cfg.gemm_dtype == "bf16":
         raise NotImplementedError(
             "gemm_dtype='bf16' hosts are not ported yet (ROADMAP: port "
@@ -284,7 +291,46 @@ def _fused_capability(plan: DropoutPlan, cfg: ModelConfig, batch: int,
         raise NotImplementedError(
             "gemm_dtype='fp8' needs torch.float8_e4m3fn, which this torch "
             "build lacks")
-    return HOW_GEMM, sharded, ""
+
+
+def _grouped_capability(plan: DropoutPlan, cfg: ModelConfig, batch: int,
+                        seq: int, site: str, shard: ShardInfo,
+                        attn_impl: str, block_is_moe: Optional[bool] = None
+                        ) -> Tuple[str, bool, str]:
+    """(how, sharded, reason) for hosting one mask under the GROUPED GEMM
+    of a block whose FFN has no dense 2D host: the MoE expert einsum or the
+    RWKV channel-mix key / value GEMM (E=1). Feasibility is judged on the
+    (E, C) grid the dispatch walks (producer.grouped_host_shapes); each
+    infeasible shape reports a reason naming its block kind (MoE expert vs
+    RWKV channel-mix). ``block_is_moe`` is the layer's own judgment: a MoE
+    stack's first-dense layers plan on their E=1 channel-mix grid."""
+    if block_is_moe is None:
+        block_is_moe = cfg.moe is not None
+    kind_name = "MoE expert" if block_is_moe else "RWKV channel-mix"
+    early, b_loc, h_loc = _kernel_host_gates(plan, cfg, batch, seq, shard,
+                                             attn_impl)
+    if early is not None:
+        return early
+    sharded = shard.policy_installed
+    g = producer.grouped_host_shapes(cfg, batch, seq,
+                                     moe_block=block_is_moe).get(site)
+    if g is None:
+        return (HOW_STANDALONE, sharded,
+                f"no hostable {site} GEMM in this block")
+    e, c, kdim, n = g
+    feasible, blocks = producer.grouped_layout_feasible(
+        e, c, kdim, n, b_loc, h_loc, seq, seq)
+    if blocks is None:
+        return (HOW_STANDALONE, sharded,
+                f"{kind_name} grouped GEMM ({e}x({c},{kdim})x({kdim},{n}))"
+                f" does not tile")
+    if not feasible:
+        return (HOW_STANDALONE, sharded,
+                f"Region 3: {kind_name} grouped GEMM "
+                f"({e}x({c},{kdim})x({kdim},{n})) too small for "
+                f"{b_loc}x{h_loc}x{seq}x{seq} mask")
+    _check_host_dtype(plan)
+    return HOW_GEMM_GROUPED, sharded, ""
 
 
 def _standalone_capability(plan: DropoutPlan, seq: int,
@@ -324,12 +370,11 @@ def _replay_assignment(a: HostAssignment,
     RNG keeps hiding under the GEMM)."""
     changes = {}
     if a.consumes:
-        host_how = a.how if a.how in (HOW_GEMM,
-                                      producer.HOW_GEMM_GROUPED) else ""
+        host_how = a.how if a.how in (HOW_GEMM, HOW_GEMM_GROUPED) else ""
         changes.update(how=HOW_REPLAY, host_how=host_how,
                        sharded=consume_sharded, reason="")
-    if a.emit_site is not None and a.emit_how not in (
-            HOW_GEMM, producer.HOW_GEMM_GROUPED):
+    if a.emit_site is not None and a.emit_how not in (HOW_GEMM,
+                                                      HOW_GEMM_GROUPED):
         changes.update(emit_site=None, emit_stride=0, emit_how="",
                        emit_reason="")
     return dataclasses.replace(a, **changes) if changes else a
@@ -357,12 +402,7 @@ def _compile(cfg: ModelConfig, plan_cfg: DropoutPlanConfig, batch: int,
     if site == "auto":
         raise _not_ported("site='auto'")
     carried = site in CARRIED_DROPOUT_SITES
-    if site in ("ffn_up", "ffn_down") and (
-            cfg.moe is not None or cfg.ffn == FFNKind.RWKV_CHANNEL):
-        ffn = "MoE expert" if cfg.moe is not None else "RWKV channel-mix"
-        raise NotImplementedError(
-            f"site={site!r} on {ffn} FFNs hosts through the grouped kernel, "
-            "which is not ported yet (ROADMAP: port queue, grouped slice)")
+    moe_first_dense = cfg.moe.first_dense_layers if cfg.moe else 0
     period = len(cfg.block_pattern)
     asgs = []
     for l in range(cfg.n_layers):
@@ -384,9 +424,21 @@ def _compile(cfg: ModelConfig, plan_cfg: DropoutPlanConfig, batch: int,
             # carried: my mask comes from the previous attention layer's
             # emission (the standalone bootstrap for the first one), and
             # my block emits the next attention layer's under its ``site``
-            # GEMM
-            e_how, _, e_reason = _fused_capability(
-                plan, cfg, batch, seq, site, shard, attn_impl)
+            # GEMM: the dense fused kernel, or the grouped kernel for MoE
+            # expert and RWKV channel-mix FFNs
+            block_is_moe = cfg.moe is not None and l >= moe_first_dense
+            if site in ("ffn_up", "ffn_down") and (
+                    block_is_moe or cfg.ffn == FFNKind.RWKV_CHANNEL):
+                e_how, _, e_reason = _grouped_capability(
+                    plan, cfg, batch, seq, site, shard, attn_impl,
+                    block_is_moe=block_is_moe)
+            else:
+                # a MoE stack's first-dense layers carry a dense FFN
+                dense_ffn = True if (cfg.moe is not None
+                                     and not block_is_moe) else None
+                e_how, _, e_reason = _fused_capability(
+                    plan, cfg, batch, seq, site, shard, attn_impl,
+                    dense_ffn=dense_ffn)
             emit = dict(emit_site=site,
                         emit_stride=_next_attn_stride(kinds, period, l),
                         emit_how=e_how, emit_reason=e_reason)

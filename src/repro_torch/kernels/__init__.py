@@ -5,7 +5,8 @@ philox_common.py       -- Philox-4x32 counter math (plain mirror of
 philox.py              -- standalone dropout-RNG kernel (packed keep plane)
 quant.py               -- per-tile e4m3 quantization (outside the kernels)
 gemm_rng.py            -- fused GEMM + dropout RNG in f32 and on e4m3
-                          operands (each with its Region-3 plain variant)
+                          operands, dense and grouped (per expert), each
+                          with its Region-3 plain variant
 flash_attention.py     -- flash-attention forward, dropout none / fused /
                           premask / replay; the differentiable
                           flash_attention_mosaic

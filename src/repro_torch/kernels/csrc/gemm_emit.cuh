@@ -1,18 +1,20 @@
-// The dropout-plane emission of the fused GEMM+RNG kernels (gemm_rng.cu,
-// f32 operands; gemm_rng_fp8.cu, e4m3 operands): both write exactly the
-// rectangles of the JAX emission layout, so a plane does not depend on the
-// dtype of the GEMM that hosts it.
+// The dropout-plane emission of the fused GEMM+RNG kernels (gemm_rng.cu and
+// gemm_rng_grouped.cu, f32 operands; gemm_rng_fp8.cu and
+// gemm_rng_grouped_fp8.cu, e4m3 operands): all write exactly the rectangles
+// of the JAX emission layout, so a plane does not depend on the dtype or
+// the shape of the GEMM that hosts it.
 //
 // The plane is the flattened (rows_valid = B*H*SQ/32, SK) int32 layout, cut
 // into the rb x ck rectangles of gemm_rng.py::mask_emission_layout (judged
 // on the JAX logical GEMM grid by the Python wrapper): block s covers rows
 // [s / n_cb * rb, + rb) clipped to rows_valid and cols [s % n_cb * ck,
 // + ck). Bits are position-based (philox.cuh::packed_word), so they do not
-// depend on which CTA writes a block: CTA t (row-major over the CTA grid)
-// writes blocks t, t + n_ctas, ... < n_valid_blocks, before its k-loop --
-// the CUDA form of JAX's "kk == 0" emission. Only valid blocks are
-// written: the TPU's dummy overflow band is BlockSpec plumbing with no
-// bits.
+// depend on which CTA writes a block: CTA t (row-major over the whole 3-D
+// CTA grid, blockIdx.z the expert of a grouped launch) writes blocks t,
+// t + n_ctas, ... < n_valid_blocks, before its k-loop -- the CUDA form of
+// JAX's "kk == 0" emission. A dense launch has gridDim.z == 1. Only valid
+// blocks are written: the TPU's dummy overflow band is BlockSpec plumbing
+// with no bits.
 #pragma once
 
 #include <cstdint>
@@ -27,11 +29,13 @@ struct Emit {
   uint32_t k0, k1, salt, bh_offset, heads_local, heads_global, threshold;
 };
 
-// The blocks CTA (blockIdx.x, blockIdx.y) owns, written by all its threads.
+// The blocks CTA (blockIdx.x, blockIdx.y, blockIdx.z) owns, written by all
+// its threads.
 template <int ROUNDS>
 __device__ void emit_blocks(const Emit& e) {
-  const int n_ctas = gridDim.x * gridDim.y;
-  const int t = blockIdx.y * gridDim.x + blockIdx.x;
+  const int n_ctas = gridDim.x * gridDim.y * gridDim.z;
+  const int t = (blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x +
+                blockIdx.x;
   for (int s = t; s < e.n_valid_blocks; s += n_ctas) {
     const int r0 = (s / e.n_cb) * e.rb;
     const int r1 = min(r0 + e.rb, e.rows_valid);

@@ -29,182 +29,17 @@
 // step at B=2, S=2048 (4096 x 12288 x 4096, 412 GFLOP) 0.21 ms, and its
 // plane's Philox (8.4 M words of 8 calls each) about 0.07 ms at the issue
 // rate, against 0.30 GB of operands, scales, result and plane (0.09 ms at
-// 3.35 TB/s): operations. This first kernel is the textbook SIMT tiling of
-// gemm_rng.cu with the loads decoding e4m3 to f32 in shared memory and a
-// second 8 x 8 register tile for the k-block's partial sums: f32 FMAs,
-// 173 registers, so one 256-thread CTA an SM; it runs at about 19 TFLOP/s
+// 3.35 TB/s): operations. This first kernel is the SIMT tiling of
+// gemm_fp8.cuh (shared with the grouped host, gemm_rng_grouped_fp8.cu),
+// launched with one expert: f32 FMAs on decoded e4m3, 173 registers, so
+// one 256-thread CTA an SM; it runs at about 19 TFLOP/s
 // (22 ms at that shape), so the plane's RNG is about 1 % of its time.
 // Using the tensor cores (mma.sync m16n8k32 e4m3 -> f32 from sm_89, or
 // wgmma) is what would make the RNG a third of the product, and would
 // change the order of rounding inside a k-block; that is later work.
-#include <cuda_runtime.h>
-
 #include <cstdint>
 
-#include "gemm_emit.cuh"
-
-namespace {
-
-using repro_gemm::Emit;
-using repro_gemm::emit_blocks;
-
-constexpr int BM = 128;
-constexpr int BN = 128;
-constexpr int BKS = 8;  // k-slice depth
-constexpr int NT = 256;
-constexpr int PAD = 4;  // keeps float4 alignment of every smem row
-
-// e4m3fn -> f32, exact: 1 sign, 4 exponent (bias 7), 3 mantissa bits; no
-// infinities, NaN at 0x7f / 0xff; subnormals are m * 2^-9.
-__device__ __forceinline__ float e4m3_to_f32(uint32_t v) {
-  const uint32_t sign = (v & 0x80u) << 24;
-  const uint32_t e = (v >> 3) & 0xFu;
-  const uint32_t m = v & 0x7u;
-  if (e == 0xFu && m == 0x7u) return __uint_as_float(sign | 0x7FC00000u);
-  if (e == 0u)
-    return __uint_as_float(sign |
-                           __float_as_uint(static_cast<float>(m) *
-                                           0.001953125f));
-  return __uint_as_float(sign | ((e + 120u) << 23) | (m << 20));
-}
-
-struct Scales {
-  const float* a_s;  // (M / bm, gk)
-  const float* b_s;  // (gk, gn)
-  int bm, bn, bk, gk, gn;
-};
-
-template <int ROUNDS>
-__global__ void __launch_bounds__(NT)
-    gemm_rng_fp8_kernel(const uint8_t* __restrict__ a,
-                        const uint8_t* __restrict__ b,
-                        float* __restrict__ c, int M, int N, int K,
-                        Scales sc, bool a_vec, bool b_vec, Emit e) {
-  __shared__ __align__(16) float As[BKS][BM + PAD];
-  __shared__ __align__(16) float Bs[BKS][BN + PAD];
-  if (e.mask != nullptr) emit_blocks<ROUNDS>(e);
-
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
-  const int m0 = blockIdx.y * BM;
-  const int n0 = blockIdx.x * BN;
-  // loader coordinates: A is 128 rows x 8 k (4 bytes per thread), B is
-  // 8 k x 128 cols (4 bytes per thread)
-  const int a_row = tid >> 1;
-  const int a_k = (tid & 1) * 4;
-  const int b_k = tid >> 5;
-  const int b_col = (tid & 31) * 4;
-
-  float acc[8][8];
-  float part[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = part[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < K; k0 += BKS) {
-    {
-      const int gr = m0 + a_row;
-      const int gk = k0 + a_k;
-      uint32_t w = 0;
-      if (gr < M) {
-        const uint8_t* src = a + static_cast<size_t>(gr) * K + gk;
-        if (a_vec) {
-          w = *reinterpret_cast<const uint32_t*>(src);
-        } else {
-#pragma unroll
-          for (int u = 0; u < 4; ++u)
-            w |= static_cast<uint32_t>(src[u]) << (8 * u);
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < 4; ++u)
-        As[a_k + u][a_row] = e4m3_to_f32((w >> (8 * u)) & 0xFFu);
-    }
-    {
-      const int gk = k0 + b_k;
-      const int gc = n0 + b_col;
-      uint32_t w = 0;
-      const uint8_t* src = b + static_cast<size_t>(gk) * N + gc;
-      if (b_vec && gc + 3 < N) {
-        w = *reinterpret_cast<const uint32_t*>(src);
-      } else {
-#pragma unroll
-        for (int u = 0; u < 4; ++u)
-          if (gc + u < N) w |= static_cast<uint32_t>(src[u]) << (8 * u);
-      }
-#pragma unroll
-      for (int u = 0; u < 4; ++u)
-        Bs[b_k][b_col + u] = e4m3_to_f32((w >> (8 * u)) & 0xFFu);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BKS; ++kk) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&As[kk][ty * 4]);
-      const float4 a1 =
-          *reinterpret_cast<const float4*>(&As[kk][ty * 4 + 64]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&Bs[kk][tx * 4]);
-      const float4 b1 =
-          *reinterpret_cast<const float4*>(&Bs[kk][tx * 4 + 64]);
-      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-          part[i][j] = fmaf(av[i], bv[j], part[i][j]);
-    }
-    __syncthreads();
-    if ((k0 + BKS) % sc.bk == 0) {
-      // end of k-block kb: rescale its partial sums onto the accumulator
-      const int kb = k0 / sc.bk;
-      float as_[8], bs_[8];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const int r = m0 + ty * 4 + (i & 3) + (i >> 2) * 64;
-        as_[i] = r < M ? sc.a_s[(r / sc.bm) * sc.gk + kb] : 0.f;
-      }
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int col = n0 + tx * 4 + (j & 3) + (j >> 2) * 64;
-        bs_[j] = col < N ? sc.b_s[kb * sc.gn + col / sc.bn] : 0.f;
-      }
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          acc[i][j] = acc[i][j] + part[i][j] * (as_[i] * bs_[j]);
-          part[i][j] = 0.f;
-        }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int r = m0 + ty * 4 + (i & 3) + (i >> 2) * 64;
-    if (r >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int col = n0 + tx * 4 + (j & 3) + (j >> 2) * 64;
-      if (col < N) c[static_cast<size_t>(r) * N + col] = acc[i][j];
-    }
-  }
-}
-
-template <int ROUNDS>
-int launch(const uint8_t* a, const uint8_t* b, float* c, int M, int N,
-           int K, const Scales& sc, const Emit& e, cudaStream_t s) {
-  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  // 4-byte loads need 4-byte rows and a 4-byte base (K % 8 == 0 here)
-  const bool a_vec = reinterpret_cast<uintptr_t>(a) % 4 == 0;
-  const bool b_vec = N % 4 == 0 && reinterpret_cast<uintptr_t>(b) % 4 == 0;
-  gemm_rng_fp8_kernel<ROUNDS>
-      <<<grid, NT, 0, s>>>(a, b, c, M, N, K, sc, a_vec, b_vec, e);
-  return static_cast<int>(cudaGetLastError());
-}
-
-}  // namespace
+#include "gemm_fp8.cuh"
 
 // C = dequantized A @ B as described above, and, when `mask` is not null,
 // the layout's blocks of the packed keep plane. (bm, bk) and (bk, bn) are
@@ -219,27 +54,7 @@ extern "C" int repro_gemm_rng_fp8(
     uint32_t key_lo, uint32_t key_hi, uint32_t salt, uint32_t bh_offset,
     int heads_local, int heads_global, uint32_t threshold, int rounds,
     void* stream) {
-  if (M <= 0 || N <= 0 || K <= 0 || bm <= 0 || bn <= 0 || bk <= 0 ||
-      M % bm || N % bn || K % bk || bk % BKS)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const uint8_t* A = static_cast<const uint8_t*>(a);
-  const uint8_t* B = static_cast<const uint8_t*>(b);
-  float* C = static_cast<float*>(c);
-  const Scales sc{static_cast<const float*>(a_s),
-                  static_cast<const float*>(b_s), bm, bn, bk, K / bk,
-                  N / bn};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  Emit e;
-  if (!repro_gemm::make_emit(mask, rows_valid, sk, sq32, rb, ck, n_cb,
-                             n_valid_blocks, key_lo, key_hi, salt, bh_offset,
-                             heads_local, heads_global, threshold, &e))
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (mask == nullptr) return launch<7>(A, B, C, M, N, K, sc, e, s);
-  switch (rounds) {
-    case 3: return launch<3>(A, B, C, M, N, K, sc, e, s);
-    case 5: return launch<5>(A, B, C, M, N, K, sc, e, s);
-    case 7: return launch<7>(A, B, C, M, N, K, sc, e, s);
-    case 10: return launch<10>(A, B, C, M, N, K, sc, e, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return repro_gemm::fp8::run<false>(a, b, a_s, b_s, c, 1, M, N, K, bm, bn, bk,
+      mask, rows_valid, sk, sq32, rb, ck, n_cb, n_valid_blocks, key_lo, key_hi,
+      salt, bh_offset, heads_local, heads_global, threshold, rounds, stream);
 }

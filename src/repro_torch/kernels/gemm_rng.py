@@ -22,6 +22,17 @@ which CTA writes which block: see the note in ``csrc/gemm_rng.cu``.
 per-tile scales outside the kernel (the scale tiles are the logical GEMM
 blocks); its plane is bitwise the f32 host's.
 
+``gemm_with_rng_grouped`` / ``gemm_with_rng_grouped_fp8`` are the grouped
+hosts: C[e] = A[e] @ B[e] for E experts (a MoE block's expert einsum; E = 1
+for the RWKV channel-mix key / value GEMM) with the plane made under the
+products, by ``csrc/gemm_rng_grouped.cu`` (replacing
+``_gemm_rng_grouped_kernel`` and, emission off, ``_plain_grouped_impl.kern``)
+and ``csrc/gemm_rng_grouped_fp8.cu`` (replacing
+``_gemm_rng_grouped_fp8_kernel``). The emission layout is judged on the JAX
+logical grid E * gm * gn; the bits do not depend on which tokens an expert
+tile holds. In Region 3 both return the plain f32 grouped product (the
+fp8 host unquantized, as JAX's does) and no plane.
+
 Operands are f32 only; other dtypes raise
 ``NotImplementedError`` (ROADMAP: port queue, bf16 hosts).
 """
@@ -45,13 +56,22 @@ from repro_torch.kernels.philox_common import (
 
 KERNEL = "gemm_rng"
 KERNEL_FP8 = "gemm_rng_fp8"
+KERNEL_GROUPED = "gemm_rng_grouped"
+KERNEL_GROUPED_FP8 = "gemm_rng_grouped_fp8"
 # plain version: packed words per step (x 32 keep bits each)
 _PLAIN_CHUNK_WORDS = 1 << 17
 
 # launches by kernel and variant: "rng" (emission on), "plain" (Region 3)
-_launches = {KERNEL: {"rng": 0, "plain": 0},
-             KERNEL_FP8: {"rng": 0, "plain": 0}}
+_launches = {name: {"rng": 0, "plain": 0}
+             for name in (KERNEL, KERNEL_FP8, KERNEL_GROUPED,
+                          KERNEL_GROUPED_FP8)}
 _fns = {}
+# C entry point and leading (operand and size) arguments of each kernel;
+# the emission's arguments follow
+_ENTRY = {KERNEL: ("repro_gemm_rng", 3, 3),
+          KERNEL_FP8: ("repro_gemm_rng_fp8", 5, 6),
+          KERNEL_GROUPED: ("repro_gemm_rng_grouped", 3, 4),
+          KERNEL_GROUPED_FP8: ("repro_gemm_rng_grouped_fp8", 5, 7)}
 
 
 def launch_counts() -> dict:
@@ -181,15 +201,10 @@ def _kernel_fn(name: str):
     """The C entry point of kernel ``name``, built on first use."""
     fn = _fns.get(name)
     if fn is None:
-        lib = build.load(name)
-        if name == KERNEL:
-            fn = lib.repro_gemm_rng
-            fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
-                           + _EMIT_ARGTYPES)
-        else:
-            fn = lib.repro_gemm_rng_fp8
-            fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
-                           + _EMIT_ARGTYPES)
+        entry, n_ptrs, n_ints = _ENTRY[name]
+        fn = getattr(build.load(name), entry)
+        fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
+                       + _EMIT_ARGTYPES)
         fn.restype = ctypes.c_int
         _fns[name] = fn
     return fn
@@ -234,8 +249,10 @@ def _plain_plane(em: _Emission, device) -> torch.Tensor:
 
 
 def _outputs(a: torch.Tensor, n: int, em: Optional[_Emission]):
-    """Empty C (f32) and flattened plane (or None) for a launch."""
-    c = torch.empty((a.shape[0], n), dtype=torch.float32, device=a.device)
+    """Empty C (f32, ``a``'s leading dims by ``n``) and flattened plane (or
+    None) for a launch."""
+    c = torch.empty((*a.shape[:-1], n), dtype=torch.float32,
+                    device=a.device)
     mask = None if em is None else torch.empty(
         (em.layout.rows_valid, em.layout.sk), dtype=torch.int32,
         device=a.device)
@@ -294,46 +311,77 @@ class _GemmRng(torch.autograd.Function):
         return da, db, None
 
 
-def _emission(a: torch.Tensor, b: torch.Tensor, mask_batch: int,
-              mask_heads: int, mask_sq: int, mask_sk: int, p: float, seed,
-              salt, rounds: int, block_m: int, block_n: int, block_k: int,
-              mask_block_cols: int, max_mask_rows_per_block: int,
-              heads_global: int, bh_offset
-              ) -> Tuple[Tuple[int, int, int], Optional[_Emission]]:
-    """Check the call as the JAX package does and resolve the logical GEMM
-    blocks (bm, bn, bk) and what the fused launch writes: the emission, or
-    None in Region 3."""
+def _check_operands(a: torch.Tensor, b: torch.Tensor, rounds: int,
+                    mask_sq: int, grouped: bool) -> None:
+    """Raise on a call the hosts do not take, as the JAX package asserts."""
     if a.dtype != torch.float32 or b.dtype != torch.float32:
         raise NotImplementedError(
             f"gemm_with_rng takes f32 operands, got {a.dtype} "
             f"x {b.dtype} (ROADMAP: port queue, bf16 hosts)")
-    if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
-        raise ValueError(f"bad GEMM shapes {tuple(a.shape)} x "
-                         f"{tuple(b.shape)}")
+    nd = 3 if grouped else 2
+    if (a.dim() != nd or b.dim() != nd or a.shape[-1] != b.shape[-2]
+            or (grouped and a.shape[0] != b.shape[0])):
+        raise ValueError(f"bad {'grouped ' if grouped else ''}GEMM shapes "
+                         f"{tuple(a.shape)} x {tuple(b.shape)}")
     if a.device != b.device:
         raise ValueError(f"operands on {a.device} and {b.device}")
     if rounds not in SUPPORTED_PHILOX_ROUNDS:
         raise ValueError(f"rounds={rounds}; expected one of "
                          f"{SUPPORTED_PHILOX_ROUNDS}")
-    m, kdim = a.shape
-    n = b.shape[1]
+    if mask_sq % 32:
+        raise ValueError(f"mask_sq={mask_sq} must be a multiple of 32")
+
+
+def _blocks(m: int, n: int, kdim: int, block_m: int, block_n: int,
+            block_k: int) -> Tuple[int, int, int]:
+    """The logical GEMM blocks (bm, bn, bk) of one (m, n, kdim) product."""
     bm, bn, bkk = min(block_m, m), min(block_n, n), min(block_k, kdim)
     if m % bm or n % bn or kdim % bkk:
         raise ValueError(f"blocks ({bm},{bn},{bkk}) do not tile the GEMM "
                          f"({m},{n},{kdim})")
-    if mask_sq % 32:
-        raise ValueError(f"mask_sq={mask_sq} must be a multiple of 32")
-    layout = mask_emission_layout((m // bm) * (n // bn), mask_batch,
-                                  mask_heads, mask_sq, mask_sk,
-                                  mask_block_cols, max_mask_rows_per_block)
+    return bm, bn, bkk
+
+
+def _layout_emission(n_steps: int, mask_batch: int, mask_heads: int,
+                     mask_sq: int, mask_sk: int, p: float, seed, salt,
+                     rounds: int, mask_block_cols: int,
+                     max_mask_rows_per_block: int, heads_global: int,
+                     bh_offset) -> Optional[_Emission]:
+    """What a fused launch on a logical grid of ``n_steps`` tiles writes:
+    the emission, or None in Region 3."""
+    layout = mask_emission_layout(n_steps, mask_batch, mask_heads, mask_sq,
+                                  mask_sk, mask_block_cols,
+                                  max_mask_rows_per_block)
     if layout is None:
-        return (bm, bn, bkk), None
+        return None
     k0, k1, salt_w, off = seed_salt_words(seed, salt, bh_offset)
-    return (bm, bn, bkk), _Emission(
+    return _Emission(
         layout=layout, sq32=mask_sq // 32, heads_local=mask_heads,
         heads_global=heads_global or mask_heads, key_lo=k0, key_hi=k1,
         salt=salt_w, bh_offset=off, threshold=threshold_from_p(p),
         rounds=rounds)
+
+
+def _emission(a: torch.Tensor, b: torch.Tensor, mask_batch: int,
+              mask_heads: int, mask_sq: int, mask_sk: int, p: float, seed,
+              salt, rounds: int, block_m: int, block_n: int, block_k: int,
+              mask_block_cols: int, max_mask_rows_per_block: int,
+              heads_global: int, bh_offset, grouped: bool = False
+              ) -> Tuple[Tuple[int, int, int], Optional[_Emission]]:
+    """Check the call as the JAX package does and resolve the logical GEMM
+    blocks (bm, bn, bk) and what the fused launch writes: the emission, or
+    None in Region 3. ``grouped``: a (E, C, K) x (E, K, N) call, whose
+    logical grid is E * gm * gn."""
+    _check_operands(a, b, rounds, mask_sq, grouped)
+    m, kdim = a.shape[-2:]
+    n = b.shape[-1]
+    bm, bn, bkk = _blocks(m, n, kdim, block_m, block_n, block_k)
+    groups = a.shape[0] if grouped else 1
+    em = _layout_emission(groups * (m // bm) * (n // bn), mask_batch,
+                          mask_heads, mask_sq, mask_sk, p, seed, salt,
+                          rounds, mask_block_cols, max_mask_rows_per_block,
+                          heads_global, bh_offset)
+    return (bm, bn, bkk), em
 
 
 def _as_plane(mask: Optional[torch.Tensor], mask_batch: int,
@@ -534,3 +582,250 @@ def gemm_with_rng_fp8_plain(a: torch.Tensor, b: torch.Tensor, *,
     b_q, b_s = quant.quantize_tiled(b, bk, bn)
     c, mask = _plain_fp8(a_q, a_s, b_q, b_s, blocks, em)
     return c, _as_plane(mask, mask_batch, mask_heads, mask_sq, mask_sk)
+
+
+# --------------------------------------------------------------------------
+# the grouped hosts (MoE expert einsum, RWKV channel-mix with E = 1)
+# --------------------------------------------------------------------------
+
+def gemm_grouped_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The plain version of the grouped product: one ``gemm_ref`` an
+    expert."""
+    return torch.stack([gemm_ref(a[e], b[e]) for e in range(a.shape[0])])
+
+
+def _plain_grouped(a, b, em: Optional[_Emission]):
+    """The plain version of the f32 grouped host on any device."""
+    c = gemm_grouped_plain(a, b)
+    return c, None if em is None else _plain_plane(em, a.device)
+
+
+def _forward_grouped(a: torch.Tensor, b: torch.Tensor,
+                     em: Optional[_Emission]
+                     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """(C, flattened plane or None) of the f32 grouped host on the
+    operands' device."""
+    if not _check_device(a, KERNEL_GROUPED):
+        return _plain_grouped(a, b, em)
+    a, b = a.contiguous(), b.contiguous()
+    e, m, k = a.shape
+    n = b.shape[2]
+    c, mask = _outputs(a, n, em)
+    _launch(KERNEL_GROUPED,
+            [a.data_ptr(), b.data_ptr(), c.data_ptr(), e, m, n, k], mask, em,
+            a.device)
+    return c, mask
+
+
+def _grouped_dgrad(a, b, dc, needs, cast=lambda t: t):
+    """The per-expert dgrad pair, da[e] = dc[e] @ b[e]^T and db[e] =
+    a[e]^T @ dc[e], as JAX's ``_grouped_dgrad_pair`` (``cast`` rounds the
+    operands first: bf16 for the fp8 host's pair)."""
+    dcc = cast(dc)
+    da = dcc @ cast(b).transpose(1, 2) if needs[0] else None
+    db = cast(a).transpose(1, 2) @ dcc if needs[1] else None
+    return da, db
+
+
+class _GemmRngGrouped(torch.autograd.Function):
+    """Forward: the grouped kernel (or its plain version on the CPU).
+    Backward: the per-expert dgrad pair in f32 (JAX's
+    ``_grouped_dgrad_pair``, plain products outside any kernel there too);
+    the plane gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, a, b, em):
+        c, mask = _forward_grouped(a, b, em)
+        ctx.save_for_backward(a, b)
+        if mask is not None:
+            ctx.mark_non_differentiable(mask)
+        return c, mask
+
+    @staticmethod
+    def backward(ctx, dc, _dmask):
+        a, b = ctx.saved_tensors
+        return (*_grouped_dgrad(a, b, dc, ctx.needs_input_grad[:2]), None)
+
+
+def gemm_with_rng_grouped(a: torch.Tensor, b: torch.Tensor, *,
+                          mask_batch: int, mask_heads: int, mask_sq: int,
+                          mask_sk: int, p: float, seed, salt=0,
+                          rounds: int = 7, block_m: int = 256,
+                          block_n: int = 256, block_k: int = 512,
+                          mask_block_cols: int = 2048,
+                          max_mask_rows_per_block: int = 256,
+                          heads_global: int = 0, bh_offset=0
+                          ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """C[e] = a[e] @ b[e] (f32) for a (E, C, K) and b (E, K, N), and the
+    packed keep plane (B, H, SQ//32, SK) int32 made under the products:
+    mask blocks go round-robin over the E * gm * gn logical expert tiles
+    and are indexed by Philox counters only, so the routing never reaches
+    the bits. The plane is None in Region 3 (the kernel runs with the
+    emission off; the caller makes the plane with the standalone kernel).
+    Differentiable in a and b. Arguments as ``gemm_with_rng``."""
+    _, em = _emission(a, b, mask_batch, mask_heads, mask_sq, mask_sk, p,
+                      seed, salt, rounds, block_m, block_n, block_k,
+                      mask_block_cols, max_mask_rows_per_block, heads_global,
+                      bh_offset, grouped=True)
+    c, mask = _GemmRngGrouped.apply(a, b, em)
+    return c, _as_plane(mask, mask_batch, mask_heads, mask_sq, mask_sk)
+
+
+def gemm_with_rng_grouped_plain(a: torch.Tensor, b: torch.Tensor, *,
+                                mask_batch: int, mask_heads: int,
+                                mask_sq: int, mask_sk: int, p: float, seed,
+                                salt=0, rounds: int = 7, block_m: int = 256,
+                                block_n: int = 256, block_k: int = 512,
+                                mask_block_cols: int = 2048,
+                                max_mask_rows_per_block: int = 256,
+                                heads_global: int = 0, bh_offset=0
+                                ) -> Tuple[torch.Tensor,
+                                           Optional[torch.Tensor]]:
+    """The plain version of ``gemm_with_rng_grouped`` on any device (no
+    gradient)."""
+    _, em = _emission(a, b, mask_batch, mask_heads, mask_sq, mask_sk, p,
+                      seed, salt, rounds, block_m, block_n, block_k,
+                      mask_block_cols, max_mask_rows_per_block, heads_global,
+                      bh_offset, grouped=True)
+    c, mask = _plain_grouped(a, b, em)
+    return c, _as_plane(mask, mask_batch, mask_heads, mask_sq, mask_sk)
+
+
+def quantize_grouped(a: torch.Tensor, b: torch.Tensor,
+                     blocks: Tuple[int, int, int]):
+    """Per expert tile e4m3 operands of the grouped fp8 host, as JAX's
+    ``_gemm_rng_grouped_fp8_impl`` makes them: the expert folds into
+    ``quant.quantize_tiled``'s tile rows. Returns (a_q (E, C, K), a_s
+    (E*gm, gk), b_q (E, K, N), b_s (E*gk, gn))."""
+    bm, bn, bk = blocks
+    e, c, kdim = a.shape
+    n = b.shape[2]
+    a_q, a_s = quant.quantize_tiled(a.reshape(e * c, kdim), bm, bk)
+    b_q, b_s = quant.quantize_tiled(b.reshape(e * kdim, n), bk, bn)
+    return a_q.reshape(e, c, kdim), a_s, b_q.reshape(e, kdim, n), b_s
+
+
+def gemm_grouped_fp8_plain(a_q: torch.Tensor, a_s: torch.Tensor,
+                           b_q: torch.Tensor, b_s: torch.Tensor,
+                           blocks: Tuple[int, int, int]) -> torch.Tensor:
+    """The plain version of the grouped e4m3 tile product: ``gemm_fp8_plain``
+    on each expert's operands and scale rows."""
+    bm, _, bk = blocks
+    e, c, kdim = a_q.shape
+    gm, gk = c // bm, kdim // bk
+    return torch.stack([
+        gemm_fp8_plain(a_q[i], a_s[i * gm:(i + 1) * gm], b_q[i],
+                       b_s[i * gk:(i + 1) * gk], blocks)
+        for i in range(e)])
+
+
+def gemm_rng_grouped_fp8_quantized(a_q: torch.Tensor, a_s: torch.Tensor,
+                                   b_q: torch.Tensor, b_s: torch.Tensor,
+                                   blocks: Tuple[int, int, int],
+                                   em: Optional[_Emission]
+                                   ) -> Tuple[torch.Tensor,
+                                              Optional[torch.Tensor]]:
+    """The grouped fp8 host on operands already quantized by
+    ``quantize_grouped``: (C, flattened plane or None). Launches the kernel
+    for CUDA tensors, the plain version for CPU ones."""
+    if not _check_device(a_q, KERNEL_GROUPED_FP8):
+        c = gemm_grouped_fp8_plain(a_q, a_s, b_q, b_s, blocks)
+        return c, None if em is None else _plain_plane(em, a_q.device)
+    bm, bn, bk = blocks
+    e, m, k = a_q.shape
+    n = b_q.shape[2]
+    if bk % 8:
+        raise NotImplementedError(
+            f"the {KERNEL_GROUPED_FP8} kernel takes k-blocks of a multiple "
+            f"of 8, got {bk}")
+    ops = (a_q, a_s, b_q, b_s)
+    dtypes = (quant.fp8_dtype(), torch.float32) * 2
+    if (any(t.dtype != dt for t, dt in zip(ops, dtypes))
+            or any(not t.is_contiguous() or t.device != a_q.device
+                   for t in ops)
+            or b_q.shape[:2] != (e, k) or m % bm or n % bn or k % bk
+            or a_s.shape != (e * (m // bm), k // bk)
+            or b_s.shape != (e * (k // bk), n // bn)):
+        raise ValueError(
+            f"{KERNEL_GROUPED_FP8} takes contiguous e4m3 operands and f32 "
+            f"scales of the ({bm},{bn},{bk}) expert tiles on one device, got "
+            f"{[(t.dtype, tuple(t.shape), t.device) for t in ops]}")
+    c, mask = _outputs(a_q, n, em)
+    _launch(KERNEL_GROUPED_FP8,
+            [a_q.data_ptr(), b_q.data_ptr(), a_s.data_ptr(), b_s.data_ptr(),
+             c.data_ptr(), e, m, n, k, bm, bn, bk], mask, em, a_q.device)
+    return c, mask
+
+
+class _GemmRngGroupedFp8(torch.autograd.Function):
+    """Forward: quantize per expert tile, then the grouped e4m3 kernel (or
+    its plain version on the CPU). Backward: straight-through quantization
+    and the per-expert dgrad pair on bf16-rounded operands with f32
+    accumulation, as JAX's ``_grouped_dgrad_pair_bf16``."""
+
+    @staticmethod
+    def forward(ctx, a, b, blocks, em):
+        c, mask = gemm_rng_grouped_fp8_quantized(
+            *quantize_grouped(a, b, blocks), blocks, em)
+        ctx.save_for_backward(a, b)
+        if mask is not None:
+            ctx.mark_non_differentiable(mask)
+        return c, mask
+
+    @staticmethod
+    def backward(ctx, dc, _dmask):
+        a, b = ctx.saved_tensors
+        return (*_grouped_dgrad(a, b, dc, ctx.needs_input_grad[:2],
+                                cast=_bf16_f32), None, None)
+
+
+def gemm_with_rng_grouped_fp8(a: torch.Tensor, b: torch.Tensor, *,
+                              mask_batch: int, mask_heads: int,
+                              mask_sq: int, mask_sk: int, p: float, seed,
+                              salt=0, rounds: int = 7, block_m: int = 256,
+                              block_n: int = 256, block_k: int = 512,
+                              mask_block_cols: int = 2048,
+                              max_mask_rows_per_block: int = 256,
+                              heads_global: int = 0, bh_offset=0
+                              ) -> Tuple[torch.Tensor,
+                                         Optional[torch.Tensor]]:
+    """The grouped host on e4m3 operands quantized per expert tile (a per
+    (e, bm, bk), b per (e, bk, bn)), and the packed keep plane made under
+    it -- bitwise the f32 hosts' plane. In Region 3 the product runs in f32,
+    unquantized, on the f32 grouped kernel with the emission off, and the
+    plane is None, as JAX's host does. Differentiable: straight-through
+    quantization, bf16 dgrad pair (f32 pair in Region 3). Arguments as
+    ``gemm_with_rng``."""
+    blocks, em = _emission(a, b, mask_batch, mask_heads, mask_sq, mask_sk,
+                           p, seed, salt, rounds, block_m, block_n, block_k,
+                           mask_block_cols, max_mask_rows_per_block,
+                           heads_global, bh_offset, grouped=True)
+    if em is None:
+        return _GemmRngGrouped.apply(a, b, None)
+    c, mask = _GemmRngGroupedFp8.apply(a, b, blocks, em)
+    return c, _as_plane(mask, mask_batch, mask_heads, mask_sq, mask_sk)
+
+
+def gemm_with_rng_grouped_fp8_plain(a: torch.Tensor, b: torch.Tensor, *,
+                                    mask_batch: int, mask_heads: int,
+                                    mask_sq: int, mask_sk: int, p: float,
+                                    seed, salt=0, rounds: int = 7,
+                                    block_m: int = 256, block_n: int = 256,
+                                    block_k: int = 512,
+                                    mask_block_cols: int = 2048,
+                                    max_mask_rows_per_block: int = 256,
+                                    heads_global: int = 0, bh_offset=0
+                                    ) -> Tuple[torch.Tensor,
+                                               Optional[torch.Tensor]]:
+    """The plain version of ``gemm_with_rng_grouped_fp8`` on any device (no
+    gradient)."""
+    blocks, em = _emission(a, b, mask_batch, mask_heads, mask_sq, mask_sk,
+                           p, seed, salt, rounds, block_m, block_n, block_k,
+                           mask_block_cols, max_mask_rows_per_block,
+                           heads_global, bh_offset, grouped=True)
+    if em is None:
+        return gemm_grouped_plain(a, b), None
+    ops = quantize_grouped(a, b, blocks)
+    c = gemm_grouped_fp8_plain(*ops, blocks)
+    return c, _as_plane(_plain_plane(em, a.device), mask_batch, mask_heads,
+                        mask_sq, mask_sk)

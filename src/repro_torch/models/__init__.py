@@ -1,5 +1,5 @@
-"""Decoder model for the serving and training paths (dense full-attention
-stacks)."""
+"""Decoder model for the serving path (dense full-attention stacks) and the
+training path (dense, MoE and RWKV-hybrid stacks)."""
 from repro_torch.models.transformer import (
     Runtime,
     StackSpec,

@@ -117,14 +117,16 @@ def ffn_init(gen: torch.Generator, cfg: ModelConfig,
         return {"w_gate": dense_init(gen, d, f, lead=lead, device=device),
                 "w_up": dense_init(gen, d, f, lead=lead, device=device),
                 "w_down": dense_init(gen, f, d, lead=lead, device=device)}
-    if cfg.ffn == FFNKind.GELU:
-        return {"w_up": dense_init(gen, d, f, lead=lead, device=device),
-                "w_down": dense_init(gen, f, d, lead=lead, device=device),
-                "b_up": torch.zeros(lead + (f,), device=device),
-                "b_down": torch.zeros(lead + (d,), device=device)}
-    raise NotImplementedError(
-        f"ffn={cfg.ffn.value!r} is not ported yet (ROADMAP: port queue, "
-        "recurrent paging)")
+    if cfg.ffn == FFNKind.RWKV_CHANNEL:
+        return {"w_key": dense_init(gen, d, f, lead=lead, device=device),
+                "w_value": dense_init(gen, f, d, lead=lead, device=device),
+                "w_recept": dense_init(gen, d, d, lead=lead, device=device),
+                "mix_k": torch.full(lead + (d,), 0.5, device=device),
+                "mix_r": torch.full(lead + (d,), 0.5, device=device)}
+    return {"w_up": dense_init(gen, d, f, lead=lead, device=device),
+            "w_down": dense_init(gen, f, d, lead=lead, device=device),
+            "b_up": torch.zeros(lead + (f,), device=device),
+            "b_down": torch.zeros(lead + (d,), device=device)}
 
 
 def _ffn_act(cfg: ModelConfig):
@@ -132,34 +134,63 @@ def _ffn_act(cfg: ModelConfig):
             else lambda t: F.gelu(t, approximate="tanh"))
 
 
-def ffn_apply(p, x: torch.Tensor, cfg: ModelConfig, host=None):
-    """x (..., d_model) through the SwiGLU / GeGLU / GELU FFN.
+def _channel_mix_inputs(p, x: torch.Tensor, shifted: torch.Tensor):
+    """The RWKV channel-mix token-shift interpolations (xk, xr)."""
+    if shifted is None:
+        raise ValueError("the RWKV channel-mix FFN needs the token-shifted "
+                         "input")
+    dt = x.dtype
+    xk = x + (shifted - x) * p["mix_k"].to(dt)
+    xr = x + (shifted - x) * p["mix_r"].to(dt)
+    return xk, xr
+
+
+def _relu_sq(k: torch.Tensor) -> torch.Tensor:
+    return torch.square(F.relu(k.to(torch.float32))).to(k.dtype)
+
+
+def _receptance(p, xr: torch.Tensor) -> torch.Tensor:
+    dt = xr.dtype
+    return torch.sigmoid((xr @ p["w_recept"].to(dt)).to(torch.float32)
+                         ).to(dt)
+
+
+def ffn_apply(p, x: torch.Tensor, cfg: ModelConfig,
+              shifted: Optional[torch.Tensor] = None, host=None):
+    """x (..., d_model) through the SwiGLU / GeGLU / GELU FFN, or the RWKV
+    channel-mix FFN, whose ``shifted`` is the token-shifted input.
 
     ``host`` (a core/producer.FFNHost) asks this FFN to host a dropout
     mask producer under one of its GEMMs: "ffn_up" under the gate+up
-    projection (one concatenated GEMM for gated FFNs, the block's largest),
-    "ffn_down" under the down projection. With a host the return value is
-    (y, packed plane); the bits are those of every other producer site."""
+    projection (one concatenated GEMM for gated FFNs, the block's largest;
+    the key projection of channel-mix), "ffn_down" under the down (value)
+    projection. With a host the return value is (y, packed plane); the bits
+    are those of every other producer site."""
     if host is not None:
-        return _ffn_apply_hosted(p, x, cfg, host)
+        return _ffn_apply_hosted(p, x, cfg, host, shifted)
     dt = x.dtype
     if cfg.ffn in (FFNKind.SWIGLU, FFNKind.GEGLU):
         g = x @ p["w_gate"].to(dt)
         u = x @ p["w_up"].to(dt)
         act = _ffn_act(cfg)(g.to(torch.float32))
         return (act.to(dt) * u) @ p["w_down"].to(dt)
-    if cfg.ffn == FFNKind.GELU:
-        h = x @ p["w_up"].to(dt) + p["b_up"].to(dt)
-        h = F.gelu(h.to(torch.float32), approximate="tanh").to(dt)
-        return h @ p["w_down"].to(dt) + p["b_down"].to(dt)
-    raise NotImplementedError(
-        f"ffn={cfg.ffn.value!r} is not ported yet (ROADMAP: port queue)")
+    if cfg.ffn == FFNKind.RWKV_CHANNEL:
+        xk, xr = _channel_mix_inputs(p, x, shifted)
+        k = _relu_sq(xk @ p["w_key"].to(dt))
+        return _receptance(p, xr) * (k @ p["w_value"].to(dt))
+    h = x @ p["w_up"].to(dt) + p["b_up"].to(dt)
+    h = F.gelu(h.to(torch.float32), approximate="tanh").to(dt)
+    return h @ p["w_down"].to(dt) + p["b_down"].to(dt)
 
 
-def _ffn_apply_hosted(p, x: torch.Tensor, cfg: ModelConfig, host):
+def _ffn_apply_hosted(p, x: torch.Tensor, cfg: ModelConfig, host,
+                      shifted: Optional[torch.Tensor]):
     """The FFN with the mask producer hosted under its up or down GEMM
-    (producer.gemm_with_mask, the schedule's planned ``host.how``).
-    Returns (y, packed plane)."""
+    (producer.gemm_with_mask, the schedule's planned ``host.how``). RWKV
+    channel-mix hosts through the grouped kernel as its E=1 case ("ffn_up"
+    = the key projection, "ffn_down" = the value projection) when the
+    schedule planned it; otherwise the standalone producer keeps the carry
+    alive -- same bits either way. Returns (y, packed plane)."""
     from repro_torch.core import producer
     dt = x.dtype
     lead = x.shape[:-1]
@@ -197,8 +228,54 @@ def _ffn_apply_hosted(p, x: torch.Tensor, cfg: ModelConfig, host):
             h = F.gelu(h.to(torch.float32), approximate="tanh").to(dt)
             y2d, mask = host_gemm(h, p["w_down"])
         return (y2d + p["b_down"].to(dt)).reshape(*lead, -1), mask
-    # RWKV channel-mix: its key / value GEMMs host through the grouped
-    # kernel (E=1)
-    raise NotImplementedError(
-        f"ffn={cfg.ffn.value!r} hosts through the grouped kernel, which is "
-        "not ported yet (ROADMAP: port queue, grouped slice)")
+    if (cfg.ffn == FFNKind.RWKV_CHANNEL
+            and host.how == producer.HOW_GEMM_GROUPED):
+        # the key / value GEMM's grid walks the mask blocks as an expert
+        # grid of one would
+        xk, xr = _channel_mix_inputs(p, x, shifted)
+        f = p["w_key"].shape[1]
+
+        def grouped(a2d, w):
+            y3, mask = producer.grouped_gemm_with_mask(
+                a2d[None], w.to(dt)[None], host.plan, host.mask_shape,
+                host.layer_idx, host.step, how=host.how)
+            return y3[0], mask
+
+        xk2d = xk.reshape(-1, xk.shape[-1])
+        if host.site == "ffn_up":
+            k2d, mask = grouped(xk2d, p["w_key"])
+        else:
+            k2d = xk2d @ p["w_key"].to(dt)
+        k = _relu_sq(k2d).reshape(*lead, f)
+        r = _receptance(p, xr)
+        if host.site == "ffn_down":
+            v2d, mask = grouped(k.reshape(-1, f), p["w_value"])
+            v = v2d.reshape(*lead, -1)
+        else:
+            v = k @ p["w_value"].to(dt)
+        return r * v, mask
+    # no hostable GEMM under the planned producer: the standalone producer
+    # keeps the carry alive, same bits
+    b, h_, sq, sk = host.mask_shape
+    mask = producer.standalone_packed_mask(
+        host.plan, b, h_, sq, sk, host.layer_idx, host.step,
+        use_kernel=host.how == producer.HOW_STANDALONE, device=x.device)
+    return ffn_apply(p, x, cfg, shifted=shifted), mask
+
+
+# --------------------------------------------------------------------------
+# token shift (RWKV)
+# --------------------------------------------------------------------------
+
+def token_shift(x: torch.Tensor,
+                last: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Shift the sequence right by one: out[t] = x[t-1]; out[0] = last or
+    0. x (B, S, D); last (B, D)."""
+    if x.shape[1] == 1:
+        return (torch.zeros_like(x[:, :1]) if last is None
+                else last[:, None, :].to(x.dtype))
+    shifted = F.pad(x, (0, 0, 1, 0))[:, :-1]
+    if last is not None:
+        shifted = torch.cat([last[:, None, :].to(x.dtype), shifted[:, 1:]],
+                            dim=1)
+    return shifted

@@ -1,4 +1,5 @@
-"""Model assembly: stacks of layer units, init, the training forward,
+"""Model assembly: stacks of layer units, init, the training forward
+(dense, MoE and RWKV-hybrid stacks of full-attention and WKV layers),
 prefill, and decode through paged KV pools (dense full-attention stacks).
 
 Parameters mirror the JAX package's pytree: ``params["stacks"][i]`` holds
@@ -16,7 +17,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.config.base import AttentionKind, ModelConfig
+from repro_torch.config.base import AttentionKind, FFNKind, ModelConfig
 from repro_torch.core.overlap import DropoutPlan
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.attention import (
@@ -31,7 +32,10 @@ from repro_torch.models.layers import (
     ffn_init,
     norm_apply,
     norm_init,
+    token_shift,
 )
+from repro_torch.models.moe import moe_apply, moe_init
+from repro_torch.models.rwkv import rwkv_apply, rwkv_init
 
 
 @dataclasses.dataclass
@@ -101,14 +105,30 @@ def _index(tree, i: int):
 def _layer_init(gen, cfg: ModelConfig, kind: AttentionKind, tag: str,
                 count: int, device):
     lead = (count,)
-    if kind != AttentionKind.FULL or tag != "dense":
+    if kind in (AttentionKind.LOCAL, AttentionKind.RECURRENT):
         raise NotImplementedError(
-            f"{kind.value}/{tag} layers are not ported yet (ROADMAP: port "
-            "queue, LOCAL/MoE/recurrent paging)")
-    return {"norm_mix": norm_init(cfg, lead=lead, device=device),
-            "norm_ffn": norm_init(cfg, lead=lead, device=device),
-            "mix": attn_init(gen, cfg, lead=lead, device=device),
-            "ffn": ffn_init(gen, cfg, lead=lead, device=device)}
+            f"{kind.value} layers are not ported yet (ROADMAP: port queue, "
+            "LOCAL and recurrent layers)")
+    p = {"norm_mix": norm_init(cfg, lead=lead, device=device),
+         "norm_ffn": norm_init(cfg, lead=lead, device=device)}
+    if kind == AttentionKind.FULL:
+        p["mix"] = attn_init(gen, cfg, lead=lead, device=device)
+    else:
+        p["mix"] = rwkv_init(gen, cfg, lead=lead, device=device)
+    if tag == "moe":
+        m = cfg.moe
+        p["moe"] = moe_init(gen, cfg, lead=lead, device=device)
+        if m.n_shared_experts:
+            p["shared"] = ffn_init(gen, cfg,
+                                   d_ff=m.n_shared_experts * m.d_ff_expert,
+                                   lead=lead, device=device)
+        if m.dense_residual:
+            p["dense_res"] = ffn_init(
+                gen, cfg, d_ff=m.dense_residual_ff or m.d_ff_expert,
+                lead=lead, device=device)
+    else:
+        p["ffn"] = ffn_init(gen, cfg, lead=lead, device=device)
+    return p
 
 
 def model_init(cfg: ModelConfig, seed: int = 0,
@@ -158,17 +178,15 @@ def unembed(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 # block forward (training)
 # --------------------------------------------------------------------------
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP: port queue, LOCAL, MoE and "
-        "recurrent layers)")
-
-
 def _mix_forward(p, x, cfg: ModelConfig, rt: Runtime, kind, layer_idx,
                  mask_in=None, emit_next: bool = False, asg=None):
     """Returns (y, next plane or None)."""
-    if kind not in (AttentionKind.FULL, AttentionKind.LOCAL):
-        raise _not_ported(f"{kind.value} mixers")
+    if kind == AttentionKind.WKV:
+        return rwkv_apply(p, x, cfg), None
+    if kind != AttentionKind.FULL:
+        raise NotImplementedError(
+            f"{kind.value} mixers are not ported yet (ROADMAP: port queue, "
+            "LOCAL and recurrent layers)")
     y = attn_apply(p, x, cfg, kind=kind, plan=rt.plan, layer_idx=layer_idx,
                    step=rt.step, chunk_q=rt.chunk_q, impl=rt.attn_impl,
                    mask_in=mask_in, emit_next=emit_next, asg=asg)
@@ -177,30 +195,55 @@ def _mix_forward(p, x, cfg: ModelConfig, rt: Runtime, kind, layer_idx,
 
 def _ffn_forward(p, x, cfg: ModelConfig, rt: Runtime, tag, layer_idx=0,
                  asg=None, mask_shape=None):
-    """The dense FFN; returns (y, next plane or None). When the schedule
+    """Returns (y, aux loss or None, next plane or None). When the schedule
     gives this block an FFN emission (asg.emit_site "ffn_up" /
     "ffn_down"), the FFN hosts the NEXT attention layer's mask producer
-    under one of its GEMMs."""
+    under one of its GEMMs: the dense fused kernel, or the grouped kernel
+    for MoE expert and RWKV channel-mix FFNs; a block whose grouped shape
+    cannot host was planned standalone (or tensor-op), and that producer
+    keeps the carry alive -- the same bits."""
     from repro_torch.core import producer
-    if tag != "dense":
-        raise _not_ported("MoE FFNs")
-    if mask_shape is None:
-        return ffn_apply(p["ffn"], x, cfg), None
-    host = producer.FFNHost(
-        plan=rt.plan, site=asg.emit_site, mask_shape=mask_shape,
-        layer_idx=layer_idx + asg.emit_stride, step=rt.step,
-        how=asg.emit_how)
-    return ffn_apply(p["ffn"], x, cfg, host=host)
+    mask_next = None
+    host = None
+    if (asg is not None and mask_shape is not None
+            and asg.emit_site in ("ffn_up", "ffn_down")):
+        host = producer.FFNHost(
+            plan=rt.plan, site=asg.emit_site, mask_shape=mask_shape,
+            layer_idx=layer_idx + asg.emit_stride, step=rt.step,
+            how=asg.emit_how)
+    if tag == "moe":
+        if host is not None and host.how == producer.HOW_GEMM_GROUPED:
+            y, aux, mask_next = moe_apply(p["moe"], x, cfg, host=host)
+        else:
+            y, aux = moe_apply(p["moe"], x, cfg)
+            if host is not None:
+                b, h_, sq, sk = mask_shape
+                mask_next = producer.standalone_packed_mask(
+                    rt.plan, b, h_, sq, sk, host.layer_idx, rt.step,
+                    use_kernel=host.how == producer.HOW_STANDALONE,
+                    device=x.device)
+        if "shared" in p:
+            y = y + ffn_apply(p["shared"], x, cfg)
+        if "dense_res" in p:
+            y = y + ffn_apply(p["dense_res"], x, cfg)
+        return y, aux, mask_next
+    shifted = token_shift(x) if cfg.ffn == FFNKind.RWKV_CHANNEL else None
+    if host is not None:
+        y, mask_next = ffn_apply(p["ffn"], x, cfg, shifted=shifted,
+                                 host=host)
+        return y, None, mask_next
+    return ffn_apply(p["ffn"], x, cfg, shifted=shifted), None, None
 
 
 def block_apply(p, x, cfg: ModelConfig, rt: Runtime, kind, tag, layer_idx,
                 asg=None, mask_in=None, emit: bool = False):
     """One pre-norm block: x + mix(norm(x)), then + ffn(norm(x)). Returns
-    (x, next plane or None). ``asg`` is the block's HostAssignment from
-    the compiled schedule; with ``emit`` (a carried-site schedule) the
-    block consumes ``mask_in`` and emits the next attention layer's plane
-    under its out-projection ("prev_gemm") or FFN GEMM ("ffn_up" /
-    "ffn_down")."""
+    (x, aux loss or None, next plane or None). ``asg`` is the block's
+    HostAssignment from the compiled schedule; with ``emit`` (a
+    carried-site schedule) the block consumes ``mask_in`` and emits the
+    next attention layer's plane under its out-projection ("prev_gemm") or
+    FFN GEMM ("ffn_up" / "ffn_down"). Mixer-only blocks (RWKV time-mix)
+    pass the carry through untouched."""
     is_attn = kind in (AttentionKind.FULL, AttentionKind.LOCAL)
     ffn_hosts = (emit and is_attn and asg is not None
                  and asg.emit_site in ("ffn_up", "ffn_down"))
@@ -212,11 +255,11 @@ def block_apply(p, x, cfg: ModelConfig, rt: Runtime, kind, tag, layer_idx,
     h2 = norm_apply(p["norm_ffn"], x, cfg)
     if ffn_hosts:
         b, s = x.shape[0], x.shape[1]
-        f, mask_next = _ffn_forward(p, h2, cfg, rt, tag,
-                                    layer_idx=layer_idx, asg=asg,
-                                    mask_shape=(b, cfg.n_heads, s, s))
+        f, aux, mask_next = _ffn_forward(
+            p, h2, cfg, rt, tag, layer_idx=layer_idx, asg=asg,
+            mask_shape=(b, cfg.n_heads, s, s))
     else:
-        f, _ = _ffn_forward(p, h2, cfg, rt, tag)
+        f, aux, _ = _ffn_forward(p, h2, cfg, rt, tag)
     if emit and not is_attn:
         mask_next = mask_in        # the carry rides through mixer-only blocks
     if mask_next is not None and asg is not None:
@@ -225,13 +268,21 @@ def block_apply(p, x, cfg: ModelConfig, rt: Runtime, kind, tag, layer_idx,
             # replay-planned consumers never read a plane: a retained
             # GEMM-hosted emission ran for the RNG-under-GEMM overlap only
             mask_next = None
-    return x + f, mask_next
+    return x + f, aux, mask_next
+
+
+def _add_aux(total, aux):
+    """Sum of aux losses, None standing for 0."""
+    if aux is None:
+        return total
+    return aux if total is None else total + aux
 
 
 def forward(params, cfg: ModelConfig, rt: Runtime, inputs
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Training / eval forward. inputs: tokens (B, S) or embeddings
-    (B, S, D). Returns (logits f32 (B, S, V), aux loss).
+    (B, S, D). Returns (logits f32 (B, S, V), aux loss: the MoE layers'
+    router loss, summed).
 
     Mask production follows the compiled DropoutSchedule (rt.schedule, or
     compiled here from the plan). With a carried site ("prev_gemm" /
@@ -259,6 +310,7 @@ def forward(params, cfg: ModelConfig, rt: Runtime, inputs
     active = sched is not None and sched.active
     carry_mask = active and sched.carried
     mask_buf = None
+    aux_total = None
     if carry_mask and not sched.replay:
         from repro_torch.core import producer
         basg = sched.for_layer(sched.first_consumer)
@@ -276,23 +328,25 @@ def forward(params, cfg: ModelConfig, rt: Runtime, inputs
 
             def unit_apply(x, mask, _up=up, _pos=pos, _spec=spec,
                            _ul=unit_len, _asgs=unit_asgs):
+                aux = None
                 for j, (kind, tag) in enumerate(_spec.unit):
-                    x, mask = block_apply(
+                    x, a, mask = block_apply(
                         _up[f"l{j}"], x, cfg, rt, kind, tag,
                         _spec.base + _pos * _ul + j, asg=_asgs[j],
                         mask_in=mask, emit=carry_mask)
-                return x, mask
+                    aux = _add_aux(aux, a)
+                return x, aux, mask
 
             if rt.remat == "block":
-                x, mask_buf = checkpoint(unit_apply, x, mask_buf,
-                                         use_reentrant=False)
+                x, a, mask_buf = checkpoint(unit_apply, x, mask_buf,
+                                            use_reentrant=False)
             else:
-                x, mask_buf = unit_apply(x, mask_buf)
+                x, a, mask_buf = unit_apply(x, mask_buf)
+            aux_total = _add_aux(aux_total, a)
     x = norm_apply(params["final_norm"], x, cfg)
-    # the aux (router) loss of MoE stacks; the dense stacks ported so far
-    # have none
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return unembed(params, cfg, x), aux
+    if aux_total is None:          # no MoE layer: no router loss
+        aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    return unembed(params, cfg, x), aux_total
 
 
 # --------------------------------------------------------------------------

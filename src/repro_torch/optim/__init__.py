@@ -2,10 +2,8 @@
 from repro_torch.optim.adamw import (
     adamw_init,
     adamw_update,
-    clip_by_global_norm,
     global_norm,
     schedule_lr,
 )
 
-__all__ = ["adamw_init", "adamw_update", "clip_by_global_norm",
-           "global_norm", "schedule_lr"]
+__all__ = ["adamw_init", "adamw_update", "global_norm", "schedule_lr"]

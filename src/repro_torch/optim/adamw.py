@@ -1,6 +1,7 @@
 """AdamW with global-norm clipping and LR schedules on f32 master
 parameters, functional over parameter trees as in the JAX package: each
-update returns new tensors and leaves its inputs as they were.
+update returns new tensors and leaves its inputs as they were. The train
+step that takes a donated state uses ``_adamw_update(in_place=True)``.
 
 Weight decay follows the JAX package's rule verbatim: a leaf decays
 unless its ``keystr`` path contains one of ``_NO_DECAY_TOKENS``. The
@@ -9,7 +10,7 @@ while ``w_gate``, ``w_down``, ``w_q`` .. ``w_o`` and ``embed`` do.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict
 
 import numpy as np
 import torch
@@ -50,13 +51,6 @@ def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(torch.stack(sq).sum())
 
 
-def clip_by_global_norm(grads, max_norm: float
-                        ) -> Tuple[Any, torch.Tensor]:
-    norm = global_norm(grads)
-    scale = torch.clamp(max_norm / (norm + 1e-9), max=1.0)
-    return tree_map(lambda g: g * scale, grads), norm
-
-
 def _decay_mask(path: str) -> bool:
     lower = path.lower()
     return not any(tok in lower for tok in _NO_DECAY_TOKENS)
@@ -64,9 +58,24 @@ def _decay_mask(path: str) -> bool:
 
 def adamw_update(grads, opt_state, master, cfg: OptimizerConfig, step: int,
                  compute_dtype=None):
-    """One AdamW step on f32 master params. Returns (new_master,
+    """One AdamW step on f32 master params, the gradients clipped to
+    ``cfg.grad_clip`` by their global norm. Returns (new_master,
     new_params_compute, new_opt_state, metrics)."""
-    grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
+    return _adamw_update(grads, opt_state, master, cfg, step, compute_dtype,
+                         in_place=False)
+
+
+def _adamw_update(grads, opt_state, master, cfg: OptimizerConfig,
+                  step: int, compute_dtype, in_place: bool):
+    """``adamw_update``, the gradients clipped leaf by leaf (no clipped
+    copy of the whole tree). ``in_place`` writes the new moments and
+    parameters into ``opt_state`` and ``master`` and returns those trees:
+    the caller donates the old state, as a JAX step donates its buffers.
+    The arithmetic is the same, so the result is bitwise the functional
+    update's, without a second copy of the parameters and moments on the
+    device."""
+    gnorm = global_norm(grads)
+    scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
     lr = schedule_lr(cfg, step)
     t = np.float32(step) + np.float32(1.0)
     bc1 = float(np.float32(1.0) - np.float32(cfg.b1) ** t)
@@ -76,18 +85,27 @@ def adamw_update(grads, opt_state, master, cfg: OptimizerConfig, step: int,
     vs = leaves(opt_state["v"])
     new_m, new_v, new_p = [], [], []
     for (path, p), g, m, v in zip(leaves_with_paths(master), gl, ms, vs):
-        g = g.to(torch.float32)
+        g = (g * scale).to(torch.float32)
         m_new = cfg.b1 * m + (1.0 - cfg.b1) * g
         v_new = cfg.b2 * v + (1.0 - cfg.b2) * torch.square(g)
         delta = (m_new / bc1) / (torch.sqrt(v_new / bc2) + cfg.eps)
         if _decay_mask(path):
             delta = delta + cfg.weight_decay * p
-        new_m.append(m_new)
-        new_v.append(v_new)
-        new_p.append(p - lr * delta)
-    new_master = unflatten_like(master, new_p)
-    opt = {"m": unflatten_like(master, new_m),
-           "v": unflatten_like(master, new_v)}
+        p_new = p - lr * delta
+        if in_place:
+            m.copy_(m_new)
+            v.copy_(v_new)
+            p.copy_(p_new)
+        else:
+            new_m.append(m_new)
+            new_v.append(v_new)
+            new_p.append(p_new)
+    if in_place:
+        new_master, opt = master, opt_state
+    else:
+        new_master = unflatten_like(master, new_p)
+        opt = {"m": unflatten_like(master, new_m),
+               "v": unflatten_like(master, new_v)}
     if compute_dtype is not None and compute_dtype != torch.float32:
         new_params = tree_map(lambda a: a.to(compute_dtype), new_master)
     else:

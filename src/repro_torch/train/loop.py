@@ -10,7 +10,8 @@ TrainState (a dict):
 the forward (``models.forward``), the cross entropy, the backward (autograd
 through the kernels' Functions, remat per unit with remat="block") and
 AdamW. It is functional: it returns a new state and leaves the old one as
-it was. The checkpointing ``TrainRunner`` and the dropout contract of the
+it was, unless the caller donates the state (``donate=True``: updated in
+place). The checkpointing ``TrainRunner`` and the dropout contract of the
 JAX package's ``launch/train.py`` are not ported yet (ROADMAP).
 """
 from __future__ import annotations
@@ -25,7 +26,8 @@ from repro_torch.core.overlap import DropoutPlan
 from repro_torch.core.schedule import compile_schedule
 from repro_torch.device import DeviceLike
 from repro_torch.models import Runtime, forward, model_init
-from repro_torch.optim import adamw_init, adamw_update
+from repro_torch.optim import adamw_init
+from repro_torch.optim.adamw import _adamw_update
 from repro_torch.tree import leaves, unflatten_like
 
 AUX_WEIGHT = 0.01
@@ -120,10 +122,15 @@ def make_grad_fn(cfg: ModelConfig, run: RunConfig, policy=None,
 
 
 def make_train_step(cfg: ModelConfig, run: RunConfig, policy=None,
-                    compute_dtype=torch.float32) -> Callable:
+                    compute_dtype=torch.float32,
+                    donate: bool = False) -> Callable:
     """train_step(state, x, y) -> (new_state, metrics). x, y are tensors
     on the parameters' device. ``run.train.microbatch > 1`` accumulates
-    gradients over that many equal slices of the batch."""
+    gradients over that many equal slices of the batch. ``donate`` updates
+    the state's parameters and moments in place (bitwise the functional
+    update) and returns them: one copy of the state on the device instead
+    of two, which is what lets a model whose state fills most of the card
+    train; the caller must not read the old state afterwards."""
     _validate_dropout_plan(run)
     _check_ported(run, policy, compute_dtype)
     micro = run.train.microbatch
@@ -153,9 +160,9 @@ def make_train_step(cfg: ModelConfig, run: RunConfig, policy=None,
             loss, ce, aux = lsum[0] / micro, lsum[1] / micro, lsum[2] / micro
         else:
             loss, (ce, aux), grads = grad_fn(state["master"], x, y, step)
-        master, _, opt, om = adamw_update(
+        master, _, opt, om = _adamw_update(
             grads, state["opt"], state["master"], run.train.optimizer, step,
-            compute_dtype)
+            compute_dtype, in_place=donate)
         new_state = {"master": master, "opt": opt, "step": step + 1}
         return new_state, {"loss": loss, "ce": ce, "aux": aux, **om}
 

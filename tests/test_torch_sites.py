@@ -7,7 +7,7 @@ path (loss, ce and grad norm of every step and the final weights within
 loss, logits and gradients within 1e-4 with every plane the attention
 consumed bitwise equal to JAX's oracle, the cross-site bit
 identity of ``tests/test_mask_sites.py``, FFN hosting of GeGLU and GELU
-FFNs, and the grouped (RWKV channel-mix) branch raising. Inputs and
+FFNs, and the grouped (RWKV channel-mix, E=1) host. Inputs and
 weights are made with numpy / the JAX package from a seed and handed to
 both; JAX's Pallas kernels run in interpret mode on the CPU, the port's
 wrappers take their plain versions there.
@@ -333,20 +333,36 @@ def test_ffn_apply_host_geglu_and_gelu(ffn, site):
 
 
 def test_grouped_hosts_raise():
-    """RWKV channel-mix (and MoE expert) FFNs host through the grouped
-    kernel, which is not ported: the schedule and ``ffn_apply`` raise."""
-    _, cfg = _small_cfgs(ffn=(JFFNKind.RWKV_CHANNEL, FFNKind.RWKV_CHANNEL))
-    plan_cfg = DropoutPlanConfig(mode="overlap", site="ffn_up")
-    with pytest.raises(NotImplementedError, match="grouped"):
-        compile_schedule(cfg, plan_cfg, 2, 128, attn_impl="pallas")
-    host = producer.FFNHost(plan=DropoutPlan(plan_cfg), site="ffn_up",
-                            mask_shape=(2, 2, 128, 128), layer_idx=1,
-                            step=0)
-    with pytest.raises(NotImplementedError, match="grouped"):
-        ffn_apply({}, torch.zeros((2, 128, 64)), cfg, host=host)
-    # prev_gemm hosts under attention's out-projection, which RWKV
-    # channel-mix blocks with attention still have
-    sched = compile_schedule(cfg, DropoutPlanConfig(mode="overlap",
-                                                    site="prev_gemm"),
-                             2, 128, attn_impl="pallas")
-    assert sched.carried and sched.for_layer(0).emit_how == "gemm_rng"
+    """RWKV channel-mix FFNs host "ffn_up" / "ffn_down" through the grouped
+    kernel (E=1): the schedule equals JAX's and plans it, and ``ffn_apply``
+    gives JAX's hosted y (1e-4) and plane (bitwise). What the port still
+    lacks raises: a bf16 grouped host."""
+    jcfg, cfg = _small_cfgs(ffn=(JFFNKind.RWKV_CHANNEL, FFNKind.RWKV_CHANNEL))
+    kw = dict(mode="overlap", p=0.25, seed=5, site="ffn_up")
+    plan_cfg = DropoutPlanConfig(**kw)
+    sched = compile_schedule(cfg, plan_cfg, 2, 128, attn_impl="pallas")
+    assert sched.explain() == j_compile(jcfg, JPlanConfig(**kw), 2, 128,
+                                        attn_impl="pallas").explain()
+    assert sched.carried and sched.for_layer(0).emit_how == \
+        producer.HOW_GEMM_GROUPED
+    fp = jlayers.ffn_init(jax.random.PRNGKey(0), jcfg)
+    x = np.random.default_rng(2).standard_normal((2, 128, 64)).astype(
+        np.float32)
+    shape = (2, 2, 128, 128)
+    tx = torch.from_numpy(x)
+    y, plane = ffn_apply(
+        tree.tree_map(torch.from_numpy, jax.tree.map(np.array, fp)), tx, cfg,
+        shifted=torch.cat([torch.zeros_like(tx[:, :1]), tx[:, :-1]], dim=1),
+        host=producer.FFNHost(plan=DropoutPlan(plan_cfg), site="ffn_up",
+                              mask_shape=shape, layer_idx=1, step=0,
+                              how=producer.HOW_GEMM_GROUPED))
+    jy, jplane = jlayers.ffn_apply(
+        fp, jnp.asarray(x), jcfg, shifted=jlayers.token_shift(jnp.asarray(x)),
+        host=jproducer.FFNHost(plan=plan_from_config(JPlanConfig(**kw)),
+                               site="ffn_up", mask_shape=shape, layer_idx=1,
+                               step=0, how=jproducer.HOW_GEMM_GROUPED))
+    np.testing.assert_allclose(y.numpy(), np.asarray(jy), **TOL)
+    np.testing.assert_array_equal(_u32(plane), np.asarray(jplane))
+    with pytest.raises(NotImplementedError, match="bf16"):
+        compile_schedule(cfg, DropoutPlanConfig(**dict(kw, gemm_dtype="bf16")),
+                         2, 128, attn_impl="pallas")
