@@ -63,9 +63,15 @@ plane bitwise, also against the f32 kernel's; C within 1e-3 of the plain
 version and under 0.06 of the f32 product), at two scale-tile shapes and
 with a Region-3 call that emits nothing, and the grouped kernels (f32,
 its emission-off variant, e4m3) at moonshot's two expert host shapes and
-rwkv6-7b's channel-mix key GEMM (E=1) in the same way; phase 4 adds the
-reduced llama2 at prev_gemm/f32 and ffn_up/fp8 and the reduced moonshot
-and arctic at ffn_up/f32 and ffn_down/fp8, card against CPU.
+rwkv6-7b's channel-mix key GEMM (E=1) in the same way; the e4m3 kernels
+take B K-major (JAX's weight bytes and scales transposed, bitwise what
+quantizing the transposed weight gives, checked), are timed on those
+operands with the
+emission on and off in turns (TFLOP/s, share of the bound, the plane's
+share of the product), and their wrappers on JAX's (K, N) layout once;
+phase 4 adds the reduced llama2 at prev_gemm/f32 and ffn_up/fp8 and the
+reduced moonshot and arctic at ffn_up/f32 and ffn_down/fp8, card against
+CPU.
 
 The second-to-last lines are the kernels' JSON record and the card's
 ``nvidia-smi`` name and power limit; the last line is the
@@ -105,6 +111,8 @@ F32_FLOPS_PER_S = 67e12            # H100 SXM data sheet, f32 without
                                    # tensor cores (the port's f32 kernels)
 FP8_FLOPS_PER_S = 1979e12          # H100 SXM data sheet, dense e4m3 on
                                    # the tensor cores
+F16_FLOPS_PER_S = 989e12           # the same, dense f16: the rate the e4m3
+                                   # kernels multiply at (exact e4m3 -> f16)
 ISSUE_LANES_PER_SM = 128           # 4 warp schedulers x 32 lanes a clock
 
 SERVE_SHAPE = (1, 32, 512, 512)    # llama2-7b plane at max_model_len 512
@@ -201,13 +209,27 @@ def phase_card(state) -> None:
 
 # ------------------------------------------------------------------ phase 1
 def phase_build(state) -> None:
+    import ctypes
+    import re
     t0 = time.perf_counter()
     libs = build.build_all()
     log(f"[build] {len(libs)} kernel(s) in {time.perf_counter() - t0:.1f}s "
         f"-> {build.build_dir()}")
     for name in libs:
         for line in build.ptxas_report(name):
-            log(f"[build] {name}: {line}")
+            if "(C75" not in line:   # advisories: once each, below
+                log(f"[build] {name}: {line}")
+    # the e4m3 kernels: dynamic shared memory (ptxas reports static only)
+    # and ptxas's advisories on the wgmma code, once each
+    for name in (gemm_rng.KERNEL_FP8, gemm_rng.KERNEL_GROUPED_FP8):
+        smem = ctypes.CDLL(str(libs[gemm_rng.KERNEL_FP8])) \
+            .repro_gemm_rng_fp8_smem_bytes()
+        advisories = sorted({
+            re.sub(r" in function '[^']*'|line \d+", "", ln).strip()
+            for ln in build.log_path(name).read_text().splitlines()
+            if "(C75" in ln})
+        log(f"[build] {name}: {smem} bytes of dynamic shared memory a CTA; "
+            f"ptxas advisories: {advisories or 'none'}")
 
 
 # ------------------------------------------------------------------ phase 2
@@ -573,8 +595,9 @@ def gemm_rng_fp8_bound(m, n, k, blocks, mask_words, rounds, ops_rate,
 
 
 def _fp8_call(m, n, k, blocks, plane, cols, gen):
-    """Random operands, their quantization and the emission of one fp8
-    host call: (a, w, (a_q, a_s, w_q, w_s), emission, keyword args)."""
+    """Random operands, their quantization (JAX's layout) and the emission
+    of one fp8 host call: (a, w, (a_q, a_s, w_q, w_s), emission, keyword
+    args)."""
     from repro_torch.kernels import quant
     mb, mh, sq, sk = plane
     kw = dict(mask_batch=mb, mask_heads=mh, mask_sq=sq, mask_sk=sk, p=0.1,
@@ -639,15 +662,29 @@ def phase_kernels_fp8(state) -> None:
         else:
             err, rel, _ = _check_fp8(label, a, w, ops, em, kw, blocks,
                                      state, plane)
-        launch = lambda: gemm_rng.gemm_rng_fp8_quantized(  # noqa: E731
-            *ops, blocks, em)
-        launch_off = lambda: gemm_rng.gemm_rng_fp8_quantized(  # noqa: E731
-            *ops, blocks, None)
+        # the kernel on the K-major operands it takes: JAX's weight bytes
+        # and scales transposed, bitwise what quantizing the transposed
+        # weight gives
+        kmajor = (ops[0], ops[1], ops[2].T.contiguous(), ops[3].T.contiguous())
+        bt_q, bt_s = quant.quantize_tiled(w.T, blocks[1], blocks[2])
+        if not (torch.equal(bt_q.view(torch.uint8),
+                            ops[2].T.view(torch.uint8))
+                and torch.equal(bt_s, ops[3].T)):
+            raise AssertionError(f"gemm_rng_fp8 {label}: quantize_tiled(b.T)"
+                                 f" is not b_q.T, b_s.T")
+        del bt_q, bt_s
+        launch = lambda: gemm_rng.gemm_rng_fp8_kmajor(  # noqa: E731
+            *kmajor, blocks, em)
+        launch_off = lambda: gemm_rng.gemm_rng_fp8_kmajor(  # noqa: E731
+            *kmajor, blocks, None)
         runs = {"rng": [], "plain": []}
         for variant in ("rng", "plain", "plain", "rng"):   # in turns
             runs[variant].append(cuda_time_ms(
-                launch if variant == "rng" else launch_off, 3))
+                launch if variant == "rng" else launch_off, 5))
         ms, off_ms = (float(np.mean(runs[v])) for v in ("rng", "plain"))
+        # the wrapper on JAX's (K, N) operands: the bytes transposed first
+        wrapper_ms = cuda_time_ms(
+            lambda: gemm_rng.gemm_rng_fp8_quantized(*ops, blocks, em), 3)
         plain_ms = cuda_time_ms(
             lambda: gemm_rng._plain_fp8(*ops, blocks, em), 1, warmup=1)
         plain_gemm_ms = cuda_time_ms(
@@ -667,26 +704,34 @@ def phase_kernels_fp8(state) -> None:
                                                ops_rate)
         rows[label] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                            bound_by=bound_by, library_ms=None,
-                           scaled_mm_ms=scaled_ms, dequant_matmul_ms=dequant_ms,
+                           scaled_mm_ms=scaled_ms,
+                           dequant_matmul_ms=dequant_ms,
+                           emission_off_ms=off_ms, wrapper_ms=wrapper_ms,
                            plain_variant_ms=off_ms,
                            plain_variant_bound_ms=off_bound,
                            plain_variant_bound_by=off_by,
                            plain_variant_plain_ms=plain_gemm_ms,
                            shape=[m, n, k], blocks=list(blocks))
+        flops = 2 * m * n * k
         log(f"[kernels] gemm_rng_fp8 {label} {m}x{n}x{k} blocks {blocks} + "
             f"plane {mb}x{mh}x{sq // 32}x{sq}: plane == plain and == the "
             f"f32 host's bitwise, C max abs err {err:.3g} (tol {GEMM_TOL} x "
             f"(1+|C|)), {rel:.4f} of f32 (bound "
             f"{quant.quantize_error_bound()}); "
             f"{ms:.4f} ms a launch (CUDA events, in turns {runs['rng']}), "
-            f"{2 * m * n * k / ms / 1e9:.1f} TFLOP/s; emission off "
-            f"{off_ms:.4f} ms (in turns {runs['plain']}); plain version "
-            f"{plain_ms:.2f} ms; bound {bound_ms:.4f} ms by {bound_by}, "
-            f"kernel at {bound_ms / ms * 100:.2f}% of bound; no PyTorch "
-            f"call computes per-tile-scaled e4m3; torch._scaled_mm "
+            f"{flops / ms / 1e9:.1f} TFLOP/s; emission off "
+            f"{off_ms:.4f} ms (in turns {runs['plain']}, "
+            f"{flops / off_ms / 1e9:.1f} TFLOP/s), the plane "
+            f"{(ms - off_ms) / off_ms * 100:+.2f}% of the product; wrapper "
+            f"on (K, N) operands {wrapper_ms:.4f} ms; plain version "
+            f"{plain_ms:.2f} ms; bound {bound_ms:.4f} ms by {bound_by} "
+            f"(f16 tensor-core rate: {flops / F16_FLOPS_PER_S * 1e3:.4f} "
+            f"ms), kernel at {bound_ms / ms * 100:.2f}% of bound; no "
+            f"PyTorch call computes per-tile-scaled e4m3; torch._scaled_mm "
             f"(per-tensor scales) {scaled_ms:.4f} ms, torch.matmul f32 on "
-            f"the dequantized operands {dequant_ms:.4f} ms | {state['smi']}")
-        del a, w, ops, a_d, w_d, w_cm
+            f"the dequantized operands {dequant_ms:.4f} ms (kernel faster: "
+            f"{ms < dequant_ms}) | {state['smi']}")
+        del a, w, ops, kmajor, a_d, w_d, w_cm
         gc.collect()
         torch.cuda.empty_cache()
     for (m, k, n), blocks, shape, cols in FP8_SCALE_TILES:
@@ -766,6 +811,18 @@ def phase_kernels_grouped(state) -> None:
         want_c, want = gemm_rng.gemm_with_rng_grouped_plain(a, w, **kw)
         ops8 = gemm_rng.quantize_grouped(a, w, blocks)
         want_c8 = gemm_rng.gemm_grouped_fp8_plain(*ops8, blocks)
+        # the kernel's K-major weight: JAX's bytes and scales transposed,
+        # bitwise what quantizing the transposed weight gives
+        kmajor8 = (*ops8[:2], *gemm_rng.kmajor_grouped(*ops8[2:], blocks))
+        bm, bn, bk = blocks
+        bt_q, bt_s = quant.quantize_tiled(
+            w.transpose(1, 2).reshape(e * n, k), bn, bk)
+        if not (torch.equal(kmajor8[2].reshape(e * n, k).view(torch.uint8),
+                            bt_q.view(torch.uint8))
+                and torch.equal(kmajor8[3], bt_s)):
+            raise AssertionError(f"{g8} {label}: the K-major weight is not "
+                                 f"the quantized transposed weight")
+        del bt_q, bt_s
         if plane not in dense_planes:
             dense_planes[plane] = _dense_plane(plane, gen)
         torch.cuda.synchronize()
@@ -788,14 +845,17 @@ def phase_kernels_grouped(state) -> None:
         launches = {
             "rng": lambda: gemm_rng.gemm_with_rng_grouped(a, w, **kw),
             "plain": lambda: gemm_rng._forward_grouped(a, w, None),
-            "rng8": lambda: gemm_rng.gemm_rng_grouped_fp8_quantized(
-                *ops8, blocks, em),
-            "off8": lambda: gemm_rng.gemm_rng_grouped_fp8_quantized(
-                *ops8, blocks, None)}
+            "rng8": lambda: gemm_rng.gemm_rng_grouped_fp8_kmajor(
+                *kmajor8, blocks, em),
+            "off8": lambda: gemm_rng.gemm_rng_grouped_fp8_kmajor(
+                *kmajor8, blocks, None)}
         runs = {v: [] for v in launches}
         for v in ("rng", "plain", "plain", "rng", "rng8", "off8", "off8",
                   "rng8"):
-            runs[v].append(cuda_time_ms(launches[v], 3))
+            runs[v].append(cuda_time_ms(launches[v], 5 if "8" in v else 3))
+        wrapper8_ms = cuda_time_ms(
+            lambda: gemm_rng.gemm_rng_grouped_fp8_quantized(*ops8, blocks,
+                                                            em), 3)
         ms = {v: float(np.mean(t)) for v, t in runs.items()}
         plain_ms = cuda_time_ms(
             lambda: gemm_rng.gemm_with_rng_grouped_plain(a, w, **kw), 1,
@@ -806,7 +866,6 @@ def phase_kernels_grouped(state) -> None:
             lambda: gemm_rng.gemm_with_rng_grouped_fp8_plain(a, w, **kw), 1,
             warmup=1)
         bmm_ms = cuda_time_ms(lambda: torch.bmm(a, w), 5)
-        bm, bn, bk = blocks
         a_d = quant.dequantize_tiled(ops8[0].reshape(e * m, k), ops8[1], bm,
                                      bk).reshape(e, m, k)
         w_d = quant.dequantize_tiled(ops8[2].reshape(e * k, n), ops8[3], bk,
@@ -839,7 +898,7 @@ def phase_kernels_grouped(state) -> None:
             ms=ms["rng8"], plain_ms=plain8_ms, bound_ms=b8, bound_by=by8,
             library_ms=None, scaled_mm_ms=scaled_ms,
             dequant_matmul_ms=dequant_ms, emission_off_ms=ms["off8"],
-            shape=shape, blocks=list(blocks))
+            wrapper_ms=wrapper8_ms, shape=shape, blocks=list(blocks))
         flops = 2 * e * m * n * k
         log(f"[kernels] grouped {label} {e}x({m}x{k})x({k}x{n}) blocks "
             f"{blocks} + plane {plane[0]}x{plane[1]}x{plane[2] // 32}x"
@@ -858,13 +917,18 @@ def phase_kernels_grouped(state) -> None:
         log(f"[kernels] {g8} {label}: {ms['rng8']:.4f} ms a launch (in "
             f"turns {runs['rng8']}), {flops / ms['rng8'] / 1e9:.1f} "
             f"TFLOP/s; emission off {ms['off8']:.4f} ms (in turns "
-            f"{runs['off8']}); plain version {plain8_ms:.2f} ms; bound "
-            f"{b8:.4f} ms by {by8}, kernel at {b8 / ms['rng8'] * 100:.2f}% "
-            f"of bound; no PyTorch call computes per-tile-scaled e4m3; "
-            f"torch._scaled_mm a expert (per-tensor scales) {scaled_ms:.4f} "
-            f"ms, torch.bmm f32 on the dequantized operands "
-            f"{dequant_ms:.4f} ms | {state['smi']}")
-        del a, w, ops8, a_d, w_d, w_cm
+            f"{runs['off8']}, {flops / ms['off8'] / 1e9:.1f} TFLOP/s), the "
+            f"plane {(ms['rng8'] - ms['off8']) / ms['off8'] * 100:+.2f}% of "
+            f"the product; wrapper on (E, K, N) operands {wrapper8_ms:.4f} "
+            f"ms; plain version {plain8_ms:.2f} ms; bound {b8:.4f} ms by "
+            f"{by8} (f16 tensor-core rate: "
+            f"{flops / F16_FLOPS_PER_S * 1e3:.4f} ms), kernel at "
+            f"{b8 / ms['rng8'] * 100:.2f}% of bound; no PyTorch call "
+            f"computes per-tile-scaled e4m3; torch._scaled_mm a expert "
+            f"(per-tensor scales) {scaled_ms:.4f} ms, torch.bmm f32 on the "
+            f"dequantized operands {dequant_ms:.4f} ms (kernel faster: "
+            f"{ms['rng8'] < dequant_ms}) | {state['smi']}")
+        del a, w, ops8, kmajor8, a_d, w_d, w_cm
         gc.collect()
         torch.cuda.empty_cache()
     # Region 3: both hosts run the f32 grouped kernel with the emission

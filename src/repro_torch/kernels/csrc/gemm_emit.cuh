@@ -12,9 +12,16 @@
 // depend on which CTA writes a block: CTA t (row-major over the whole 3-D
 // CTA grid, blockIdx.z the expert of a grouped launch) writes blocks t,
 // t + n_ctas, ... < n_valid_blocks, before its k-loop -- the CUDA form of
-// JAX's "kk == 0" emission. A dense launch has gridDim.z == 1. Only valid
-// blocks are written: the TPU's dummy overflow band is BlockSpec plumbing
-// with no bits.
+// JAX's "kk == 0" emission (the f32 kernels, emit_blocks). A dense launch
+// has gridDim.z == 1. Only valid blocks are written: the TPU's dummy
+// overflow band is BlockSpec plumbing with no bits.
+//
+// The e4m3 kernels emit during their k-loops, on the producer warpgroup's
+// three spare warps (emit_share): the words of the same rectangles, taken
+// in block order and row-major inside a block, are cut into one run of
+// equal length per CTA, so every CTA carries an equal share of the plane
+// beside its product instead of the first n_valid_blocks CTAs carrying it
+// all.
 #pragma once
 
 #include <cstdint>
@@ -51,6 +58,51 @@ __device__ void emit_blocks(const Emit& e) {
               e.bh_offset, e.salt, e.k0, e.k1, e.threshold));
     }
   }
+}
+
+// CTA `cta` of `n_ctas`: its run of the layout's words, written by
+// `n_threads` threads (thread `tid`). The valid rectangles are the full row
+// bands (rb rows) and the last, clipped band, each cut into n_cb column
+// blocks of ck words; together they tile the (rows_valid, sk) plane.
+template <int ROUNDS>
+__device__ void emit_share(const Emit& e, int cta, int n_ctas, int tid,
+                           int n_threads) {
+  const uint32_t n_rb = e.n_valid_blocks / e.n_cb;
+  const uint32_t last_rows = e.rows_valid - (n_rb - 1) * e.rb;
+  const uint32_t block_words = e.rb * e.ck;
+  const uint32_t last_words = last_rows * e.ck;
+  const uint32_t full_words = (n_rb - 1) * e.n_cb * block_words;
+  const uint32_t total = full_words + e.n_cb * last_words;
+  const uint32_t per = (total + n_ctas - 1) / n_ctas;
+  const uint32_t g0 = static_cast<uint32_t>(cta) * per;
+  const uint32_t g1 = min(total, g0 + per);
+  for (uint32_t g = g0 + tid; g < g1; g += n_threads) {
+    uint32_t s, off;
+    if (g < full_words) {
+      s = g / block_words;
+      off = g % block_words;
+    } else {
+      s = (n_rb - 1) * e.n_cb + (g - full_words) / last_words;
+      off = (g - full_words) % last_words;
+    }
+    const uint32_t r = (s / e.n_cb) * e.rb + off / e.ck;
+    const uint32_t c = (s % e.n_cb) * e.ck + off % e.ck;
+    e.mask[static_cast<size_t>(r) * e.sk + c] =
+        static_cast<int32_t>(repro_philox::packed_word<ROUNDS>(
+            r, c, static_cast<uint32_t>(e.sq32), e.heads_local,
+            e.heads_global, e.bh_offset, e.salt, e.k0, e.k1, e.threshold));
+  }
+}
+
+// True when the layout's valid rectangles tile the plane exactly (whole
+// row bands of n_cb blocks, the last band the only clipped one) and the
+// plane's words fit 32-bit indices: what emit_share assumes.
+inline bool layout_tiles_plane(const Emit& e) {
+  if (e.n_valid_blocks <= 0 || e.n_valid_blocks % e.n_cb) return false;
+  const long long n_rb = e.n_valid_blocks / e.n_cb;
+  return n_rb * e.rb >= e.rows_valid && (n_rb - 1) * e.rb < e.rows_valid &&
+         static_cast<long long>(e.n_cb) * e.ck == e.sk &&
+         static_cast<long long>(e.rows_valid) * e.sk < (1ll << 31);
 }
 
 // The Emit of one launch from the C interface's arguments; false when a

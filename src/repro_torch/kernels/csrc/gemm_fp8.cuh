@@ -1,34 +1,65 @@
-// The e4m3 SIMT GEMM tile of the fused fp8 GEMM+RNG kernels, shared by the
-// dense host (gemm_rng_fp8.cu) and the grouped host
+// The e4m3 tensor-core GEMM of the fused fp8 GEMM+RNG kernels, shared by
+// the dense host (gemm_rng_fp8.cu) and the grouped host
 // (gemm_rng_grouped_fp8.cu): C[e] ~= A[e] @ B[e] from e4m3 operands with one
-// f32 scale per operand tile, the dropout plane's blocks emitted by the CTAs
-// before their k-loops (gemm_emit.cuh).
+// f32 scale per operand tile, and the dropout plane emitted by the CTAs'
+// spare warps while their consumer warpgroups run the k-loop.
 //
-// A (E, M, K) and B (E, K, N) are row-major e4m3fn bytes; a_s (E * M / bm,
-// K / bk) and b_s (E * K / bk, N / bn) are row-major f32 scales, one per
-// (bm, bk) tile of A and (bk, bn) tile of B -- the JAX logical GEMM blocks,
-// with the expert folded into the tile-row index as JAX's grouped host
-// folds it (quantize_tiled of the (E * M, K) and (E * K, N) reshapes). C
-// (E, M, N) is row-major f32: for each k-block kb of bk columns, a partial
-// sum p = sum over the block of a[i,k] * b[k,j] (e4m3 decoded exactly to
-// f32, each product exact in f32), then C += p * (a_s[i/bm][kb] *
-// b_s[kb][j/bn]) -- JAX's order of rounding, not dequantize-then-multiply.
-// The scale tiles are JAX's, not the CTA's: bm and bn may be smaller than
-// the 128 x 128 CTA tile or cut across it, so every accumulator row and
-// column reads its own scale. bk is a multiple of 8, so k-blocks end on the
-// 8-deep k-slices of the tiling. Expert e is blockIdx.z of a grouped launch
-// (GROUPED: its own kernel name, so a profile tells the hosts apart); a
-// dense launch (GROUPED false, E = 1) has no expert offsets and runs the
-// arithmetic it ran before the grouped host existed. Rows past M of an
-// expert read zeros and write nothing.
+// Operands. A (E, M, K) is row-major e4m3fn; B is handed over K-major, as
+// Bt (E, N, K) row-major, with its scales to match: a_s (E * M / bm, K /
+// bk) and bt_s (E * N / bn, K / bk), row-major f32, one per (bm, bk) tile
+// of A and (bk, bn) tile of B -- the JAX logical GEMM blocks, the expert
+// folded into the tile-row index as JAX's grouped host folds it. C (E, M,
+// N) is row-major f32.
 //
-// The tiling is gemm_f32.cuh's with the loads decoding e4m3 to f32 in
-// shared memory and a second 8 x 8 register tile for the k-block's partial
-// sums: f32 FMAs, 173 registers, so one 256-thread CTA an SM.
+// What it computes: for each k-block kb of bk columns, the block's partial
+// product p = sum over the block of a[i,k] * b[k,j], and C += p *
+// (a_s[i/bm][kb] * bt_s[j/bn][kb]) with every accumulator element reading
+// its own row and column scale (JAX's scale tiles cut across the kernel's
+// 128 x 128 CTA tiles: bm = 240 or 192, bn = 176) -- JAX's order: p is
+// summed on the tensor cores from zero (scale-d = 0) over its k-block and
+// folded into the f32 accumulator as acc + p * (a_s * b_s), written out as
+// two multiplies and an add (no fmaf: the build's --fmad=false keeps them
+// apart, the plain version's order). A k16 slice that straddles a k-block
+// end (bk = 344 = 21 * 16 + 8) is issued once for each of its two
+// k-blocks, with A's 8 k outside that block zeroed in shared memory: a
+// product with a zero is exactly zero, so each p is exactly its in-block
+// sum. Any bk that is a multiple of 8 works so.
+//
+// Why f16 tensor cores. The e4m3 bytes are what the kernel reads; the
+// products run as f16 wgmma (m64n128k16, f32 sums), after an exact e4m3 ->
+// f16 conversion in shared memory (cvt.rn.f16x2.e4m3x2): every e4m3 value
+// is an f16 value and every product of two is exact. The e4m3 wgmma
+// (m64nNk32.f32.e4m3.e4m3) sums its 32 exact products in a narrower format
+// than f32 (about 14 bits, DeepSeek-V3 report, arXiv:2412.19437 sec.
+// 3.3.2), so its C misses the plain version's 1e-3 (1 + |C|) even when
+// folded into f32 after every instruction (scripts/probe_e4m3_wgmma.py
+// measures it); the f16 products and f32 sums stay within f32 rounding.
+//
+// The CTA (384 threads, one an SM): warpgroup 0 is the producer -- its
+// warp 0 keeps TMA loads (cp.async.bulk.tensor, 128-byte swizzle, mbarrier
+// completion) in flight over a ring of STAGES8 stages of 128 rows x 128 k
+// of A and of Bt, and its warps 1-3 compute and store this CTA's share of
+// the dropout plane (gemm_emit.cuh::emit_share) while the consumers
+// multiply; with no plane asked for they exit at once. Warpgroups 1 and 2
+// are the consumers: 64 rows each, one wgmma a k16 slice with both
+// operands in shared memory, the k-block's sum and the accumulator in
+// registers (64 + 64 floats a thread). While a stage's eight products run
+// (back to back when no k-block ends inside the stage), the two convert
+// the next stage from e4m3 into the other of two f16 stages, each its own
+// 64 rows of A and half of Bt's. The register budget is the launch's 168 a
+// thread: ptxas gives the consumers' code no more after their
+// setmaxnreg.inc (a 512-thread layout with a converter warpgroup spilled
+// the accumulators at 128). The tensor maps zero-fill rows past M (past
+// the capacity of each expert: a 3-D map over (K, M, E)) and columns past
+// K, and never read the next expert's rows. CTAs walk the tiles in bands
+// of GROUP_M tile rows, so a wave of CTAs shares its bands of A and Bt in
+// L2.
 #pragma once
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 
+#include <climits>
 #include <cstdint>
 
 #include "gemm_emit.cuh"
@@ -36,210 +67,580 @@
 namespace repro_gemm {
 namespace fp8 {
 
-constexpr int BM = 128;
-constexpr int BN = 128;
-constexpr int BKS = 8;  // k-slice depth
-constexpr int NT = 256;
-constexpr int PAD = 4;  // keeps float4 alignment of every smem row
-
-// e4m3fn -> f32, exact: 1 sign, 4 exponent (bias 7), 3 mantissa bits; no
-// infinities, NaN at 0x7f / 0xff; subnormals are m * 2^-9.
-__device__ __forceinline__ float e4m3_to_f32(uint32_t v) {
-  const uint32_t sign = (v & 0x80u) << 24;
-  const uint32_t e = (v >> 3) & 0xFu;
-  const uint32_t m = v & 0x7u;
-  if (e == 0xFu && m == 0x7u) return __uint_as_float(sign | 0x7FC00000u);
-  if (e == 0u)
-    return __uint_as_float(sign |
-                           __float_as_uint(static_cast<float>(m) *
-                                           0.001953125f));
-  return __uint_as_float(sign | ((e + 120u) << 23) | (m << 20));
-}
+constexpr int BM = 128;  // CTA rows: two consumer warpgroups of 64
+constexpr int BN = 128;  // CTA columns: the n of one wgmma
+constexpr int BK = 128;  // k of a stage: one 128-byte row of e4m3, two
+                         // 128-byte rows ("atoms") of f16
+constexpr int KS = 16;   // k of one f16 wgmma
+constexpr int STAGES8 = 2;   // e4m3 ring, filled by TMA
+constexpr int STAGES16 = 2;  // f16 stages: one multiplied, one converted
+constexpr int NT = 384;  // producer warpgroup + two consumer warpgroups
+constexpr int GROUP_M = 8;
+constexpr int E8_A = BM * BK;           // bytes, rows of 128 e4m3
+constexpr int E8_STAGE = E8_A + BN * BK;
+constexpr int ATOM = 128 * 128;         // bytes: 128 rows x 64 f16
+constexpr int F16_A = 2 * ATOM;         // A's two atoms, then Bt's
+constexpr int F16_STAGE = 4 * ATOM;
+constexpr int SCALE_FLOATS = 64 + BN;  // a consumer's row and column scales
+// the f16 stages (1024-byte aligned for the swizzle), the e4m3 ring, its
+// full / empty barriers, and each consumer's scales of two k-blocks
+constexpr int SMEM_BYTES = 1024 + STAGES16 * F16_STAGE + STAGES8 * E8_STAGE +
+                           16 * STAGES8 + 2 * 2 * SCALE_FLOATS * 4;
+constexpr int PRODUCER_REGS = 56;
+constexpr int CONSUMER_REGS = 224;  // 128 * 56 + 256 * 224 <= 65536
 
 struct Scales {
-  const float* a_s;  // (E * M / bm, gk): expert e's rows from e * M / bm
-  const float* b_s;  // (E * gk, gn): expert e's rows from e * gk
-  int bm, bn, bk, gk, gn;
+  const float* a_s;   // (E * gm, gk)
+  const float* bt_s;  // (E * gn, gk)
+  int bm, bn, bk, gm, gn, gk;
 };
 
-template <int ROUNDS, bool GROUPED>
-__global__ void __launch_bounds__(NT)
-    gemm_rng_fp8_kernel(const uint8_t* __restrict__ a,
-                        const uint8_t* __restrict__ b,
-                        float* __restrict__ c, int M, int N, int K,
-                        Scales sc, bool a_vec, bool b_vec, Emit e) {
-  __shared__ __align__(16) float As[BKS][BM + PAD];
-  __shared__ __align__(16) float Bs[BKS][BN + PAD];
-  if (e.mask != nullptr) emit_blocks<ROUNDS>(e);
+// ------------------------------------------------------------ PTX helpers
 
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+// Waits for the phase of parity `parity` to complete. The polling loop is
+// inside the asm, so the compiler sees no divergent branch next to the
+// wgmma products in flight (one it must guard serializes them).
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n}" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   bar),
+               "r"(bytes)
+               : "memory");
+}
+
+// one box of the map at (k, row[, expert]) into shared memory at `dst`
+template <bool GROUPED>
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int k, int row,
+                                         int ex) {
+  const uint64_t m = reinterpret_cast<uint64_t>(map);
   if constexpr (GROUPED) {
-    // this CTA's expert: its operands, result and scale rows
-    const size_t ex = blockIdx.z;
-    a += ex * M * K;
-    b += ex * K * N;
-    c += ex * M * N;
-    sc.a_s += ex * (M / sc.bm) * sc.gk;
-    sc.b_s += ex * sc.gk * sc.gn;
+    asm volatile(
+        "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+        "::bytes [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(dst),
+        "l"(m), "r"(bar), "r"(k), "r"(row), "r"(ex)
+        : "memory");
+  } else {
+    asm volatile(
+        "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+        "::bytes [%0], [%1, {%3, %4}], [%2];" ::"r"(dst),
+        "l"(m), "r"(bar), "r"(k), "r"(row)
+        : "memory");
   }
+}
 
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
-  const int m0 = blockIdx.y * BM;
-  const int n0 = blockIdx.x * BN;
-  // loader coordinates: A is 128 rows x 8 k (4 bytes per thread), B is
-  // 8 k x 128 cols (4 bytes per thread)
-  const int a_row = tid >> 1;
-  const int a_k = (tid & 1) * 4;
-  const int b_k = tid >> 5;
-  const int b_col = (tid & 31) * 4;
+// shared-memory matrix descriptor of a K-major f16 tile in the 128-byte
+// swizzle: rows of 128 bytes (64 k), 8-row groups 1024 bytes apart
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFFu) >> 4) | (1ull << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
+}
 
-  float acc[8][8];
-  float part[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = part[i][j] = 0.f;
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait1() {
+  asm volatile("wgmma.wait_group.sync.aligned 1;" ::: "memory");
+}
 
-  for (int k0 = 0; k0 < K; k0 += BKS) {
-    {
-      const int gr = m0 + a_row;
-      const int gk = k0 + a_k;
-      uint32_t w = 0;
-      if (gr < M) {
-        const uint8_t* src = a + static_cast<size_t>(gr) * K + gk;
-        if (a_vec) {
-          w = *reinterpret_cast<const uint32_t*>(src);
-        } else {
+// pins the registers at this point of the program, so reads of a wgmma
+// result are not moved above the wait that completes it
+__device__ __forceinline__ void fence_regs(float (&d)[64]) {
 #pragma unroll
-          for (int u = 0; u < 4; ++u)
-            w |= static_cast<uint32_t>(src[u]) << (8 * u);
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (+)= A (64 x 16, shared) * B (16 x 128, shared, K-major), f16 operands
+// and f32 sums; d is replaced when `accumulate` is 0
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
+                                                 uint64_t db,
+                                                 int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,\n"
+      " %8, %9, %10, %11, %12, %13, %14, %15,\n"
+      " %16, %17, %18, %19, %20, %21, %22, %23,\n"
+      " %24, %25, %26, %27, %28, %29, %30, %31,\n"
+      " %32, %33, %34, %35, %36, %37, %38, %39,\n"
+      " %40, %41, %42, %43, %44, %45, %46, %47,\n"
+      " %48, %49, %50, %51, %52, %53, %54, %55,\n"
+      " %56, %57, %58, %59, %60, %61, %62, %63},\n"
+      " %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// the 128 threads of consumer warpgroup w (named barriers 1 and 2)
+__device__ __forceinline__ void bar_consumer(int w) {
+  asm volatile("bar.sync %0, 128;" ::"r"(1 + w) : "memory");
+}
+
+__device__ __forceinline__ uint4 ld_shared_v4(uint32_t addr) {
+  uint4 v;
+  asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_shared_v4(uint32_t addr, uint4 v) {
+  asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};" ::"r"(addr),
+               "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w)
+               : "memory");
+}
+
+// four e4m3 bytes -> four f16 (exact: every e4m3 value is an f16 value)
+__device__ __forceinline__ uint2 e4m3x4_to_f16x4(uint32_t v) {
+  uint2 out;
+  asm("cvt.rn.f16x2.e4m3x2 %0, %1;"
+      : "=r"(out.x)
+      : "h"(static_cast<unsigned short>(v & 0xFFFFu)));
+  asm("cvt.rn.f16x2.e4m3x2 %0, %1;"
+      : "=r"(out.y)
+      : "h"(static_cast<unsigned short>(v >> 16)));
+  return out;
+}
+
+// the 256 threads of both consumer warpgroups (named barrier 3)
+__device__ __forceinline__ void bar_consumers() {
+  asm volatile("bar.sync 3, 256;" ::: "memory");
+}
+
+// ------------------------------------------------------------ the consumer
+
+// The k-loop of consumer warpgroup w (rows m0 + 64 w ..) and its store.
+// The warpgroup also converts its share of the next stage -- its own 64
+// rows of A and 64 of Bt's 128 -- from the e4m3 ring into the f16 stage
+// wgmma reads (both in the 128-byte swizzle), while this stage's products
+// run.
+template <bool GROUPED>
+__device__ __forceinline__ void consume(uint32_t ring8, uint32_t ring16,
+                                        uint32_t full8, uint32_t empty8,
+                                        float* scale_buf,
+                                        float* __restrict__ c, int M, int N,
+                                        int K, int m0, int n0, int ex,
+                                        const Scales& sc, int w) {
+  const int t = threadIdx.x % 128;
+  const int warp = t / 32;
+  const int lane = t % 32;
+  const int bk = sc.bk;
+  const int nkt = (K + BK - 1) / BK;
+
+  // e4m3 chunk c (16 k) of a row -> f16 chunks 2 c, 2 c + 1 of atom c / 4
+  auto convert = [&](int kt) {
+    const int s8 = kt % STAGES8;
+    mbar_wait(full8 + 8 * s8, (kt / STAGES8) & 1);
+    const uint32_t src = ring8 + s8 * E8_STAGE;
+    const uint32_t dst = ring16 + (kt % STAGES16) * F16_STAGE;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      // a quarter warp takes four chunks of one atom in two rows r and
+      // r ^ 5 of an 8-row block: the swizzle then puts its eight loads
+      // and its eight stores on eight distinct 16-byte bank groups
+      const int q = t + 128 * (i % 4);
+      const int op = i / 4;           // A, then Bt
+      const int quarter = q / 8;
+      const int pair = quarter % 4;
+      const int row = 64 * w + 8 * ((quarter / 4) % 8) +
+                      ((q % 8) < 4 ? pair : pair ^ 5);
+      const int ch = 4 * (quarter / 32) + q % 4;
+      const uint4 v = ld_shared_v4(src + op * E8_A + row * BK +
+                                   ((ch ^ (row & 7)) << 4));
+      const uint32_t out = dst + op * F16_A + (ch / 4) * ATOM + row * 128;
+      const uint2 f0 = e4m3x4_to_f16x4(v.x), f1 = e4m3x4_to_f16x4(v.y);
+      const uint2 f2 = e4m3x4_to_f16x4(v.z), f3 = e4m3x4_to_f16x4(v.w);
+      st_shared_v4(out + (((2 * (ch % 4)) ^ (row & 7)) << 4),
+                   make_uint4(f0.x, f0.y, f1.x, f1.y));
+      st_shared_v4(out + (((2 * (ch % 4) + 1) ^ (row & 7)) << 4),
+                   make_uint4(f2.x, f2.y, f3.x, f3.y));
+    }
+    // the f16 stage is visible to wgmma (the async proxy); the e4m3 stage
+    // goes back to the producer
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    mbar_arrive(empty8 + 8 * s8);
+  };
+
+  // thread t stages row scale t (t < 64) and column scale t of each k-block
+  const int row_t = m0 + 64 * w + t;
+  const int col_t = n0 + t;
+  const int a_base =
+      (t < 64 && row_t < M) ? (ex * sc.gm + row_t / sc.bm) * sc.gk : -1;
+  const int b_base = col_t < N ? (ex * sc.gn + col_t / sc.bn) * sc.gk : -1;
+  float next_a = a_base >= 0 ? __ldg(sc.a_s + a_base) : 0.f;
+  float next_b = b_base >= 0 ? __ldg(sc.bt_s + b_base) : 0.f;
+  int scales_kb = -1;
+
+  float acc[64], d[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = d[i] = 0.f;
+  int pieces = 0;  // slices summed into d since the last fold
+
+  // d holds k-block kb's sum: acc += d * (a_s * b_s), element by element
+  auto fold = [&](int kb) {
+    wgmma_commit();
+    wgmma_wait0();
+    fence_regs(d);
+    float* buf = scale_buf + (kb & 1) * SCALE_FLOATS;
+    if (kb != scales_kb) {
+      // k-blocks come in order, each folded at least once
+      if (t < 64) buf[t] = next_a;
+      buf[64 + t] = next_b;
+      const int nk = kb + 1;
+      next_a = (a_base >= 0 && nk < sc.gk) ? __ldg(sc.a_s + a_base + nk) : 0.f;
+      next_b = (b_base >= 0 && nk < sc.gk) ? __ldg(sc.bt_s + b_base + nk)
+                                           : 0.f;
+      scales_kb = kb;
+      bar_consumer(w);
+    }
+    const int r = warp * 16 + lane / 4;
+    const float as0 = buf[r];
+    const float as1 = buf[r + 8];
+#pragma unroll
+    for (int g = 0; g < 16; ++g) {
+      const float2 bs =
+          *reinterpret_cast<const float2*>(buf + 64 + 8 * g + 2 * (lane % 4));
+      acc[4 * g + 0] = acc[4 * g + 0] + d[4 * g + 0] * (as0 * bs.x);
+      acc[4 * g + 1] = acc[4 * g + 1] + d[4 * g + 1] * (as0 * bs.y);
+      acc[4 * g + 2] = acc[4 * g + 2] + d[4 * g + 2] * (as1 * bs.x);
+      acc[4 * g + 3] = acc[4 * g + 3] + d[4 * g + 3] * (as1 * bs.y);
+    }
+    pieces = 0;
+  };
+
+  convert(0);
+  bar_consumers();
+  int kb = 0;           // the k-block the next product belongs to
+  int kb_end = bk;      // and where it ends
+  for (int kt = 0;; ++kt) {
+    const int s = kt % STAGES16;
+    const uint32_t a_tile = ring16 + s * F16_STAGE + w * (64 * 128);
+    const uint64_t da0 = smem_desc(a_tile);
+    const uint64_t db0 = smem_desc(ring16 + s * F16_STAGE + F16_A);
+    // slice j: atom j / 4, 32 bytes (2 in the address field) per slice
+    constexpr uint64_t kAtomDesc = ATOM >> 4;
+    wgmma_fence();
+    const int k_lo = kt * BK;
+    if (k_lo + BK <= K && k_lo + BK <= kb_end) {
+      // the whole stage in k-block kb: its eight products back to back
+#pragma unroll
+      for (int j = 0; j < BK / KS; ++j)
+        wgmma_m64n128k16(d, da0 + (j / 4) * kAtomDesc + 2 * (j % 4),
+                         db0 + (j / 4) * kAtomDesc + 2 * (j % 4),
+                         j == 0 ? pieces : 1);
+      pieces += BK / KS;
+      if (k_lo + BK == kb_end) {
+        fold(kb);
+        ++kb;
+        kb_end += bk;
+      }
+    } else {
+      // a k-block ends inside the stage, or K does
+#pragma unroll
+      for (int j = 0; j < BK / KS; ++j) {
+        const int k0 = kt * BK + j * KS;
+        if (k0 >= K) break;
+        const int k1 = k0 + KS;  // K is a multiple of 16
+        const uint64_t da = da0 + (j / 4) * kAtomDesc + 2 * (j % 4);
+        const uint64_t db = db0 + (j / 4) * kAtomDesc + 2 * (j % 4);
+        if (k1 <= kb_end) {
+          wgmma_m64n128k16(d, da, db, pieces);
+          ++pieces;
+          if (k1 == kb_end) {
+            fold(kb);
+            ++kb;
+            kb_end += bk;
+            wgmma_fence();
+          }
+          continue;
+        }
+        // the slice straddles k-block kb's end, which is k0 + 8 (bk is a
+        // multiple of 8): thread t holds 8 of the 64 rows x 16 k of this
+        // warpgroup's slice (row t / 2, k from k0 + 8 (t % 2), at its
+        // swizzled place) and keeps them for the pass of their k-block only
+        const int row = t / 2;
+        const uint32_t chunk = a_tile + (j / 4) * ATOM + row * 128 +
+                               ((((2 * (j % 4)) + (t & 1)) ^ (row & 7)) << 4);
+        const uint4 orig = ld_shared_v4(chunk);
+#pragma unroll
+        for (int pass = 0; pass < 2; ++pass) {
+          st_shared_v4(chunk,
+                       (t & 1) == pass ? orig : make_uint4(0u, 0u, 0u, 0u));
+          asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+          bar_consumer(w);
+          wgmma_fence();
+          wgmma_m64n128k16(d, da, db, pieces);
+          ++pieces;
+          if (pass == 0 || k1 == kb_end) {
+            fold(kb);
+            ++kb;
+            kb_end += bk;
+            // every warp's reads of this copy are done before the next one
+            bar_consumer(w);
+            wgmma_fence();
+          }
         }
       }
-#pragma unroll
-      for (int u = 0; u < 4; ++u)
-        As[a_k + u][a_row] = e4m3_to_f32((w >> (8 * u)) & 0xFFu);
     }
-    {
-      const int gk = k0 + b_k;
-      const int gc = n0 + b_col;
-      uint32_t w = 0;
-      const uint8_t* src = b + static_cast<size_t>(gk) * N + gc;
-      if (b_vec && gc + 3 < N) {
-        w = *reinterpret_cast<const uint32_t*>(src);
-      } else {
-#pragma unroll
-        for (int u = 0; u < 4; ++u)
-          if (gc + u < N) w |= static_cast<uint32_t>(src[u]) << (8 * u);
-      }
-#pragma unroll
-      for (int u = 0; u < 4; ++u)
-        Bs[b_k][b_col + u] = e4m3_to_f32((w >> (8 * u)) & 0xFFu);
+    if (kt == nkt - 1) {
+      // the last k-block ended at K and its fold waited for every product;
+      // the wait here only tells the compiler so, on the loop's one exit
+      wgmma_commit();
+      wgmma_wait0();
+      break;
     }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BKS; ++kk) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&As[kk][ty * 4]);
-      const float4 a1 =
-          *reinterpret_cast<const float4*>(&As[kk][ty * 4 + 64]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&Bs[kk][tx * 4]);
-      const float4 b1 =
-          *reinterpret_cast<const float4*>(&Bs[kk][tx * 4 + 64]);
-      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-          part[i][j] = fmaf(av[i], bv[j], part[i][j]);
-    }
-    __syncthreads();
-    if ((k0 + BKS) % sc.bk == 0) {
-      // end of k-block kb: rescale its partial sums onto the accumulator
-      const int kb = k0 / sc.bk;
-      float as_[8], bs_[8];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const int r = m0 + ty * 4 + (i & 3) + (i >> 2) * 64;
-        as_[i] = r < M ? sc.a_s[(r / sc.bm) * sc.gk + kb] : 0.f;
-      }
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int col = n0 + tx * 4 + (j & 3) + (j >> 2) * 64;
-        bs_[j] = col < N ? sc.b_s[kb * sc.gn + col / sc.bn] : 0.f;
-      }
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          acc[i][j] = acc[i][j] + part[i][j] * (as_[i] * bs_[j]);
-          part[i][j] = 0.f;
-        }
-    }
+    // this stage's products stay in flight (an unfinished piece carries on
+    // into the next stage) while the next stage is converted into the f16
+    // stage of the previous one, whose products both warpgroups finished
+    wgmma_commit();
+    wgmma_wait1();
+    bar_consumers();
+    convert(kt + 1);
+    bar_consumers();
   }
 
+  // store: d's fragment layout -- row warp * 16 + lane / 4 (+ 8), column
+  // 8 g + 2 (lane % 4) (+ 1)
+  if constexpr (GROUPED) c += static_cast<size_t>(ex) * M * N;
+  const int r0 = m0 + 64 * w + warp * 16 + lane / 4;
+  const bool pairs = (N % 2) == 0;
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int r = m0 + ty * 4 + (i & 3) + (i >> 2) * 64;
+  for (int h = 0; h < 2; ++h) {
+    const int r = r0 + 8 * h;
     if (r >= M) continue;
+    float* crow = c + static_cast<size_t>(r) * N;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int col = n0 + tx * 4 + (j & 3) + (j >> 2) * 64;
-      if (col < N) c[static_cast<size_t>(r) * N + col] = acc[i][j];
+    for (int g = 0; g < 16; ++g) {
+      const int col = n0 + 8 * g + 2 * (lane % 4);
+      const float x = acc[4 * g + 2 * h];
+      const float y = acc[4 * g + 2 * h + 1];
+      if (pairs && col + 1 < N) {
+        *reinterpret_cast<float2*>(crow + col) = make_float2(x, y);
+      } else {
+        if (col < N) crow[col] = x;
+        if (col + 1 < N) crow[col + 1] = y;
+      }
     }
   }
 }
 
+// ------------------------------------------------------------ the kernel
+
 template <int ROUNDS, bool GROUPED>
-int launch(const uint8_t* a, const uint8_t* b, float* c, int E, int M,
-           int N, int K, const Scales& sc, const Emit& e, cudaStream_t s) {
-  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, E);
-  // 4-byte loads need 4-byte rows and a 4-byte base (K % 8 == 0 here; an
-  // expert's base is then 4-byte aligned too)
-  const bool a_vec = reinterpret_cast<uintptr_t>(a) % 4 == 0;
-  const bool b_vec = N % 4 == 0 && reinterpret_cast<uintptr_t>(b) % 4 == 0;
-  gemm_rng_fp8_kernel<ROUNDS, GROUPED>
-      <<<grid, NT, 0, s>>>(a, b, c, M, N, K, sc, a_vec, b_vec, e);
+__global__ void __launch_bounds__(NT, 1)
+    gemm_rng_fp8_kernel(const __grid_constant__ CUtensorMap map_a,
+                        const __grid_constant__ CUtensorMap map_b,
+                        float* __restrict__ c, int M, int N, int K,
+                        int tiles_m, int tiles_n, Scales sc, Emit e) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t ring16 = (raw + 1023u) & ~1023u;
+  const uint32_t ring8 = ring16 + STAGES16 * F16_STAGE;
+  const uint32_t full8 = ring8 + STAGES8 * E8_STAGE;
+  const uint32_t empty8 = full8 + 8 * STAGES8;
+  float* scales =
+      reinterpret_cast<float*>(smem_raw + (empty8 + 8 * STAGES8 - raw));
+
+  // this CTA's tile: expert, then bands of GROUP_M tile rows walked
+  // column by column
+  const int per_expert = tiles_m * tiles_n;
+  const int ex = GROUPED ? blockIdx.x / per_expert : 0;
+  const int r = blockIdx.x % per_expert;
+  const int band = r / (GROUP_M * tiles_n);
+  const int first_m = band * GROUP_M;
+  const int band_rows = min(tiles_m - first_m, GROUP_M);
+  const int in_band = r % (GROUP_M * tiles_n);
+  const int m0 = (first_m + in_band % band_rows) * BM;
+  const int n0 = (in_band / band_rows) * BN;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES8; ++s) {
+      mbar_init(full8 + 8 * s, 1);
+      mbar_init(empty8 + 8 * s, 2 * 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(PRODUCER_REGS));
+    const int t = threadIdx.x;
+    if (t == 0) {
+      const int nkt = (K + BK - 1) / BK;
+      for (int kt = 0; kt < nkt; ++kt) {
+        const int s = kt % STAGES8;
+        if (kt >= STAGES8)
+          mbar_wait(empty8 + 8 * s, ((kt / STAGES8) + 1) & 1);
+        mbar_expect_tx(full8 + 8 * s, E8_STAGE);
+        const uint32_t dst = ring8 + s * E8_STAGE;
+        tma_load<GROUPED>(dst, &map_a, full8 + 8 * s, kt * BK, m0, ex);
+        tma_load<GROUPED>(dst + E8_A, &map_b, full8 + 8 * s, kt * BK, n0,
+                          ex);
+      }
+    } else if (t >= 32 && e.mask != nullptr) {
+      emit_share<ROUNDS>(e, blockIdx.x, gridDim.x, t - 32, 96);
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(CONSUMER_REGS));
+    consume<GROUPED>(ring8, ring16, full8, empty8,
+                     scales + (wg - 1) * 2 * SCALE_FLOATS, c, M, N, K, m0,
+                     n0, ex, sc, wg - 1);
+  }
+}
+
+// ------------------------------------------------------------ the host
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled through the runtime's driver entry point, so the
+// library needs no -lcuda; null when the driver does not offer it
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    return (err == cudaSuccess && q == cudaDriverEntryPointSuccess)
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// The map of a K-major e4m3 operand (E, rows, K): boxes of 128 k x 128
+// rows (x 1 expert), 128-byte swizzle, zeros past every edge.
+template <bool GROUPED>
+bool make_map(CUtensorMap* map, const void* ptr, int E, int rows, int K) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(K),
+                              static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(E)};
+  const cuuint64_t strides[2] = {
+      static_cast<cuuint64_t>(K),
+      static_cast<cuuint64_t>(rows) * static_cast<cuuint64_t>(K)};
+  const cuuint32_t box[3] = {BK, 128, 1};  // BM == BN == 128
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, GROUPED ? 3 : 2,
+            const_cast<void*>(ptr), dims, strides, box, elem,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int ROUNDS, bool GROUPED>
+int launch(const CUtensorMap& ma, const CUtensorMap& mb, float* c, int E,
+           int M, int N, int K, const Scales& sc, const Emit& e,
+           cudaStream_t s) {
+  const int tiles_m = (M + BM - 1) / BM;
+  const int tiles_n = (N + BN - 1) / BN;
+  const long long ctas = static_cast<long long>(E) * tiles_m * tiles_n;
+  if (ctas > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = gemm_rng_fp8_kernel<ROUNDS, GROUPED>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<static_cast<int>(ctas), NT, SMEM_BYTES, s>>>(
+      ma, mb, c, M, N, K, tiles_m, tiles_n, sc, e);
   return static_cast<int>(cudaGetLastError());
 }
 
-
-// C[e] ~= dequantized A[e] @ B[e] for E experts (GROUPED; else E = 1, the
-// dense host) and, when `mask` is not null, the layout's blocks of the
-// packed keep plane. (bm, bk) and (bk, bn) are the scale tiles; they must
-// divide (M, K) and (K, N), and bk must be a multiple of 8. Returns
-// cudaGetLastError() (0 on success), cudaErrorInvalidValue for bad sizes
-// or an unimplemented round count.
+// C[e] ~= dequantized A[e] @ Bt[e]^T for E experts (GROUPED; else E = 1,
+// the dense host) and, when `mask` is not null, the layout's rectangles of
+// the packed keep plane. (bm, bk) and (bn, bk) are the scale tiles of A and
+// Bt; they must divide (M, K) and (N, K), bk must be a multiple of 8, K of
+// 16 (TMA's row stride) and both operands must start on 16 bytes. Returns
+// cudaGetLastError() (0 on success), cudaErrorInvalidValue for bad sizes,
+// an unimplemented round count or a tensor map the driver refuses.
 template <bool GROUPED>
-int run(const void* a, const void* b, const void* a_s, const void* b_s,
+int run(const void* a, const void* bt, const void* a_s, const void* bt_s,
         void* c, int E, int M, int N, int K, int bm, int bn, int bk,
         void* mask, int rows_valid, int sk, int sq32, int rb, int ck,
         int n_cb, int n_valid_blocks, uint32_t key_lo, uint32_t key_hi,
         uint32_t salt, uint32_t bh_offset, int heads_local, int heads_global,
         uint32_t threshold, int rounds, void* stream) {
-  if (E <= 0 || E > 65535 || (!GROUPED && E != 1) || M <= 0 || N <= 0 ||
-      K <= 0 || bm <= 0 ||
-      bn <= 0 || bk <= 0 || M % bm || N % bn || K % bk || bk % BKS)
+  if (E <= 0 || (!GROUPED && E != 1) || M <= 0 || N <= 0 || K <= 0 ||
+      bm <= 0 || bn <= 0 || bk <= 0 || M % bm || N % bn || K % bk ||
+      bk % 8 || K % 16 || reinterpret_cast<uintptr_t>(a) % 16 ||
+      reinterpret_cast<uintptr_t>(bt) % 16)
     return static_cast<int>(cudaErrorInvalidValue);
-  const uint8_t* A = static_cast<const uint8_t*>(a);
-  const uint8_t* B = static_cast<const uint8_t*>(b);
-  float* C = static_cast<float*>(c);
   const Scales sc{static_cast<const float*>(a_s),
-                  static_cast<const float*>(b_s), bm, bn, bk, K / bk,
-                  N / bn};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+                  static_cast<const float*>(bt_s), bm, bn, bk, M / bm,
+                  N / bn, K / bk};
   Emit e;
   if (!make_emit(mask, rows_valid, sk, sq32, rb, ck, n_cb, n_valid_blocks,
                  key_lo, key_hi, salt, bh_offset, heads_local, heads_global,
-                 threshold, &e))
+                 threshold, &e) ||
+      (mask != nullptr && !layout_tiles_plane(e)))
     return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap ma, mb;
+  if (!make_map<GROUPED>(&ma, a, E, M, K) ||
+      !make_map<GROUPED>(&mb, bt, E, N, K))
+    return static_cast<int>(cudaErrorInvalidValue);
+  float* C = static_cast<float*>(c);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (mask == nullptr)
-    return launch<7, GROUPED>(A, B, C, E, M, N, K, sc, e, s);
+    return launch<7, GROUPED>(ma, mb, C, E, M, N, K, sc, e, s);
   switch (rounds) {
-    case 3: return launch<3, GROUPED>(A, B, C, E, M, N, K, sc, e, s);
-    case 5: return launch<5, GROUPED>(A, B, C, E, M, N, K, sc, e, s);
-    case 7: return launch<7, GROUPED>(A, B, C, E, M, N, K, sc, e, s);
-    case 10: return launch<10, GROUPED>(A, B, C, E, M, N, K, sc, e, s);
+    case 3: return launch<3, GROUPED>(ma, mb, C, E, M, N, K, sc, e, s);
+    case 5: return launch<5, GROUPED>(ma, mb, C, E, M, N, K, sc, e, s);
+    case 7: return launch<7, GROUPED>(ma, mb, C, E, M, N, K, sc, e, s);
+    case 10: return launch<10, GROUPED>(ma, mb, C, E, M, N, K, sc, e, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -20,7 +20,14 @@ which CTA writes which block: see the note in ``csrc/gemm_rng.cu``.
 ``_gemm_rng_fp8_kernel`` and, with the emission off, ``_plain_fp8_kernel``
 -- on f32 operands that ``quant.quantize_tiled`` turns into e4m3 values and
 per-tile scales outside the kernel (the scale tiles are the logical GEMM
-blocks); its plane is bitwise the f32 host's.
+blocks); its plane is bitwise the f32 host's. The e4m3 kernels run on
+Hopper's tensor cores (their e4m3 bytes converted exactly to f16 in shared
+memory) and take B K-major, as (N, K) bytes: on the card the wrappers
+transpose the quantized weight's bytes and scales (bitwise what
+quantizing the transposed weight gives); every public function keeps
+JAX's (K, N) layout.
+``gemm_fp8_kernel_order`` is the kernels' order of summation in plain
+torch.
 
 ``gemm_with_rng_grouped`` / ``gemm_with_rng_grouped_fp8`` are the grouped
 hosts: C[e] = A[e] @ B[e] for E experts (a MoE block's expert einsum; E = 1
@@ -58,6 +65,8 @@ KERNEL = "gemm_rng"
 KERNEL_FP8 = "gemm_rng_fp8"
 KERNEL_GROUPED = "gemm_rng_grouped"
 KERNEL_GROUPED_FP8 = "gemm_rng_grouped_fp8"
+# the e4m3 kernels' k-slice: one f16 wgmma
+_FP8_SLICE_K = 16
 # plain version: packed words per step (x 32 keep bits each)
 _PLAIN_CHUNK_WORDS = 1 << 17
 
@@ -455,40 +464,118 @@ def gemm_fp8_plain(a_q: torch.Tensor, a_s: torch.Tensor, b_q: torch.Tensor,
     return acc
 
 
+def gemm_fp8_kernel_order(a_q: torch.Tensor, a_s: torch.Tensor,
+                          bt_q: torch.Tensor, bt_s: torch.Tensor,
+                          blocks: Tuple[int, int, int]) -> torch.Tensor:
+    """The e4m3 kernels' decomposition of ``gemm_fp8_plain`` in plain torch,
+    on K-major operands (``bt_q`` (N, K), ``bt_s`` (N/bn, K/bk)): k16 slices
+    (one f16 wgmma each), summed from zero over a k-block; a slice that
+    straddles a k-block end issued once for each of its two k-blocks, with
+    A's 8 k outside that block zeroed; the block's sum folded into the f32
+    accumulator as acc + p * (a_s * b_s), element by element. Equal to
+    ``gemm_fp8_plain`` up to the order of f32 rounding."""
+    bm, bn, bk = blocks
+    a = a_q.to(torch.float32)
+    bt = bt_q.to(torch.float32)
+    m, kdim = a.shape
+    acc = torch.zeros((m, bt.shape[0]), dtype=torch.float32,
+                      device=a.device)
+    rows = torch.arange(m, device=a.device) // bm
+    cols = torch.arange(bt.shape[0], device=a.device) // bn
+    piece = None
+    for k0 in range(0, kdim, _FP8_SLICE_K):
+        k1 = k0 + _FP8_SLICE_K
+        kb0, kb1 = k0 // bk, (k1 - 1) // bk
+        for kb in range(kb0, kb1 + 1):
+            a_slice = a[:, k0:k1].clone()
+            a_slice[:, :max(kb * bk - k0, 0)] = 0.0
+            a_slice[:, max((kb + 1) * bk - k0, 0):] = 0.0
+            part = a_slice @ bt[:, k0:k1].T
+            piece = part if piece is None else piece + part
+            if kb < kb1 or k1 == (kb + 1) * bk:
+                scale = a_s[rows, kb][:, None] * bt_s[cols, kb][None, :]
+                acc = acc + piece * scale
+                piece = None
+    return acc
+
+
+def _check_fp8_kmajor(name: str, a_q: torch.Tensor, a_s: torch.Tensor,
+                      bt_q: torch.Tensor, bt_s: torch.Tensor,
+                      blocks: Tuple[int, int, int], groups: int = 0) -> None:
+    """Raise on K-major operands the e4m3 kernel ``name`` does not take:
+    a_q (M, K) and bt_q (N, K) -- (E, M, K) and (E, N, K) for ``groups`` =
+    E experts -- contiguous e4m3 starting on 16 bytes, a_s (E*M/bm, K/bk)
+    and bt_s (E*N/bn, K/bk) contiguous f32, all on one device; k-blocks of
+    a multiple of 8 and K a multiple of 16 (the tensor maps' row stride)."""
+    bm, bn, bk = blocks
+    nd = 3 if groups else 2
+    if a_q.dim() != nd or bt_q.dim() != nd:
+        raise ValueError(f"{name} takes {nd}-d operands, got "
+                         f"{tuple(a_q.shape)} x {tuple(bt_q.shape)}")
+    e = groups or 1
+    m, k = a_q.shape[-2:]
+    n = bt_q.shape[-2]
+    if bk % 8 or k % 16:
+        raise NotImplementedError(
+            f"the {name} kernel takes k-blocks of a multiple of 8 and K of a "
+            f"multiple of 16, got bk={bk}, K={k}")
+    ops = (a_q, a_s, bt_q, bt_s)
+    dtypes = (quant.fp8_dtype(), torch.float32) * 2
+    if (any(t.dtype != dt for t, dt in zip(ops, dtypes))
+            or any(not t.is_contiguous() or t.device != a_q.device
+                   for t in ops)
+            or bt_q.shape[-1] != k or (groups and bt_q.shape[0] != e)
+            or m % bm or n % bn or k % bk
+            or a_s.shape != (e * (m // bm), k // bk)
+            or bt_s.shape != (e * (n // bn), k // bk)):
+        raise ValueError(
+            f"{name} takes contiguous K-major e4m3 operands and f32 scales of "
+            f"the ({bm},{bn},{bk}) blocks on one device, got "
+            f"{[(t.dtype, tuple(t.shape), t.device) for t in ops]}")
+    if a_q.data_ptr() % 16 or bt_q.data_ptr() % 16:
+        raise ValueError(f"{name} takes operands that start on 16 bytes")
+
+
+def gemm_rng_fp8_kmajor(a_q: torch.Tensor, a_s: torch.Tensor,
+                        bt_q: torch.Tensor, bt_s: torch.Tensor,
+                        blocks: Tuple[int, int, int],
+                        em: Optional[_Emission]
+                        ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The fp8 host on K-major operands: a_q (M, K), bt_q (N, K) (= b_q.T)
+    and their scales a_s (M/bm, K/bk), bt_s (N/bn, K/bk) (= b_s.T). Launches
+    the kernel for CUDA tensors (or raises), the plain version for CPU
+    ones: (C, flattened plane or None)."""
+    if not _check_device(a_q, KERNEL_FP8):
+        return _plain_fp8(a_q, a_s, bt_q.T, bt_s.T, blocks, em)
+    _check_fp8_kmajor(KERNEL_FP8, a_q, a_s, bt_q, bt_s, blocks)
+    bm, bn, bk = blocks
+    m, k = a_q.shape
+    n = bt_q.shape[0]
+    c, mask = _outputs(a_q, n, em)
+    _launch(KERNEL_FP8,
+            [a_q.data_ptr(), bt_q.data_ptr(), a_s.data_ptr(),
+             bt_s.data_ptr(), c.data_ptr(), m, n, k, bm, bn, bk], mask, em,
+            a_q.device)
+    return c, mask
+
+
 def gemm_rng_fp8_quantized(a_q: torch.Tensor, a_s: torch.Tensor,
                            b_q: torch.Tensor, b_s: torch.Tensor,
                            blocks: Tuple[int, int, int],
                            em: Optional[_Emission]
                            ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """The fp8 host on operands already quantized per logical block
-    ``blocks`` = (bm, bn, bk): (C, flattened plane or None). Launches the
-    kernel for CUDA tensors, the plain version for CPU ones."""
+    ``blocks`` = (bm, bn, bk), in JAX's layout (b_q (K, N), b_s (K/bk,
+    N/bn)): (C, flattened plane or None). Launches the kernel for CUDA
+    tensors, on b's bytes and scales transposed to K-major; the plain
+    version for CPU ones."""
     if not _check_device(a_q, KERNEL_FP8):
         return _plain_fp8(a_q, a_s, b_q, b_s, blocks, em)
-    bm, bn, bk = blocks
-    m, k = a_q.shape
-    n = b_q.shape[1]
-    if bk % 8:
-        raise NotImplementedError(
-            f"the {KERNEL_FP8} kernel takes k-blocks of a multiple of 8, got "
-            f"{bk}")
-    ops = (a_q, a_s, b_q, b_s)
-    dtypes = (quant.fp8_dtype(), torch.float32) * 2
-    if (any(t.dtype != dt for t, dt in zip(ops, dtypes))
-            or any(not t.is_contiguous() or t.device != a_q.device
-                   for t in ops)
-            or b_q.shape[0] != k or m % bm or n % bn or k % bk
-            or a_s.shape != (m // bm, k // bk)
-            or b_s.shape != (k // bk, n // bn)):
-        raise ValueError(
-            f"{KERNEL_FP8} takes contiguous e4m3 operands and f32 scales of "
-            f"the ({bm},{bn},{bk}) blocks on one device, got "
-            f"{[(t.dtype, tuple(t.shape), t.device) for t in ops]}")
-    c, mask = _outputs(a_q, n, em)
-    _launch(KERNEL_FP8,
-            [a_q.data_ptr(), b_q.data_ptr(), a_s.data_ptr(), b_s.data_ptr(),
-             c.data_ptr(), m, n, k, bm, bn, bk], mask, em, a_q.device)
-    return c, mask
+    if b_q.dim() != 2 or b_s.dim() != 2:
+        raise ValueError(f"{KERNEL_FP8} takes a 2-d (K, N) operand, got "
+                         f"{tuple(b_q.shape)}")
+    return gemm_rng_fp8_kmajor(a_q, a_s, b_q.T.contiguous(),
+                               b_s.T.contiguous(), blocks, em)
 
 
 def _forward_fp8(a: torch.Tensor, b: torch.Tensor,
@@ -719,6 +806,52 @@ def gemm_grouped_fp8_plain(a_q: torch.Tensor, a_s: torch.Tensor,
         for i in range(e)])
 
 
+def kmajor_grouped(b_q: torch.Tensor, b_s: torch.Tensor,
+                   blocks: Tuple[int, int, int]
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """JAX's grouped weight operand (b_q (E, K, N), b_s (E*gk, gn)) as the
+    grouped e4m3 kernel takes it, K-major: (bt_q (E, N, K), bt_s (E*gn,
+    gk)), each expert's bytes and scales transposed -- bitwise what
+    quantizing the transposed weight gives (the same tiles, amax and
+    division)."""
+    _, bn, bk = blocks
+    e, kdim, n = b_q.shape
+    bt_s = b_s.reshape(e, kdim // bk, n // bn).transpose(1, 2)
+    return (b_q.transpose(1, 2).contiguous(),
+            bt_s.reshape(e * (n // bn), kdim // bk).contiguous())
+
+
+def gemm_rng_grouped_fp8_kmajor(a_q: torch.Tensor, a_s: torch.Tensor,
+                                bt_q: torch.Tensor, bt_s: torch.Tensor,
+                                blocks: Tuple[int, int, int],
+                                em: Optional[_Emission]
+                                ) -> Tuple[torch.Tensor,
+                                           Optional[torch.Tensor]]:
+    """The grouped fp8 host on K-major operands: a_q (E, C, K), a_s (E*gm,
+    gk) as ``quantize_grouped`` gives them, bt_q (E, N, K) and bt_s (E*gn,
+    gk) as ``kmajor_grouped`` does: (C, flattened plane or None). Launches
+    the kernel for CUDA tensors (or raises), the plain version for CPU
+    ones."""
+    e, m, k = a_q.shape
+    n = bt_q.shape[1]
+    if not _check_device(a_q, KERNEL_GROUPED_FP8):
+        _, bn, bk = blocks
+        b_q = bt_q.transpose(1, 2)
+        b_s = bt_s.reshape(e, n // bn, k // bk).transpose(1, 2).reshape(
+            e * (k // bk), n // bn)
+        c = gemm_grouped_fp8_plain(a_q, a_s, b_q, b_s, blocks)
+        return c, None if em is None else _plain_plane(em, a_q.device)
+    _check_fp8_kmajor(KERNEL_GROUPED_FP8, a_q, a_s, bt_q, bt_s, blocks,
+                      groups=e)
+    bm, bn, bk = blocks
+    c, mask = _outputs(a_q, n, em)
+    _launch(KERNEL_GROUPED_FP8,
+            [a_q.data_ptr(), bt_q.data_ptr(), a_s.data_ptr(),
+             bt_s.data_ptr(), c.data_ptr(), e, m, n, k, bm, bn, bk], mask,
+            em, a_q.device)
+    return c, mask
+
+
 def gemm_rng_grouped_fp8_quantized(a_q: torch.Tensor, a_s: torch.Tensor,
                                    b_q: torch.Tensor, b_s: torch.Tensor,
                                    blocks: Tuple[int, int, int],
@@ -726,35 +859,25 @@ def gemm_rng_grouped_fp8_quantized(a_q: torch.Tensor, a_s: torch.Tensor,
                                    ) -> Tuple[torch.Tensor,
                                               Optional[torch.Tensor]]:
     """The grouped fp8 host on operands already quantized by
-    ``quantize_grouped``: (C, flattened plane or None). Launches the kernel
-    for CUDA tensors, the plain version for CPU ones."""
+    ``quantize_grouped`` (JAX's layout: b_q (E, K, N), b_s (E*gk, gn)):
+    (C, flattened plane or None). Launches the kernel for CUDA tensors, on
+    b's bytes and scales transposed to K-major; the plain version for CPU
+    ones."""
     if not _check_device(a_q, KERNEL_GROUPED_FP8):
         c = gemm_grouped_fp8_plain(a_q, a_s, b_q, b_s, blocks)
         return c, None if em is None else _plain_plane(em, a_q.device)
-    bm, bn, bk = blocks
-    e, m, k = a_q.shape
-    n = b_q.shape[2]
-    if bk % 8:
-        raise NotImplementedError(
-            f"the {KERNEL_GROUPED_FP8} kernel takes k-blocks of a multiple "
-            f"of 8, got {bk}")
-    ops = (a_q, a_s, b_q, b_s)
-    dtypes = (quant.fp8_dtype(), torch.float32) * 2
-    if (any(t.dtype != dt for t, dt in zip(ops, dtypes))
-            or any(not t.is_contiguous() or t.device != a_q.device
-                   for t in ops)
-            or b_q.shape[:2] != (e, k) or m % bm or n % bn or k % bk
-            or a_s.shape != (e * (m // bm), k // bk)
-            or b_s.shape != (e * (k // bk), n // bn)):
-        raise ValueError(
-            f"{KERNEL_GROUPED_FP8} takes contiguous e4m3 operands and f32 "
-            f"scales of the ({bm},{bn},{bk}) expert tiles on one device, got "
-            f"{[(t.dtype, tuple(t.shape), t.device) for t in ops]}")
-    c, mask = _outputs(a_q, n, em)
-    _launch(KERNEL_GROUPED_FP8,
-            [a_q.data_ptr(), b_q.data_ptr(), a_s.data_ptr(), b_s.data_ptr(),
-             c.data_ptr(), e, m, n, k, bm, bn, bk], mask, em, a_q.device)
-    return c, mask
+    _, bn, bk = blocks
+    if b_q.dim() != 3 or b_s.dim() != 2:
+        raise ValueError(f"{KERNEL_GROUPED_FP8} takes a 3-d (E, K, N) "
+                         f"operand, got {tuple(b_q.shape)}")
+    e, k, n = b_q.shape
+    if b_s.shape != (e * (k // bk), n // bn):
+        raise ValueError(f"{KERNEL_GROUPED_FP8}: scales {tuple(b_s.shape)} "
+                         f"do not match {tuple(b_q.shape)} in ({bk},{bn}) "
+                         f"tiles")
+    return gemm_rng_grouped_fp8_kmajor(a_q, a_s,
+                                       *kmajor_grouped(b_q, b_s, blocks),
+                                       blocks, em)
 
 
 class _GemmRngGroupedFp8(torch.autograd.Function):

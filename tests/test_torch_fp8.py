@@ -6,7 +6,10 @@ straight-through bf16 dgrad (gradients within 1e-4) and the documented
 error bound (< 0.06 Frobenius-relative to f32). The cases are those of
 ``tests/test_fp8_gemm.py`` plus the scale-tile shapes the CUDA kernel
 must get right: a logical block taller than its 128-row CTA tile (M =
-192) and a k-block that is not 512 (K = 11008 gives bk = 344). Inputs are
+192) and a k-block that is not 512 (K = 11008 gives bk = 344); the
+kernels' own order of summation (``gemm_fp8_kernel_order``) against JAX's
+within 1e-4 (1 + |C|), their K-major weight bitwise the transpose of JAX's,
+and the operand check that refuses what they cannot take. Inputs are
 made with numpy from a seed; the JAX kernels run in Pallas interpret mode
 on the CPU, the port's wrappers take their plain versions there.
 
@@ -181,6 +184,98 @@ def test_producer_routes_fp8(how):
     assert 0.0 < _rel_err(y.numpy(), x2d @ w) < BOUND
 
 
+# the e4m3 kernels' decomposition (k16 tensor-core slices, straddling
+# slices issued once per k-block with A's other bytes zeroed, one rescale
+# per k-block) against JAX's order: (m, k, n), (bm, bn, bk) -- bk = 344
+# straddles k16 slices, 352 and 512 do not, 64 is one k-block a stage half;
+# bm 192 and 240 and bn 176 cut the kernel's 128 x 128 CTA tiles
+ORDER_CASES = [
+    ((192, 1032, 176), (192, 176, 344)),
+    ((240, 704, 352), (240, 176, 352)),
+    ((192, 1024, 176), (192, 176, 512)),
+    ((240, 128, 176), (240, 176, 64)),
+    ((64, 11008, 64), (64, 64, 344)),
+]
+# f32 sums of up to 11008 products in another order, and the rescale per
+# k-block: 1e-4 (1 + |C|), ten times inside the card's check of the kernel
+ORDER_TOL = 1e-4
+
+
+@pytest.mark.parametrize("dims,blocks", ORDER_CASES)
+def test_fp8_kernel_order_equals_plain(dims, blocks):
+    """``gemm_fp8_kernel_order`` -- the CUDA kernels' order of summation on
+    K-major operands -- equals the plain version (JAX's order) within
+    ORDER_TOL x (1 + |C|)."""
+    m, k, n = dims
+    bm, bn, bk = blocks
+    a, b = _operands(sum(dims), m, k, n)
+    a_q, a_s = quant.quantize_tiled(torch.from_numpy(a), bm, bk)
+    b_q, b_s = quant.quantize_tiled(torch.from_numpy(b), bk, bn)
+    bt_q, bt_s = quant.quantize_tiled(torch.from_numpy(b).T, bn, bk)
+    got = tg.gemm_fp8_kernel_order(a_q, a_s, bt_q, bt_s, blocks)
+    want = tg.gemm_fp8_plain(a_q, a_s, b_q, b_s, blocks)
+    assert bool(((got - want).abs() <= ORDER_TOL * (1 + want.abs())).all())
+
+
+@pytest.mark.parametrize("shape,tile", [((256, 384), (64, 128)),
+                                        ((11008, 64), (344, 64)),
+                                        ((4096, 176), (512, 176)),
+                                        ((96, 240), (32, 80))])
+def test_kmajor_operand_is_the_transpose(shape, tile):
+    """The kernel's K-major weight: quantize_tiled of b.T, laid out
+    contiguously, is bitwise b_q.T and b_s.T (the same tiles, amax and
+    division)."""
+    b = np.random.default_rng(3).standard_normal(shape).astype(np.float32)
+    b[:tile[0], :tile[1]] = 0.0                  # an all-zero tile
+    b_q, b_s = quant.quantize_tiled(torch.from_numpy(b), *tile)
+    bt_q, bt_s = quant.quantize_tiled(torch.from_numpy(b).T, tile[1],
+                                      tile[0])
+    assert torch.equal(bt_q.contiguous().view(torch.uint8),
+                       b_q.T.contiguous().view(torch.uint8))
+    assert torch.equal(bt_s, b_s.T)
+
+
+def _kmajor_ops(m, k, n, blocks):
+    bm, bn, bk = blocks
+    a, b = _operands(0, m, k, n)
+    return (*quant.quantize_tiled(torch.from_numpy(a), bm, bk),
+            *(t.contiguous() for t in
+              quant.quantize_tiled(torch.from_numpy(b).T, bn, bk)))
+
+
+def test_fp8_kernel_rejects_what_it_cannot_take():
+    """The e4m3 kernel's operand check raises -- before any launch, with no
+    fallback -- on K-major operands it does not take: K not a multiple of
+    16 (the tensor maps' row stride), bk not a multiple of 8, scales or
+    bytes of the wrong shape, dtype or layout, an operand off 16 bytes."""
+    reset_launch_counts()
+    check = tg._check_fp8_kmajor
+    name = tg.KERNEL_FP8
+    a_q, a_s, bt_q, bt_s = _kmajor_ops(64, 88, 64, (64, 64, 88))
+    with pytest.raises(NotImplementedError, match="multiple of 16"):
+        check(name, a_q, a_s, bt_q, bt_s, (64, 64, 88))     # K = 88
+    a_q, a_s, bt_q, bt_s = _kmajor_ops(64, 96, 64, (64, 64, 12))
+    with pytest.raises(NotImplementedError, match="multiple of 8"):
+        check(name, a_q, a_s, bt_q, bt_s, (64, 64, 12))     # bk = 12
+    a_q, a_s, bt_q, bt_s = _kmajor_ops(64, 128, 64, (64, 64, 64))
+    check(name, a_q, a_s, bt_q, bt_s, (64, 64, 64))         # takes these
+    with pytest.raises(ValueError, match="K-major"):
+        check(name, a_q, a_s, bt_q, bt_s.T, (64, 64, 64))   # scales (K, N)
+    with pytest.raises(ValueError, match="K-major"):
+        check(name, a_q, a_s, bt_q.T.contiguous(), bt_s, (64, 64, 64))
+    with pytest.raises(ValueError, match="K-major"):
+        check(name, a_q.to(torch.float32), a_s, bt_q, bt_s, (64, 64, 64))
+    with pytest.raises(ValueError, match="K-major"):
+        check(name, a_q, a_s, bt_q, bt_s, (32, 64, 64))     # bm != tiles
+    flat = torch.zeros(64 * 128 + 16, dtype=quant.fp8_dtype())
+    off_16 = flat[1:1 + 64 * 128].view(64, 128)      # contiguous, 1 byte in
+    with pytest.raises(ValueError, match="16 bytes"):
+        check(name, off_16, a_s, bt_q, bt_s, (64, 64, 64))
+    with pytest.raises(ValueError, match="2-d"):
+        check(name, a_q[None], a_s, bt_q[None], bt_s, (64, 64, 64))
+    assert set(launch_counts().values()) == {0}
+
+
 def test_fp8_checks_and_cpu_launches_nothing():
     reset_launch_counts()
     a = torch.zeros((64, 32))
@@ -194,6 +289,11 @@ def test_fp8_checks_and_cpu_launches_nothing():
     c, _ = tg.gemm_with_rng_fp8(a, a.T, mask_batch=1, mask_heads=1,
                                 mask_sq=32, mask_sk=32, p=0.1, seed=0)
     assert not c.any()                 # all-zero tiles stay finite and zero
+    # the K-major entry on CPU tensors: the plain version, as JAX's layout
+    a_q, a_s, bt_q, bt_s = _kmajor_ops(64, 128, 64, (64, 64, 64))
+    ck, _ = tg.gemm_rng_fp8_kmajor(a_q, a_s, bt_q, bt_s, (64, 64, 64), None)
+    assert torch.equal(ck, tg.gemm_fp8_plain(a_q, a_s, bt_q.T, bt_s.T,
+                                             (64, 64, 64)))
     assert set(launch_counts().values()) == {0}
 
 
@@ -213,6 +313,16 @@ def test_fp8_kernel_equals_plain_on_gpu():
         torch.cuda.synchronize()
         assert torch.equal(mask, want)
         torch.testing.assert_close(c, want_c, atol=1e-4, rtol=1e-4)
+    # bk = 344 at llama2's down-projection K (k16 slices straddle k-blocks)
+    # and 256-row tiles, the product only, against the plain version
+    for dims, blocks in ((256, 11008, 256), (256, 256, 344)), \
+            ((256, 4096, 512), (256, 256, 512)):
+        ops = tuple(t.cuda() for t in _kmajor_ops(*dims, blocks))
+        c, _ = tg.gemm_rng_fp8_kmajor(*ops, blocks, None)
+        want_c = tg.gemm_fp8_plain(ops[0], ops[1], ops[2].T, ops[3].T,
+                                   blocks)
+        torch.cuda.synchronize()
+        assert bool(((c - want_c).abs() <= 1e-3 * (1 + want_c.abs())).all())
     counts = launch_counts()
-    assert counts.pop("gemm_rng_fp8") == len(GEMM_CASES)
+    assert counts.pop("gemm_rng_fp8") == len(GEMM_CASES) + 2
     assert set(counts.values()) == {0}

@@ -4,7 +4,9 @@ at the kernel, producer and schedule level: the grouped kernels' plain
 versions (f32 and per-expert-tile e4m3) against JAX's Pallas kernels in
 interpret mode (planes bitwise, C within 3e-5, e4m3 bytes and scales
 equal), the producer's bits against the oracle at f32 and fp8 (bf16
-raises), Region 3 falling back to the standalone producer, gradients
+raises), the grouped e4m3 kernels' order of summation and K-major
+operands at capacity 480 (1e-4 (1 + |C|); bitwise), their operand check,
+Region 3 falling back to the standalone producer, gradients
 through both grouped hosts (1e-4), and ``explain()`` text equal to JAX's
 for the reduced moonshot and arctic, the RWKV hybrid and the
 test_grouped_host.py configs, with the distinct infeasible-shape reasons.
@@ -203,7 +205,105 @@ def test_grouped_checks_and_cpu_launches_nothing():
         tg.gemm_with_rng_grouped_fp8(a, a.transpose(1, 2), block_m=48, **kw)
     c, _ = ops.fused_gemm_rng_grouped_fp8(a, a.transpose(1, 2), **kw)
     assert c.shape == (2, 64, 64) and not c.any()
+    # the grouped e4m3 kernel's operand check: raises before any launch,
+    # with no fallback, on what the kernel cannot take
+    blocks = (32, 64, 64)
+    x, y = (torch.from_numpy(t) for t in _operands(9, 2, 64, 128, 64))
+    kops = _kmajor_ops(x, y, blocks)
+    check = tg._check_fp8_kmajor
+    check(tg.KERNEL_GROUPED_FP8, *kops, blocks, groups=2)   # takes these
+    with pytest.raises(ValueError, match="K-major"):         # 3 experts?
+        check(tg.KERNEL_GROUPED_FP8, *kops, blocks, groups=3)
+    with pytest.raises(ValueError, match="K-major"):         # JAX's b_s
+        check(tg.KERNEL_GROUPED_FP8, *kops[:3],
+              tg.quantize_grouped(x, y, blocks)[3], blocks, groups=2)
+    with pytest.raises(ValueError, match="3-d"):
+        check(tg.KERNEL_GROUPED_FP8, kops[0][0], kops[1], kops[2][0],
+              kops[3], blocks, groups=2)
+    x, y = (torch.from_numpy(t) for t in _operands(9, 2, 64, 88, 64))
+    with pytest.raises(NotImplementedError, match="multiple of 16"):
+        check(tg.KERNEL_GROUPED_FP8,
+              *_kmajor_ops(x, y, (32, 64, 88)), (32, 64, 88),
+              groups=2)
+    # on CPU tensors the K-major entry is the plain version
+    y8, _ = tg.gemm_rng_grouped_fp8_kmajor(*kops, blocks, None)
+    x, y = (torch.from_numpy(t) for t in _operands(9, 2, 64, 128, 64))
+    assert torch.equal(y8, tg.gemm_grouped_fp8_plain(
+        *tg.quantize_grouped(x, y, blocks), blocks))
     assert set(launch_counts().values()) == {0}
+
+
+# the grouped e4m3 kernel's decomposition at moonshot's capacity of 480
+# rows (3.75 of the kernel's 128-row CTA tiles) with bm = 240 and bn = 176
+# scale tiles cutting them: (E, C, K, N), (bm, bn, bk)
+ORDER_CASES = [
+    ((2, 480, 1032, 176), (240, 176, 344)),
+    ((2, 480, 704, 176), (240, 176, 352)),
+    ((2, 480, 1024, 176), (240, 176, 512)),
+    ((2, 480, 128, 352), (240, 176, 64)),
+]
+ORDER_TOL = 1e-4   # as tests/test_torch_fp8.py: f32 sums in another order
+
+
+def _kmajor_ops(x, y, blocks):
+    """The grouped e4m3 kernel's operands: JAX's quantization, the weight's
+    bytes and scales made K-major by ``kmajor_grouped``."""
+    a_q, a_s, b_q, b_s = tg.quantize_grouped(x, y, blocks)
+    return (a_q, a_s, *tg.kmajor_grouped(b_q, b_s, blocks))
+
+
+def _expert_kernel_order(ops, blocks):
+    """``gemm_fp8_kernel_order`` expert by expert on the K-major operands,
+    each expert's scale rows from e * gm and e * gn, as the kernel reads
+    them."""
+    a_q, a_s, bt_q, bt_s = ops
+    bm, bn, _ = blocks
+    e, c, _ = a_q.shape
+    gm, gn = c // bm, bt_q.shape[1] // bn
+    return torch.stack([
+        tg.gemm_fp8_kernel_order(a_q[i], a_s[i * gm:(i + 1) * gm], bt_q[i],
+                                 bt_s[i * gn:(i + 1) * gn], blocks)
+        for i in range(e)])
+
+
+@pytest.mark.parametrize("dims,blocks", ORDER_CASES)
+def test_grouped_kernel_order_equals_plain(dims, blocks):
+    """The grouped e4m3 kernel's order of summation (k16 slices, straddling
+    slices once per k-block with A's other bytes zeroed, one rescale per
+    k-block) equals the plain version, JAX's order, within ORDER_TOL x
+    (1 + |C|) at capacity 480."""
+    a, b = _operands(sum(dims), *dims)
+    ta, tb = torch.from_numpy(a), torch.from_numpy(b)
+    got = _expert_kernel_order(_kmajor_ops(ta, tb, blocks),
+                               blocks)
+    want = tg.gemm_grouped_fp8_plain(*tg.quantize_grouped(ta, tb, blocks),
+                                     blocks)
+    assert bool(((got - want).abs() <= ORDER_TOL * (1 + want.abs())).all())
+
+
+@pytest.mark.parametrize("dims,blocks", [((3, 240, 96, 176), (80, 88, 32)),
+                                         ((1, 256, 64, 384),
+                                          (256, 128, 64)),
+                                         ((2, 480, 1408, 176),
+                                          (240, 176, 352))])
+def test_grouped_kmajor_operands_are_transposes(dims, blocks):
+    """The grouped kernel's weight operand: JAX's b_q and b_s made K-major
+    by ``kmajor_grouped`` -- (E, N, K) bytes, (E * N / bn, K / bk) scales,
+    contiguous -- is bitwise what quantizing the transposed weight (E * N,
+    K) in (bn, bk) tiles gives: b_q.T and b_s.T expert by expert."""
+    e, c, k, n = dims
+    _, bn, bk = blocks
+    a, b = _operands(7, *dims)
+    ta, tb = torch.from_numpy(a), torch.from_numpy(b)
+    _, _, b_q, b_s = tg.quantize_grouped(ta, tb, blocks)
+    bt_q, bt_s = tg.kmajor_grouped(b_q, b_s, blocks)
+    assert bt_q.shape == (e, n, k) and bt_s.shape == (e * n // bn, k // bk)
+    assert bt_q.is_contiguous() and bt_s.is_contiguous()
+    want_q, want_s = quant.quantize_tiled(
+        tb.transpose(1, 2).reshape(e * n, k), bn, bk)
+    assert torch.equal(bt_q.reshape(e * n, k).view(torch.uint8),
+                       want_q.contiguous().view(torch.uint8))
+    assert torch.equal(bt_s, want_s)
 
 
 @pytest.mark.gpu
@@ -225,9 +325,20 @@ def test_grouped_kernels_equal_plain_on_gpu():
             torch.cuda.synchronize()
             assert torch.equal(mask, want)
             torch.testing.assert_close(y, want_y, atol=1e-4, rtol=1e-4)
+    # capacity 480 (3.75 CTA rows an expert) with bm = 240, bn = 176 and
+    # bk = 344 (straddling k16 slices): the e4m3 product only
+    for dims, blocks in ORDER_CASES[:1] + [((4, 480, 1024, 352),
+                                            (240, 176, 512))]:
+        x, y = (torch.from_numpy(t).cuda() for t in _operands(1, *dims))
+        kops = _kmajor_ops(x, y, blocks)
+        c8, _ = tg.gemm_rng_grouped_fp8_kmajor(*kops, blocks, None)
+        want8 = tg.gemm_grouped_fp8_plain(*tg.quantize_grouped(x, y, blocks),
+                                          blocks)
+        torch.cuda.synchronize()
+        assert bool(((c8 - want8).abs() <= 1e-3 * (1 + want8.abs())).all())
     counts = launch_counts()
     assert counts.pop(tg.KERNEL_GROUPED) == len(GROUPED_CASES)
-    assert counts.pop(tg.KERNEL_GROUPED_FP8) == len(GROUPED_CASES)
+    assert counts.pop(tg.KERNEL_GROUPED_FP8) == len(GROUPED_CASES) + 2
     assert set(counts.values()) == {0}
 
 
