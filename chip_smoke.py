@@ -55,23 +55,45 @@ Phases (each raises on failure; nothing is caught):
      0 again under premask, bitwise equal (loss, gradients, updated
      weights); launches against the schedule's formula; then one step
      each of ffn_down/fp8, ffn_up/f32, ffn_down/f32 (the grouped f32
-     kernel) and qkv/f32, whose step-0 losses agree with ffn_up/f32's.
+     kernel) and qkv/f32, whose step-0 losses agree with ffn_up/f32's;
+  8. bf16 training at width: llama2-7b as in 5 at compute_dtype=bf16
+     (the f32 master cast to bf16 each step, f32 gradients and AdamW),
+     site "qkv", gemm_dtype "bf16": the bf16 GEMM+RNG kernel under the
+     QKV projection and the bf16 flash kernels; 3 replay steps and step 0
+     again under premask, bitwise equal; launches against the formula;
+     the layer-0 plane of the bf16 kernel bitwise the plain one; step
+     time, tokens/s, peak memory and a profiler trace beside phase 5's
+     qkv/f32 step; then one step each of ffn_up/bf16 (the carried gate+up
+     host), qkv with gemm_dtype "f32" under bf16 compute (the same bf16
+     kernel, bitwise the same loss) and qkv/bf16 under f32 compute (the
+     host's operands and C rounded to bf16, f32 flash; its step-0 loss
+     and grad norm against qkv/f32's).
 
 Phase 2 also checks the e4m3 GEMM+RNG kernel against its plain version
 at the four host shapes of phase 6 (QKV, out-projection, gate+up, down;
 plane bitwise, also against the f32 kernel's; C within 1e-3 of the plain
-version and under 0.06 of the f32 product), at two scale-tile shapes and
+version and under 0.06 of the f32 product), at three scale-tile shapes and
 with a Region-3 call that emits nothing, and the grouped kernels (f32,
 its emission-off variant, e4m3) at moonshot's two expert host shapes and
-rwkv6-7b's channel-mix key GEMM (E=1) in the same way; the e4m3 kernels
-take B K-major (JAX's weight bytes and scales transposed, bitwise what
-quantizing the transposed weight gives, checked), are timed on those
-operands with the
-emission on and off in turns (TFLOP/s, share of the bound, the plane's
+rwkv6-7b's channel-mix key GEMM (E=1) in the same way (both e4m3 hosts
+also at K = bk = 344, K not a multiple of 16: rows zero-padded to the
+tensor maps' 16-byte stride); the bf16 GEMM+RNG kernel at the four host
+shapes (plane bitwise the plain one's and the f32 host's, bf16 C within
+1e-2 (1 + |C|) of the plain version, emission on and off in turns, and a
+Region-3 call) and the bf16 flash kernels at B=2, H=32, S=2048, D=128 in
+premask and replay and with 4 kv heads (within 1e-2 (|x| + rms(x)), lse
+1e-4; replay == premask bitwise; a planted fault in the keep bits must
+fail the check); the e4m3 kernels take B K-major (JAX's weight bytes
+and scales transposed, bitwise what quantizing the transposed weight
+gives, checked), are timed on those operands with the emission on and
+off in turns (TFLOP/s, share of the bound, the plane's
 share of the product), and their wrappers on JAX's (K, N) layout once;
-phase 4 adds the reduced llama2 at prev_gemm/f32 and ffn_up/fp8 and the
-reduced moonshot and arctic at ffn_up/f32 and ffn_down/fp8, card against
-CPU.
+phase 4 adds the reduced llama2 at prev_gemm/f32 and ffn_up/fp8, the
+reduced llama2 and yi at qkv/bf16 under compute_dtype=bf16 (loss 1e-4,
+grad norm 5e-3 relative, weights 4 lr; the measured differences are
+printed), and the reduced moonshot and arctic at ffn_up/f32 and
+ffn_down/fp8, card against CPU; every such run also holds each leaf's
+change over its 3 steps within 0.25 relative of the CPU's.
 
 The second-to-last lines are the kernels' JSON record and the card's
 ``nvidia-smi`` name and power limit; the last line is the
@@ -113,6 +135,10 @@ FP8_FLOPS_PER_S = 1979e12          # H100 SXM data sheet, dense e4m3 on
                                    # the tensor cores
 F16_FLOPS_PER_S = 989e12           # the same, dense f16: the rate the e4m3
                                    # kernels multiply at (exact e4m3 -> f16)
+BF16_FLOPS_PER_S = 989e12          # the same, dense bf16: the bf16 kernels'
+                                   # bound (tensor cores)
+SFU_PER_ISSUE_LANE = 1 / 8         # exponentials a clock: 16 an SM against
+                                   # 128 issue lanes
 ISSUE_LANES_PER_SM = 128           # 4 warp schedulers x 32 lanes a clock
 
 SERVE_SHAPE = (1, 32, 512, 512)    # llama2-7b plane at max_model_len 512
@@ -204,7 +230,9 @@ def phase_card(state) -> None:
         f"{state['smi']} | torch {torch.__version__} "
         f"cuda {torch.version.cuda} | allow_tf32: matmul "
         f"{torch.backends.cuda.matmul.allow_tf32}, cudnn "
-        f"{torch.backends.cudnn.allow_tf32}")
+        f"{torch.backends.cudnn.allow_tf32} | cuBLAS bf16 reduced-precision "
+        f"reductions (left at torch's default): "
+        f"{torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction}")
 
 
 # ------------------------------------------------------------------ phase 1
@@ -219,11 +247,13 @@ def phase_build(state) -> None:
         for line in build.ptxas_report(name):
             if "(C75" not in line:   # advisories: once each, below
                 log(f"[build] {name}: {line}")
-    # the e4m3 kernels: dynamic shared memory (ptxas reports static only)
-    # and ptxas's advisories on the wgmma code, once each
-    for name in (gemm_rng.KERNEL_FP8, gemm_rng.KERNEL_GROUPED_FP8):
-        smem = ctypes.CDLL(str(libs[gemm_rng.KERNEL_FP8])) \
-            .repro_gemm_rng_fp8_smem_bytes()
+    # the tensor-core kernels: dynamic shared memory (ptxas reports static
+    # only) and ptxas's advisories on the wgmma code, once each
+    for name, entry in ((gemm_rng.KERNEL_FP8, gemm_rng.KERNEL_FP8),
+                        (gemm_rng.KERNEL_GROUPED_FP8, gemm_rng.KERNEL_FP8),
+                        (gemm_rng.KERNEL_BF16, gemm_rng.KERNEL_BF16)):
+        smem = getattr(ctypes.CDLL(str(libs[entry])),
+                       f"repro_{entry}_smem_bytes")()
         advisories = sorted({
             re.sub(r" in function '[^']*'|line \d+", "", ln).strip()
             for ln in build.log_path(name).read_text().splitlines()
@@ -322,16 +352,43 @@ FLASH_SHAPE = (2, 32, 2048, 128)
 GEMM_TOL = 1e-3
 FWD_TOL = 1e-4
 GRAD_TOL = 1e-3
+# bf16 C against its plain version: one bf16 ulp is 2^-8 of a value, and
+# f32 sums in another order round either way near a rounding boundary
+BF16_GEMM_TOL = 1e-2
+# bf16 flash outputs (O, dq, dk, dv) against their plain versions, relative
+# with a floor at the tensor's own scale: tol x (|want| + rms(want)). The
+# kernel and the plain version each round their own f32 result once, so
+# they differ by one bf16 ulp (at most 2^-7 of a value, under 1e-2) where
+# the two f32 sums straddle a rounding boundary; the floor covers values
+# near zero; the GQA sums of per-head values rounded apart read closest
+# to it (on the H100: 0.44-0.85 of the limit). lse stays f32 and is held
+# at FWD_TOL. Each run also plants a fault (FLASH_FAULT) that this limit,
+# and the f32 ones, must fail (on the H100: 24-64 times this limit).
+BF16_FLASH_TOL = 1e-2
+# the planted fault: the keep bits of one plane word row (32 query rows)
+# x 64 keys flipped, in batch 0, head 0, late rows -- a 64-key block of
+# rows that attend to about 2,000 keys: (first row, first key)
+FLASH_FAULT = (1984, 1024)
 
 
-def _close(name, got, want, tol, state, key) -> float:
-    """Max |got - want|, checked against tol * (1 + |want|); a NaN or an
-    infinity on either side fails the check."""
+def _within(got, want, tol, scaled=False):
+    """(max |got - want|, max |got - want| / limit, all within): the limit
+    is tol x (1 + |want|), or with ``scaled`` tol x (|want| + rms(want));
+    a NaN or an infinity on either side is not within."""
     err = (got - want).abs()
-    worst = float(err.max())
-    if not bool((err <= tol * (1 + want.abs())).all()):
+    floor = want.square().mean().sqrt() if scaled else 1.0
+    limit = tol * (want.abs() + floor)
+    ok = bool((err <= limit).all())
+    return float(err.max()), float((err / limit).max()), ok
+
+
+def _close(name, got, want, tol, state, key, scaled=False) -> float:
+    """Max |got - want|, checked by ``_within``."""
+    worst, _, ok = _within(got, want, tol, scaled)
+    if not ok:
+        rule = "(|want| + rms(want))" if scaled else "(1 + |want|)"
         raise AssertionError(f"{name}: max abs err {worst} beyond tol "
-                             f"{tol} x (1 + |want|), or not finite")
+                             f"{tol} x {rule}, or not finite")
     state.setdefault("errs", {})
     state["errs"][key] = max(state["errs"].get(key, 0.0), worst)
     return worst
@@ -363,21 +420,32 @@ def valid_pairs(sq, sk, causal, local_window) -> int:
     return int(valid.sum())
 
 
-def flash_bound(kind, b, h, s, d, pairs):
+def flash_bound(kind, b, h, s, d, pairs, elem=4, flops_rate=F32_FLOPS_PER_S,
+                ops_rate=None, rounds=7):
     """(bound_ms, bound_by) of one MHA replay call (no plane): the matmul
     FLOPs the valid scores need (fwd QK^T and PV: 4D a pair; dq: 6D; dkv:
-    8D) at the f32 rate, against each input read once and each output
-    written once."""
+    8D) at ``flops_rate``, against each input read once and each output
+    written once (``elem`` bytes an element of q/k/v/o/dO and the
+    gradients; lse and delta f32). With ``ops_rate`` (the bf16 kernels,
+    whose products could run on the tensor cores) the SIMT work that
+    cannot is a third floor: an exponential a valid pair on the SFU (1/8
+    of the issue lanes) and the replayed keep bits, 8 Philox calls of (4 a
+    round + 8) instructions per 32 pairs; tensor cores and SIMT lanes run
+    side by side, so the floor is the larger time."""
     per = {"fwd": 4, "dq": 6, "dkv": 8}[kind] * d
     flops = per * pairs * b * h
-    q_bytes = b * h * s * d * 4
-    kv_bytes = 2 * b * h * s * d * 4
+    q_bytes = b * h * s * d * elem
+    kv_bytes = 2 * b * h * s * d * elem
     row_bytes = b * h * s * 4
     moved = {"fwd": q_bytes + kv_bytes + q_bytes + row_bytes,
              "dq": 3 * q_bytes + kv_bytes + 2 * row_bytes,
              "dkv": 2 * q_bytes + kv_bytes + 2 * row_bytes + 2 * q_bytes}
     t_bytes = moved[kind] / HBM_BYTES_PER_S
-    t_ops = flops / F32_FLOPS_PER_S
+    t_ops = flops / flops_rate
+    if ops_rate is not None:
+        n = pairs * b * h
+        t_ops = max(t_ops, (n / SFU_PER_ISSUE_LANE
+                            + n / 32 * 8 * (4 * rounds + 8)) / ops_rate)
     return max(t_bytes, t_ops) * 1e3, ("operations" if t_ops >= t_bytes
                                        else "bytes")
 
@@ -385,8 +453,6 @@ def flash_bound(kind, b, h, s, d, pairs):
 def phase_kernels_train(state) -> None:
     """The training path's kernels against their plain versions, then
     timed at the training path's shapes."""
-    from torch.nn.functional import scaled_dot_product_attention as sdpa
-    from repro_torch.kernels.philox_common import seed_salt_smem
     gen = torch.Generator(device="cuda").manual_seed(0)
     rnd = lambda *shape: torch.randn(shape, generator=gen, device="cuda")
     ops_rate = issue_ops_per_s()
@@ -458,15 +524,73 @@ def phase_kernels_train(state) -> None:
     del a, w, c, mask, want_c, want_mask
 
     # ---- flash forward, dq, dkv
+    _flash_kernels(state, rnd, torch.float32, ops_rate)
+
+
+# flash cases each dtype is checked in, (mode, local window, kv heads or
+# None for H); the main path's mode (replay, causal, MHA) is then timed
+FLASH_CASES = {
+    torch.float32: (("none", 0, None), ("fused", 0, None),
+                    ("premask", 0, None), ("replay", 0, None),
+                    ("replay", 512, None), ("replay", 0, 4)),
+    torch.bfloat16: (("premask", 0, None), ("replay", 0, None),
+                     ("replay", 0, 4)),
+}
+
+
+def _flash_fault(tag, q, k, v, do, plane, got, tols, bf16) -> None:
+    """A planted fault the flash checks must fail: the plain versions on
+    ``plane`` with the keep bits of one word row x 64 keys (FLASH_FAULT,
+    batch 0, head 0) flipped, against the kernels' outputs ``got`` (o, dq,
+    dk, dv) on the true plane. Raises if a check would pass it."""
+    r0, c0 = FLASH_FAULT
+    bad = plane.clone()
+    bad[0, 0, r0 // 32, c0:c0 + 64] ^= -1
+    args = dict(causal=True, dropout_p=0.1, mode="premask")
+    fo, flse = flash.flash_attention_fwd_plain(q, k, v, bad, **args)
+    want = (fo, *flash_bwd.flash_attention_bwd_plain(q, k, v, fo, flse, do,
+                                                     bad, **args))
+    out_tol, grad_tol = tols
+    found, jax_rule = [], []
+    for name, g, w, tol in zip(("o", "dq", "dk", "dv"), got, want,
+                               (out_tol, grad_tol, grad_tol, grad_tol)):
+        worst, ratio, ok = _within(g.float(), w.float(), tol, bf16)
+        if ok:
+            raise AssertionError(f"{tag}: the check passes a planted fault "
+                                 f"in {name} (max abs err {worst})")
+        found.append(f"{name} {worst:.3g} ({ratio:.3g} of the limit)")
+        jax_rule.append(_within(g.float(), w.float(), 3e-2)[2])
+    how = (f"; under JAX's 3e-2 x (1+|x|) it would pass in "
+           f"{sum(jax_rule)} of 4" if bf16 else "")
+    log(f"[kernels] {tag} planted fault (keep bits of rows {r0}-{r0 + 31} x "
+        f"keys {c0}-{c0 + 63}, b0 h0, flipped): max abs err "
+        f"{', '.join(found)} -- every check fails it{how}")
+
+
+def _flash_kernels(state, rnd, dtype, ops_rate) -> None:
+    """The flash forward, dq and dkv kernels of ``dtype`` (f32, or the bf16
+    instances) against their plain versions in FLASH_CASES at
+    FLASH_SHAPE, causal; replay == premask bitwise; then timed on the main
+    path's mode beside the bound and SDPA on the same inputs (no
+    dropout). f32 is held at FWD_TOL / GRAD_TOL, bf16 at BF16_FLASH_TOL
+    (lse, f32 at both, at FWD_TOL); each dtype's checks must fail a
+    planted fault (``_flash_fault``)."""
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+    from repro_torch.kernels.philox_common import seed_salt_smem
+    bf16 = dtype == torch.bfloat16
+    names = (flash.KERNELS[dtype], *flash_bwd.KERNELS[dtype])
+    out_tol, grad_tol = ((BF16_FLASH_TOL, BF16_FLASH_TOL) if bf16
+                         else (FWD_TOL, GRAD_TOL))
+    tag = "flash bf16" if bf16 else "flash"
+    timing = state.setdefault("timing", {})
     b, h, s, d = FLASH_SHAPE
     plane = philox.philox_dropout_mask_plain(b, h, s, s, 0.1,
                                              torch.tensor(9), 3,
                                              device="cuda")
     seed_salt = seed_salt_smem(torch.tensor(9), 3)
-    cases = [("none", 0, h), ("fused", 0, h), ("premask", 0, h),
-             ("replay", 0, h), ("replay", 512, h), ("replay", 0, 4)]
     outs = {}
-    for mode, window, kvh in cases:
+    for mode, window, kvh in FLASH_CASES[dtype]:
+        kvh = kvh or h
         q, do = rnd(b, h, s, d), rnd(b, h, s, d)
         kk, vv = rnd(b, kvh, s, d), rnd(b, kvh, s, d)
         op = {"premask": plane, "replay": seed_salt}.get(mode)
@@ -483,32 +607,51 @@ def phase_kernels_train(state) -> None:
             pdk, pdv = (t.reshape(b, kvh, h // kvh, s, d).sum(2)
                         for t in (pdk, pdv))
         torch.cuda.synchronize()
+        if any(t.dtype != dtype for t in (o, dq, dk, dv)) or \
+                lse.dtype != torch.float32:
+            raise AssertionError(f"{tag} output dtypes")
         label = f"{mode} window={window} kv_heads={kvh}"
-        errs = [_close(f"flash_fwd {label}", o, po, FWD_TOL, state,
-                       "flash_fwd"),
-                _close(f"flash lse {label}", lse, plse, FWD_TOL, state,
-                       "flash_fwd"),
-                _close(f"flash_dq {label}", dq, pdq, GRAD_TOL, state,
-                       "flash_dq"),
-                _close(f"flash_dkv dk {label}", dk, pdk, GRAD_TOL, state,
-                       "flash_dkv"),
-                _close(f"flash_dkv dv {label}", dv, pdv, GRAD_TOL, state,
-                       "flash_dkv")]
+        errs = [_close(f"{names[0]} {label}", o.float(), po.float(),
+                       out_tol, state, names[0], scaled=bf16),
+                _close(f"{names[0]} lse {label}", lse, plse, FWD_TOL, state,
+                       names[0]),
+                _close(f"{names[1]} {label}", dq.float(), pdq.float(),
+                       grad_tol, state, names[1], scaled=bf16),
+                _close(f"{names[2]} dk {label}", dk.float(), pdk.float(),
+                       grad_tol, state, names[2], scaled=bf16),
+                _close(f"{names[2]} dv {label}", dv.float(), pdv.float(),
+                       grad_tol, state, names[2], scaled=bf16)]
+        ratios = [_within(g.float(), w.float(), t, bf16)[1] for g, w, t in
+                  ((o, po, out_tol), (dq, pdq, grad_tol),
+                   (dk, pdk, grad_tol), (dv, pdv, grad_tol))]
         outs[(mode, window, kvh)] = (q, kk, vv, do, o, lse, op)
-        log(f"[kernels] flash {b}x{h}x{s}x{d} {label}: max abs err o "
-            f"{errs[0]:.3g} lse {errs[1]:.3g} (tol {FWD_TOL}), dq "
-            f"{errs[2]:.3g} dk {errs[3]:.3g} dv {errs[4]:.3g} (tol "
-            f"{GRAD_TOL}; 2048-term f32 sums in another order than the "
-            f"plain version's)")
+        rule = ("x (|x| + rms(x)): one bf16 ulp where the f32 sums round "
+                "apart" if bf16 else "x (1+|x|): 2048-term f32 sums in "
+                "another order than the plain version's")
+        log(f"[kernels] {tag} {b}x{h}x{s}x{d} {label}: max abs err o "
+            f"{errs[0]:.3g} lse {errs[1]:.3g} (tol {out_tol}; lse "
+            f"{FWD_TOL} x (1+|x|)), dq {errs[2]:.3g} dk {errs[3]:.3g} dv "
+            f"{errs[4]:.3g} (tol {grad_tol} {rule}); o, dq, dk, dv at "
+            f"{', '.join(f'{r:.3g}' for r in ratios)} of their limits")
+        if mode == "premask" and kvh == h:
+            _flash_fault(tag, q, kk, vv, do, op, (o, dq, dk, dv),
+                         (out_tol, grad_tol), bf16)
     # replay and premask consume the same bits: equal inputs, equal outputs
-    q, kk, vv = outs[("replay", 0, h)][:3]
+    q, kk, vv, do = outs[("replay", 0, h)][:4]
     args = dict(causal=True, dropout_p=0.1)
-    o_r = flash.flash_attention_fwd(q, kk, vv, seed_salt, mode="replay",
-                                    **args)
-    o_p = flash.flash_attention_fwd(q, kk, vv, plane, mode="premask",
-                                    **args)
-    if not torch.equal(o_r, o_p):
-        raise AssertionError("flash replay != premask on the same inputs")
+    o_r, l_r = flash.flash_attention_fwd(q, kk, vv, seed_salt, mode="replay",
+                                         return_lse=True, **args)
+    o_p, l_p = flash.flash_attention_fwd(q, kk, vv, plane, mode="premask",
+                                         return_lse=True, **args)
+    g_r = flash_bwd.flash_attention_bwd(q, kk, vv, o_r, l_r, do, seed_salt,
+                                        mode="replay", **args)
+    g_p = flash_bwd.flash_attention_bwd(q, kk, vv, o_p, l_p, do, plane,
+                                        mode="premask", **args)
+    if not (torch.equal(o_r, o_p) and all(torch.equal(x, y)
+                                          for x, y in zip(g_r, g_p))):
+        raise AssertionError(f"{tag} replay != premask on the same inputs")
+    log(f"[kernels] {tag}: replay == premask bitwise (o, dq, dk, dv)")
+    del o_r, o_p, g_r, g_p
 
     # timing on the main path's mode (replay, causal, MHA)
     q, kk, vv, do, o, lse, op = outs[("replay", 0, h)]
@@ -518,50 +661,58 @@ def phase_kernels_train(state) -> None:
         q, kk, vv, op, return_lse=True, **args)
     bwd = lambda: flash_bwd.flash_attention_bwd(  # noqa: E731
         q, kk, vv, o, lse, do, op, **args)
-    plain_fwd = lambda: flash.flash_attention_fwd_plain(  # noqa: E731
-        q, kk, vv, op, **args)
-    plain_bwd = lambda: flash_bwd.flash_attention_bwd_plain(  # noqa: E731
-        q, kk, vv, o, lse, do, op, **args)
     qs, ks, vs = (t.detach().clone().requires_grad_() for t in (q, kk, vv))
     lib_out = sdpa(qs, ks, vs, is_causal=True)
     lib_fwd = cuda_time_ms(lambda: sdpa(q, kk, vv, is_causal=True), 10)
     lib_bwd = cuda_time_ms(lambda: torch.autograd.grad(
         lib_out, (qs, ks, vs), do, retain_graph=True), 10)
-    plain_fwd_ms = cuda_time_ms(plain_fwd, 2, warmup=1)
-    plain_bwd_ms = cuda_time_ms(plain_bwd, 2, warmup=1)
+    plain_fwd_ms = cuda_time_ms(lambda: flash.flash_attention_fwd_plain(
+        q, kk, vv, op, **args), 2, warmup=1)
+    plain_bwd_ms = cuda_time_ms(lambda: flash_bwd.flash_attention_bwd_plain(
+        q, kk, vv, o, lse, do, op, **args), 2, warmup=1)
     bwd_ms = cuda_time_ms(bwd, 10)
-    for name, fn, plain_ms, lib_ms in (
-            ("flash_fwd", fwd, plain_fwd_ms, lib_fwd),
-            ("flash_dq", bwd, plain_bwd_ms, lib_bwd),
-            ("flash_dkv", bwd, plain_bwd_ms, lib_bwd)):
-        if name == "flash_fwd":
-            ms = cuda_time_ms(fn, 10)
+    for name, kind in zip(names, ("fwd", "dq", "dkv")):
+        if kind == "fwd":
+            ms = cuda_time_ms(fwd, 10)
             how = "CUDA events"
         else:
             # both backward kernels run in one call: each one's device
             # time comes from a profiler trace of that call
-            ms = device_time_ms(fn, f"{name}_kernel", 10)
+            ms = device_time_ms(bwd, f"flash_{kind}_kernel", 10)
             if ms is None:
                 raise AssertionError("the profiler saw no device time")
             how = (f"profiler; the whole backward call {bwd_ms:.4f} ms by "
                    f"CUDA events")
-        kind = name.split("_")[1]
-        bound_ms, bound_by = flash_bound(kind, b, h, s, d, pairs)
+        f32_bound, f32_by = flash_bound(kind, b, h, s, d, pairs,
+                                       elem=2 if bf16 else 4)
+        bound_ms, bound_by = (flash_bound(
+            kind, b, h, s, d, pairs, elem=2, flops_rate=BF16_FLOPS_PER_S,
+            ops_rate=ops_rate) if bf16 else (f32_bound, f32_by))
         flops = {"fwd": 4, "dq": 6, "dkv": 8}[kind] * d * pairs * b * h
+        plain_ms, lib_ms = ((plain_fwd_ms, lib_fwd) if kind == "fwd"
+                            else (plain_bwd_ms, lib_bwd))
         timing[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                             bound_by=bound_by, library_ms=lib_ms)
-        log(f"[kernels] {name} {b}x{h}x{s}x{d} causal replay: {ms:.4f} ms "
-            f"a launch ({how}), {flops / ms / 1e9:.1f} TFLOP/s; "
-            f"plain {plain_ms:.2f} ms; SDPA "
+        extra = (f" (bf16 tensor cores, 2-byte elements, exp and Philox "
+                 f"issue work; at the f32 rate it multiplies at: "
+                 f"{f32_bound:.4f} ms)" if bf16 else "")
+        log(f"[kernels] {name} {b}x{h}x{s}x{d} causal replay: {ms:.4f} ms a "
+            f"launch ({how}), {flops / ms / 1e9:.1f} TFLOP/s; plain "
+            f"{plain_ms:.2f} ms; SDPA "
             f"{'forward' if kind == 'fwd' else 'backward (dq, dk, dv)'} "
-            f"{lib_ms:.4f} ms; bound {bound_ms:.4f} ms by {bound_by}, "
-            f"kernel at {bound_ms / ms * 100:.1f}% of bound | "
-            f"{state['smi']}")
+            f"{lib_ms:.4f} ms (no dropout); bound {bound_ms:.4f} ms by "
+            f"{bound_by}{extra}, kernel at {bound_ms / ms * 100:.1f}% of "
+            f"bound | {state['smi']}")
     for mode in ("none", "premask"):
+        if (mode, 0, h) not in outs:
+            continue
         q, kk, vv, do, o, lse, op = outs[(mode, 0, h)]
         ms = cuda_time_ms(lambda: flash.flash_attention_fwd(
             q, kk, vv, op, causal=True, dropout_p=0.1, mode=mode), 10)
-        log(f"[kernels] flash_fwd causal {mode}: {ms:.4f} ms a launch")
+        log(f"[kernels] {names[0]} causal {mode}: {ms:.4f} ms a launch")
+    del outs, plane
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 # the fp8 host at the four host GEMMs of a llama2-7b block at B=2, S=2048,
@@ -571,10 +722,13 @@ FP8_SHAPES = (("qkv", QKV_SHAPE), ("out_proj", (4096, 4096, 4096)),
               ("down", (4096, 4096, 11008)))
 FP8_MAIN = "gate_up"
 # scale-tile shapes: a 192-row logical block (taller than the kernel's
-# 128-row CTA tile, so its scale rows cut across CTAs) and bk = 344 (K =
-# 11008 = 32 x 344): (m, k, n), (bm, bn, bk), plane, mask columns
+# 128-row CTA tile, so its scale rows cut across CTAs), bk = 344 (K =
+# 11008 = 32 x 344) and K = bk = 344, not a multiple of 16 (rows
+# zero-padded to the tensor maps' 16-byte stride): (m, k, n), (bm, bn,
+# bk), plane, mask columns
 FP8_SCALE_TILES = (((192, 64, 256), (192, 256, 64), (1, 2, 64, 128), 128),
-                   ((64, 11008, 64), (64, 64, 344), (1, 1, 32, 64), 64))
+                   ((64, 11008, 64), (64, 64, 344), (1, 1, 32, 64), 64),
+                   ((256, 344, 512), (256, 256, 344), (1, 2, 64, 128), 128))
 
 
 def gemm_rng_fp8_bound(m, n, k, blocks, mask_words, rounds, ops_rate,
@@ -771,6 +925,8 @@ GROUPED_SHAPES = (("gate", (64, 480, 2048, 1408), (2, 16, 2048)),
 GROUPED_MAIN = "gate"
 # a Region-3 grouped grid: 2 expert tiles cannot host 1 x 32 x 1024 x 1024
 GROUPED_REGION3 = ((2, 128, 64, 8), (128, 8, 64), (1, 32, 1024))
+# K = bk = 344, not a multiple of 16: the e4m3 kernel's rows zero-padded
+GROUPED_K344 = ((4, 480, 344, 256), (240, 256, 344), (1, 2, 64))
 
 
 def _grouped_kw(blocks, plane):
@@ -953,9 +1109,146 @@ def phase_kernels_grouped(state) -> None:
             f"with a {plane[0]}x{plane[1]}x{plane[2]} plane: no plane, the "
             f"f32 grouped kernel with the emission off, C max abs err "
             f"{err3:.3g}")
+    (e, m, k, n), blocks, plane = GROUPED_K344
+    a = torch.randn((e, m, k), generator=gen, device="cuda")
+    w = torch.randn((e, k, n), generator=gen, device="cuda")
+    kw = _grouped_kw(blocks, plane)
+    c8, mask8 = gemm_rng.gemm_with_rng_grouped_fp8(a, w, **kw)
+    want_c8, want8 = gemm_rng.gemm_with_rng_grouped_fp8_plain(a, w, **kw)
+    torch.cuda.synchronize()
+    if not torch.equal(mask8, want8):
+        raise AssertionError(f"{g8} K={k}: plane != plain")
+    err8 = _close(f"{g8} K={k} C", c8, want_c8, GEMM_TOL, state, g8)
+    log(f"[kernels] {g8} {e}x({m}x{k})x({k}x{n}) blocks {blocks}, K not a "
+        f"multiple of 16 (rows padded to {-(-k // 16) * 16} bytes): plane "
+        f"== plain bitwise, C max abs err {err8:.3g} (tol {GEMM_TOL} x "
+        f"(1+|C|))")
     timing = state.setdefault("timing", {})
     for name in (g32, g8):
         timing[name] = dict(rows[name][GROUPED_MAIN], rows=rows[name])
+
+
+# the bf16 host at the four host GEMMs of a llama2-7b block at B=2, S=2048
+# (the fp8 phase's shapes), each with the training plane; "qkv" hosts the
+# qkv/bf16 main path
+BF16_SHAPES = FP8_SHAPES
+BF16_MAIN = "qkv"
+
+
+def gemm_rng_bf16_bound(m, n, k, mask_words, rounds, ops_rate):
+    """(bound_ms, bound_by) of one bf16 product and plane: bf16 operands
+    and result (2 bytes an element) and the plane read / written once
+    against HBM; the product at the dense bf16 tensor-core rate and the
+    plane's Philox instructions at the issue rate, which run side by side
+    (the larger time)."""
+    t_bytes = (2 * (m * k + k * n + m * n) + 4 * mask_words) \
+        / HBM_BYTES_PER_S
+    t_ops = max(2 * m * n * k / BF16_FLOPS_PER_S,
+                mask_words * 8 * (4 * rounds + 8) / ops_rate)
+    return max(t_bytes, t_ops) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def phase_kernels_bf16(state) -> None:
+    """The bf16 GEMM+RNG kernel (emission on and off) and the bf16 flash
+    kernels against their plain versions at the training path's shapes,
+    then timed there beside their bounds and the library calls."""
+    from repro_torch.core.producer import pick_gemm_blocks
+    from repro_torch.kernels.ref import gemm_ref
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    rnd = lambda *s: torch.randn(  # noqa: E731
+        s, generator=gen, device="cuda").to(bf16)
+    ops_rate = issue_ops_per_s()
+    mb, mh, sq = QKV_MASK
+    words = mb * mh * (sq // 32) * sq
+    key = gemm_rng.KERNEL_BF16
+    timing = state.setdefault("timing", {})
+    rows, plane32 = {}, None
+    for label, (m, n, k) in BF16_SHAPES:
+        blocks = pick_gemm_blocks(m, n, k)
+        kw = dict(mask_batch=mb, mask_heads=mh, mask_sq=sq, mask_sk=sq,
+                  p=0.1, seed=torch.tensor(77), salt=5, block_m=blocks[0],
+                  block_n=blocks[1], block_k=blocks[2])
+        a, w = rnd(m, k), rnd(k, n)
+        c, mask = gemm_rng.gemm_with_rng(a, w, **kw)
+        want_c, want = gemm_rng.gemm_with_rng_plain(a, w, **kw)
+        if plane32 is None:
+            # the f32 host (kernel 2) on the same values emits the same plane
+            _, plane32 = gemm_rng.gemm_with_rng(a.float(), w.float(), **kw)
+        torch.cuda.synchronize()
+        if not (torch.equal(mask, want) and torch.equal(mask, plane32)):
+            raise AssertionError(f"{key} {label}: plane != plain / the f32 "
+                                 f"host's")
+        if c.dtype != bf16:
+            raise AssertionError(f"{key} {label}: C is {c.dtype}")
+        err = _close(f"{key} {label} C", c.float(), want_c.float(),
+                     BF16_GEMM_TOL, state, key)
+        del c, mask, want, want_c
+        launch = lambda: gemm_rng.gemm_with_rng(a, w, **kw)  # noqa: E731
+        # the Region-3 variant at the same product: a one-tile logical grid
+        # cannot host the plane, so the emission is off
+        launch_off = lambda: gemm_rng.gemm_with_rng(  # noqa: E731
+            a, w, **dict(kw, block_m=m, block_n=n))
+        before = gemm_rng.variant_counts(key)["plain"]
+        if launch_off()[1] is not None or \
+                gemm_rng.variant_counts(key)["plain"] != before + 1:
+            raise AssertionError(f"{key}: the emission-off call emitted")
+        runs = {"rng": [], "plain": []}
+        for variant in ("rng", "plain", "plain", "rng"):   # in turns
+            runs[variant].append(cuda_time_ms(
+                launch if variant == "rng" else launch_off, 10))
+        ms, off_ms = (float(np.mean(runs[v])) for v in ("rng", "plain"))
+        plain_ms = cuda_time_ms(
+            lambda: gemm_rng.gemm_with_rng_plain(a, w, **kw), 2, warmup=1)
+        plain_gemm_ms = cuda_time_ms(lambda: gemm_ref(a, w), 2, warmup=1)
+        lib_ms = cuda_time_ms(lambda: a @ w, 10)
+        bound_ms, bound_by = gemm_rng_bf16_bound(m, n, k, words, 7,
+                                                 ops_rate)
+        off_bound, off_by = gemm_rng_bf16_bound(m, n, k, 0, 7, ops_rate)
+        rows[label] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                           bound_by=bound_by, library_ms=lib_ms,
+                           emission_off_ms=off_ms, plain_variant_ms=off_ms,
+                           plain_variant_bound_ms=off_bound,
+                           plain_variant_bound_by=off_by,
+                           plain_variant_plain_ms=plain_gemm_ms,
+                           shape=[m, n, k])
+        flops = 2 * m * n * k
+        log(f"[kernels] {key} {label} {m}x{n}x{k} + plane {mb}x{mh}x"
+            f"{sq // 32}x{sq}: plane == plain and == the f32 host's "
+            f"bitwise, C (bf16) max abs err {err:.3g} (tol {BF16_GEMM_TOL} x "
+            f"(1+|C|)); {ms:.4f} ms a launch (CUDA events, in turns "
+            f"{runs['rng']}), {flops / ms / 1e9:.1f} TFLOP/s; emission off "
+            f"{off_ms:.4f} ms (in turns {runs['plain']}, "
+            f"{flops / off_ms / 1e9:.1f} TFLOP/s), the plane "
+            f"{(ms - off_ms) / off_ms * 100:+.2f}% of the product; "
+            f"torch.matmul bf16 {lib_ms:.4f} ms; plain version "
+            f"{plain_ms:.2f} ms; bound {bound_ms:.4f} ms by {bound_by} "
+            f"(emission off {off_bound:.4f}), kernel at "
+            f"{bound_ms / ms * 100:.1f}% of bound | {state['smi']}")
+        del a, w
+        gc.collect()
+        torch.cuda.empty_cache()
+    del plane32
+    # Region 3 at a small shape: no plane, the emission-off variant
+    m3, n3, k3, (b3, h3, s3) = REGION3
+    a3, w3 = rnd(m3, k3), rnd(k3, n3)
+    kw3 = dict(mask_batch=b3, mask_heads=h3, mask_sq=s3, mask_sk=s3, p=0.1,
+               seed=1, block_m=256, block_n=256, block_k=64)
+    before = gemm_rng.variant_counts(key)["plain"]
+    c3, none = gemm_rng.gemm_with_rng(a3, w3, **kw3)
+    if none is not None or gemm_rng.variant_counts(key)["plain"] != \
+            before + 1:
+        raise AssertionError(f"{key}: the Region-3 call emitted a plane")
+    err3 = _close(f"{key} Region 3", c3.float(),
+                  gemm_rng.gemm_with_rng_plain(a3, w3, **kw3)[0].float(),
+                  BF16_GEMM_TOL, state, key)
+    log(f"[kernels] {key} Region 3 {m3}x{n3}x{k3}: plane None, emission-off "
+        f"launch counted, C max abs err {err3:.3g}")
+    timing[key] = dict(rows[BF16_MAIN], rows=rows)
+
+    # ---- flash forward, dq, dkv at bf16
+    _flash_kernels(state, rnd, bf16, ops_rate)
 
 
 # ------------------------------------------------------------------ phase 3
@@ -1130,17 +1423,40 @@ FP8_REF_TOL = 1e-3
 # grad norm after two fp8 updates moved by up to 3.4e-3 relative against
 # JAX on the CPU (tests/test_torch_moe.py)
 MOE_FP8_GRAD_NORM_TOL = 1e-2
+# bf16 compute, card against CPU: the card's kernels and cuBLAS sum in
+# another order than the CPU's plain versions, and a bf16 rounding near a
+# boundary then flips by one ulp (2^-8 relative) -- in the activations,
+# the gradients and, through AdamW, in the direction of a near-zero
+# gradient's update (up to 2 lr a weight over the two full-rate steps).
+# tests/test_torch_bf16.py measured the CPU against JAX at bf16: losses
+# 1.9e-5 and grad norms 7.9e-4 relative, weights 2.6 lr apart; the card
+# against the CPU (H100 80GB HBM3): 1.8e-5, 1.16e-3, 2.6 lr
+BF16_REF_LOSS_REL = 1e-4
+BF16_REF_GRAD_NORM_REL = 5e-3
+BF16_REF_WEIGHT_ATOL = 4 * REF_OPT["lr"]
+# A weight's own limit at fp8 and bf16 cannot see a master that did not
+# move (AdamW moves a weight by at most about 2 lr here), so at every
+# dtype each leaf's change over the 3 steps is held too: |change on the
+# card - change on the CPU| / |change on the CPU| (Frobenius). Measured on
+# the H100: 4e-6 at f32 compute, 0.046 at fp8 hosts, 0.049 at bf16
+# compute; the CPU against JAX at bf16 0.097 (the embedding, whose rows of
+# unseen tokens move by weight decay and sign flips alone). A master left
+# unchanged reads 1, one moved the wrong way 2.
+REF_CHANGE_REL = 0.25
 
 
-def _card_vs_cpu(cfg, run, master, label, gn_tol=FP8_REF_TOL) -> None:
+def _card_vs_cpu(cfg, run, master, label, gn_tol=FP8_REF_TOL,
+                 compute_dtype=torch.float32) -> None:
     """3 make_train_step steps on the card and on the CPU from the same
     weights: loss and grad norm of every step within 1e-4 (fp8: 1e-3 and
-    ``gn_tol`` after step 0) and the final weights within 1e-4 (fp8: 3 x
-    lr)."""
+    ``gn_tol`` after step 0; bf16 compute: BF16_REF_*) and the final
+    weights within 1e-4 (fp8: 3 x lr; bf16: 4 x lr) and each leaf's change
+    within REF_CHANGE_REL of the CPU's."""
     from repro_torch.optim import adamw_init
     from repro_torch.train import make_train_step
     fp8 = run.dropout.gemm_dtype == "fp8"
-    step_fn = make_train_step(cfg, run)
+    bf16 = compute_dtype == torch.bfloat16
+    step_fn = make_train_step(cfg, run, compute_dtype=compute_dtype)
     runs = {}
     for dev in ("cpu", "cuda"):
         st = {"master": to_device(master, dev), "step": 0}
@@ -1150,22 +1466,46 @@ def _card_vs_cpu(cfg, run, master, label, gn_tol=FP8_REF_TOL) -> None:
             st, m = step_fn(st, x, y)
             ms.append((float(m["loss"]), float(m["grad_norm"])))
         runs[dev] = (st, ms)
+    worst = [0.0, 0.0]
     for i, ((lc, gc_), (lg, gg)) in enumerate(zip(runs["cpu"][1],
                                                   runs["cuda"][1])):
         tol, gtol = (FP8_REF_TOL, gn_tol) if fp8 and i > 0 else (1e-4, 1e-4)
+        if bf16:
+            tol, gtol = BF16_REF_LOSS_REL, BF16_REF_GRAD_NORM_REL
+        worst = [max(worst[0], abs(lc - lg) / abs(lc)),
+                 max(worst[1], abs(gc_ - gg) / abs(gc_))]
         if abs(lc - lg) > tol * (1 + abs(lc)) or \
                 abs(gc_ - gg) > gtol * (1 + abs(gc_)):
             raise AssertionError(f"{label} step {i}: card {(lg, gg)} != "
                                  f"CPU {(lc, gc_)}")
     wtol = dict(atol=3 * REF_OPT["lr"], rtol=0) if fp8 else \
         dict(atol=1e-4, rtol=1e-4)
-    for a, b in zip(leaves(runs["cpu"][0]["master"]),
-                    leaves(runs["cuda"][0]["master"])):
-        torch.testing.assert_close(b.cpu(), a, **wtol)
+    if bf16:
+        wtol = dict(atol=BF16_REF_WEIGHT_ATOL, rtol=0)
+    wdiff = change = 0.0
+    for w0, a, b in zip(leaves(master), leaves(runs["cpu"][0]["master"]),
+                        leaves(runs["cuda"][0]["master"])):
+        b = b.cpu()
+        torch.testing.assert_close(b, a, **wtol)
+        wdiff = max(wdiff, float((b - a).abs().max()))
+        d_cpu, d_card = (a - w0).double(), (b - w0).double()
+        rel = float((d_card - d_cpu).norm() / d_cpu.norm().clamp_min(1e-30))
+        if rel > REF_CHANGE_REL:
+            raise AssertionError(f"{label}: a leaf's change over 3 steps on "
+                                 f"the card is {rel:.3g} (relative) from "
+                                 f"the CPU's")
+        change = max(change, rel)
     card_losses = [round(loss, 6) for loss, _ in runs["cuda"][1]]
+    tols = (f"bf16 tolerances (loss {BF16_REF_LOSS_REL}, grad norm "
+            f"{BF16_REF_GRAD_NORM_REL} relative, weights "
+            f"{BF16_REF_WEIGHT_ATOL})" if bf16 else
+            '1e-4 at step 0, then fp8 tolerances' if fp8 else 'within 1e-4')
     log(f"[train-ref] {cfg.name} B=2 S=256 {label}: 3 steps card == CPU "
-        f"(losses {card_losses}; grad norms and weights "
-        f"{'1e-4 at step 0, then fp8 tolerances' if fp8 else 'within 1e-4'})")
+        f"(losses {card_losses}; grad norms and weights {tols}; each "
+        f"leaf's change within {REF_CHANGE_REL} relative); measured "
+        f"largest differences: loss {worst[0]:.3g}, grad norm "
+        f"{worst[1]:.3g} relative, weights {wdiff:.3g}, a leaf's change "
+        f"{change:.3g} relative")
 
 
 def phase_train_reference(state) -> None:
@@ -1191,6 +1531,11 @@ def phase_train_reference(state) -> None:
                                  gemm_dtype=dtype)
                 _card_vs_cpu(cfg, run, master,
                              f"{site}/{dtype} attn_replay=off")
+        # bf16 compute: the bf16 GEMM+RNG and flash kernels
+        _card_vs_cpu(cfg, _train_run(cfg, "auto", 2, 256, opt=opt,
+                                     gemm_dtype="bf16"),
+                     master, "qkv/bf16 compute_dtype=bf16 attn_replay=auto",
+                     compute_dtype=torch.bfloat16)
     # the MoE stacks: the dense host at the first-dense layer and the
     # grouped hosts at the expert einsums, premask so the carried planes
     # feed attention
@@ -1209,16 +1554,19 @@ def phase_train_reference(state) -> None:
 
 
 # ------------------------------------------------------------------ phase 5
-def _expected_launches(sched, remat: str, steps: int, cfg=None):
+def _expected_launches(sched, remat: str, steps: int, cfg=None,
+                       compute_dtype=torch.float32):
     """Kernel launches of ``steps`` training steps under the compiled
     schedule ``sched`` (one attention layer a stack unit). Each layer's
     forward runs flash_fwd and its host GEMM -- the in-layer QKV host
     (kept as the host under replay) or the carried emission for the next
     layer -- and remat="block" runs both again when the backward
     recomputes the unit; the backward runs dq and dkv once a layer. A
-    dense GEMM host launches the kernel of the plan's gemm_dtype, a
-    standalone (Region-3) dense host its emission-off variant and the
-    Philox kernel. A grouped host (the MoE expert einsum, ``cfg``'s MoE
+    dense GEMM host launches the kernel of the plan's gemm_dtype (the bf16
+    kernel for "bf16", and for "f32" under bf16 compute, whose operands are
+    bf16), a standalone (Region-3) dense host its emission-off variant and
+    the Philox kernel; under bf16 compute the flash kernels are the bf16
+    instances. A grouped host (the MoE expert einsum, ``cfg``'s MoE
     layers) launches the grouped kernel of the plan's dtype; a grouped
     block planned standalone runs its einsum as a tensor op and the Philox
     kernel. A carried schedule under premask makes the first layer's plane
@@ -1227,17 +1575,24 @@ def _expected_launches(sched, remat: str, steps: int, cfg=None):
     from repro_torch.core import producer
     f = 2 if remat == "block" else 1
     fp8 = sched.plan.gemm_dtype == "fp8"
-    host = gemm_rng.KERNEL_FP8 if fp8 else gemm_rng.KERNEL
+    bf16 = compute_dtype == torch.bfloat16
+    host = gemm_rng.KERNEL_FP8 if fp8 else (
+        gemm_rng.KERNEL_BF16 if bf16 or sched.plan.gemm_dtype == "bf16"
+        else gemm_rng.KERNEL)
     grouped = gemm_rng.KERNEL_GROUPED_FP8 if fp8 else gemm_rng.KERNEL_GROUPED
+    fwd, dq, dkv = ((flash.KERNEL_BF16, flash_bwd.KERNEL_DQ_BF16,
+                     flash_bwd.KERNEL_DKV_BF16) if bf16 else
+                    (flash.KERNEL, flash_bwd.KERNEL_DQ,
+                     flash_bwd.KERNEL_DKV))
     first_dense = (cfg.moe.first_dense_layers
                    if cfg is not None and cfg.moe is not None else None)
     n = {k: 0 for k in launch_counts()}
     for a in sched.assignments:
         if not a.consumes:
             continue
-        n[flash.KERNEL] += f
-        n[flash_bwd.KERNEL_DQ] += 1
-        n[flash_bwd.KERNEL_DKV] += 1
+        n[fwd] += f
+        n[dq] += 1
+        n[dkv] += 1
         # (producer how, whether its GEMM is a grouped block's)
         hows = []
         if a.emit_site:
@@ -1269,14 +1624,24 @@ def _bitwise_equal_trees(a, b) -> bool:
     return all(torch.equal(x, y) for x, y in zip(leaves(a), leaves(b)))
 
 
-def phase_train(state) -> None:
-    from repro_torch.config import get_arch
+def _train_main_path(state, cfg, tag, compute_dtype=torch.float32,
+                     gemm_dtype="f32"):
+    """The llama2 main path at ``compute_dtype``, site "qkv" with the
+    ``gemm_dtype`` host: both plans checked (replay host=gemm_rng, and
+    gemm_rng, i.e. premask), the state made from seed 0, step-0 gradients
+    under both plans bitwise equal and finite f32, the plane the host
+    kernel emits for layer 0 bitwise the plain one, then 3 replay steps
+    and step 0 again under premask, bitwise equal (loss, grad norm,
+    updated master), with every kernel launched as often as the
+    schedule's formula says. Returns the run: the states, batches, replay
+    step function, (loss, ce, grad norm) a step, step times, launches and
+    peak memory."""
     from repro_torch.core import producer
     from repro_torch.core.overlap import DropoutPlan
+    from repro_torch.models import Runtime
     from repro_torch.models.attention import _project_qkv_fused
     from repro_torch.models.layers import norm_apply
     from repro_torch.models.transformer import _index, embed_inputs
-    from repro_torch.models import Runtime
     from repro_torch.train import (
         compile_run_schedule,
         init_train_state,
@@ -1285,54 +1650,58 @@ def phase_train(state) -> None:
     )
     gc.collect()
     torch.cuda.empty_cache()
-    cfg = dataclasses.replace(get_arch("llama2-7b"), n_layers=TRAIN_LAYERS)
-    assert (cfg.d_model, cfg.n_heads, cfg.head_dim, cfg.d_ff,
-            cfg.vocab_size) == (4096, 32, 128, 11008, 32000)
-    run_r = _train_run(cfg, "auto", TRAIN_B, TRAIN_S)
-    run_p = _train_run(cfg, "off", TRAIN_B, TRAIN_S)
+    run_r = _train_run(cfg, "auto", TRAIN_B, TRAIN_S, gemm_dtype=gemm_dtype)
+    run_p = _train_run(cfg, "off", TRAIN_B, TRAIN_S, gemm_dtype=gemm_dtype)
     scheds = {}
     for run, how, host in ((run_r, "replay", "gemm_rng"),
                            (run_p, "gemm_rng", "")):
         sched = scheds[how] = compile_run_schedule(cfg, run)
-        bad = [a for a in sched.assignments
-               if (a.how, a.host_how) != (how, host)]
-        if bad:
+        if any((a.how, a.host_how) != (how, host)
+               for a in sched.assignments):
             raise AssertionError(f"schedule not {how}/{host}:\n"
                                  f"{sched.explain()}")
-        log(f"[train] {sched.explain()}")
+        log(f"{tag} {sched.explain()}")
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     state0 = init_train_state(cfg, seed=0, device="cuda")
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in leaves(state0["master"]))
-    log(f"[train] {cfg.name} x{cfg.n_layers} layers: {n_params / 1e9:.3f}B "
+    log(f"{tag} {cfg.name} x{cfg.n_layers} layers: {n_params / 1e9:.3f}B "
         f"f32 params + AdamW moments on the card in "
         f"{(time.perf_counter() - t0) * 1e3:.0f} ms")
     batches = _batches(cfg, run_r, "cuda", 3)
     x0, y0 = batches[0]
 
-    # step 0 gradients under both plans: bitwise equal
-    loss_r, _, grads_r = make_grad_fn(cfg, run_r)(state0["master"], x0, y0,
-                                                  0)
-    loss_p, _, grads_p = make_grad_fn(cfg, run_p)(state0["master"], x0, y0,
-                                                  0)
+    # step 0 gradients under both plans: bitwise equal, f32 on the master
+    loss_r, _, grads_r = make_grad_fn(cfg, run_r, compute_dtype=compute_dtype)(
+        state0["master"], x0, y0, 0)
+    loss_p, _, grads_p = make_grad_fn(cfg, run_p, compute_dtype=compute_dtype)(
+        state0["master"], x0, y0, 0)
     torch.cuda.synchronize()
     if not (torch.equal(loss_r, loss_p)
             and _bitwise_equal_trees(grads_r, grads_p)):
-        raise AssertionError("replay and premask step-0 loss / gradients "
-                             "differ")
-    if not all(bool(torch.isfinite(g).all()) for g in leaves(grads_r)):
-        raise AssertionError("non-finite step-0 gradients")
-    log(f"[train] step 0: replay and premask loss {float(loss_r):.7f} and "
-        f"all {len(leaves(grads_r))} gradient tensors bitwise equal, finite")
+        raise AssertionError(f"{tag} replay and premask step-0 loss / "
+                             f"gradients differ")
+    if not all(g.dtype == torch.float32 and bool(torch.isfinite(g).all())
+               for g in leaves(grads_r)):
+        raise AssertionError(f"{tag} step-0 gradients not finite f32")
+    log(f"{tag} step 0: replay and premask loss {float(loss_r):.7f} and all "
+        f"{len(leaves(grads_r))} gradient tensors (f32) bitwise equal, "
+        f"finite")
     del grads_r, grads_p
 
-    # the plane the fused kernel emits for layer 0, on layer 0's input
+    # the plane the host kernel emits for layer 0, on layer 0's input
     plan = DropoutPlan(run_p.dropout)
-    lp = _index(state0["master"]["stacks"][0]["l0"], 0)
+    params = tree_map(lambda t: t.to(compute_dtype), state0["master"])
+    lp = _index(params["stacks"][0]["l0"], 0)
+    host = (gemm_rng.KERNEL_BF16 if torch.bfloat16 in (
+        compute_dtype, {"bf16": torch.bfloat16}.get(gemm_dtype))
+        else gemm_rng.KERNEL)
+    before = launch_counts()[host]
     with torch.no_grad():
         h = norm_apply(lp["norm_mix"],
-                       embed_inputs(state0["master"], cfg, x0, Runtime()),
+                       embed_inputs(params, cfg, x0,
+                                    Runtime(compute_dtype=compute_dtype)),
                        cfg)
         pos = torch.arange(TRAIN_S, dtype=torch.int32, device="cuda")
         *_, plane = _project_qkv_fused(lp["mix"], h, cfg, pos, plan, 0, 0,
@@ -1341,15 +1710,16 @@ def phase_train(state) -> None:
         TRAIN_B, cfg.n_heads, TRAIN_S, TRAIN_S, plan.cfg.p,
         plan.step_seed(0), plan.salt(0), plan.cfg.philox_rounds,
         device="cuda")
-    if not torch.equal(plane, want):
-        raise AssertionError("layer-0 plane of the fused kernel != plain")
-    log(f"[train] layer 0: the fused kernel's plane {tuple(plane.shape)} "
-        "== philox_dropout_mask_plain bitwise")
-    del plane, want, h
+    if not (torch.equal(plane, want)
+            and launch_counts()[host] == before + 1):
+        raise AssertionError(f"{tag} layer-0 plane of {host} != plain")
+    log(f"{tag} layer 0: {host}'s plane {tuple(plane.shape)} == "
+        f"philox_dropout_mask_plain bitwise")
+    del plane, want, h, params, lp
 
     # the main path: 3 replay steps and step 0 again under premask
-    step_r = make_train_step(cfg, run_r)
-    step_p = make_train_step(cfg, run_p)
+    step_r = make_train_step(cfg, run_r, compute_dtype=compute_dtype)
+    step_p = make_train_step(cfg, run_p, compute_dtype=compute_dtype)
     reset_launch_counts()
     torch.cuda.synchronize()
     times, losses = [], []
@@ -1368,52 +1738,73 @@ def phase_train(state) -> None:
                     and torch.equal(m["grad_norm"], m_p["grad_norm"])
                     and _bitwise_equal_trees(new["master"],
                                              new_p["master"])):
-                raise AssertionError("replay and premask step 0 differ")
+                raise AssertionError(f"{tag} replay and premask step 0 "
+                                     f"differ")
             del new_p
         st = new
     counts = launch_counts()
+    remat = run_r.sharding.remat
+    want_counts = _add_counts(
+        _expected_launches(scheds["replay"], remat, 3,
+                           compute_dtype=compute_dtype),
+        _expected_launches(scheds["gemm_rng"], remat, 1,
+                           compute_dtype=compute_dtype))
+    if counts != want_counts:
+        raise AssertionError(f"{tag} launches {counts} != {want_counts}")
+    if not all(np.isfinite(v) for row in losses for v in row):
+        raise AssertionError(f"{tag} non-finite metrics {losses}")
+    if not all(t.dtype == torch.float32 for t in leaves(st["master"])):
+        raise AssertionError(f"{tag} the master is no longer f32")
+    log(f"{tag} 3 steps (replay) + step 0 (premask): (loss, ce, grad norm) "
+        f"{losses}; replay and premask step 0 bitwise equal (loss, grad "
+        f"norm, updated weights)")
+    log(f"{tag} launches {counts} == the schedule's formula: 4 steps x (per "
+        f"layer: {host} and {flash.KERNELS[compute_dtype]} x2 for "
+        f"remat='block', {' and '.join(flash_bwd.KERNELS[compute_dtype])} "
+        f"x1) x {cfg.n_layers} layers")
+    return dict(state0=state0, st=st, batches=batches, step_r=step_r,
+                losses=losses, times=times, counts=counts,
+                peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                run_r=run_r)
+
+
+def phase_train(state) -> None:
+    from repro_torch.config import get_arch
+    from repro_torch.train import make_train_step
+    cfg = dataclasses.replace(get_arch("llama2-7b"), n_layers=TRAIN_LAYERS)
+    assert (cfg.d_model, cfg.n_heads, cfg.head_dim, cfg.d_ff,
+            cfg.vocab_size) == (4096, 32, 128, 11008, 32000)
+    r = _train_main_path(state, cfg, "[train]")
+    losses, times = r["losses"], r["times"]
     state["gemm_variants"] = gemm_rng.variant_counts()
+    state["train_launches"] = r["counts"]
     # the same step 0 without the GEMM+RNG and flash kernels: site "xla" bits
     # (the same counters) into the tensor-op attention (attn_impl "xla")
+    run_r = r["run_r"]
     run_x = dataclasses.replace(
         run_r, sharding=dataclasses.replace(run_r.sharding, attn_impl="xla"),
         dropout=dataclasses.replace(run_r.dropout, site="xla"))
-    _, m_x = make_train_step(cfg, run_x)(state0, *batches[0])
+    _, m_x = make_train_step(cfg, run_x)(r["state0"], *r["batches"][0])
     loss_x, gn_x = float(m_x["loss"]), float(m_x["grad_norm"])
     if abs(loss_x - losses[0][0]) > 1e-4 * abs(loss_x) or \
             abs(gn_x - losses[0][2]) > 1e-3 * abs(gn_x):
         raise AssertionError(f"step 0 on the kernels {losses[0]} != on "
                              f"tensor ops {(loss_x, gn_x)}")
-    remat = run_r.sharding.remat
-    want_counts = _add_counts(_expected_launches(scheds["replay"], remat, 3),
-                              _expected_launches(scheds["gemm_rng"], remat,
-                                                 1))
-    if counts != want_counts:
-        raise AssertionError(f"launches {counts} != {want_counts}")
-    state["train_launches"] = counts
-    if not all(np.isfinite(v) for row in losses for v in row):
-        raise AssertionError(f"non-finite metrics {losses}")
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
     step_s = float(np.mean(times[1:]))
     tokens = TRAIN_B * TRAIN_S
     state["train"] = dict(step_s=step_s, tokens_per_s=tokens / step_s,
-                          peak_gib=peak)
+                          peak_gib=r["peak_gib"])
     state["loss0"] = {"qkv/f32": losses[0][0]}
-    log(f"[train] 3 steps (replay) + step 0 (premask): (loss, ce, grad "
-        f"norm) {losses}; replay and premask step 0 bitwise equal (loss, "
-        f"grad norm, updated weights)")
+    state["grad_norm0"] = {"qkv/f32": losses[0][2]}
     log(f"[train] step 0 through tensor ops (site xla, attn_impl xla): "
         f"loss {loss_x:.7f}, grad norm {gn_x:.6f}; the kernels' step 0 "
         f"within 1e-4 (loss) and 1e-3 (grad norm) relative")
-    log(f"[train] launches {counts} == the schedule's formula: 4 steps x "
-        f"(per layer: gemm_rng and flash_fwd x2 for remat='block', dq and "
-        f"dkv x1) x {TRAIN_LAYERS} layers")
     log(f"[train] step times {[round(t, 4) for t in times]} s (host clock "
         f"to a synchronize; step 0 includes first-call set-up); steady "
         f"step {step_s:.4f} s = {tokens / step_s:.1f} tokens/s; peak "
-        f"memory {peak:.2f} GiB | {state['smi']}")
-    del state0
-    _profile_train(step_r, st, batches[0], state["train"], state["smi"])
+        f"memory {r['peak_gib']:.2f} GiB | {state['smi']}")
+    _profile_train(r["step_r"], r["st"], r["batches"][0], state["train"],
+                   state["smi"])
 
 
 def _profile_train(step_fn, st, batch, record, smi) -> None:
@@ -1800,20 +2191,137 @@ def phase_train_moe(state) -> None:
     torch.cuda.empty_cache()
 
 
+# ------------------------------------------------------------------ phase 8
+# one step each after the bf16 main run: the carried gate+up host at bf16,
+# gemm_dtype "f32" under bf16 compute (the same bf16 kernel, as JAX), and
+# the bf16 host cast from f32 activations (f32 flash): (site, gemm_dtype,
+# compute dtype)
+BF16_SITE_STEPS = (("ffn_up", "bf16", torch.bfloat16),
+                   ("qkv", "f32", torch.bfloat16),
+                   ("qkv", "bf16", torch.float32))
+# step-0 losses on the same keep bits: bf16 compute with another host
+# GEMM rounds other sums to bf16 (tests/test_torch_bf16.py: 1.9e-5
+# relative between the CPU and JAX); a bf16 host under f32 compute rounds
+# one GEMM a layer to bf16 (2^-9 relative an element), against qkv/f32's
+# step 0: loss and grad norm (the loss of a random init is about
+# ln(32000) whatever the GEMM does; the grad norm sees the cast host).
+# Measured on the H100: loss 3.0e-5, grad norm 5.4e-5 relative
+BF16_LOSS_REL = 1e-3
+BF16_HOST_LOSS_REL = 3e-4
+BF16_HOST_GRAD_NORM_REL = 5e-4
+
+
+def phase_train_bf16(state) -> None:
+    """llama2-7b at full width x 4 layers at compute_dtype=bf16, site qkv,
+    gemm_dtype bf16 (the bf16 GEMM+RNG and flash kernels): the main path
+    of phase 5 (replay == premask bitwise, launches against the formula),
+    then one step of each BF16_SITE_STEPS plan."""
+    from repro_torch.config import get_arch
+    from repro_torch.train import compile_run_schedule, make_train_step
+    bf16 = torch.bfloat16
+    cfg = dataclasses.replace(get_arch("llama2-7b"), n_layers=TRAIN_LAYERS)
+    r = _train_main_path(state, cfg, "[train-bf16]", bf16, "bf16")
+    losses, times = r["losses"], r["times"]
+    state["bf16_launches"] = r["counts"]
+    state["bf16_variants"] = gemm_rng.variant_counts(gemm_rng.KERNEL_BF16)
+    step_s = float(np.mean(times[1:]))
+    tokens = TRAIN_B * TRAIN_S
+    rec = state["train_bf16"] = dict(step_s=step_s,
+                                     tokens_per_s=tokens / step_s,
+                                     peak_gib=r["peak_gib"])
+    loss0 = {"qkv/bf16@bf16": losses[0][0]}
+    f32_step = state["train"]["step_s"]
+    log(f"[train-bf16] step times {[round(t, 4) for t in times]} s; steady "
+        f"step {step_s:.4f} s = {tokens / step_s:.1f} tokens/s "
+        f"({f32_step / step_s:.2f}x qkv/f32's {f32_step:.4f} s in phase "
+        f"5); peak memory {r['peak_gib']:.2f} GiB | {state['smi']}")
+    _profile_train(r["step_r"], r["st"], r["batches"][0], rec, state["smi"])
+    state0, (x0, y0) = r["state0"], r["batches"][0]
+    del r
+
+    for site, dtype, cdt in BF16_SITE_STEPS:
+        run = _train_run(cfg, "auto", TRAIN_B, TRAIN_S, site=site,
+                         gemm_dtype=dtype)
+        sched = compile_run_schedule(cfg, run)
+        step_fn = make_train_step(cfg, run, compute_dtype=cdt)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        new, m = step_fn(state0, x0, y0)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = launch_counts()
+        want = _expected_launches(sched, run.sharding.remat, 1,
+                                  compute_dtype=cdt)
+        if counts != want:
+            raise AssertionError(f"{site}/{dtype}@{cdt} launches {counts} "
+                                 f"!= {want}\n{sched.explain()}")
+        loss = float(m["loss"])
+        key = f"{site}/{dtype}@{'bf16' if cdt == bf16 else 'f32'}"
+        if cdt == bf16 and dtype == "f32":
+            # the same bf16 kernel on the same operands as the main path
+            if loss != losses[0][0]:
+                raise AssertionError(f"{key}: loss {loss} != qkv/bf16@bf16 "
+                                     f"{losses[0][0]}")
+        elif cdt == bf16:
+            if abs(loss - losses[0][0]) > BF16_LOSS_REL * abs(losses[0][0]):
+                raise AssertionError(f"{key}: loss {loss} vs "
+                                     f"{losses[0][0]}")
+        else:
+            ref = state["loss0"]["qkv/f32"]
+            gn, gn_ref = float(m["grad_norm"]), state["grad_norm0"]["qkv/f32"]
+            host_rel = (abs(loss - ref) / abs(ref),
+                        abs(gn - gn_ref) / abs(gn_ref))
+            if host_rel[0] > BF16_HOST_LOSS_REL or \
+                    host_rel[1] > BF16_HOST_GRAD_NORM_REL:
+                raise AssertionError(f"{key}: (loss, grad norm) "
+                                     f"{(loss, gn)} vs qkv/f32's "
+                                     f"{(ref, gn_ref)}")
+        loss0[key] = loss
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        state.setdefault("bf16_site_steps", {})[key] = dict(
+            step_s=dt, tokens_per_s=tokens / dt, peak_gib=peak, loss=loss,
+            launches=counts)
+        log(f"[train-bf16-sites] {key} ({sched.for_layer(1).how}, emission "
+            f"{sched.for_layer(0).emit_how or '-'}): one step {dt:.4f} s = "
+            f"{tokens / dt:.1f} tokens/s, peak {peak:.2f} GiB, loss "
+            f"{loss:.7f}, launches {counts} == the schedule's formula | "
+            f"{state['smi']}")
+        del new
+    log(f"[train-bf16-sites] step-0 losses {loss0}: qkv/f32@bf16 bitwise "
+        f"qkv/bf16@bf16's, ffn_up/bf16@bf16 within {BF16_LOSS_REL} "
+        f"relative of it; qkv/bf16@f32 against qkv/f32's step 0 (loss "
+        f"{state['loss0']['qkv/f32']:.7f}, grad norm "
+        f"{state['grad_norm0']['qkv/f32']:.6f}): loss {host_rel[0]:.3g} "
+        f"(limit {BF16_HOST_LOSS_REL}), grad norm {host_rel[1]:.3g} (limit "
+        f"{BF16_HOST_GRAD_NORM_REL}) relative")
+    state["loss0"] = dict(state["loss0"], **loss0)
+    del state0
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def kernel_records(state):
-    """One record a TPU kernel (each function that reaches pl.pallas_call),
-    in the order of their table in PERF.md. ``launches`` counts the run of
-    the path that drives the kernel: serving (1), the qkv/f32 main run
-    (2-6), the ffn_up/fp8 main run (7, 8), the moonshot ffn_up/f32 step
-    (9), the moonshot ffn_up/fp8 main run (10, 11). The emission-off
-    variants (3, 8, 10) run only in Region 3, which none of these paths
-    plans: their launches are 0 there, and phase 2 launches and checks
-    them directly."""
+    """One record a TPU kernel instance (each function that reaches
+    pl.pallas_call, at each operand dtype the port runs), in the order of
+    their table in PERF.md. ``launches`` counts the run of the path that
+    drives the kernel: serving (1), the qkv/f32 main run (2-6), the
+    ffn_up/fp8 main run (7, 8), the moonshot ffn_up/f32 step (9), the
+    moonshot ffn_up/fp8 main run (10, 11), the qkv/bf16 main run at
+    compute_dtype=bf16 (the bf16 instances of 2-6). The emission-off
+    variants (3, 8, 10 and bf16 3) run only in Region 3, which none of
+    these paths plans: their launches are 0 there, and phase 2 launches
+    and checks them directly."""
     t, errs = state["timing"], state["errs"]
     g = "src/repro/kernels/gemm_rng.py"
     k32, k8 = gemm_rng.KERNEL, gemm_rng.KERNEL_FP8
     g32, g8 = gemm_rng.KERNEL_GROUPED, gemm_rng.KERNEL_GROUPED_FP8
+    k16 = gemm_rng.KERNEL_BF16
     moe_f32 = state["moe_site_steps"]["ffn_up/f32"]["launches"]
+    l16 = state["bf16_launches"]
 
     def variant(row):
         return dict(ms=row["plain_variant_ms"],
@@ -1858,6 +2366,23 @@ def kernel_records(state):
          {"shape": t[g32]["shape"]}),
         (g8, "gemm_rng_grouped_fp8.cu", f"{g}:764", "train_moe",
          state["moe_launches"][g8], errs[g8], t[g8], fp8_extras(t[g8])),
+        (k16, "gemm_rng_bf16.cu", f"{g}:143", "train_bf16", l16[k16],
+         errs[k16], t[k16], {"shape": t[k16]["shape"]}),
+        (f"{k16}_plain", "gemm_rng_bf16.cu", f"{g}:304", "train_bf16",
+         state["bf16_variants"]["plain"], errs[k16], variant(t[k16]),
+         {"shape": t[k16]["shape"]}),
+        (flash.KERNEL_BF16, "flash_fwd.cu",
+         "src/repro/kernels/flash_attention.py:58", "train_bf16",
+         l16[flash.KERNEL_BF16], errs[flash.KERNEL_BF16],
+         t[flash.KERNEL_BF16], {}),
+        (flash_bwd.KERNEL_DQ_BF16, "flash_bwd.cu",
+         "src/repro/kernels/flash_attention_bwd.py:77", "train_bf16",
+         l16[flash_bwd.KERNEL_DQ_BF16], errs[flash_bwd.KERNEL_DQ_BF16],
+         t[flash_bwd.KERNEL_DQ_BF16], {}),
+        (flash_bwd.KERNEL_DKV_BF16, "flash_bwd.cu",
+         "src/repro/kernels/flash_attention_bwd.py:137", "train_bf16",
+         l16[flash_bwd.KERNEL_DKV_BF16], errs[flash_bwd.KERNEL_DKV_BF16],
+         t[flash_bwd.KERNEL_DKV_BF16], {}),
     ]
     recs = []
     for name, src, replaces, path, launches, err, tm, extra in rows:
@@ -1879,9 +2404,10 @@ def main() -> int:
     t0 = time.perf_counter()
     for phase in (phase_card, phase_build, phase_kernels,
                   phase_kernels_train, phase_kernels_fp8,
-                  phase_kernels_grouped, phase_serve_reference, phase_serve,
-                  phase_train_reference, phase_train, phase_train_sites,
-                  phase_train_moe):
+                  phase_kernels_grouped, phase_kernels_bf16,
+                  phase_serve_reference, phase_serve, phase_train_reference,
+                  phase_train, phase_train_sites, phase_train_moe,
+                  phase_train_bf16):
         phase(state)
         log(f"[time] {phase.__name__} done at "
             f"{time.perf_counter() - t0:.1f}s")

@@ -20,8 +20,13 @@ _NEG = -1e30
 def _chunk_attend(qc, k, v, q_start, sk, causal, local_window, scale,
                   keep_mask, dropout_p, probs_dtype=torch.float32):
     """One q-chunk: qc (B,H,cq,D) vs k,v (B,H,SK,D) (kv pre-repeated).
-    Query row i sits at position q_start + i, keys at 0..SK-1."""
-    scores = torch.einsum("bhqd,bhkd->bhqk", qc, k).to(torch.float32) * scale
+    Query row i sits at position q_start + i, keys at 0..SK-1. The scores
+    are f32 sums of the inputs' products (JAX's preferred_element_type);
+    the probabilities are cast to ``probs_dtype`` after the softmax and
+    dropped and rescaled in it, as the JAX package does for
+    ``attn_probs_bf16``."""
+    f32 = torch.float32
+    scores = torch.einsum("bhqd,bhkd->bhqk", qc.to(f32), k.to(f32)) * scale
     cq = qc.shape[2]
     if causal or local_window:
         dev = qc.device
@@ -39,7 +44,8 @@ def _chunk_attend(qc, k, v, q_start, sk, causal, local_window, scale,
     denom = torch.sum(p, dim=-1, keepdim=True)
     p = (p / denom).to(probs_dtype)
     if keep_mask is not None:
-        p = p.masked_fill(~keep_mask, 0.0) / (1.0 - dropout_p)
+        p = p.masked_fill(~keep_mask, 0.0) / torch.tensor(1.0 - dropout_p,
+                                                          dtype=probs_dtype)
     return torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype), v)
 
 

@@ -3,8 +3,10 @@
 
   "gemm_rng"         -- inside the fused GEMM+RNG kernel
                         (kernels/gemm_rng.py: csrc/gemm_rng.cu for f32
-                        operands, csrc/gemm_rng_fp8.cu for the
-                        per-tile-scaled e4m3 host of gemm_dtype="fp8")
+                        operands, csrc/gemm_rng_bf16.cu for bf16 ones --
+                        gemm_dtype="bf16", or bf16 activations --,
+                        csrc/gemm_rng_fp8.cu for the per-tile-scaled e4m3
+                        host of gemm_dtype="fp8")
   "gemm_rng_grouped" -- inside the grouped GEMM+RNG kernel (per-expert
                         products: a MoE block's expert einsum, or E=1 for
                         the RWKV channel-mix key / value GEMM;
@@ -157,36 +159,45 @@ def replay_unsupported_reason(plan: DropoutPlan, sq: int, sk: int,
     return None
 
 
-def _host_kernel(gemm_dtype: str, f32_fn, fp8_fn):
-    """The fused host of the plan's dtype: f32, or the per-tile-scaled e4m3
-    kernel for "fp8" (bf16 hosts are not ported yet)."""
+def _host_kernel(gemm_dtype: str, fn, fp8_fn, grouped: bool = False):
+    """The fused host of the plan's dtype: ``fn`` (the f32 / bf16 kernels)
+    for "f32" and, dense only, "bf16"; the per-tile-scaled e4m3 kernel
+    ``fp8_fn`` for "fp8". The grouped bf16 host is not ported yet."""
     if gemm_dtype == "fp8":
         if not quant.have_fp8():
             raise NotImplementedError(
                 "gemm_dtype='fp8' needs torch.float8_e4m3fn, which this "
                 "torch build lacks")
         return fp8_fn
-    if gemm_dtype == "f32":
-        return f32_fn
+    if gemm_dtype == "f32" or (gemm_dtype == "bf16" and not grouped):
+        return fn
     raise NotImplementedError(
-        f"gemm_dtype={gemm_dtype!r} hosts are not ported yet (ROADMAP: "
-        "port queue, bf16 hosts)")
+        f"{'grouped ' if grouped else ''}gemm_dtype={gemm_dtype!r} hosts "
+        f"are not ported yet (ROADMAP: port queue, the grouped bf16 host)")
 
 
 def _fused_gemm_call(x2d: torch.Tensor, w2d: torch.Tensor,
                      plan: DropoutPlan, mask_shape, seed, salt,
                      blocks: Tuple[int, int, int], gemm_dtype: str):
-    """One fused GEMM+RNG launch in the plan's host dtype. Returns (y2d,
+    """One fused GEMM+RNG launch in the plan's host dtype, cast as the JAX
+    package casts (``_fused_gemm_call``): "bf16" runs the kernel on bf16
+    operands and returns C in ``x2d``'s dtype; "f32" runs the kernel of
+    the operands' own dtype -- bf16 activations and weights (bf16 compute)
+    take the bf16 kernel as they are, as JAX's kernel does. Returns (y2d,
     plane or None)."""
     batch, n_heads, sq, sk = mask_shape
     bm, bn, bk = blocks
     fused = _host_kernel(gemm_dtype, ops.fused_qkv_gemm_rng,
                          ops.fused_gemm_rng_fp8)
-    return fused(
-        x2d, w2d, mask_batch=batch, mask_heads=n_heads, mask_sq=sq,
+    bf16 = gemm_dtype == "bf16"
+    a = x2d.to(torch.bfloat16) if bf16 else x2d
+    w = w2d.to(torch.bfloat16) if bf16 else w2d
+    y, mask = fused(
+        a, w, mask_batch=batch, mask_heads=n_heads, mask_sq=sq,
         mask_sk=sk, p=plan.cfg.p, seed=seed, salt=salt,
         rounds=plan.cfg.philox_rounds, block_m=bm, block_n=bn, block_k=bk,
         mask_block_cols=mask_cols_cap(sq, sk))
+    return (y.to(x2d.dtype) if bf16 else y), mask
 
 
 def gemm_with_mask(x2d: torch.Tensor, w2d: torch.Tensor, plan: DropoutPlan,
@@ -281,7 +292,7 @@ def grouped_gemm_seeded(a3: torch.Tensor, b3: torch.Tensor,
                          f"tile")
     bm, bn, bk = blocks
     fused = _host_kernel(plan.cfg.gemm_dtype, ops.fused_gemm_rng_grouped,
-                         ops.fused_gemm_rng_grouped_fp8)
+                         ops.fused_gemm_rng_grouped_fp8, grouped=True)
     y, mask = fused(
         a3, b3, mask_batch=batch, mask_heads=n_heads, mask_sq=sq,
         mask_sk=sk, p=plan.cfg.p, seed=seed, salt=salt,

@@ -4,11 +4,12 @@ philox_common.py       -- Philox-4x32 counter math (plain mirror of
                           csrc/philox.cuh) and the tile / packed-row helpers
 philox.py              -- standalone dropout-RNG kernel (packed keep plane)
 quant.py               -- per-tile e4m3 quantization (outside the kernels)
-gemm_rng.py            -- fused GEMM + dropout RNG in f32 and on e4m3
-                          operands, dense and grouped (per expert), each
-                          with its Region-3 plain variant
-flash_attention.py     -- flash-attention forward, dropout none / fused /
-                          premask / replay; the differentiable
+gemm_rng.py            -- fused GEMM + dropout RNG in f32, in bf16 and on
+                          e4m3 operands, dense (and grouped, per expert, in
+                          f32 and e4m3), each with its Region-3 plain
+                          variant
+flash_attention.py     -- flash-attention forward (f32 and bf16), dropout
+                          none / fused / premask / replay; the differentiable
                           flash_attention_mosaic
 flash_attention_bwd.py -- flash-attention backward (dq and dkv kernels)
 ref.py                 -- plain oracles the plain versions are built from
@@ -27,7 +28,7 @@ from repro_torch.kernels import gemm_rng, philox
 def launch_counts() -> Dict[str, int]:
     return {philox.KERNEL: philox.launch_count(),
             **gemm_rng.launch_counts(),
-            flash_attention.KERNEL: flash_attention.launch_count(),
+            **flash_attention.launch_counts(),
             **flash_attention_bwd.launch_counts()}
 
 

@@ -3,7 +3,9 @@
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention.py::
 // _flash_kernel (flash_attention.py:58, pl.pallas_call at :300), reached
-// through flash_attention_mosaic (:388-433).
+// through flash_attention_mosaic (:388-433), at f32 and bf16 q/k/v: the
+// bf16 instance loads and upcasts bf16 tiles (flash_attention.py:108-110)
+// and rounds O once to bf16 at the store (:289); lse stays f32.
 //
 // What it computes (the JAX kernel's rules, :126-168). One CTA per (q-block
 // of 64 rows, head h, batch b) walks the k-blocks in order. Scores are
@@ -27,6 +29,9 @@
 // probability tile (64 x 64) in shared memory (83 KB at D = 128, two CTAs
 // an SM), a 4 x 4 score tile and a 4 x D/16 output tile in registers per
 // thread, f32 FMAs on the SIMT units (f32 operands; no tensor cores yet).
+// The bf16 instance is the same kernel on tiles converted on the load: its
+// bytes halve, its f32 arithmetic does not, so against the bf16
+// tensor-core rate (989 TFLOP/s: 0.07 ms) it is far from its bound.
 // K and V share one buffer, loaded in turn. Dropout costs one Philox call
 // per thread and key column for four rows (kCounters) or one word load
 // (kPremask).
@@ -40,11 +45,12 @@ namespace {
 
 using namespace repro_flash;
 
+template <typename T>
 struct Fwd {
-  const float* q;
-  const float* k;
-  const float* v;
-  float* o;
+  const T* q;
+  const T* k;
+  const T* v;
+  T* o;
   float* lse;
   int B, H, KV, SQ, SK;
   float scale;
@@ -57,8 +63,8 @@ constexpr int fwd_smem_bytes() {
   return (BQ * (D + 1) + BK * (D + 1) + BQ * PP) * 4;
 }
 
-template <int D, int MODE>
-__global__ void __launch_bounds__(NT) flash_fwd_kernel(Fwd p) {
+template <typename T, int D, int MODE>
+__global__ void __launch_bounds__(NT) flash_fwd_kernel(Fwd<T> p) {
   extern __shared__ float smem[];
   constexpr int LD = D + 1;
   constexpr int DC = D / 16;
@@ -174,65 +180,84 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(Fwd p) {
                        4 * ty + i;
 #pragma unroll
     for (int c = 0; c < DC; ++c)
-      p.o[row * D + tx + 16 * c] = acc[i][c] / li * p.dp.inv_keep;
+      p.o[row * D + tx + 16 * c] =
+          from_f32<T>(acc[i][c] / li * p.dp.inv_keep);
     if (tx == 0) p.lse[row] = m[i] + logf(li);
   }
 }
 
-template <int D, int MODE>
-int launch(const Fwd& p, cudaStream_t s) {
+template <typename T, int D, int MODE>
+int launch(const Fwd<T>& p, cudaStream_t s) {
   constexpr int smem = fwd_smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<D, MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      flash_fwd_kernel<T, D, MODE>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(p.SQ / BQ, p.H, p.B);
-  flash_fwd_kernel<D, MODE><<<grid, NT, smem, s>>>(p);
+  flash_fwd_kernel<T, D, MODE><<<grid, NT, smem, s>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D>
-int launch_mode(const Fwd& p, int mode, cudaStream_t s) {
+template <typename T, int D>
+int launch_mode(const Fwd<T>& p, int mode, cudaStream_t s) {
   switch (mode) {
-    case kNone: return launch<D, kNone>(p, s);
-    case kPremask: return launch<D, kPremask>(p, s);
-    case kCounters: return launch<D, kCounters>(p, s);
+    case kNone: return launch<T, D, kNone>(p, s);
+    case kPremask: return launch<T, D, kPremask>(p, s);
+    case kCounters: return launch<T, D, kCounters>(p, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+template <typename T>
+int run_fwd(const void* q, const void* k, const void* v, void* out,
+            void* lse, int B, int H, int KV, int SQ, int SK, int D,
+            float scale, int causal, int local_window, int mode,
+            const void* plane, uint32_t threshold, float inv_keep,
+            uint32_t key_lo, uint32_t key_hi, uint32_t salt,
+            uint32_t bh_offset, int heads_global, int rounds, void* stream) {
+  if (B <= 0 || H <= 0 || KV <= 0 || H % KV || SQ % BQ || SK % BK ||
+      SQ <= 0 || SK <= 0 || heads_global <= 0 ||
+      (mode == kPremask && plane == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  Fwd<T> p{static_cast<const T*>(q), static_cast<const T*>(k),
+           static_cast<const T*>(v), static_cast<T*>(out),
+           static_cast<float*>(lse), B, H, KV, SQ, SK, scale, causal,
+           local_window,
+           Dropout{static_cast<const int32_t*>(plane), threshold, key_lo,
+                   key_hi, salt, bh_offset,
+                   static_cast<uint32_t>(heads_global), rounds, inv_keep}};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 16: return launch_mode<T, 16>(p, mode, s);
+    case 32: return launch_mode<T, 32>(p, mode, s);
+    case 64: return launch_mode<T, 64>(p, mode, s);
+    case 128: return launch_mode<T, 128>(p, mode, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 }  // namespace
 
-// out, lse <- flash attention of q (B,H,SQ,D), k/v (B,KV,SK,D), all f32
-// contiguous; SQ and SK multiples of 64; D in {16, 32, 64, 128}. mode 0 =
-// none, 1 = premask (plane), 2 = counters (key words). Launches on `stream`;
-// returns the CUDA error code (0 on success).
-extern "C" int repro_flash_fwd(const void* q, const void* k, const void* v,
-                               void* out, void* lse, int B, int H, int KV,
-                               int SQ, int SK, int D, float scale,
-                               int causal, int local_window, int mode,
-                               const void* plane, uint32_t threshold,
-                               float inv_keep, uint32_t key_lo,
-                               uint32_t key_hi, uint32_t salt,
-                               uint32_t bh_offset, int heads_global,
-                               int rounds, void* stream) {
-  if (B <= 0 || H <= 0 || KV <= 0 || H % KV || SQ % BQ || SK % BK ||
-      SQ <= 0 || SK <= 0 || heads_global <= 0 ||
-      (mode == kPremask && plane == nullptr))
-    return static_cast<int>(cudaErrorInvalidValue);
-  Fwd p{static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(out),
-        static_cast<float*>(lse), B, H, KV, SQ, SK, scale, causal,
-        local_window,
-        Dropout{static_cast<const int32_t*>(plane), threshold, key_lo,
-                key_hi, salt, bh_offset,
-                static_cast<uint32_t>(heads_global), rounds, inv_keep}};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 16: return launch_mode<16>(p, mode, s);
-    case 32: return launch_mode<32>(p, mode, s);
-    case 64: return launch_mode<64>(p, mode, s);
-    case 128: return launch_mode<128>(p, mode, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+// out, lse <- flash attention of q (B,H,SQ,D), k/v (B,KV,SK,D), all
+// contiguous; q, k, v and out f32 (repro_flash_fwd) or bf16
+// (repro_flash_fwd_bf16), lse f32; SQ and SK multiples of 64; D in {16, 32,
+// 64, 128}. mode 0 = none, 1 = premask (plane), 2 = counters (key words).
+// Launches on `stream`; returns the CUDA error code (0 on success).
+#define REPRO_FWD_ARGS                                                     \
+  const void *q, const void *k, const void *v, void *out, void *lse, int B, \
+      int H, int KV, int SQ, int SK, int D, float scale, int causal,       \
+      int local_window, int mode, const void *plane, uint32_t threshold,   \
+      float inv_keep, uint32_t key_lo, uint32_t key_hi, uint32_t salt,     \
+      uint32_t bh_offset, int heads_global, int rounds, void *stream
+#define REPRO_FWD_PARAMS                                                   \
+  q, k, v, out, lse, B, H, KV, SQ, SK, D, scale, causal, local_window,     \
+      mode, plane, threshold, inv_keep, key_lo, key_hi, salt, bh_offset,   \
+      heads_global, rounds, stream
+
+extern "C" int repro_flash_fwd(REPRO_FWD_ARGS) {
+  return run_fwd<float>(REPRO_FWD_PARAMS);
+}
+
+extern "C" int repro_flash_fwd_bf16(REPRO_FWD_ARGS) {
+  return run_fwd<__nv_bfloat16>(REPRO_FWD_PARAMS);
 }

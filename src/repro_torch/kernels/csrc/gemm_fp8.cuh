@@ -5,7 +5,9 @@
 // spare warps while their consumer warpgroups run the k-loop.
 //
 // Operands. A (E, M, K) is row-major e4m3fn; B is handed over K-major, as
-// Bt (E, N, K) row-major, with its scales to match: a_s (E * M / bm, K /
+// Bt (E, N, K) row-major; their rows lie ldk >= K bytes apart, a multiple
+// of 16 (TMA's row stride: a K of 8 x an odd number, as bk = 344 gives,
+// comes zero-padded), with its scales to match: a_s (E * M / bm, K /
 // bk) and bt_s (E * N / bn, K / bk), row-major f32, one per (bm, bk) tile
 // of A and (bk, bn) tile of B -- the JAX logical GEMM blocks, the expert
 // folded into the tile-row index as JAX's grouped host folds it. C (E, M,
@@ -63,9 +65,12 @@
 #include <cstdint>
 
 #include "gemm_emit.cuh"
+#include "gemm_sm90.cuh"
 
 namespace repro_gemm {
 namespace fp8 {
+
+using namespace sm90;
 
 constexpr int BM = 128;  // CTA rows: two consumer warpgroups of 64
 constexpr int BN = 128;  // CTA columns: the n of one wgmma
@@ -96,123 +101,7 @@ struct Scales {
 };
 
 // ------------------------------------------------------------ PTX helpers
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-// Waits for the phase of parity `parity` to complete. The polling loop is
-// inside the asm, so the compiler sees no divergent branch next to the
-// wgmma products in flight (one it must guard serializes them).
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      "@!p bra WAIT;\n}" ::"r"(bar),
-      "r"(parity)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-                   bar),
-               "r"(bytes)
-               : "memory");
-}
-
-// one box of the map at (k, row[, expert]) into shared memory at `dst`
-template <bool GROUPED>
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int k, int row,
-                                         int ex) {
-  const uint64_t m = reinterpret_cast<uint64_t>(map);
-  if constexpr (GROUPED) {
-    asm volatile(
-        "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-        "::bytes [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(dst),
-        "l"(m), "r"(bar), "r"(k), "r"(row), "r"(ex)
-        : "memory");
-  } else {
-    asm volatile(
-        "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-        "::bytes [%0], [%1, {%3, %4}], [%2];" ::"r"(dst),
-        "l"(m), "r"(bar), "r"(k), "r"(row)
-        : "memory");
-  }
-}
-
-// shared-memory matrix descriptor of a K-major f16 tile in the 128-byte
-// swizzle: rows of 128 bytes (64 k), 8-row groups 1024 bytes apart
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
-  return static_cast<uint64_t>((addr & 0x3FFFFu) >> 4) | (1ull << 16) |
-         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait0() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait1() {
-  asm volatile("wgmma.wait_group.sync.aligned 1;" ::: "memory");
-}
-
-// pins the registers at this point of the program, so reads of a wgmma
-// result are not moved above the wait that completes it
-__device__ __forceinline__ void fence_regs(float (&d)[64]) {
-#pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// d (+)= A (64 x 16, shared) * B (16 x 128, shared, K-major), f16 operands
-// and f32 sums; d is replaced when `accumulate` is 0
-__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
-                                                 uint64_t db,
-                                                 int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7,\n"
-      " %8, %9, %10, %11, %12, %13, %14, %15,\n"
-      " %16, %17, %18, %19, %20, %21, %22, %23,\n"
-      " %24, %25, %26, %27, %28, %29, %30, %31,\n"
-      " %32, %33, %34, %35, %36, %37, %38, %39,\n"
-      " %40, %41, %42, %43, %44, %45, %46, %47,\n"
-      " %48, %49, %50, %51, %52, %53, %54, %55,\n"
-      " %56, %57, %58, %59, %60, %61, %62, %63},\n"
-      " %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(accumulate));
-}
+// (the TMA, mbarrier and wgmma ones are gemm_sm90.cuh's)
 
 // the 128 threads of consumer warpgroup w (named barriers 1 and 2)
 __device__ __forceinline__ void bar_consumer(int w) {
@@ -384,7 +273,9 @@ __device__ __forceinline__ void consume(uint32_t ring8, uint32_t ring16,
       for (int j = 0; j < BK / KS; ++j) {
         const int k0 = kt * BK + j * KS;
         if (k0 >= K) break;
-        const int k1 = k0 + KS;  // K is a multiple of 16
+        // K is a multiple of 8: a last slice past it holds the tensor
+        // maps' zeros, and straddles the last k-block's end at K
+        const int k1 = k0 + KS;
         const uint64_t da = da0 + (j / 4) * kAtomDesc + 2 * (j % 4);
         const uint64_t db = db0 + (j / 4) * kAtomDesc + 2 * (j % 4);
         if (k1 <= kb_end) {
@@ -535,54 +426,6 @@ __global__ void __launch_bounds__(NT, 1)
 
 // ------------------------------------------------------------ the host
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled through the runtime's driver entry point, so the
-// library needs no -lcuda; null when the driver does not offer it
-inline EncodeTiled encode_tiled() {
-  static EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    return (err == cudaSuccess && q == cudaDriverEntryPointSuccess)
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
-// The map of a K-major e4m3 operand (E, rows, K): boxes of 128 k x 128
-// rows (x 1 expert), 128-byte swizzle, zeros past every edge.
-template <bool GROUPED>
-bool make_map(CUtensorMap* map, const void* ptr, int E, int rows, int K) {
-  const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(K),
-                              static_cast<cuuint64_t>(rows),
-                              static_cast<cuuint64_t>(E)};
-  const cuuint64_t strides[2] = {
-      static_cast<cuuint64_t>(K),
-      static_cast<cuuint64_t>(rows) * static_cast<cuuint64_t>(K)};
-  const cuuint32_t box[3] = {BK, 128, 1};  // BM == BN == 128
-  const cuuint32_t elem[3] = {1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, GROUPED ? 3 : 2,
-            const_cast<void*>(ptr), dims, strides, box, elem,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int ROUNDS, bool GROUPED>
 int launch(const CUtensorMap& ma, const CUtensorMap& mb, float* c, int E,
            int M, int N, int K, const Scales& sc, const Emit& e,
@@ -603,20 +446,22 @@ int launch(const CUtensorMap& ma, const CUtensorMap& mb, float* c, int E,
 // C[e] ~= dequantized A[e] @ Bt[e]^T for E experts (GROUPED; else E = 1,
 // the dense host) and, when `mask` is not null, the layout's rectangles of
 // the packed keep plane. (bm, bk) and (bn, bk) are the scale tiles of A and
-// Bt; they must divide (M, K) and (N, K), bk must be a multiple of 8, K of
-// 16 (TMA's row stride) and both operands must start on 16 bytes. Returns
+// Bt; they must divide (M, K) and (N, K), and bk must be a multiple of 8.
+// The rows of A and Bt lie ldk bytes apart (ldk >= K, a multiple of 16:
+// TMA's row stride; an expert's rows follow the last one's), and both
+// operands start on 16 bytes; the maps read zeros past K. Returns
 // cudaGetLastError() (0 on success), cudaErrorInvalidValue for bad sizes,
 // an unimplemented round count or a tensor map the driver refuses.
 template <bool GROUPED>
 int run(const void* a, const void* bt, const void* a_s, const void* bt_s,
-        void* c, int E, int M, int N, int K, int bm, int bn, int bk,
+        void* c, int E, int M, int N, int K, int ldk, int bm, int bn, int bk,
         void* mask, int rows_valid, int sk, int sq32, int rb, int ck,
         int n_cb, int n_valid_blocks, uint32_t key_lo, uint32_t key_hi,
         uint32_t salt, uint32_t bh_offset, int heads_local, int heads_global,
         uint32_t threshold, int rounds, void* stream) {
   if (E <= 0 || (!GROUPED && E != 1) || M <= 0 || N <= 0 || K <= 0 ||
       bm <= 0 || bn <= 0 || bk <= 0 || M % bm || N % bn || K % bk ||
-      bk % 8 || K % 16 || reinterpret_cast<uintptr_t>(a) % 16 ||
+      bk % 8 || ldk < K || ldk % 16 || reinterpret_cast<uintptr_t>(a) % 16 ||
       reinterpret_cast<uintptr_t>(bt) % 16)
     return static_cast<int>(cudaErrorInvalidValue);
   const Scales sc{static_cast<const float*>(a_s),
@@ -629,8 +474,11 @@ int run(const void* a, const void* bt, const void* a_s, const void* bt_s,
       (mask != nullptr && !layout_tiles_plane(e)))
     return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap ma, mb;
-  if (!make_map<GROUPED>(&ma, a, E, M, K) ||
-      !make_map<GROUPED>(&mb, bt, E, N, K))
+  // boxes of 128 k x 128 rows of e4m3 (BM == BN == 128)
+  if (!make_map<GROUPED>(&ma, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, a, E, M, K,
+                         ldk, BK, BM) ||
+      !make_map<GROUPED>(&mb, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, bt, E, N, K,
+                         ldk, BK, BN))
     return static_cast<int>(cudaErrorInvalidValue);
   float* C = static_cast<float*>(c);
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -45,19 +45,21 @@
 
 // C = dequantized A @ Bt^T as described above, and, when `mask` is not
 // null, the layout's blocks of the packed keep plane. (bm, bk) and (bn, bk)
-// are the scale tiles of A and Bt; they must divide (M, K) and (N, K), bk
-// must be a multiple of 8 and K of 16, and A and Bt must start on 16
-// bytes. Launches on `stream`; returns cudaGetLastError() (0 on success),
+// are the scale tiles of A and Bt; they must divide (M, K) and (N, K), and
+// bk must be a multiple of 8. Rows of A and Bt lie ldk bytes apart (ldk >=
+// K, a multiple of 16), and A and Bt must start on 16 bytes. Launches on
+// `stream`; returns cudaGetLastError() (0 on success),
 // cudaErrorInvalidValue for bad sizes or an unimplemented round count.
 extern "C" int repro_gemm_rng_fp8(
     const void* a, const void* bt, const void* a_s, const void* bt_s, void* c,
-    int M, int N, int K, int bm, int bn, int bk, void* mask, int rows_valid,
+    int M, int N, int K, int ldk, int bm, int bn, int bk, void* mask,
+    int rows_valid,
     int sk, int sq32, int rb, int ck, int n_cb, int n_valid_blocks,
     uint32_t key_lo, uint32_t key_hi, uint32_t salt, uint32_t bh_offset,
     int heads_local, int heads_global, uint32_t threshold, int rounds,
     void* stream) {
-  return repro_gemm::fp8::run<false>(a, bt, a_s, bt_s, c, 1, M, N, K, bm, bn,
-      bk, mask, rows_valid, sk, sq32, rb, ck, n_cb, n_valid_blocks, key_lo,
+  return repro_gemm::fp8::run<false>(a, bt, a_s, bt_s, c, 1, M, N, K, ldk, bm,
+      bn, bk, mask, rows_valid, sk, sq32, rb, ck, n_cb, n_valid_blocks, key_lo,
       key_hi, salt, bh_offset, heads_local, heads_global, threshold, rounds,
       stream);
 }

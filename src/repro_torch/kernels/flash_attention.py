@@ -16,10 +16,11 @@ hand-written CUDA kernel ``csrc/flash_fwd.cu`` -- which replaces the TPU
 kernel ``src/repro/kernels/flash_attention.py::_flash_kernel`` -- when its
 inputs lie on a CUDA device, and the plain version when they lie on the
 CPU; a failed build or launch raises. What bounds it on an H100 (f32
-operations) and how it tiles: see the note in the CUDA source. The
-kernel takes f32 q/k/v with SQ and SK multiples of 64 and head_dim in
-{16, 32, 64, 128}; anything else on the card raises (bf16 q/k/v: ROADMAP,
-port queue, bf16 flash).
+operations) and how it tiles: see the note in the CUDA source. The kernel
+takes f32 or bf16 q/k/v (one dtype; the bf16 instance computes in f32 on
+upcast tiles and writes O in bf16, lse in f32, as the JAX kernel does)
+with SQ and SK multiples of 64 and head_dim in {16, 32, 64, 128}; anything
+else on the card raises.
 
 The seed-salt word is host data: the kernels take its four words by
 value, so it stays on the CPU and reading it costs no device sync.
@@ -45,6 +46,9 @@ from repro_torch.kernels.philox_common import (
 )
 
 KERNEL = "flash_fwd"
+KERNEL_BF16 = "flash_fwd_bf16"
+# q/k/v dtype -> the kernel instance (the C entry point is repro_<name>)
+KERNELS = {torch.float32: KERNEL, torch.bfloat16: KERNEL_BF16}
 
 NEG_BIG = float(np.float32(-0.7 * np.finfo(np.float32).max))
 KERNEL_HEAD_DIMS = (16, 32, 64, 128)
@@ -53,17 +57,18 @@ KERNEL_TILE = 64
 _PLAIN_CHUNK_ELEMS = 1 << 24
 _MODE_CODE = {"none": 0, "premask": 1, "replay": 2, "fused": 2}
 
-_launches = 0
-_fn = None
+_launches = {name: 0 for name in KERNELS.values()}
+_fns = {}
 
 
-def launch_count() -> int:
-    return _launches
+def launch_counts() -> dict:
+    """Launches of each instance of the forward kernel."""
+    return dict(_launches)
 
 
 def reset_launch_count() -> None:
-    global _launches
-    _launches = 0
+    for name in _launches:
+        _launches[name] = 0
 
 
 # --------------------------------------------------------------------------
@@ -234,10 +239,10 @@ def kernel_shape_unsupported_reason(sq: int, sk: int,
 def check_kernel_shapes(q: torch.Tensor, k: torch.Tensor,
                         v: torch.Tensor) -> None:
     """What the CUDA kernels take; anything else on the card raises."""
-    if any(t.dtype != torch.float32 for t in (q, k, v)):
+    if q.dtype not in KERNELS or k.dtype != q.dtype or v.dtype != q.dtype:
         raise NotImplementedError(
-            f"the flash kernels take f32 q/k/v, got "
-            f"{q.dtype} (ROADMAP: port queue, bf16 flash)")
+            f"the flash kernels take f32 or bf16 q/k/v of one dtype, got "
+            f"{q.dtype}, {k.dtype}, {v.dtype}")
     reason = kernel_shape_unsupported_reason(q.shape[2], k.shape[2],
                                              q.shape[3])
     if reason is not None:
@@ -248,23 +253,23 @@ def check_kernel_shapes(q: torch.Tensor, k: torch.Tensor,
 # forward: kernel and plain version
 # --------------------------------------------------------------------------
 
-def _kernel_fn():
-    global _fn
-    if _fn is None:
-        fn = build.load(KERNEL).repro_flash_fwd
+def _kernel_fn(name: str):
+    fn = _fns.get(name)
+    if fn is None:
+        fn = getattr(build.load(KERNEL), f"repro_{name}")
         fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
                        + [ctypes.c_float] + [ctypes.c_int] * 3
                        + [ctypes.c_void_p, ctypes.c_uint32, ctypes.c_float]
                        + [ctypes.c_uint32] * 4
                        + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+        _fns[name] = fn
+    return fn
 
 
 def _fwd_kernel(q, k, v, dp: Dropout, causal, local_window, scale):
-    global _launches
     check_kernel_shapes(q, k, v)
+    name = KERNELS[q.dtype]
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     b, h, sq, d = q.shape
     kvh, sk = k.shape[1], k.shape[2]
@@ -273,21 +278,21 @@ def _fwd_kernel(q, k, v, dp: Dropout, causal, local_window, scale):
     plane = dp.plane.contiguous() if dp.plane is not None else None
     dp = dataclasses.replace(dp, plane=plane)
     with torch.cuda.device(q.device):
-        err = _kernel_fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                           out.data_ptr(), lse.data_ptr(), b, h, kvh, sq,
-                           sk, d, float(scale), int(causal),
-                           int(local_window), *dp.kernel_args(h),
-                           torch.cuda.current_stream().cuda_stream)
+        err = _kernel_fn(name)(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                               out.data_ptr(), lse.data_ptr(), b, h, kvh,
+                               sq, sk, d, float(scale), int(causal),
+                               int(local_window), *dp.kernel_args(h),
+                               torch.cuda.current_stream().cuda_stream)
     if err != 0:
-        raise RuntimeError(f"flash_fwd kernel launch failed: cudaError "
-                           f"{err}")
-    _launches += 1
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
+    _launches[name] += 1
     return out, lse
 
 
 def _fwd_plain(q, k, v, dp: Dropout, causal, local_window, scale):
     """The plain version: per q-chunk softmax with the kernels' rules
-    (l sums the undropped probabilities, l == 0 -> 1, lse = m + log l)."""
+    (l sums the undropped probabilities, l == 0 -> 1, lse = m + log l), in
+    f32 on the upcast inputs; O rounded once to q's dtype."""
     b, h, sq, d = q.shape
     kvh, sk = k.shape[1], k.shape[2]
     kf, vf = k.to(torch.float32), v.to(torch.float32)

@@ -8,7 +8,10 @@ O = (K o P / (1-p)) V gives
     dS = P o (dP - Delta),       Delta = rowsum(dO o O),
 
 and dq = dS K * scale, dk = dS^T Q * scale. Delta and the GQA group sum of
-the per-query-head dk / dv stay in torch, as in the JAX package.
+the per-query-head dk / dv stay in torch, as in the JAX package. At bf16
+q/k/v/dO every product and sum is f32 on the upcast values, and dq and the
+per-head dk / dv are rounded once to bf16, as the JAX kernels write them
+(``out_dtype``); the group sum then adds those bf16 values.
 
 ``flash_attention_bwd`` launches the hand-written CUDA kernels of
 ``csrc/flash_bwd.cu`` -- ``repro_flash_dq`` replaces the TPU kernel
@@ -40,8 +43,13 @@ from repro_torch.kernels.flash_attention import (
 SOURCE = "flash_bwd"
 KERNEL_DQ = "flash_dq"
 KERNEL_DKV = "flash_dkv"
+KERNEL_DQ_BF16 = "flash_dq_bf16"
+KERNEL_DKV_BF16 = "flash_dkv_bf16"
+# q/k/v dtype -> (dq kernel, dkv kernel); the C entry point is repro_<name>
+KERNELS = {torch.float32: (KERNEL_DQ, KERNEL_DKV),
+           torch.bfloat16: (KERNEL_DQ_BF16, KERNEL_DKV_BF16)}
 
-_launches = {KERNEL_DQ: 0, KERNEL_DKV: 0}
+_launches = {name: 0 for pair in KERNELS.values() for name in pair}
 _fns = {}
 
 
@@ -75,7 +83,7 @@ def _bwd_kernel(name, q, k, v, do, lse, delta, out_a, out_b, dp: Dropout,
     b, h, sq, d = q.shape
     kvh, sk = k.shape[1], k.shape[2]
     ptrs = [q, k, v, do, lse, delta]
-    outs = ([out_a, None, None] if name == KERNEL_DQ
+    outs = ([out_a, None, None] if out_b is None
             else [None, out_a, out_b])
     with torch.cuda.device(q.device):
         err = _kernel_fn(name)(
@@ -91,20 +99,22 @@ def _bwd_kernel(name, q, k, v, do, lse, delta, out_a, out_b, dp: Dropout,
 
 def _bwd_plain(q, k, v, do, lse, delta, dp: Dropout, causal, local_window,
                scale):
-    """Per-query-head (dq, dk_h, dv_h) in plain tensor ops, per q-chunk."""
+    """Per-query-head (dq, dk_h, dv_h) in plain tensor ops, per q-chunk, in
+    f32 on the upcast inputs; each rounded once to q's dtype."""
     b, h, sq, d = q.shape
     kvh, sk = k.shape[1], k.shape[2]
-    kf, vf = k, v
+    kf, vf = k.to(torch.float32), v.to(torch.float32)
     if h != kvh:
-        kf = torch.repeat_interleave(k, h // kvh, dim=1)
-        vf = torch.repeat_interleave(v, h // kvh, dim=1)
-    dq = torch.empty_like(q)
+        kf = torch.repeat_interleave(kf, h // kvh, dim=1)
+        vf = torch.repeat_interleave(vf, h // kvh, dim=1)
+    dq = torch.empty((b, h, sq, d), dtype=torch.float32, device=q.device)
     dk_h = torch.zeros((b, h, sk, d), dtype=torch.float32, device=q.device)
     dv_h = torch.zeros_like(dk_h)
     cq = q_chunk(b, h, sq, sk)
     for q0 in range(0, sq, cq):
         rows = slice(q0, q0 + cq)
-        qc, doc = q[:, :, rows], do[:, :, rows]
+        qc = q[:, :, rows].to(torch.float32)
+        doc = do[:, :, rows].to(torch.float32)
         s = torch.einsum("bhqd,bhkd->bhqk", qc, kf) * scale
         valid = score_mask(q0, cq, sq, sk, causal, local_window, q.device)
         if valid is not None:
@@ -120,7 +130,7 @@ def _bwd_plain(q, k, v, do, lse, delta, dp: Dropout, causal, local_window,
         dq[:, :, rows] = (ds @ kf) * scale
         dk_h += torch.einsum("bhqk,bhqd->bhkd", ds, qc) * scale
         dv_h += torch.einsum("bhqk,bhqd->bhkd", p_drop, doc)
-    return dq, dk_h, dv_h
+    return dq.to(q.dtype), dk_h.to(q.dtype), dv_h.to(q.dtype)
 
 
 def flash_attention_bwd(q, k, v, o, lse, do,
@@ -131,8 +141,8 @@ def flash_attention_bwd(q, k, v, o, lse, do,
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv): the counterpart of the JAX package's
     ``flash_attention_bwd``. dk / dv are computed per query head by the
-    dkv kernel and group-summed here for GQA. In "replay" mode
-    ``mask_packed`` carries the (4,) seed-salt word and both kernels
+    dkv kernel (in q's dtype) and group-summed here for GQA. In "replay"
+    mode ``mask_packed`` carries the (4,) seed-salt word and both kernels
     re-derive the forward's keep bits; no plane is read."""
     batch, n_heads, sq, d = q.shape
     kv_heads, sk = k.shape[1], k.shape[2]
@@ -150,13 +160,17 @@ def flash_attention_bwd(q, k, v, o, lse, do,
         lse, delta = lse.contiguous(), delta.contiguous()
         if dp.plane is not None:
             dp = dataclasses.replace(dp, plane=dp.plane.contiguous())
+        if do.dtype != q.dtype:
+            raise NotImplementedError(f"the flash kernels take dO in q's "
+                                      f"dtype {q.dtype}, got {do.dtype}")
         dq = torch.empty_like(q)
-        dk_h = torch.empty((batch, n_heads, sk, d), dtype=torch.float32,
+        dk_h = torch.empty((batch, n_heads, sk, d), dtype=q.dtype,
                            device=q.device)
         dv_h = torch.empty_like(dk_h)
         args = (dp, causal, local_window, scale)
-        _bwd_kernel(KERNEL_DQ, q, k, v, do, lse, delta, dq, None, *args)
-        _bwd_kernel(KERNEL_DKV, q, k, v, do, lse, delta, dk_h, dv_h, *args)
+        dq_name, dkv_name = KERNELS[q.dtype]
+        _bwd_kernel(dq_name, q, k, v, do, lse, delta, dq, None, *args)
+        _bwd_kernel(dkv_name, q, k, v, do, lse, delta, dk_h, dv_h, *args)
     elif q.device.type == "cpu":
         dq, dk_h, dv_h = _bwd_plain(q, k, v, do, lse, delta, dp, causal,
                                     local_window, scale)
@@ -174,11 +188,12 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, mask_packed=None, *,
                               causal=True, local_window=0, dropout_p=0.0,
                               mode="none", seed=0, salt=0, rounds=7,
                               scale=None, heads_global=0):
-    """The plain version on any device: per-query-head (dq, dk_h, dv_h)."""
+    """The plain version on any device: per-query-head (dq, dk_h, dv_h) in
+    q's dtype."""
     b, h, sq, d = q.shape
     dp = resolve_dropout(mode, mask_packed, batch=b, n_heads=h, sq=sq,
                          sk=k.shape[2], dropout_p=dropout_p, seed=seed,
                          salt=salt, rounds=rounds, heads_global=heads_global)
-    delta = torch.sum(do * o, dim=-1)
+    delta = torch.sum(do.to(torch.float32) * o.to(torch.float32), dim=-1)
     return _bwd_plain(q, k, v, do, lse, delta, dp, causal, local_window,
                       1.0 / (d ** 0.5) if scale is None else scale)

@@ -1,13 +1,17 @@
 """Fused GEMM + dropout RNG: C = A @ B with the packed keep plane of one
-attention layer made under the product (the paper's overlap), in f32 and
-on per-tile-scaled e4m3 operands, and the plain PyTorch versions.
+attention layer made under the product (the paper's overlap), in f32, in
+bf16 and on per-tile-scaled e4m3 operands, and the plain PyTorch
+versions.
 
-``gemm_with_rng`` launches the hand-written CUDA kernel
-``csrc/gemm_rng.cu`` -- which replaces the TPU kernels
-``src/repro/kernels/gemm_rng.py::_gemm_rng_kernel`` and, with the emission
-switched off, ``_plain_gemm_impl.kern`` (the paper's Region 3) -- when its
-operands lie on a CUDA device, and the plain version when they lie on the
-CPU. A failed build or launch raises; nothing falls back.
+``gemm_with_rng`` launches a hand-written CUDA kernel -- which replaces the
+TPU kernels ``src/repro/kernels/gemm_rng.py::_gemm_rng_kernel`` and, with
+the emission switched off, ``_plain_gemm_impl.kern`` (the paper's Region
+3) -- when its operands lie on a CUDA device, and the plain version when
+they lie on the CPU: ``csrc/gemm_rng.cu`` for f32 operands (SIMT f32),
+``csrc/gemm_rng_bf16.cu`` for bf16 ones (``wgmma`` with f32 sums, C
+rounded once to bf16, as the JAX kernel's ``out_dtype`` cast). A failed
+build or launch raises; nothing falls back, and no dtype is upcast to take
+another kernel.
 
 The emission layout is judged on the JAX logical GEMM grid ``(gm, gn)``
 (``block_m``/``block_n`` as ``core/producer.pick_gemm_blocks`` gives them),
@@ -40,8 +44,10 @@ logical grid E * gm * gn; the bits do not depend on which tokens an expert
 tile holds. In Region 3 both return the plain f32 grouped product (the
 fp8 host unquantized, as JAX's does) and no plane.
 
-Operands are f32 only; other dtypes raise
-``NotImplementedError`` (ROADMAP: port queue, bf16 hosts).
+The dense host takes f32 or bf16 operands (both of one dtype); the fp8
+hosts quantize f32 operands and the grouped hosts take f32 ones: other
+dtypes raise ``NotImplementedError`` (ROADMAP: the grouped bf16 host, the
+fp8 host under bf16 compute).
 """
 from __future__ import annotations
 
@@ -62,6 +68,7 @@ from repro_torch.kernels.philox_common import (
 )
 
 KERNEL = "gemm_rng"
+KERNEL_BF16 = "gemm_rng_bf16"
 KERNEL_FP8 = "gemm_rng_fp8"
 KERNEL_GROUPED = "gemm_rng_grouped"
 KERNEL_GROUPED_FP8 = "gemm_rng_grouped_fp8"
@@ -72,15 +79,18 @@ _PLAIN_CHUNK_WORDS = 1 << 17
 
 # launches by kernel and variant: "rng" (emission on), "plain" (Region 3)
 _launches = {name: {"rng": 0, "plain": 0}
-             for name in (KERNEL, KERNEL_FP8, KERNEL_GROUPED,
+             for name in (KERNEL, KERNEL_BF16, KERNEL_FP8, KERNEL_GROUPED,
                           KERNEL_GROUPED_FP8)}
 _fns = {}
 # C entry point and leading (operand and size) arguments of each kernel;
 # the emission's arguments follow
 _ENTRY = {KERNEL: ("repro_gemm_rng", 3, 3),
-          KERNEL_FP8: ("repro_gemm_rng_fp8", 5, 6),
+          KERNEL_BF16: ("repro_gemm_rng_bf16", 3, 3),
+          KERNEL_FP8: ("repro_gemm_rng_fp8", 5, 7),
           KERNEL_GROUPED: ("repro_gemm_rng_grouped", 3, 4),
-          KERNEL_GROUPED_FP8: ("repro_gemm_rng_grouped_fp8", 5, 7)}
+          KERNEL_GROUPED_FP8: ("repro_gemm_rng_grouped_fp8", 5, 8)}
+# operand dtype -> dense kernel
+_DENSE = {torch.float32: KERNEL, torch.bfloat16: KERNEL_BF16}
 
 
 def launch_counts() -> dict:
@@ -257,11 +267,11 @@ def _plain_plane(em: _Emission, device) -> torch.Tensor:
     return out
 
 
-def _outputs(a: torch.Tensor, n: int, em: Optional[_Emission]):
-    """Empty C (f32, ``a``'s leading dims by ``n``) and flattened plane (or
-    None) for a launch."""
-    c = torch.empty((*a.shape[:-1], n), dtype=torch.float32,
-                    device=a.device)
+def _outputs(a: torch.Tensor, n: int, em: Optional[_Emission],
+             dtype=torch.float32):
+    """Empty C (``dtype``, ``a``'s leading dims by ``n``) and flattened
+    plane (or None) for a launch."""
+    c = torch.empty((*a.shape[:-1], n), dtype=dtype, device=a.device)
     mask = None if em is None else torch.empty(
         (em.layout.rows_valid, em.layout.sk), dtype=torch.int32,
         device=a.device)
@@ -278,28 +288,46 @@ def _check_device(a: torch.Tensor, name: str) -> bool:
 
 def _forward(a: torch.Tensor, b: torch.Tensor, em: Optional[_Emission]
              ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """(C, flattened plane or None) on the operands' device."""
-    if not _check_device(a, KERNEL):
+    """(C in the operands' dtype, flattened plane or None) on the operands'
+    device: the kernel of their dtype on the card, the plain version on the
+    CPU."""
+    name = _DENSE[a.dtype]
+    if not _check_device(a, name):
         return _plain(a, b, em)
     a, b = a.contiguous(), b.contiguous()
     m, k = a.shape
     n = b.shape[1]
-    c, mask = _outputs(a, n, em)
-    _launch(KERNEL, [a.data_ptr(), b.data_ptr(), c.data_ptr(), m, n, k],
+    if name == KERNEL_BF16 and (k % 8 or n % 8 or a.data_ptr() % 16
+                                or b.data_ptr() % 16):
+        raise NotImplementedError(
+            f"the {name} kernel takes K and N multiples of 8 (TMA's 16-byte "
+            f"rows) and operands on 16 bytes, got K={k}, N={n}")
+    c, mask = _outputs(a, n, em, dtype=a.dtype)
+    _launch(name, [a.data_ptr(), b.data_ptr(), c.data_ptr(), m, n, k],
             mask, em, a.device)
     return c, mask
 
 
 def _plain(a, b, em: Optional[_Emission]):
-    """The plain version on any device: (C, flattened plane or None)."""
+    """The plain version on any device: (C, flattened plane or None); C is
+    the f32 product of the upcast operands, rounded to their dtype."""
     return gemm_ref(a, b), None if em is None else _plain_plane(em,
                                                                 a.device)
 
 
 class _GemmRng(torch.autograd.Function):
     """Forward: the kernel (or its plain version on the CPU). Backward: the
-    textbook dgrad pair in f32 as torch.matmul -- the JAX package leaves
-    it to XLA too (gemm_rng.py:281-296); the plane gets no gradient."""
+    textbook dgrad pair as torch.matmul -- the JAX package leaves it to XLA
+    too (``_dgrad_pair``, gemm_rng.py:281-285): products of the operand
+    dtype's values with f32 sums, rounded once to that dtype. At bf16 the
+    pair is a bf16 x bf16 torch.matmul: its products are exact and cuBLAS
+    (and the CPU's bf16 GEMM) sums them in f32 and rounds the result once,
+    which is JAX's upcast-multiply-downcast up to the order of the f32
+    sums -- an f32 product of the upcast operands would take the card's
+    f32 SIMT GEMMs. torch's default lets cuBLAS reduce split-k partial sums
+    in bf16 (``allow_bf16_reduced_precision_reduction``, left as it is);
+    the card-against-CPU tolerances of the bf16 step hold with it. The
+    plane gets no gradient."""
 
     @staticmethod
     def forward(ctx, a, b, em):
@@ -321,12 +349,16 @@ class _GemmRng(torch.autograd.Function):
 
 
 def _check_operands(a: torch.Tensor, b: torch.Tensor, rounds: int,
-                    mask_sq: int, grouped: bool) -> None:
-    """Raise on a call the hosts do not take, as the JAX package asserts."""
-    if a.dtype != torch.float32 or b.dtype != torch.float32:
+                    mask_sq: int, grouped: bool,
+                    dtypes=(torch.float32,)) -> None:
+    """Raise on a call the hosts do not take, as the JAX package asserts.
+    ``dtypes``: the operand dtypes the host has a kernel for."""
+    if a.dtype not in dtypes or b.dtype != a.dtype:
         raise NotImplementedError(
-            f"gemm_with_rng takes f32 operands, got {a.dtype} "
-            f"x {b.dtype} (ROADMAP: port queue, bf16 hosts)")
+            f"this GEMM host takes {'/'.join(str(d) for d in dtypes)} "
+            f"operands of one dtype, got {a.dtype} x {b.dtype} (ROADMAP: "
+            f"port queue, the grouped bf16 host and the fp8 host under bf16 "
+            f"compute)")
     nd = 3 if grouped else 2
     if (a.dim() != nd or b.dim() != nd or a.shape[-1] != b.shape[-2]
             or (grouped and a.shape[0] != b.shape[0])):
@@ -375,13 +407,14 @@ def _emission(a: torch.Tensor, b: torch.Tensor, mask_batch: int,
               mask_heads: int, mask_sq: int, mask_sk: int, p: float, seed,
               salt, rounds: int, block_m: int, block_n: int, block_k: int,
               mask_block_cols: int, max_mask_rows_per_block: int,
-              heads_global: int, bh_offset, grouped: bool = False
+              heads_global: int, bh_offset, grouped: bool = False,
+              dtypes=(torch.float32,)
               ) -> Tuple[Tuple[int, int, int], Optional[_Emission]]:
     """Check the call as the JAX package does and resolve the logical GEMM
     blocks (bm, bn, bk) and what the fused launch writes: the emission, or
     None in Region 3. ``grouped``: a (E, C, K) x (E, K, N) call, whose
-    logical grid is E * gm * gn."""
-    _check_operands(a, b, rounds, mask_sq, grouped)
+    logical grid is E * gm * gn; ``dtypes``: the host's operand dtypes."""
+    _check_operands(a, b, rounds, mask_sq, grouped, dtypes)
     m, kdim = a.shape[-2:]
     n = b.shape[-1]
     bm, bn, bkk = _blocks(m, n, kdim, block_m, block_n, block_k)
@@ -408,16 +441,18 @@ def gemm_with_rng(a: torch.Tensor, b: torch.Tensor, *, mask_batch: int,
                   mask_block_cols: int = 2048,
                   max_mask_rows_per_block: int = 256, heads_global: int = 0,
                   bh_offset=0) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """C = a @ b (f32) and the packed keep plane (B, H, SQ//32, SK) int32
-    made under it; the plane is None in Region 3 (the caller makes it with
-    the standalone kernel). Differentiable in a and b. ``seed`` is an int
-    (64-bit key) or a 0-d CPU tensor (key_hi = 0); ``salt``/``bh_offset``
-    ints or 0-d CPU tensors. ``heads_global``/``bh_offset`` make the call
-    shard-local (see ``philox_common.global_bh``)."""
+    """C = a @ b and the packed keep plane (B, H, SQ//32, SK) int32 made
+    under it; the plane is None in Region 3 (the caller makes it with the
+    standalone kernel). ``a`` and ``b`` are both f32 or both bf16; C has
+    their dtype (f32 sums, rounded once), and the plane does not depend on
+    it. Differentiable in a and b. ``seed`` is an int (64-bit key) or a 0-d
+    CPU tensor (key_hi = 0); ``salt``/``bh_offset`` ints or 0-d CPU
+    tensors. ``heads_global``/``bh_offset`` make the call shard-local (see
+    ``philox_common.global_bh``)."""
     _, em = _emission(a, b, mask_batch, mask_heads, mask_sq, mask_sk, p,
                       seed, salt, rounds, block_m, block_n, block_k,
                       mask_block_cols, max_mask_rows_per_block, heads_global,
-                      bh_offset)
+                      bh_offset, dtypes=tuple(_DENSE))
     c, mask = _GemmRng.apply(a, b, em)
     return c, _as_plane(mask, mask_batch, mask_heads, mask_sq, mask_sk)
 
@@ -435,7 +470,7 @@ def gemm_with_rng_plain(a: torch.Tensor, b: torch.Tensor, *, mask_batch: int,
     _, em = _emission(a, b, mask_batch, mask_heads, mask_sq, mask_sk, p,
                       seed, salt, rounds, block_m, block_n, block_k,
                       mask_block_cols, max_mask_rows_per_block, heads_global,
-                      bh_offset)
+                      bh_offset, dtypes=tuple(_DENSE))
     c, mask = _plain(a, b, em)
     return c, _as_plane(mask, mask_batch, mask_heads, mask_sq, mask_sk)
 
@@ -499,14 +534,39 @@ def gemm_fp8_kernel_order(a_q: torch.Tensor, a_s: torch.Tensor,
     return acc
 
 
+def _row_stride(t: torch.Tensor) -> int:
+    """The row stride of a K-major operand in elements, or 0 when its rows
+    are not packed rows of one buffer as the tensor maps read them: unit
+    element stride, and an expert's rows right after the last one's."""
+    if t.stride(-1) != 1 or (t.dim() == 3
+                             and t.stride(0) != t.shape[1] * t.stride(1)):
+        return 0
+    return t.stride(-2)
+
+
+def pad_k16(t: torch.Tensor) -> torch.Tensor:
+    """``t`` (..., K) as the e4m3 kernels' tensor maps take it: a view of a
+    zero-padded (..., K rounded up to 16) copy when K % 16 (TMA's row stride
+    is a multiple of 16 bytes), else ``t`` contiguous. The values and the
+    shape are ``t``'s; the zeros past K are never read as operands."""
+    k = t.shape[-1]
+    if k % 16 == 0:
+        return t.contiguous()
+    buf = torch.zeros((*t.shape[:-1], -(-k // 16) * 16), dtype=t.dtype,
+                      device=t.device)
+    buf[..., :k] = t
+    return buf[..., :k]
+
+
 def _check_fp8_kmajor(name: str, a_q: torch.Tensor, a_s: torch.Tensor,
                       bt_q: torch.Tensor, bt_s: torch.Tensor,
-                      blocks: Tuple[int, int, int], groups: int = 0) -> None:
+                      blocks: Tuple[int, int, int], groups: int = 0) -> int:
     """Raise on K-major operands the e4m3 kernel ``name`` does not take:
     a_q (M, K) and bt_q (N, K) -- (E, M, K) and (E, N, K) for ``groups`` =
-    E experts -- contiguous e4m3 starting on 16 bytes, a_s (E*M/bm, K/bk)
-    and bt_s (E*N/bn, K/bk) contiguous f32, all on one device; k-blocks of
-    a multiple of 8 and K a multiple of 16 (the tensor maps' row stride)."""
+    E experts -- e4m3 starting on 16 bytes, rows of one stride, a multiple
+    of 16 (the tensor maps' row stride; ``pad_k16`` makes one), a_s
+    (E*M/bm, K/bk) and bt_s (E*N/bn, K/bk) contiguous f32, all on one
+    device; k-blocks of a multiple of 8. Returns the row stride."""
     bm, bn, bk = blocks
     nd = 3 if groups else 2
     if a_q.dim() != nd or bt_q.dim() != nd:
@@ -515,25 +575,30 @@ def _check_fp8_kmajor(name: str, a_q: torch.Tensor, a_s: torch.Tensor,
     e = groups or 1
     m, k = a_q.shape[-2:]
     n = bt_q.shape[-2]
-    if bk % 8 or k % 16:
+    ldk = _row_stride(a_q)
+    if bk % 8:
         raise NotImplementedError(
-            f"the {name} kernel takes k-blocks of a multiple of 8 and K of a "
-            f"multiple of 16, got bk={bk}, K={k}")
+            f"the {name} kernel takes k-blocks of a multiple of 8, got "
+            f"bk={bk}")
     ops = (a_q, a_s, bt_q, bt_s)
     dtypes = (quant.fp8_dtype(), torch.float32) * 2
     if (any(t.dtype != dt for t, dt in zip(ops, dtypes))
-            or any(not t.is_contiguous() or t.device != a_q.device
-                   for t in ops)
+            or any(t.device != a_q.device for t in ops)
+            or not (a_s.is_contiguous() and bt_s.is_contiguous())
+            or ldk < k or ldk % 16 or _row_stride(bt_q) != ldk
             or bt_q.shape[-1] != k or (groups and bt_q.shape[0] != e)
             or m % bm or n % bn or k % bk
             or a_s.shape != (e * (m // bm), k // bk)
             or bt_s.shape != (e * (n // bn), k // bk)):
         raise ValueError(
-            f"{name} takes contiguous K-major e4m3 operands and f32 scales of "
-            f"the ({bm},{bn},{bk}) blocks on one device, got "
-            f"{[(t.dtype, tuple(t.shape), t.device) for t in ops]}")
+            f"{name} takes K-major e4m3 operands with rows of one stride, a "
+            f"multiple of 16 (pad_k16), and contiguous f32 scales of the "
+            f"({bm},{bn},{bk}) blocks on one device, got "
+            f"{[(t.dtype, tuple(t.shape), t.stride()) for t in ops]} on "
+            f"{[str(t.device) for t in ops]}")
     if a_q.data_ptr() % 16 or bt_q.data_ptr() % 16:
         raise ValueError(f"{name} takes operands that start on 16 bytes")
+    return ldk
 
 
 def gemm_rng_fp8_kmajor(a_q: torch.Tensor, a_s: torch.Tensor,
@@ -541,21 +606,22 @@ def gemm_rng_fp8_kmajor(a_q: torch.Tensor, a_s: torch.Tensor,
                         blocks: Tuple[int, int, int],
                         em: Optional[_Emission]
                         ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """The fp8 host on K-major operands: a_q (M, K), bt_q (N, K) (= b_q.T)
-    and their scales a_s (M/bm, K/bk), bt_s (N/bn, K/bk) (= b_s.T). Launches
-    the kernel for CUDA tensors (or raises), the plain version for CPU
-    ones: (C, flattened plane or None)."""
+    """The fp8 host on K-major operands: a_q (M, K), bt_q (N, K) (= b_q.T),
+    rows of one stride as ``pad_k16`` gives them, and their scales a_s
+    (M/bm, K/bk), bt_s (N/bn, K/bk) (= b_s.T). Launches the kernel for CUDA
+    tensors (or raises), the plain version for CPU ones: (C, flattened
+    plane or None)."""
     if not _check_device(a_q, KERNEL_FP8):
         return _plain_fp8(a_q, a_s, bt_q.T, bt_s.T, blocks, em)
-    _check_fp8_kmajor(KERNEL_FP8, a_q, a_s, bt_q, bt_s, blocks)
+    ldk = _check_fp8_kmajor(KERNEL_FP8, a_q, a_s, bt_q, bt_s, blocks)
     bm, bn, bk = blocks
     m, k = a_q.shape
     n = bt_q.shape[0]
     c, mask = _outputs(a_q, n, em)
     _launch(KERNEL_FP8,
             [a_q.data_ptr(), bt_q.data_ptr(), a_s.data_ptr(),
-             bt_s.data_ptr(), c.data_ptr(), m, n, k, bm, bn, bk], mask, em,
-            a_q.device)
+             bt_s.data_ptr(), c.data_ptr(), m, n, k, ldk, bm, bn, bk], mask,
+            em, a_q.device)
     return c, mask
 
 
@@ -567,14 +633,15 @@ def gemm_rng_fp8_quantized(a_q: torch.Tensor, a_s: torch.Tensor,
     """The fp8 host on operands already quantized per logical block
     ``blocks`` = (bm, bn, bk), in JAX's layout (b_q (K, N), b_s (K/bk,
     N/bn)): (C, flattened plane or None). Launches the kernel for CUDA
-    tensors, on b's bytes and scales transposed to K-major; the plain
+    tensors, on b's bytes and scales transposed to K-major (both operands'
+    rows zero-padded to a multiple of 16 bytes where K is not); the plain
     version for CPU ones."""
     if not _check_device(a_q, KERNEL_FP8):
         return _plain_fp8(a_q, a_s, b_q, b_s, blocks, em)
     if b_q.dim() != 2 or b_s.dim() != 2:
         raise ValueError(f"{KERNEL_FP8} takes a 2-d (K, N) operand, got "
                          f"{tuple(b_q.shape)}")
-    return gemm_rng_fp8_kmajor(a_q, a_s, b_q.T.contiguous(),
+    return gemm_rng_fp8_kmajor(pad_k16(a_q), a_s, pad_k16(b_q.T),
                                b_s.T.contiguous(), blocks, em)
 
 
@@ -829,9 +896,9 @@ def gemm_rng_grouped_fp8_kmajor(a_q: torch.Tensor, a_s: torch.Tensor,
                                            Optional[torch.Tensor]]:
     """The grouped fp8 host on K-major operands: a_q (E, C, K), a_s (E*gm,
     gk) as ``quantize_grouped`` gives them, bt_q (E, N, K) and bt_s (E*gn,
-    gk) as ``kmajor_grouped`` does: (C, flattened plane or None). Launches
-    the kernel for CUDA tensors (or raises), the plain version for CPU
-    ones."""
+    gk) as ``kmajor_grouped`` does (rows of one stride, as ``pad_k16``
+    gives them): (C, flattened plane or None). Launches the kernel for CUDA
+    tensors (or raises), the plain version for CPU ones."""
     e, m, k = a_q.shape
     n = bt_q.shape[1]
     if not _check_device(a_q, KERNEL_GROUPED_FP8):
@@ -841,14 +908,14 @@ def gemm_rng_grouped_fp8_kmajor(a_q: torch.Tensor, a_s: torch.Tensor,
             e * (k // bk), n // bn)
         c = gemm_grouped_fp8_plain(a_q, a_s, b_q, b_s, blocks)
         return c, None if em is None else _plain_plane(em, a_q.device)
-    _check_fp8_kmajor(KERNEL_GROUPED_FP8, a_q, a_s, bt_q, bt_s, blocks,
-                      groups=e)
+    ldk = _check_fp8_kmajor(KERNEL_GROUPED_FP8, a_q, a_s, bt_q, bt_s,
+                            blocks, groups=e)
     bm, bn, bk = blocks
     c, mask = _outputs(a_q, n, em)
     _launch(KERNEL_GROUPED_FP8,
             [a_q.data_ptr(), bt_q.data_ptr(), a_s.data_ptr(),
-             bt_s.data_ptr(), c.data_ptr(), e, m, n, k, bm, bn, bk], mask,
-            em, a_q.device)
+             bt_s.data_ptr(), c.data_ptr(), e, m, n, k, ldk, bm, bn, bk],
+            mask, em, a_q.device)
     return c, mask
 
 
@@ -861,8 +928,9 @@ def gemm_rng_grouped_fp8_quantized(a_q: torch.Tensor, a_s: torch.Tensor,
     """The grouped fp8 host on operands already quantized by
     ``quantize_grouped`` (JAX's layout: b_q (E, K, N), b_s (E*gk, gn)):
     (C, flattened plane or None). Launches the kernel for CUDA tensors, on
-    b's bytes and scales transposed to K-major; the plain version for CPU
-    ones."""
+    b's bytes and scales transposed to K-major (both operands' rows
+    zero-padded to a multiple of 16 bytes where K is not); the plain
+    version for CPU ones."""
     if not _check_device(a_q, KERNEL_GROUPED_FP8):
         c = gemm_grouped_fp8_plain(a_q, a_s, b_q, b_s, blocks)
         return c, None if em is None else _plain_plane(em, a_q.device)
@@ -875,9 +943,9 @@ def gemm_rng_grouped_fp8_quantized(a_q: torch.Tensor, a_s: torch.Tensor,
         raise ValueError(f"{KERNEL_GROUPED_FP8}: scales {tuple(b_s.shape)} "
                          f"do not match {tuple(b_q.shape)} in ({bk},{bn}) "
                          f"tiles")
-    return gemm_rng_grouped_fp8_kmajor(a_q, a_s,
-                                       *kmajor_grouped(b_q, b_s, blocks),
-                                       blocks, em)
+    bt_q, bt_s = kmajor_grouped(b_q, b_s, blocks)
+    return gemm_rng_grouped_fp8_kmajor(pad_k16(a_q), a_s, pad_k16(bt_q),
+                                       bt_s, blocks, em)
 
 
 class _GemmRngGroupedFp8(torch.autograd.Function):

@@ -104,7 +104,8 @@ def _project_qkv_fused(p, x, cfg: ModelConfig, positions, plan, layer_idx,
 
 def attn_apply(p, x, cfg: ModelConfig, *, kind: AttentionKind,
                plan: Optional[DropoutPlan], layer_idx, step,
-               chunk_q: int = 1024, probs_dtype=None, impl: str = "xla",
+               chunk_q: int = 1024, probs_dtype=torch.float32,
+               impl: str = "xla",
                mask_in=None, emit_next: bool = False, asg=None):
     """Training forward of one attention layer over the full sequence;
     x (B, S, D) -> (B, S, D).
@@ -182,7 +183,7 @@ def attn_apply(p, x, cfg: ModelConfig, *, kind: AttentionKind,
         out = attention_xla(
             q, k, v, causal=True, local_window=local, plan=plan,
             layer_idx=layer_idx, step=step, packed_mask=packed,
-            chunk_q=chunk_q, probs_dtype=probs_dtype or torch.float32)
+            chunk_q=chunk_q, probs_dtype=probs_dtype)
     out = out.transpose(1, 2).reshape(b, s, -1)
     w_o = p["w_o"].to(x.dtype)
     if emit_next and overlap and asg.emit_site == "prev_gemm":

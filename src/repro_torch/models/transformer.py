@@ -46,10 +46,12 @@ class Runtime:
     host, so no layer reads a value back from the card. ``schedule`` is
     the compiled DropoutSchedule; when None and a plan is set, ``forward``
     compiles one from the plan's site sugar. ``attn_impl="pallas"`` runs
-    the CUDA flash kernels."""
+    the CUDA flash kernels. ``probs_dtype`` is the tensor-op attention's
+    probability dtype (bf16 for ``attn_probs_bf16``)."""
     plan: Optional[DropoutPlan] = None
     step: int = 0
     compute_dtype: Any = torch.float32
+    probs_dtype: Any = torch.float32
     chunk_q: int = 1024
     remat: str = "none"            # none | block
     attn_impl: str = "xla"         # xla | pallas
@@ -188,8 +190,10 @@ def _mix_forward(p, x, cfg: ModelConfig, rt: Runtime, kind, layer_idx,
             f"{kind.value} mixers are not ported yet (ROADMAP: port queue, "
             "LOCAL and recurrent layers)")
     y = attn_apply(p, x, cfg, kind=kind, plan=rt.plan, layer_idx=layer_idx,
-                   step=rt.step, chunk_q=rt.chunk_q, impl=rt.attn_impl,
-                   mask_in=mask_in, emit_next=emit_next, asg=asg)
+                   step=rt.step, chunk_q=rt.chunk_q,
+                   probs_dtype=rt.probs_dtype,
+                   impl=rt.attn_impl, mask_in=mask_in, emit_next=emit_next,
+                   asg=asg)
     return y if emit_next else (y, None)
 
 

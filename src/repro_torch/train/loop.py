@@ -11,8 +11,11 @@ the forward (``models.forward``), the cross entropy, the backward (autograd
 through the kernels' Functions, remat per unit with remat="block") and
 AdamW. It is functional: it returns a new state and leaves the old one as
 it was, unless the caller donates the state (``donate=True``: updated in
-place). The checkpointing ``TrainRunner`` and the dropout contract of the
-JAX package's ``launch/train.py`` are not ported yet (ROADMAP).
+place). Mixed precision as in the JAX package: each step casts the f32
+master to ``compute_dtype`` (f32 or bf16) under autograd, so the gradients
+come back f32 on the master and AdamW runs in f32. The checkpointing
+``TrainRunner`` and the dropout contract of the JAX package's
+``launch/train.py`` are not ported yet (ROADMAP).
 """
 from __future__ import annotations
 
@@ -28,7 +31,7 @@ from repro_torch.device import DeviceLike
 from repro_torch.models import Runtime, forward, model_init
 from repro_torch.optim import adamw_init
 from repro_torch.optim.adamw import _adamw_update
-from repro_torch.tree import leaves, unflatten_like
+from repro_torch.tree import leaves, tree_map, unflatten_like
 
 AUX_WEIGHT = 0.01
 
@@ -65,13 +68,27 @@ def _not_ported(what: str) -> NotImplementedError:
         f"{what} is not ported yet (ROADMAP: port queue)")
 
 
-def _check_ported(run: RunConfig, policy, compute_dtype) -> None:
+_COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _check_ported(policy, compute_dtype) -> None:
     if policy is not None:
         raise _not_ported("training under a sharding policy")
-    if compute_dtype != torch.float32:
-        raise _not_ported(f"compute_dtype={compute_dtype} (bf16 flash)")
-    if run.sharding.attn_probs_bf16:
-        raise _not_ported("attn_probs_bf16")
+    if compute_dtype not in _COMPUTE_DTYPES:
+        raise ValueError(f"compute_dtype={compute_dtype}; the step computes "
+                         f"in one of {_COMPUTE_DTYPES}")
+
+
+def _probs_dtype(run: RunConfig):
+    """The tensor-op attention's probability dtype: bf16 under
+    ``attn_probs_bf16``, else f32."""
+    return torch.bfloat16 if run.sharding.attn_probs_bf16 else torch.float32
+
+
+def _cast(master, compute_dtype):
+    """The step's parameters: the master tree cast to ``compute_dtype``
+    (differentiable; no copy at f32)."""
+    return tree_map(lambda t: t.to(compute_dtype), master)
 
 
 def _log_schedule(context: str, sched) -> None:
@@ -98,17 +115,19 @@ def compile_run_schedule(cfg: ModelConfig, run: RunConfig, policy=None):
 def make_grad_fn(cfg: ModelConfig, run: RunConfig, policy=None,
                  compute_dtype=torch.float32, sched=None) -> Callable:
     """grad_fn(master, x, y, step) -> (loss, (ce, aux), grads): the loss of
-    one batch and its gradient tree with respect to ``master``."""
+    one batch and its gradient tree (f32) with respect to ``master``, the
+    forward run on the master cast to ``compute_dtype``."""
     _validate_dropout_plan(run)
-    _check_ported(run, policy, compute_dtype)
+    _check_ported(policy, compute_dtype)
     plan = DropoutPlan(run.dropout)
     if sched is None:
         sched = compile_run_schedule(cfg, run)
 
     def grad_fn(master, x, y, step: int):
         flat = [t.detach().requires_grad_() for t in leaves(master)]
-        params = unflatten_like(master, flat)
+        params = _cast(unflatten_like(master, flat), compute_dtype)
         rt = Runtime(plan=plan, step=int(step), compute_dtype=compute_dtype,
+                     probs_dtype=_probs_dtype(run),
                      remat=run.sharding.remat,
                      attn_impl=run.sharding.attn_impl, schedule=sched)
         logits, aux = forward(params, cfg, rt, x)
@@ -130,9 +149,11 @@ def make_train_step(cfg: ModelConfig, run: RunConfig, policy=None,
     the state's parameters and moments in place (bitwise the functional
     update) and returns them: one copy of the state on the device instead
     of two, which is what lets a model whose state fills most of the card
-    train; the caller must not read the old state afterwards."""
+    train; the caller must not read the old state afterwards.
+    ``compute_dtype`` is f32 or bf16 (the JAX package's mixed
+    precision)."""
     _validate_dropout_plan(run)
-    _check_ported(run, policy, compute_dtype)
+    _check_ported(policy, compute_dtype)
     micro = run.train.microbatch
     sched = compile_run_schedule(cfg, run)
     _log_schedule(f"train_step[site={run.dropout.site}]", sched)
@@ -160,9 +181,11 @@ def make_train_step(cfg: ModelConfig, run: RunConfig, policy=None,
             loss, ce, aux = lsum[0] / micro, lsum[1] / micro, lsum[2] / micro
         else:
             loss, (ce, aux), grads = grad_fn(state["master"], x, y, step)
+        # the next step casts the master again, so AdamW makes no
+        # compute-dtype copy (JAX's jit drops the one it returns)
         master, _, opt, om = _adamw_update(
             grads, state["opt"], state["master"], run.train.optimizer, step,
-            compute_dtype, in_place=donate)
+            None, in_place=donate)
         new_state = {"master": master, "opt": opt, "step": step + 1}
         return new_state, {"loss": loss, "ce": ce, "aux": aux, **om}
 
@@ -171,13 +194,14 @@ def make_train_step(cfg: ModelConfig, run: RunConfig, policy=None,
 
 def make_eval_step(cfg: ModelConfig, run: RunConfig, policy=None,
                    compute_dtype=torch.float32) -> Callable:
-    """eval_step(master, x, y) -> mean cross entropy, without dropout."""
-    _check_ported(run, policy, compute_dtype)
+    """eval_step(master, x, y) -> mean cross entropy, without dropout, on
+    the master cast to ``compute_dtype``."""
+    _check_ported(policy, compute_dtype)
 
     @torch.no_grad()
     def eval_step(master, x, y):
         rt = Runtime(plan=None, step=0, compute_dtype=compute_dtype)
-        logits, _ = forward(master, cfg, rt, x)
+        logits, _ = forward(_cast(master, compute_dtype), cfg, rt, x)
         return cross_entropy(logits, y)
 
     return eval_step

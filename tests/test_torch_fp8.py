@@ -29,6 +29,7 @@ from repro.core import producer as jproducer
 from repro.core.overlap import plan_from_config
 from repro.kernels import quant as jquant
 from repro.kernels.gemm_rng import gemm_with_rng_fp8 as j_fp8
+from repro.kernels.gemm_rng import gemm_with_rng_grouped_fp8 as j_grouped_fp8
 from repro.kernels.ref import philox_mask_ref
 from repro_torch.config.base import DropoutPlanConfig
 from repro_torch.core import producer
@@ -245,15 +246,18 @@ def _kmajor_ops(m, k, n, blocks):
 
 def test_fp8_kernel_rejects_what_it_cannot_take():
     """The e4m3 kernel's operand check raises -- before any launch, with no
-    fallback -- on K-major operands it does not take: K not a multiple of
-    16 (the tensor maps' row stride), bk not a multiple of 8, scales or
-    bytes of the wrong shape, dtype or layout, an operand off 16 bytes."""
+    fallback -- on K-major operands it does not take: rows not a multiple
+    of 16 bytes apart (the tensor maps' row stride; K = 88 is taken once
+    ``pad_k16`` pads its rows), bk not a multiple of 8, scales or bytes of
+    the wrong shape, dtype or layout, an operand off 16 bytes."""
     reset_launch_counts()
     check = tg._check_fp8_kmajor
     name = tg.KERNEL_FP8
     a_q, a_s, bt_q, bt_s = _kmajor_ops(64, 88, 64, (64, 64, 88))
-    with pytest.raises(NotImplementedError, match="multiple of 16"):
+    with pytest.raises(ValueError, match="multiple of 16"):
         check(name, a_q, a_s, bt_q, bt_s, (64, 64, 88))     # K = 88
+    assert check(name, tg.pad_k16(a_q), a_s, tg.pad_k16(bt_q), bt_s,
+                 (64, 64, 88)) == 96
     a_q, a_s, bt_q, bt_s = _kmajor_ops(64, 96, 64, (64, 64, 12))
     with pytest.raises(NotImplementedError, match="multiple of 8"):
         check(name, a_q, a_s, bt_q, bt_s, (64, 64, 12))     # bk = 12
@@ -273,6 +277,62 @@ def test_fp8_kernel_rejects_what_it_cannot_take():
         check(name, off_16, a_s, bt_q, bt_s, (64, 64, 64))
     with pytest.raises(ValueError, match="2-d"):
         check(name, a_q[None], a_s, bt_q[None], bt_s, (64, 64, 64))
+    assert set(launch_counts().values()) == {0}
+
+
+def test_fp8_hosts_take_k_not_a_multiple_of_16():
+    """K = 344 with bk = 344 (K = 8 x an odd number), which JAX's e4m3
+    kernels take: the dense and grouped hosts give JAX's C (3e-5) and
+    plane (bitwise) on the CPU, and the K-major operands the wrappers hand
+    the card -- each row zero-padded to 352 bytes by ``pad_k16``, the
+    tensor maps' 16-byte row stride -- pass the kernels' operand check,
+    hold the same values, and give the plain product in the kernels' order
+    of summation (the last k16 slice straddles K)."""
+    reset_launch_counts()
+    m, k, n, blocks = 64, 344, 64, (64, 64, 344)
+    a, b = _operands(8, m, k, n)
+    kw = dict(mask_batch=1, mask_heads=1, mask_sq=32, mask_sk=64, p=0.25,
+              seed=4, salt=2, block_m=64, block_n=64, block_k=344,
+              mask_block_cols=64)
+    c, mask = tg.gemm_with_rng_fp8(torch.from_numpy(a), torch.from_numpy(b),
+                                   **kw)
+    jc, jmask = j_fp8(jnp.asarray(a), jnp.asarray(b), **kw)
+    np.testing.assert_allclose(c.numpy(), np.asarray(jc), **C_TOL)
+    np.testing.assert_array_equal(_u32(mask), np.asarray(jmask))
+    a_q, a_s = quant.quantize_tiled(torch.from_numpy(a), 64, 344)
+    b_q, b_s = quant.quantize_tiled(torch.from_numpy(b), 344, 64)
+    pa, pbt = tg.pad_k16(a_q), tg.pad_k16(b_q.T)
+    assert pa.shape == (m, k) and pa.stride() == (352, 1)
+    assert torch.equal(pa.view(torch.uint8), a_q.view(torch.uint8))
+    assert torch.equal(pbt.view(torch.uint8),
+                       b_q.T.contiguous().view(torch.uint8))
+    bt_s = b_s.T.contiguous()
+    assert tg._check_fp8_kmajor(tg.KERNEL_FP8, pa, a_s, pbt, bt_s,
+                                blocks) == 352
+    want = tg.gemm_fp8_plain(a_q, a_s, b_q, b_s, blocks)
+    got = tg.gemm_fp8_kernel_order(pa, a_s, pbt, bt_s, blocks)
+    assert bool(((got - want).abs() <= 1e-4 * (1 + want.abs())).all())
+    ck, _ = tg.gemm_rng_fp8_kmajor(pa, a_s, pbt, bt_s, blocks, None)
+    assert torch.equal(ck, want)
+    # the grouped host, two experts
+    rng = np.random.default_rng(9)
+    x = rng.standard_normal((2, m, k)).astype(np.float32)
+    w = rng.standard_normal((2, k, n)).astype(np.float32)
+    kwg = dict(kw, mask_sk=64)
+    y, gmask = tg.gemm_with_rng_grouped_fp8(torch.from_numpy(x),
+                                            torch.from_numpy(w), **kwg)
+    jy, jgmask = j_grouped_fp8(jnp.asarray(x), jnp.asarray(w), **kwg)
+    np.testing.assert_allclose(y.numpy(), np.asarray(jy), **C_TOL)
+    np.testing.assert_array_equal(_u32(gmask), np.asarray(jgmask))
+    a_q, a_s, b_q, b_s = tg.quantize_grouped(torch.from_numpy(x),
+                                             torch.from_numpy(w), blocks)
+    bt_q, bt_s = tg.kmajor_grouped(b_q, b_s, blocks)
+    pa, pbt = tg.pad_k16(a_q), tg.pad_k16(bt_q)
+    assert tg._check_fp8_kmajor(tg.KERNEL_GROUPED_FP8, pa, a_s, pbt, bt_s,
+                                blocks, groups=2) == 352
+    yk, _ = tg.gemm_rng_grouped_fp8_kmajor(pa, a_s, pbt, bt_s, blocks, None)
+    assert torch.equal(yk, tg.gemm_grouped_fp8_plain(a_q, a_s, b_q, b_s,
+                                                     blocks))
     assert set(launch_counts().values()) == {0}
 
 

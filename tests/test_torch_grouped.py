@@ -221,10 +221,12 @@ def test_grouped_checks_and_cpu_launches_nothing():
         check(tg.KERNEL_GROUPED_FP8, kops[0][0], kops[1], kops[2][0],
               kops[3], blocks, groups=2)
     x, y = (torch.from_numpy(t) for t in _operands(9, 2, 64, 88, 64))
-    with pytest.raises(NotImplementedError, match="multiple of 16"):
-        check(tg.KERNEL_GROUPED_FP8,
-              *_kmajor_ops(x, y, (32, 64, 88)), (32, 64, 88),
+    a_q, a_s, bt_q, bt_s = _kmajor_ops(x, y, (32, 64, 88))
+    with pytest.raises(ValueError, match="multiple of 16"):  # unpadded rows
+        check(tg.KERNEL_GROUPED_FP8, a_q, a_s, bt_q, bt_s, (32, 64, 88),
               groups=2)
+    assert check(tg.KERNEL_GROUPED_FP8, tg.pad_k16(a_q), a_s,
+                 tg.pad_k16(bt_q), bt_s, (32, 64, 88), groups=2) == 96
     # on CPU tensors the K-major entry is the plain version
     y8, _ = tg.gemm_rng_grouped_fp8_kmajor(*kops, blocks, None)
     x, y = (torch.from_numpy(t) for t in _operands(9, 2, 64, 128, 64))

@@ -285,10 +285,13 @@ def test_operands_are_checked_and_cpu_launches_nothing():
         tf.flash_attention_fwd(q, q, q, torch.zeros(4, dtype=torch.int64),
                                dropout_p=0.1, mode="replay")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tg.gemm_with_rng(torch.zeros((64, 32), dtype=torch.bfloat16),
-                         torch.zeros((32, 64), dtype=torch.bfloat16),
+        tg.gemm_with_rng(torch.zeros((64, 32), dtype=torch.float16),
+                         torch.zeros((32, 64), dtype=torch.float16),
                          mask_batch=1, mask_heads=1, mask_sq=32, mask_sk=32,
                          p=0.1, seed=0)
+    with pytest.raises(NotImplementedError, match="f32 or bf16"):
+        tf.check_kernel_shapes(q.half(), q.half(), q.half())
+    tf.flash_attention_fwd(q.bfloat16(), q.bfloat16(), q.bfloat16())
     tf.flash_attention_fwd(q, q, q, dropout_p=0.1, mode="fused")
     tg.gemm_with_rng(torch.zeros((64, 32)), torch.zeros((32, 64)),
                      mask_batch=1, mask_heads=1, mask_sq=32, mask_sk=32,
@@ -328,6 +331,7 @@ def test_kernels_equal_plain_on_gpu():
     torch.testing.assert_close(o, po, atol=1e-5, rtol=1e-5)
     for got, want in zip(grads, (pdq, pdk, pdv)):
         torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
-    assert launch_counts() == {"philox_mask": 0, "gemm_rng": 1,
-                               "gemm_rng_fp8": 0, "flash_fwd": 1,
-                               "flash_dq": 1, "flash_dkv": 1}
+    counts = launch_counts()
+    for name in ("gemm_rng", "flash_fwd", "flash_dq", "flash_dkv"):
+        assert counts.pop(name) == 1
+    assert set(counts.values()) == {0}

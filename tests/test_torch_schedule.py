@@ -122,14 +122,26 @@ def test_gemm_planning_helpers_equal_jax(shape):
 
 
 def test_unported_sites_and_dtypes_raise():
+    """site="auto", a sharding policy and the grouped bf16 host (a MoE
+    expert einsum) raise; dense bf16 hosts are ported and plan."""
     cfg = get_arch("llama2-7b", reduced=True)
-    for plan in (DropoutPlanConfig(mode="overlap", site="prev_gemm",
-                                   gemm_dtype="bf16"),
-                 DropoutPlanConfig(mode="overlap", site="auto"),
-                 DropoutPlanConfig(mode="overlap", site="qkv",
-                                   gemm_dtype="bf16")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            compile_schedule(cfg, plan, 2, 128, attn_impl="pallas")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        compile_schedule(cfg, DropoutPlanConfig(mode="overlap", site="auto"),
+                         2, 128, attn_impl="pallas")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        compile_schedule(cfg, DropoutPlanConfig(mode="overlap"), 2, 128,
+                         policy=object(), attn_impl="pallas")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        compile_schedule(get_arch("moonshot-v1-16b-a3b", reduced=True),
+                         DropoutPlanConfig(mode="overlap", site="ffn_up",
+                                           gemm_dtype="bf16"),
+                         2, 128, attn_impl="pallas")
+    for site in ("prev_gemm", "qkv"):
+        sched = compile_schedule(
+            cfg, DropoutPlanConfig(mode="overlap", site=site,
+                                   gemm_dtype="bf16"), 2, 128,
+            attn_impl="pallas")
+        assert sched.plan.gemm_dtype == "bf16"
 
 
 @pytest.mark.parametrize("seed,step", [(0, 0), (3, 5), (11, 123)])

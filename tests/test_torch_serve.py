@@ -237,11 +237,14 @@ def test_engine_defaults_to_cuda():
 def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="speculative"):
         _engine(spec_k=4)
-    for plan in (DropoutPlanConfig(mode="overlap", site="auto"),
-                 DropoutPlanConfig(mode="overlap", site="prev_gemm",
-                                   gemm_dtype="bf16")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            compile_schedule(_cfg(), plan, 1, 256, attn_impl="pallas")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        compile_schedule(_cfg(), DropoutPlanConfig(mode="overlap",
+                                                   site="auto"),
+                         1, 256, attn_impl="pallas")
+    # dense bf16 hosts are ported: such a plan compiles
+    assert compile_schedule(_cfg(), DropoutPlanConfig(
+        mode="overlap", site="prev_gemm", gemm_dtype="bf16"), 1, 256,
+        attn_impl="pallas").plan.gemm_dtype == "bf16"
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         compile_schedule(_cfg(), DropoutPlanConfig(mode="overlap"), 1, 64,
                          policy=object())
