@@ -11,6 +11,7 @@
                         products: a MoE block's expert einsum, or E=1 for
                         the RWKV channel-mix key / value GEMM;
                         csrc/gemm_rng_grouped.cu in f32,
+                        csrc/gemm_rng_grouped_bf16.cu in bf16,
                         csrc/gemm_rng_grouped_fp8.cu for fp8)
   "standalone"       -- the standalone Philox kernel (kernels/philox.py):
                         the paper's Region 3, where the GEMM cannot host
@@ -159,45 +160,41 @@ def replay_unsupported_reason(plan: DropoutPlan, sq: int, sk: int,
     return None
 
 
-def _host_kernel(gemm_dtype: str, fn, fp8_fn, grouped: bool = False):
-    """The fused host of the plan's dtype: ``fn`` (the f32 / bf16 kernels)
-    for "f32" and, dense only, "bf16"; the per-tile-scaled e4m3 kernel
-    ``fp8_fn`` for "fp8". The grouped bf16 host is not ported yet."""
+def _host_call(gemm_dtype: str, fn, fp8_fn, a: torch.Tensor,
+               b: torch.Tensor, **kw):
+    """One fused host launch in the plan's dtype, cast as the JAX package
+    casts (``_fused_gemm_call`` / ``grouped_gemm_seeded``): "fp8" runs the
+    per-tile-scaled e4m3 kernel ``fp8_fn`` on the operands as they are (C
+    in their dtype); "bf16" runs ``fn`` on bf16 operands and returns C in
+    ``a``'s dtype; "f32" runs ``fn`` -- the kernel of the operands' own
+    dtype: bf16 activations and weights (bf16 compute) take the bf16
+    kernel as they are, as JAX's kernel does. Returns (y, plane or
+    None)."""
     if gemm_dtype == "fp8":
         if not quant.have_fp8():
             raise NotImplementedError(
                 "gemm_dtype='fp8' needs torch.float8_e4m3fn, which this "
                 "torch build lacks")
-        return fp8_fn
-    if gemm_dtype == "f32" or (gemm_dtype == "bf16" and not grouped):
-        return fn
-    raise NotImplementedError(
-        f"{'grouped ' if grouped else ''}gemm_dtype={gemm_dtype!r} hosts "
-        f"are not ported yet (ROADMAP: port queue, the grouped bf16 host)")
+        return fp8_fn(a, b, **kw)
+    bf16 = gemm_dtype == "bf16"
+    y, mask = fn(a.to(torch.bfloat16) if bf16 else a,
+                 b.to(torch.bfloat16) if bf16 else b, **kw)
+    return (y.to(a.dtype) if bf16 else y), mask
 
 
 def _fused_gemm_call(x2d: torch.Tensor, w2d: torch.Tensor,
                      plan: DropoutPlan, mask_shape, seed, salt,
                      blocks: Tuple[int, int, int], gemm_dtype: str):
-    """One fused GEMM+RNG launch in the plan's host dtype, cast as the JAX
-    package casts (``_fused_gemm_call``): "bf16" runs the kernel on bf16
-    operands and returns C in ``x2d``'s dtype; "f32" runs the kernel of
-    the operands' own dtype -- bf16 activations and weights (bf16 compute)
-    take the bf16 kernel as they are, as JAX's kernel does. Returns (y2d,
-    plane or None)."""
+    """One fused GEMM+RNG launch in the plan's host dtype (``_host_call``).
+    Returns (y2d, plane or None)."""
     batch, n_heads, sq, sk = mask_shape
     bm, bn, bk = blocks
-    fused = _host_kernel(gemm_dtype, ops.fused_qkv_gemm_rng,
-                         ops.fused_gemm_rng_fp8)
-    bf16 = gemm_dtype == "bf16"
-    a = x2d.to(torch.bfloat16) if bf16 else x2d
-    w = w2d.to(torch.bfloat16) if bf16 else w2d
-    y, mask = fused(
-        a, w, mask_batch=batch, mask_heads=n_heads, mask_sq=sq,
-        mask_sk=sk, p=plan.cfg.p, seed=seed, salt=salt,
-        rounds=plan.cfg.philox_rounds, block_m=bm, block_n=bn, block_k=bk,
+    return _host_call(
+        gemm_dtype, ops.fused_qkv_gemm_rng, ops.fused_gemm_rng_fp8, x2d, w2d,
+        mask_batch=batch, mask_heads=n_heads, mask_sq=sq, mask_sk=sk,
+        p=plan.cfg.p, seed=seed, salt=salt, rounds=plan.cfg.philox_rounds,
+        block_m=bm, block_n=bn, block_k=bk,
         mask_block_cols=mask_cols_cap(sq, sk))
-    return (y.to(x2d.dtype) if bf16 else y), mask
 
 
 def gemm_with_mask(x2d: torch.Tensor, w2d: torch.Tensor, plan: DropoutPlan,
@@ -276,10 +273,12 @@ def grouped_gemm_seeded(a3: torch.Tensor, b3: torch.Tensor,
     HOW_GEMM_GROUPED (the grouped GEMM+RNG kernel) or HOW_STANDALONE
     (Region 3: the same kernel with emission off -- for an fp8 plan the
     product unquantized, as JAX's is -- then the standalone Philox kernel).
-    ``seed`` / ``salt`` are the folded step seed and layer salt (the MoE
-    dispatch body's operands). Runs exactly that producer, and raises where
-    the GEMM does not tile or the kernel's own layout check disagrees with
-    the plan. Returns (y, plane)."""
+    The host's dtype casts as JAX's (``_host_call``): "bf16" rounds both
+    operands to bf16 and C back to ``a3``'s dtype, "f32" runs the kernel of
+    the operands' own dtype. ``seed`` / ``salt`` are the folded step seed
+    and layer salt (the MoE dispatch body's operands). Runs exactly that
+    producer, and raises where the GEMM does not tile or the kernel's own
+    layout check disagrees with the plan. Returns (y, plane)."""
     batch, n_heads, sq, sk = mask_shape
     e, c, kdim = a3.shape
     n = b3.shape[2]
@@ -291,14 +290,13 @@ def grouped_gemm_seeded(a3: torch.Tensor, b3: torch.Tensor,
                          f"{e}x({c},{kdim})x({kdim},{n}), which does not "
                          f"tile")
     bm, bn, bk = blocks
-    fused = _host_kernel(plan.cfg.gemm_dtype, ops.fused_gemm_rng_grouped,
-                         ops.fused_gemm_rng_grouped_fp8, grouped=True)
-    y, mask = fused(
-        a3, b3, mask_batch=batch, mask_heads=n_heads, mask_sq=sq,
-        mask_sk=sk, p=plan.cfg.p, seed=seed, salt=salt,
-        rounds=plan.cfg.philox_rounds, block_m=bm, block_n=bn, block_k=bk,
-        mask_block_cols=mask_cols_cap(sq, sk), heads_global=heads_global,
-        bh_offset=bh_offset)
+    y, mask = _host_call(
+        plan.cfg.gemm_dtype, ops.fused_gemm_rng_grouped,
+        ops.fused_gemm_rng_grouped_fp8, a3, b3, mask_batch=batch,
+        mask_heads=n_heads, mask_sq=sq, mask_sk=sk, p=plan.cfg.p, seed=seed,
+        salt=salt, rounds=plan.cfg.philox_rounds, block_m=bm, block_n=bn,
+        block_k=bk, mask_block_cols=mask_cols_cap(sq, sk),
+        heads_global=heads_global, bh_offset=bh_offset)
     if (mask is None) != (how == HOW_STANDALONE):
         region = "is Region 3" if mask is None else "emits the plane"
         raise RuntimeError(

@@ -12,12 +12,11 @@ Ported: a single device; sites "xla", "qkv" and the carried sites
 of layer l's block and carried to it, the first consumer bootstrapping
 from the standalone producer), with MoE expert and RWKV channel-mix FFNs
 hosting "ffn_up" / "ffn_down" through the grouped kernel; ``gemm_dtype``
-"f32", "bf16" (dense hosts) and "fp8"; ``attn_impl`` "xla" and "pallas";
-the replay upgrade. ``attn_impl="pallas"`` keeps the knob's JAX name: in
-the port it selects the hand-written CUDA kernels (fused and grouped
-GEMM+RNG hosts, flash forward and backward). ``site="auto"``, grouped
-bf16 hosts and sharding policies raise ``NotImplementedError`` naming the
-ROADMAP item.
+"f32", "bf16" and "fp8" (dense and grouped hosts); ``attn_impl`` "xla" and
+"pallas"; the replay upgrade. ``attn_impl="pallas"`` keeps the knob's JAX
+name: in the port it selects the hand-written CUDA kernels (fused and
+grouped GEMM+RNG hosts, flash forward and backward). ``site="auto"`` and
+sharding policies raise ``NotImplementedError`` naming the ROADMAP item.
 """
 from __future__ import annotations
 
@@ -282,13 +281,9 @@ def _fused_capability(plan: DropoutPlan, cfg: ModelConfig, batch: int,
     return HOW_GEMM, sharded, ""
 
 
-def _check_host_dtype(plan: DropoutPlan, grouped: bool = False) -> None:
-    """Raise for a host dtype the port has no kernel for: the grouped bf16
-    host."""
-    if grouped and plan.cfg.gemm_dtype == "bf16":
-        raise NotImplementedError(
-            "grouped gemm_dtype='bf16' hosts are not ported yet (ROADMAP: "
-            "port queue, the grouped bf16 host)")
+def _check_host_dtype(plan: DropoutPlan) -> None:
+    """Raise for a host dtype the port has no kernel for: fp8 in a torch
+    build without e4m3."""
     if plan.cfg.gemm_dtype == "fp8" and not quant.have_fp8():
         raise NotImplementedError(
             "gemm_dtype='fp8' needs torch.float8_e4m3fn, which this torch "
@@ -331,7 +326,7 @@ def _grouped_capability(plan: DropoutPlan, cfg: ModelConfig, batch: int,
                 f"Region 3: {kind_name} grouped GEMM "
                 f"({e}x({c},{kdim})x({kdim},{n})) too small for "
                 f"{b_loc}x{h_loc}x{seq}x{seq} mask")
-    _check_host_dtype(plan, grouped=True)
+    _check_host_dtype(plan)
     return HOW_GEMM_GROUPED, sharded, ""
 
 

@@ -1,18 +1,22 @@
-// The bf16 tensor-core GEMM of the fused bf16 GEMM+RNG kernel
-// (gemm_rng_bf16.cu): C = A @ B from bf16 operands with f32 sums, C
-// rounded once to bf16, and the dropout plane emitted by the CTAs' spare
-// warps while their consumer warpgroups run the k-loop.
+// The bf16 tensor-core GEMM of the fused bf16 GEMM+RNG kernels, shared by
+// the dense host (gemm_rng_bf16.cu) and the grouped host
+// (gemm_rng_grouped_bf16.cu): C[e] = A[e] @ B[e] from bf16 operands with
+// f32 sums, C rounded once to bf16, and the dropout plane emitted by the
+// CTAs' spare warps while their consumer warpgroups run the k-loop.
 //
-// Operands. A (M, K) and B (K, N) are row-major bf16, B as the model keeps
-// its weight: wgmma reads a 16-bit B MN-major through the instruction's
-// transpose bit, so nothing is transposed. C (M, N) is row-major bf16.
-// Rows lie K (A), N (B, C) elements apart; K and N must be multiples of 8
-// (TMA's 16-byte row stride), and the tensor maps read zeros past M, N and
-// K, so no tile size has to divide the product.
+// Operands. A (E, M, K) and B (E, K, N) are row-major bf16 (E = 1: the
+// dense host), B as the model keeps its weight: wgmma reads a 16-bit B
+// MN-major through the instruction's transpose bit, so nothing is
+// transposed. C (E, M, N) is row-major bf16. Rows lie K (A), N (B, C)
+// elements apart; K and N must be multiples of 8 (TMA's 16-byte row
+// stride), and the tensor maps read zeros past M, N and K -- for the
+// grouped host 3-D maps over (K, M, E) and (N, K, E), so an expert's last
+// CTA row reads zeros past its M rows, never the next expert's -- and no
+// tile size has to divide the product.
 //
 // What it computes: every product a[i,k] * b[k,j] of two bf16 values is
 // exact, the sums over k are f32 (wgmma's accumulator), and C[i,j] is that
-// f32 sum rounded to bf16 once -- the JAX kernel's dot_general with
+// f32 sum rounded to bf16 once -- the JAX kernels' dot_general with
 // preferred_element_type=f32 into an f32 scratch, cast to the operand
 // dtype at the flush. Only the order of the f32 sums differs from the plain
 // version's.
@@ -28,8 +32,9 @@
 // rows each, four m64n128k16 products a stage with both operands in shared
 // memory and the f32 accumulator in registers (64 floats a thread); a
 // stage goes back to the producer once the products of the next one are
-// issued. CTAs walk the tiles in bands of GROUP_M tile rows, so a wave of
-// CTAs shares its bands of A and B in L2.
+// issued. CTAs walk the tiles expert by expert, in bands of GROUP_M tile
+// rows, so a wave of CTAs shares its bands of A and B in L2; C stores stop
+// at each expert's M rows.
 #pragma once
 
 #include <cuda.h>
@@ -61,7 +66,8 @@ constexpr int STAGE_BYTES = A_BYTES + 2 * B_BOX;
 // barriers
 constexpr int SMEM_BYTES = 1024 + STAGES * STAGE_BYTES + 16 * STAGES;
 
-// The k-loop of consumer warpgroup w (rows m0 + 64 w ..) and its store.
+// The k-loop of consumer warpgroup w (rows m0 + 64 w .. of expert ex's C,
+// which starts at `c`) and its store.
 __device__ __forceinline__ void consume(uint32_t ring, uint32_t full,
                                         uint32_t empty,
                                         __nv_bfloat16* __restrict__ c, int M,
@@ -114,7 +120,7 @@ __device__ __forceinline__ void consume(uint32_t ring, uint32_t full,
   }
 }
 
-template <int ROUNDS>
+template <int ROUNDS, bool GROUPED>
 __global__ void __launch_bounds__(NT, 1)
     gemm_rng_bf16_kernel(const __grid_constant__ CUtensorMap map_a,
                          const __grid_constant__ CUtensorMap map_b,
@@ -126,11 +132,15 @@ __global__ void __launch_bounds__(NT, 1)
   const uint32_t full = ring + STAGES * STAGE_BYTES;
   const uint32_t empty = full + 8 * STAGES;
 
-  // this CTA's tile: bands of GROUP_M tile rows walked column by column
-  const int band = blockIdx.x / (GROUP_M * tiles_n);
+  // this CTA's tile: expert, then bands of GROUP_M tile rows walked
+  // column by column
+  const int per_expert = tiles_m * tiles_n;
+  const int ex = GROUPED ? blockIdx.x / per_expert : 0;
+  const int r = blockIdx.x % per_expert;
+  const int band = r / (GROUP_M * tiles_n);
   const int first_m = band * GROUP_M;
   const int band_rows = min(tiles_m - first_m, GROUP_M);
-  const int in_band = blockIdx.x % (GROUP_M * tiles_n);
+  const int in_band = r % (GROUP_M * tiles_n);
   const int m0 = (first_m + in_band % band_rows) * BM;
   const int n0 = (in_band / band_rows) * BN;
 
@@ -154,30 +164,31 @@ __global__ void __launch_bounds__(NT, 1)
           mbar_wait(empty + 8 * s, ((kt / STAGES) + 1) & 1);
         mbar_expect_tx(full + 8 * s, STAGE_BYTES);
         const uint32_t dst = ring + s * STAGE_BYTES;
-        tma_load<false>(dst, &map_a, full + 8 * s, kt * BK, m0, 0);
-        tma_load<false>(dst + A_BYTES, &map_b, full + 8 * s, n0, kt * BK,
-                        0);
-        tma_load<false>(dst + A_BYTES + B_BOX, &map_b, full + 8 * s,
-                        n0 + 64, kt * BK, 0);
+        tma_load<GROUPED>(dst, &map_a, full + 8 * s, kt * BK, m0, ex);
+        tma_load<GROUPED>(dst + A_BYTES, &map_b, full + 8 * s, n0, kt * BK,
+                          ex);
+        tma_load<GROUPED>(dst + A_BYTES + B_BOX, &map_b, full + 8 * s,
+                          n0 + 64, kt * BK, ex);
       }
     } else if (t >= 32 && e.mask != nullptr) {
       emit_share<ROUNDS>(e, blockIdx.x, gridDim.x, t - 32, 96);
     }
   } else {
-    consume(ring, full, empty, c, M, N, K, m0, n0, wg - 1);
+    consume(ring, full, empty, c + static_cast<size_t>(ex) * M * N, M, N, K,
+            m0, n0, wg - 1);
   }
 }
 
 // ------------------------------------------------------------ the host
 
-template <int ROUNDS>
+template <int ROUNDS, bool GROUPED>
 int launch(const CUtensorMap& ma, const CUtensorMap& mb, __nv_bfloat16* c,
-           int M, int N, int K, const Emit& e, cudaStream_t s) {
+           int E, int M, int N, int K, const Emit& e, cudaStream_t s) {
   const int tiles_m = (M + BM - 1) / BM;
   const int tiles_n = (N + BN - 1) / BN;
-  const long long ctas = static_cast<long long>(tiles_m) * tiles_n;
+  const long long ctas = static_cast<long long>(E) * tiles_m * tiles_n;
   if (ctas > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = gemm_rng_bf16_kernel<ROUNDS>;
+  auto kernel = gemm_rng_bf16_kernel<ROUNDS, GROUPED>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -186,19 +197,21 @@ int launch(const CUtensorMap& ma, const CUtensorMap& mb, __nv_bfloat16* c,
   return static_cast<int>(cudaGetLastError());
 }
 
-// C = A @ B (bf16 operands, f32 sums, C rounded to bf16) and, when `mask`
-// is not null, the layout's rectangles of the packed keep plane. K and N
-// must be multiples of 8 and A, B and C must start on 16 bytes. Returns
-// cudaGetLastError() (0 on success), cudaErrorInvalidValue for bad sizes,
-// an unimplemented round count or a tensor map the driver refuses.
-inline int run(const void* a, const void* b, void* c, int M, int N, int K,
-               void* mask, int rows_valid, int sk, int sq32, int rb, int ck,
-               int n_cb, int n_valid_blocks, uint32_t key_lo,
-               uint32_t key_hi, uint32_t salt, uint32_t bh_offset,
-               int heads_local, int heads_global, uint32_t threshold,
-               int rounds, void* stream) {
-  if (M <= 0 || N <= 0 || K <= 0 || K % 8 || N % 8 ||
-      reinterpret_cast<uintptr_t>(a) % 16 ||
+// C[e] = A[e] @ B[e] for E experts (GROUPED; else E = 1, the dense host),
+// bf16 operands, f32 sums, C rounded to bf16, and, when `mask` is not
+// null, the layout's rectangles of the packed keep plane. K and N must be
+// multiples of 8 and A, B and C must start on 16 bytes; an expert's rows
+// follow the last one's. Returns cudaGetLastError() (0 on success),
+// cudaErrorInvalidValue for bad sizes, an unimplemented round count or a
+// tensor map the driver refuses.
+template <bool GROUPED>
+int run(const void* a, const void* b, void* c, int E, int M, int N, int K,
+        void* mask, int rows_valid, int sk, int sq32, int rb, int ck,
+        int n_cb, int n_valid_blocks, uint32_t key_lo, uint32_t key_hi,
+        uint32_t salt, uint32_t bh_offset, int heads_local, int heads_global,
+        uint32_t threshold, int rounds, void* stream) {
+  if (E <= 0 || (!GROUPED && E != 1) || M <= 0 || N <= 0 || K <= 0 ||
+      K % 8 || N % 8 || reinterpret_cast<uintptr_t>(a) % 16 ||
       reinterpret_cast<uintptr_t>(b) % 16 ||
       reinterpret_cast<uintptr_t>(c) % 16)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -208,21 +221,22 @@ inline int run(const void* a, const void* b, void* c, int M, int N, int K,
                  threshold, &e) ||
       (mask != nullptr && !layout_tiles_plane(e)))
     return static_cast<int>(cudaErrorInvalidValue);
-  // A: boxes of 64 k x 128 rows; B: boxes of 64 n x 64 k rows
+  // A: boxes of 64 k x 128 rows (x 1 expert); B: boxes of 64 n x 64 k rows
   CUtensorMap ma, mb;
-  if (!make_map<false>(&ma, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, a, 1, M, K,
-                       K, BK, BM) ||
-      !make_map<false>(&mb, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, b, 1, K, N,
-                       N, 64, BK))
+  if (!make_map<GROUPED>(&ma, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, a, E, M,
+                         K, K, BK, BM) ||
+      !make_map<GROUPED>(&mb, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, b, E, K,
+                         N, N, 64, BK))
     return static_cast<int>(cudaErrorInvalidValue);
   __nv_bfloat16* C = static_cast<__nv_bfloat16*>(c);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (mask == nullptr) return launch<7>(ma, mb, C, M, N, K, e, s);
+  if (mask == nullptr)
+    return launch<7, GROUPED>(ma, mb, C, E, M, N, K, e, s);
   switch (rounds) {
-    case 3: return launch<3>(ma, mb, C, M, N, K, e, s);
-    case 5: return launch<5>(ma, mb, C, M, N, K, e, s);
-    case 7: return launch<7>(ma, mb, C, M, N, K, e, s);
-    case 10: return launch<10>(ma, mb, C, M, N, K, e, s);
+    case 3: return launch<3, GROUPED>(ma, mb, C, E, M, N, K, e, s);
+    case 5: return launch<5, GROUPED>(ma, mb, C, E, M, N, K, e, s);
+    case 7: return launch<7, GROUPED>(ma, mb, C, E, M, N, K, e, s);
+    case 10: return launch<10, GROUPED>(ma, mb, C, E, M, N, K, e, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

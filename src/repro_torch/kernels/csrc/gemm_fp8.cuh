@@ -11,7 +11,10 @@
 // bk) and bt_s (E * N / bn, K / bk), row-major f32, one per (bm, bk) tile
 // of A and (bk, bn) tile of B -- the JAX logical GEMM blocks, the expert
 // folded into the tile-row index as JAX's grouped host folds it. C (E, M,
-// N) is row-major f32.
+// N) is row-major in the operands' model dtype (OutT): f32, or bf16 for
+// bf16 operands (the e4m3 values quantized from their exact f32 upcast),
+// rounded once from the f32 accumulator at the store -- JAX's out_dtype
+// cast at the flush.
 //
 // What it computes: for each k-block kb of bk columns, the block's partial
 // product p = sum over the block of a[i,k] * b[k,j], and C += p *
@@ -59,6 +62,7 @@
 #pragma once
 
 #include <cuda.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <climits>
@@ -140,6 +144,19 @@ __device__ __forceinline__ void bar_consumers() {
   asm volatile("bar.sync 3, 256;" ::: "memory");
 }
 
+// C elements from the f32 accumulator: as they are, or rounded once to
+// bf16 (round to nearest even); a pair is two neighbouring columns
+__device__ __forceinline__ void store1(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store1(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16_rn(x);
+}
+__device__ __forceinline__ void store2(float* p, float x, float y) {
+  *reinterpret_cast<float2*>(p) = make_float2(x, y);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float x, float y) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
+}
+
 // ------------------------------------------------------------ the consumer
 
 // The k-loop of consumer warpgroup w (rows m0 + 64 w ..) and its store.
@@ -147,11 +164,11 @@ __device__ __forceinline__ void bar_consumers() {
 // rows of A and 64 of Bt's 128 -- from the e4m3 ring into the f16 stage
 // wgmma reads (both in the 128-byte swizzle), while this stage's products
 // run.
-template <bool GROUPED>
+template <bool GROUPED, typename OutT>
 __device__ __forceinline__ void consume(uint32_t ring8, uint32_t ring16,
                                         uint32_t full8, uint32_t empty8,
                                         float* scale_buf,
-                                        float* __restrict__ c, int M, int N,
+                                        OutT* __restrict__ c, int M, int N,
                                         int K, int m0, int n0, int ex,
                                         const Scales& sc, int w) {
   const int t = threadIdx.x % 128;
@@ -335,7 +352,7 @@ __device__ __forceinline__ void consume(uint32_t ring8, uint32_t ring16,
   }
 
   // store: d's fragment layout -- row warp * 16 + lane / 4 (+ 8), column
-  // 8 g + 2 (lane % 4) (+ 1)
+  // 8 g + 2 (lane % 4) (+ 1); each element rounded once to OutT
   if constexpr (GROUPED) c += static_cast<size_t>(ex) * M * N;
   const int r0 = m0 + 64 * w + warp * 16 + lane / 4;
   const bool pairs = (N % 2) == 0;
@@ -343,17 +360,17 @@ __device__ __forceinline__ void consume(uint32_t ring8, uint32_t ring16,
   for (int h = 0; h < 2; ++h) {
     const int r = r0 + 8 * h;
     if (r >= M) continue;
-    float* crow = c + static_cast<size_t>(r) * N;
+    OutT* crow = c + static_cast<size_t>(r) * N;
 #pragma unroll
     for (int g = 0; g < 16; ++g) {
       const int col = n0 + 8 * g + 2 * (lane % 4);
       const float x = acc[4 * g + 2 * h];
       const float y = acc[4 * g + 2 * h + 1];
       if (pairs && col + 1 < N) {
-        *reinterpret_cast<float2*>(crow + col) = make_float2(x, y);
+        store2(crow + col, x, y);
       } else {
-        if (col < N) crow[col] = x;
-        if (col + 1 < N) crow[col + 1] = y;
+        if (col < N) store1(crow + col, x);
+        if (col + 1 < N) store1(crow + col + 1, y);
       }
     }
   }
@@ -361,11 +378,11 @@ __device__ __forceinline__ void consume(uint32_t ring8, uint32_t ring16,
 
 // ------------------------------------------------------------ the kernel
 
-template <int ROUNDS, bool GROUPED>
+template <int ROUNDS, bool GROUPED, typename OutT>
 __global__ void __launch_bounds__(NT, 1)
     gemm_rng_fp8_kernel(const __grid_constant__ CUtensorMap map_a,
                         const __grid_constant__ CUtensorMap map_b,
-                        float* __restrict__ c, int M, int N, int K,
+                        OutT* __restrict__ c, int M, int N, int K,
                         int tiles_m, int tiles_n, Scales sc, Emit e) {
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
@@ -418,7 +435,7 @@ __global__ void __launch_bounds__(NT, 1)
     }
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(CONSUMER_REGS));
-    consume<GROUPED>(ring8, ring16, full8, empty8,
+    consume<GROUPED, OutT>(ring8, ring16, full8, empty8,
                      scales + (wg - 1) * 2 * SCALE_FLOATS, c, M, N, K, m0,
                      n0, ex, sc, wg - 1);
   }
@@ -426,15 +443,15 @@ __global__ void __launch_bounds__(NT, 1)
 
 // ------------------------------------------------------------ the host
 
-template <int ROUNDS, bool GROUPED>
-int launch(const CUtensorMap& ma, const CUtensorMap& mb, float* c, int E,
+template <int ROUNDS, bool GROUPED, typename OutT>
+int launch(const CUtensorMap& ma, const CUtensorMap& mb, OutT* c, int E,
            int M, int N, int K, const Scales& sc, const Emit& e,
            cudaStream_t s) {
   const int tiles_m = (M + BM - 1) / BM;
   const int tiles_n = (N + BN - 1) / BN;
   const long long ctas = static_cast<long long>(E) * tiles_m * tiles_n;
   if (ctas > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = gemm_rng_fp8_kernel<ROUNDS, GROUPED>;
+  auto kernel = gemm_rng_fp8_kernel<ROUNDS, GROUPED, OutT>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -444,7 +461,8 @@ int launch(const CUtensorMap& ma, const CUtensorMap& mb, float* c, int E,
 }
 
 // C[e] ~= dequantized A[e] @ Bt[e]^T for E experts (GROUPED; else E = 1,
-// the dense host) and, when `mask` is not null, the layout's rectangles of
+// the dense host), C as OutT (f32, or bf16 rounded once; C starts on 16
+// bytes), and, when `mask` is not null, the layout's rectangles of
 // the packed keep plane. (bm, bk) and (bn, bk) are the scale tiles of A and
 // Bt; they must divide (M, K) and (N, K), and bk must be a multiple of 8.
 // The rows of A and Bt lie ldk bytes apart (ldk >= K, a multiple of 16:
@@ -452,7 +470,7 @@ int launch(const CUtensorMap& ma, const CUtensorMap& mb, float* c, int E,
 // operands start on 16 bytes; the maps read zeros past K. Returns
 // cudaGetLastError() (0 on success), cudaErrorInvalidValue for bad sizes,
 // an unimplemented round count or a tensor map the driver refuses.
-template <bool GROUPED>
+template <bool GROUPED, typename OutT>
 int run(const void* a, const void* bt, const void* a_s, const void* bt_s,
         void* c, int E, int M, int N, int K, int ldk, int bm, int bn, int bk,
         void* mask, int rows_valid, int sk, int sq32, int rb, int ck,
@@ -462,7 +480,8 @@ int run(const void* a, const void* bt, const void* a_s, const void* bt_s,
   if (E <= 0 || (!GROUPED && E != 1) || M <= 0 || N <= 0 || K <= 0 ||
       bm <= 0 || bn <= 0 || bk <= 0 || M % bm || N % bn || K % bk ||
       bk % 8 || ldk < K || ldk % 16 || reinterpret_cast<uintptr_t>(a) % 16 ||
-      reinterpret_cast<uintptr_t>(bt) % 16)
+      reinterpret_cast<uintptr_t>(bt) % 16 ||
+      reinterpret_cast<uintptr_t>(c) % 16)
     return static_cast<int>(cudaErrorInvalidValue);
   const Scales sc{static_cast<const float*>(a_s),
                   static_cast<const float*>(bt_s), bm, bn, bk, M / bm,
@@ -480,15 +499,16 @@ int run(const void* a, const void* bt, const void* a_s, const void* bt_s,
       !make_map<GROUPED>(&mb, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, bt, E, N, K,
                          ldk, BK, BN))
     return static_cast<int>(cudaErrorInvalidValue);
-  float* C = static_cast<float*>(c);
+  OutT* C = static_cast<OutT*>(c);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (mask == nullptr)
-    return launch<7, GROUPED>(ma, mb, C, E, M, N, K, sc, e, s);
+    return launch<7, GROUPED, OutT>(ma, mb, C, E, M, N, K, sc, e, s);
   switch (rounds) {
-    case 3: return launch<3, GROUPED>(ma, mb, C, E, M, N, K, sc, e, s);
-    case 5: return launch<5, GROUPED>(ma, mb, C, E, M, N, K, sc, e, s);
-    case 7: return launch<7, GROUPED>(ma, mb, C, E, M, N, K, sc, e, s);
-    case 10: return launch<10, GROUPED>(ma, mb, C, E, M, N, K, sc, e, s);
+    case 3: return launch<3, GROUPED, OutT>(ma, mb, C, E, M, N, K, sc, e, s);
+    case 5: return launch<5, GROUPED, OutT>(ma, mb, C, E, M, N, K, sc, e, s);
+    case 7: return launch<7, GROUPED, OutT>(ma, mb, C, E, M, N, K, sc, e, s);
+    case 10:
+      return launch<10, GROUPED, OutT>(ma, mb, C, E, M, N, K, sc, e, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

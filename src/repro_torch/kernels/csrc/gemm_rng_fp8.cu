@@ -15,7 +15,10 @@
 // (M/bm, K/bk) and bt_s (N/bn, K/bk) are row-major f32 scales, one per
 // (bm, bk) tile of A and (bk, bn) tile of B -- the JAX logical GEMM blocks
 // of producer.pick_gemm_blocks, which quant.quantize_tiled scaled by. C
-// (M, N) is row-major f32: for each k-block kb of bk columns, the block's
+// (M, N) is row-major f32 (repro_gemm_rng_fp8) or, for bf16 model operands
+// (quantized from their exact f32 upcast), bf16 rounded once from the f32
+// result (repro_gemm_rng_fp8_bf16: JAX writes C in the operand dtype, its
+// out_dtype=a.dtype): for each k-block kb of bk columns, the block's
 // partial product p, then C += p * (a_s[i/bm][kb] * b_s[kb][j/bn]) -- JAX's
 // order of rounding, with p summed in f32 from tensor-core pieces of at
 // most 128 k (gemm_fp8.cuh). The plane's blocks are those of the JAX
@@ -58,10 +61,26 @@ extern "C" int repro_gemm_rng_fp8(
     uint32_t key_lo, uint32_t key_hi, uint32_t salt, uint32_t bh_offset,
     int heads_local, int heads_global, uint32_t threshold, int rounds,
     void* stream) {
-  return repro_gemm::fp8::run<false>(a, bt, a_s, bt_s, c, 1, M, N, K, ldk, bm,
-      bn, bk, mask, rows_valid, sk, sq32, rb, ck, n_cb, n_valid_blocks, key_lo,
-      key_hi, salt, bh_offset, heads_local, heads_global, threshold, rounds,
-      stream);
+  return repro_gemm::fp8::run<false, float>(a, bt, a_s, bt_s, c, 1, M, N, K,
+      ldk, bm, bn, bk, mask, rows_valid, sk, sq32, rb, ck, n_cb,
+      n_valid_blocks, key_lo, key_hi, salt, bh_offset, heads_local,
+      heads_global, threshold, rounds, stream);
+}
+
+// The same with C (M, N) bf16, each element rounded once from the f32
+// result; C must start on 16 bytes.
+extern "C" int repro_gemm_rng_fp8_bf16(
+    const void* a, const void* bt, const void* a_s, const void* bt_s, void* c,
+    int M, int N, int K, int ldk, int bm, int bn, int bk, void* mask,
+    int rows_valid,
+    int sk, int sq32, int rb, int ck, int n_cb, int n_valid_blocks,
+    uint32_t key_lo, uint32_t key_hi, uint32_t salt, uint32_t bh_offset,
+    int heads_local, int heads_global, uint32_t threshold, int rounds,
+    void* stream) {
+  return repro_gemm::fp8::run<false, __nv_bfloat16>(a, bt, a_s, bt_s, c, 1,
+      M, N, K, ldk, bm, bn, bk, mask, rows_valid, sk, sq32, rb, ck, n_cb,
+      n_valid_blocks, key_lo, key_hi, salt, bh_offset, heads_local,
+      heads_global, threshold, rounds, stream);
 }
 
 // Dynamic shared memory of one CTA, in bytes (ptxas reports static only).

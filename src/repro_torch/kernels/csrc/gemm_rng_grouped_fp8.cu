@@ -5,17 +5,22 @@
 //
 // Replaces the TPU kernel src/repro/kernels/gemm_rng.py::
 // _gemm_rng_grouped_fp8_kernel (gemm_rng.py:764, pl.pallas_call at :875).
-// JAX has no emission-off fp8 grouped kernel: its Region 3 runs the f32
-// grouped product (gemm_rng_grouped.cu with the emission off); this kernel
-// still takes mask == nullptr, as the dense fp8 one does.
+// JAX has no emission-off fp8 grouped kernel: its Region 3 runs the
+// grouped product unquantized on the operands as given
+// (gemm_rng_grouped.cu, or gemm_rng_grouped_bf16.cu for bf16 operands, with
+// the emission off); this kernel still takes mask == nullptr, as the dense
+// fp8 one does.
 //
 // What it computes. A (E, M, K) is row-major e4m3fn; B reaches the kernel
 // K-major, as Bt (E, N, K) row-major e4m3fn, both quantized outside the
 // kernel (kernels/quant.py) per (bm, bk) and (bk, bn) tile of each expert,
 // the expert folded into the scale-row index as JAX folds it: a_s (E * M /
-// bm, K / bk), bt_s (E * N / bn, K / bk). C (E, M, N) is row-major f32,
-// accumulated per k-block as p * (a_s[e * gm + i, kk] * b_s[e * gk + kk,
-// j]) -- JAX's order of rounding (gemm_fp8.cuh). The plane's rectangles
+// bm, K / bk), bt_s (E * N / bn, K / bk). C (E, M, N) is row-major f32
+// (repro_gemm_rng_grouped_fp8) or, for bf16 model operands (quantized from
+// their exact f32 upcast), bf16 rounded once from the f32 result
+// (repro_gemm_rng_grouped_fp8_bf16: JAX's out_dtype=a.dtype), accumulated
+// per k-block as p * (a_s[e * gm + i, kk] * b_s[e * gk + kk, j]) -- JAX's
+// order of rounding (gemm_fp8.cuh). The plane's rectangles
 // are those of the JAX layout on the logical grid E * gm * gn, written as
 // gemm_emit.cuh describes: bitwise the f32 hosts'.
 //
@@ -54,7 +59,23 @@ extern "C" int repro_gemm_rng_grouped_fp8(
     int n_valid_blocks, uint32_t key_lo, uint32_t key_hi, uint32_t salt,
     uint32_t bh_offset, int heads_local, int heads_global,
     uint32_t threshold, int rounds, void* stream) {
-  return repro_gemm::fp8::run<true>(a, bt, a_s, bt_s, c, E, M, N, K, ldk, bm,
-      bn, bk, mask, rows_valid, sk, sq32, rb, ck, n_cb, n_valid_blocks, key_lo, key_hi,
-      salt, bh_offset, heads_local, heads_global, threshold, rounds, stream);
+  return repro_gemm::fp8::run<true, float>(a, bt, a_s, bt_s, c, E, M, N, K,
+      ldk, bm, bn, bk, mask, rows_valid, sk, sq32, rb, ck, n_cb,
+      n_valid_blocks, key_lo, key_hi, salt, bh_offset, heads_local,
+      heads_global, threshold, rounds, stream);
+}
+
+// The same with C (E, M, N) bf16, each element rounded once from the f32
+// result; C must start on 16 bytes.
+extern "C" int repro_gemm_rng_grouped_fp8_bf16(
+    const void* a, const void* bt, const void* a_s, const void* bt_s, void* c,
+    int E, int M, int N, int K, int ldk, int bm, int bn, int bk, void* mask,
+    int rows_valid, int sk, int sq32, int rb, int ck, int n_cb,
+    int n_valid_blocks, uint32_t key_lo, uint32_t key_hi, uint32_t salt,
+    uint32_t bh_offset, int heads_local, int heads_global,
+    uint32_t threshold, int rounds, void* stream) {
+  return repro_gemm::fp8::run<true, __nv_bfloat16>(a, bt, a_s, bt_s, c, E, M,
+      N, K, ldk, bm, bn, bk, mask, rows_valid, sk, sq32, rb, ck, n_cb,
+      n_valid_blocks, key_lo, key_hi, salt, bh_offset, heads_local,
+      heads_global, threshold, rounds, stream);
 }

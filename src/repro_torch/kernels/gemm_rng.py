@@ -22,9 +22,11 @@ which CTA writes which block: see the note in ``csrc/gemm_rng.cu``.
 
 ``gemm_with_rng_fp8`` launches ``csrc/gemm_rng_fp8.cu`` -- which replaces
 ``_gemm_rng_fp8_kernel`` and, with the emission off, ``_plain_fp8_kernel``
--- on f32 operands that ``quant.quantize_tiled`` turns into e4m3 values and
-per-tile scales outside the kernel (the scale tiles are the logical GEMM
-blocks); its plane is bitwise the f32 host's. The e4m3 kernels run on
+-- on f32 or bf16 operands that ``quant.quantize_tiled`` turns (from their
+exact f32 upcast) into e4m3 values and per-tile scales outside the kernel
+(the scale tiles are the logical GEMM blocks); C comes back in the
+operands' dtype, rounded once from the kernel's f32 result, as JAX's
+``out_dtype=a.dtype``. Its plane is bitwise the f32 host's. The e4m3 kernels run on
 Hopper's tensor cores (their e4m3 bytes converted exactly to f16 in shared
 memory) and take B K-major, as (N, K) bytes: on the card the wrappers
 transpose the quantized weight's bytes and scales (bitwise what
@@ -36,18 +38,19 @@ torch.
 ``gemm_with_rng_grouped`` / ``gemm_with_rng_grouped_fp8`` are the grouped
 hosts: C[e] = A[e] @ B[e] for E experts (a MoE block's expert einsum; E = 1
 for the RWKV channel-mix key / value GEMM) with the plane made under the
-products, by ``csrc/gemm_rng_grouped.cu`` (replacing
+products, by ``csrc/gemm_rng_grouped.cu`` for f32 operands and
+``csrc/gemm_rng_grouped_bf16.cu`` for bf16 ones (replacing
 ``_gemm_rng_grouped_kernel`` and, emission off, ``_plain_grouped_impl.kern``)
 and ``csrc/gemm_rng_grouped_fp8.cu`` (replacing
 ``_gemm_rng_grouped_fp8_kernel``). The emission layout is judged on the JAX
 logical grid E * gm * gn; the bits do not depend on which tokens an expert
-tile holds. In Region 3 both return the plain f32 grouped product (the
-fp8 host unquantized, as JAX's does) and no plane.
+tile holds. In Region 3 both return the plain grouped product of the
+operands' dtype (the fp8 host unquantized, as JAX's does) and no plane.
 
-The dense host takes f32 or bf16 operands (both of one dtype); the fp8
-hosts quantize f32 operands and the grouped hosts take f32 ones: other
-dtypes raise ``NotImplementedError`` (ROADMAP: the grouped bf16 host, the
-fp8 host under bf16 compute).
+Every host takes f32 or bf16 operands (both of one dtype) and returns C in
+that dtype; other dtypes raise ``NotImplementedError``. Each kernel
+instance counts its launches under its own name: the bf16-operand e4m3
+instances are ``gemm_rng_fp8_bf16`` and ``gemm_rng_grouped_fp8_bf16``.
 """
 from __future__ import annotations
 
@@ -70,27 +73,39 @@ from repro_torch.kernels.philox_common import (
 KERNEL = "gemm_rng"
 KERNEL_BF16 = "gemm_rng_bf16"
 KERNEL_FP8 = "gemm_rng_fp8"
+KERNEL_FP8_BF16 = "gemm_rng_fp8_bf16"
 KERNEL_GROUPED = "gemm_rng_grouped"
+KERNEL_GROUPED_BF16 = "gemm_rng_grouped_bf16"
 KERNEL_GROUPED_FP8 = "gemm_rng_grouped_fp8"
+KERNEL_GROUPED_FP8_BF16 = "gemm_rng_grouped_fp8_bf16"
 # the e4m3 kernels' k-slice: one f16 wgmma
 _FP8_SLICE_K = 16
 # plain version: packed words per step (x 32 keep bits each)
 _PLAIN_CHUNK_WORDS = 1 << 17
 
-# launches by kernel and variant: "rng" (emission on), "plain" (Region 3)
-_launches = {name: {"rng": 0, "plain": 0}
-             for name in (KERNEL, KERNEL_BF16, KERNEL_FP8, KERNEL_GROUPED,
-                          KERNEL_GROUPED_FP8)}
 _fns = {}
-# C entry point and leading (operand and size) arguments of each kernel;
-# the emission's arguments follow
-_ENTRY = {KERNEL: ("repro_gemm_rng", 3, 3),
-          KERNEL_BF16: ("repro_gemm_rng_bf16", 3, 3),
-          KERNEL_FP8: ("repro_gemm_rng_fp8", 5, 7),
-          KERNEL_GROUPED: ("repro_gemm_rng_grouped", 3, 4),
-          KERNEL_GROUPED_FP8: ("repro_gemm_rng_grouped_fp8", 5, 8)}
-# operand dtype -> dense kernel
+# library (csrc/<name>.cu), C entry point and leading (operand and size)
+# arguments of each kernel instance; the emission's arguments follow
+_ENTRY = {KERNEL: (KERNEL, "repro_gemm_rng", 3, 3),
+          KERNEL_BF16: (KERNEL_BF16, "repro_gemm_rng_bf16", 3, 3),
+          KERNEL_FP8: (KERNEL_FP8, "repro_gemm_rng_fp8", 5, 7),
+          KERNEL_FP8_BF16: (KERNEL_FP8, "repro_gemm_rng_fp8_bf16", 5, 7),
+          KERNEL_GROUPED: (KERNEL_GROUPED, "repro_gemm_rng_grouped", 3, 4),
+          KERNEL_GROUPED_BF16: (KERNEL_GROUPED_BF16,
+                                "repro_gemm_rng_grouped_bf16", 3, 4),
+          KERNEL_GROUPED_FP8: (KERNEL_GROUPED_FP8,
+                               "repro_gemm_rng_grouped_fp8", 5, 8),
+          KERNEL_GROUPED_FP8_BF16: (KERNEL_GROUPED_FP8,
+                                    "repro_gemm_rng_grouped_fp8_bf16", 5, 8)}
+# launches by kernel and variant: "rng" (emission on), "plain" (Region 3)
+_launches = {name: {"rng": 0, "plain": 0} for name in _ENTRY}
+# model (operand) dtype -> the kernel instance of each host; C has that
+# dtype
 _DENSE = {torch.float32: KERNEL, torch.bfloat16: KERNEL_BF16}
+_GROUPED = {torch.float32: KERNEL_GROUPED, torch.bfloat16: KERNEL_GROUPED_BF16}
+_FP8 = {torch.float32: KERNEL_FP8, torch.bfloat16: KERNEL_FP8_BF16}
+_GROUPED_FP8 = {torch.float32: KERNEL_GROUPED_FP8,
+                torch.bfloat16: KERNEL_GROUPED_FP8_BF16}
 
 
 def launch_counts() -> dict:
@@ -220,8 +235,8 @@ def _kernel_fn(name: str):
     """The C entry point of kernel ``name``, built on first use."""
     fn = _fns.get(name)
     if fn is None:
-        entry, n_ptrs, n_ints = _ENTRY[name]
-        fn = getattr(build.load(name), entry)
+        lib, entry, n_ptrs, n_ints = _ENTRY[name]
+        fn = getattr(build.load(lib), entry)
         fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
                        + _EMIT_ARGTYPES)
         fn.restype = ctypes.c_int
@@ -286,6 +301,16 @@ def _check_device(a: torch.Tensor, name: str) -> bool:
     return a.device.type == "cuda"
 
 
+def _check_bf16_rows(name: str, a: torch.Tensor, b: torch.Tensor) -> None:
+    """Raise on bf16 operands the tensor maps of ``name`` cannot read: K
+    and N multiples of 8 (TMA's 16-byte rows), operands on 16 bytes."""
+    k, n = a.shape[-1], b.shape[-1]
+    if k % 8 or n % 8 or a.data_ptr() % 16 or b.data_ptr() % 16:
+        raise NotImplementedError(
+            f"the {name} kernel takes K and N multiples of 8 (TMA's 16-byte "
+            f"rows) and operands on 16 bytes, got K={k}, N={n}")
+
+
 def _forward(a: torch.Tensor, b: torch.Tensor, em: Optional[_Emission]
              ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """(C in the operands' dtype, flattened plane or None) on the operands'
@@ -297,11 +322,8 @@ def _forward(a: torch.Tensor, b: torch.Tensor, em: Optional[_Emission]
     a, b = a.contiguous(), b.contiguous()
     m, k = a.shape
     n = b.shape[1]
-    if name == KERNEL_BF16 and (k % 8 or n % 8 or a.data_ptr() % 16
-                                or b.data_ptr() % 16):
-        raise NotImplementedError(
-            f"the {name} kernel takes K and N multiples of 8 (TMA's 16-byte "
-            f"rows) and operands on 16 bytes, got K={k}, N={n}")
+    if name == KERNEL_BF16:
+        _check_bf16_rows(name, a, b)
     c, mask = _outputs(a, n, em, dtype=a.dtype)
     _launch(name, [a.data_ptr(), b.data_ptr(), c.data_ptr(), m, n, k],
             mask, em, a.device)
@@ -349,16 +371,13 @@ class _GemmRng(torch.autograd.Function):
 
 
 def _check_operands(a: torch.Tensor, b: torch.Tensor, rounds: int,
-                    mask_sq: int, grouped: bool,
-                    dtypes=(torch.float32,)) -> None:
+                    mask_sq: int, grouped: bool) -> None:
     """Raise on a call the hosts do not take, as the JAX package asserts.
-    ``dtypes``: the operand dtypes the host has a kernel for."""
-    if a.dtype not in dtypes or b.dtype != a.dtype:
+    Every host has a kernel for f32 and for bf16 operands."""
+    if a.dtype not in _DENSE or b.dtype != a.dtype:
         raise NotImplementedError(
-            f"this GEMM host takes {'/'.join(str(d) for d in dtypes)} "
-            f"operands of one dtype, got {a.dtype} x {b.dtype} (ROADMAP: "
-            f"port queue, the grouped bf16 host and the fp8 host under bf16 "
-            f"compute)")
+            f"the GEMM hosts take f32 or bf16 operands of one dtype, got "
+            f"{a.dtype} x {b.dtype}")
     nd = 3 if grouped else 2
     if (a.dim() != nd or b.dim() != nd or a.shape[-1] != b.shape[-2]
             or (grouped and a.shape[0] != b.shape[0])):
@@ -407,14 +426,13 @@ def _emission(a: torch.Tensor, b: torch.Tensor, mask_batch: int,
               mask_heads: int, mask_sq: int, mask_sk: int, p: float, seed,
               salt, rounds: int, block_m: int, block_n: int, block_k: int,
               mask_block_cols: int, max_mask_rows_per_block: int,
-              heads_global: int, bh_offset, grouped: bool = False,
-              dtypes=(torch.float32,)
+              heads_global: int, bh_offset, grouped: bool = False
               ) -> Tuple[Tuple[int, int, int], Optional[_Emission]]:
     """Check the call as the JAX package does and resolve the logical GEMM
     blocks (bm, bn, bk) and what the fused launch writes: the emission, or
     None in Region 3. ``grouped``: a (E, C, K) x (E, K, N) call, whose
-    logical grid is E * gm * gn; ``dtypes``: the host's operand dtypes."""
-    _check_operands(a, b, rounds, mask_sq, grouped, dtypes)
+    logical grid is E * gm * gn."""
+    _check_operands(a, b, rounds, mask_sq, grouped)
     m, kdim = a.shape[-2:]
     n = b.shape[-1]
     bm, bn, bkk = _blocks(m, n, kdim, block_m, block_n, block_k)
@@ -452,7 +470,7 @@ def gemm_with_rng(a: torch.Tensor, b: torch.Tensor, *, mask_batch: int,
     _, em = _emission(a, b, mask_batch, mask_heads, mask_sq, mask_sk, p,
                       seed, salt, rounds, block_m, block_n, block_k,
                       mask_block_cols, max_mask_rows_per_block, heads_global,
-                      bh_offset, dtypes=tuple(_DENSE))
+                      bh_offset)
     c, mask = _GemmRng.apply(a, b, em)
     return c, _as_plane(mask, mask_batch, mask_heads, mask_sq, mask_sk)
 
@@ -470,7 +488,7 @@ def gemm_with_rng_plain(a: torch.Tensor, b: torch.Tensor, *, mask_batch: int,
     _, em = _emission(a, b, mask_batch, mask_heads, mask_sq, mask_sk, p,
                       seed, salt, rounds, block_m, block_n, block_k,
                       mask_block_cols, max_mask_rows_per_block, heads_global,
-                      bh_offset, dtypes=tuple(_DENSE))
+                      bh_offset)
     c, mask = _plain(a, b, em)
     return c, _as_plane(mask, mask_batch, mask_heads, mask_sq, mask_sk)
 
@@ -604,21 +622,24 @@ def _check_fp8_kmajor(name: str, a_q: torch.Tensor, a_s: torch.Tensor,
 def gemm_rng_fp8_kmajor(a_q: torch.Tensor, a_s: torch.Tensor,
                         bt_q: torch.Tensor, bt_s: torch.Tensor,
                         blocks: Tuple[int, int, int],
-                        em: Optional[_Emission]
+                        em: Optional[_Emission],
+                        out_dtype: torch.dtype = torch.float32
                         ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """The fp8 host on K-major operands: a_q (M, K), bt_q (N, K) (= b_q.T),
     rows of one stride as ``pad_k16`` gives them, and their scales a_s
-    (M/bm, K/bk), bt_s (N/bn, K/bk) (= b_s.T). Launches the kernel for CUDA
-    tensors (or raises), the plain version for CPU ones: (C, flattened
-    plane or None)."""
-    if not _check_device(a_q, KERNEL_FP8):
-        return _plain_fp8(a_q, a_s, bt_q.T, bt_s.T, blocks, em)
-    ldk = _check_fp8_kmajor(KERNEL_FP8, a_q, a_s, bt_q, bt_s, blocks)
+    (M/bm, K/bk), bt_s (N/bn, K/bk) (= b_s.T). Launches the kernel instance
+    of ``out_dtype`` (f32, or bf16 for bf16 model operands: C rounded once)
+    for CUDA tensors (or raises), the plain version for CPU ones: (C,
+    flattened plane or None)."""
+    name = _FP8[out_dtype]
+    if not _check_device(a_q, name):
+        return _plain_fp8(a_q, a_s, bt_q.T, bt_s.T, blocks, em, out_dtype)
+    ldk = _check_fp8_kmajor(name, a_q, a_s, bt_q, bt_s, blocks)
     bm, bn, bk = blocks
     m, k = a_q.shape
     n = bt_q.shape[0]
-    c, mask = _outputs(a_q, n, em)
-    _launch(KERNEL_FP8,
+    c, mask = _outputs(a_q, n, em, dtype=out_dtype)
+    _launch(name,
             [a_q.data_ptr(), bt_q.data_ptr(), a_s.data_ptr(),
              bt_s.data_ptr(), c.data_ptr(), m, n, k, ldk, bm, bn, bk], mask,
             em, a_q.device)
@@ -628,41 +649,57 @@ def gemm_rng_fp8_kmajor(a_q: torch.Tensor, a_s: torch.Tensor,
 def gemm_rng_fp8_quantized(a_q: torch.Tensor, a_s: torch.Tensor,
                            b_q: torch.Tensor, b_s: torch.Tensor,
                            blocks: Tuple[int, int, int],
-                           em: Optional[_Emission]
+                           em: Optional[_Emission],
+                           out_dtype: torch.dtype = torch.float32
                            ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """The fp8 host on operands already quantized per logical block
     ``blocks`` = (bm, bn, bk), in JAX's layout (b_q (K, N), b_s (K/bk,
-    N/bn)): (C, flattened plane or None). Launches the kernel for CUDA
-    tensors, on b's bytes and scales transposed to K-major (both operands'
-    rows zero-padded to a multiple of 16 bytes where K is not); the plain
-    version for CPU ones."""
+    N/bn)): (C in ``out_dtype``, flattened plane or None). Launches the
+    kernel for CUDA tensors, on b's bytes and scales transposed to K-major
+    (both operands' rows zero-padded to a multiple of 16 bytes where K is
+    not); the plain version for CPU ones."""
     if not _check_device(a_q, KERNEL_FP8):
-        return _plain_fp8(a_q, a_s, b_q, b_s, blocks, em)
+        return _plain_fp8(a_q, a_s, b_q, b_s, blocks, em, out_dtype)
     if b_q.dim() != 2 or b_s.dim() != 2:
         raise ValueError(f"{KERNEL_FP8} takes a 2-d (K, N) operand, got "
                          f"{tuple(b_q.shape)}")
     return gemm_rng_fp8_kmajor(pad_k16(a_q), a_s, pad_k16(b_q.T),
-                               b_s.T.contiguous(), blocks, em)
+                               b_s.T.contiguous(), blocks, em, out_dtype)
 
 
 def _forward_fp8(a: torch.Tensor, b: torch.Tensor,
                  blocks: Tuple[int, int, int], em: Optional[_Emission]
                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """Quantize per logical block, then the fp8 host."""
+    """Quantize per logical block (the exact f32 upcast of bf16 operands),
+    then the fp8 host; C in the operands' dtype."""
     bm, bn, bk = blocks
     a_q, a_s = quant.quantize_tiled(a, bm, bk)
     b_q, b_s = quant.quantize_tiled(b, bk, bn)
-    return gemm_rng_fp8_quantized(a_q, a_s, b_q, b_s, blocks, em)
+    return gemm_rng_fp8_quantized(a_q, a_s, b_q, b_s, blocks, em, a.dtype)
 
 
-def _plain_fp8(a_q, a_s, b_q, b_s, blocks, em: Optional[_Emission]):
-    """The plain version of the fp8 host on any device."""
-    c = gemm_fp8_plain(a_q, a_s, b_q, b_s, blocks)
+def _plain_fp8(a_q, a_s, b_q, b_s, blocks, em: Optional[_Emission],
+               out_dtype: torch.dtype = torch.float32):
+    """The plain version of the fp8 host on any device: the f32 tile
+    product rounded once to ``out_dtype``."""
+    c = gemm_fp8_plain(a_q, a_s, b_q, b_s, blocks).to(out_dtype)
     return c, None if em is None else _plain_plane(em, a_q.device)
 
 
 def _bf16_f32(t: torch.Tensor) -> torch.Tensor:
     return t.to(torch.bfloat16).to(torch.float32)
+
+
+def _dgrad_cast(a: torch.Tensor):
+    """How the fp8 hosts' dgrad pair (JAX's ``_dgrad_pair_bf16`` /
+    ``_grouped_dgrad_pair_bf16``: operands rounded to bf16, f32 sums, the
+    result cast to the operand dtype) takes its operands: for f32 ones
+    bf16-rounded values in f32 -- a bf16 x bf16 torch.matmul would round
+    its f32 result to bf16 -- and for bf16 ones bf16 (a bf16 torch.matmul:
+    exact products, f32 sums rounded once to bf16, JAX's cast back)."""
+    if a.dtype == torch.bfloat16:
+        return lambda t: t.to(torch.bfloat16)
+    return _bf16_f32
 
 
 class _GemmRngFp8(torch.autograd.Function):
@@ -671,7 +708,7 @@ class _GemmRngFp8(torch.autograd.Function):
     taken with respect to the unquantized operands, which the residual
     keeps -- and the dgrad pair on bf16-rounded operands with f32
     accumulation, as JAX's ``_dgrad_pair_bf16`` (XLA there, torch.matmul
-    here: a bf16 x bf16 torch.matmul would round its result to bf16)."""
+    here; ``_dgrad_cast``)."""
 
     @staticmethod
     def forward(ctx, a, b, blocks, em):
@@ -684,12 +721,13 @@ class _GemmRngFp8(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dc, _dmask):
         a, b = ctx.saved_tensors
-        dcb = _bf16_f32(dc)
+        cast = _dgrad_cast(a)
+        dcb = cast(dc)
         da = db = None
         if ctx.needs_input_grad[0]:
-            da = dcb @ _bf16_f32(b).T
+            da = dcb @ cast(b).T
         if ctx.needs_input_grad[1]:
-            db = _bf16_f32(a).T @ dcb
+            db = cast(a).T @ dcb
         return da, db, None, None
 
 
@@ -702,10 +740,11 @@ def gemm_with_rng_fp8(a: torch.Tensor, b: torch.Tensor, *, mask_batch: int,
                       heads_global: int = 0, bh_offset=0
                       ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """C ~= a @ b computed on e4m3 operands quantized per logical block
-    (a per (bm, bk), b per (bk, bn)), and the packed keep plane made under
-    it -- bitwise the f32 host's plane. C is within
-    ``quant.quantize_error_bound()`` (Frobenius-relative) of the f32
-    product. The plane is None in Region 3 (the kernel runs with the
+    (a per (bm, bk), b per (bk, bn), from the exact f32 upcast of f32 or
+    bf16 operands), and the packed keep plane made under it -- bitwise the
+    f32 host's plane. C has the operands' dtype (rounded once) and is
+    within ``quant.quantize_error_bound()`` (Frobenius-relative) of the
+    f32 product. The plane is None in Region 3 (the kernel runs with the
     emission off). Differentiable: straight-through quantization, bf16
     dgrad pair. Arguments as ``gemm_with_rng``."""
     blocks, em = _emission(a, b, mask_batch, mask_heads, mask_sq, mask_sk,
@@ -734,7 +773,7 @@ def gemm_with_rng_fp8_plain(a: torch.Tensor, b: torch.Tensor, *,
     bm, bn, bk = blocks
     a_q, a_s = quant.quantize_tiled(a, bm, bk)
     b_q, b_s = quant.quantize_tiled(b, bk, bn)
-    c, mask = _plain_fp8(a_q, a_s, b_q, b_s, blocks, em)
+    c, mask = _plain_fp8(a_q, a_s, b_q, b_s, blocks, em, a.dtype)
     return c, _as_plane(mask, mask_batch, mask_heads, mask_sq, mask_sk)
 
 
@@ -743,13 +782,13 @@ def gemm_with_rng_fp8_plain(a: torch.Tensor, b: torch.Tensor, *,
 # --------------------------------------------------------------------------
 
 def gemm_grouped_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """The plain version of the grouped product: one ``gemm_ref`` an
-    expert."""
+    """The plain version of the grouped product: one ``gemm_ref`` an expert
+    (the upcast operands' f32 product, rounded once to their dtype)."""
     return torch.stack([gemm_ref(a[e], b[e]) for e in range(a.shape[0])])
 
 
 def _plain_grouped(a, b, em: Optional[_Emission]):
-    """The plain version of the f32 grouped host on any device."""
+    """The plain version of the grouped host on any device."""
     c = gemm_grouped_plain(a, b)
     return c, None if em is None else _plain_plane(em, a.device)
 
@@ -757,24 +796,29 @@ def _plain_grouped(a, b, em: Optional[_Emission]):
 def _forward_grouped(a: torch.Tensor, b: torch.Tensor,
                      em: Optional[_Emission]
                      ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """(C, flattened plane or None) of the f32 grouped host on the
-    operands' device."""
-    if not _check_device(a, KERNEL_GROUPED):
+    """(C in the operands' dtype, flattened plane or None) of the grouped
+    host on the operands' device: the kernel of their dtype on the card,
+    the plain version on the CPU."""
+    name = _GROUPED[a.dtype]
+    if not _check_device(a, name):
         return _plain_grouped(a, b, em)
     a, b = a.contiguous(), b.contiguous()
     e, m, k = a.shape
     n = b.shape[2]
-    c, mask = _outputs(a, n, em)
-    _launch(KERNEL_GROUPED,
-            [a.data_ptr(), b.data_ptr(), c.data_ptr(), e, m, n, k], mask, em,
-            a.device)
+    if name == KERNEL_GROUPED_BF16:
+        _check_bf16_rows(name, a, b)
+    c, mask = _outputs(a, n, em, dtype=a.dtype)
+    _launch(name, [a.data_ptr(), b.data_ptr(), c.data_ptr(), e, m, n, k],
+            mask, em, a.device)
     return c, mask
 
 
 def _grouped_dgrad(a, b, dc, needs, cast=lambda t: t):
     """The per-expert dgrad pair, da[e] = dc[e] @ b[e]^T and db[e] =
     a[e]^T @ dc[e], as JAX's ``_grouped_dgrad_pair`` (``cast`` rounds the
-    operands first: bf16 for the fp8 host's pair)."""
+    operands first: ``_dgrad_cast`` for the fp8 host's pair). On bf16
+    operands (dc is bf16 too) it is a bf16 torch.bmm: exact products, f32
+    sums rounded once, JAX's f32 einsum cast back to bf16."""
     dcc = cast(dc)
     da = dcc @ cast(b).transpose(1, 2) if needs[0] else None
     db = cast(a).transpose(1, 2) @ dcc if needs[1] else None
@@ -782,10 +826,10 @@ def _grouped_dgrad(a, b, dc, needs, cast=lambda t: t):
 
 
 class _GemmRngGrouped(torch.autograd.Function):
-    """Forward: the grouped kernel (or its plain version on the CPU).
-    Backward: the per-expert dgrad pair in f32 (JAX's
-    ``_grouped_dgrad_pair``, plain products outside any kernel there too);
-    the plane gets no gradient."""
+    """Forward: the grouped kernel of the operands' dtype (or its plain
+    version on the CPU). Backward: the per-expert dgrad pair with f32 sums
+    (JAX's ``_grouped_dgrad_pair``, plain products outside any kernel there
+    too); the plane gets no gradient."""
 
     @staticmethod
     def forward(ctx, a, b, em):
@@ -810,8 +854,9 @@ def gemm_with_rng_grouped(a: torch.Tensor, b: torch.Tensor, *,
                           max_mask_rows_per_block: int = 256,
                           heads_global: int = 0, bh_offset=0
                           ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """C[e] = a[e] @ b[e] (f32) for a (E, C, K) and b (E, K, N), and the
-    packed keep plane (B, H, SQ//32, SK) int32 made under the products:
+    """C[e] = a[e] @ b[e] for a (E, C, K) and b (E, K, N), both f32 or both
+    bf16 (f32 sums, C rounded once to their dtype), and the packed keep
+    plane (B, H, SQ//32, SK) int32 made under the products:
     mask blocks go round-robin over the E * gm * gn logical expert tiles
     and are indexed by Philox counters only, so the routing never reaches
     the bits. The plane is None in Region 3 (the kernel runs with the
@@ -861,15 +906,18 @@ def quantize_grouped(a: torch.Tensor, b: torch.Tensor,
 
 def gemm_grouped_fp8_plain(a_q: torch.Tensor, a_s: torch.Tensor,
                            b_q: torch.Tensor, b_s: torch.Tensor,
-                           blocks: Tuple[int, int, int]) -> torch.Tensor:
+                           blocks: Tuple[int, int, int],
+                           out_dtype: torch.dtype = torch.float32
+                           ) -> torch.Tensor:
     """The plain version of the grouped e4m3 tile product: ``gemm_fp8_plain``
-    on each expert's operands and scale rows."""
+    on each expert's operands and scale rows, rounded once to
+    ``out_dtype``."""
     bm, _, bk = blocks
     e, c, kdim = a_q.shape
     gm, gk = c // bm, kdim // bk
     return torch.stack([
         gemm_fp8_plain(a_q[i], a_s[i * gm:(i + 1) * gm], b_q[i],
-                       b_s[i * gk:(i + 1) * gk], blocks)
+                       b_s[i * gk:(i + 1) * gk], blocks).to(out_dtype)
         for i in range(e)])
 
 
@@ -891,28 +939,30 @@ def kmajor_grouped(b_q: torch.Tensor, b_s: torch.Tensor,
 def gemm_rng_grouped_fp8_kmajor(a_q: torch.Tensor, a_s: torch.Tensor,
                                 bt_q: torch.Tensor, bt_s: torch.Tensor,
                                 blocks: Tuple[int, int, int],
-                                em: Optional[_Emission]
+                                em: Optional[_Emission],
+                                out_dtype: torch.dtype = torch.float32
                                 ) -> Tuple[torch.Tensor,
                                            Optional[torch.Tensor]]:
     """The grouped fp8 host on K-major operands: a_q (E, C, K), a_s (E*gm,
     gk) as ``quantize_grouped`` gives them, bt_q (E, N, K) and bt_s (E*gn,
     gk) as ``kmajor_grouped`` does (rows of one stride, as ``pad_k16``
-    gives them): (C, flattened plane or None). Launches the kernel for CUDA
-    tensors (or raises), the plain version for CPU ones."""
+    gives them): (C in ``out_dtype``, flattened plane or None). Launches the
+    kernel instance of ``out_dtype`` for CUDA tensors (or raises), the
+    plain version for CPU ones."""
     e, m, k = a_q.shape
     n = bt_q.shape[1]
-    if not _check_device(a_q, KERNEL_GROUPED_FP8):
+    name = _GROUPED_FP8[out_dtype]
+    if not _check_device(a_q, name):
         _, bn, bk = blocks
         b_q = bt_q.transpose(1, 2)
         b_s = bt_s.reshape(e, n // bn, k // bk).transpose(1, 2).reshape(
             e * (k // bk), n // bn)
-        c = gemm_grouped_fp8_plain(a_q, a_s, b_q, b_s, blocks)
+        c = gemm_grouped_fp8_plain(a_q, a_s, b_q, b_s, blocks, out_dtype)
         return c, None if em is None else _plain_plane(em, a_q.device)
-    ldk = _check_fp8_kmajor(KERNEL_GROUPED_FP8, a_q, a_s, bt_q, bt_s,
-                            blocks, groups=e)
+    ldk = _check_fp8_kmajor(name, a_q, a_s, bt_q, bt_s, blocks, groups=e)
     bm, bn, bk = blocks
-    c, mask = _outputs(a_q, n, em)
-    _launch(KERNEL_GROUPED_FP8,
+    c, mask = _outputs(a_q, n, em, dtype=out_dtype)
+    _launch(name,
             [a_q.data_ptr(), bt_q.data_ptr(), a_s.data_ptr(),
              bt_s.data_ptr(), c.data_ptr(), e, m, n, k, ldk, bm, bn, bk],
             mask, em, a_q.device)
@@ -922,17 +972,18 @@ def gemm_rng_grouped_fp8_kmajor(a_q: torch.Tensor, a_s: torch.Tensor,
 def gemm_rng_grouped_fp8_quantized(a_q: torch.Tensor, a_s: torch.Tensor,
                                    b_q: torch.Tensor, b_s: torch.Tensor,
                                    blocks: Tuple[int, int, int],
-                                   em: Optional[_Emission]
+                                   em: Optional[_Emission],
+                                   out_dtype: torch.dtype = torch.float32
                                    ) -> Tuple[torch.Tensor,
                                               Optional[torch.Tensor]]:
     """The grouped fp8 host on operands already quantized by
     ``quantize_grouped`` (JAX's layout: b_q (E, K, N), b_s (E*gk, gn)):
-    (C, flattened plane or None). Launches the kernel for CUDA tensors, on
-    b's bytes and scales transposed to K-major (both operands' rows
-    zero-padded to a multiple of 16 bytes where K is not); the plain
-    version for CPU ones."""
+    (C in ``out_dtype``, flattened plane or None). Launches the kernel for
+    CUDA tensors, on b's bytes and scales transposed to K-major (both
+    operands' rows zero-padded to a multiple of 16 bytes where K is not);
+    the plain version for CPU ones."""
     if not _check_device(a_q, KERNEL_GROUPED_FP8):
-        c = gemm_grouped_fp8_plain(a_q, a_s, b_q, b_s, blocks)
+        c = gemm_grouped_fp8_plain(a_q, a_s, b_q, b_s, blocks, out_dtype)
         return c, None if em is None else _plain_plane(em, a_q.device)
     _, bn, bk = blocks
     if b_q.dim() != 3 or b_s.dim() != 2:
@@ -945,19 +996,20 @@ def gemm_rng_grouped_fp8_quantized(a_q: torch.Tensor, a_s: torch.Tensor,
                          f"tiles")
     bt_q, bt_s = kmajor_grouped(b_q, b_s, blocks)
     return gemm_rng_grouped_fp8_kmajor(pad_k16(a_q), a_s, pad_k16(bt_q),
-                                       bt_s, blocks, em)
+                                       bt_s, blocks, em, out_dtype)
 
 
 class _GemmRngGroupedFp8(torch.autograd.Function):
     """Forward: quantize per expert tile, then the grouped e4m3 kernel (or
-    its plain version on the CPU). Backward: straight-through quantization
-    and the per-expert dgrad pair on bf16-rounded operands with f32
-    accumulation, as JAX's ``_grouped_dgrad_pair_bf16``."""
+    its plain version on the CPU); C in the operands' dtype. Backward:
+    straight-through quantization and the per-expert dgrad pair on
+    bf16-rounded operands with f32 accumulation, as JAX's
+    ``_grouped_dgrad_pair_bf16``."""
 
     @staticmethod
     def forward(ctx, a, b, blocks, em):
         c, mask = gemm_rng_grouped_fp8_quantized(
-            *quantize_grouped(a, b, blocks), blocks, em)
+            *quantize_grouped(a, b, blocks), blocks, em, a.dtype)
         ctx.save_for_backward(a, b)
         if mask is not None:
             ctx.mark_non_differentiable(mask)
@@ -967,7 +1019,7 @@ class _GemmRngGroupedFp8(torch.autograd.Function):
     def backward(ctx, dc, _dmask):
         a, b = ctx.saved_tensors
         return (*_grouped_dgrad(a, b, dc, ctx.needs_input_grad[:2],
-                                cast=_bf16_f32), None, None)
+                                cast=_dgrad_cast(a)), None, None)
 
 
 def gemm_with_rng_grouped_fp8(a: torch.Tensor, b: torch.Tensor, *,
@@ -981,12 +1033,13 @@ def gemm_with_rng_grouped_fp8(a: torch.Tensor, b: torch.Tensor, *,
                               ) -> Tuple[torch.Tensor,
                                          Optional[torch.Tensor]]:
     """The grouped host on e4m3 operands quantized per expert tile (a per
-    (e, bm, bk), b per (e, bk, bn)), and the packed keep plane made under
-    it -- bitwise the f32 hosts' plane. In Region 3 the product runs in f32,
-    unquantized, on the f32 grouped kernel with the emission off, and the
-    plane is None, as JAX's host does. Differentiable: straight-through
-    quantization, bf16 dgrad pair (f32 pair in Region 3). Arguments as
-    ``gemm_with_rng``."""
+    (e, bm, bk), b per (e, bk, bn), from the exact f32 upcast of f32 or
+    bf16 operands), and the packed keep plane made under it -- bitwise the
+    f32 hosts' plane; C in the operands' dtype. In Region 3 the product runs
+    unquantized on the grouped kernel of the operands' dtype with the
+    emission off, and the plane is None, as JAX's host does.
+    Differentiable: straight-through quantization, bf16 dgrad pair (the
+    grouped host's pair in Region 3). Arguments as ``gemm_with_rng``."""
     blocks, em = _emission(a, b, mask_batch, mask_heads, mask_sq, mask_sk,
                            p, seed, salt, rounds, block_m, block_n, block_k,
                            mask_block_cols, max_mask_rows_per_block,
@@ -1017,6 +1070,6 @@ def gemm_with_rng_grouped_fp8_plain(a: torch.Tensor, b: torch.Tensor, *,
     if em is None:
         return gemm_grouped_plain(a, b), None
     ops = quantize_grouped(a, b, blocks)
-    c = gemm_grouped_fp8_plain(*ops, blocks)
+    c = gemm_grouped_fp8_plain(*ops, blocks, a.dtype)
     return c, _as_plane(_plain_plane(em, a.device), mask_batch, mask_heads,
                         mask_sq, mask_sk)

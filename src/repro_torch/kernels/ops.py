@@ -60,7 +60,8 @@ def fused_gemm_rng_fp8(x: torch.Tensor, w: torch.Tensor, *,
     """Producer GEMM on per-tile-scaled e4m3 operands with the dropout
     plane made under it (the paper's measured FP8 regime). The plane is
     bitwise the f32 host's; the GEMM is within the e4m3 error bound of
-    f32 (kernels/quant.py). Returns (quantized GEMM, None) in Region 3: the
+    f32 (kernels/quant.py) and comes back in the operands' dtype (f32 or
+    bf16, rounded once). Returns (quantized GEMM, None) in Region 3: the
     caller then runs ``dropout_mask``. Differentiable (straight-through
     quantization, bf16 dgrad pair)."""
     return gemm_with_rng_fp8(
@@ -80,10 +81,10 @@ def fused_gemm_rng_grouped(a3: torch.Tensor, b3: torch.Tensor, *,
                            heads_global: int = 0, bh_offset=0
                            ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Grouped (per-expert) GEMM with the dropout plane made under it: the
-    MoE expert einsum, or E=1 for the RWKV channel-mix GEMMs. The emission
-    grid is decoupled from the expert tiles, so routing / capacity never
-    reach the bits. Returns (C, None) in Region 3: the caller then runs
-    ``dropout_mask``."""
+    MoE expert einsum, or E=1 for the RWKV channel-mix GEMMs, on f32 or
+    bf16 operands (C in their dtype). The emission grid is decoupled from
+    the expert tiles, so routing / capacity never reach the bits. Returns
+    (C, None) in Region 3: the caller then runs ``dropout_mask``."""
     return gemm_with_rng_grouped(
         a3, b3, mask_batch=mask_batch, mask_heads=mask_heads,
         mask_sq=mask_sq, mask_sk=mask_sk, p=p, seed=seed, salt=salt,
@@ -102,8 +103,9 @@ def fused_gemm_rng_grouped_fp8(a3: torch.Tensor, b3: torch.Tensor, *,
                                ) -> Tuple[torch.Tensor,
                                           Optional[torch.Tensor]]:
     """Grouped expert GEMM on per-expert-tile e4m3 operands with the dropout
-    plane made under it (bitwise the f32 host's). Returns (unquantized f32
-    product, None) in Region 3, as the JAX host does."""
+    plane made under it (bitwise the f32 host's); C in the operands' dtype
+    (f32 or bf16). Returns (the unquantized product in that dtype, None)
+    in Region 3, as the JAX host does."""
     return gemm_with_rng_grouped_fp8(
         a3, b3, mask_batch=mask_batch, mask_heads=mask_heads,
         mask_sq=mask_sq, mask_sk=mask_sk, p=p, seed=seed, salt=salt,

@@ -13,7 +13,9 @@ most 2**-4; a per-tile-scaled e4m3 GEMM lands within 0.06 Frobenius-
 relative of the f32 product (``quantize_error_bound``).
 
 Quantization runs in plain torch, outside the kernel, as it runs outside
-the Pallas call in the JAX package. A build without ``torch.float8_e4m3fn``
+the Pallas call in the JAX package, on the exact f32 upcast of its input:
+bf16 operands (bf16 compute) quantize to the bytes and scales of their f32
+values, as JAX's ``x.astype(f32)`` does. A build without ``torch.float8_e4m3fn``
 raises: there is no f32 stand-in.
 """
 from __future__ import annotations

@@ -94,6 +94,36 @@ def moe_init(gen: torch.Generator, cfg: ModelConfig,
     }
 
 
+def _route(x2d, router_w, moe: MoEConfig):
+    """Top-k routing of x2d (T, D): (probs (T, E) f32, gate (T, k)
+    renormalised, expert idx (T, k)). The top k are taken with JAX's tie
+    rule (``jax.lax.top_k``: of equal values the lower index first), by a
+    stable descending sort: at bf16 the router logits are bf16 values, so
+    two experts of one token tie often, and ``torch.topk`` orders ties in
+    no stated way."""
+    logits = (x2d @ router_w.to(x2d.dtype)).to(torch.float32)   # (T, E)
+    probs = torch.softmax(logits, dim=-1)
+    gate, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate, idx = gate[:, :moe.top_k], idx[:, :moe.top_k]         # (T, k)
+    return probs, gate / gate.sum(dim=-1, keepdim=True), idx
+
+
+def _destinations(idx, e: int, cap: int):
+    """Each (token, slot)'s row in the (E * cap, D) expert buffer: (one-hot
+    (E, T*k) int64, keep (T*k,), dest (T*k,)). The position in an expert
+    is a cumulative count over (token, slot) order, the one-hot laid out
+    (E, T*k) so the count runs along its inner dimension (a scatter, not
+    F.one_hot, which reads the indices' range back to the host); slots past
+    the capacity are dropped (dest 0, keep False)."""
+    flat_idx = idx.reshape(-1)
+    onehot = torch.zeros((e, flat_idx.numel()), dtype=torch.int64,
+                         device=idx.device).scatter_(0, flat_idx[None], 1)
+    pos = (onehot.cumsum(dim=1) - 1).gather(0, flat_idx[None])[0]
+    keep = pos < cap
+    dest = torch.where(keep, flat_idx * cap + pos, torch.zeros_like(pos))
+    return onehot, keep, dest
+
+
 def _dispatch_combine(x2d, router_w, w_gate, w_up, w_down, seed=None,
                       salt=None, *, moe: MoEConfig,
                       hs: Optional[_GroupedHostCtx] = None):
@@ -104,24 +134,10 @@ def _dispatch_combine(x2d, router_w, w_gate, w_up, w_down, seed=None,
     k = moe.top_k
     dt = x2d.dtype
 
-    logits = (x2d @ router_w.to(dt)).to(torch.float32)          # (T, E)
-    probs = torch.softmax(logits, dim=-1)
-    gate, idx = torch.topk(probs, k, dim=-1, sorted=True)       # (T, k)
-    gate = gate / gate.sum(dim=-1, keepdim=True)
-
+    probs, gate, idx = _route(x2d, router_w, moe)
     cap = moe_expert_capacity(moe, t)
-
-    # position-in-expert by a cumulative count over (token, slot) order;
-    # the one-hot is laid out (E, T*k) so the count runs along its inner
-    # dimension (a scatter, not F.one_hot, which reads the indices' range
-    # back to the host)
-    flat_idx = idx.reshape(t * k)
     flat_gate = gate.reshape(t * k)
-    onehot = torch.zeros((e, t * k), dtype=torch.int64,
-                         device=x2d.device).scatter_(0, flat_idx[None], 1)
-    pos = (onehot.cumsum(dim=1) - 1).gather(0, flat_idx[None])[0]
-    keep = pos < cap
-    dest = torch.where(keep, flat_idx * cap + pos, torch.zeros_like(pos))
+    onehot, keep, dest = _destinations(idx, e, cap)
 
     # aux load-balance loss (GShard): E * sum_e f_e * P_e
     keep_f = keep[None].to(torch.float32)

@@ -9,8 +9,8 @@ Model level: ``gemm_with_mask`` at gemm_dtype "f32" / "bf16" under f32 and
 bf16 activations (JAX's casts), the layers' casts (RMSNorm, RoPE, SwiGLU,
 embedding, f32 unembedding), ``attention_xla`` with bf16 probabilities
 (alone and through a step with ``attn_probs_bf16``), the schedule (JAX's
-text for bf16 dense plans; the grouped bf16 host and the fp8 host under
-bf16 compute still raise), and 3-step ``make_train_step`` trajectories at
+text for bf16 dense and MoE plans; what the port still refuses at bf16
+compute raises), and 3-step ``make_train_step`` trajectories at
 ``compute_dtype=bf16`` of the reduced llama2 and yi (GQA) against JAX's,
 with the JAX weights carried over by ``params_from_jax``; replay ==
 premask bitwise in the port; gemm_dtype "f32" under bf16 compute runs the
@@ -188,23 +188,27 @@ def test_bf16_gemm_rng_region3_and_grads_equal_jax():
 
 
 def test_bf16_host_checks_and_cpu_launches_nothing():
-    """bf16 operands take the bf16 host's plain version on the CPU and
-    launch nothing; mixed dtypes and dtypes without a kernel raise, as do
-    bf16 operands for the grouped and fp8 hosts (not ported)."""
+    """bf16 operands take the plain versions of the dense, grouped and fp8
+    hosts on the CPU (C in bf16) and launch nothing; mixed dtypes and
+    dtypes without a kernel raise."""
     reset_launch_counts()
     kw = dict(mask_batch=1, mask_heads=1, mask_sq=32, mask_sk=32, p=0.1,
               seed=0)
     a = torch.zeros((64, 32), dtype=BF16)
-    c, _ = tg.gemm_with_rng(a, a.T, **kw)
-    assert c.dtype == BF16 and not c.any()
+    for fn, ops in ((tg.gemm_with_rng, (a, a.T)),
+                    (tg.gemm_with_rng_grouped, (a[None], a.T[None])),
+                    (tg.gemm_with_rng_fp8, (a, a.T)),
+                    (tg.gemm_with_rng_grouped_fp8, (a[None], a.T[None]))):
+        c, _ = fn(*ops, **kw)
+        assert c.dtype == BF16 and not c.any(), fn.__name__
     with pytest.raises(NotImplementedError, match="one dtype"):
         tg.gemm_with_rng(a, a.T.float(), **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="f32 or bf16"):
         tg.gemm_with_rng(a.half(), a.T.half(), **kw)
-    with pytest.raises(NotImplementedError, match="grouped bf16"):
-        tg.gemm_with_rng_grouped(a[None], a.T[None], **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tg.gemm_with_rng_fp8(a, a.T, **kw)
+    with pytest.raises(NotImplementedError, match="one dtype"):
+        tg.gemm_with_rng_grouped(a[None], a.T[None].float(), **kw)
+    with pytest.raises(NotImplementedError, match="f32 or bf16"):
+        tg.gemm_with_rng_fp8(a.half(), a.T.half(), **kw)
     q = torch.zeros((1, 2, 64, 16), dtype=BF16)
     with pytest.raises(NotImplementedError, match="one dtype"):
         tf.check_kernel_shapes(q, q.float(), q)
@@ -412,8 +416,9 @@ def test_bf16_layer_casts_equal_jax():
 @pytest.mark.parametrize("site", ["qkv", "prev_gemm", "ffn_up", "ffn_down"])
 @pytest.mark.parametrize("replay", ["auto", "off"])
 def test_bf16_dense_plans_equal_jax(site, replay):
-    """Dense bf16 hosts plan as JAX's: the same explain() text and
-    records; a grouped bf16 host (MoE) still raises."""
+    """bf16 hosts plan as JAX's: the same explain() text and records for
+    the dense stacks and, at the FFN sites, the MoE stack's grouped
+    hosts."""
     kw = dict(mode="overlap", site=site, p=0.1, gemm_dtype="bf16",
               attn_replay=replay)
     for arch in ("llama2-7b", "yi-6b"):
@@ -425,10 +430,15 @@ def test_bf16_dense_plans_equal_jax(site, replay):
         assert sched.explain() == jsched.explain()
         assert sched.records() == jsched.records()
     if site.startswith("ffn"):
-        with pytest.raises(NotImplementedError, match="grouped bf16"):
-            compile_schedule(get_arch("moonshot-v1-16b-a3b", reduced=True),
-                             DropoutPlanConfig(**kw), 2, 128,
-                             attn_impl="pallas")
+        arch = "moonshot-v1-16b-a3b"
+        sched = compile_schedule(get_arch(arch, reduced=True),
+                                 DropoutPlanConfig(**kw), 2, 128,
+                                 attn_impl="pallas")
+        jsched = j_compile(j_get_arch(arch, reduced=True), JPlanConfig(**kw),
+                           2, 128, attn_impl="pallas")
+        assert sched.explain() == jsched.explain()
+        assert producer.HOW_GEMM_GROUPED in {a.emit_how
+                                             for a in sched.assignments}
 
 
 # ------------------------------------------------------------ training
@@ -582,23 +592,25 @@ def test_bf16_eval_step_equals_jax():
 
 
 def test_bf16_unported_raise():
-    """What the bf16 slice leaves out raises, naming the ROADMAP: the
-    grouped bf16 host (a MoE expert einsum under bf16 activations) and the
-    fp8 host under bf16 compute."""
-    cfg = get_arch("moonshot-v1-16b-a3b", reduced=True)
-    run = dataclasses.replace(
-        base._port_run("moonshot-v1-16b-a3b", base._knobs("ffn_up", "off")),
-        model=cfg)
-    master = base.init_train_state(cfg, seed=0, device="cpu")["master"]
-    x, y = (torch.from_numpy(t) for t in batch_for_step(cfg, run.shape, 0))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_grad_fn(cfg, run, compute_dtype=BF16)(master, x, y, 0)
-    llama = get_arch("llama2-7b", reduced=True)
-    run = base._port_run("llama2-7b", _bf16_knobs("ffn_up", "off", "fp8"))
-    master = base.init_train_state(llama, seed=0, device="cpu")["master"]
-    x, y = (torch.from_numpy(t) for t in batch_for_step(llama, run.shape, 0))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_grad_fn(llama, run, compute_dtype=BF16)(master, x, y, 0)
+    """What the port still refuses at bf16 compute raises, naming the
+    ROADMAP: fused-mode dropout training (the in-attention RNG, on the
+    reduced llama2 and, with its grouped hosts now ported, the reduced
+    moonshot) and LOCAL / recurrent layers (recurrentgemma). The grouped
+    bf16 host and the fp8 host under bf16 compute run
+    (tests/test_torch_bf16_grouped.py)."""
+    for arch in ("llama2-7b", "moonshot-v1-16b-a3b"):
+        cfg = get_arch(arch, reduced=True)
+        knobs = _bf16_knobs("xla", "off")
+        knobs["dropout"]["mode"] = "fused"
+        run = base._port_run(arch, knobs)
+        master = base.init_train_state(cfg, seed=0, device="cpu")["master"]
+        x, y = (torch.from_numpy(t)
+                for t in batch_for_step(cfg, run.shape, 0))
+        with pytest.raises(NotImplementedError, match="ROADMAP.*fused"):
+            make_grad_fn(cfg, run, compute_dtype=BF16)(master, x, y, 0)
+    with pytest.raises(NotImplementedError, match="ROADMAP.*LOCAL"):
+        base.init_train_state(get_arch("recurrentgemma-9b", reduced=True),
+                              seed=0, device="cpu")
 
 
 # ------------------------------------------------------------ on the card

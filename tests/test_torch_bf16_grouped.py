@@ -1,0 +1,471 @@
+"""The port's grouped bf16 host, the e4m3 hosts on bf16 operands and MoE /
+RWKV-hybrid training at ``compute_dtype=bf16`` against the JAX package on
+the CPU.
+
+Kernel level: the grouped bf16 host (``gemm_with_rng_grouped`` on bf16
+operands) against JAX's grouped kernel in interpret mode -- planes bitwise
+JAX's, the oracle's and the f32 host's; C bf16 within 3e-2; Region 3; the
+dgrad pair within 3e-2 -- at a capacity that is not a multiple of 128 (240:
+the card's 128-row tiles straddle expert rows there) and at E=1; the e4m3
+hosts, dense and grouped, on bf16 operands (C bf16 within 3e-2 of JAX's,
+which writes C in the operand dtype; planes bitwise; Region 3 the plain
+product of the operands' dtype). Producer level: ``grouped_gemm_seeded``'s
+casts at gemm_dtype "f32" / "bf16" under f32 and bf16 activations, as
+JAX's. Model level: the MoE routing's expert indices and buffer rows equal
+JAX's at bf16 (bf16 router logits tie often: the port breaks ties as
+``jax.lax.top_k`` does), 3-step ``make_train_step`` trajectories at
+``compute_dtype=bf16`` of the reduced moonshot and arctic and of an RWKV
+hybrid against JAX's (``tests/test_torch_bf16.py``'s limits), and replay ==
+premask bitwise. Inputs are made with numpy from a seed and rounded to bf16
+before either side sees them; the JAX kernels run in Pallas interpret mode,
+the port's wrappers take their plain versions on the CPU.
+
+    PYTHONPATH=src python -m pytest -q tests/test_torch_bf16_grouped.py
+
+The ``gpu``-marked test holds the grouped bf16 kernel and the e4m3 kernels
+on bf16 operands against their plain versions on the card and skips here.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.config import get_arch as j_get_arch
+from repro.config.base import DropoutPlanConfig as JPlanConfig
+from repro.config.base import OptimizerConfig as JOptimizerConfig
+from repro.config.base import RunConfig as JRunConfig
+from repro.config.base import ShapeConfig as JShapeConfig
+from repro.config.base import ShardingConfig as JShardingConfig
+from repro.config.base import StepKind as JStepKind
+from repro.config.base import TrainConfig as JTrainConfig
+from repro.core import producer as jproducer
+from repro.data.pipeline import batch_for_step as j_batch
+from repro.kernels import gemm_rng as jg
+from repro.kernels.ref import philox_mask_ref
+from repro.train.loop import init_train_state as j_init_state
+from repro.train.loop import make_train_step as j_make_train_step
+from repro_torch import tree
+from repro_torch.config import get_arch
+from repro_torch.config.base import (
+    DropoutPlanConfig,
+    OptimizerConfig,
+    RunConfig,
+    ShapeConfig,
+    ShardingConfig,
+    StepKind,
+    TrainConfig,
+)
+from repro_torch.convert import params_from_jax
+from repro_torch.core import producer
+from repro_torch.core.producer import moe_expert_capacity
+from repro_torch.data import batch_for_step
+from repro_torch.kernels import gemm_rng as tg
+from repro_torch.kernels import launch_counts, reset_launch_counts
+from repro_torch.models import moe as tmoe
+from repro_torch.optim import adamw_init
+from repro_torch.train import (
+    compile_run_schedule,
+    init_train_state,
+    make_grad_fn,
+    make_train_step,
+)
+
+import test_torch_bf16 as b16
+import test_torch_grouped as grp
+
+BF16 = torch.bfloat16
+TOL = b16.TOL
+_u32, _bf16_np, _t, _j, _f32 = b16._u32, b16._bf16_np, b16._t, b16._j, \
+    b16._f32
+
+# (E, C, K, N), logical blocks, plane (B, H, SQ, SK), mask columns: a MoE
+# grid, capacity 240 (not a multiple of 128) with blocks that cut across
+# the card's tiles, and the E=1 channel-mix case
+GROUPED_CASES = grp.GROUPED_CASES
+
+
+def _operands(seed, e, c, k, n):
+    rng = np.random.default_rng(seed)
+    return _bf16_np(rng, (e, c, k)), _bf16_np(rng, (e, k, n))
+
+
+# ------------------------------------------------------------- kernels
+
+@pytest.mark.parametrize("case", range(len(GROUPED_CASES)))
+def test_grouped_bf16_host_equals_jax(case):
+    """The grouped host on bf16 operands against JAX's grouped kernel on
+    the same bf16 operands: C bf16 within 3e-2 of JAX's and of the f32
+    product; the plane bitwise JAX's, the oracle's and the f32 grouped
+    host's; the plain version is the wrapper's CPU path."""
+    (e, c, k, n), blocks, plane, cols = GROUPED_CASES[case]
+    a, b = _operands(100 + case, e, c, k, n)
+    kw = grp._kw(blocks, plane, cols)
+    y, mask = tg.gemm_with_rng_grouped(_t(a), _t(b), **kw)
+    jy, jmask = jg.gemm_with_rng_grouped(_j(a), _j(b), **kw)
+    assert y.dtype == BF16 and jy.dtype == jnp.bfloat16
+    np.testing.assert_allclose(_f32(y), _f32(jy), **TOL)
+    np.testing.assert_allclose(_f32(y), np.einsum("ecd,edf->ecf", a, b),
+                               **TOL)
+    np.testing.assert_array_equal(_u32(mask), np.asarray(jmask))
+    mb, mh, sq, sk = plane
+    np.testing.assert_array_equal(
+        _u32(mask), np.asarray(philox_mask_ref(mb, mh, sq, sk, 0.1, 7,
+                                               salt=3)))
+    _, mask32 = tg.gemm_with_rng_grouped(torch.from_numpy(a),
+                                         torch.from_numpy(b), **kw)
+    assert torch.equal(mask, mask32)
+    py, pmask = tg.gemm_with_rng_grouped_plain(_t(a), _t(b), **kw)
+    assert torch.equal(py, y) and torch.equal(pmask, mask)
+
+
+def test_grouped_bf16_region3_and_grads_equal_jax():
+    """Region 3 on bf16 operands at capacity 240: no plane and the plain
+    bf16 grouped product, as JAX's. The dgrad pair through a hosting call
+    at capacity 240: bf16 da / db within 3e-2 of JAX's (f32 sums rounded
+    once to bf16)."""
+    a, b = _operands(7, 2, 240, 64, 8)
+    kw = dict(mask_batch=1, mask_heads=32, mask_sq=1024, mask_sk=1024,
+              p=0.25, seed=5, block_m=240, block_n=8, block_k=64)
+    y, mask = tg.gemm_with_rng_grouped(_t(a), _t(b), **kw)
+    jy, jmask = jg.gemm_with_rng_grouped(_j(a), _j(b), **kw)
+    assert mask is None and jmask is None and y.dtype == BF16
+    np.testing.assert_allclose(_f32(y), _f32(jy), **TOL)
+    assert torch.equal(y, tg.gemm_grouped_plain(_t(a), _t(b)))
+    (e, c, k, n), blocks, plane, cols = GROUPED_CASES[1]
+    a, b = _operands(8, e, c, k, n)
+    dc = _bf16_np(np.random.default_rng(9), (e, c, n))
+    kw = grp._kw(blocks, plane, cols)
+    ta, tb_ = _t(a).requires_grad_(), _t(b).requires_grad_()
+    y, _ = tg.gemm_with_rng_grouped(ta, tb_, **kw)
+    y.backward(_t(dc))
+
+    def jloss(x, w):
+        out = jg.gemm_with_rng_grouped(x, w, **kw)[0]
+        return jnp.sum(out.astype(jnp.float32) * _j(dc).astype(jnp.float32))
+
+    jda, jdb = jax.grad(jloss, argnums=(0, 1))(_j(a), _j(b))
+    assert ta.grad.dtype == tb_.grad.dtype == BF16
+    np.testing.assert_allclose(_f32(ta.grad), _f32(jda), **TOL)
+    np.testing.assert_allclose(_f32(tb_.grad), _f32(jdb), **TOL)
+
+
+# the e4m3 hosts on bf16 operands: (dense | grouped, Region 3 or not)
+FP8_CASES = [("dense", False), ("grouped", False), ("dense", True),
+             ("grouped", True)]
+
+
+@pytest.mark.parametrize("host,region3", FP8_CASES)
+def test_fp8_hosts_on_bf16_operands_equal_jax(host, region3):
+    """The e4m3 hosts quantize the exactly upcast bf16 operands and write C
+    in bf16, as JAX's (``out_dtype=a.dtype``): C within 3e-2 of JAX's, the
+    plane bitwise JAX's and the f32 host's; the dgrad pair bf16 within
+    3e-2. In Region 3 no plane: the dense host's quantized product and the
+    grouped host's unquantized bf16 grouped product, as JAX's."""
+    if host == "dense":
+        rng = np.random.default_rng(11)
+        a, b = _bf16_np(rng, (256, 128)), _bf16_np(rng, (128, 256))
+        kw = dict(mask_batch=2, mask_heads=2, mask_sq=64, mask_sk=128,
+                  p=0.25, seed=4, salt=2, block_m=128, block_n=128,
+                  block_k=64, mask_block_cols=128)
+        if region3:
+            kw = dict(kw, mask_batch=8, mask_heads=16, mask_sq=2048,
+                      mask_sk=2048, mask_block_cols=2048)
+        fn, jfn = tg.gemm_with_rng_fp8, jg.gemm_with_rng_fp8
+        plain = tg.gemm_with_rng_fp8_plain
+    else:
+        (e, c, k, n), blocks, plane, cols = GROUPED_CASES[1]
+        a, b = _operands(12, e, c, k, n)
+        kw = grp._kw(blocks, plane, cols)
+        if region3:
+            kw = dict(kw, mask_batch=8, mask_heads=32, mask_sq=1024,
+                      mask_sk=1024, mask_block_cols=2048)
+        fn, jfn = tg.gemm_with_rng_grouped_fp8, jg.gemm_with_rng_grouped_fp8
+        plain = tg.gemm_with_rng_grouped_fp8_plain
+    ta, tb_ = _t(a).requires_grad_(), _t(b).requires_grad_()
+    y, mask = fn(ta, tb_, **kw)
+    jy, jmask = jfn(_j(a), _j(b), **kw)
+    assert y.dtype == BF16 and jy.dtype == jnp.bfloat16
+    y_ = y.detach()
+    np.testing.assert_allclose(_f32(y_), _f32(jy), **TOL)
+    py, pmask = plain(_t(a), _t(b), **kw)
+    assert torch.equal(py, y_)
+    if region3:
+        assert mask is None and jmask is None and pmask is None
+        if host == "grouped":
+            assert torch.equal(y_, tg.gemm_grouped_plain(_t(a), _t(b)))
+    else:
+        np.testing.assert_array_equal(_u32(mask), np.asarray(jmask))
+        _, mask32 = fn(torch.from_numpy(a), torch.from_numpy(b), **kw)
+        assert torch.equal(mask, mask32) and torch.equal(pmask, mask)
+    dc = _bf16_np(np.random.default_rng(13), tuple(y.shape))
+    y.backward(_t(dc))
+
+    def jloss(x, w):
+        return jnp.sum(jfn(x, w, **kw)[0].astype(jnp.float32)
+                       * _j(dc).astype(jnp.float32))
+
+    jda, jdb = jax.grad(jloss, argnums=(0, 1))(_j(a), _j(b))
+    assert ta.grad.dtype == tb_.grad.dtype == BF16
+    assert jda.dtype == jnp.bfloat16
+    np.testing.assert_allclose(_f32(ta.grad), _f32(jda), **TOL)
+    np.testing.assert_allclose(_f32(tb_.grad), _f32(jdb), **TOL)
+
+
+# ------------------------------------------------------------- producer
+
+@pytest.mark.parametrize("act", ["f32", "bf16"])
+@pytest.mark.parametrize("gemm_dtype", ["f32", "bf16"])
+def test_grouped_gemm_seeded_casts_equal_jax(act, gemm_dtype):
+    """``grouped_gemm_seeded`` casts as JAX's: "bf16" rounds both operands
+    to bf16 and C back to the activations' dtype, "f32" runs the kernel of
+    the operands' own dtype (bf16 activations take the bf16 kernel as they
+    are). y has JAX's dtype and is within 3e-2 of it (3e-5 where both run
+    in f32); the plane is bitwise JAX's."""
+    (e, c, k, n), _, (mb, mh, sq, sk), _ = GROUPED_CASES[0]
+    a, b = _operands(14, e, c, k, n)
+    if act == "f32":
+        rng = np.random.default_rng(15)
+        a = rng.standard_normal((e, c, k)).astype(np.float32)
+    plan, jplan = grp._plans("ffn_up", gemm_dtype=gemm_dtype)
+    tdt, jdt = (torch.float32, jnp.float32) if act == "f32" else \
+        (BF16, jnp.bfloat16)
+    reset_launch_counts()
+    y, mask = producer.grouped_gemm_seeded(
+        torch.from_numpy(a).to(tdt), torch.from_numpy(b).to(tdt), plan,
+        (mb, mh, sq, sk), 11, 3, producer.HOW_GEMM_GROUPED)
+    jy, jmask, how = jproducer.grouped_gemm_seeded(
+        jnp.asarray(a, jdt), jnp.asarray(b, jdt), jplan, (mb, mh, sq, sk),
+        jnp.uint32(11), jnp.uint32(3))
+    assert how == producer.HOW_GEMM_GROUPED
+    assert y.dtype == tdt and str(jy.dtype) == str(y.dtype).split(".")[1]
+    tol = grp.C_TOL if (act, gemm_dtype) == ("f32", "f32") else TOL
+    np.testing.assert_allclose(_f32(y), _f32(jy), **tol)
+    np.testing.assert_array_equal(_u32(mask), np.asarray(jmask))
+    assert set(launch_counts().values()) == {0}
+
+
+# ------------------------------------------------------------- routing
+
+@pytest.mark.parametrize("arch", ["moonshot-v1-16b-a3b", "arctic-480b"])
+def test_routing_equals_jax_at_bf16(arch):
+    """The MoE dispatch's expert indices and buffer rows at bf16 equal
+    JAX's: bf16 logits of one f32 sum rounded once on both sides, and ties
+    (common among bf16 logits: the case has them) broken as
+    ``jax.lax.top_k`` breaks them, lower expert first."""
+    cfg = get_arch(arch, reduced=True)
+    m = cfg.moe
+    rng = np.random.default_rng(16)
+    t = 256
+    x = _bf16_np(rng, (t, cfg.d_model))
+    w = _bf16_np(rng, (cfg.d_model, m.n_experts)) * np.float32(0.02)
+    probs, gate, idx = tmoe._route(_t(x), torch.from_numpy(w), m)
+    cap = moe_expert_capacity(m, t)
+    _, keep, dest = tmoe._destinations(idx, m.n_experts, cap)
+    # JAX's routing, line for line (repro/models/moe.py::_dispatch_combine)
+    jl = (_j(x) @ jnp.asarray(w).astype(jnp.bfloat16)).astype(jnp.float32)
+    jprobs = jax.nn.softmax(jl, axis=-1)
+    jgate, jidx = jax.lax.top_k(jprobs, m.top_k)
+    flat_idx = jidx.reshape(t * m.top_k)
+    onehot = jax.nn.one_hot(flat_idx, m.n_experts, dtype=jnp.float32)
+    pos = jnp.sum((jnp.cumsum(onehot, axis=0) - 1.0) * onehot,
+                  axis=-1).astype(jnp.int32)
+    jkeep = pos < cap
+    jdest = jnp.where(jkeep, flat_idx * cap + pos, 0)
+    srt = np.sort(np.asarray(jl), axis=1)
+    assert (np.diff(srt, axis=1) == 0).any(), "no tied logits to break"
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(jidx))
+    np.testing.assert_array_equal(dest.numpy(), np.asarray(jdest))
+    np.testing.assert_array_equal(keep.numpy(), np.asarray(jkeep))
+    np.testing.assert_allclose(gate.numpy(), np.asarray(
+        jgate / jnp.sum(jgate, axis=-1, keepdims=True)), atol=1e-6)
+
+
+# ------------------------------------------------------------- training
+
+SEQ, BATCH = 128, 2
+OPT = dict(lr=1e-3, warmup_steps=1, total_steps=10)
+STEPS = 3
+# Step 0, from equal weights, at test_torch_bf16.py's limits (loss 1e-4,
+# grad norm 2e-3: measured 8.6e-6 / 1.9e-3 on the reduced moonshot). After
+# the updates the weights differ by up to about lr (AdamW turns a gradient
+# flipped by one bf16 ulp into a step the other way), and in a MoE the
+# router carries that into the tokens' experts, as at fp8
+# (test_torch_moe.py's FP8_APPROX, FP8_GRAD_NORM_APPROX): measured 1.0e-4
+# (loss) and 5.7e-3 (grad norm) on the reduced moonshot at step 2.
+LATER_LOSS_REL = 1e-3
+LATER_GRAD_NORM_REL = 1e-2
+# The RWKV hybrid's gradients at bf16 move with every rounding. JAX
+# against itself on this model, its flash kernels against its tensor-op
+# attention (both bf16, the same bits): step-0 grad norm 6.711 against
+# 6.901 (2.8e-2; the f32 step's is 7.361), 5.4e-2 at step 2, and a leaf's
+# change over the 3 steps up to 0.27 apart. The port against JAX's flash
+# path: grad norm 3.5e-2 at step 0, 2.4e-2 at step 2 (1.2e-2 from JAX's
+# tensor-op path at step 0), a leaf's change up to 0.30, the loss within
+# 1.4e-4. A master left unchanged still reads 1, one moved the wrong way 2.
+HYBRID_GRAD_NORM_REL = 5e-2
+HYBRID_CHANGE_REL = 0.5
+
+
+def _cfgs(arch):
+    """(JAX config, port config): the reduced moonshot or arctic, or the
+    (WKV, FULL) RWKV hybrid with channel-mix FFNs."""
+    if arch == "rwkv-hybrid":
+        return grp._hybrid_cfgs()
+    return j_get_arch(arch, reduced=True), get_arch(arch, reduced=True)
+
+
+def _runs(arch, site, dtype, replay):
+    jcfg, cfg = _cfgs(arch)
+    kw = dict(mode="overlap", site=site, gemm_dtype=dtype, p=0.1,
+              attn_replay=replay, seed=3)
+    shape = ("t", SEQ, BATCH)
+    port = RunConfig(
+        model=cfg, shape=ShapeConfig(*shape, StepKind.TRAIN),
+        sharding=ShardingConfig(attn_impl="pallas", remat="block"),
+        dropout=DropoutPlanConfig(**kw),
+        train=TrainConfig(optimizer=OptimizerConfig(**OPT)))
+    jrun = JRunConfig(
+        model=jcfg, shape=JShapeConfig(*shape, JStepKind.TRAIN),
+        sharding=JShardingConfig(attn_impl="pallas", remat="block"),
+        dropout=JPlanConfig(**kw),
+        train=JTrainConfig(optimizer=JOptimizerConfig(**OPT)))
+    return port, jrun
+
+
+TRAJECTORIES = [("moonshot-v1-16b-a3b", "ffn_up", "bf16", "auto"),
+                ("arctic-480b", "ffn_down", "fp8", "off"),
+                ("rwkv-hybrid", "ffn_up", "bf16", "off")]
+
+
+@pytest.mark.parametrize("arch,site,dtype,replay", TRAJECTORIES)
+def test_bf16_three_step_trajectory_equals_jax(arch, site, dtype, replay):
+    """3 ``make_train_step`` steps at ``compute_dtype=bf16`` from JAX's
+    initial state with the grouped hosts planned: loss, ce and aux within
+    LOSS_REL at step 0 and LATER_LOSS_REL after it, grad norm within
+    GRAD_NORM_REL at step 0 and LATER_GRAD_NORM_REL after it (the RWKV
+    hybrid: HYBRID_GRAD_NORM_REL), the final f32 master within
+    WEIGHT_ATOL and each leaf's change over the steps within CHANGE_REL
+    of JAX's (``tests/test_torch_bf16.py``; the hybrid:
+    HYBRID_CHANGE_REL)."""
+    run, jrun = _runs(arch, site, dtype, replay)
+    sched = compile_run_schedule(run.model, run)
+    assert producer.HOW_GEMM_GROUPED in {a.emit_how
+                                         for a in sched.assignments}
+    jstate = j_init_state(jax.random.PRNGKey(0), jrun.model)
+    master0 = jax.tree.map(np.asarray, jstate["master"])
+    jstep = jax.jit(j_make_train_step(jrun.model, jrun,
+                                      compute_dtype=jnp.bfloat16))
+    master = params_from_jax(master0, run.model, device="cpu")
+    step = make_train_step(run.model, run, compute_dtype=BF16)
+    state = {"master": master, "opt": adamw_init(master), "step": 0}
+    for i in range(STEPS):
+        x, y = batch_for_step(run.model, run.shape, i, seed=0)
+        jstate, jm = jstep(jstate, *(jnp.asarray(t) for t in j_batch(
+            jrun.model, jrun.shape, i, seed=0)))
+        state, m = step(state, torch.from_numpy(x), torch.from_numpy(y))
+        loss_rel = b16.LOSS_REL if i == 0 else LATER_LOSS_REL
+        gn_rel = HYBRID_GRAD_NORM_REL if arch == "rwkv-hybrid" else (
+            b16.GRAD_NORM_REL if i == 0 else LATER_GRAD_NORM_REL)
+        for key in ("loss", "ce", "aux"):
+            assert float(m[key]) == pytest.approx(
+                float(jm[key]), rel=loss_rel, abs=1e-6), (i, key)
+        assert float(m["grad_norm"]) == pytest.approx(
+            float(jm["grad_norm"]), rel=gn_rel), i
+    change_rel = HYBRID_CHANGE_REL if arch == "rwkv-hybrid" else \
+        b16.CHANGE_REL
+    for (path, got), want, w0 in zip(tree.leaves_with_paths(state["master"]),
+                                     jax.tree.leaves(jstate["master"]),
+                                     jax.tree.leaves(master0)):
+        assert got.dtype == torch.float32
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   atol=b16.WEIGHT_ATOL, rtol=0, err_msg=path)
+        w0 = np.asarray(w0, np.float64)
+        d_port = got.numpy().astype(np.float64) - w0
+        d_jax = np.asarray(want, np.float64) - w0
+        assert np.linalg.norm(d_port - d_jax) <= \
+            change_rel * np.linalg.norm(d_jax), path
+
+
+@pytest.mark.parametrize("arch", ["moonshot-v1-16b-a3b", "rwkv-hybrid"])
+def test_bf16_grouped_replay_equals_premask_bitwise(arch):
+    """At bf16 compute with the grouped host under ffn_up, replay and
+    premask consume the same bits: the step-0 loss, every f32 gradient and
+    the updated master are bitwise equal; gemm_dtype "f32" under bf16
+    compute runs the same bf16 kernels on the same operands (as JAX does),
+    so its step is bitwise the "bf16" one."""
+    _, cfg = _cfgs(arch)
+    master = init_train_state(cfg, seed=1, device="cpu")["master"]
+    out = {}
+    for replay, gd in (("auto", "bf16"), ("off", "bf16"), ("off", "f32")):
+        run, _ = _runs(arch, "ffn_up", gd, replay)
+        x, y = (torch.from_numpy(t) for t in batch_for_step(
+            cfg, run.shape, 0, seed=0))
+        loss, _, grads = make_grad_fn(cfg, run, compute_dtype=BF16)(
+            master, x, y, 0)
+        state = {"master": tree.tree_map(torch.clone, master),
+                 "opt": adamw_init(master), "step": 0}
+        new, _ = make_train_step(cfg, run, compute_dtype=BF16)(state, x, y)
+        out[(replay, gd)] = (loss, tree.leaves(grads),
+                             tree.leaves(new["master"]))
+    ref = out[("auto", "bf16")]
+    assert all(g.dtype == torch.float32 for g in ref[1])
+    for key in (("off", "bf16"), ("off", "f32")):
+        loss, grads, new = out[key]
+        assert torch.equal(loss, ref[0]), key
+        assert all(torch.equal(a, b) for a, b in zip(grads, ref[1])), key
+        assert all(torch.equal(a, b) for a, b in zip(new, ref[2])), key
+
+
+# ------------------------------------------------------------ on the card
+
+@pytest.mark.gpu
+def test_grouped_bf16_and_fp8_bf16_kernels_equal_plain_on_gpu():
+    """The grouped bf16 kernel (emission on and off, capacity 240) and the
+    e4m3 kernels on bf16 operands against their plain versions on the
+    card: planes bitwise, bf16 C within 1e-2 (1 + |C|)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA); none on this machine")
+    reset_launch_counts()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(BF16)
+
+    def close(got, want):
+        assert got.dtype == want.dtype == BF16
+        err = (got.float() - want.float()).abs()
+        assert bool((err <= 1e-2 * (1 + want.float().abs())).all())
+
+    a, w = rnd(3, 240, 96), rnd(3, 96, 176)
+    kw = dict(mask_batch=1, mask_heads=2, mask_sq=64, mask_sk=64, p=0.1,
+              seed=torch.tensor(7), salt=3, block_m=80, block_n=88,
+              block_k=32, mask_block_cols=64)
+    c, mask = tg.gemm_with_rng_grouped(a, w, **kw)
+    want_c, want = tg.gemm_with_rng_grouped_plain(a, w, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(mask, want)
+    close(c, want_c)
+    # Region 3: 3 expert tiles cannot host an 8 x 32 x 1024 x 1024 plane
+    c3, none = tg.gemm_with_rng_grouped(a, w, **dict(
+        kw, mask_batch=8, mask_heads=32, mask_sq=1024, mask_sk=1024,
+        mask_block_cols=2048, block_m=240, block_n=176))
+    assert none is None
+    close(c3, want_c)
+    c8, mask8 = tg.gemm_with_rng_grouped_fp8(a, w, **kw)
+    want8, _ = tg.gemm_with_rng_grouped_fp8_plain(a, w, **kw)
+    a2, w2 = rnd(256, 128), rnd(128, 256)
+    dkw = dict(mask_batch=2, mask_heads=2, mask_sq=64, mask_sk=128, p=0.1,
+               seed=torch.tensor(7), salt=3, block_m=128, block_n=128,
+               block_k=64, mask_block_cols=128)
+    d8, dmask8 = tg.gemm_with_rng_fp8(a2, w2, **dkw)
+    dwant8, dwant = tg.gemm_with_rng_fp8_plain(a2, w2, **dkw)
+    torch.cuda.synchronize()
+    assert torch.equal(mask8, want) and torch.equal(dmask8, dwant)
+    close(c8, want8)
+    close(d8, dwant8)
+    counts = launch_counts()
+    assert counts.pop(tg.KERNEL_GROUPED_BF16) == 2
+    assert counts.pop(tg.KERNEL_GROUPED_FP8_BF16) == 1
+    assert counts.pop(tg.KERNEL_FP8_BF16) == 1
+    assert set(counts.values()) == {0}

@@ -337,12 +337,20 @@ def test_fp8_hosts_take_k_not_a_multiple_of_16():
 
 
 def test_fp8_checks_and_cpu_launches_nothing():
+    """Operands the fp8 host does not take raise (a dtype without a
+    kernel, blocks that do not tile); f32 and bf16 CPU operands take the
+    plain version, C in their dtype, and launch no kernel."""
     reset_launch_counts()
     a = torch.zeros((64, 32))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tg.gemm_with_rng_fp8(a.to(torch.bfloat16), a.T.to(torch.bfloat16),
-                             mask_batch=1, mask_heads=1, mask_sq=32,
-                             mask_sk=32, p=0.1, seed=0)
+    c16, _ = tg.gemm_with_rng_fp8(a.to(torch.bfloat16),
+                                  a.T.to(torch.bfloat16), mask_batch=1,
+                                  mask_heads=1, mask_sq=32, mask_sk=32,
+                                  p=0.1, seed=0)
+    assert c16.dtype == torch.bfloat16 and not c16.any()
+    with pytest.raises(NotImplementedError, match="f32 or bf16"):
+        tg.gemm_with_rng_fp8(a.half(), a.T.half(), mask_batch=1,
+                             mask_heads=1, mask_sq=32, mask_sk=32, p=0.1,
+                             seed=0)
     with pytest.raises(ValueError, match="do not tile"):
         tg.gemm_with_rng_fp8(a, a.T, mask_batch=1, mask_heads=1, mask_sq=32,
                              mask_sk=32, p=0.1, seed=0, block_m=48)

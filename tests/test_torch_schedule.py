@@ -122,8 +122,9 @@ def test_gemm_planning_helpers_equal_jax(shape):
 
 
 def test_unported_sites_and_dtypes_raise():
-    """site="auto", a sharding policy and the grouped bf16 host (a MoE
-    expert einsum) raise; dense bf16 hosts are ported and plan."""
+    """site="auto" and a sharding policy raise, at f32 and with a grouped
+    bf16 host (a MoE expert einsum); dense and grouped bf16 hosts are
+    ported and plan."""
     cfg = get_arch("llama2-7b", reduced=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         compile_schedule(cfg, DropoutPlanConfig(mode="overlap", site="auto"),
@@ -131,11 +132,15 @@ def test_unported_sites_and_dtypes_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         compile_schedule(cfg, DropoutPlanConfig(mode="overlap"), 2, 128,
                          policy=object(), attn_impl="pallas")
+    moe = get_arch("moonshot-v1-16b-a3b", reduced=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        compile_schedule(get_arch("moonshot-v1-16b-a3b", reduced=True),
-                         DropoutPlanConfig(mode="overlap", site="ffn_up",
-                                           gemm_dtype="bf16"),
+        compile_schedule(moe, DropoutPlanConfig(mode="overlap", site="auto",
+                                                gemm_dtype="bf16"),
                          2, 128, attn_impl="pallas")
+    sched = compile_schedule(moe, DropoutPlanConfig(
+        mode="overlap", site="ffn_up", gemm_dtype="bf16"), 2, 128,
+        attn_impl="pallas")
+    assert "gemm_rng_grouped" in {a.emit_how for a in sched.assignments}
     for site in ("prev_gemm", "qkv"):
         sched = compile_schedule(
             cfg, DropoutPlanConfig(mode="overlap", site=site,

@@ -335,8 +335,9 @@ def test_ffn_apply_host_geglu_and_gelu(ffn, site):
 def test_grouped_hosts_raise():
     """RWKV channel-mix FFNs host "ffn_up" / "ffn_down" through the grouped
     kernel (E=1): the schedule equals JAX's and plans it, and ``ffn_apply``
-    gives JAX's hosted y (1e-4) and plane (bitwise). What the port still
-    lacks raises: a bf16 grouped host."""
+    gives JAX's hosted y (1e-4) and plane (bitwise); a bf16 grouped host
+    plans as JAX's too. What the port still lacks raises: ``site="auto"``
+    over such a stack."""
     jcfg, cfg = _small_cfgs(ffn=(JFFNKind.RWKV_CHANNEL, FFNKind.RWKV_CHANNEL))
     kw = dict(mode="overlap", p=0.25, seed=5, site="ffn_up")
     plan_cfg = DropoutPlanConfig(**kw)
@@ -363,6 +364,11 @@ def test_grouped_hosts_raise():
                                step=0, how=jproducer.HOW_GEMM_GROUPED))
     np.testing.assert_allclose(y.numpy(), np.asarray(jy), **TOL)
     np.testing.assert_array_equal(_u32(plane), np.asarray(jplane))
-    with pytest.raises(NotImplementedError, match="bf16"):
-        compile_schedule(cfg, DropoutPlanConfig(**dict(kw, gemm_dtype="bf16")),
+    kw16 = dict(kw, gemm_dtype="bf16")
+    assert compile_schedule(
+        cfg, DropoutPlanConfig(**kw16), 2, 128,
+        attn_impl="pallas").explain() == j_compile(
+        jcfg, JPlanConfig(**kw16), 2, 128, attn_impl="pallas").explain()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        compile_schedule(cfg, DropoutPlanConfig(**dict(kw16, site="auto")),
                          2, 128, attn_impl="pallas")

@@ -177,18 +177,20 @@ def test_eval_step_and_unported_knobs():
     ce16 = make_eval_step(cfg, run, compute_dtype=torch.bfloat16)(
         master, torch.from_numpy(x), torch.from_numpy(y))
     assert float(ce16) == pytest.approx(float(ce), rel=1e-2)
-    # bf16 compute and dense bf16 hosts are ported; what is not -- a
-    # sharding policy, the grouped bf16 host of a MoE block -- raises
+    # bf16 compute, dense bf16 hosts and the grouped bf16 host of a MoE
+    # block are ported; what is not -- a sharding policy -- raises
     make_train_step(cfg, dataclasses.replace(run, dropout=dataclasses.replace(
         run.dropout, gemm_dtype="bf16")), compute_dtype=torch.bfloat16)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         make_train_step(cfg, run, policy=object(),
                         compute_dtype=torch.bfloat16)
     moe = get_arch("moonshot-v1-16b-a3b", reduced=True)
-    bad = dataclasses.replace(run, model=moe, dropout=dataclasses.replace(
+    grouped = dataclasses.replace(run, model=moe, dropout=dataclasses.replace(
         run.dropout, site="ffn_up", gemm_dtype="bf16"))
+    make_train_step(moe, grouped, compute_dtype=torch.bfloat16)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_train_step(moe, bad, compute_dtype=torch.bfloat16)
+        make_train_step(moe, grouped, policy=object(),
+                        compute_dtype=torch.bfloat16)
     fused = dataclasses.replace(run, dropout=dataclasses.replace(
         run.dropout, mode="fused"))
     with pytest.raises(ValueError, match="overlap"):
