@@ -9,7 +9,9 @@ Phases (each raises on failure; nothing is caught):
   0. the card: name, count, ``nvidia-smi`` name and power limit;
   1. build every CUDA kernel from ``src/repro_torch/kernels/csrc`` (one
      nvcc per source, all started together) for sm_90a and print ptxas's
-     register and spill lines;
+     register and spill lines, the tensor-core kernels' dynamic shared
+     memory and ptxas advisories, and the HGMMA (wgmma) instructions in
+     each tensor-core library's SASS (``cuobjdump --dump-sass``);
   2. each kernel against its plain PyTorch version on the card, then
      timed with CUDA events beside its bound and, where one PyTorch call
      computes the same function, that call's time: the Philox kernel
@@ -92,10 +94,14 @@ also at K = bk = 344, K not a multiple of 16: rows zero-padded to the
 tensor maps' 16-byte stride); the bf16 GEMM+RNG kernel at the four host
 shapes (plane bitwise the plain one's and the f32 host's, bf16 C within
 1e-2 (1 + |C|) of the plain version, emission on and off in turns, and a
-Region-3 call) and the bf16 flash kernels at B=2, H=32, S=2048, D=128 in
-premask and replay and with 4 kv heads (within 1e-2 (|x| + rms(x)), lse
-1e-4; replay == premask bitwise; a planted fault in the keep bits must
-fail the check); the grouped bf16 kernel at the grouped host shapes
+Region-3 call) and the bf16 flash kernels (the forward and dkv on the
+tensor cores, dq on the SIMT units) at B=2, H=32, S=2048, D=128 in all
+four dropout modes, with a local window, with 4 kv heads, at D=64 and at
+SQ=1024 < SK (within 1e-2 (|x| + rms(x)), lse 1e-4; each output's share
+of its limit printed; replay == premask bitwise; a planted fault in the
+keep bits must fail the check; the forward timed in none, premask and
+replay and dkv in premask and replay beside the SIMT floor of their
+exponentials and keep bits); the grouped bf16 kernel at the grouped host shapes
 (plane bitwise the plain one's and the f32 grouped host's, bf16 C within
 1e-2 (1 + |C|), emission on and off in turns, a Region-3 call through
 both grouped hosts, and a planted fault -- one expert's C rows shifted by
@@ -129,6 +135,7 @@ import dataclasses
 import gc
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -271,20 +278,37 @@ def phase_build(state) -> None:
             if "(C75" not in line:   # advisories: once each, below
                 log(f"[build] {name}: {line}")
     # the tensor-core kernels: dynamic shared memory (ptxas reports static
-    # only) and ptxas's advisories on the wgmma code, once each
+    # only), ptxas's advisories on the wgmma code, once each, and the wgmma
+    # instructions (HGMMA) in the library's SASS: none means the products
+    # did not reach the tensor cores
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     for name, entry in ((gemm_rng.KERNEL_FP8, gemm_rng.KERNEL_FP8),
                         (gemm_rng.KERNEL_GROUPED_FP8, gemm_rng.KERNEL_FP8),
                         (gemm_rng.KERNEL_BF16, gemm_rng.KERNEL_BF16),
                         (gemm_rng.KERNEL_GROUPED_BF16,
-                         gemm_rng.KERNEL_BF16)):
-        smem = getattr(ctypes.CDLL(str(libs[entry])),
-                       f"repro_{entry}_smem_bytes")()
+                         gemm_rng.KERNEL_BF16),
+                        (flash.SOURCES[flash.KERNEL_BF16],
+                         flash.KERNEL_BF16),
+                        (flash_bwd.SOURCES[flash_bwd.KERNEL_DKV_BF16],
+                         flash_bwd.KERNEL_DKV_BF16)):
+        # the grouped GEMMs share their dense kernel's layout and report
+        fn = getattr(ctypes.CDLL(str(libs[entry])),
+                     f"repro_{entry}_smem_bytes")
+        smem = (fn() if name.startswith("gemm") else
+                ", ".join(f"{fn(d)} at D={d}" for d in (16, 32, 64, 128)))
         advisories = sorted({
             re.sub(r" in function '[^']*'|line \d+", "", ln).strip()
             for ln in build.log_path(name).read_text().splitlines()
             if "(C75" in ln})
+        sass = subprocess.run([cuobjdump, "--dump-sass", str(libs[name])],
+                              check=True, capture_output=True,
+                              text=True).stdout
+        hgmma = len(re.findall(r"\bHGMMA\.", sass))
+        if hgmma == 0:
+            raise AssertionError(f"{name}: no HGMMA instruction in its SASS")
         log(f"[build] {name}: {smem} bytes of dynamic shared memory a CTA; "
-            f"ptxas advisories: {advisories or 'none'}")
+            f"{hgmma} HGMMA instructions in its SASS (cuobjdump); ptxas "
+            f"advisories: {advisories or 'none'}")
 
 
 # ------------------------------------------------------------------ phase 2
@@ -380,15 +404,18 @@ GRAD_TOL = 1e-3
 # bf16 C against its plain version: one bf16 ulp is 2^-8 of a value, and
 # f32 sums in another order round either way near a rounding boundary
 BF16_GEMM_TOL = 1e-2
-# bf16 flash outputs (O, dq, dk, dv) against their plain versions, relative
-# with a floor at the tensor's own scale: tol x (|want| + rms(want)). The
-# kernel and the plain version each round their own f32 result once, so
-# they differ by one bf16 ulp (at most 2^-7 of a value, under 1e-2) where
-# the two f32 sums straddle a rounding boundary; the floor covers values
-# near zero; the GQA sums of per-head values rounded apart read closest
-# to it (on the H100: 0.44-0.85 of the limit). lse stays f32 and is held
-# at FWD_TOL. Each run also plants a fault (FLASH_FAULT) that this limit,
-# and the f32 ones, must fail (on the H100: 24-64 times this limit).
+# bf16 flash outputs (O, dq, and dk, dv per query head) against their
+# plain versions, relative with a floor at the tensor's own scale: tol x
+# (|want| + rms(want)). The kernel and the plain version each round their
+# own f32 result once, so they differ by one bf16 ulp (at most 2^-7 of a
+# value, under 1e-2) where the two f32 sums straddle a rounding boundary;
+# the floor covers values near zero. A GQA group sum of per-head values
+# rounded apart can differ by one ulp of its largest head where the heads
+# nearly cancel, past this limit on some inputs for the SIMT kernels too
+# (PERF.md 7): the dkv kernel is held on what it writes, per head, and the
+# sums' ratios are printed. lse stays f32 and is held at FWD_TOL. Each run
+# also plants a fault (FLASH_FAULT) that this limit, and the f32 ones, must
+# fail (on the H100: 24-64 times this limit).
 BF16_FLASH_TOL = 1e-2
 # the planted fault: the keep bits of one plane word row (32 query rows)
 # x 64 keys flipped, in batch 0, head 0, late rows -- a 64-key block of
@@ -468,11 +495,22 @@ def flash_bound(kind, b, h, s, d, pairs, elem=4, flops_rate=F32_FLOPS_PER_S,
     t_bytes = moved[kind] / HBM_BYTES_PER_S
     t_ops = flops / flops_rate
     if ops_rate is not None:
-        n = pairs * b * h
-        t_ops = max(t_ops, (n / SFU_PER_ISSUE_LANE
-                            + n / 32 * 8 * (4 * rounds + 8)) / ops_rate)
+        t_ops = max(t_ops, simt_floor_ms(pairs * b * h, rounds, ops_rate,
+                                         True) / 1e3)
     return max(t_bytes, t_ops) * 1e3, ("operations" if t_ops >= t_bytes
                                        else "bytes")
+
+
+def simt_floor_ms(pairs: int, rounds: int, ops_rate: float,
+                  keep_bits: bool) -> float:
+    """The SIMT work of ``pairs`` valid scores that the tensor cores cannot
+    take, at the issue rate (flash_bound's third floor): an exponential a
+    pair on the SFU and, with ``keep_bits``, the replayed keep bits (8
+    Philox calls of 4 a round + 8 instructions per 32 pairs)."""
+    ops = pairs / SFU_PER_ISSUE_LANE
+    if keep_bits:
+        ops += pairs / 32 * 8 * (4 * rounds + 8)
+    return ops / ops_rate * 1e3
 
 
 def phase_kernels_train(state) -> None:
@@ -553,13 +591,18 @@ def phase_kernels_train(state) -> None:
 
 
 # flash cases each dtype is checked in, (mode, local window, kv heads or
-# None for H); the main path's mode (replay, causal, MHA) is then timed
+# None for H[, head_dim or None for D, SQ or None for S]) -- SK stays S, so
+# an SQ below it puts the queries at key positions q + SK - SQ; the main
+# path's mode (replay, causal, MHA) is then timed
 FLASH_CASES = {
     torch.float32: (("none", 0, None), ("fused", 0, None),
                     ("premask", 0, None), ("replay", 0, None),
                     ("replay", 512, None), ("replay", 0, 4)),
-    torch.bfloat16: (("premask", 0, None), ("replay", 0, None),
-                     ("replay", 0, 4)),
+    torch.bfloat16: (("none", 0, None), ("fused", 0, None),
+                     ("premask", 0, None), ("replay", 0, None),
+                     ("replay", 512, None), ("replay", 0, 4),
+                     ("replay", 0, None, 64, None),
+                     ("replay", 0, None, None, 1024)),
 }
 
 
@@ -595,11 +638,13 @@ def _flash_fault(tag, q, k, v, do, plane, got, tols, bf16) -> None:
 def _flash_kernels(state, rnd, dtype, ops_rate) -> None:
     """The flash forward, dq and dkv kernels of ``dtype`` (f32, or the bf16
     instances) against their plain versions in FLASH_CASES at
-    FLASH_SHAPE, causal; replay == premask bitwise; then timed on the main
-    path's mode beside the bound and SDPA on the same inputs (no
-    dropout). f32 is held at FWD_TOL / GRAD_TOL, bf16 at BF16_FLASH_TOL
-    (lse, f32 at both, at FWD_TOL); each dtype's checks must fail a
-    planted fault (``_flash_fault``)."""
+    FLASH_SHAPE (or the case's head_dim and SQ), causal; replay == premask
+    bitwise; then timed on the main path's mode beside the bound and SDPA
+    on the same inputs (no dropout), and the forward and dkv in each
+    dropout mode beside the SIMT floor (``simt_floor_ms``). f32 is held at
+    FWD_TOL / GRAD_TOL, bf16 at BF16_FLASH_TOL (lse, f32 at both, at
+    FWD_TOL); each dtype's checks must fail a planted fault
+    (``_flash_fault``)."""
     from torch.nn.functional import scaled_dot_product_attention as sdpa
     from repro_torch.kernels.philox_common import seed_salt_smem
     bf16 = dtype == torch.bfloat16
@@ -614,28 +659,30 @@ def _flash_kernels(state, rnd, dtype, ops_rate) -> None:
                                              device="cuda")
     seed_salt = seed_salt_smem(torch.tensor(9), 3)
     outs = {}
-    for mode, window, kvh in FLASH_CASES[dtype]:
+    for mode, window, kvh, *shape in FLASH_CASES[dtype]:
         kvh = kvh or h
-        q, do = rnd(b, h, s, d), rnd(b, h, s, d)
-        kk, vv = rnd(b, kvh, s, d), rnd(b, kvh, s, d)
+        dd, sq = (shape + [None, None])[:2]
+        dd, sq = dd or d, sq or s
+        q, do = rnd(b, h, sq, dd), rnd(b, h, sq, dd)
+        kk, vv = rnd(b, kvh, s, dd), rnd(b, kvh, s, dd)
         op = {"premask": plane, "replay": seed_salt}.get(mode)
         args = dict(causal=True, local_window=window, dropout_p=0.1,
                     mode=mode, seed=torch.tensor(9), salt=3)
         o, lse = flash.flash_attention_fwd(q, kk, vv, op, return_lse=True,
                                            **args)
         po, plse = flash.flash_attention_fwd_plain(q, kk, vv, op, **args)
-        dq, dk, dv = flash_bwd.flash_attention_bwd(q, kk, vv, o, lse, do, op,
-                                                   **args)
+        # dk, dv as the dkv kernel writes them, per query head: the GQA
+        # group sum is the same torch sum on both sides
+        dq, dk, dv = flash_bwd.flash_attention_bwd_heads(
+            q, kk, vv, o, lse, do, op, **args)
         pdq, pdk, pdv = flash_bwd.flash_attention_bwd_plain(
             q, kk, vv, po, plse, do, op, **args)
-        if kvh != h:
-            pdk, pdv = (t.reshape(b, kvh, h // kvh, s, d).sum(2)
-                        for t in (pdk, pdv))
         torch.cuda.synchronize()
         if any(t.dtype != dtype for t in (o, dq, dk, dv)) or \
                 lse.dtype != torch.float32:
             raise AssertionError(f"{tag} output dtypes")
-        label = f"{mode} window={window} kv_heads={kvh}"
+        label = (f"{mode} window={window} kv_heads={kvh} D={dd} SQ={sq} "
+                 f"SK={s}")
         errs = [_close(f"{names[0]} {label}", o.float(), po.float(),
                        out_tol, state, names[0], scaled=bf16),
                 _close(f"{names[0]} lse {label}", lse, plse, FWD_TOL, state,
@@ -649,11 +696,22 @@ def _flash_kernels(state, rnd, dtype, ops_rate) -> None:
         ratios = [_within(g.float(), w.float(), t, bf16)[1] for g, w, t in
                   ((o, po, out_tol), (dq, pdq, grad_tol),
                    (dk, pdk, grad_tol), (dv, pdv, grad_tol))]
-        outs[(mode, window, kvh)] = (q, kk, vv, do, o, lse, op)
+        if (dd, sq) == (d, s):
+            outs[(mode, window, kvh)] = (q, kk, vv, do, o, lse, op)
         rule = ("x (|x| + rms(x)): one bf16 ulp where the f32 sums round "
                 "apart" if bf16 else "x (1+|x|): 2048-term f32 sums in "
                 "another order than the plain version's")
-        log(f"[kernels] {tag} {b}x{h}x{s}x{d} {label}: max abs err o "
+        if kvh != h:
+            # each head's values rounded apart, then summed over 8 heads:
+            # one rounding of a large value where the heads nearly cancel
+            # moves the sum by more than the sum's limit, for the SIMT
+            # kernels as well (PERF.md 7); printed, the heads are held
+            gsum = [_within(*(x.reshape(b, kvh, h // kvh, s, dd).sum(2)
+                              .float() for x in pair), grad_tol, bf16)[1]
+                    for pair in ((dk, pdk), (dv, pdv))]
+            rule += (f"; per query head, their GQA sums at "
+                     f"{gsum[0]:.3g}, {gsum[1]:.3g} of that limit")
+        log(f"[kernels] {tag} {b}x{h} {label}: max abs err o "
             f"{errs[0]:.3g} lse {errs[1]:.3g} (tol {out_tol}; lse "
             f"{FWD_TOL} x (1+|x|)), dq {errs[2]:.3g} dk {errs[3]:.3g} dv "
             f"{errs[4]:.3g} (tol {grad_tol} {rule}); o, dq, dk, dv at "
@@ -661,6 +719,7 @@ def _flash_kernels(state, rnd, dtype, ops_rate) -> None:
         if mode == "premask" and kvh == h:
             _flash_fault(tag, q, kk, vv, do, op, (o, dq, dk, dv),
                          (out_tol, grad_tol), bf16)
+        del q, do, kk, vv, o, lse, dq, dk, dv, po, plse, pdq, pdk, pdv
     # replay and premask consume the same bits: equal inputs, equal outputs
     q, kk, vv, do = outs[("replay", 0, h)][:4]
     args = dict(causal=True, dropout_p=0.1)
@@ -728,13 +787,39 @@ def _flash_kernels(state, rnd, dtype, ops_rate) -> None:
             f"{lib_ms:.4f} ms (no dropout); bound {bound_ms:.4f} ms by "
             f"{bound_by}{extra}, kernel at {bound_ms / ms * 100:.1f}% of "
             f"bound | {state['smi']}")
-    for mode in ("none", "premask"):
-        if (mode, 0, h) not in outs:
-            continue
-        q, kk, vv, do, o, lse, op = outs[(mode, 0, h)]
-        ms = cuda_time_ms(lambda: flash.flash_attention_fwd(
-            q, kk, vv, op, causal=True, dropout_p=0.1, mode=mode), 10)
-        log(f"[kernels] {names[0]} causal {mode}: {ms:.4f} ms a launch")
+    # the RNG's cost inside attention: the same inputs in each mode (none
+    # draws no bits, premask reads them, replay makes them), against the
+    # SIMT floor of the exponentials without and with the replayed bits
+    q, kk, vv, do = outs[("replay", 0, h)][:4]
+    floor_exp = simt_floor_ms(pairs * b * h, 7, ops_rate, False)
+    floor_rng = simt_floor_ms(pairs * b * h, 7, ops_rate, True)
+    modes = {}
+    for kind, name in (("fwd", names[0]), ("dkv", names[2])):
+        for mode, op in (("none", None), ("premask", plane),
+                         ("replay", seed_salt)):
+            args = dict(causal=True, dropout_p=0.1, mode=mode)
+            o, lse = flash.flash_attention_fwd(q, kk, vv, op,
+                                               return_lse=True, **args)
+            if kind == "fwd":
+                ms = cuda_time_ms(lambda: flash.flash_attention_fwd(
+                    q, kk, vv, op, **args), 10)
+            else:
+                ms = device_time_ms(lambda: flash_bwd.flash_attention_bwd(
+                    q, kk, vv, o, lse, do, op, **args),
+                    "flash_dkv_kernel", 10)
+                if ms is None:
+                    raise AssertionError("the profiler saw no device time")
+            modes.setdefault(name, {})[mode] = ms
+        t = modes[name]
+        log(f"[kernels] {name} causal by dropout mode: none {t['none']:.4f}, "
+            f"premask {t['premask']:.4f}, replay {t['replay']:.4f} ms a "
+            f"launch; replay - premask {t['replay'] - t['premask']:+.4f} ms "
+            f"(the keep bits made inside attention), premask - none "
+            f"{t['premask'] - t['none']:+.4f} ms (read); SIMT floor "
+            f"{floor_exp:.4f} ms for the exponentials, {floor_rng:.4f} ms "
+            f"with the replayed bits ({floor_rng - floor_exp:.4f} ms of "
+            f"Philox issue work) | {state['smi']}")
+        timing[name]["modes_ms"] = dict(t)
     del outs, plane
     gc.collect()
     torch.cuda.empty_cache()
@@ -2817,6 +2902,9 @@ def kernel_records(state):
                     bound_by=row["plain_variant_bound_by"],
                     library_ms=row["library_ms"])
 
+    def modes(name):
+        return {"modes_ms": t[name]["modes_ms"]}
+
     def fp8_extras(row):
         return dict(shape=row["shape"], scaled_mm_ms=row["scaled_mm_ms"],
                     dequant_matmul_ms=row["dequant_matmul_ms"])
@@ -2832,7 +2920,7 @@ def kernel_records(state):
         (flash.KERNEL, "flash_fwd.cu",
          "src/repro/kernels/flash_attention.py:58", "train",
          state["train_launches"][flash.KERNEL], errs[flash.KERNEL],
-         t[flash.KERNEL], {}),
+         t[flash.KERNEL], modes(flash.KERNEL)),
         (flash_bwd.KERNEL_DQ, "flash_bwd.cu",
          "src/repro/kernels/flash_attention_bwd.py:77", "train",
          state["train_launches"][flash_bwd.KERNEL_DQ],
@@ -2840,7 +2928,8 @@ def kernel_records(state):
         (flash_bwd.KERNEL_DKV, "flash_bwd.cu",
          "src/repro/kernels/flash_attention_bwd.py:137", "train",
          state["train_launches"][flash_bwd.KERNEL_DKV],
-         errs[flash_bwd.KERNEL_DKV], t[flash_bwd.KERNEL_DKV], {}),
+         errs[flash_bwd.KERNEL_DKV], t[flash_bwd.KERNEL_DKV],
+         modes(flash_bwd.KERNEL_DKV)),
         (k8, "gemm_rng_fp8.cu", f"{g}:373", "train_fp8",
          state["fp8_launches"][k8], errs[k8], t[k8], fp8_extras(t[k8])),
         (f"{k8}_plain", "gemm_rng_fp8.cu", f"{g}:933", "train_fp8",
@@ -2858,18 +2947,18 @@ def kernel_records(state):
         (f"{k16}_plain", "gemm_rng_bf16.cu", f"{g}:304", "train_bf16",
          state["bf16_variants"]["plain"], errs[k16], variant(t[k16]),
          {"shape": t[k16]["shape"]}),
-        (flash.KERNEL_BF16, "flash_fwd.cu",
+        (flash.KERNEL_BF16, "flash_fwd_bf16.cu",
          "src/repro/kernels/flash_attention.py:58", "train_bf16",
          l16[flash.KERNEL_BF16], errs[flash.KERNEL_BF16],
-         t[flash.KERNEL_BF16], {}),
+         t[flash.KERNEL_BF16], modes(flash.KERNEL_BF16)),
         (flash_bwd.KERNEL_DQ_BF16, "flash_bwd.cu",
          "src/repro/kernels/flash_attention_bwd.py:77", "train_bf16",
          l16[flash_bwd.KERNEL_DQ_BF16], errs[flash_bwd.KERNEL_DQ_BF16],
          t[flash_bwd.KERNEL_DQ_BF16], {}),
-        (flash_bwd.KERNEL_DKV_BF16, "flash_bwd.cu",
+        (flash_bwd.KERNEL_DKV_BF16, "flash_dkv_bf16.cu",
          "src/repro/kernels/flash_attention_bwd.py:137", "train_bf16",
          l16[flash_bwd.KERNEL_DKV_BF16], errs[flash_bwd.KERNEL_DKV_BF16],
-         t[flash_bwd.KERNEL_DKV_BF16], {}),
+         t[flash_bwd.KERNEL_DKV_BF16], modes(flash_bwd.KERNEL_DKV_BF16)),
         (g16, "gemm_rng_grouped_bf16.cu", f"{g}:551", "train_moe_bf16",
          state["moe_bf16_launches"][g16], errs[g16], t[g16],
          {"shape": t[g16]["shape"]}),

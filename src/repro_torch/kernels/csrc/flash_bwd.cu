@@ -3,10 +3,10 @@
 //
 // Replaces the TPU kernels src/repro/kernels/flash_attention_bwd.py::
 // _dq_kernel (flash_attention_bwd.py:77, pl.pallas_call at :266) and
-// ::_dkv_kernel (:137, pallas_call at :288), at f32 and bf16: the bf16
-// instances load and upcast bf16 q/k/v/dO tiles (:107-112, :168-173) and
-// round dq and the per-head dk / dv once to bf16 at the store (:300-311);
-// lse and delta stay f32.
+// ::_dkv_kernel (:137, pallas_call at :288) at f32, and _dq_kernel at bf16:
+// that instance loads and upcasts bf16 q/k/v/dO tiles (:107-112) and rounds
+// dq once to bf16 at the store (:300-311); lse and delta stay f32. The bf16
+// dkv kernel is the tensor-core kernel of flash_dkv_bf16.cu.
 //
 // What they compute (flash_attention_bwd.py:10-15). With keep mask K and
 // P = exp(S * scale - lse) recomputed per tile (invalid scores masked to
@@ -28,9 +28,9 @@
 // operands are under 0.3 GB (0.1 ms). The design is the forward's: every
 // O(S^2) tile lives in registers and shared memory (dq: Q, dO, K, V and the
 // dS tile, 149 KB at D = 128; dkv: K, V, Q, dO and two 64 x 64 tiles,
-// 165 KB), one CTA an SM, f32 FMAs on the SIMT units. The bf16 instances
-// halve the bytes, not the f32 arithmetic: against the bf16 tensor-core
-// rate (dq 0.10 ms, dkv 0.14 ms) they are far from their bound.
+// 165 KB), one CTA an SM, f32 FMAs on the SIMT units. The bf16 dq instance
+// halves the bytes, not the f32 arithmetic: against the bf16 tensor-core
+// rate (0.10 ms) it is far from its bound.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -302,7 +302,7 @@ __global__ void __launch_bounds__(NT) flash_dkv_kernel(Bwd<T> p) {
 
 template <typename T, int D, int MODE, bool DQ>
 int launch(const Bwd<T>& p, cudaStream_t s) {
-  if (DQ) {
+  if constexpr (DQ) {
     constexpr int smem = dq_smem_bytes<D>();
     const cudaError_t err = cudaFuncSetAttribute(
         flash_dq_kernel<T, D, MODE>,
@@ -372,7 +372,7 @@ Bwd<T> make_bwd(const void* q, const void* k, const void* v,
 // The two backward kernels, each on `stream`, with the arguments of
 // repro_flash_fwd plus dout, lse (B,H,SQ) and delta (B,H,SQ), all
 // contiguous; q, k, v, dout and the outputs f32 (repro_flash_dq,
-// repro_flash_dkv) or bf16 (the _bf16 entry points), lse and delta f32.
+// repro_flash_dkv) or bf16 (repro_flash_dq_bf16), lse and delta f32.
 // repro_flash_dq writes dq (B,H,SQ,D); repro_flash_dkv writes dk and dv per
 // query head, (B,H,SK,D). Each returns the CUDA error code (0 on success).
 #define REPRO_BWD_ARGS                                                      \
@@ -400,9 +400,4 @@ extern "C" int repro_flash_dkv(REPRO_BWD_ARGS) {
 extern "C" int repro_flash_dq_bf16(REPRO_BWD_ARGS) {
   return launch_bwd<true>(REPRO_BWD_PARAMS(__nv_bfloat16), D, mode,
                           static_cast<cudaStream_t>(stream));
-}
-
-extern "C" int repro_flash_dkv_bf16(REPRO_BWD_ARGS) {
-  return launch_bwd<false>(REPRO_BWD_PARAMS(__nv_bfloat16), D, mode,
-                           static_cast<cudaStream_t>(stream));
 }

@@ -1,0 +1,345 @@
+// Flash-attention dk / dv at bf16 q/k/v/dO on Hopper's tensor cores, per
+// query head, with the paper's dropout modes.
+//
+// Replaces the TPU kernel src/repro/kernels/flash_attention_bwd.py::
+// _dkv_kernel (flash_attention_bwd.py:137, pl.pallas_call at :288) at bf16.
+// The f32 instance, and both instances of the dq kernel (_dq_kernel, :77),
+// are csrc/flash_bwd.cu.
+//
+// What it computes: exactly the JAX kernel's bf16 instance, which upcasts
+// the bf16 tiles to f32 (:168-173), multiplies the f32 p_drop by dO and the
+// f32 ds by q (:192-198) and rounds dk and dv once (:300-311). With keep
+// mask K, P = exp(S * scale - lse) recomputed from the forward's lse
+// (invalid scores masked to neg_big() as in the forward) and Delta from the
+// caller:
+//     P_drop = K o P / (1-p),   dP = K / (1-p) o (dO V^T),
+//     dS = P o (dP - Delta) * scale,   dV = P_drop^T dO,   dK = dS^T Q,
+// dS scaled before its product as flash_bwd.cu scales it. S^T = K Q^T and
+// dP^T = V dO^T are bf16 wgmma products (exact products, f32 sums);
+// P_drop and dS enter their products as exact triples hi + mid + lo
+// (flash_sm90.cuh), so those are the f32-operand products up to the order
+// of the sums. dk and dv are written per query head, each element by
+// one thread, no atomics: a training step stays bitwise reproducible, and
+// the GQA group sum stays in torch.
+//
+// What bounds it on an H100: at B=2, H=32, S=2048, D=128, causal, the four
+// products of the valid half are 137 GFLOP (0.14 ms at 989 TFLOP/s bf16);
+// the exponentials and the replayed keep bits are SIMT work (0.07 ms at
+// the issue rate); the operands 0.1 GB. The triples add 2x the tensor-core
+// work (dV and dK three times); chip_smoke.py's bound does not count it.
+//
+// The design: one warpgroup (128 threads) a CTA per (64 keys, head, batch),
+// walking the q-blocks that hold a valid score. K and V are loaded once by
+// TMA; each q-block's Q and dO tiles, lse and Delta come through a
+// two-stage ring (TMA tiles, bulk copies of the rows' lse and Delta). The
+// CTA computes the transposed tiles directly: S^T and dP^T as m64n64
+// wgmma with both operands K-major in shared memory, so the keys are the
+// accumulator rows, and their fragments become the register A operands of
+// dV += P_drop^T dO and dK += dS^T Q (m64nDk16, B = dO or Q read MN-major).
+// dK and dV stay in registers (D / 2 floats each a thread: 128 at D = 128,
+// with S^T and dP^T on top); each q-block's products are products of their
+// own (64 columns at a time at D = 128), folded into dK and dV by f32 adds
+// as the JAX kernel folds its blocks (chained over all q-blocks inside the
+// tensor core, its f32 accumulation moved 0.2 % of dk's bf16 roundings
+// against the plain version; folded, 0.05 %; the SIMT kernel, 0.04 %).
+// P_drop's three fragments replace S^T and are consumed before dS's
+// replace dP^T: the peak is dK, dV, dP^T, one set of fragments and a
+// chunk, about 240 live values. Shared memory: K, V and two stages of Q,
+// dO, lse, Delta, 99 KB at D = 128 -- two CTAs an SM.
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+#include "flash_sm90.cuh"
+
+namespace {
+
+using namespace repro_flash;
+using namespace repro_flash::tc;
+
+struct DkvArgs {
+  const float* lse;
+  const float* delta;
+  __nv_bfloat16* dk;  // (B, H, SK, D): per query head
+  __nv_bfloat16* dv;
+  int B, H, KV, SQ, SK;
+  float scale;
+  int causal, local_window;
+  Dropout dp;
+};
+
+// a ring stage: Q, dO, then the q-block's 64 lse and 64 Delta values
+template <int D>
+__host__ __device__ constexpr int stage_bytes() {
+  return (2 * tile_bytes<D>() + 2 * 256 + 1023) / 1024 * 1024;
+}
+
+template <int D>
+constexpr int dkv_smem_bytes() {
+  // alignment slack, K, V, two stages, three mbarriers
+  return 1024 + 2 * tile_bytes<D>() + 2 * stage_bytes<D>() + 24;
+}
+
+// columns of one product chunk: a D = 128 product in two halves, so the
+// chunk's accumulator (NC / 2 floats a thread) fits beside dK and dV
+template <int D>
+__host__ __device__ constexpr int chunk_cols() {
+  return D < 64 ? D : 64;
+}
+
+// acc (64 x D, the fragment of dK or dV) += A B for A = the three parts of
+// a 64 x 64 fragment (a[part][slice]) and B the 64-row tile at `b`, read
+// MN-major: each NC-column chunk a fresh product, then one f32 add
+template <int D>
+__device__ __forceinline__ void add_product(float (&acc)[D / 2],
+                                            const uint32_t (&a)[3][4][4],
+                                            uint32_t b) {
+  constexpr int NC = chunk_cols<D>();
+#pragma unroll
+  for (int c0 = 0; c0 < D; c0 += NC) {
+    float part[NC / 2];  // replaced by the first product
+    const uint32_t bc = b + (c0 / 64) * 64 * row_bytes<D>();
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int i = 0; i < 3; ++i)
+        wgmma_rs<NC>(part, a[i][j], desc_mn<D>(bc, j), i + j);
+    wgmma_commit();
+    wgmma_wait0();
+    fence_acc(part);
+#pragma unroll
+    for (int t = 0; t < NC / 2; ++t) acc[c0 / 2 + t] += part[t];
+  }
+}
+
+template <int D, int MODE>
+__global__ void __launch_bounds__(WG, 1)
+    flash_dkv_kernel_sm90(const __grid_constant__ CUtensorMap map_q,
+                          const __grid_constant__ CUtensorMap map_k,
+                          const __grid_constant__ CUtensorMap map_v,
+                          const __grid_constant__ CUtensorMap map_do,
+                          DkvArgs p) {
+  constexpr int TILE = tile_bytes<D>();
+  constexpr int STAGE = stage_bytes<D>();
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t ks = (raw + 1023u) & ~1023u;
+  const uint32_t vs = ks + TILE;
+  const uint32_t ring = vs + TILE;
+  const uint32_t bar = ring + 2 * STAGE;  // K / V's barrier, then stage s's
+
+  const int t = threadIdx.x, w = t / 32, l = t % 32, c = l % 4;
+  const int ki = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int kvh = h / (p.H / p.KV);
+  const int k_start = ki * BK;
+  const int q_offset = p.SK - p.SQ;
+  const int q_row = (b * p.H + h) * p.SQ;
+  const float* lse_g = p.lse + q_row;
+  const float* delta_g = p.delta + q_row;
+
+  // the q-blocks that hold a valid score: one contiguous run
+  int q_first = 0, n = 0;
+  for (int qi = 0; qi < p.SQ / BQ; ++qi)
+    if (tile_runs(qi * BQ, k_start, q_offset, p.causal, p.local_window)) {
+      if (n == 0) q_first = qi;
+      ++n;
+    }
+
+  if (t == 0) {
+    for (int i = 0; i < 3; ++i) mbar_init(bar + 8 * i, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  auto load_stage = [&](int s, int q_start) {
+    const uint32_t st = ring + s * STAGE, full = bar + 8 + 8 * s;
+    mbar_expect_tx(full, 2 * TILE + 2 * 256);
+    load_tile<D>(st, &map_q, full, q_row + q_start);
+    load_tile<D>(st + TILE, &map_do, full, q_row + q_start);
+    bulk_load(st + 2 * TILE, lse_g + q_start, 256, full);
+    bulk_load(st + 2 * TILE + 256, delta_g + q_start, 256, full);
+  };
+  if (t == 0) {
+    const int kv_row = (b * p.KV + kvh) * p.SK + k_start;
+    mbar_expect_tx(bar, 2 * TILE);
+    load_tile<D>(ks, &map_k, bar, kv_row);
+    load_tile<D>(vs, &map_v, bar, kv_row);
+    for (int s = 0; s < 2 && s < n; ++s) load_stage(s, (q_first + s) * BQ);
+  }
+
+  float dk[D / 2], dv[D / 2];
+  zero(dk);
+  zero(dv);
+  mbar_wait_or_trap(bar, 0);
+
+  for (int it = 0; it < n; ++it) {
+    const int s = it & 1;
+    const int q_start = (q_first + it) * BQ;
+    const uint32_t qt = ring + s * STAGE, dot = qt + TILE;
+    const float* lse_s =
+        reinterpret_cast<const float*>(smem_raw + (qt + 2 * TILE - raw));
+    const float* delta_s = lse_s + 64;
+    mbar_wait_or_trap(bar + 8 + 8 * s, (it >> 1) & 1);
+
+    // S^T = K Q^T and dP^T = V dO^T: rows are keys, columns queries
+    float st[32], dpt[32];  // replaced by their first products
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < D / 16; ++j)
+      wgmma_ss_n64(st, desc_k<D>(ks, j), desc_k<D>(qt, j), j);
+#pragma unroll
+    for (int j = 0; j < D / 16; ++j)
+      wgmma_ss_n64(dpt, desc_k<D>(vs, j), desc_k<D>(dot, j), j);
+    wgmma_commit();
+    uint32_t kb[2];
+    keep_dkv<MODE>(p.dp, b, h, p.H, p.SQ, p.SK, q_start, k_start, kb);
+    wgmma_wait0();
+    fence_acc(st);
+    fence_acc(dpt);
+
+    // element (hh, g, e): key k_start + 16w + l/4 + 8hh, query q_start +
+    // 8g + 2c + e; st becomes P_drop, dpt becomes dS * scale
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int key = k_start + 16 * w + l / 4 + 8 * hh;
+#pragma unroll
+      for (int g = 0; g < 8; ++g)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int qc = 8 * g + 2 * c + e;
+          const int i = 4 * g + 2 * hh + e;
+          float sc = st[i] * p.scale;
+          if ((p.causal || p.local_window > 0) &&
+              !score_valid(q_start + qc + q_offset, key, p.causal,
+                           p.local_window))
+            sc = neg_big();
+          const float pr = expf(sc - lse_s[qc]);
+          float gd = dpt[i];
+          float pd = pr;
+          if (MODE != kNone) {
+            const bool keep = (kb[hh] >> (2 * g + e)) & 1u;
+            gd = keep ? gd * p.dp.inv_keep : 0.f;
+            pd = keep ? pr * p.dp.inv_keep : 0.f;
+          }
+          st[i] = pd;
+          dpt[i] = pr * (gd - delta_s[qc]) * p.scale;
+        }
+    }
+
+    // dV += P_drop^T dO, then dK += dS^T Q, each operand as hi + mid + lo:
+    // each q-block's product is one of its own, folded into dV / dK by f32
+    // adds as the JAX kernel folds its blocks, NC columns at a time;
+    // P_drop's fragments are released before dS's are made
+    uint32_t a[3][4][4];
+    a_frags(st, a);
+    add_product<D>(dv, a, dot);
+    a_frags(dpt, a);
+    add_product<D>(dk, a, qt);
+
+    // every warp's products and reads of this stage are done: refill it
+    __syncthreads();
+    if (t == 0 && it + 2 < n) load_stage(s, q_start + 2 * BQ);
+  }
+
+  const size_t row0 = (static_cast<size_t>(b) * p.H + h) * p.SK + k_start +
+                      16 * w + l / 4;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    __nv_bfloat16* krow = p.dk + (row0 + 8 * hh) * D;
+    __nv_bfloat16* vrow = p.dv + (row0 + 8 * hh) * D;
+#pragma unroll
+    for (int g = 0; g < D / 8; ++g) {
+      *reinterpret_cast<__nv_bfloat162*>(krow + 8 * g + 2 * c) =
+          __floats2bfloat162_rn(dk[4 * g + 2 * hh], dk[4 * g + 2 * hh + 1]);
+      *reinterpret_cast<__nv_bfloat162*>(vrow + 8 * g + 2 * c) =
+          __floats2bfloat162_rn(dv[4 * g + 2 * hh], dv[4 * g + 2 * hh + 1]);
+    }
+  }
+}
+
+template <int D, int MODE>
+int launch(const CUtensorMap (&maps)[4], const DkvArgs& p, cudaStream_t s) {
+  constexpr int smem = dkv_smem_bytes<D>();
+  auto kernel = flash_dkv_kernel_sm90<D, MODE>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<dim3(p.SK / BK, p.H, p.B), WG, smem, s>>>(maps[0], maps[1],
+                                                     maps[2], maps[3], p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int run_d(const void* q, const void* k, const void* v, const void* dout,
+          const DkvArgs& p, int mode, cudaStream_t s) {
+  CUtensorMap maps[4];
+  if (!make_tile_map<D>(&maps[0], q, p.B * p.H * p.SQ) ||
+      !make_tile_map<D>(&maps[1], k, p.B * p.KV * p.SK) ||
+      !make_tile_map<D>(&maps[2], v, p.B * p.KV * p.SK) ||
+      !make_tile_map<D>(&maps[3], dout, p.B * p.H * p.SQ))
+    return static_cast<int>(cudaErrorInvalidValue);
+  switch (mode) {
+    case kNone: return launch<D, kNone>(maps, p, s);
+    case kPremask: return launch<D, kPremask>(maps, p, s);
+    case kCounters: return launch<D, kCounters>(maps, p, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+}  // namespace
+
+// dk, dv (B,H,SK,D) per query head, bf16, from bf16 q (B,H,SQ,D), k/v
+// (B,KV,SK,D), dout (B,H,SQ,D) and f32 lse, delta (B,H,SQ), all contiguous
+// and on 16 bytes; SQ and SK multiples of 64; D in {16, 32, 64, 128}. The
+// arguments of repro_flash_dkv (flash_bwd.cu); dq is not written. Launches
+// on `stream`; returns the CUDA error code (0 on success),
+// cudaErrorInvalidValue for what it does not take or a tensor map that
+// cuTensorMapEncodeTiled refuses.
+extern "C" int repro_flash_dkv_bf16(
+    const void* q, const void* k, const void* v, const void* dout,
+    const void* lse, const void* delta, void* dq, void* dk, void* dv, int B,
+    int H, int KV, int SQ, int SK, int D, float scale, int causal,
+    int local_window, int mode, const void* plane, uint32_t threshold,
+    float inv_keep, uint32_t key_lo, uint32_t key_hi, uint32_t salt,
+    uint32_t bh_offset, int heads_global, int rounds, void* stream) {
+  (void)dq;
+  const uintptr_t align =
+      reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+      reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(dout) |
+      reinterpret_cast<uintptr_t>(lse) | reinterpret_cast<uintptr_t>(delta) |
+      reinterpret_cast<uintptr_t>(dk) | reinterpret_cast<uintptr_t>(dv);
+  if (B <= 0 || H <= 0 || KV <= 0 || H % KV || SQ <= 0 || SK <= 0 ||
+      SQ % BQ || SK % BK || heads_global <= 0 || align % 16 ||
+      (mode == kPremask && plane == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const DkvArgs p{static_cast<const float*>(lse),
+                  static_cast<const float*>(delta),
+                  static_cast<__nv_bfloat16*>(dk),
+                  static_cast<__nv_bfloat16*>(dv),
+                  B, H, KV, SQ, SK, scale, causal, local_window,
+                  Dropout{static_cast<const int32_t*>(plane), threshold,
+                          key_lo, key_hi, salt, bh_offset,
+                          static_cast<uint32_t>(heads_global), rounds,
+                          inv_keep}};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 16: return run_d<16>(q, k, v, dout, p, mode, s);
+    case 32: return run_d<32>(q, k, v, dout, p, mode, s);
+    case 64: return run_d<64>(q, k, v, dout, p, mode, s);
+    case 128: return run_d<128>(q, k, v, dout, p, mode, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// dynamic shared memory a CTA of the D instance takes (0 for another D)
+extern "C" int repro_flash_dkv_bf16_smem_bytes(int D) {
+  switch (D) {
+    case 16: return dkv_smem_bytes<16>();
+    case 32: return dkv_smem_bytes<32>();
+    case 64: return dkv_smem_bytes<64>();
+    case 128: return dkv_smem_bytes<128>();
+    default: return 0;
+  }
+}

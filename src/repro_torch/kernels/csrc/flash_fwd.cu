@@ -3,9 +3,8 @@
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention.py::
 // _flash_kernel (flash_attention.py:58, pl.pallas_call at :300), reached
-// through flash_attention_mosaic (:388-433), at f32 and bf16 q/k/v: the
-// bf16 instance loads and upcasts bf16 tiles (flash_attention.py:108-110)
-// and rounds O once to bf16 at the store (:289); lse stays f32.
+// through flash_attention_mosaic (:388-433), at f32 q/k/v. The bf16
+// instance is the tensor-core kernel of flash_fwd_bf16.cu.
 //
 // What it computes (the JAX kernel's rules, :126-168). One CTA per (q-block
 // of 64 rows, head h, batch b) walks the k-blocks in order. Scores are
@@ -28,13 +27,10 @@
 // every O(S^2) value on chip: Q (64 x D), one K-or-V (64 x D) and the
 // probability tile (64 x 64) in shared memory (83 KB at D = 128, two CTAs
 // an SM), a 4 x 4 score tile and a 4 x D/16 output tile in registers per
-// thread, f32 FMAs on the SIMT units (f32 operands; no tensor cores yet).
-// The bf16 instance is the same kernel on tiles converted on the load: its
-// bytes halve, its f32 arithmetic does not, so against the bf16
-// tensor-core rate (989 TFLOP/s: 0.07 ms) it is far from its bound.
-// K and V share one buffer, loaded in turn. Dropout costs one Philox call
-// per thread and key column for four rows (kCounters) or one word load
-// (kPremask).
+// thread, f32 FMAs on the SIMT units (f32 operands: the tensor cores would
+// round them). K and V share one buffer, loaded in turn. Dropout costs one
+// Philox call per thread and key column for four rows (kCounters) or one
+// word load (kPremask).
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -238,26 +234,18 @@ int run_fwd(const void* q, const void* k, const void* v, void* out,
 
 }  // namespace
 
-// out, lse <- flash attention of q (B,H,SQ,D), k/v (B,KV,SK,D), all
-// contiguous; q, k, v and out f32 (repro_flash_fwd) or bf16
-// (repro_flash_fwd_bf16), lse f32; SQ and SK multiples of 64; D in {16, 32,
-// 64, 128}. mode 0 = none, 1 = premask (plane), 2 = counters (key words).
+// out, lse <- flash attention of f32 q (B,H,SQ,D), k/v (B,KV,SK,D), all
+// contiguous; out and lse f32; SQ and SK multiples of 64; D in {16, 32, 64,
+// 128}. mode 0 = none, 1 = premask (plane), 2 = counters (key words).
 // Launches on `stream`; returns the CUDA error code (0 on success).
-#define REPRO_FWD_ARGS                                                     \
-  const void *q, const void *k, const void *v, void *out, void *lse, int B, \
-      int H, int KV, int SQ, int SK, int D, float scale, int causal,       \
-      int local_window, int mode, const void *plane, uint32_t threshold,   \
-      float inv_keep, uint32_t key_lo, uint32_t key_hi, uint32_t salt,     \
-      uint32_t bh_offset, int heads_global, int rounds, void *stream
-#define REPRO_FWD_PARAMS                                                   \
-  q, k, v, out, lse, B, H, KV, SQ, SK, D, scale, causal, local_window,     \
-      mode, plane, threshold, inv_keep, key_lo, key_hi, salt, bh_offset,   \
-      heads_global, rounds, stream
-
-extern "C" int repro_flash_fwd(REPRO_FWD_ARGS) {
-  return run_fwd<float>(REPRO_FWD_PARAMS);
-}
-
-extern "C" int repro_flash_fwd_bf16(REPRO_FWD_ARGS) {
-  return run_fwd<__nv_bfloat16>(REPRO_FWD_PARAMS);
+extern "C" int repro_flash_fwd(
+    const void* q, const void* k, const void* v, void* out, void* lse, int B,
+    int H, int KV, int SQ, int SK, int D, float scale, int causal,
+    int local_window, int mode, const void* plane, uint32_t threshold,
+    float inv_keep, uint32_t key_lo, uint32_t key_hi, uint32_t salt,
+    uint32_t bh_offset, int heads_global, int rounds, void* stream) {
+  return run_fwd<float>(q, k, v, out, lse, B, H, KV, SQ, SK, D, scale,
+                        causal, local_window, mode, plane, threshold,
+                        inv_keep, key_lo, key_hi, salt, bh_offset,
+                        heads_global, rounds, stream);
 }

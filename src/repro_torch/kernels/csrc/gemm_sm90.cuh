@@ -1,8 +1,9 @@
 // Hopper building blocks of the tensor-core GEMM+RNG kernels
 // (gemm_fp8.cuh: e4m3 operands multiplied as f16; gemm_bf16.cuh: bf16
-// operands): shared-memory addresses, mbarriers, TMA tile loads and their
-// tensor maps, wgmma matrix descriptors and the m64n128k16 products with
-// f32 sums, all in inline PTX for sm_90a.
+// operands) and of the bf16 flash kernels (flash_sm90.cuh): shared-memory
+// addresses, mbarriers, TMA tile loads and their tensor maps, wgmma matrix
+// descriptors and the m64n128k16 products with f32 sums, all in inline PTX
+// for sm_90a.
 #pragma once
 
 #include <cuda.h>
@@ -196,13 +197,14 @@ inline EncodeTiled encode_tiled() {
 
 // The map of a row-major operand (E, rows, cols) with rows `ld` elements
 // apart (E = 1 and a 2-D map unless GROUPED): boxes of box_cols x box_rows
-// (x 1 expert), 128-byte swizzle, zeros past every edge. False when the
-// driver refuses it (a row stride off 16 bytes, a box wider than the
-// swizzle).
+// (x 1 expert), 128-byte swizzle unless `swizzle` says otherwise, zeros past
+// every edge. False when cuTensorMapEncodeTiled refuses it (a row stride
+// off 16 bytes, a box wider than the swizzle).
 template <bool GROUPED>
 bool make_map(CUtensorMap* map, CUtensorMapDataType dtype, int elem_bytes,
               const void* ptr, int E, int rows, int cols, int ld,
-              int box_cols, int box_rows) {
+              int box_cols, int box_rows,
+              CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return false;
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(cols),
@@ -215,8 +217,8 @@ bool make_map(CUtensorMap* map, CUtensorMapDataType dtype, int elem_bytes,
                              static_cast<cuuint32_t>(box_rows), 1};
   const cuuint32_t elem[3] = {1, 1, 1};
   return fn(map, dtype, GROUPED ? 3 : 2, const_cast<void*>(ptr), dims,
-            strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 

@@ -11,16 +11,19 @@ whose forward and backward are both kernels.
                       seed-salt word [key_lo, key_hi, salt, bh_offset]
                       (``philox_common.seed_salt_smem``): no plane exists.
 
-All four give the JAX package's bits: ``flash_attention_fwd`` launches the
-hand-written CUDA kernel ``csrc/flash_fwd.cu`` -- which replaces the TPU
-kernel ``src/repro/kernels/flash_attention.py::_flash_kernel`` -- when its
-inputs lie on a CUDA device, and the plain version when they lie on the
-CPU; a failed build or launch raises. What bounds it on an H100 (f32
-operations) and how it tiles: see the note in the CUDA source. The kernel
-takes f32 or bf16 q/k/v (one dtype; the bf16 instance computes in f32 on
-upcast tiles and writes O in bf16, lse in f32, as the JAX kernel does)
-with SQ and SK multiples of 64 and head_dim in {16, 32, 64, 128}; anything
-else on the card raises.
+All four give the JAX package's bits: ``flash_attention_fwd`` launches a
+hand-written CUDA kernel that replaces the TPU kernel
+``src/repro/kernels/flash_attention.py::_flash_kernel`` when its inputs
+lie on a CUDA device, and the plain version when they lie on the CPU; a
+failed build or launch raises. f32 q/k/v run ``csrc/flash_fwd.cu`` (f32
+FMAs on the SIMT units); bf16 q/k/v run ``csrc/flash_fwd_bf16.cu`` on the
+tensor cores (TMA tiles, bf16 ``wgmma`` with f32 sums, P entering P V as
+an exact hi + mid + lo triple of bf16 values, each block's P V folded
+into O by f32 adds), which computes the JAX kernel's bf16 function -- f32
+arithmetic on the upcast tiles -- up to the order of the f32 sums and
+writes O in bf16, lse in f32. What bounds each on an H100 and how it
+tiles: see the notes in the CUDA sources. Both take SQ and SK multiples of 64 and head_dim in {16, 32,
+64, 128}; anything else on the card raises.
 
 The seed-salt word is host data: the kernels take its four words by
 value, so it stays on the CPU and reading it costs no device sync.
@@ -49,6 +52,8 @@ KERNEL = "flash_fwd"
 KERNEL_BF16 = "flash_fwd_bf16"
 # q/k/v dtype -> the kernel instance (the C entry point is repro_<name>)
 KERNELS = {torch.float32: KERNEL, torch.bfloat16: KERNEL_BF16}
+# kernel instance -> its library (csrc/<source>.cu)
+SOURCES = {KERNEL: "flash_fwd", KERNEL_BF16: "flash_fwd_bf16"}
 
 NEG_BIG = float(np.float32(-0.7 * np.finfo(np.float32).max))
 KERNEL_HEAD_DIMS = (16, 32, 64, 128)
@@ -256,7 +261,7 @@ def check_kernel_shapes(q: torch.Tensor, k: torch.Tensor,
 def _kernel_fn(name: str):
     fn = _fns.get(name)
     if fn is None:
-        fn = getattr(build.load(KERNEL), f"repro_{name}")
+        fn = getattr(build.load(SOURCES[name]), f"repro_{name}")
         fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
                        + [ctypes.c_float] + [ctypes.c_int] * 3
                        + [ctypes.c_void_p, ctypes.c_uint32, ctypes.c_float]
@@ -400,8 +405,9 @@ def flash_attention_mosaic(q, k, v, mask_packed=None, causal=True,
                            local_window=0, dropout_p=0.0, mode="none",
                            seed=0, salt=0, rounds=7,
                            heads_global=0) -> torch.Tensor:
-    """Differentiable flash attention whose forward (``csrc/flash_fwd.cu``)
-    and backward (``csrc/flash_bwd.cu``: dq and dkv) are kernels on the
+    """Differentiable flash attention whose forward (``csrc/flash_fwd.cu``,
+    at bf16 ``csrc/flash_fwd_bf16.cu``) and backward (``csrc/flash_bwd.cu``:
+    dq and dkv; the bf16 dkv ``csrc/flash_dkv_bf16.cu``) are kernels on the
     card -- the port of the JAX package's ``flash_attention_mosaic``
     (flash_attention.py:388-433), with the same positional arguments less
     the TPU grid's ``block_q``/``block_k`` and ``interpret``. Nothing

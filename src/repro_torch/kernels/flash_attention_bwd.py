@@ -13,13 +13,17 @@ q/k/v/dO every product and sum is f32 on the upcast values, and dq and the
 per-head dk / dv are rounded once to bf16, as the JAX kernels write them
 (``out_dtype``); the group sum then adds those bf16 values.
 
-``flash_attention_bwd`` launches the hand-written CUDA kernels of
-``csrc/flash_bwd.cu`` -- ``repro_flash_dq`` replaces the TPU kernel
-``src/repro/kernels/flash_attention_bwd.py::_dq_kernel`` and
-``repro_flash_dkv`` replaces ``::_dkv_kernel`` -- when its inputs lie on a
-CUDA device, and the plain version when they lie on the CPU; a failed
-build or launch raises. Neither kernel uses atomics, so a step is bitwise
-reproducible; what bounds them (f32 operations) is in the CUDA source.
+``flash_attention_bwd`` launches hand-written CUDA kernels -- the dq kernel
+replaces the TPU kernel ``src/repro/kernels/flash_attention_bwd.py::
+_dq_kernel`` and the dkv kernel ``::_dkv_kernel`` -- when its inputs lie on
+a CUDA device, and the plain version when they lie on the CPU; a failed
+build or launch raises. ``csrc/flash_bwd.cu`` holds the f32 dq and dkv and
+the bf16 dq (f32 FMAs on the SIMT units); the bf16 dkv is
+``csrc/flash_dkv_bf16.cu`` on the tensor cores (bf16 ``wgmma``, P_drop and
+dS entering their products as exact hi + mid + lo triples of bf16
+values). No
+kernel uses atomics, so a step is bitwise reproducible; what bounds each is
+in its CUDA source.
 """
 from __future__ import annotations
 
@@ -48,6 +52,9 @@ KERNEL_DKV_BF16 = "flash_dkv_bf16"
 # q/k/v dtype -> (dq kernel, dkv kernel); the C entry point is repro_<name>
 KERNELS = {torch.float32: (KERNEL_DQ, KERNEL_DKV),
            torch.bfloat16: (KERNEL_DQ_BF16, KERNEL_DKV_BF16)}
+# kernel instance -> its library (csrc/<source>.cu)
+SOURCES = {KERNEL_DQ: SOURCE, KERNEL_DKV: SOURCE, KERNEL_DQ_BF16: SOURCE,
+           KERNEL_DKV_BF16: "flash_dkv_bf16"}
 
 _launches = {name: 0 for pair in KERNELS.values() for name in pair}
 _fns = {}
@@ -65,7 +72,7 @@ def reset_launch_count() -> None:
 def _kernel_fn(name: str):
     fn = _fns.get(name)
     if fn is None:
-        fn = getattr(build.load(SOURCE), f"repro_{name}")
+        fn = getattr(build.load(SOURCES[name]), f"repro_{name}")
         fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
                        + [ctypes.c_float] + [ctypes.c_int] * 3
                        + [ctypes.c_void_p, ctypes.c_uint32, ctypes.c_float]
@@ -133,20 +140,18 @@ def _bwd_plain(q, k, v, do, lse, delta, dp: Dropout, causal, local_window,
     return dq.to(q.dtype), dk_h.to(q.dtype), dv_h.to(q.dtype)
 
 
-def flash_attention_bwd(q, k, v, o, lse, do,
-                        mask_packed: Optional[torch.Tensor] = None, *,
-                        causal=True, local_window=0, dropout_p=0.0,
-                        mode="none", seed=0, salt=0, rounds=7, scale=None,
-                        heads_global=0
-                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(dq, dk, dv): the counterpart of the JAX package's
-    ``flash_attention_bwd``. dk / dv are computed per query head by the
-    dkv kernel (in q's dtype) and group-summed here for GQA. In "replay"
-    mode ``mask_packed`` carries the (4,) seed-salt word and both kernels
-    re-derive the forward's keep bits; no plane is read."""
+def flash_attention_bwd_heads(q, k, v, o, lse, do,
+                              mask_packed: Optional[torch.Tensor] = None, *,
+                              causal=True, local_window=0, dropout_p=0.0,
+                              mode="none", seed=0, salt=0, rounds=7,
+                              scale=None, heads_global=0
+                              ) -> Tuple[torch.Tensor, torch.Tensor,
+                                         torch.Tensor]:
+    """(dq, dk_h, dv_h) in q's dtype, dk / dv per query head (B, H, SK, D)
+    as the dkv kernel writes them, before the GQA group sum: the kernels on
+    a CUDA device, the plain version on the CPU."""
     batch, n_heads, sq, d = q.shape
-    kv_heads, sk = k.shape[1], k.shape[2]
-    group = n_heads // kv_heads
+    sk = k.shape[2]
     dp = resolve_dropout(mode, mask_packed, batch=batch, n_heads=n_heads,
                          sq=sq, sk=sk, dropout_p=dropout_p, seed=seed,
                          salt=salt, rounds=rounds,
@@ -171,11 +176,32 @@ def flash_attention_bwd(q, k, v, o, lse, do,
         dq_name, dkv_name = KERNELS[q.dtype]
         _bwd_kernel(dq_name, q, k, v, do, lse, delta, dq, None, *args)
         _bwd_kernel(dkv_name, q, k, v, do, lse, delta, dk_h, dv_h, *args)
-    elif q.device.type == "cpu":
-        dq, dk_h, dv_h = _bwd_plain(q, k, v, do, lse, delta, dp, causal,
-                                    local_window, scale)
-    else:
-        raise ValueError(f"no flash kernel for device {q.device}")
+        return dq, dk_h, dv_h
+    if q.device.type == "cpu":
+        return _bwd_plain(q, k, v, do, lse, delta, dp, causal, local_window,
+                          scale)
+    raise ValueError(f"no flash kernel for device {q.device}")
+
+
+def flash_attention_bwd(q, k, v, o, lse, do,
+                        mask_packed: Optional[torch.Tensor] = None, *,
+                        causal=True, local_window=0, dropout_p=0.0,
+                        mode="none", seed=0, salt=0, rounds=7, scale=None,
+                        heads_global=0
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv): the counterpart of the JAX package's
+    ``flash_attention_bwd``. dk / dv are computed per query head by the
+    dkv kernel (in q's dtype, ``flash_attention_bwd_heads``) and
+    group-summed here for GQA. In "replay" mode ``mask_packed`` carries the
+    (4,) seed-salt word and both kernels re-derive the forward's keep bits;
+    no plane is read."""
+    batch, n_heads, _, d = q.shape
+    kv_heads, sk = k.shape[1], k.shape[2]
+    group = n_heads // kv_heads
+    dq, dk_h, dv_h = flash_attention_bwd_heads(
+        q, k, v, o, lse, do, mask_packed, causal=causal,
+        local_window=local_window, dropout_p=dropout_p, mode=mode, seed=seed,
+        salt=salt, rounds=rounds, scale=scale, heads_global=heads_global)
     if group > 1:
         dk = dk_h.reshape(batch, kv_heads, group, sk, d).sum(dim=2)
         dv = dv_h.reshape(batch, kv_heads, group, sk, d).sum(dim=2)

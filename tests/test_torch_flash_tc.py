@@ -1,0 +1,308 @@
+"""The arithmetic of the bf16 tensor-core flash kernels, on the CPU.
+
+``csrc/flash_fwd_bf16.cu`` and ``csrc/flash_dkv_bf16.cu`` run only on the
+card. What they compute is emulated here in torch: scores from products of
+bf16 values (exact in f32) with f32 sums, then the f32 operands of the
+second products -- P in the forward, P_drop and dS in dkv -- split into
+the exact triple hi = bf16(x), mid = bf16(x - hi), lo = bf16(x - hi - mid),
+each part multiplied by the bf16 tile and summed in f32, then each output
+rounded once to bf16. The emulation is held against the JAX package's
+bf16 ``flash_attention_fwd`` / ``flash_attention_bwd`` (Pallas interpret
+mode) and against the port's plain versions at the limit the card's check
+uses, 1e-2 x (|x| + rms(x)) (lse at 1e-4 x (1 + |x|)), in replay, premask
+and none, MHA and GQA 2:1, at head_dim 32 and 16. A second test records
+why the kernels split as they do: against JAX's function the triple is
+exact up to the order of f32 sums, the pair hi + lo (16 bits) reads
+further and P rounded once to bf16 (FlashAttention-3's choice) much
+further, in f32 and in the bf16 outputs. A third pins the wrappers: the
+bf16 entry names and launch counters, the library each instance loads,
+the head dims the kernels take, and f32 q/k/v on the SIMT kernels.
+
+    PYTHONPATH=src python -m pytest -q tests/test_torch_flash_tc.py
+"""
+import importlib
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import philox_common as jpc
+from repro.kernels.ref import philox_mask_ref
+from repro_torch.kernels import build
+from repro_torch.kernels import flash_attention as tf
+from repro_torch.kernels import flash_attention_bwd as tb
+from repro_torch.kernels import launch_counts
+from repro_torch.kernels import philox_common as tpc
+
+jf = importlib.import_module("repro.kernels.flash_attention")
+jfb = importlib.import_module("repro.kernels.flash_attention_bwd")
+
+BF16 = torch.bfloat16
+# chip_smoke.py's limits of the bf16 flash kernels against their plain
+# versions: outputs tol x (|want| + rms(want)), lse tol x (1 + |want|)
+BF16_FLASH_TOL = 1e-2
+FWD_TOL = 1e-4
+TILE = 64  # the kernels' key block
+ARGS = dict(causal=True, dropout_p=0.1, seed=9, salt=3)
+
+
+def _bf16_np(rng, shape) -> np.ndarray:
+    """Standard normal values that are bf16 numbers, as f32."""
+    x = rng.standard_normal(shape).astype(np.float32)
+    return np.array(jnp.asarray(x, jnp.bfloat16).astype(jnp.float32))
+
+
+def _ratio(got, want, tol, scaled=True) -> float:
+    """max |got - want| / limit: tol x (|want| + rms(want)), or with
+    ``scaled`` False tol x (1 + |want|)."""
+    got = torch.as_tensor(np.array(got, np.float32))
+    want = torch.as_tensor(np.array(want, np.float32))
+    floor = want.square().mean().sqrt() if scaled else 1.0
+    return float(((got - want).abs() / (tol * (want.abs() + floor))).max())
+
+
+def _split(x: torch.Tensor, parts: int):
+    """x as ``parts`` bf16 values, each bf16(x - the ones before): three
+    (the kernels) are exact, two (hi + lo) keep 16 bits, one rounds once."""
+    out, rest = [], x
+    for _ in range(parts):
+        out.append(rest.to(BF16).float())
+        rest = rest - out[-1]
+    return out
+
+
+def _times(p: torch.Tensor, b: torch.Tensor, parts: int = 3) -> torch.Tensor:
+    """p @ b with p an f32 operand and b bf16 values: p split into
+    ``parts`` bf16 values, each product summed in f32."""
+    return sum(x @ b for x in _split(p, parts))
+
+
+def _dropout(mode, mask, b, h, s):
+    return tf.resolve_dropout(mode, mask, batch=b, n_heads=h, sq=s, sk=s,
+                              dropout_p=ARGS["dropout_p"], seed=ARGS["seed"],
+                              salt=ARGS["salt"], rounds=7, heads_global=0)
+
+
+def emulate_fwd(q, k, v, dp, scale, parts=3):
+    """The forward kernel's arithmetic: (O in f32 before its rounding, lse).
+    Online softmax over 64-key blocks with flash_fwd_bf16.cu's rules."""
+    b, h, s, d = q.shape
+    g = h // k.shape[1]
+    qf = q.float()
+    kf = torch.repeat_interleave(k.float(), g, dim=1)
+    vf = torch.repeat_interleave(v.float(), g, dim=1)
+    keep = (tf.keep_rows(dp, b, h, 0, s, s, "cpu") if dp.mode != "none"
+            else torch.ones((b, h, s, s), dtype=torch.bool))
+    valid = tf.score_mask(0, s, s, s, True, 0, "cpu")
+    m = torch.full((b, h, s, 1), tf.NEG_BIG)
+    l = torch.zeros((b, h, s, 1))
+    o = torch.zeros((b, h, s, d))
+    for k0 in range(0, s, TILE):
+        cols = slice(k0, k0 + TILE)
+        sc = (qf @ kf[:, :, cols].transpose(-1, -2)) * scale
+        sc = sc.masked_fill(~valid[:, cols], tf.NEG_BIG)
+        m_new = torch.maximum(m, sc.amax(-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        e = torch.exp(sc - m_new)
+        l = alpha * l + e.sum(-1, keepdim=True)
+        p = torch.where(keep[..., cols], e, 0.0)
+        o = o * alpha + _times(p, vf[:, :, cols], parts)
+        m = m_new
+    l = torch.where(l == 0.0, 1.0, l)
+    return o / l * dp.inv_keep, (m + torch.log(l))[..., 0]
+
+
+def emulate_dkv(q, k, v, do, o, lse, dp, scale, parts=3):
+    """The dkv kernel's arithmetic: per-query-head (dk, dv) in f32 before
+    their rounding, each 64-query block's products folded in by f32 adds.
+    Tiles that hold no valid score add zeros, so every block is taken."""
+    b, h, s, d = q.shape
+    g = h // k.shape[1]
+    qf, dof = q.float(), do.float()
+    kf = torch.repeat_interleave(k.float(), g, dim=1)
+    vf = torch.repeat_interleave(v.float(), g, dim=1)
+    delta = (dof * o.float()).sum(-1, keepdim=True)
+    sc = (qf @ kf.transpose(-1, -2)) * scale
+    sc = sc.masked_fill(~tf.score_mask(0, s, s, s, True, 0, "cpu"),
+                        tf.NEG_BIG)
+    p = torch.exp(sc - lse[..., None])
+    dpr = dof @ vf.transpose(-1, -2)
+    pd = p
+    if dp.mode != "none":
+        keep = tf.keep_rows(dp, b, h, 0, s, s, "cpu")
+        dpr = torch.where(keep, dpr * dp.inv_keep, 0.0)
+        pd = torch.where(keep, p * dp.inv_keep, 0.0)
+    ds = p * (dpr - delta) * scale
+    dk, dv = torch.zeros_like(kf), torch.zeros_like(vf)
+    for q0 in range(0, s, TILE):
+        rows = slice(q0, q0 + TILE)
+        dv = dv + _times(pd[:, :, rows].transpose(-1, -2), dof[:, :, rows],
+                         parts)
+        dk = dk + _times(ds[:, :, rows].transpose(-1, -2), qf[:, :, rows],
+                         parts)
+    return dk, dv
+
+
+def _group_sum(x_h: torch.Tensor, kv: int) -> torch.Tensor:
+    """The wrapper's GQA sum of per-query-head bf16 values."""
+    b, h, s, d = x_h.shape
+    return x_h.reshape(b, kv, h // kv, s, d).sum(dim=2)
+
+
+def _case(mode, kv, d, seed):
+    b, h, s = 2, 4, 128
+    rng = np.random.default_rng(seed)
+    q, do = _bf16_np(rng, (b, h, s, d)), _bf16_np(rng, (b, h, s, d))
+    k, v = _bf16_np(rng, (b, kv, s, d)), _bf16_np(rng, (b, kv, s, d))
+    jplane = philox_mask_ref(b, h, s, s, ARGS["dropout_p"], ARGS["seed"],
+                             salt=ARGS["salt"])
+    jop = {"premask": jplane,
+           "replay": jpc.seed_salt_smem(ARGS["seed"], ARGS["salt"])}.get(mode)
+    top = {"premask": torch.from_numpy(np.array(jplane).view(np.int32)),
+           "replay": tpc.seed_salt_smem(ARGS["seed"], ARGS["salt"])}.get(mode)
+    return (b, h, s), (q, k, v, do), jop, top
+
+
+@pytest.mark.parametrize("mode,kv,d", [
+    ("replay", 4, 32), ("premask", 4, 32), ("replay", 2, 32),
+    ("premask", 2, 32), ("none", 4, 32), ("replay", 4, 16)])
+def test_tc_emulation_matches_jax_and_plain(mode, kv, d):
+    """The kernels' arithmetic (hi + mid + lo) against JAX's bf16 kernels
+    and the port's plain versions: O, dk, dv within 1e-2 x (|x| +
+    rms(x)), lse within 1e-4 x (1 + |x|)."""
+    (b, h, s), arrays, jop, top = _case(mode, kv, d, 10 * kv + d + len(mode))
+    q, k, v, do = (torch.from_numpy(x).to(BF16) for x in arrays)
+    jq, jk, jv, jdo = (jnp.asarray(x, jnp.bfloat16) for x in arrays)
+    args = dict(ARGS, mode=mode)
+    scale = 1.0 / d ** 0.5
+    dp = _dropout(mode, top, b, h, s)
+
+    jo, jl = jf.flash_attention_fwd(jq, jk, jv, jop, return_lse=True, **args)
+    o32, lse = emulate_fwd(q, k, v, dp, scale)
+    o = o32.to(BF16)
+    po, plse = tf.flash_attention_fwd_plain(q, k, v, top, **args)
+    assert _ratio(o.float(), np.asarray(jo, np.float32), BF16_FLASH_TOL) <= 1
+    assert _ratio(o.float(), po.float(), BF16_FLASH_TOL) <= 1
+    assert _ratio(lse, np.asarray(jl), FWD_TOL, scaled=False) <= 1
+    assert _ratio(lse, plse, FWD_TOL, scaled=False) <= 1
+
+    # dkv on JAX's forward outputs, as the backward receives them
+    jo_t = torch.from_numpy(np.array(jo, np.float32)).to(BF16)
+    jl_t = torch.from_numpy(np.array(jl, np.float32))
+    _, jdk, jdv = jfb.flash_attention_bwd(jq, jk, jv, jo, jl, jdo, jop,
+                                          **args)
+    dk_h, dv_h = emulate_dkv(q, k, v, do, jo_t, jl_t, dp, scale)
+    dk, dv = (_group_sum(x.to(BF16), kv) for x in (dk_h, dv_h))
+    _, pdk_h, pdv_h = tb.flash_attention_bwd_plain(q, k, v, jo_t, jl_t, do,
+                                                   top, **args)
+    pdk, pdv = (_group_sum(x, kv) for x in (pdk_h, pdv_h))
+    for got, want, pwant in ((dk, jdk, pdk), (dv, jdv, pdv)):
+        assert got.dtype == BF16
+        assert _ratio(got.float(), np.asarray(want, np.float32),
+                      BF16_FLASH_TOL) <= 1
+        assert _ratio(got.float(), pwant.float(), BF16_FLASH_TOL) <= 1
+
+
+def test_tc_triple_is_jax_function_pair_and_single_rounding_are_not():
+    """Why the kernels split P, P_drop and dS into three bf16 parts:
+    against JAX's f32 kernels on the same (bf16) values -- the function the
+    bf16 kernels compute before their one rounding -- the triple is within
+    2^-18 of each output's scale (measured 4e-7 to 1.1e-6: the order of f32
+    sums), the pair hi + lo at least 4x further (1e-5 to 3e-5) and P
+    rounded once at least 100x further (4e-3 to 2e-2); and the bf16 O of
+    each differs from JAX's bf16 kernel in more of its 32,768 elements,
+    pair than triple, once than pair (measured 3, 57 and 11,386). The pair's extra flips in O move Delta =
+    rowsum(dO o O) and with it dq past the card's limit against the plain
+    versions."""
+    (b, h, s), arrays, jop, top = _case("replay", 4, 32, 5)
+    d = arrays[0].shape[-1]
+    q, k, v, do = (torch.from_numpy(x).to(BF16) for x in arrays)
+    j32 = [jnp.asarray(x, jnp.float32) for x in arrays]
+    j16 = [jnp.asarray(x, jnp.bfloat16) for x in arrays]
+    args = dict(ARGS, mode="replay")
+    scale = 1.0 / d ** 0.5
+    dp = _dropout("replay", top, b, h, s)
+
+    jo32, jl32 = jf.flash_attention_fwd(*j32[:3], jop, return_lse=True,
+                                        **args)
+    jo16 = torch.from_numpy(np.array(
+        jf.flash_attention_fwd(*j16[:3], jop, **args), np.float32))
+    o_t = torch.from_numpy(np.array(jo32, np.float32)).to(BF16)
+    l_t = torch.from_numpy(np.array(jl32, np.float32))
+    _, jdk32, jdv32 = jfb.flash_attention_bwd(
+        *j32[:3], jnp.asarray(o_t.float().numpy()), jl32, j32[3], jop, **args)
+    err = {}
+    for parts in (3, 2, 1):
+        o32, _ = emulate_fwd(q, k, v, dp, scale, parts)
+        dk32, dv32 = emulate_dkv(q, k, v, do, o_t, l_t, dp, scale, parts)
+        err[parts] = dict(
+            o=_ratio(o32, np.asarray(jo32), 1.0),
+            dk=_ratio(dk32, np.asarray(jdk32), 1.0),
+            dv=_ratio(dv32, np.asarray(jdv32), 1.0),
+            flips=int((o32.to(BF16).float() != jo16).sum()))
+    for key in ("o", "dk", "dv"):
+        assert err[3][key] <= 2.0 ** -18, (key, err)
+        assert err[2][key] >= 4 * err[3][key], (key, err)
+        assert err[1][key] >= 100 * err[3][key], (key, err)
+    assert err[3]["flips"] < err[2]["flips"] < err[1]["flips"], err
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_tc_wrappers_route_by_dtype(dtype, monkeypatch):
+    """Entry names, launch counters and libraries: bf16 q/k/v launch
+    repro_flash_fwd_bf16 (flash_fwd_bf16.cu) and repro_flash_dkv_bf16
+    (flash_dkv_bf16.cu) -- the tensor-core kernels -- and the bf16 dq and
+    every f32 instance stay in the SIMT sources; the kernels take head
+    dims 16, 32, 64 and 128."""
+    bf16 = dtype == BF16
+    fwd = tf.KERNELS[dtype]
+    dq, dkv = tb.KERNELS[dtype]
+    assert (fwd, dq, dkv) == (("flash_fwd_bf16", "flash_dq_bf16",
+                               "flash_dkv_bf16") if bf16 else
+                              ("flash_fwd", "flash_dq", "flash_dkv"))
+    counts = launch_counts()
+    assert {fwd, dq, dkv} <= set(counts)
+    want_src = {fwd: "flash_fwd_bf16" if bf16 else "flash_fwd",
+                dq: "flash_bwd",
+                dkv: "flash_dkv_bf16" if bf16 else "flash_bwd"}
+
+    loaded = []
+
+    class _Lib:
+        def __init__(self, name):
+            self.name = name
+
+        def __getattr__(self, sym):
+            fn = type("Fn", (), {})()
+            fn.lib, fn.sym = self.name, sym
+            return fn
+
+    monkeypatch.setattr(build, "load", lambda name: loaded.append(name)
+                        or _Lib(name))
+    monkeypatch.setattr(tf, "_fns", {})
+    monkeypatch.setattr(tb, "_fns", {})
+    for name, mod in ((fwd, tf), (dq, tb), (dkv, tb)):
+        fn = mod._kernel_fn(name)
+        assert (fn.lib, fn.sym) == (want_src[name], f"repro_{name}")
+    assert loaded == [want_src[fwd], want_src[dq], want_src[dkv]]
+
+    # each entry point is defined in the source its wrapper loads, and
+    # nowhere else; the dkv kernel keeps the name the profiler looks up
+    csrc = Path(build.CSRC)
+    assert {"flash_fwd_bf16", "flash_dkv_bf16"} <= set(build.sources())
+    for name in (fwd, dq, dkv):
+        defined = [p.stem for p in sorted(csrc.glob("*.cu"))
+                   if f'extern "C" int repro_{name}(' in p.read_text()
+                   or f"int repro_{name}(REPRO_" in p.read_text()]
+        assert defined == [want_src[name]], (name, defined)
+    assert "flash_dkv_kernel" in (csrc / f"{want_src[dkv]}.cu").read_text()
+
+    for d in (16, 32, 64, 128):
+        x = torch.zeros((1, 2, 64, d), dtype=dtype)
+        tf.check_kernel_shapes(x, x, x)
+    for shape in ((1, 2, 64, 48), (1, 2, 96, 64)):
+        x = torch.zeros(shape, dtype=dtype)
+        with pytest.raises(ValueError, match="head_dim"):
+            tf.check_kernel_shapes(x, x, x)
