@@ -94,14 +94,14 @@ also at K = bk = 344, K not a multiple of 16: rows zero-padded to the
 tensor maps' 16-byte stride); the bf16 GEMM+RNG kernel at the four host
 shapes (plane bitwise the plain one's and the f32 host's, bf16 C within
 1e-2 (1 + |C|) of the plain version, emission on and off in turns, and a
-Region-3 call) and the bf16 flash kernels (the forward and dkv on the
-tensor cores, dq on the SIMT units) at B=2, H=32, S=2048, D=128 in all
+Region-3 call) and the bf16 flash kernels (the forward, dq and dkv on
+the tensor cores) at B=2, H=32, S=2048, D=128 in all
 four dropout modes, with a local window, with 4 kv heads, at D=64 and at
 SQ=1024 < SK (within 1e-2 (|x| + rms(x)), lse 1e-4; each output's share
 of its limit printed; replay == premask bitwise; a planted fault in the
-keep bits must fail the check; the forward timed in none, premask and
-replay and dkv in premask and replay beside the SIMT floor of their
-exponentials and keep bits); the grouped bf16 kernel at the grouped host shapes
+keep bits must fail the check; the forward, dq and dkv timed in none,
+premask and replay beside the SIMT floor of their exponentials and keep
+bits); the grouped bf16 kernel at the grouped host shapes
 (plane bitwise the plain one's and the f32 grouped host's, bf16 C within
 1e-2 (1 + |C|), emission on and off in turns, a Region-3 call through
 both grouped hosts, and a planted fault -- one expert's C rows shifted by
@@ -289,6 +289,8 @@ def phase_build(state) -> None:
                          gemm_rng.KERNEL_BF16),
                         (flash.SOURCES[flash.KERNEL_BF16],
                          flash.KERNEL_BF16),
+                        (flash_bwd.SOURCES[flash_bwd.KERNEL_DQ_BF16],
+                         flash_bwd.KERNEL_DQ_BF16),
                         (flash_bwd.SOURCES[flash_bwd.KERNEL_DKV_BF16],
                          flash_bwd.KERNEL_DKV_BF16)):
         # the grouped GEMMs share their dense kernel's layout and report
@@ -640,8 +642,8 @@ def _flash_kernels(state, rnd, dtype, ops_rate) -> None:
     instances) against their plain versions in FLASH_CASES at
     FLASH_SHAPE (or the case's head_dim and SQ), causal; replay == premask
     bitwise; then timed on the main path's mode beside the bound and SDPA
-    on the same inputs (no dropout), and the forward and dkv in each
-    dropout mode beside the SIMT floor (``simt_floor_ms``). f32 is held at
+    on the same inputs (no dropout), and each kernel in each dropout mode
+    beside the SIMT floor (``simt_floor_ms``). f32 is held at
     FWD_TOL / GRAD_TOL, bf16 at BF16_FLASH_TOL (lse, f32 at both, at
     FWD_TOL); each dtype's checks must fail a planted fault
     (``_flash_fault``)."""
@@ -794,7 +796,8 @@ def _flash_kernels(state, rnd, dtype, ops_rate) -> None:
     floor_exp = simt_floor_ms(pairs * b * h, 7, ops_rate, False)
     floor_rng = simt_floor_ms(pairs * b * h, 7, ops_rate, True)
     modes = {}
-    for kind, name in (("fwd", names[0]), ("dkv", names[2])):
+    for kind, name in (("fwd", names[0]), ("dq", names[1]),
+                       ("dkv", names[2])):
         for mode, op in (("none", None), ("premask", plane),
                          ("replay", seed_salt)):
             args = dict(causal=True, dropout_p=0.1, mode=mode)
@@ -806,7 +809,7 @@ def _flash_kernels(state, rnd, dtype, ops_rate) -> None:
             else:
                 ms = device_time_ms(lambda: flash_bwd.flash_attention_bwd(
                     q, kk, vv, o, lse, do, op, **args),
-                    "flash_dkv_kernel", 10)
+                    f"flash_{kind}_kernel", 10)
                 if ms is None:
                     raise AssertionError("the profiler saw no device time")
             modes.setdefault(name, {})[mode] = ms
@@ -2924,7 +2927,8 @@ def kernel_records(state):
         (flash_bwd.KERNEL_DQ, "flash_bwd.cu",
          "src/repro/kernels/flash_attention_bwd.py:77", "train",
          state["train_launches"][flash_bwd.KERNEL_DQ],
-         errs[flash_bwd.KERNEL_DQ], t[flash_bwd.KERNEL_DQ], {}),
+         errs[flash_bwd.KERNEL_DQ], t[flash_bwd.KERNEL_DQ],
+         modes(flash_bwd.KERNEL_DQ)),
         (flash_bwd.KERNEL_DKV, "flash_bwd.cu",
          "src/repro/kernels/flash_attention_bwd.py:137", "train",
          state["train_launches"][flash_bwd.KERNEL_DKV],
@@ -2951,10 +2955,10 @@ def kernel_records(state):
          "src/repro/kernels/flash_attention.py:58", "train_bf16",
          l16[flash.KERNEL_BF16], errs[flash.KERNEL_BF16],
          t[flash.KERNEL_BF16], modes(flash.KERNEL_BF16)),
-        (flash_bwd.KERNEL_DQ_BF16, "flash_bwd.cu",
+        (flash_bwd.KERNEL_DQ_BF16, "flash_dq_bf16.cu",
          "src/repro/kernels/flash_attention_bwd.py:77", "train_bf16",
          l16[flash_bwd.KERNEL_DQ_BF16], errs[flash_bwd.KERNEL_DQ_BF16],
-         t[flash_bwd.KERNEL_DQ_BF16], {}),
+         t[flash_bwd.KERNEL_DQ_BF16], modes(flash_bwd.KERNEL_DQ_BF16)),
         (flash_bwd.KERNEL_DKV_BF16, "flash_dkv_bf16.cu",
          "src/repro/kernels/flash_attention_bwd.py:137", "train_bf16",
          l16[flash_bwd.KERNEL_DKV_BF16], errs[flash_bwd.KERNEL_DKV_BF16],

@@ -1,12 +1,12 @@
-// Flash-attention backward with the paper's dropout modes: dq, and dk / dv
-// per query head, from scores recomputed with the forward's lse.
+// Flash-attention backward at f32 q/k/v/dO with the paper's dropout modes:
+// dq, and dk / dv per query head, from scores recomputed with the
+// forward's lse.
 //
 // Replaces the TPU kernels src/repro/kernels/flash_attention_bwd.py::
 // _dq_kernel (flash_attention_bwd.py:77, pl.pallas_call at :266) and
-// ::_dkv_kernel (:137, pallas_call at :288) at f32, and _dq_kernel at bf16:
-// that instance loads and upcasts bf16 q/k/v/dO tiles (:107-112) and rounds
-// dq once to bf16 at the store (:300-311); lse and delta stay f32. The bf16
-// dkv kernel is the tensor-core kernel of flash_dkv_bf16.cu.
+// ::_dkv_kernel (:137, pallas_call at :288) at f32 (f32 only: the bf16
+// instances are the tensor-core kernels of flash_dq_bf16.cu and
+// flash_dkv_bf16.cu).
 //
 // What they compute (flash_attention_bwd.py:10-15). With keep mask K and
 // P = exp(S * scale - lse) recomputed per tile (invalid scores masked to
@@ -28,9 +28,8 @@
 // operands are under 0.3 GB (0.1 ms). The design is the forward's: every
 // O(S^2) tile lives in registers and shared memory (dq: Q, dO, K, V and the
 // dS tile, 149 KB at D = 128; dkv: K, V, Q, dO and two 64 x 64 tiles,
-// 165 KB), one CTA an SM, f32 FMAs on the SIMT units. The bf16 dq instance
-// halves the bytes, not the f32 arithmetic: against the bf16 tensor-core
-// rate (0.10 ms) it is far from its bound.
+// 165 KB), one CTA an SM, f32 FMAs on the SIMT units (f32 operands: the
+// tensor cores would round them).
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -41,17 +40,16 @@ namespace {
 
 using namespace repro_flash;
 
-template <typename T>
 struct Bwd {
-  const T* q;
-  const T* k;
-  const T* v;
-  const T* dout;
+  const float* q;
+  const float* k;
+  const float* v;
+  const float* dout;
   const float* lse;
   const float* delta;
-  T* dq;
-  T* dk;  // (B, H, SK, D): per query head
-  T* dv;
+  float* dq;
+  float* dk;  // (B, H, SK, D): per query head
+  float* dv;
   int B, H, KV, SQ, SK;
   float scale;
   int causal, local_window;
@@ -107,8 +105,8 @@ __device__ __forceinline__ void score_tiles(const float* Qs, const float* dOs,
 
 // p = exp(masked s * scale - lse); dp <- dropped and scaled dp; p_drop the
 // dropped probability (the dv operand); ds = p * (dp - delta).
-template <int MODE, typename T>
-__device__ __forceinline__ void grad_tiles(const Bwd<T>& p, int b, int h,
+template <int MODE>
+__device__ __forceinline__ void grad_tiles(const Bwd& p, int b, int h,
                                            int q_start, int k_start, int ty,
                                            int tx, const float lse[4],
                                            const float delta[4],
@@ -142,8 +140,8 @@ __device__ __forceinline__ void grad_tiles(const Bwd<T>& p, int b, int h,
   }
 }
 
-template <typename T, int D, int MODE>
-__global__ void __launch_bounds__(NT) flash_dq_kernel(Bwd<T> p) {
+template <int D, int MODE>
+__global__ void __launch_bounds__(NT) flash_dq_kernel(Bwd p) {
   extern __shared__ float smem[];
   constexpr int LD = D + 1;
   constexpr int DC = D / 16;
@@ -208,11 +206,11 @@ __global__ void __launch_bounds__(NT) flash_dq_kernel(Bwd<T> p) {
   for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int c = 0; c < DC; ++c)
-      p.dq[(row0 + 4 * ty + i) * D + tx + 16 * c] = from_f32<T>(acc[i][c]);
+      p.dq[(row0 + 4 * ty + i) * D + tx + 16 * c] = acc[i][c];
 }
 
-template <typename T, int D, int MODE>
-__global__ void __launch_bounds__(NT) flash_dkv_kernel(Bwd<T> p) {
+template <int D, int MODE>
+__global__ void __launch_bounds__(NT) flash_dkv_kernel(Bwd p) {
   extern __shared__ float smem[];
   constexpr int LD = D + 1;
   constexpr int DC = D / 16;
@@ -295,84 +293,80 @@ __global__ void __launch_bounds__(NT) flash_dkv_kernel(Bwd<T> p) {
   for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int c = 0; c < DC; ++c) {
-      p.dk[(out0 + 4 * ty + i) * D + tx + 16 * c] = from_f32<T>(dk[i][c]);
-      p.dv[(out0 + 4 * ty + i) * D + tx + 16 * c] = from_f32<T>(dv[i][c]);
+      p.dk[(out0 + 4 * ty + i) * D + tx + 16 * c] = dk[i][c];
+      p.dv[(out0 + 4 * ty + i) * D + tx + 16 * c] = dv[i][c];
     }
 }
 
-template <typename T, int D, int MODE, bool DQ>
-int launch(const Bwd<T>& p, cudaStream_t s) {
+template <int D, int MODE, bool DQ>
+int launch(const Bwd& p, cudaStream_t s) {
   if constexpr (DQ) {
     constexpr int smem = dq_smem_bytes<D>();
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_dq_kernel<T, D, MODE>,
+        flash_dq_kernel<D, MODE>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
-    flash_dq_kernel<T, D, MODE>
-        <<<dim3(p.SQ / BQ, p.H, p.B), NT, smem, s>>>(p);
+    flash_dq_kernel<D, MODE><<<dim3(p.SQ / BQ, p.H, p.B), NT, smem, s>>>(p);
   } else {
     constexpr int smem = dkv_smem_bytes<D>();
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_dkv_kernel<T, D, MODE>,
+        flash_dkv_kernel<D, MODE>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
-    flash_dkv_kernel<T, D, MODE>
-        <<<dim3(p.SK / BK, p.H, p.B), NT, smem, s>>>(p);
+    flash_dkv_kernel<D, MODE><<<dim3(p.SK / BK, p.H, p.B), NT, smem, s>>>(p);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int D, bool DQ>
-int launch_mode(const Bwd<T>& p, int mode, cudaStream_t s) {
+template <int D, bool DQ>
+int launch_mode(const Bwd& p, int mode, cudaStream_t s) {
   switch (mode) {
-    case kNone: return launch<T, D, kNone, DQ>(p, s);
-    case kPremask: return launch<T, D, kPremask, DQ>(p, s);
-    case kCounters: return launch<T, D, kCounters, DQ>(p, s);
+    case kNone: return launch<D, kNone, DQ>(p, s);
+    case kPremask: return launch<D, kPremask, DQ>(p, s);
+    case kCounters: return launch<D, kCounters, DQ>(p, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-template <bool DQ, typename T>
-int launch_bwd(const Bwd<T>& p, int D, int mode, cudaStream_t s) {
+template <bool DQ>
+int launch_bwd(const Bwd& p, int D, int mode, cudaStream_t s) {
   if (p.B <= 0 || p.H <= 0 || p.KV <= 0 || p.H % p.KV || p.SQ % BQ ||
       p.SK % BK || p.SQ <= 0 || p.SK <= 0 || p.dp.heads_global == 0 ||
       (mode == kPremask && p.dp.plane == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   switch (D) {
-    case 16: return launch_mode<T, 16, DQ>(p, mode, s);
-    case 32: return launch_mode<T, 32, DQ>(p, mode, s);
-    case 64: return launch_mode<T, 64, DQ>(p, mode, s);
-    case 128: return launch_mode<T, 128, DQ>(p, mode, s);
+    case 16: return launch_mode<16, DQ>(p, mode, s);
+    case 32: return launch_mode<32, DQ>(p, mode, s);
+    case 64: return launch_mode<64, DQ>(p, mode, s);
+    case 128: return launch_mode<128, DQ>(p, mode, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-template <typename T>
-Bwd<T> make_bwd(const void* q, const void* k, const void* v,
-                const void* dout, const void* lse, const void* delta,
-                void* dq, void* dk, void* dv, int B, int H, int KV, int SQ,
-                int SK, float scale, int causal, int local_window,
-                const void* plane, uint32_t threshold, float inv_keep,
-                uint32_t key_lo, uint32_t key_hi, uint32_t salt,
-                uint32_t bh_offset, int heads_global, int rounds) {
-  return Bwd<T>{static_cast<const T*>(q), static_cast<const T*>(k),
-                static_cast<const T*>(v), static_cast<const T*>(dout),
-                static_cast<const float*>(lse),
-                static_cast<const float*>(delta), static_cast<T*>(dq),
-                static_cast<T*>(dk), static_cast<T*>(dv), B, H, KV, SQ, SK,
-                scale, causal, local_window,
-                Dropout{static_cast<const int32_t*>(plane), threshold,
-                        key_lo, key_hi, salt, bh_offset,
-                        static_cast<uint32_t>(heads_global), rounds,
-                        inv_keep}};
+Bwd make_bwd(const void* q, const void* k, const void* v, const void* dout,
+             const void* lse, const void* delta, void* dq, void* dk,
+             void* dv, int B, int H, int KV, int SQ, int SK, float scale,
+             int causal, int local_window, const void* plane,
+             uint32_t threshold, float inv_keep, uint32_t key_lo,
+             uint32_t key_hi, uint32_t salt, uint32_t bh_offset,
+             int heads_global, int rounds) {
+  return Bwd{static_cast<const float*>(q), static_cast<const float*>(k),
+             static_cast<const float*>(v), static_cast<const float*>(dout),
+             static_cast<const float*>(lse),
+             static_cast<const float*>(delta), static_cast<float*>(dq),
+             static_cast<float*>(dk), static_cast<float*>(dv), B, H, KV, SQ,
+             SK, scale, causal, local_window,
+             Dropout{static_cast<const int32_t*>(plane), threshold, key_lo,
+                     key_hi, salt, bh_offset,
+                     static_cast<uint32_t>(heads_global), rounds,
+                     inv_keep}};
 }
 
 }  // namespace
 
 // The two backward kernels, each on `stream`, with the arguments of
 // repro_flash_fwd plus dout, lse (B,H,SQ) and delta (B,H,SQ), all
-// contiguous; q, k, v, dout and the outputs f32 (repro_flash_dq,
-// repro_flash_dkv) or bf16 (repro_flash_dq_bf16), lse and delta f32.
+// contiguous and f32.
 // repro_flash_dq writes dq (B,H,SQ,D); repro_flash_dkv writes dk and dv per
 // query head, (B,H,SK,D). Each returns the CUDA error code (0 on success).
 #define REPRO_BWD_ARGS                                                      \
@@ -382,22 +376,17 @@ Bwd<T> make_bwd(const void* q, const void* k, const void* v,
       int local_window, int mode, const void *plane, uint32_t threshold,    \
       float inv_keep, uint32_t key_lo, uint32_t key_hi, uint32_t salt,      \
       uint32_t bh_offset, int heads_global, int rounds, void *stream
-#define REPRO_BWD_PARAMS(T)                                                 \
-  make_bwd<T>(q, k, v, dout, lse, delta, dq, dk, dv, B, H, KV, SQ, SK,      \
-              scale, causal, local_window, plane, threshold, inv_keep,      \
-              key_lo, key_hi, salt, bh_offset, heads_global, rounds)
+#define REPRO_BWD_PARAMS                                                    \
+  make_bwd(q, k, v, dout, lse, delta, dq, dk, dv, B, H, KV, SQ, SK, scale,  \
+           causal, local_window, plane, threshold, inv_keep, key_lo,        \
+           key_hi, salt, bh_offset, heads_global, rounds)
 
 extern "C" int repro_flash_dq(REPRO_BWD_ARGS) {
-  return launch_bwd<true>(REPRO_BWD_PARAMS(float), D, mode,
+  return launch_bwd<true>(REPRO_BWD_PARAMS, D, mode,
                           static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int repro_flash_dkv(REPRO_BWD_ARGS) {
-  return launch_bwd<false>(REPRO_BWD_PARAMS(float), D, mode,
+  return launch_bwd<false>(REPRO_BWD_PARAMS, D, mode,
                            static_cast<cudaStream_t>(stream));
-}
-
-extern "C" int repro_flash_dq_bf16(REPRO_BWD_ARGS) {
-  return launch_bwd<true>(REPRO_BWD_PARAMS(__nv_bfloat16), D, mode,
-                          static_cast<cudaStream_t>(stream));
 }

@@ -1,6 +1,7 @@
-// Shared pieces of the flash-attention kernels (flash_fwd.cu, flash_bwd.cu):
-// the tile shape, the thread-to-element map, masking and the dropout keep
-// bits of one thread's score elements.
+// Shared pieces of the flash-attention kernels: the tile shape, masking and
+// the dropout inputs of all of them (the bf16 tensor-core kernels add
+// flash_sm90.cuh), and the thread-to-element map and keep bits of the f32
+// SIMT kernels (flash_fwd.cu, flash_bwd.cu).
 //
 // Tiles are BQ x BK = 64 x 64 score elements on 256 threads (a 16 x 16
 // grid). Thread (ty, tx) owns query rows 4*ty + i (i < 4) -- four
@@ -10,16 +11,8 @@
 // words. Operand tiles sit in shared memory row-major with a pitch of
 // D + 1 floats: a column walk over rows (tx + 16*j) * (D + 1) + d hits 16
 // different banks, a row walk is contiguous.
-//
-// The kernels are templates on the element type T of q, k, v, dO and of
-// what they write (o, dq, dk, dv): float, or __nv_bfloat16 -- the JAX
-// kernels' bf16 instance, which loads bf16 tiles, upcasts them to f32
-// (exact) and computes exactly as at f32, then rounds each output once to
-// the input dtype. The shared-memory tiles, every product, sum and
-// exponent, lse and delta stay f32 for both.
 #pragma once
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -105,28 +98,13 @@ __device__ __forceinline__ void keep_nibbles(const Dropout& dp, int b,
   }
 }
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-// x rounded to T (to nearest even for bf16)
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-// Copy a rows x D tile (row-major, contiguous rows of D elements of T) into
-// shared memory as f32 at pitch D + 1.
-template <int D, typename T>
-__device__ __forceinline__ void load_tile(float* dst, const T* src,
+// Copy a rows x D tile (row-major, contiguous rows of D floats) into
+// shared memory at pitch D + 1.
+template <int D>
+__device__ __forceinline__ void load_tile(float* dst, const float* src,
                                           int rows) {
   for (int i = threadIdx.x; i < rows * D; i += NT)
-    dst[(i / D) * (D + 1) + i % D] = to_f32(src[i]);
+    dst[(i / D) * (D + 1) + i % D] = src[i];
 }
 
 // Sum / max over the 16 lanes (tx) that share a query row.

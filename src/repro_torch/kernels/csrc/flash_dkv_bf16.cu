@@ -82,39 +82,6 @@ constexpr int dkv_smem_bytes() {
   return 1024 + 2 * tile_bytes<D>() + 2 * stage_bytes<D>() + 24;
 }
 
-// columns of one product chunk: a D = 128 product in two halves, so the
-// chunk's accumulator (NC / 2 floats a thread) fits beside dK and dV
-template <int D>
-__host__ __device__ constexpr int chunk_cols() {
-  return D < 64 ? D : 64;
-}
-
-// acc (64 x D, the fragment of dK or dV) += A B for A = the three parts of
-// a 64 x 64 fragment (a[part][slice]) and B the 64-row tile at `b`, read
-// MN-major: each NC-column chunk a fresh product, then one f32 add
-template <int D>
-__device__ __forceinline__ void add_product(float (&acc)[D / 2],
-                                            const uint32_t (&a)[3][4][4],
-                                            uint32_t b) {
-  constexpr int NC = chunk_cols<D>();
-#pragma unroll
-  for (int c0 = 0; c0 < D; c0 += NC) {
-    float part[NC / 2];  // replaced by the first product
-    const uint32_t bc = b + (c0 / 64) * 64 * row_bytes<D>();
-    wgmma_fence();
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int i = 0; i < 3; ++i)
-        wgmma_rs<NC>(part, a[i][j], desc_mn<D>(bc, j), i + j);
-    wgmma_commit();
-    wgmma_wait0();
-    fence_acc(part);
-#pragma unroll
-    for (int t = 0; t < NC / 2; ++t) acc[c0 / 2 + t] += part[t];
-  }
-}
-
 template <int D, int MODE>
 __global__ void __launch_bounds__(WG, 1)
     flash_dkv_kernel_sm90(const __grid_constant__ CUtensorMap map_q,

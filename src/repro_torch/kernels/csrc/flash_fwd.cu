@@ -3,8 +3,8 @@
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention.py::
 // _flash_kernel (flash_attention.py:58, pl.pallas_call at :300), reached
-// through flash_attention_mosaic (:388-433), at f32 q/k/v. The bf16
-// instance is the tensor-core kernel of flash_fwd_bf16.cu.
+// through flash_attention_mosaic (:388-433), at f32 q/k/v (f32 only: the
+// bf16 instance is the tensor-core kernel of flash_fwd_bf16.cu).
 //
 // What it computes (the JAX kernel's rules, :126-168). One CTA per (q-block
 // of 64 rows, head h, batch b) walks the k-blocks in order. Scores are
@@ -41,12 +41,11 @@ namespace {
 
 using namespace repro_flash;
 
-template <typename T>
 struct Fwd {
-  const T* q;
-  const T* k;
-  const T* v;
-  T* o;
+  const float* q;
+  const float* k;
+  const float* v;
+  float* o;
   float* lse;
   int B, H, KV, SQ, SK;
   float scale;
@@ -59,8 +58,8 @@ constexpr int fwd_smem_bytes() {
   return (BQ * (D + 1) + BK * (D + 1) + BQ * PP) * 4;
 }
 
-template <typename T, int D, int MODE>
-__global__ void __launch_bounds__(NT) flash_fwd_kernel(Fwd<T> p) {
+template <int D, int MODE>
+__global__ void __launch_bounds__(NT) flash_fwd_kernel(Fwd p) {
   extern __shared__ float smem[];
   constexpr int LD = D + 1;
   constexpr int DC = D / 16;
@@ -176,58 +175,29 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(Fwd<T> p) {
                        4 * ty + i;
 #pragma unroll
     for (int c = 0; c < DC; ++c)
-      p.o[row * D + tx + 16 * c] =
-          from_f32<T>(acc[i][c] / li * p.dp.inv_keep);
+      p.o[row * D + tx + 16 * c] = acc[i][c] / li * p.dp.inv_keep;
     if (tx == 0) p.lse[row] = m[i] + logf(li);
   }
 }
 
-template <typename T, int D, int MODE>
-int launch(const Fwd<T>& p, cudaStream_t s) {
+template <int D, int MODE>
+int launch(const Fwd& p, cudaStream_t s) {
   constexpr int smem = fwd_smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, D, MODE>,
+      flash_fwd_kernel<D, MODE>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(p.SQ / BQ, p.H, p.B);
-  flash_fwd_kernel<T, D, MODE><<<grid, NT, smem, s>>>(p);
+  flash_fwd_kernel<D, MODE><<<grid, NT, smem, s>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int D>
-int launch_mode(const Fwd<T>& p, int mode, cudaStream_t s) {
+template <int D>
+int launch_mode(const Fwd& p, int mode, cudaStream_t s) {
   switch (mode) {
-    case kNone: return launch<T, D, kNone>(p, s);
-    case kPremask: return launch<T, D, kPremask>(p, s);
-    case kCounters: return launch<T, D, kCounters>(p, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-}
-
-template <typename T>
-int run_fwd(const void* q, const void* k, const void* v, void* out,
-            void* lse, int B, int H, int KV, int SQ, int SK, int D,
-            float scale, int causal, int local_window, int mode,
-            const void* plane, uint32_t threshold, float inv_keep,
-            uint32_t key_lo, uint32_t key_hi, uint32_t salt,
-            uint32_t bh_offset, int heads_global, int rounds, void* stream) {
-  if (B <= 0 || H <= 0 || KV <= 0 || H % KV || SQ % BQ || SK % BK ||
-      SQ <= 0 || SK <= 0 || heads_global <= 0 ||
-      (mode == kPremask && plane == nullptr))
-    return static_cast<int>(cudaErrorInvalidValue);
-  Fwd<T> p{static_cast<const T*>(q), static_cast<const T*>(k),
-           static_cast<const T*>(v), static_cast<T*>(out),
-           static_cast<float*>(lse), B, H, KV, SQ, SK, scale, causal,
-           local_window,
-           Dropout{static_cast<const int32_t*>(plane), threshold, key_lo,
-                   key_hi, salt, bh_offset,
-                   static_cast<uint32_t>(heads_global), rounds, inv_keep}};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 16: return launch_mode<T, 16>(p, mode, s);
-    case 32: return launch_mode<T, 32>(p, mode, s);
-    case 64: return launch_mode<T, 64>(p, mode, s);
-    case 128: return launch_mode<T, 128>(p, mode, s);
+    case kNone: return launch<D, kNone>(p, s);
+    case kPremask: return launch<D, kPremask>(p, s);
+    case kCounters: return launch<D, kCounters>(p, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -244,8 +214,24 @@ extern "C" int repro_flash_fwd(
     int local_window, int mode, const void* plane, uint32_t threshold,
     float inv_keep, uint32_t key_lo, uint32_t key_hi, uint32_t salt,
     uint32_t bh_offset, int heads_global, int rounds, void* stream) {
-  return run_fwd<float>(q, k, v, out, lse, B, H, KV, SQ, SK, D, scale,
-                        causal, local_window, mode, plane, threshold,
-                        inv_keep, key_lo, key_hi, salt, bh_offset,
-                        heads_global, rounds, stream);
+  if (B <= 0 || H <= 0 || KV <= 0 || H % KV || SQ % BQ || SK % BK ||
+      SQ <= 0 || SK <= 0 || heads_global <= 0 ||
+      (mode == kPremask && plane == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Fwd p{static_cast<const float*>(q), static_cast<const float*>(k),
+              static_cast<const float*>(v), static_cast<float*>(out),
+              static_cast<float*>(lse), B, H, KV, SQ, SK, scale, causal,
+              local_window,
+              Dropout{static_cast<const int32_t*>(plane), threshold, key_lo,
+                      key_hi, salt, bh_offset,
+                      static_cast<uint32_t>(heads_global), rounds,
+                      inv_keep}};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 16: return launch_mode<16>(p, mode, s);
+    case 32: return launch_mode<32>(p, mode, s);
+    case 64: return launch_mode<64>(p, mode, s);
+    case 128: return launch_mode<128>(p, mode, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

@@ -1,17 +1,17 @@
 // Hopper pieces of the bf16 tensor-core flash kernels (flash_fwd_bf16.cu,
-// flash_dkv_bf16.cu): the tile layout in shared memory and its wgmma
-// descriptors, the m64 bf16 products, the exact split of an f32 fragment
-// into bf16 A operands, and the keep bits of a thread's accumulator
-// elements.
+// flash_dq_bf16.cu, flash_dkv_bf16.cu): the tile layout in shared memory
+// and its wgmma descriptors, the m64 bf16 products, the exact split of an
+// f32 fragment into bf16 A operands and its product folded into a running
+// sum, and the keep bits of a thread's accumulator elements.
 //
 // Tiles. Every operand tile is 64 rows x D bf16 of a row-major (rows, D)
 // tensor (q, k, v, dO), loaded by TMA (gemm_sm90.cuh) in the swizzle whose
 // span is one row of the tile: R = 2D bytes for D = 16 (32-byte swizzle) and
 // D = 32 (64-byte), R = 128 bytes for D >= 64, where a D = 128 tile is two
 // boxes of 64 columns, the second 64 R bytes after the first. The same tile
-// serves as a K-major operand (its rows are M or N, D is k: Q K^T, K Q^T,
-// V dO^T) and as an MN-major B (its rows are k, D is n, read through the
-// transpose bit: P V, P_drop^T dO, dS^T Q).
+// serves as a K-major operand (its rows are M or N, D is k: Q K^T, dO V^T,
+// K Q^T, V dO^T) and as an MN-major B (its rows are k, D is n, read
+// through the transpose bit: P V, dS K, P_drop^T dO, dS^T Q).
 //
 // Fragments (the PTX ISA's wgmma layouts). Thread t of the warpgroup (warp
 // w = t / 32, lane l, c = l % 4) holds in an m64nN f32 accumulator d the
@@ -23,21 +23,22 @@
 // d[8j+5]), (d[8j+6], d[8j+7]) -- a score fragment feeds the next product
 // without leaving the registers.
 //
-// The f32 operands (P in the forward, P_drop and dS in dkv) enter as an
-// exact triple: hi = bf16_rn(x), mid = bf16_rn(x - hi), lo = bf16_rn(x - hi
-// - mid). Each difference is exact in f32 and the three carry all 24 bits
-// of x's significand (x = hi + mid + lo for |x| >= 2^-110), so three bf16
-// products into one f32 accumulator are the JAX kernels' f32-operand
-// product up to the order of the f32 sums. Each block's second product is
-// a product of its own, folded into the running O, dK or dV by f32 adds as
-// the JAX kernels fold their blocks. Measured against the plain version at
-// 2 x 32 x 2048 x 128 on the H100, the share of O's bf16 roundings that
-// differ: a pair hi + lo (16 bits, within 2^-17 of x) chained over all
-// blocks inside the tensor core 0.19 %, the triple chained 0.19 % (the
-// tensor core's own accumulation over 384 steps), the triple folded block
-// by block 0.05 %, the f32 SIMT kernel it replaces 0.03 %. The backward's
-// Delta = rowsum(dO o O) carries those into dq and dk. P rounded once to
-// bf16 (2^-9) would be another function.
+// The f32 operands (P in the forward, dS in dq, P_drop and dS in dkv)
+// enter as an exact triple: hi = bf16_rn(x), mid = bf16_rn(x - hi), lo =
+// bf16_rn(x - hi - mid). Each difference is exact in f32 and the three
+// carry all 24 bits of x's significand (x = hi + mid + lo for |x| >=
+// 2^-110), so three bf16 products into one f32 accumulator are the JAX
+// kernels' f32-operand product up to the order of the f32 sums. Each
+// block's second product is a product of its own, folded into the running
+// O, dq, dK or dV by f32 adds as the JAX kernels fold their blocks.
+// Measured against the plain version at 2 x 32 x 2048 x 128 on the H100,
+// the share of O's bf16 roundings that differ: a pair hi + lo (16 bits,
+// within 2^-17 of x) chained over all blocks inside the tensor core
+// 0.19 %, the triple chained 0.19 % (the tensor core's own accumulation
+// over 384 steps), the triple folded block by block 0.05 %, the f32 SIMT
+// kernel it replaces 0.03 %. The backward's Delta = rowsum(dO o O)
+// carries those into dq and dk. P rounded once to bf16 (2^-9) would be
+// another function.
 #pragma once
 
 #include <cuda.h>
@@ -311,6 +312,45 @@ __device__ __forceinline__ void wgmma_rs<128>(float (&d)[64],
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
         "r"(accumulate));
+}
+
+// columns of one product chunk: a D = 128 product in two halves, so the
+// chunk's accumulator (NC / 2 floats a thread) fits beside dK and dV (or
+// dq and the score fragments)
+template <int D>
+__host__ __device__ constexpr int chunk_cols() {
+  return D < 64 ? D : 64;
+}
+
+// acc (64 x D, the fragment of dq, dK or dV) += A B for A = the three
+// parts of a 64 x 64 fragment (a[part][slice]) and B the 64-row tile at
+// `b`, read MN-major: each NC-column chunk a fresh product, then one f32
+// add -- a block's product folded in as the JAX kernels fold their blocks.
+// The chunk's products run slice by slice (hi, mid, lo of slice 0, then
+// of slice 1, ...) or, with SMALL_FIRST, part by part from the smallest
+// (lo of every slice, then mid, then hi)
+template <int D, bool SMALL_FIRST = false>
+__device__ __forceinline__ void add_product(float (&acc)[D / 2],
+                                            const uint32_t (&a)[3][4][4],
+                                            uint32_t b) {
+  constexpr int NC = chunk_cols<D>();
+#pragma unroll
+  for (int c0 = 0; c0 < D; c0 += NC) {
+    float part[NC / 2];  // replaced by the first product
+    const uint32_t bc = b + (c0 / 64) * 64 * row_bytes<D>();
+    wgmma_fence();
+#pragma unroll
+    for (int n = 0; n < 12; ++n) {
+      const int i = SMALL_FIRST ? 2 - n / 4 : n % 3;
+      const int j = SMALL_FIRST ? n % 4 : n / 3;
+      wgmma_rs<NC>(part, a[i][j], desc_mn<D>(bc, j), n);
+    }
+    wgmma_commit();
+    wgmma_wait0();
+    fence_acc(part);
+#pragma unroll
+    for (int t = 0; t < NC / 2; ++t) acc[c0 / 2 + t] += part[t];
+  }
 }
 
 // ------------------------------------------------------------- keep bits

@@ -17,13 +17,12 @@ per-head dk / dv are rounded once to bf16, as the JAX kernels write them
 replaces the TPU kernel ``src/repro/kernels/flash_attention_bwd.py::
 _dq_kernel`` and the dkv kernel ``::_dkv_kernel`` -- when its inputs lie on
 a CUDA device, and the plain version when they lie on the CPU; a failed
-build or launch raises. ``csrc/flash_bwd.cu`` holds the f32 dq and dkv and
-the bf16 dq (f32 FMAs on the SIMT units); the bf16 dkv is
-``csrc/flash_dkv_bf16.cu`` on the tensor cores (bf16 ``wgmma``, P_drop and
-dS entering their products as exact hi + mid + lo triples of bf16
-values). No
-kernel uses atomics, so a step is bitwise reproducible; what bounds each is
-in its CUDA source.
+build or launch raises. ``csrc/flash_bwd.cu`` holds the f32 dq and dkv (f32
+FMAs on the SIMT units); the bf16 dq and dkv are ``csrc/flash_dq_bf16.cu``
+and ``csrc/flash_dkv_bf16.cu``, like the bf16 forward on the tensor cores
+(bf16 ``wgmma``, dS and P_drop entering their products as exact hi + mid +
+lo triples of bf16 values). No kernel uses atomics, so a step is bitwise
+reproducible; what bounds each is in its CUDA source.
 """
 from __future__ import annotations
 
@@ -53,8 +52,8 @@ KERNEL_DKV_BF16 = "flash_dkv_bf16"
 KERNELS = {torch.float32: (KERNEL_DQ, KERNEL_DKV),
            torch.bfloat16: (KERNEL_DQ_BF16, KERNEL_DKV_BF16)}
 # kernel instance -> its library (csrc/<source>.cu)
-SOURCES = {KERNEL_DQ: SOURCE, KERNEL_DKV: SOURCE, KERNEL_DQ_BF16: SOURCE,
-           KERNEL_DKV_BF16: "flash_dkv_bf16"}
+SOURCES = {KERNEL_DQ: SOURCE, KERNEL_DKV: SOURCE,
+           KERNEL_DQ_BF16: "flash_dq_bf16", KERNEL_DKV_BF16: "flash_dkv_bf16"}
 
 _launches = {name: 0 for pair in KERNELS.values() for name in pair}
 _fns = {}

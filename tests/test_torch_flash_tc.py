@@ -1,22 +1,24 @@
 """The arithmetic of the bf16 tensor-core flash kernels, on the CPU.
 
-``csrc/flash_fwd_bf16.cu`` and ``csrc/flash_dkv_bf16.cu`` run only on the
-card. What they compute is emulated here in torch: scores from products of
-bf16 values (exact in f32) with f32 sums, then the f32 operands of the
-second products -- P in the forward, P_drop and dS in dkv -- split into
-the exact triple hi = bf16(x), mid = bf16(x - hi), lo = bf16(x - hi - mid),
-each part multiplied by the bf16 tile and summed in f32, then each output
-rounded once to bf16. The emulation is held against the JAX package's
-bf16 ``flash_attention_fwd`` / ``flash_attention_bwd`` (Pallas interpret
-mode) and against the port's plain versions at the limit the card's check
-uses, 1e-2 x (|x| + rms(x)) (lse at 1e-4 x (1 + |x|)), in replay, premask
-and none, MHA and GQA 2:1, at head_dim 32 and 16. A second test records
-why the kernels split as they do: against JAX's function the triple is
-exact up to the order of f32 sums, the pair hi + lo (16 bits) reads
-further and P rounded once to bf16 (FlashAttention-3's choice) much
-further, in f32 and in the bf16 outputs. A third pins the wrappers: the
-bf16 entry names and launch counters, the library each instance loads,
-the head dims the kernels take, and f32 q/k/v on the SIMT kernels.
+``csrc/flash_fwd_bf16.cu``, ``csrc/flash_dq_bf16.cu`` and
+``csrc/flash_dkv_bf16.cu`` run only on the card. What they compute is
+emulated here in torch: scores from products of bf16 values (exact in f32)
+with f32 sums, then the f32 operands of the second products -- P in the
+forward, dS in dq, P_drop and dS in dkv -- split into the exact triple
+hi = bf16(x), mid = bf16(x - hi), lo = bf16(x - hi - mid), each part
+multiplied by the bf16 tile and summed in f32, each block's product folded
+into the output by an f32 add, then each output rounded once to bf16. The
+emulation is held against the JAX package's bf16 ``flash_attention_fwd``
+/ ``flash_attention_bwd`` (Pallas interpret mode) and against the port's
+plain versions at the limit the card's check uses, 1e-2 x (|x| + rms(x))
+(lse at 1e-4 x (1 + |x|)), in replay, premask and none, MHA and GQA 2:1,
+at head_dim 64, 32 and 16. A second test records why the kernels split as
+they do: against JAX's function the triple is exact up to the order of
+f32 sums, the pair hi + lo (16 bits) reads further and P rounded once to
+bf16 (FlashAttention-3's choice) much further, in f32 and in the bf16
+outputs. A third pins the wrappers: the bf16 entry names and launch
+counters, the library each instance loads, the head dims the kernels
+take, and f32 q/k/v on the SIMT kernels.
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_flash_tc.py
 """
@@ -114,10 +116,10 @@ def emulate_fwd(q, k, v, dp, scale, parts=3):
     return o / l * dp.inv_keep, (m + torch.log(l))[..., 0]
 
 
-def emulate_dkv(q, k, v, do, o, lse, dp, scale, parts=3):
-    """The dkv kernel's arithmetic: per-query-head (dk, dv) in f32 before
-    their rounding, each 64-query block's products folded in by f32 adds.
-    Tiles that hold no valid score add zeros, so every block is taken."""
+def _bwd_scores(q, k, v, do, o, lse, dp, scale):
+    """The backward kernels' f32 tiles, per query head: (q, dO, k, v) as
+    f32, P_drop and dS * scale, from scores of bf16 products with f32
+    sums."""
     b, h, s, d = q.shape
     g = h // k.shape[1]
     qf, dof = q.float(), do.float()
@@ -134,7 +136,28 @@ def emulate_dkv(q, k, v, do, o, lse, dp, scale, parts=3):
         keep = tf.keep_rows(dp, b, h, 0, s, s, "cpu")
         dpr = torch.where(keep, dpr * dp.inv_keep, 0.0)
         pd = torch.where(keep, p * dp.inv_keep, 0.0)
-    ds = p * (dpr - delta) * scale
+    return qf, dof, kf, vf, pd, p * (dpr - delta) * scale
+
+
+def emulate_dq(q, k, v, do, o, lse, dp, scale, parts=3):
+    """The dq kernel's arithmetic: dq in f32 before its rounding, each
+    64-key block's dS K (dS * scale in ``parts`` bf16 values, the products
+    summed in f32) folded in by an f32 add. Tiles that hold no valid score
+    add zeros, so every block is taken."""
+    qf, _, kf, _, _, ds = _bwd_scores(q, k, v, do, o, lse, dp, scale)
+    dq = torch.zeros_like(qf)
+    for k0 in range(0, q.shape[2], TILE):
+        cols = slice(k0, k0 + TILE)
+        dq = dq + _times(ds[..., cols], kf[:, :, cols], parts)
+    return dq
+
+
+def emulate_dkv(q, k, v, do, o, lse, dp, scale, parts=3):
+    """The dkv kernel's arithmetic: per-query-head (dk, dv) in f32 before
+    their rounding, each 64-query block's products folded in by f32 adds.
+    Tiles that hold no valid score add zeros, so every block is taken."""
+    s = q.shape[2]
+    qf, dof, kf, vf, pd, ds = _bwd_scores(q, k, v, do, o, lse, dp, scale)
     dk, dv = torch.zeros_like(kf), torch.zeros_like(vf)
     for q0 in range(0, s, TILE):
         rows = slice(q0, q0 + TILE)
@@ -167,10 +190,11 @@ def _case(mode, kv, d, seed):
 
 @pytest.mark.parametrize("mode,kv,d", [
     ("replay", 4, 32), ("premask", 4, 32), ("replay", 2, 32),
-    ("premask", 2, 32), ("none", 4, 32), ("replay", 4, 16)])
+    ("premask", 2, 32), ("none", 4, 32), ("replay", 4, 16),
+    ("premask", 4, 16), ("replay", 2, 64)])
 def test_tc_emulation_matches_jax_and_plain(mode, kv, d):
     """The kernels' arithmetic (hi + mid + lo) against JAX's bf16 kernels
-    and the port's plain versions: O, dk, dv within 1e-2 x (|x| +
+    and the port's plain versions: O, dq, dk, dv within 1e-2 x (|x| +
     rms(x)), lse within 1e-4 x (1 + |x|)."""
     (b, h, s), arrays, jop, top = _case(mode, kv, d, 10 * kv + d + len(mode))
     q, k, v, do = (torch.from_numpy(x).to(BF16) for x in arrays)
@@ -188,17 +212,18 @@ def test_tc_emulation_matches_jax_and_plain(mode, kv, d):
     assert _ratio(lse, np.asarray(jl), FWD_TOL, scaled=False) <= 1
     assert _ratio(lse, plse, FWD_TOL, scaled=False) <= 1
 
-    # dkv on JAX's forward outputs, as the backward receives them
+    # dq and dkv on JAX's forward outputs, as the backward receives them
     jo_t = torch.from_numpy(np.array(jo, np.float32)).to(BF16)
     jl_t = torch.from_numpy(np.array(jl, np.float32))
-    _, jdk, jdv = jfb.flash_attention_bwd(jq, jk, jv, jo, jl, jdo, jop,
-                                          **args)
+    jdq, jdk, jdv = jfb.flash_attention_bwd(jq, jk, jv, jo, jl, jdo, jop,
+                                            **args)
+    dq = emulate_dq(q, k, v, do, jo_t, jl_t, dp, scale).to(BF16)
     dk_h, dv_h = emulate_dkv(q, k, v, do, jo_t, jl_t, dp, scale)
     dk, dv = (_group_sum(x.to(BF16), kv) for x in (dk_h, dv_h))
-    _, pdk_h, pdv_h = tb.flash_attention_bwd_plain(q, k, v, jo_t, jl_t, do,
-                                                   top, **args)
+    pdq, pdk_h, pdv_h = tb.flash_attention_bwd_plain(q, k, v, jo_t, jl_t,
+                                                     do, top, **args)
     pdk, pdv = (_group_sum(x, kv) for x in (pdk_h, pdv_h))
-    for got, want, pwant in ((dk, jdk, pdk), (dv, jdv, pdv)):
+    for got, want, pwant in ((dq, jdq, pdq), (dk, jdk, pdk), (dv, jdv, pdv)):
         assert got.dtype == BF16
         assert _ratio(got.float(), np.asarray(want, np.float32),
                       BF16_FLASH_TOL) <= 1
@@ -209,13 +234,14 @@ def test_tc_triple_is_jax_function_pair_and_single_rounding_are_not():
     """Why the kernels split P, P_drop and dS into three bf16 parts:
     against JAX's f32 kernels on the same (bf16) values -- the function the
     bf16 kernels compute before their one rounding -- the triple is within
-    2^-18 of each output's scale (measured 4e-7 to 1.1e-6: the order of f32
-    sums), the pair hi + lo at least 4x further (1e-5 to 3e-5) and P
-    rounded once at least 100x further (4e-3 to 2e-2); and the bf16 O of
-    each differs from JAX's bf16 kernel in more of its 32,768 elements,
-    pair than triple, once than pair (measured 3, 57 and 11,386). The pair's extra flips in O move Delta =
-    rowsum(dO o O) and with it dq past the card's limit against the plain
-    versions."""
+    2^-18 of each output's scale (measured 4e-7 to 1.7e-6: the order of f32
+    sums; dq 1.0e-6), the pair hi + lo at least 4x further (1e-5 to 3e-5;
+    dq 1.9e-5) and the operand rounded once at least 100x further (4e-3 to
+    2e-2; dq 1.2e-2); and the bf16 O of each differs from JAX's bf16
+    kernel in more of its 32,768 elements, pair than triple, once than
+    pair (measured 3, 57 and 11,386). The pair's extra flips in O move
+    Delta = rowsum(dO o O) and with it dq past the card's limit against
+    the plain versions."""
     (b, h, s), arrays, jop, top = _case("replay", 4, 32, 5)
     d = arrays[0].shape[-1]
     q, k, v, do = (torch.from_numpy(x).to(BF16) for x in arrays)
@@ -231,18 +257,20 @@ def test_tc_triple_is_jax_function_pair_and_single_rounding_are_not():
         jf.flash_attention_fwd(*j16[:3], jop, **args), np.float32))
     o_t = torch.from_numpy(np.array(jo32, np.float32)).to(BF16)
     l_t = torch.from_numpy(np.array(jl32, np.float32))
-    _, jdk32, jdv32 = jfb.flash_attention_bwd(
+    jdq32, jdk32, jdv32 = jfb.flash_attention_bwd(
         *j32[:3], jnp.asarray(o_t.float().numpy()), jl32, j32[3], jop, **args)
     err = {}
     for parts in (3, 2, 1):
         o32, _ = emulate_fwd(q, k, v, dp, scale, parts)
+        dq32 = emulate_dq(q, k, v, do, o_t, l_t, dp, scale, parts)
         dk32, dv32 = emulate_dkv(q, k, v, do, o_t, l_t, dp, scale, parts)
         err[parts] = dict(
             o=_ratio(o32, np.asarray(jo32), 1.0),
+            dq=_ratio(dq32, np.asarray(jdq32), 1.0),
             dk=_ratio(dk32, np.asarray(jdk32), 1.0),
             dv=_ratio(dv32, np.asarray(jdv32), 1.0),
             flips=int((o32.to(BF16).float() != jo16).sum()))
-    for key in ("o", "dk", "dv"):
+    for key in ("o", "dq", "dk", "dv"):
         assert err[3][key] <= 2.0 ** -18, (key, err)
         assert err[2][key] >= 4 * err[3][key], (key, err)
         assert err[1][key] >= 100 * err[3][key], (key, err)
@@ -252,10 +280,10 @@ def test_tc_triple_is_jax_function_pair_and_single_rounding_are_not():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_tc_wrappers_route_by_dtype(dtype, monkeypatch):
     """Entry names, launch counters and libraries: bf16 q/k/v launch
-    repro_flash_fwd_bf16 (flash_fwd_bf16.cu) and repro_flash_dkv_bf16
-    (flash_dkv_bf16.cu) -- the tensor-core kernels -- and the bf16 dq and
-    every f32 instance stay in the SIMT sources; the kernels take head
-    dims 16, 32, 64 and 128."""
+    repro_flash_fwd_bf16 (flash_fwd_bf16.cu), repro_flash_dq_bf16
+    (flash_dq_bf16.cu) and repro_flash_dkv_bf16 (flash_dkv_bf16.cu) -- the
+    tensor-core kernels -- and every f32 instance stays in the SIMT
+    sources; the kernels take head dims 16, 32, 64 and 128."""
     bf16 = dtype == BF16
     fwd = tf.KERNELS[dtype]
     dq, dkv = tb.KERNELS[dtype]
@@ -265,7 +293,7 @@ def test_tc_wrappers_route_by_dtype(dtype, monkeypatch):
     counts = launch_counts()
     assert {fwd, dq, dkv} <= set(counts)
     want_src = {fwd: "flash_fwd_bf16" if bf16 else "flash_fwd",
-                dq: "flash_bwd",
+                dq: "flash_dq_bf16" if bf16 else "flash_bwd",
                 dkv: "flash_dkv_bf16" if bf16 else "flash_bwd"}
 
     loaded = []
@@ -289,14 +317,17 @@ def test_tc_wrappers_route_by_dtype(dtype, monkeypatch):
     assert loaded == [want_src[fwd], want_src[dq], want_src[dkv]]
 
     # each entry point is defined in the source its wrapper loads, and
-    # nowhere else; the dkv kernel keeps the name the profiler looks up
+    # nowhere else; the dq and dkv kernels keep the names the profiler
+    # looks up
     csrc = Path(build.CSRC)
-    assert {"flash_fwd_bf16", "flash_dkv_bf16"} <= set(build.sources())
+    assert {"flash_fwd_bf16", "flash_dq_bf16",
+            "flash_dkv_bf16"} <= set(build.sources())
     for name in (fwd, dq, dkv):
         defined = [p.stem for p in sorted(csrc.glob("*.cu"))
                    if f'extern "C" int repro_{name}(' in p.read_text()
                    or f"int repro_{name}(REPRO_" in p.read_text()]
         assert defined == [want_src[name]], (name, defined)
+    assert "flash_dq_kernel" in (csrc / f"{want_src[dq]}.cu").read_text()
     assert "flash_dkv_kernel" in (csrc / f"{want_src[dkv]}.cu").read_text()
 
     for d in (16, 32, 64, 128):
