@@ -11,7 +11,9 @@ Phases (each raises on failure; nothing is caught):
      nvcc per source, all started together) for sm_90a and print ptxas's
      register and spill lines, the tensor-core kernels' dynamic shared
      memory and ptxas advisories, and the HGMMA (wgmma) instructions in
-     each tensor-core library's SASS (``cuobjdump --dump-sass``);
+     each tensor-core library's SASS (``cuobjdump --dump-sass``); the
+     flash backward libraries' registers and spills by head dim (the f32
+     ones may not spill at D = 128);
   2. each kernel against its plain PyTorch version on the card, then
      timed with CUDA events beside its bound and, where one PyTorch call
      computes the same function, that call's time: the Philox kernel
@@ -19,7 +21,12 @@ Phases (each raises on failure; nothing is caught):
      12288 x 4096; plane bitwise, C within 1e-3 of torch.matmul) and at a
      Region-3 shape (its plain-GEMM variant); flash forward, dq and dkv at
      B=2, H=32, S=2048, D=128 in all four dropout modes, with a local
-     window and with yi-6b's GQA (32 q / 4 kv heads);
+     window, with yi-6b's GQA (32 q / 4 kv heads), at D=64 and at SQ=1024
+     < SK (dq and dkv on the tensor cores, every f32 product as six bf16
+     products of the operands' exact triples; their bound at that rate,
+     the f32 SIMT rate's beside it, and the pair's time against SDPA's
+     whole backward; the f32 gradients within 2e-5 x (1+|x|), a limit
+     that the plain backward on bf16-rounded K, V, dO must fail);
   3. serving: the reduced llama2 on the card against the same engine on
      the CPU, then ``ServeEngine`` on llama2-7b at full width and depth
      (f32 random weights from a seed): 8 requests, 4 slots, 64 new tokens
@@ -167,6 +174,9 @@ F16_FLOPS_PER_S = 989e12           # the same, dense f16: the rate the e4m3
                                    # kernels multiply at (exact e4m3 -> f16)
 BF16_FLOPS_PER_S = 989e12          # the same, dense bf16: the bf16 kernels'
                                    # bound (tensor cores)
+F32_SPLIT_PRODUCTS = 6             # bf16 products the f32 flash backward
+                                   # runs for one f32 product (both
+                                   # operands split into exact triples)
 SFU_PER_ISSUE_LANE = 1 / 8         # exponentials a clock: 16 an SM against
                                    # 128 issue lanes
 ISSUE_LANES_PER_SM = 128           # 4 warp schedulers x 32 lanes a clock
@@ -282,19 +292,22 @@ def phase_build(state) -> None:
     # instructions (HGMMA) in the library's SASS: none means the products
     # did not reach the tensor cores
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    for name, entry in ((gemm_rng.KERNEL_FP8, gemm_rng.KERNEL_FP8),
-                        (gemm_rng.KERNEL_GROUPED_FP8, gemm_rng.KERNEL_FP8),
-                        (gemm_rng.KERNEL_BF16, gemm_rng.KERNEL_BF16),
-                        (gemm_rng.KERNEL_GROUPED_BF16,
-                         gemm_rng.KERNEL_BF16),
-                        (flash.SOURCES[flash.KERNEL_BF16],
-                         flash.KERNEL_BF16),
-                        (flash_bwd.SOURCES[flash_bwd.KERNEL_DQ_BF16],
-                         flash_bwd.KERNEL_DQ_BF16),
-                        (flash_bwd.SOURCES[flash_bwd.KERNEL_DKV_BF16],
-                         flash_bwd.KERNEL_DKV_BF16)):
-        # the grouped GEMMs share their dense kernel's layout and report
-        fn = getattr(ctypes.CDLL(str(libs[entry])),
+    # (library, the library and entry of its shared-memory report): the
+    # grouped GEMMs share their dense kernel's layout and report
+    flash_libs = [(flash_bwd.SOURCES[name], flash_bwd.SOURCES[name], name)
+                  for pair in flash_bwd.KERNELS.values() for name in pair]
+    for name, smem_lib, entry in (
+            (gemm_rng.KERNEL_FP8, gemm_rng.KERNEL_FP8, gemm_rng.KERNEL_FP8),
+            (gemm_rng.KERNEL_GROUPED_FP8, gemm_rng.KERNEL_FP8,
+             gemm_rng.KERNEL_FP8),
+            (gemm_rng.KERNEL_BF16, gemm_rng.KERNEL_BF16,
+             gemm_rng.KERNEL_BF16),
+            (gemm_rng.KERNEL_GROUPED_BF16, gemm_rng.KERNEL_BF16,
+             gemm_rng.KERNEL_BF16),
+            (flash.SOURCES[flash.KERNEL_BF16],
+             flash.SOURCES[flash.KERNEL_BF16], flash.KERNEL_BF16),
+            *flash_libs):
+        fn = getattr(ctypes.CDLL(str(libs[smem_lib])),
                      f"repro_{entry}_smem_bytes")
         smem = (fn() if name.startswith("gemm") else
                 ", ".join(f"{fn(d)} at D={d}" for d in (16, 32, 64, 128)))
@@ -311,6 +324,39 @@ def phase_build(state) -> None:
         log(f"[build] {name}: {smem} bytes of dynamic shared memory a CTA; "
             f"{hgmma} HGMMA instructions in its SASS (cuobjdump); ptxas "
             f"advisories: {advisories or 'none'}")
+    # the flash backward libraries by head dim: registers and spills of
+    # their instances (one a dropout mode); the f32 ones may not spill at
+    # D = 128, the main path's
+    for name in sorted({lib for lib, _, _ in flash_libs}):
+        by_d = _ptxas_by_head_dim(name)
+        log(f"[build] {name} by head dim: " + "; ".join(
+            f"D={d}: {min(r)}-{max(r)} registers, spill stores {max(st)} "
+            f"/ loads {max(ld)} bytes" for d, (r, st, ld) in by_d.items()))
+        f32 = name in (flash_bwd.SOURCES[n]
+                       for n in flash_bwd.KERNELS[torch.float32])
+        if f32 and (128 not in by_d or max(by_d[128][1] + by_d[128][2])):
+            raise AssertionError(f"{name}: the D = 128 instances spill "
+                                 f"({by_d.get(128)})")
+
+
+def _ptxas_by_head_dim(name: str) -> dict:
+    """head dim -> (registers, spill store bytes, spill load bytes) of
+    each flash kernel instance in the library's ptxas report (the first
+    template argument of a ``flash_*_kernel`` is D)."""
+    import re
+    out, d = {}, None
+    for line in build.ptxas_report(name):
+        m = re.search(r"flash_\w*kernel\w*ILi(\d+)E", line)
+        if "Compiling entry" in line:
+            d = int(m.group(1)) if m else None
+        elif d is not None and (m := re.search(
+                r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
+            out.setdefault(d, ([], [], []))[1].append(int(m.group(1)))
+            out[d][2].append(int(m.group(2)))
+        elif d is not None and (m := re.search(r"Used (\d+) registers",
+                                               line)):
+            out.setdefault(d, ([], [], []))[0].append(int(m.group(1)))
+    return dict(sorted(out.items()))
 
 
 # ------------------------------------------------------------------ phase 2
@@ -402,7 +448,12 @@ FLASH_SHAPE = (2, 32, 2048, 128)
 # plain version's cuBLAS / torch sums, on O(1) random inputs
 GEMM_TOL = 1e-3
 FWD_TOL = 1e-4
-GRAD_TOL = 1e-3
+# the f32 dq, dk, dv: the tensor-core kernels (six part products an f32
+# product) read at most 6e-6 x (1 + |x|) in FLASH_CASES on the H100
+# (PERF.md row 5), so the limit sits a few times above that, where a lost
+# part product or an operand kept to bf16 shows; each run holds the limit
+# to a precision control it must fail (``_flash_precision_control``)
+GRAD_TOL = 2e-5
 # bf16 C against its plain version: one bf16 ulp is 2^-8 of a value, and
 # f32 sums in another order round either way near a rounding boundary
 BF16_GEMM_TOL = 1e-2
@@ -597,14 +648,10 @@ def phase_kernels_train(state) -> None:
 # an SQ below it puts the queries at key positions q + SK - SQ; the main
 # path's mode (replay, causal, MHA) is then timed
 FLASH_CASES = {
-    torch.float32: (("none", 0, None), ("fused", 0, None),
-                    ("premask", 0, None), ("replay", 0, None),
-                    ("replay", 512, None), ("replay", 0, 4)),
-    torch.bfloat16: (("none", 0, None), ("fused", 0, None),
-                     ("premask", 0, None), ("replay", 0, None),
-                     ("replay", 512, None), ("replay", 0, 4),
-                     ("replay", 0, None, 64, None),
-                     ("replay", 0, None, None, 1024)),
+    dtype: (("none", 0, None), ("fused", 0, None), ("premask", 0, None),
+            ("replay", 0, None), ("replay", 512, None), ("replay", 0, 4),
+            ("replay", 0, None, 64, None), ("replay", 0, None, None, 1024))
+    for dtype in (torch.float32, torch.bfloat16)
 }
 
 
@@ -637,6 +684,32 @@ def _flash_fault(tag, q, k, v, do, plane, got, tols, bf16) -> None:
         f"{', '.join(found)} -- every check fails it{how}")
 
 
+def _flash_precision_control(q, k, v, do, o, lse, plane, want) -> None:
+    """A precision control the f32 dq, dk, dv checks must fail: the plain
+    backward with K, V and dO rounded once to bf16 (what a product that
+    splits only one operand keeps of the other) against ``want``, the
+    plain backward on the f32 inputs (premask, causal). Raises if GRAD_TOL
+    would pass it; prints its ratios to GRAD_TOL and to 1e-3 x (1+|x|)."""
+    def bf16(t):
+        return t.to(torch.bfloat16).float()
+    got = flash_bwd.flash_attention_bwd_plain(
+        q, bf16(k), bf16(v), o, lse, bf16(do), plane, causal=True,
+        dropout_p=0.1, mode="premask")
+    found = []
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        worst, ratio, ok = _within(g, w, GRAD_TOL)
+        if ok:
+            raise AssertionError(f"flash: the f32 limit passes dq, dk, dv on "
+                                 f"bf16-rounded K, V, dO in {name} (max abs "
+                                 f"err {worst})")
+        found.append(f"{name} {ratio:.3g} ({_within(g, w, 1e-3)[1]:.3g} of "
+                     f"1e-3 x (1+|x|))")
+    log(f"[kernels] flash precision control (the plain backward on K, V, "
+        f"dO rounded once to bf16) against the f32 plain backward: "
+        f"{', '.join(found)} of the {GRAD_TOL} x (1+|x|) limit -- every "
+        f"f32 gradient check fails it")
+
+
 def _flash_kernels(state, rnd, dtype, ops_rate) -> None:
     """The flash forward, dq and dkv kernels of ``dtype`` (f32, or the bf16
     instances) against their plain versions in FLASH_CASES at
@@ -646,7 +719,8 @@ def _flash_kernels(state, rnd, dtype, ops_rate) -> None:
     beside the SIMT floor (``simt_floor_ms``). f32 is held at
     FWD_TOL / GRAD_TOL, bf16 at BF16_FLASH_TOL (lse, f32 at both, at
     FWD_TOL); each dtype's checks must fail a planted fault
-    (``_flash_fault``)."""
+    (``_flash_fault``), and the f32 gradient checks a precision control
+    (``_flash_precision_control``)."""
     from torch.nn.functional import scaled_dot_product_attention as sdpa
     from repro_torch.kernels.philox_common import seed_salt_smem
     bf16 = dtype == torch.bfloat16
@@ -721,6 +795,9 @@ def _flash_kernels(state, rnd, dtype, ops_rate) -> None:
         if mode == "premask" and kvh == h:
             _flash_fault(tag, q, kk, vv, do, op, (o, dq, dk, dv),
                          (out_tol, grad_tol), bf16)
+            if not bf16:
+                _flash_precision_control(q, kk, vv, do, po, plse, op,
+                                         (pdq, pdk, pdv))
         del q, do, kk, vv, o, lse, dq, dk, dv, po, plse, pdq, pdk, pdv
     # replay and premask consume the same bits: equal inputs, equal outputs
     q, kk, vv, do = outs[("replay", 0, h)][:4]
@@ -771,17 +848,30 @@ def _flash_kernels(state, rnd, dtype, ops_rate) -> None:
                    f"CUDA events")
         f32_bound, f32_by = flash_bound(kind, b, h, s, d, pairs,
                                        elem=2 if bf16 else 4)
-        bound_ms, bound_by = (flash_bound(
-            kind, b, h, s, d, pairs, elem=2, flops_rate=BF16_FLOPS_PER_S,
-            ops_rate=ops_rate) if bf16 else (f32_bound, f32_by))
+        if bf16:
+            bound_ms, bound_by = flash_bound(
+                kind, b, h, s, d, pairs, elem=2,
+                flops_rate=BF16_FLOPS_PER_S, ops_rate=ops_rate)
+            extra = (f" (bf16 tensor cores, 2-byte elements, exp and "
+                     f"Philox issue work; at the f32 rate it multiplies "
+                     f"at: {f32_bound:.4f} ms)")
+        elif kind != "fwd":
+            # six bf16 products an f32 product (both operands split into
+            # exact triples) on the tensor cores, and the SIMT floor
+            bound_ms, bound_by = flash_bound(
+                kind, b, h, s, d, pairs, elem=4,
+                flops_rate=BF16_FLOPS_PER_S / F32_SPLIT_PRODUCTS,
+                ops_rate=ops_rate)
+            extra = (f" (bf16 tensor cores at {F32_SPLIT_PRODUCTS} "
+                     f"products an f32 product, exp and Philox issue work; "
+                     f"at the f32 SIMT rate: {f32_bound:.4f} ms)")
+        else:
+            bound_ms, bound_by, extra = f32_bound, f32_by, ""
         flops = {"fwd": 4, "dq": 6, "dkv": 8}[kind] * d * pairs * b * h
         plain_ms, lib_ms = ((plain_fwd_ms, lib_fwd) if kind == "fwd"
                             else (plain_bwd_ms, lib_bwd))
         timing[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                             bound_by=bound_by, library_ms=lib_ms)
-        extra = (f" (bf16 tensor cores, 2-byte elements, exp and Philox "
-                 f"issue work; at the f32 rate it multiplies at: "
-                 f"{f32_bound:.4f} ms)" if bf16 else "")
         log(f"[kernels] {name} {b}x{h}x{s}x{d} causal replay: {ms:.4f} ms a "
             f"launch ({how}), {flops / ms / 1e9:.1f} TFLOP/s; plain "
             f"{plain_ms:.2f} ms; SDPA "
@@ -789,6 +879,10 @@ def _flash_kernels(state, rnd, dtype, ops_rate) -> None:
             f"{lib_ms:.4f} ms (no dropout); bound {bound_ms:.4f} ms by "
             f"{bound_by}{extra}, kernel at {bound_ms / ms * 100:.1f}% of "
             f"bound | {state['smi']}")
+    pair = timing[names[1]]["ms"] + timing[names[2]]["ms"]
+    log(f"[kernels] {tag} dq + dkv {pair:.4f} ms against SDPA's whole "
+        f"backward (dq, dk, dv; no dropout) {lib_bwd:.4f} ms: "
+        f"{pair / lib_bwd:.3f}x | {state['smi']}")
     # the RNG's cost inside attention: the same inputs in each mode (none
     # draws no bits, premask reads them, replay makes them), against the
     # SIMT floor of the exponentials without and with the replayed bits
@@ -1846,6 +1940,7 @@ def _card_vs_cpu(cfg, run, master, label, gn_tol=FP8_REF_TOL,
             ms.append((float(m["loss"]), float(m["grad_norm"])))
         runs[dev] = (st, ms)
     worst = [0.0, 0.0]
+    ratio = [0.0, 0.0]  # of each step's own limit, loss and grad norm
     for i, ((lc, gc_), (lg, gg)) in enumerate(zip(runs["cpu"][1],
                                                   runs["cuda"][1])):
         tol, gtol = (FP8_REF_TOL, gn_tol) if fp8 and i > 0 else (1e-4, 1e-4)
@@ -1853,6 +1948,8 @@ def _card_vs_cpu(cfg, run, master, label, gn_tol=FP8_REF_TOL,
             tol, gtol = bf16_tols[0 if i == 0 else 1], bf16_tols[2]
         worst = [max(worst[0], abs(lc - lg) / abs(lc)),
                  max(worst[1], abs(gc_ - gg) / abs(gc_))]
+        ratio = [max(ratio[0], abs(lc - lg) / (tol * (1 + abs(lc)))),
+                 max(ratio[1], abs(gc_ - gg) / (gtol * (1 + abs(gc_))))]
         if abs(lc - lg) > tol * (1 + abs(lc)) or \
                 abs(gc_ - gg) > gtol * (1 + abs(gc_)):
             raise AssertionError(f"{label} step {i}: card {(lg, gg)} != "
@@ -1884,7 +1981,8 @@ def _card_vs_cpu(cfg, run, master, label, gn_tol=FP8_REF_TOL,
         f"leaf's change within {change_rel} relative); measured "
         f"largest differences: loss {worst[0]:.3g}, grad norm "
         f"{worst[1]:.3g} relative, weights {wdiff:.3g}, a leaf's change "
-        f"{change:.3g} relative")
+        f"{change:.3g} relative; loss and grad norm at {ratio[0]:.3g} and "
+        f"{ratio[1]:.3g} of their limits")
 
 
 def phase_train_reference(state) -> None:
@@ -2924,12 +3022,12 @@ def kernel_records(state):
          "src/repro/kernels/flash_attention.py:58", "train",
          state["train_launches"][flash.KERNEL], errs[flash.KERNEL],
          t[flash.KERNEL], modes(flash.KERNEL)),
-        (flash_bwd.KERNEL_DQ, "flash_bwd.cu",
+        (flash_bwd.KERNEL_DQ, "flash_dq_f32.cu",
          "src/repro/kernels/flash_attention_bwd.py:77", "train",
          state["train_launches"][flash_bwd.KERNEL_DQ],
          errs[flash_bwd.KERNEL_DQ], t[flash_bwd.KERNEL_DQ],
          modes(flash_bwd.KERNEL_DQ)),
-        (flash_bwd.KERNEL_DKV, "flash_bwd.cu",
+        (flash_bwd.KERNEL_DKV, "flash_dkv_f32.cu",
          "src/repro/kernels/flash_attention_bwd.py:137", "train",
          state["train_launches"][flash_bwd.KERNEL_DKV],
          errs[flash_bwd.KERNEL_DKV], t[flash_bwd.KERNEL_DKV],

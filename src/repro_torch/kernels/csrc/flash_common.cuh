@@ -1,7 +1,7 @@
 // Shared pieces of the flash-attention kernels: the tile shape, masking and
-// the dropout inputs of all of them (the bf16 tensor-core kernels add
+// the dropout inputs of all of them (the tensor-core kernels add
 // flash_sm90.cuh), and the thread-to-element map and keep bits of the f32
-// SIMT kernels (flash_fwd.cu, flash_bwd.cu).
+// SIMT forward (flash_fwd.cu).
 //
 // Tiles are BQ x BK = 64 x 64 score elements on 256 threads (a 16 x 16
 // grid). Thread (ty, tx) owns query rows 4*ty + i (i < 4) -- four

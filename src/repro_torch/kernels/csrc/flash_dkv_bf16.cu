@@ -3,8 +3,8 @@
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention_bwd.py::
 // _dkv_kernel (flash_attention_bwd.py:137, pl.pallas_call at :288) at bf16.
-// The f32 instance, and both instances of the dq kernel (_dq_kernel, :77),
-// are csrc/flash_bwd.cu.
+// The f32 instance is csrc/flash_dkv_f32.cu; dq (_dq_kernel, :77) is
+// csrc/flash_dq_f32.cu and csrc/flash_dq_bf16.cu.
 //
 // What it computes: exactly the JAX kernel's bf16 instance, which upcasts
 // the bf16 tiles to f32 (:168-173), multiplies the f32 p_drop by dO and the
@@ -14,7 +14,7 @@
 // caller:
 //     P_drop = K o P / (1-p),   dP = K / (1-p) o (dO V^T),
 //     dS = P o (dP - Delta) * scale,   dV = P_drop^T dO,   dK = dS^T Q,
-// dS scaled before its product as flash_bwd.cu scales it. S^T = K Q^T and
+// dS scaled before its product as flash_dkv_f32.cu scales it. S^T = K Q^T and
 // dP^T = V dO^T are bf16 wgmma products (exact products, f32 sums);
 // P_drop and dS enter their products as exact triples hi + mid + lo
 // (flash_sm90.cuh), so those are the f32-operand products up to the order
@@ -260,7 +260,7 @@ int run_d(const void* q, const void* k, const void* v, const void* dout,
 // dk, dv (B,H,SK,D) per query head, bf16, from bf16 q (B,H,SQ,D), k/v
 // (B,KV,SK,D), dout (B,H,SQ,D) and f32 lse, delta (B,H,SQ), all contiguous
 // and on 16 bytes; SQ and SK multiples of 64; D in {16, 32, 64, 128}. The
-// arguments of repro_flash_dkv (flash_bwd.cu); dq is not written. Launches
+// arguments of repro_flash_dkv (flash_dkv_f32.cu); dq is not written. Launches
 // on `stream`; returns the CUDA error code (0 on success),
 // cudaErrorInvalidValue for what it does not take or a tensor map that
 // cuTensorMapEncodeTiled refuses.

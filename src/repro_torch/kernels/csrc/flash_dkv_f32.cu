@@ -1,0 +1,360 @@
+// Flash-attention dk / dv at f32 q/k/v/dO on Hopper's tensor cores, per
+// query head, with the paper's dropout modes.
+//
+// Replaces the TPU kernel src/repro/kernels/flash_attention_bwd.py::
+// _dkv_kernel (flash_attention_bwd.py:137, pl.pallas_call at :288) at f32.
+// The bf16 instance is csrc/flash_dkv_bf16.cu; dq at f32 is
+// csrc/flash_dq_f32.cu.
+//
+// What it computes (flash_attention_bwd.py:10-15). With keep mask K, P =
+// exp(S * scale - lse) recomputed from the forward's lse (invalid scores
+// masked to neg_big() as in the forward) and Delta from the caller:
+//     P_drop = K o P / (1-p),   dP = K / (1-p) o (dO V^T),
+//     dS = P o (dP - Delta) * scale,   dV = P_drop^T dO,   dK = dS^T Q.
+// Every product has f32 operands on both sides. Each is the sum of the six
+// bf16 part products of the operands' exact triples that reach 2^-16
+// (flash_sm90.cuh), with f32 sums. dk and dv are written per query head,
+// each element by one thread, no atomics: a training step stays bitwise
+// reproducible, and the GQA group sum stays in torch.
+//
+// What bounds it on an H100: at B=2, H=32, S=2048, D=128, causal, the four
+// products of the valid half are 137 GFLOP; six bf16 products apiece are
+// 0.83 ms at 989 TFLOP/s (2.05 ms at the f32 SIMT rate of 67 TFLOP/s);
+// the exponentials, the replayed keep bits and the splits are SIMT work
+// (the first two 0.07 ms at the issue rate); the operands, dk and dv 0.40
+// GB (0.12 ms at 3.35 TB/s).
+//
+// The design is flash_dkv_bf16.cu's with every operand tile split: one
+// warpgroup (128 threads) a CTA per (64 keys, head, batch), walking the
+// q-blocks that hold a valid score. The f32 tiles come by TMA into one
+// staging tile (plain rows), the rows' lse and Delta by bulk copies, and
+// the threads split the tiles into bf16 triples (split_tile) in the
+// swizzled layout the products read: K and V once, then each q-block's Q
+// and dO. The CTA computes the transposed tiles directly: S^T = K Q^T and
+// dP^T = V dO^T, the six part products each with both sides K-major in
+// shared memory, so the keys are the accumulator rows; the keep bits are
+// made under both, P's exponentials under dP^T. Their fragments' triples
+// become the register A operands of dK += dS^T Q and then dV += P_drop^T
+// dO (Q and dO read MN-major, the transpose bit; dK first: in the other
+// order ptxas interleaved dS with P_drop's split and spilled). Once dK is
+// done the Q triple is free and the next q-block's Q (its TMA issued a
+// q-block earlier, with its lse and Delta) is split into it; dO's TMA then
+// fills the stage while dV runs, and is split once dV is done. dK and dV
+// stay in registers (D / 2 floats each a thread); each q-block's products
+// are products of their own (32 columns at a time at D = 128: with 64 the
+// accumulators spilled), folded into dK and dV by f32 adds as the JAX
+// kernel folds its blocks. Shared memory: the K, V, Q and dO triples (192
+// KB at D = 128), the f32 staging tile with its lse and Delta (32.5 KB)
+// and this q-block's lse and Delta, 226 KB -- one CTA an SM, as the SIMT
+// kernel it replaces.
+#include <cuda.h>
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+#include "flash_sm90.cuh"
+
+namespace {
+
+using namespace repro_flash;
+using namespace repro_flash::tc;
+
+struct DkvArgs {
+  const float* lse;
+  const float* delta;
+  float* dk;  // (B, H, SK, D): per query head
+  float* dv;
+  int B, H, KV, SQ, SK;
+  float scale;
+  int causal, local_window;
+  Dropout dp;
+};
+
+// columns of one chunk of the dK and dV products: 32 at D = 128 (16
+// floats a thread), where 64 spilled
+template <int D>
+__host__ __device__ constexpr int dkv_chunk() {
+  return D == 128 ? 32 : chunk_cols<D>();
+}
+
+template <int D>
+constexpr int dkv_smem_bytes() {
+  // alignment slack, the K, V, Q and dO triples, the f32 staging tile and
+  // its 64 lse and 64 Delta values, this q-block's lse and Delta, two
+  // mbarriers
+  return 1024 + 12 * tile_bytes<D>() + tile_bytes32<D>() + 2 * 512 + 16;
+}
+
+template <int D, int MODE>
+__global__ void __launch_bounds__(WG, 1)
+    flash_dkv_kernel(const __grid_constant__ CUtensorMap map_q,
+                     const __grid_constant__ CUtensorMap map_k,
+                     const __grid_constant__ CUtensorMap map_v,
+                     const __grid_constant__ CUtensorMap map_do, DkvArgs p) {
+  constexpr int TILE = tile_bytes<D>();
+  constexpr int TILE32 = tile_bytes32<D>();
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t ks = (raw + 1023u) & ~1023u;
+  const uint32_t vs = ks + 3 * TILE;  // each triple hi, mid, lo
+  const uint32_t qs = vs + 3 * TILE;
+  const uint32_t dos = qs + 3 * TILE;
+  const uint32_t stage = dos + 3 * TILE;  // f32 tile, then lse, Delta
+  const uint32_t rows = stage + TILE32 + 512;  // this q-block's
+  const uint32_t bar = rows + 512;  // the first loads', then the stage's
+  const float* lse_s =
+      reinterpret_cast<const float*>(smem_raw + (rows - raw));
+  const float* delta_s = lse_s + 64;
+
+  const int t = threadIdx.x, w = t / 32, l = t % 32, c = l % 4;
+  const int ki = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int kvh = h / (p.H / p.KV);
+  const int k_start = ki * BK;
+  const int q_offset = p.SK - p.SQ;
+  const int q_row = (b * p.H + h) * p.SQ;
+
+  // the q-blocks that hold a valid score: one contiguous run
+  int q_first = 0, n = 0;
+  for (int qi = 0; qi < p.SQ / BQ; ++qi)
+    if (tile_runs(qi * BQ, k_start, q_offset, p.causal, p.local_window)) {
+      if (n == 0) q_first = qi;
+      ++n;
+    }
+
+  float dk[D / 2], dv[D / 2];
+  zero(dk);
+  zero(dv);
+  if (n > 0) {
+    if (t == 0) {
+      for (int i = 0; i < 2; ++i) mbar_init(bar + 8 * i, 1);
+      asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    }
+    __syncthreads();
+    auto load = [&](uint32_t dst, const CUtensorMap* map, uint32_t br,
+                    int row) { tma_load<false>(dst, map, br, 0, row, 0); };
+    // the next q-block's Q, lse and Delta into the stage
+    auto load_q = [&](int q_start) {
+      mbar_expect_tx(bar + 8, TILE32 + 512);
+      load(stage, &map_q, bar + 8, q_row + q_start);
+      bulk_load(stage + TILE32, p.lse + q_row + q_start, 256, bar + 8);
+      bulk_load(stage + TILE32 + 256, p.delta + q_row + q_start, 256,
+                bar + 8);
+    };
+    // K into the stage, V into the Q triple's space and the first Q into
+    // the dO triple's far end, the first lse and Delta aside: split into
+    // their triples in turn, each source read before its space is written
+    if (t == 0) {
+      const int kv_row = (b * p.KV + kvh) * p.SK + k_start;
+      const int q0 = q_row + q_first * BQ;
+      mbar_expect_tx(bar, 3 * TILE32 + 512);
+      load(stage, &map_k, bar, kv_row);
+      load(qs, &map_v, bar, kv_row);
+      load(qs + 4 * TILE, &map_q, bar, q0);
+      bulk_load(rows, p.lse + q0, 256, bar);
+      bulk_load(rows + 256, p.delta + q0, 256, bar);
+    }
+    mbar_wait_or_trap(bar, 0);
+    split_tile<D>(stage, ks);
+    split_tile<D>(qs, vs);
+    __syncthreads();
+    uint32_t ph = 0;  // completed phases of the stage's barrier
+    if (t == 0) {
+      mbar_expect_tx(bar + 8, TILE32);
+      load(stage, &map_do, bar + 8, q_row + q_first * BQ);
+    }
+    split_tile<D>(qs + 4 * TILE, qs);
+    mbar_wait_or_trap(bar + 8, ph++ & 1);
+    __syncthreads();
+    split_tile<D>(stage, dos);
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    __syncthreads();
+    if (t == 0 && n > 1) load_q((q_first + 1) * BQ);
+
+    for (int it = 0; it < n; ++it) {
+      const int q_start = (q_first + it) * BQ;
+      // S^T = K Q^T, then dP^T = V dO^T, committed apart (rows are keys,
+      // columns queries): the keep bits are made under both products,
+      // P's exponentials under the dP^T product
+      float st[32], dpt[32];  // replaced by their first products
+      wgmma_fence();
+      score6<D>(st, ks, qs);
+      wgmma_commit();
+      score6<D>(dpt, vs, dos);
+      wgmma_commit();
+      uint32_t kb[2];
+      keep_dkv<MODE>(p.dp, b, h, p.H, p.SQ, p.SK, q_start, k_start, kb);
+      wgmma_wait1();
+      fence_acc(st);
+
+      // element i = 4 g + 2 hh + e: key k_start + 16w + l/4 + 8hh, query
+      // q_start + 8g + 2c + e; st becomes P, then P_drop, dpt dS * scale
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int g = i / 4, hh = (i / 2) % 2, e = i % 2;
+        const int key = k_start + 16 * w + l / 4 + 8 * hh;
+        const int qc = 8 * g + 2 * c + e;
+        float sc = st[i] * p.scale;
+        if ((p.causal || p.local_window > 0) &&
+            !score_valid(q_start + qc + q_offset, key, p.causal,
+                         p.local_window))
+          sc = neg_big();
+        st[i] = expf(sc - lse_s[qc]);
+      }
+      wgmma_wait0();
+      fence_acc(dpt);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int g = i / 4, hh = (i / 2) % 2, e = i % 2;
+        const int qc = 8 * g + 2 * c + e;
+        const float pr = st[i];
+        float gd = dpt[i];
+        float pd = pr;
+        if (MODE != kNone) {
+          const bool keep = (kb[hh] >> (2 * g + e)) & 1u;
+          gd = keep ? gd * p.dp.inv_keep : 0.f;
+          pd = keep ? pr * p.dp.inv_keep : 0.f;
+        }
+        st[i] = pd;
+        dpt[i] = pr * (gd - delta_s[qc]) * p.scale;
+      }
+
+      // dK += dS^T Q, both sides as triples: each q-block's product is
+      // one of its own, folded into dK by f32 adds; dS's fragments are
+      // released before P_drop's are made
+      uint32_t a[3][4][4];
+      a_frags(dpt, a);
+      add_product6<D, dkv_chunk<D>()>(dk, a, qs);
+
+      // every warp's dK products and reads of lse and Delta are done: the
+      // next q-block's Q into the free Q triple and its rows' lse and
+      // Delta aside, then its dO into the stage while dV runs
+      const bool next = it + 1 < n;
+      if (next) {
+        mbar_wait_or_trap(bar + 8, ph++ & 1);
+        __syncthreads();
+        split_tile<D>(stage, qs);
+        st_shared_f1(rows + 4 * t, ld_shared_f1(stage + TILE32 + 4 * t));
+        asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+        __syncthreads();
+        if (t == 0) {
+          mbar_expect_tx(bar + 8, TILE32);
+          load(stage, &map_do, bar + 8, q_row + q_start + BQ);
+        }
+      }
+
+      // dV += P_drop^T dO, folded in the same way
+      a_frags(st, a);
+      add_product6<D, dkv_chunk<D>()>(dv, a, dos);
+
+      // every warp's dV products are done: the next dO into its triple,
+      // then the Q, lse and Delta after it into the stage
+      if (next) {
+        mbar_wait_or_trap(bar + 8, ph++ & 1);
+        __syncthreads();
+        split_tile<D>(stage, dos);
+        asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+        __syncthreads();
+        if (t == 0 && it + 2 < n) load_q(q_start + 2 * BQ);
+      }
+    }
+  }
+
+  const size_t row0 = (static_cast<size_t>(b) * p.H + h) * p.SK + k_start +
+                      16 * w + l / 4;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    float* krow = p.dk + (row0 + 8 * hh) * D;
+    float* vrow = p.dv + (row0 + 8 * hh) * D;
+#pragma unroll
+    for (int g = 0; g < D / 8; ++g) {
+      *reinterpret_cast<float2*>(krow + 8 * g + 2 * c) =
+          make_float2(dk[4 * g + 2 * hh], dk[4 * g + 2 * hh + 1]);
+      *reinterpret_cast<float2*>(vrow + 8 * g + 2 * c) =
+          make_float2(dv[4 * g + 2 * hh], dv[4 * g + 2 * hh + 1]);
+    }
+  }
+}
+
+template <int D, int MODE>
+int launch(const CUtensorMap (&maps)[4], const DkvArgs& p, cudaStream_t s) {
+  constexpr int smem = dkv_smem_bytes<D>();
+  auto kernel = flash_dkv_kernel<D, MODE>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<dim3(p.SK / BK, p.H, p.B), WG, smem, s>>>(maps[0], maps[1],
+                                                     maps[2], maps[3], p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int run_d(const void* q, const void* k, const void* v, const void* dout,
+          const DkvArgs& p, int mode, cudaStream_t s) {
+  CUtensorMap maps[4];
+  if (!make_tile_map32<D>(&maps[0], q, p.B * p.H * p.SQ) ||
+      !make_tile_map32<D>(&maps[1], k, p.B * p.KV * p.SK) ||
+      !make_tile_map32<D>(&maps[2], v, p.B * p.KV * p.SK) ||
+      !make_tile_map32<D>(&maps[3], dout, p.B * p.H * p.SQ))
+    return static_cast<int>(cudaErrorInvalidValue);
+  switch (mode) {
+    case kNone: return launch<D, kNone>(maps, p, s);
+    case kPremask: return launch<D, kPremask>(maps, p, s);
+    case kCounters: return launch<D, kCounters>(maps, p, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+}  // namespace
+
+// dk, dv (B,H,SK,D) per query head, f32, from f32 q (B,H,SQ,D), k/v
+// (B,KV,SK,D), dout (B,H,SQ,D), lse and delta (B,H,SQ), all contiguous and
+// on 16 bytes; SQ and SK multiples of 64; D in {16, 32, 64, 128}; the
+// arguments of repro_flash_dq (flash_dq_f32.cu). dq is not written.
+// Launches on `stream`; returns the CUDA error code (0 on success),
+// cudaErrorInvalidValue for what it does not take or a tensor map that
+// cuTensorMapEncodeTiled refuses.
+extern "C" int repro_flash_dkv(
+    const void* q, const void* k, const void* v, const void* dout,
+    const void* lse, const void* delta, void* dq, void* dk, void* dv, int B,
+    int H, int KV, int SQ, int SK, int D, float scale, int causal,
+    int local_window, int mode, const void* plane, uint32_t threshold,
+    float inv_keep, uint32_t key_lo, uint32_t key_hi, uint32_t salt,
+    uint32_t bh_offset, int heads_global, int rounds, void* stream) {
+  (void)dq;
+  const uintptr_t align =
+      reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+      reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(dout) |
+      reinterpret_cast<uintptr_t>(lse) | reinterpret_cast<uintptr_t>(delta) |
+      reinterpret_cast<uintptr_t>(dk) | reinterpret_cast<uintptr_t>(dv);
+  if (B <= 0 || H <= 0 || KV <= 0 || H % KV || SQ <= 0 || SK <= 0 ||
+      SQ % BQ || SK % BK || heads_global <= 0 || align % 16 ||
+      (mode == kPremask && plane == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const DkvArgs p{static_cast<const float*>(lse),
+                  static_cast<const float*>(delta), static_cast<float*>(dk),
+                  static_cast<float*>(dv),
+                  B, H, KV, SQ, SK, scale, causal, local_window,
+                  Dropout{static_cast<const int32_t*>(plane), threshold,
+                          key_lo, key_hi, salt, bh_offset,
+                          static_cast<uint32_t>(heads_global), rounds,
+                          inv_keep}};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 16: return run_d<16>(q, k, v, dout, p, mode, s);
+    case 32: return run_d<32>(q, k, v, dout, p, mode, s);
+    case 64: return run_d<64>(q, k, v, dout, p, mode, s);
+    case 128: return run_d<128>(q, k, v, dout, p, mode, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// dynamic shared memory a CTA of the D instance takes (0 for another D)
+extern "C" int repro_flash_dkv_smem_bytes(int D) {
+  switch (D) {
+    case 16: return dkv_smem_bytes<16>();
+    case 32: return dkv_smem_bytes<32>();
+    case 64: return dkv_smem_bytes<64>();
+    case 128: return dkv_smem_bytes<128>();
+    default: return 0;
+  }
+}

@@ -3,7 +3,7 @@
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention_bwd.py::
 // _dq_kernel (flash_attention_bwd.py:77, pl.pallas_call at :266) at bf16.
-// The f32 instance is csrc/flash_bwd.cu; dk / dv at bf16 are
+// The f32 instance is csrc/flash_dq_f32.cu; dk / dv at bf16 are
 // csrc/flash_dkv_bf16.cu.
 //
 // What it computes: exactly the JAX kernel's bf16 instance, which upcasts
@@ -13,8 +13,8 @@
 // neg_big() as in the forward) and Delta from the caller:
 //     dP = K / (1-p) o (dO V^T),   dS = P o (dP - Delta),
 //     dq = sum over k-blocks of (dS * scale) K,
-// dS scaled before its product as flash_bwd.cu and flash_dkv_bf16.cu scale
-// it. S = Q K^T and dP = dO V^T are bf16 wgmma products (exact products,
+// dS scaled before its product as flash_dq_f32.cu and flash_dkv_bf16.cu
+// scale it. S = Q K^T and dP = dO V^T are bf16 wgmma products (exact products,
 // f32 sums); dS * scale enters its product as the exact triple hi + mid +
 // lo (flash_sm90.cuh), so that product is the f32-operand product up to
 // the order of the sums. Each element of dq is written by one thread, no
@@ -258,7 +258,7 @@ int run_d(const void* q, const void* k, const void* v, const void* dout,
 // dq (B,H,SQ,D) bf16 from bf16 q (B,H,SQ,D), k/v (B,KV,SK,D), dout
 // (B,H,SQ,D) and f32 lse, delta (B,H,SQ), all contiguous and on 16 bytes;
 // SQ and SK multiples of 64; D in {16, 32, 64, 128}. The arguments of
-// repro_flash_dq (flash_bwd.cu); dk and dv are not written. Launches on
+// repro_flash_dq (flash_dq_f32.cu); dk and dv are not written. Launches on
 // `stream`; returns the CUDA error code (0 on success),
 // cudaErrorInvalidValue for what it does not take or a tensor map that
 // cuTensorMapEncodeTiled refuses.

@@ -1,17 +1,19 @@
-// Hopper pieces of the bf16 tensor-core flash kernels (flash_fwd_bf16.cu,
-// flash_dq_bf16.cu, flash_dkv_bf16.cu): the tile layout in shared memory
-// and its wgmma descriptors, the m64 bf16 products, the exact split of an
-// f32 fragment into bf16 A operands and its product folded into a running
-// sum, and the keep bits of a thread's accumulator elements.
+// Hopper pieces of the tensor-core flash kernels (flash_fwd_bf16.cu,
+// flash_dq_bf16.cu, flash_dkv_bf16.cu at bf16; flash_dq_f32.cu,
+// flash_dkv_f32.cu at f32): the tile layout in shared memory and its wgmma
+// descriptors, the m64 bf16 products, the exact split of an f32 fragment
+// into bf16 A operands and its product folded into a running sum, the
+// f32 tiles split into bf16 triples on both sides of a product, and the
+// keep bits of a thread's accumulator elements.
 //
-// Tiles. Every operand tile is 64 rows x D bf16 of a row-major (rows, D)
-// tensor (q, k, v, dO), loaded by TMA (gemm_sm90.cuh) in the swizzle whose
-// span is one row of the tile: R = 2D bytes for D = 16 (32-byte swizzle) and
-// D = 32 (64-byte), R = 128 bytes for D >= 64, where a D = 128 tile is two
-// boxes of 64 columns, the second 64 R bytes after the first. The same tile
-// serves as a K-major operand (its rows are M or N, D is k: Q K^T, dO V^T,
-// K Q^T, V dO^T) and as an MN-major B (its rows are k, D is n, read
-// through the transpose bit: P V, dS K, P_drop^T dO, dS^T Q).
+// Tiles. Every bf16 operand tile is 64 rows x D bf16 of a row-major (rows,
+// D) tensor (q, k, v, dO), loaded by TMA (gemm_sm90.cuh) in the swizzle
+// whose span is one row of the tile: R = 2D bytes for D = 16 (32-byte
+// swizzle) and D = 32 (64-byte), R = 128 bytes for D >= 64, where a D = 128
+// tile is two boxes of 64 columns, the second 64 R bytes after the first.
+// The same tile serves as a K-major operand (its rows are M or N, D is k: Q
+// K^T, dO V^T, K Q^T, V dO^T) and as an MN-major B (its rows are k, D is
+// n, read through the transpose bit: P V, dS K, P_drop^T dO, dS^T Q).
 //
 // Fragments (the PTX ISA's wgmma layouts). Thread t of the warpgroup (warp
 // w = t / 32, lane l, c = l % 4) holds in an m64nN f32 accumulator d the
@@ -39,6 +41,20 @@
 // kernel it replaces 0.03 %. The backward's Delta = rowsum(dO o O)
 // carries those into dq and dk. P rounded once to bf16 (2^-9) would be
 // another function.
+//
+// Both sides f32 (the f32 backward: Q, K, V and dO as well as dS and
+// P_drop). Each side is split into its exact triple and the product a b
+// is the sum of the six part products whose parts reach 2^-16 of it --
+// lo.hi, mid.mid, hi.lo, then mid.hi, hi.mid, then hi.hi, the smallest
+// first. The three left out (mid.lo, lo.mid, lo.lo) are each within 2^-24
+// of |a||b|, so the sum is the f32 product up to about 2^-23 of
+// sum |a||b| and the order of the f32 sums. The f32 tiles come by TMA as
+// plain rows into a staging tile and are split by the threads into three
+// bf16 tiles in the layout above (split_tile): the tiles a CTA keeps for
+// its whole walk (Q and dO in dq, K and V in dkv) once, the ones it walks
+// over block by block. Every product then reads bf16 parts from shared
+// memory (score6: both sides K-major; add_product6: the fragment's parts
+// from registers, the tile's MN-major).
 #pragma once
 
 #include <cuda.h>
@@ -344,6 +360,168 @@ __device__ __forceinline__ void add_product(float (&acc)[D / 2],
       const int i = SMALL_FIRST ? 2 - n / 4 : n % 3;
       const int j = SMALL_FIRST ? n % 4 : n / 3;
       wgmma_rs<NC>(part, a[i][j], desc_mn<D>(bc, j), n);
+    }
+    wgmma_commit();
+    wgmma_wait0();
+    fence_acc(part);
+#pragma unroll
+    for (int t = 0; t < NC / 2; ++t) acc[c0 / 2 + t] += part[t];
+  }
+}
+
+// -------------------------------------------- f32 operands on both sides
+
+// bytes of a 64 x D f32 tile
+template <int D>
+__host__ __device__ constexpr int tile_bytes32() {
+  return 64 * D * 4;
+}
+
+// the swizzle of a span of R bytes (128, 64 or 32) as TMA writes it: the
+// 16-byte chunk bits of a tile offset xor the bits of its 128-byte line
+template <int R>
+__host__ __device__ constexpr uint32_t swizzle(uint32_t off) {
+  return off ^ (((off >> 7) & (R / 16 - 1)) << 4);
+}
+
+// The map of a row-major (rows, D) f32 tensor in 64-row tiles of plain
+// rows, one box a tile; false when cuTensorMapEncodeTiled refuses it.
+template <int D>
+bool make_tile_map32(CUtensorMap* map, const void* ptr, int rows) {
+  return make_map<false>(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, ptr, 1,
+                         rows, D, D, D, 64, CU_TENSOR_MAP_SWIZZLE_NONE);
+}
+
+__device__ __forceinline__ float ld_shared_f1(uint32_t addr) {
+  float v;
+  asm volatile("ld.shared.f32 %0, [%1];" : "=f"(v) : "r"(addr));
+  return v;
+}
+__device__ __forceinline__ void st_shared_f1(uint32_t addr, float v) {
+  asm volatile("st.shared.f32 [%0], %1;" ::"r"(addr), "f"(v) : "memory");
+}
+__device__ __forceinline__ float4 ld_shared_f4(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr));
+  return v;
+}
+__device__ __forceinline__ void st_shared_u4(uint32_t addr,
+                                             const uint32_t (&v)[4]) {
+  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};" ::"r"(addr),
+               "r"(v[0]), "r"(v[1]), "r"(v[2]), "r"(v[3])
+               : "memory");
+}
+
+// x, opaque to the compiler: what is made from it is made where it is
+// used, not hoisted out of the block loop or shared between calls -- the
+// 96 descriptors of a score tile, or split_tile's addresses, each took a
+// register for the whole walk and spilled
+__device__ __forceinline__ uint64_t pinned(uint64_t x) {
+  asm volatile("" : "+l"(x));
+  return x;
+}
+__device__ __forceinline__ uint32_t pinned(uint32_t x) {
+  asm volatile("" : "+r"(x));
+  return x;
+}
+
+// The 64 x D f32 tile at `src` (plain rows, as make_tile_map32 loads it)
+// as the bf16 tiles hi, mid, lo at dst, dst + TILE, dst + 2 TILE, each in
+// load_tile's layout: thread t takes 8 consecutive values of a row at a
+// time, one 16-byte chunk of each part, two rows of chunks in flight (all
+// of them spilled the dkv kernel's accumulators). The caller fences the
+// async proxy before a product reads them.
+template <int D>
+__device__ __forceinline__ void split_tile(uint32_t src, uint32_t dst) {
+  constexpr int R = row_bytes<D>();
+  constexpr int TILE = tile_bytes<D>();
+  const int t = static_cast<int>(pinned(threadIdx.x % WG));
+#pragma unroll 2
+  for (int i = 0; i < 8 * D / WG; ++i) {
+    const int u = t + WG * i;
+    const int row = u / (D / 8), c8 = u % (D / 8);
+    const uint32_t from = src + (row * D + 8 * c8) * 4;
+    const float4 x = ld_shared_f4(from), y = ld_shared_f4(from + 16);
+    uint32_t hi[4], mid[4], lo[4];
+    split3(x.x, x.y, hi[0], mid[0], lo[0]);
+    split3(x.z, x.w, hi[1], mid[1], lo[1]);
+    split3(y.x, y.y, hi[2], mid[2], lo[2]);
+    split3(y.z, y.w, hi[3], mid[3], lo[3]);
+    const int byte = 16 * c8;
+    const uint32_t off =
+        (byte / R) * 64 * R + swizzle<R>(row * R + byte % R);
+    st_shared_u4(dst + off, hi);
+    st_shared_u4(dst + TILE + off, mid);
+    st_shared_u4(dst + 2 * TILE + off, lo);
+  }
+}
+
+// `desc` with its start address `bytes` on: the address field (bits 0-13,
+// address / 16) does not carry, shared memory lying under 256 KB
+__device__ __forceinline__ uint64_t desc_at(uint64_t desc, uint32_t bytes) {
+  return desc + (bytes >> 4);
+}
+
+// bytes from a tile to its k16 slice j as desc_k addresses it
+template <int D>
+__host__ __device__ constexpr uint32_t slice_bytes(int j) {
+  return (j / (row_bytes<D>() / 32)) * 64 * row_bytes<D>() +
+         (j % (row_bytes<D>() / 32)) * 32;
+}
+
+// the six part products (A part, B part) that reach 2^-16, smallest first
+__device__ __forceinline__ constexpr int part_a(int n) {
+  return n == 0 ? 2 : n == 1 || n == 3 ? 1 : 0;
+}
+__device__ __forceinline__ constexpr int part_b(int n) {
+  return n == 0 || n == 3 || n == 5 ? 0 : n == 1 || n == 4 ? 1 : 2;
+}
+
+// d = A B^T, a 64 x 64 score tile over k = D, for A and B the bf16 triples
+// (parts TILE bytes apart) of 64-row tiles, both read K-major: the six
+// part products, each over every k16 slice, the smallest first; d is
+// replaced by the first. The caller fences and commits.
+template <int D>
+__device__ __forceinline__ void score6(float (&d)[32], uint32_t a,
+                                       uint32_t b) {
+  constexpr int TILE = tile_bytes<D>();
+  const uint64_t da = pinned(desc_k<D>(a, 0)), db = pinned(desc_k<D>(b, 0));
+#pragma unroll
+  for (int n = 0; n < 6; ++n)
+#pragma unroll
+    for (int j = 0; j < D / 16; ++j)
+      wgmma_ss_n64(d, desc_at(da, part_a(n) * TILE + slice_bytes<D>(j)),
+                   desc_at(db, part_b(n) * TILE + slice_bytes<D>(j)),
+                   n > 0 || j > 0);
+}
+
+// acc (64 x D) += A B for A the triple of a 64 x 64 f32 fragment
+// (a[part][slice], a_frags) and B the bf16 triple of the 64-row tile at `b`
+// (parts TILE bytes apart) read MN-major: each NC-column chunk a fresh
+// product of the six part products, smallest first (each over the four
+// slices), then one f32 add -- add_product with both sides split. A chunk
+// narrower than a 64-column box starts (c0 % 64) * 2 bytes into its swizzled
+// rows, as a K-major slice starts 32 j bytes into them.
+template <int D, int NC = chunk_cols<D>()>
+__device__ __forceinline__ void add_product6(float (&acc)[D / 2],
+                                             const uint32_t (&a)[3][4][4],
+                                             uint32_t b) {
+  constexpr int TILE = tile_bytes<D>();
+  const uint64_t db = pinned(desc_mn<D>(b, 0));
+#pragma unroll
+  for (int c0 = 0; c0 < D; c0 += NC) {
+    float part[NC / 2];  // replaced by the first product
+    const uint32_t bc = (c0 / 64) * 64 * row_bytes<D>() + (c0 % 64) * 2;
+    wgmma_fence();
+#pragma unroll
+    for (int n = 0; n < 24; ++n) {
+      const int j = n % 4;
+      wgmma_rs<NC>(part, a[part_a(n / 4)][j],
+                   desc_at(db, bc + part_b(n / 4) * TILE +
+                                   j * 16 * row_bytes<D>()),
+                   n);
     }
     wgmma_commit();
     wgmma_wait0();

@@ -406,8 +406,8 @@ def flash_attention_mosaic(q, k, v, mask_packed=None, causal=True,
                            seed=0, salt=0, rounds=7,
                            heads_global=0) -> torch.Tensor:
     """Differentiable flash attention whose forward (``csrc/flash_fwd.cu``,
-    at bf16 ``csrc/flash_fwd_bf16.cu``) and backward (``csrc/flash_bwd.cu``:
-    dq and dkv; at bf16 ``csrc/flash_dq_bf16.cu`` and
+    at bf16 ``csrc/flash_fwd_bf16.cu``) and backward (``csrc/flash_dq_f32.cu``
+    and ``csrc/flash_dkv_f32.cu``; at bf16 ``csrc/flash_dq_bf16.cu`` and
     ``csrc/flash_dkv_bf16.cu``) are kernels on the
     card -- the port of the JAX package's ``flash_attention_mosaic``
     (flash_attention.py:388-433), with the same positional arguments less

@@ -17,12 +17,14 @@ per-head dk / dv are rounded once to bf16, as the JAX kernels write them
 replaces the TPU kernel ``src/repro/kernels/flash_attention_bwd.py::
 _dq_kernel`` and the dkv kernel ``::_dkv_kernel`` -- when its inputs lie on
 a CUDA device, and the plain version when they lie on the CPU; a failed
-build or launch raises. ``csrc/flash_bwd.cu`` holds the f32 dq and dkv (f32
-FMAs on the SIMT units); the bf16 dq and dkv are ``csrc/flash_dq_bf16.cu``
-and ``csrc/flash_dkv_bf16.cu``, like the bf16 forward on the tensor cores
-(bf16 ``wgmma``, dS and P_drop entering their products as exact hi + mid +
-lo triples of bf16 values). No kernel uses atomics, so a step is bitwise
-reproducible; what bounds each is in its CUDA source.
+build or launch raises. All four are tensor-core kernels on Hopper
+(``wgmma``, ``csrc/flash_sm90.cuh``): the f32 dq and dkv are
+``csrc/flash_dq_f32.cu`` and ``csrc/flash_dkv_f32.cu``, every product's
+two f32 operands split into exact hi + mid + lo triples of bf16 values and
+the six part products that reach 2^-16 summed in f32; the bf16 dq and dkv
+are ``csrc/flash_dq_bf16.cu`` and ``csrc/flash_dkv_bf16.cu``, where only
+dS and P_drop are f32 and enter as triples. No kernel uses atomics, so a
+step is bitwise reproducible; what bounds each is in its CUDA source.
 """
 from __future__ import annotations
 
@@ -43,7 +45,6 @@ from repro_torch.kernels.flash_attention import (
     score_mask,
 )
 
-SOURCE = "flash_bwd"
 KERNEL_DQ = "flash_dq"
 KERNEL_DKV = "flash_dkv"
 KERNEL_DQ_BF16 = "flash_dq_bf16"
@@ -52,7 +53,7 @@ KERNEL_DKV_BF16 = "flash_dkv_bf16"
 KERNELS = {torch.float32: (KERNEL_DQ, KERNEL_DKV),
            torch.bfloat16: (KERNEL_DQ_BF16, KERNEL_DKV_BF16)}
 # kernel instance -> its library (csrc/<source>.cu)
-SOURCES = {KERNEL_DQ: SOURCE, KERNEL_DKV: SOURCE,
+SOURCES = {KERNEL_DQ: "flash_dq_f32", KERNEL_DKV: "flash_dkv_f32",
            KERNEL_DQ_BF16: "flash_dq_bf16", KERNEL_DKV_BF16: "flash_dkv_bf16"}
 
 _launches = {name: 0 for pair in KERNELS.values() for name in pair}

@@ -1,4 +1,4 @@
-"""The arithmetic of the bf16 tensor-core flash kernels, on the CPU.
+"""The arithmetic of the tensor-core flash kernels, on the CPU.
 
 ``csrc/flash_fwd_bf16.cu``, ``csrc/flash_dq_bf16.cu`` and
 ``csrc/flash_dkv_bf16.cu`` run only on the card. What they compute is
@@ -18,7 +18,18 @@ f32 sums, the pair hi + lo (16 bits) reads further and P rounded once to
 bf16 (FlashAttention-3's choice) much further, in f32 and in the bf16
 outputs. A third pins the wrappers: the bf16 entry names and launch
 counters, the library each instance loads, the head dims the kernels
-take, and f32 q/k/v on the SIMT kernels.
+take, and the f32 forward on its SIMT kernel.
+
+The f32 dq and dkv (``csrc/flash_dq_f32.cu``, ``csrc/flash_dkv_f32.cu``)
+split both f32 operands of every product -- Q, K, V, dO as well as dS and
+P_drop -- into exact triples and sum the six part products that reach
+2^-16 (lo.hi, mid.mid, hi.lo, mid.hi, hi.mid, hi.hi) in f32. That is
+emulated on f32 inputs and held against JAX's f32 ``flash_attention_bwd``
+(Pallas interpret mode) and the plain version at 1e-4 x (1 + |x|), in
+replay, premask and none, MHA and GQA 2:1, at head_dim 16, 32 and 64; a
+test pins why: the triple is exact, and the six products are the f32
+product to 2^-22 of sum |a||b| where a triple on one side alone (the
+other rounded once to bf16) is at least 100x further off.
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_flash_tc.py
 """
@@ -75,10 +86,20 @@ def _split(x: torch.Tensor, parts: int):
     return out
 
 
-def _times(p: torch.Tensor, b: torch.Tensor, parts: int = 3) -> torch.Tensor:
+def _times(p: torch.Tensor, b: torch.Tensor, parts: int = 3,
+           both: bool = False) -> torch.Tensor:
     """p @ b with p an f32 operand and b bf16 values: p split into
-    ``parts`` bf16 values, each product summed in f32."""
-    return sum(x @ b for x in _split(p, parts))
+    ``parts`` bf16 values, each product summed in f32. With ``both`` b is
+    f32 too and both are split into triples: the six part products that
+    reach 2^-16, smallest first, summed in f32 (the f32 kernels)."""
+    if not both:
+        return sum(x @ b for x in _split(p, parts))
+    ah, am, al = _split(p, 3)
+    bh, bm, bl = _split(b, 3)
+    out = al @ bh
+    for x, y in ((am, bm), (ah, bl), (am, bh), (ah, bm), (ah, bh)):
+        out = out + x @ y
+    return out
 
 
 def _dropout(mode, mask, b, h, s):
@@ -116,21 +137,23 @@ def emulate_fwd(q, k, v, dp, scale, parts=3):
     return o / l * dp.inv_keep, (m + torch.log(l))[..., 0]
 
 
-def _bwd_scores(q, k, v, do, o, lse, dp, scale):
+def _bwd_scores(q, k, v, do, o, lse, dp, scale, both=False):
     """The backward kernels' f32 tiles, per query head: (q, dO, k, v) as
     f32, P_drop and dS * scale, from scores of bf16 products with f32
-    sums."""
+    sums (with ``both``, of f32 operands split on both sides)."""
     b, h, s, d = q.shape
     g = h // k.shape[1]
     qf, dof = q.float(), do.float()
     kf = torch.repeat_interleave(k.float(), g, dim=1)
     vf = torch.repeat_interleave(v.float(), g, dim=1)
     delta = (dof * o.float()).sum(-1, keepdim=True)
-    sc = (qf @ kf.transpose(-1, -2)) * scale
+    mm = ((lambda x, y: _times(x, y, both=True)) if both
+          else (lambda x, y: x @ y))
+    sc = mm(qf, kf.transpose(-1, -2)) * scale
     sc = sc.masked_fill(~tf.score_mask(0, s, s, s, True, 0, "cpu"),
                         tf.NEG_BIG)
     p = torch.exp(sc - lse[..., None])
-    dpr = dof @ vf.transpose(-1, -2)
+    dpr = mm(dof, vf.transpose(-1, -2))
     pd = p
     if dp.mode != "none":
         keep = tf.keep_rows(dp, b, h, 0, s, s, "cpu")
@@ -139,32 +162,34 @@ def _bwd_scores(q, k, v, do, o, lse, dp, scale):
     return qf, dof, kf, vf, pd, p * (dpr - delta) * scale
 
 
-def emulate_dq(q, k, v, do, o, lse, dp, scale, parts=3):
+def emulate_dq(q, k, v, do, o, lse, dp, scale, parts=3, both=False):
     """The dq kernel's arithmetic: dq in f32 before its rounding, each
     64-key block's dS K (dS * scale in ``parts`` bf16 values, the products
-    summed in f32) folded in by an f32 add. Tiles that hold no valid score
-    add zeros, so every block is taken."""
-    qf, _, kf, _, _, ds = _bwd_scores(q, k, v, do, o, lse, dp, scale)
+    summed in f32; with ``both``, K split too) folded in by an f32 add.
+    Tiles that hold no valid score add zeros, so every block is taken."""
+    qf, _, kf, _, _, ds = _bwd_scores(q, k, v, do, o, lse, dp, scale, both)
     dq = torch.zeros_like(qf)
     for k0 in range(0, q.shape[2], TILE):
         cols = slice(k0, k0 + TILE)
-        dq = dq + _times(ds[..., cols], kf[:, :, cols], parts)
+        dq = dq + _times(ds[..., cols], kf[:, :, cols], parts, both)
     return dq
 
 
-def emulate_dkv(q, k, v, do, o, lse, dp, scale, parts=3):
+def emulate_dkv(q, k, v, do, o, lse, dp, scale, parts=3, both=False):
     """The dkv kernel's arithmetic: per-query-head (dk, dv) in f32 before
-    their rounding, each 64-query block's products folded in by f32 adds.
-    Tiles that hold no valid score add zeros, so every block is taken."""
+    their rounding, each 64-query block's products folded in by f32 adds
+    (with ``both``, dO and Q split too). Tiles that hold no valid score
+    add zeros, so every block is taken."""
     s = q.shape[2]
-    qf, dof, kf, vf, pd, ds = _bwd_scores(q, k, v, do, o, lse, dp, scale)
+    qf, dof, kf, vf, pd, ds = _bwd_scores(q, k, v, do, o, lse, dp, scale,
+                                          both)
     dk, dv = torch.zeros_like(kf), torch.zeros_like(vf)
     for q0 in range(0, s, TILE):
         rows = slice(q0, q0 + TILE)
         dv = dv + _times(pd[:, :, rows].transpose(-1, -2), dof[:, :, rows],
-                         parts)
+                         parts, both)
         dk = dk + _times(ds[:, :, rows].transpose(-1, -2), qf[:, :, rows],
-                         parts)
+                         parts, both)
     return dk, dv
 
 
@@ -281,9 +306,11 @@ def test_tc_triple_is_jax_function_pair_and_single_rounding_are_not():
 def test_tc_wrappers_route_by_dtype(dtype, monkeypatch):
     """Entry names, launch counters and libraries: bf16 q/k/v launch
     repro_flash_fwd_bf16 (flash_fwd_bf16.cu), repro_flash_dq_bf16
-    (flash_dq_bf16.cu) and repro_flash_dkv_bf16 (flash_dkv_bf16.cu) -- the
-    tensor-core kernels -- and every f32 instance stays in the SIMT
-    sources; the kernels take head dims 16, 32, 64 and 128."""
+    (flash_dq_bf16.cu) and repro_flash_dkv_bf16 (flash_dkv_bf16.cu), f32
+    q/k/v repro_flash_fwd (flash_fwd.cu, SIMT), repro_flash_dq
+    (flash_dq_f32.cu) and repro_flash_dkv (flash_dkv_f32.cu) -- every
+    backward on the tensor cores; the kernels take head dims 16, 32, 64
+    and 128."""
     bf16 = dtype == BF16
     fwd = tf.KERNELS[dtype]
     dq, dkv = tb.KERNELS[dtype]
@@ -293,8 +320,8 @@ def test_tc_wrappers_route_by_dtype(dtype, monkeypatch):
     counts = launch_counts()
     assert {fwd, dq, dkv} <= set(counts)
     want_src = {fwd: "flash_fwd_bf16" if bf16 else "flash_fwd",
-                dq: "flash_dq_bf16" if bf16 else "flash_bwd",
-                dkv: "flash_dkv_bf16" if bf16 else "flash_bwd"}
+                dq: "flash_dq_bf16" if bf16 else "flash_dq_f32",
+                dkv: "flash_dkv_bf16" if bf16 else "flash_dkv_f32"}
 
     loaded = []
 
@@ -320,8 +347,8 @@ def test_tc_wrappers_route_by_dtype(dtype, monkeypatch):
     # nowhere else; the dq and dkv kernels keep the names the profiler
     # looks up
     csrc = Path(build.CSRC)
-    assert {"flash_fwd_bf16", "flash_dq_bf16",
-            "flash_dkv_bf16"} <= set(build.sources())
+    assert {"flash_fwd_bf16", "flash_dq_bf16", "flash_dkv_bf16",
+            "flash_dq_f32", "flash_dkv_f32"} <= set(build.sources())
     for name in (fwd, dq, dkv):
         defined = [p.stem for p in sorted(csrc.glob("*.cu"))
                    if f'extern "C" int repro_{name}(' in p.read_text()
@@ -337,3 +364,73 @@ def test_tc_wrappers_route_by_dtype(dtype, monkeypatch):
         x = torch.zeros(shape, dtype=dtype)
         with pytest.raises(ValueError, match="head_dim"):
             tf.check_kernel_shapes(x, x, x)
+
+
+def _f32_case(mode, kv, d, seed):
+    """f32 inputs (not bf16 values) from a numpy seed, and the dropout
+    operands of JAX and of the port."""
+    (b, h, s), _, jop, top = _case(mode, kv, d, seed)
+    rng = np.random.default_rng(seed)
+    arrays = [rng.standard_normal(shape).astype(np.float32)
+              for shape in ((b, h, s, d), (b, kv, s, d), (b, kv, s, d),
+                            (b, h, s, d))]
+    return (b, h, s), arrays, jop, top
+
+
+@pytest.mark.parametrize("mode,kv,d", [
+    ("replay", 4, 32), ("premask", 4, 32), ("none", 4, 32),
+    ("replay", 2, 32), ("premask", 2, 16), ("replay", 4, 16),
+    ("replay", 4, 64), ("premask", 2, 64)])
+def test_f32_tc_emulation_matches_jax_and_plain(mode, kv, d):
+    """The f32 dq and dkv kernels' arithmetic (both operands of every
+    product split into triples, six part products) on f32 inputs against
+    JAX's f32 kernels and the port's plain version: dq, dk, dv within
+    1e-4 x (1 + |x|) of both."""
+    (b, h, s), arrays, jop, top = _f32_case(mode, kv, d, 7 * kv + d)
+    q, k, v, do = (torch.from_numpy(x) for x in arrays)
+    jq, jk, jv, jdo = (jnp.asarray(x) for x in arrays)
+    args = dict(ARGS, mode=mode)
+    scale = 1.0 / d ** 0.5
+    dp = _dropout(mode, top, b, h, s)
+
+    jo, jl = jf.flash_attention_fwd(jq, jk, jv, jop, return_lse=True, **args)
+    o = torch.from_numpy(np.array(jo, np.float32))
+    lse = torch.from_numpy(np.array(jl, np.float32))
+    jdq, jdk, jdv = jfb.flash_attention_bwd(jq, jk, jv, jo, jl, jdo, jop,
+                                            **args)
+    dq = emulate_dq(q, k, v, do, o, lse, dp, scale, both=True)
+    dk_h, dv_h = emulate_dkv(q, k, v, do, o, lse, dp, scale, both=True)
+    dk, dv = (_group_sum(x, kv) for x in (dk_h, dv_h))
+    pdq, pdk_h, pdv_h = tb.flash_attention_bwd_plain(q, k, v, o, lse, do,
+                                                     top, **args)
+    pdk, pdv = (_group_sum(x, kv) for x in (pdk_h, pdv_h))
+    for got, want, pwant in ((dq, jdq, pdq), (dk, jdk, pdk), (dv, jdv, pdv)):
+        assert got.dtype == torch.float32 and pwant.dtype == torch.float32
+        assert _ratio(got, np.asarray(want), FWD_TOL, scaled=False) <= 1
+        assert _ratio(got, pwant, FWD_TOL, scaled=False) <= 1
+
+
+@pytest.mark.parametrize("k_len", [16, 64, 128])
+def test_f32_tc_both_sides_split_is_f32_one_side_is_not(k_len):
+    """Why the f32 kernels split both operands: hi + mid + lo == x
+    bitwise; the six part products that reach 2^-16, summed in f32, are
+    within 2^-22 x sum |a||b| of the exact product (float64) at worst; a
+    triple on one side alone, the other operand rounded once to bf16, is
+    at least 100x further off."""
+    rng = np.random.default_rng(k_len)
+    a = torch.from_numpy(rng.standard_normal((64, k_len)).astype(np.float32))
+    b = torch.from_numpy(rng.standard_normal((k_len, 64)).astype(np.float32)
+                         * np.float32(3.0))
+    for x in (a, b):
+        hi, mid, lo = _split(x, 3)
+        assert all(t.to(BF16).float().equal(t) for t in (hi, mid, lo))
+        assert torch.equal(hi.double() + mid.double() + lo.double(),
+                           x.double())
+    exact = a.double() @ b.double()
+    scale = a.double().abs() @ b.double().abs()
+    err6 = float(((_times(a, b, both=True).double() - exact).abs()
+                  / scale).max())
+    err3 = float(((_times(a, b.to(BF16).float()).double() - exact).abs()
+                  / scale).max())
+    assert err6 <= 2.0 ** -22, err6
+    assert err3 >= 100 * err6, (err3, err6)
