@@ -1,10 +1,11 @@
-// Hopper pieces of the tensor-core flash kernels (flash_fwd_bf16.cu,
-// flash_dq_bf16.cu, flash_dkv_bf16.cu at bf16; flash_dq_f32.cu,
-// flash_dkv_f32.cu at f32): the tile layout in shared memory and its wgmma
-// descriptors, the m64 bf16 products, the exact split of an f32 fragment
-// into bf16 A operands and its product folded into a running sum, the
-// f32 tiles split into bf16 triples on both sides of a product, and the
-// keep bits of a thread's accumulator elements.
+// Hopper pieces of the tensor-core flash kernels (the forward's body
+// flash_fwd_sm90.cuh, instantiated by flash_fwd_bf16.cu and
+// flash_fwd_f32.cu; flash_dq_bf16.cu, flash_dkv_bf16.cu at bf16;
+// flash_dq_f32.cu, flash_dkv_f32.cu at f32): the tile layout in shared
+// memory and its wgmma descriptors, the m64 bf16 products, the exact split
+// of an f32 fragment into bf16 A operands and its product folded into a
+// running sum, the f32 tiles split into bf16 triples on both sides of a
+// product, and the keep bits of a thread's accumulator elements.
 //
 // Tiles. Every bf16 operand tile is 64 rows x D bf16 of a row-major (rows,
 // D) tensor (q, k, v, dO), loaded by TMA (gemm_sm90.cuh) in the swizzle
@@ -42,7 +43,7 @@
 // carries those into dq and dk. P rounded once to bf16 (2^-9) would be
 // another function.
 //
-// Both sides f32 (the f32 backward: Q, K, V and dO as well as dS and
+// Both sides f32 (the f32 kernels: Q, K, V and dO as well as P, dS and
 // P_drop). Each side is split into its exact triple and the product a b
 // is the sum of the six part products whose parts reach 2^-16 of it --
 // lo.hi, mid.mid, hi.lo, then mid.hi, hi.mid, then hi.hi, the smallest
@@ -51,10 +52,10 @@
 // sum |a||b| and the order of the f32 sums. The f32 tiles come by TMA as
 // plain rows into a staging tile and are split by the threads into three
 // bf16 tiles in the layout above (split_tile): the tiles a CTA keeps for
-// its whole walk (Q and dO in dq, K and V in dkv) once, the ones it walks
-// over block by block. Every product then reads bf16 parts from shared
-// memory (score6: both sides K-major; add_product6: the fragment's parts
-// from registers, the tile's MN-major).
+// its whole walk (Q in the forward, Q and dO in dq, K and V in dkv) once,
+// the ones it walks over block by block. Every product then reads bf16
+// parts from shared memory (score6: both sides K-major; add_product6: the
+// fragment's parts from registers, the tile's MN-major).
 #pragma once
 
 #include <cuda.h>
@@ -134,7 +135,7 @@ __device__ __forceinline__ void load_tile(uint32_t dst, const CUtensorMap* map,
 
 // mbar_wait (gemm_sm90.cuh) that traps -- a launch error, not a hung card
 // -- when the phase has not completed after 2^31 clocks (about a second):
-// a TMA load that never lands. No product is in flight at these waits.
+// a TMA load that never lands.
 __device__ __forceinline__ void mbar_wait_or_trap(uint32_t bar,
                                                   uint32_t parity) {
   const long long t0 = clock64();
@@ -429,18 +430,20 @@ __device__ __forceinline__ uint32_t pinned(uint32_t x) {
 
 // The 64 x D f32 tile at `src` (plain rows, as make_tile_map32 loads it)
 // as the bf16 tiles hi, mid, lo at dst, dst + TILE, dst + 2 TILE, each in
-// load_tile's layout: thread t takes 8 consecutive values of a row at a
-// time, one 16-byte chunk of each part, two rows of chunks in flight (all
-// of them spilled the dkv kernel's accumulators). The caller fences the
-// async proxy before a product reads them.
-template <int D>
+// load_tile's layout, by the first THREADS threads of the CTA: thread t
+// takes 8 consecutive values of a row at a time, one 16-byte chunk of each
+// part, two rows of chunks in flight (all of them spilled the dkv kernel's
+// accumulators). The caller fences the async proxy before a product reads
+// them.
+template <int D, int THREADS = WG>
 __device__ __forceinline__ void split_tile(uint32_t src, uint32_t dst) {
   constexpr int R = row_bytes<D>();
   constexpr int TILE = tile_bytes<D>();
-  const int t = static_cast<int>(pinned(threadIdx.x % WG));
+  const int t = static_cast<int>(pinned(threadIdx.x % THREADS));
 #pragma unroll 2
-  for (int i = 0; i < 8 * D / WG; ++i) {
-    const int u = t + WG * i;
+  for (int i = 0; i < (8 * D + THREADS - 1) / THREADS; ++i) {
+    const int u = t + THREADS * i;
+    if ((8 * D) % THREADS != 0 && u >= 8 * D) break;
     const int row = u / (D / 8), c8 = u % (D / 8);
     const uint32_t from = src + (row * D + 8 * c8) * 4;
     const float4 x = ld_shared_f4(from), y = ld_shared_f4(from + 16);
@@ -503,11 +506,16 @@ __device__ __forceinline__ void score6(float (&d)[32], uint32_t a,
 // product of the six part products, smallest first (each over the four
 // slices), then one f32 add -- add_product with both sides split. A chunk
 // narrower than a 64-column box starts (c0 % 64) * 2 bytes into its swizzled
-// rows, as a K-major slice starts 32 j bytes into them.
-template <int D, int NC = chunk_cols<D>()>
+// rows, as a K-major slice starts 32 j bytes into them. `under` runs while
+// the first chunk's products are in flight.
+struct Nothing {
+  __device__ __forceinline__ void operator()() const {}
+};
+template <int D, int NC = chunk_cols<D>(), class Under = Nothing>
 __device__ __forceinline__ void add_product6(float (&acc)[D / 2],
                                              const uint32_t (&a)[3][4][4],
-                                             uint32_t b) {
+                                             uint32_t b,
+                                             Under&& under = Under()) {
   constexpr int TILE = tile_bytes<D>();
   const uint64_t db = pinned(desc_mn<D>(b, 0));
 #pragma unroll
@@ -524,6 +532,7 @@ __device__ __forceinline__ void add_product6(float (&acc)[D / 2],
                    n);
     }
     wgmma_commit();
+    if (c0 == 0) under();
     wgmma_wait0();
     fence_acc(part);
 #pragma unroll
@@ -538,7 +547,7 @@ __device__ __forceinline__ void add_product6(float (&acc)[D / 2],
 // calls' worth of bits, but spread over more calls: each call is made once,
 // by one lane, and its bits reach the lanes that hold them by shuffles (the
 // 8 calls per 32 pairs that flash_bound counts). Premask reads bit q % 32 of
-// word (q / 32, k) of the (b, h) plane, as flash_common.cuh::keep_nibbles.
+// word (q / 32, k) of the (b, h) plane.
 
 // The forward's score fragment (rows = queries, columns = keys): bit idx =
 // 2 g + e of kb[hh] keeps row q_start + 16 w + l / 4 + 8 hh at key k_start

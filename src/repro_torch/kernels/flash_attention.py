@@ -15,15 +15,19 @@ All four give the JAX package's bits: ``flash_attention_fwd`` launches a
 hand-written CUDA kernel that replaces the TPU kernel
 ``src/repro/kernels/flash_attention.py::_flash_kernel`` when its inputs
 lie on a CUDA device, and the plain version when they lie on the CPU; a
-failed build or launch raises. f32 q/k/v run ``csrc/flash_fwd.cu`` (f32
-FMAs on the SIMT units); bf16 q/k/v run ``csrc/flash_fwd_bf16.cu`` on the
-tensor cores (TMA tiles, bf16 ``wgmma`` with f32 sums, P entering P V as
-an exact hi + mid + lo triple of bf16 values, each block's P V folded
-into O by f32 adds), which computes the JAX kernel's bf16 function -- f32
-arithmetic on the upcast tiles -- up to the order of the f32 sums and
-writes O in bf16, lse in f32. What bounds each on an H100 and how it
-tiles: see the notes in the CUDA sources. Both take SQ and SK multiples of 64 and head_dim in {16, 32,
-64, 128}; anything else on the card raises.
+failed build or launch raises. Both dtypes run one tensor-core body
+(``csrc/flash_fwd_sm90.cuh``: TMA tiles, bf16 ``wgmma`` with f32 sums, P
+entering P V as an exact hi + mid + lo triple of bf16 values, each
+block's P V folded into O by f32 adds), each instance a library of its
+own: bf16 q/k/v run ``csrc/flash_fwd_bf16.cu``, which computes the JAX
+kernel's bf16 function -- f32 arithmetic on the upcast tiles -- up to the
+order of the f32 sums and writes O in bf16, lse in f32; f32 q/k/v run
+``csrc/flash_fwd_f32.cu``, which splits q, k and v into exact bf16
+triples as well and sums the six part products of each f32 product that
+reach 2^-16, the f32 function up to the order of the sums. What bounds
+each on an H100 and how it tiles: see the notes in the CUDA sources. Both
+take SQ and SK multiples of 64 and head_dim in {16, 32, 64, 128};
+anything else on the card raises.
 
 The seed-salt word is host data: the kernels take its four words by
 value, so it stays on the CPU and reading it costs no device sync.
@@ -53,7 +57,7 @@ KERNEL_BF16 = "flash_fwd_bf16"
 # q/k/v dtype -> the kernel instance (the C entry point is repro_<name>)
 KERNELS = {torch.float32: KERNEL, torch.bfloat16: KERNEL_BF16}
 # kernel instance -> its library (csrc/<source>.cu)
-SOURCES = {KERNEL: "flash_fwd", KERNEL_BF16: "flash_fwd_bf16"}
+SOURCES = {KERNEL: "flash_fwd_f32", KERNEL_BF16: "flash_fwd_bf16"}
 
 NEG_BIG = float(np.float32(-0.7 * np.finfo(np.float32).max))
 KERNEL_HEAD_DIMS = (16, 32, 64, 128)
@@ -405,15 +409,15 @@ def flash_attention_mosaic(q, k, v, mask_packed=None, causal=True,
                            local_window=0, dropout_p=0.0, mode="none",
                            seed=0, salt=0, rounds=7,
                            heads_global=0) -> torch.Tensor:
-    """Differentiable flash attention whose forward (``csrc/flash_fwd.cu``,
-    at bf16 ``csrc/flash_fwd_bf16.cu``) and backward (``csrc/flash_dq_f32.cu``
-    and ``csrc/flash_dkv_f32.cu``; at bf16 ``csrc/flash_dq_bf16.cu`` and
-    ``csrc/flash_dkv_bf16.cu``) are kernels on the
-    card -- the port of the JAX package's ``flash_attention_mosaic``
-    (flash_attention.py:388-433), with the same positional arguments less
-    the TPU grid's ``block_q``/``block_k`` and ``interpret``. Nothing
-    O(SQ*SK) reaches device memory except a premask plane; in "replay"
-    mode not even that."""
+    """Differentiable flash attention whose forward
+    (``csrc/flash_fwd_f32.cu``, at bf16 ``csrc/flash_fwd_bf16.cu``) and
+    backward (``csrc/flash_dq_f32.cu`` and ``csrc/flash_dkv_f32.cu``; at
+    bf16 ``csrc/flash_dq_bf16.cu`` and ``csrc/flash_dkv_bf16.cu``) are
+    kernels on the card -- the port of the JAX package's
+    ``flash_attention_mosaic`` (flash_attention.py:388-433), with the same
+    positional arguments less the TPU grid's ``block_q``/``block_k`` and
+    ``interpret``. Nothing O(SQ*SK) reaches device memory except a premask
+    plane; in "replay" mode not even that."""
     return _FlashAttention.apply(q, k, v, mask_packed, causal, local_window,
                                  dropout_p, mode, seed, salt, rounds,
                                  heads_global)

@@ -18,18 +18,20 @@ f32 sums, the pair hi + lo (16 bits) reads further and P rounded once to
 bf16 (FlashAttention-3's choice) much further, in f32 and in the bf16
 outputs. A third pins the wrappers: the bf16 entry names and launch
 counters, the library each instance loads, the head dims the kernels
-take, and the f32 forward on its SIMT kernel.
+take, and both forwards on one tensor-core body.
 
-The f32 dq and dkv (``csrc/flash_dq_f32.cu``, ``csrc/flash_dkv_f32.cu``)
-split both f32 operands of every product -- Q, K, V, dO as well as dS and
-P_drop -- into exact triples and sum the six part products that reach
-2^-16 (lo.hi, mid.mid, hi.lo, mid.hi, hi.mid, hi.hi) in f32. That is
-emulated on f32 inputs and held against JAX's f32 ``flash_attention_bwd``
-(Pallas interpret mode) and the plain version at 1e-4 x (1 + |x|), in
-replay, premask and none, MHA and GQA 2:1, at head_dim 16, 32 and 64; a
-test pins why: the triple is exact, and the six products are the f32
-product to 2^-22 of sum |a||b| where a triple on one side alone (the
-other rounded once to bf16) is at least 100x further off.
+The f32 kernels (the forward ``csrc/flash_fwd_f32.cu``, dq
+``csrc/flash_dq_f32.cu``, dkv ``csrc/flash_dkv_f32.cu``) split both f32
+operands of every product -- Q, K, V, dO as well as P, dS and P_drop --
+into exact triples and sum the six part products that reach 2^-16
+(lo.hi, mid.mid, hi.lo, mid.hi, hi.mid, hi.hi) in f32. That is emulated
+on f32 inputs and held against JAX's f32 ``flash_attention_fwd`` and
+``flash_attention_bwd`` (Pallas interpret mode) and the plain versions at
+1e-4 x (1 + |x|), in replay, premask and none, MHA and GQA 2:1, at
+head_dim 16, 32 and 64; tests pin why: the triple is exact, and the six
+products are the f32 product to 2^-22 of sum |a||b| where a triple on one
+side alone (the other rounded once to bf16) is at least 100x further off;
+the forward on K and V rounded once to bf16 at least 10x.
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_flash_tc.py
 """
@@ -108,9 +110,11 @@ def _dropout(mode, mask, b, h, s):
                               salt=ARGS["salt"], rounds=7, heads_global=0)
 
 
-def emulate_fwd(q, k, v, dp, scale, parts=3):
+def emulate_fwd(q, k, v, dp, scale, parts=3, both=False):
     """The forward kernel's arithmetic: (O in f32 before its rounding, lse).
-    Online softmax over 64-key blocks with flash_fwd_bf16.cu's rules."""
+    Online softmax over 64-key blocks with flash_fwd_sm90.cuh's rules; with
+    ``both`` (the f32 instance) Q K^T and P V have both operands split into
+    triples, six part products each, smallest first."""
     b, h, s, d = q.shape
     g = h // k.shape[1]
     qf = q.float()
@@ -124,14 +128,15 @@ def emulate_fwd(q, k, v, dp, scale, parts=3):
     o = torch.zeros((b, h, s, d))
     for k0 in range(0, s, TILE):
         cols = slice(k0, k0 + TILE)
-        sc = (qf @ kf[:, :, cols].transpose(-1, -2)) * scale
+        kt = kf[:, :, cols].transpose(-1, -2)
+        sc = (_times(qf, kt, both=True) if both else qf @ kt) * scale
         sc = sc.masked_fill(~valid[:, cols], tf.NEG_BIG)
         m_new = torch.maximum(m, sc.amax(-1, keepdim=True))
         alpha = torch.exp(m - m_new)
         e = torch.exp(sc - m_new)
         l = alpha * l + e.sum(-1, keepdim=True)
         p = torch.where(keep[..., cols], e, 0.0)
-        o = o * alpha + _times(p, vf[:, :, cols], parts)
+        o = o * alpha + _times(p, vf[:, :, cols], parts, both)
         m = m_new
     l = torch.where(l == 0.0, 1.0, l)
     return o / l * dp.inv_keep, (m + torch.log(l))[..., 0]
@@ -307,10 +312,11 @@ def test_tc_wrappers_route_by_dtype(dtype, monkeypatch):
     """Entry names, launch counters and libraries: bf16 q/k/v launch
     repro_flash_fwd_bf16 (flash_fwd_bf16.cu), repro_flash_dq_bf16
     (flash_dq_bf16.cu) and repro_flash_dkv_bf16 (flash_dkv_bf16.cu), f32
-    q/k/v repro_flash_fwd (flash_fwd.cu, SIMT), repro_flash_dq
+    q/k/v repro_flash_fwd (flash_fwd_f32.cu), repro_flash_dq
     (flash_dq_f32.cu) and repro_flash_dkv (flash_dkv_f32.cu) -- every
-    backward on the tensor cores; the kernels take head dims 16, 32, 64
-    and 128."""
+    flash kernel on the tensor cores, the two forwards instances of one
+    body (flash_fwd_sm90.cuh) and the SIMT forward gone; the kernels take
+    head dims 16, 32, 64 and 128."""
     bf16 = dtype == BF16
     fwd = tf.KERNELS[dtype]
     dq, dkv = tb.KERNELS[dtype]
@@ -319,7 +325,7 @@ def test_tc_wrappers_route_by_dtype(dtype, monkeypatch):
                               ("flash_fwd", "flash_dq", "flash_dkv"))
     counts = launch_counts()
     assert {fwd, dq, dkv} <= set(counts)
-    want_src = {fwd: "flash_fwd_bf16" if bf16 else "flash_fwd",
+    want_src = {fwd: "flash_fwd_bf16" if bf16 else "flash_fwd_f32",
                 dq: "flash_dq_bf16" if bf16 else "flash_dq_f32",
                 dkv: "flash_dkv_bf16" if bf16 else "flash_dkv_f32"}
 
@@ -348,12 +354,19 @@ def test_tc_wrappers_route_by_dtype(dtype, monkeypatch):
     # looks up
     csrc = Path(build.CSRC)
     assert {"flash_fwd_bf16", "flash_dq_bf16", "flash_dkv_bf16",
-            "flash_dq_f32", "flash_dkv_f32"} <= set(build.sources())
+            "flash_fwd_f32", "flash_dq_f32",
+            "flash_dkv_f32"} <= set(build.sources())
+    assert "flash_fwd" not in build.sources()
     for name in (fwd, dq, dkv):
         defined = [p.stem for p in sorted(csrc.glob("*.cu"))
                    if f'extern "C" int repro_{name}(' in p.read_text()
                    or f"int repro_{name}(REPRO_" in p.read_text()]
         assert defined == [want_src[name]], (name, defined)
+    body = (csrc / "flash_fwd_sm90.cuh").read_text()
+    assert "flash_fwd_kernel" in body
+    assert ("Bf16Ops" if bf16 else "F32Ops") in body
+    assert '#include "flash_fwd_sm90.cuh"' in (
+        csrc / f"{want_src[fwd]}.cu").read_text()
     assert "flash_dq_kernel" in (csrc / f"{want_src[dq]}.cu").read_text()
     assert "flash_dkv_kernel" in (csrc / f"{want_src[dkv]}.cu").read_text()
 
@@ -408,6 +421,54 @@ def test_f32_tc_emulation_matches_jax_and_plain(mode, kv, d):
         assert got.dtype == torch.float32 and pwant.dtype == torch.float32
         assert _ratio(got, np.asarray(want), FWD_TOL, scaled=False) <= 1
         assert _ratio(got, pwant, FWD_TOL, scaled=False) <= 1
+
+
+@pytest.mark.parametrize("mode,kv,d", [
+    ("replay", 4, 32), ("premask", 4, 32), ("none", 4, 32),
+    ("replay", 2, 32), ("premask", 2, 16), ("replay", 4, 16),
+    ("replay", 4, 64), ("premask", 2, 64)])
+def test_f32_tc_fwd_emulation_matches_jax_and_plain(mode, kv, d):
+    """The f32 forward kernel's arithmetic (Q, K, V and P split into
+    triples, six part products a product, each block's P V folded by an
+    f32 add) on f32 inputs against JAX's f32 kernel and the port's plain
+    version: O and lse within 1e-4 x (1 + |x|) of both."""
+    (b, h, s), arrays, jop, top = _f32_case(mode, kv, d, 5 * kv + d)
+    q, k, v, _ = (torch.from_numpy(x) for x in arrays)
+    jq, jk, jv, _ = (jnp.asarray(x) for x in arrays)
+    args = dict(ARGS, mode=mode)
+    dp = _dropout(mode, top, b, h, s)
+
+    jo, jl = jf.flash_attention_fwd(jq, jk, jv, jop, return_lse=True, **args)
+    o, lse = emulate_fwd(q, k, v, dp, 1.0 / d ** 0.5, both=True)
+    po, plse = tf.flash_attention_fwd_plain(q, k, v, top, **args)
+    for got, want, pwant in ((o, jo, po), (lse, jl, plse)):
+        assert got.dtype == torch.float32 and pwant.dtype == torch.float32
+        assert _ratio(got, np.asarray(want), FWD_TOL, scaled=False) <= 1
+        assert _ratio(got, pwant, FWD_TOL, scaled=False) <= 1
+
+
+def test_f32_tc_fwd_bf16_rounded_kv_is_further_off():
+    """The forward's precision control: the same emulation with K and V
+    rounded once to bf16 (what a product that splits only one operand
+    keeps of the other) is at least 10x further from JAX's f32 O and lse
+    than the kernels' six part products (measured: O 4.8e-7 against
+    4.4e-3 x (1 + |x|), lse 1.7e-7 against 1.9e-3)."""
+    (b, h, s), arrays, jop, top = _f32_case("replay", 4, 64, 3)
+    q, k, v, _ = (torch.from_numpy(x) for x in arrays)
+    dp = _dropout("replay", top, b, h, s)
+    jo, jl = jf.flash_attention_fwd(*(jnp.asarray(x) for x in arrays[:3]),
+                                    jop, return_lse=True,
+                                    **dict(ARGS, mode="replay"))
+    bf = lambda t: t.to(BF16).float()  # noqa: E731
+    err = {}
+    for tag, kk, vv in (("split", k, v), ("rounded", bf(k), bf(v))):
+        o, lse = emulate_fwd(q, kk, vv, dp, 1.0 / 8, both=True)
+        err[tag] = (_ratio(o, np.asarray(jo), 1.0, scaled=False),
+                    _ratio(lse, np.asarray(jl), 1.0, scaled=False))
+    assert err["split"][0] <= FWD_TOL / 100, err
+    for i in (0, 1):
+        assert err["rounded"][i] >= 10 * err["split"][i], err
+    assert err["rounded"][0] > FWD_TOL, err
 
 
 @pytest.mark.parametrize("k_len", [16, 64, 128])
