@@ -13,14 +13,19 @@ Phases (each raises on failure; nothing is caught):
      memory and ptxas advisories, and the HGMMA (wgmma) instructions in
      each tensor-core library's SASS (``cuobjdump --dump-sass``); the
      flash libraries' registers and spills by head dim (the f32 ones may
-     not spill at D = 128);
+     not spill at D = 128), and the f32 GEMM+RNG libraries' (which may not
+     spill);
   2. each kernel against its plain PyTorch version on the card, then
      timed with CUDA events beside its bound and, where one PyTorch call
      computes the same function, that call's time: the Philox kernel
      bitwise; the fused GEMM+RNG kernel at the training QKV shape (4096 x
-     12288 x 4096; plane bitwise, C within F32_GEMM_TOL of the plain
-     version, a limit the plain GEMM on bf16-rounded A, W must fail) and
-     at a Region-3 shape (its plain-GEMM variant); flash forward, dq and
+     12288 x 4096; on the tensor cores, both f32 operands split into
+     exact bf16 triples, six part products an f32 product; plane bitwise,
+     C within F32_GEMM_TOL of the plain version and F32_GEMM_F64_TOL of
+     the f64 product, limits the plain GEMM on bf16-rounded A, W must
+     fail; timed with the emission on and off in turns beside its bound at
+     that rate and the f32 SIMT rate's) and at a Region-3 shape (its
+     plain-GEMM variant); flash forward, dq and
      dkv at B=2, H=32, S=2048, D=128 in all four dropout modes, with a
      local window, with yi-6b's GQA (32 q / 4 kv heads), at D=64 and at
      SQ=1024 and 960 < SK (all three on the tensor cores, every f32
@@ -97,11 +102,13 @@ Phase 2 also checks the e4m3 GEMM+RNG kernel against its plain version
 at the four host shapes of phase 6 (QKV, out-projection, gate+up, down;
 plane bitwise, also against the f32 kernel's; C within 1e-3 of the plain
 version and under 0.06 of the f32 product), at three scale-tile shapes and
-with a Region-3 call that emits nothing, and the grouped kernels (f32,
-its emission-off variant, e4m3) at moonshot's two expert host shapes and
-rwkv6-7b's channel-mix key GEMM (E=1) in the same way (both e4m3 hosts
-also at K = bk = 344, K not a multiple of 16: rows zero-padded to the
-tensor maps' 16-byte stride); the bf16 GEMM+RNG kernel at the four host
+with a Region-3 call that emits nothing, and the grouped kernels (f32 on
+the tensor cores as the dense f32 one, its emission-off variant, e4m3) at
+moonshot's two expert host shapes and rwkv6-7b's channel-mix key GEMM
+(E=1) in the same way (the f32 and e4m3 grouped kernels also at K = bk =
+344, K not a multiple of 16: the e4m3 rows zero-padded to the tensor
+maps' 16-byte stride, the f32 kernel's last 32-k stage reading the maps'
+zeros past K); the bf16 GEMM+RNG kernel at the four host
 shapes (plane bitwise the plain one's and the f32 host's, bf16 C within
 1e-2 (1 + |C|) of the plain version, emission on and off in turns, and a
 Region-3 call) and the bf16 flash kernels (the forward, dq and dkv on
@@ -177,8 +184,9 @@ F16_FLOPS_PER_S = 989e12           # the same, dense f16: the rate the e4m3
                                    # kernels multiply at (exact e4m3 -> f16)
 BF16_FLOPS_PER_S = 989e12          # the same, dense bf16: the bf16 kernels'
                                    # bound (tensor cores)
-F32_SPLIT_PRODUCTS = 6             # bf16 products the f32 flash kernels
-                                   # (forward, dq, dkv) run for one f32
+F32_SPLIT_PRODUCTS = 6             # bf16 products the f32 tensor-core
+                                   # kernels (flash forward, dq, dkv and
+                                   # the GEMM+RNG hosts) run for one f32
                                    # product (both operands split into
                                    # exact triples)
 SFU_PER_ISSUE_LANE = 1 / 8         # exponentials a clock: 16 an SM against
@@ -306,6 +314,8 @@ def phase_build(state) -> None:
                 *(flash_bwd.SOURCES[n]
                   for n in flash_bwd.KERNELS[torch.float32])}
     for name, smem_lib, entry in (
+            (gemm_rng.KERNEL, gemm_rng.KERNEL, gemm_rng.KERNEL),
+            (gemm_rng.KERNEL_GROUPED, gemm_rng.KERNEL, gemm_rng.KERNEL),
             (gemm_rng.KERNEL_FP8, gemm_rng.KERNEL_FP8, gemm_rng.KERNEL_FP8),
             (gemm_rng.KERNEL_GROUPED_FP8, gemm_rng.KERNEL_FP8,
              gemm_rng.KERNEL_FP8),
@@ -331,6 +341,17 @@ def phase_build(state) -> None:
         log(f"[build] {name}: {smem} bytes of dynamic shared memory a CTA; "
             f"{hgmma} HGMMA instructions in its SASS (cuobjdump); ptxas "
             f"advisories: {advisories or 'none'}")
+    # the f32 GEMM+RNG kernels (both operands split, the accumulator and a
+    # stage's sum in registers) may not spill
+    for name in (gemm_rng.KERNEL, gemm_rng.KERNEL_GROUPED):
+        spills = [int(x) for line in build.ptxas_report(name)
+                  for x in re.findall(r"(\d+) bytes spill", line)]
+        regs = [int(x) for line in build.ptxas_report(name)
+                for x in re.findall(r"Used (\d+) registers", line)]
+        if not spills or max(spills):
+            raise AssertionError(f"{name}: its instances spill ({spills})")
+        log(f"[build] {name}: {min(regs)}-{max(regs)} registers, no spill "
+            f"in its {len(regs)} instances")
     # the flash libraries by head dim: registers and spills of their
     # instances (one a dropout mode); the f32 ones may not spill at D =
     # 128, the main path's
@@ -456,11 +477,18 @@ FLASH_SHAPE = (2, 32, 2048, 128)
 # operands and scales); FWD_TOL the bf16 forward's f32 lse
 GEMM_TOL = 1e-3
 FWD_TOL = 1e-4
-# the f32 GEMM+RNG C (rows 2, 3, 9, 10): the SIMT kernels read at most
-# 0.19 of it on the H100, and each run holds it to a precision control it
-# must fail, the plain GEMM on A and W rounded once to bf16 (394-725 times
-# the limit; ``_gemm_precision_control``)
+# the f32 GEMM+RNG C (rows 2, 3, 9, 10) against the plain version: the
+# tensor-core kernels (six part products an f32 product, each 32-k stage
+# folded into C by f32 adds) read 0.02-0.34 of it in the smoke's cases on
+# the H100, about what the plain version (cuBLAS's f32 sum, in k order)
+# reads against the f64 product itself (up to 0.39; 0.86 at K = 11008),
+# so the limit stays; each run also holds C within F32_GEMM_F64_TOL of the
+# f64 product, a limit the kernels read at most 0.2 of there (0.47 at K =
+# 11008) and the plain version up to 1.08 of (2.9 at K = 11008), and
+# holds both limits to a precision control they must fail, the plain GEMM
+# on A and W rounded once to bf16 (``_gemm_precision_control``)
 F32_GEMM_TOL = 1e-3
+F32_GEMM_F64_TOL = 3e-4
 # the f32 flash forward's O and lse: the tensor-core kernel (six part
 # products an f32 product) reads at most 1.5e-6 x (1 + |x|) on the H100
 # (PERF.md row 4), so the limit sits several times above that,
@@ -519,16 +547,23 @@ def _close(name, got, want, tol, state, key, scaled=False) -> float:
     return worst
 
 
-def gemm_rng_bound(m, n, k, mask_words, rounds, ops_rate, groups=1):
-    """(bound_ms, bound_by) of ``groups`` (m, k) x (k, n) products and one
-    plane: operands and results read / written once, the plane written
-    once, against HBM; the f32 FMAs at the f32 rate plus the plane's Philox
-    instructions (8 calls x (4 a round + 8) a word) at the issue rate --
-    they share the SMs' issue slots."""
+def gemm_rng_bound(m, n, k, mask_words, rounds, ops_rate, groups=1,
+                   simt=False):
+    """(bound_ms, bound_by) of ``groups`` f32 (m, k) x (k, n) products and
+    one plane: operands and results read / written once, the plane written
+    once, against HBM; the products as F32_SPLIT_PRODUCTS bf16 products
+    each at the dense bf16 tensor-core rate, beside the plane's Philox
+    instructions (8 calls x (4 a round + 8) a word) at the issue rate (the
+    larger time: the tensor cores and the SIMT lanes run side by side).
+    With ``simt`` the f32 SIMT form instead (the bound of the SIMT kernels
+    these replaced): the f32 FMAs at the f32 rate plus the Philox
+    instructions, which share the SMs' issue slots."""
     t_bytes = 4 * (groups * (m * k + k * n + m * n) + mask_words) \
         / HBM_BYTES_PER_S
-    t_ops = (2 * groups * m * n * k / F32_FLOPS_PER_S
-             + mask_words * 8 * (4 * rounds + 8) / ops_rate)
+    flops = 2 * groups * m * n * k
+    philox = mask_words * 8 * (4 * rounds + 8) / ops_rate
+    t_ops = (flops / F32_FLOPS_PER_S + philox if simt else
+             max(F32_SPLIT_PRODUCTS * flops / BF16_FLOPS_PER_S, philox))
     return max(t_bytes, t_ops) * 1e3, ("operations" if t_ops >= t_bytes
                                        else "bytes")
 
@@ -586,24 +621,36 @@ def simt_floor_ms(pairs: int, rounds: int, ops_rate: float,
     return ops / ops_rate * 1e3
 
 
-def _gemm_precision_control(tag, a, w, got, want) -> None:
-    """A precision control the f32 GEMM+RNG C checks must fail: the plain
-    GEMM on A and W rounded once to bf16 (what a product that keeps an
-    operand to bf16 computes) against ``want``, the plain GEMM on the f32
-    operands. Raises if F32_GEMM_TOL would pass it; prints its ratio to
-    the limit beside the kernel's (``got``)."""
+def _gemm_precision_control(tag, a, w, got, want, state, key) -> None:
+    """The f32 GEMM+RNG C (``got``, f32 (E,) M x N) against the f64 product
+    of A and W within F32_GEMM_F64_TOL, and a precision control both C
+    checks must fail: the plain GEMM on A and W rounded once to bf16 (what
+    a product that keeps an operand to bf16 computes) against ``want``, the
+    plain GEMM on the f32 operands, and against the f64 product. Raises if
+    the kernel misses the f64 limit or a limit would pass the control;
+    prints each ratio to its limit, the plain version's own beside them."""
     def bf16(t):
         return t.to(torch.bfloat16).float()
+    exact = torch.matmul(a.double(), w.double())
+    err = _close(f"{tag} C against the f64 product", got, exact,
+                 F32_GEMM_F64_TOL, state, f"{key}_f64")
+    kernel64 = _within(got, exact, F32_GEMM_F64_TOL)[1]
+    plain64 = _within(want, exact, F32_GEMM_F64_TOL)[1]
     ctl = torch.matmul(bf16(a), bf16(w))
     worst, ratio, ok = _within(ctl, want, F32_GEMM_TOL)
-    if ok:
-        raise AssertionError(f"{tag}: the f32 GEMM limit passes the product "
+    ratio64, ok64 = _within(ctl, exact, F32_GEMM_F64_TOL)[1:]
+    if ok or ok64:
+        raise AssertionError(f"{tag}: an f32 GEMM limit passes the product "
                              f"of bf16-rounded A, W (max abs err {worst})")
     kernel = _within(got, want, F32_GEMM_TOL)[1]
-    log(f"[kernels] {tag} precision control (the plain GEMM on A, W rounded "
-        f"once to bf16): max abs err {worst:.3g}, {ratio:.4g} of the "
-        f"{F32_GEMM_TOL} x (1+|C|) limit; the kernel at {kernel:.4g} of it "
-        f"-- the f32 C check fails the control")
+    del exact, ctl
+    log(f"[kernels] {tag} precision: the kernel at {kernel:.4g} of the "
+        f"{F32_GEMM_TOL} x (1+|C|) limit from the plain version and at "
+        f"{kernel64:.4g} of the {F32_GEMM_F64_TOL} x (1+|C|) limit from the "
+        f"f64 product (max abs err {err:.3g}; the plain version itself at "
+        f"{plain64:.4g} of it); the control (the plain GEMM on A, W rounded "
+        f"once to bf16) at {ratio:.4g} and {ratio64:.4g} of them (max abs "
+        f"err {worst:.3g}) -- both C checks fail the control")
 
 
 def phase_kernels_train(state) -> None:
@@ -626,7 +673,8 @@ def phase_kernels_train(state) -> None:
     if not torch.equal(mask, want_mask):
         raise AssertionError("gemm_rng plane != plain version")
     err = _close("gemm_rng C", c, want_c, F32_GEMM_TOL, state, "gemm_rng")
-    _gemm_precision_control("gemm_rng", a, w, c, want_c)
+    _gemm_precision_control("gemm_rng", a, w, c, want_c, state,
+                            "gemm_rng")
     m3, n3, k3, (b3, h3, s3) = REGION3
     a3, w3 = rnd(m3, k3), rnd(k3, n3)
     c3, none = gemm_rng.gemm_with_rng(a3, w3, mask_batch=b3, mask_heads=h3,
@@ -642,7 +690,7 @@ def phase_kernels_train(state) -> None:
     log(f"[kernels] gemm_rng {m}x{n}x{k} + plane {mb}x{mh}x{sq // 32}x{sq}"
         f": plane == plain bitwise, C max abs err {err:.3g} (tol "
         f"{F32_GEMM_TOL} x (1+|C|): 4096-term f32 sums in another order "
-        f"than cuBLAS); Region 3 {m3}x{n3}x{k3}: plane None, C max abs err "
+        f"than cuBLAS's); Region 3 {m3}x{n3}x{k3}: plane None, C max abs err "
         f"{err3:.3g}")
     launch = lambda: gemm_rng.gemm_with_rng(a, w, **kw)  # noqa: E731
     # the Region-3 variant at the same product and plane: a one-step
@@ -661,9 +709,11 @@ def phase_kernels_train(state) -> None:
     plain_ms = cuda_time_ms(lambda: gemm_rng.gemm_with_rng_plain(a, w, **kw),
                             2, warmup=1)
     lib_ms = cuda_time_ms(lambda: a @ w, 10)
-    bound_ms, bound_by = gemm_rng_bound(m, n, k, mb * mh * (sq // 32) * sq,
-                                        7, ops_rate)
+    words = mb * mh * (sq // 32) * sq
+    bound_ms, bound_by = gemm_rng_bound(m, n, k, words, 7, ops_rate)
     plain3_bound, plain3_by = gemm_rng_bound(m, n, k, 0, 7, ops_rate)
+    simt_ms = gemm_rng_bound(m, n, k, words, 7, ops_rate, simt=True)[0]
+    plain3_simt = gemm_rng_bound(m, n, k, 0, 7, ops_rate, simt=True)[0]
     timing["gemm_rng"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                               bound_by=bound_by, library_ms=lib_ms,
                               plain_variant_ms=plain3_ms,
@@ -673,11 +723,13 @@ def phase_kernels_train(state) -> None:
     log(f"[kernels] gemm_rng {m}x{n}x{k}: {ms:.4f} ms a launch (CUDA "
         f"events, in turns {runs['rng']}), {2 * m * n * k / ms / 1e9:.1f} "
         f"TFLOP/s; plain variant (Region 3, no plane) {plain3_ms:.4f} ms "
-        f"(in turns {runs['plain']}, bound {plain3_bound:.4f} ms); "
-        f"torch.matmul "
-        f"{lib_ms:.4f} ms; plain version {plain_ms:.2f} ms; bound "
-        f"{bound_ms:.4f} ms by {bound_by}, kernel at "
-        f"{bound_ms / ms * 100:.1f}% of bound | {state['smi']}")
+        f"(in turns {runs['plain']}, bound {plain3_bound:.4f} ms, "
+        f"{plain3_bound / plain3_ms * 100:.1f}%; {plain3_simt:.4f} at the "
+        f"f32 SIMT rate); torch.matmul {lib_ms:.4f} ms (the kernel "
+        f"{ms / lib_ms:.3f}x of it); plain version {plain_ms:.2f} ms; bound "
+        f"{bound_ms:.4f} ms by {bound_by} at {F32_SPLIT_PRODUCTS} bf16 "
+        f"products an f32 product ({simt_ms:.4f} at the f32 SIMT rate), "
+        f"kernel at {bound_ms / ms * 100:.1f}% of bound | {state['smi']}")
     del a, w, c, mask, want_c, want_mask
 
     # ---- flash forward, dq, dkv
@@ -1266,7 +1318,8 @@ def phase_kernels_grouped(state) -> None:
                                  f"kernel, e4m3 kernel, plain, dense host)")
         err = _close(f"{g32} {label} C", c, want_c, F32_GEMM_TOL, state,
                      g32)
-        _gemm_precision_control(f"{g32} {label}", a, w, c, want_c)
+        _gemm_precision_control(f"{g32} {label}", a, w, c, want_c, state,
+                                g32)
         err8 = _close(f"{g8} {label} C", c8, want_c8, GEMM_TOL, state, g8)
         ref = torch.bmm(a, w)
         rel8 = float((c8 - ref).norm() / ref.norm())
@@ -1321,6 +1374,8 @@ def phase_kernels_grouped(state) -> None:
         words = plane[0] * plane[1] * (plane[2] // 32) * plane[2]
         b32, by32 = gemm_rng_bound(m, n, k, words, 7, ops_rate, groups=e)
         boff, boff_by = gemm_rng_bound(m, n, k, 0, 7, ops_rate, groups=e)
+        s32, soff = (gemm_rng_bound(m, n, k, wd, 7, ops_rate, groups=e,
+                                    simt=True)[0] for wd in (words, 0))
         b8, by8 = gemm_rng_fp8_bound(m, n, k, blocks, words, 7, ops_rate,
                                      groups=e)
         shape = [e, m, n, k]
@@ -1347,10 +1402,14 @@ def phase_kernels_grouped(state) -> None:
         log(f"[kernels] {g32} {label}: {ms['rng']:.4f} ms a launch (CUDA "
             f"events, in turns {runs['rng']}), {flops / ms['rng'] / 1e9:.1f} "
             f"TFLOP/s; emission-off variant {ms['plain']:.4f} ms (in turns "
-            f"{runs['plain']}, bound {boff:.4f} ms); torch.bmm "
-            f"{bmm_ms:.4f} ms; plain version {plain_ms:.2f} ms (GEMM only "
-            f"{plain_off_ms:.2f} ms); bound {b32:.4f} ms by {by32}, kernel "
-            f"at {b32 / ms['rng'] * 100:.1f}% of bound | {state['smi']}")
+            f"{runs['plain']}, bound {boff:.4f} ms, "
+            f"{boff / ms['plain'] * 100:.1f}%; {soff:.4f} at the f32 SIMT "
+            f"rate); torch.bmm {bmm_ms:.4f} ms (the kernel "
+            f"{ms['rng'] / bmm_ms:.3f}x of it); plain version "
+            f"{plain_ms:.2f} ms (GEMM only {plain_off_ms:.2f} ms); bound "
+            f"{b32:.4f} ms by {by32} at {F32_SPLIT_PRODUCTS} bf16 products "
+            f"an f32 product ({s32:.4f} at the f32 SIMT rate), kernel at "
+            f"{b32 / ms['rng'] * 100:.1f}% of bound | {state['smi']}")
         log(f"[kernels] {g8} {label}: {ms['rng8']:.4f} ms a launch (in "
             f"turns {runs['rng8']}), {flops / ms['rng8'] / 1e9:.1f} "
             f"TFLOP/s; emission off {ms['off8']:.4f} ms (in turns "
@@ -1396,14 +1455,21 @@ def phase_kernels_grouped(state) -> None:
     kw = _grouped_kw(blocks, plane)
     c8, mask8 = gemm_rng.gemm_with_rng_grouped_fp8(a, w, **kw)
     want_c8, want8 = gemm_rng.gemm_with_rng_grouped_fp8_plain(a, w, **kw)
+    c, mask = gemm_rng.gemm_with_rng_grouped(a, w, **kw)
+    want_c, want = gemm_rng.gemm_with_rng_grouped_plain(a, w, **kw)
     torch.cuda.synchronize()
-    if not torch.equal(mask8, want8):
-        raise AssertionError(f"{g8} K={k}: plane != plain")
+    if not (torch.equal(mask8, want8) and torch.equal(mask, want8)
+            and torch.equal(want, want8)):
+        raise AssertionError(f"{g8}, {g32} K={k}: plane != plain")
     err8 = _close(f"{g8} K={k} C", c8, want_c8, GEMM_TOL, state, g8)
+    err = _close(f"{g32} K={k} C", c, want_c, F32_GEMM_TOL, state, g32)
+    _gemm_precision_control(f"{g32} K={k}", a, w, c, want_c, state, g32)
     log(f"[kernels] {g8} {e}x({m}x{k})x({k}x{n}) blocks {blocks}, K not a "
         f"multiple of 16 (rows padded to {-(-k // 16) * 16} bytes): plane "
         f"== plain bitwise, C max abs err {err8:.3g} (tol {GEMM_TOL} x "
-        f"(1+|C|))")
+        f"(1+|C|)); {g32} there (K not a multiple of its 32-k stage: the "
+        f"tensor maps' zeros past K): plane == plain bitwise, C max abs err "
+        f"{err:.3g} (tol {F32_GEMM_TOL} x (1+|C|))")
     timing = state.setdefault("timing", {})
     for name in (g32, g8):
         timing[name] = dict(rows[name][GROUPED_MAIN], rows=rows[name])
@@ -3080,6 +3146,13 @@ def kernel_records(state):
     def modes(name):
         return {"modes_ms": t[name]["modes_ms"]}
 
+    def f32_extras(row):
+        # rows 2, 3, 9, 10: the tensor-core body they instantiate
+        out = {"body": "src/repro_torch/kernels/csrc/gemm_tc.cuh (F32Ops)"}
+        if "shape" in row:
+            out["shape"] = row["shape"]
+        return out
+
     def fp8_extras(row):
         return dict(shape=row["shape"], scaled_mm_ms=row["scaled_mm_ms"],
                     dequant_matmul_ms=row["dequant_matmul_ms"])
@@ -3089,9 +3162,11 @@ def kernel_records(state):
          "serve", state["philox_launches"], state["philox_err"],
          dict(state["philox_timing"]["serve"], library_ms=None), {}),
         (k32, "gemm_rng.cu", f"{g}:143", "train",
-         state["train_launches"][k32], errs[k32], t[k32], {}),
+         state["train_launches"][k32], errs[k32], t[k32],
+         f32_extras(t[k32])),
         (f"{k32}_plain", "gemm_rng.cu", f"{g}:304", "train",
-         state["gemm_variants"]["plain"], errs[k32], variant(t[k32]), {}),
+         state["gemm_variants"]["plain"], errs[k32], variant(t[k32]),
+         f32_extras(t[k32])),
         (flash.KERNEL, "flash_fwd_f32.cu",
          "src/repro/kernels/flash_attention.py:58", "train",
          state["train_launches"][flash.KERNEL], errs[flash.KERNEL],
@@ -3112,10 +3187,10 @@ def kernel_records(state):
          state["fp8_variants"]["plain"], errs[k8],
          dict(variant(t[k8]), library_ms=None), fp8_extras(t[k8])),
         (g32, "gemm_rng_grouped.cu", f"{g}:551", "train_moe_f32",
-         moe_f32[g32], errs[g32], t[g32], {"shape": t[g32]["shape"]}),
+         moe_f32[g32], errs[g32], t[g32], f32_extras(t[g32])),
         (f"{g32}_plain", "gemm_rng_grouped.cu", f"{g}:711", "train_moe",
          state["moe_variants"]["plain"], errs[g32], variant(t[g32]),
-         {"shape": t[g32]["shape"]}),
+         f32_extras(t[g32])),
         (g8, "gemm_rng_grouped_fp8.cu", f"{g}:764", "train_moe",
          state["moe_launches"][g8], errs[g8], t[g8], fp8_extras(t[g8])),
         (k16, "gemm_rng_bf16.cu", f"{g}:143", "train_bf16", l16[k16],

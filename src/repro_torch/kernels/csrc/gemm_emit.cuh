@@ -1,5 +1,6 @@
 // The dropout-plane emission of the fused GEMM+RNG kernels (gemm_rng.cu and
-// gemm_rng_grouped.cu, f32 operands; gemm_rng_fp8.cu and
+// gemm_rng_grouped.cu, f32 operands; gemm_rng_bf16.cu and
+// gemm_rng_grouped_bf16.cu, bf16 operands; gemm_rng_fp8.cu and
 // gemm_rng_grouped_fp8.cu, e4m3 operands): all write exactly the rectangles
 // of the JAX emission layout, so a plane does not depend on the dtype or
 // the shape of the GEMM that hosts it.
@@ -9,19 +10,17 @@
 // on the JAX logical GEMM grid by the Python wrapper): block s covers rows
 // [s / n_cb * rb, + rb) clipped to rows_valid and cols [s % n_cb * ck,
 // + ck). Bits are position-based (philox.cuh::packed_word), so they do not
-// depend on which CTA writes a block: CTA t (row-major over the whole 3-D
-// CTA grid, blockIdx.z the expert of a grouped launch) writes blocks t,
-// t + n_ctas, ... < n_valid_blocks, before its k-loop -- the CUDA form of
-// JAX's "kk == 0" emission (the f32 kernels, emit_blocks). A dense launch
-// has gridDim.z == 1. Only valid blocks are written: the TPU's dummy
-// overflow band is BlockSpec plumbing with no bits.
+// depend on which CTA writes them. Only valid blocks are written: the
+// TPU's dummy overflow band is BlockSpec plumbing with no bits.
 //
-// The e4m3 kernels emit during their k-loops, on the producer warpgroup's
-// three spare warps (emit_share): the words of the same rectangles, taken
-// in block order and row-major inside a block, are cut into one run of
-// equal length per CTA, so every CTA carries an equal share of the plane
-// beside its product instead of the first n_valid_blocks CTAs carrying it
-// all.
+// Every kernel emits during its k-loop, on the producer warpgroup's three
+// spare warps (emit_share): the words of the rectangles, taken in block
+// order and row-major inside a block, are cut into one run of equal length
+// per CTA of the whole grid (blockIdx.x; the grouped hosts' experts are
+// part of it), so every CTA carries an equal share of the plane beside its
+// product. Where JAX emits a block at its grid step's "kk == 0", the CUDA
+// kernels spread the same words over the grid; a layout has to tile the
+// plane for that (layout_tiles_plane), as every JAX layout does.
 #pragma once
 
 #include <cstdint>
@@ -35,30 +34,6 @@ struct Emit {
   int rows_valid, sk, sq32, rb, ck, n_cb, n_valid_blocks;
   uint32_t k0, k1, salt, bh_offset, heads_local, heads_global, threshold;
 };
-
-// The blocks CTA (blockIdx.x, blockIdx.y, blockIdx.z) owns, written by all
-// its threads.
-template <int ROUNDS>
-__device__ void emit_blocks(const Emit& e) {
-  const int n_ctas = gridDim.x * gridDim.y * gridDim.z;
-  const int t = (blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x +
-                blockIdx.x;
-  for (int s = t; s < e.n_valid_blocks; s += n_ctas) {
-    const int r0 = (s / e.n_cb) * e.rb;
-    const int r1 = min(r0 + e.rb, e.rows_valid);
-    const int c0 = (s % e.n_cb) * e.ck;
-    const int words = (r1 - r0) * e.ck;
-    for (int i = threadIdx.x; i < words; i += blockDim.x) {
-      const int r = r0 + i / e.ck;
-      const int c = c0 + i % e.ck;
-      e.mask[static_cast<size_t>(r) * e.sk + c] =
-          static_cast<int32_t>(repro_philox::packed_word<ROUNDS>(
-              static_cast<uint32_t>(r), static_cast<uint32_t>(c),
-              static_cast<uint32_t>(e.sq32), e.heads_local, e.heads_global,
-              e.bh_offset, e.salt, e.k0, e.k1, e.threshold));
-    }
-  }
-}
 
 // CTA `cta` of `n_ctas`: its run of the layout's words, written by
 // `n_threads` threads (thread `tid`). The valid rectangles are the full row

@@ -22,8 +22,9 @@
 // 12288 x 4096, 412 GFLOP) 0.42 ms, and its plane's Philox (8.4 M words of
 // 8 calls each) about 0.07 ms at the issue rate, against 0.27 GB of bf16
 // operands and result and the plane (0.08 ms at 3.35 TB/s). The design
-// (gemm_bf16.cuh, shared with the grouped bf16 host, on gemm_sm90.cuh's
-// TMA, mbarriers and wgmma): a TMA ring of bf16 tiles read by m64n128k16
+// (gemm_tc.cuh's bf16 operand policy, shared with the grouped bf16 host
+// and, as a body, with the f32 hosts, on gemm_sm90.cuh's TMA, mbarriers
+// and wgmma): a TMA ring of bf16 tiles read by m64n128k16
 // wgmma with f32 sums on two consumer warpgroups, B read MN-major, 128 x
 // 128 CTA tiles, and the plane computed by the producer warpgroup's spare
 // warps during the k-loop (emit_share), as the e4m3 kernel does. Measured
@@ -34,7 +35,7 @@
 // words (PERF.md).
 #include <cstdint>
 
-#include "gemm_bf16.cuh"
+#include "gemm_tc.cuh"
 
 // C = A @ B as described above and, when `mask` is not null, the layout's
 // blocks of the packed keep plane. K and N must be multiples of 8 and A, B
@@ -50,12 +51,13 @@ extern "C" int repro_gemm_rng_bf16(const void* a, const void* b, void* c,
                                    int heads_local, int heads_global,
                                    uint32_t threshold, int rounds,
                                    void* stream) {
-  return repro_gemm::bf16::run<false>(a, b, c, 1, M, N, K, mask, rows_valid,
-      sk, sq32, rb, ck, n_cb, n_valid_blocks, key_lo, key_hi, salt,
-      bh_offset, heads_local, heads_global, threshold, rounds, stream);
+  using repro_gemm::tc::Bf16Ops;
+  return repro_gemm::tc::run<Bf16Ops, false>(a, b, c, 1, M, N, K, mask,
+      rows_valid, sk, sq32, rb, ck, n_cb, n_valid_blocks, key_lo, key_hi,
+      salt, bh_offset, heads_local, heads_global, threshold, rounds, stream);
 }
 
 // Dynamic shared memory of one CTA, in bytes (ptxas reports static only).
 extern "C" int repro_gemm_rng_bf16_smem_bytes() {
-  return repro_gemm::bf16::SMEM_BYTES;
+  return repro_gemm::tc::smem_bytes<repro_gemm::tc::Bf16Ops>();
 }

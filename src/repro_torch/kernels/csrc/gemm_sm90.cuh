@@ -1,6 +1,7 @@
 // Hopper building blocks of the tensor-core GEMM+RNG kernels
-// (gemm_fp8.cuh: e4m3 operands multiplied as f16; gemm_bf16.cuh: bf16
-// operands) and of the bf16 flash kernels (flash_sm90.cuh): shared-memory
+// (gemm_fp8.cuh: e4m3 operands multiplied as f16; gemm_tc.cuh: bf16
+// operands, and f32 ones split into bf16 parts) and of the flash kernels
+// (flash_sm90.cuh): shared-memory
 // addresses, mbarriers, TMA tile loads and their tensor maps, wgmma matrix
 // descriptors and the m64n128k16 products with f32 sums, all in inline PTX
 // for sm_90a.

@@ -7,18 +7,25 @@ versions.
 TPU kernels ``src/repro/kernels/gemm_rng.py::_gemm_rng_kernel`` and, with
 the emission switched off, ``_plain_gemm_impl.kern`` (the paper's Region
 3) -- when its operands lie on a CUDA device, and the plain version when
-they lie on the CPU: ``csrc/gemm_rng.cu`` for f32 operands (SIMT f32),
-``csrc/gemm_rng_bf16.cu`` for bf16 ones (``wgmma`` with f32 sums, C
-rounded once to bf16, as the JAX kernel's ``out_dtype`` cast). A failed
-build or launch raises; nothing falls back, and no dtype is upcast to take
-another kernel.
+they lie on the CPU: ``csrc/gemm_rng.cu`` for f32 operands (each f32
+product as six bf16 ``wgmma`` part products of the operands' exact
+triples, f32 sums), ``csrc/gemm_rng_bf16.cu`` for bf16 ones (``wgmma``
+with f32 sums, C rounded once to bf16, as the JAX kernel's ``out_dtype``
+cast); both are instances of one tensor-core body, ``csrc/gemm_tc.cuh``.
+Their tensor maps read rows of 16-byte multiples: K and N must be
+multiples of 4 (f32) or 8 (bf16) and the operands must start on 16 bytes,
+or the wrapper raises ``NotImplementedError``. A failed build or launch
+raises; nothing falls back, and no dtype is upcast to take another
+kernel.
 
 The emission layout is judged on the JAX logical GEMM grid ``(gm, gn)``
 (``block_m``/``block_n`` as ``core/producer.pick_gemm_blocks`` gives them),
 so feasibility (Region 3) and the written rectangles are the JAX package's
 exactly; the CUDA kernel's own 128 x 128 CTA tiling of the product is
-independent of it. What bounds the kernel on an H100 (f32 operations) and
-which CTA writes which block: see the note in ``csrc/gemm_rng.cu``.
+independent of it, and every CTA writes an equal run of the layout's words
+(``csrc/gemm_emit.cuh``), which needs the layout to tile the plane
+(``layout_tiles_plane``; every layout ``mask_emission_layout`` makes does).
+What bounds the kernel on an H100: see the note in ``csrc/gemm_rng.cu``.
 
 ``gemm_with_rng_fp8`` launches ``csrc/gemm_rng_fp8.cu`` -- which replaces
 ``_gemm_rng_fp8_kernel`` and, with the emission off, ``_plain_fp8_kernel``
@@ -252,6 +259,10 @@ def _launch(name: str, args, mask: Optional[torch.Tensor],
         lay_args = [None, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 7]
     else:
         lay = em.layout
+        if not layout_tiles_plane(lay):
+            raise NotImplementedError(
+                f"the {name} kernel takes only an emission layout that "
+                f"tiles the plane; got {lay}")
         lay_args = [mask.data_ptr(), lay.rows_valid, lay.sk, em.sq32, lay.rb,
                     lay.ck, lay.n_cb, lay.n_valid_blocks, em.key_lo,
                     em.key_hi, em.salt, em.bh_offset, em.heads_local,
@@ -301,14 +312,30 @@ def _check_device(a: torch.Tensor, name: str) -> bool:
     return a.device.type == "cuda"
 
 
-def _check_bf16_rows(name: str, a: torch.Tensor, b: torch.Tensor) -> None:
-    """Raise on bf16 operands the tensor maps of ``name`` cannot read: K
-    and N multiples of 8 (TMA's 16-byte rows), operands on 16 bytes."""
+def _check_rows(name: str, a: torch.Tensor, b: torch.Tensor) -> None:
+    """Raise on f32 or bf16 operands the tensor maps of ``name`` cannot
+    read: K and N multiples of 16 bytes' worth of elements (TMA's row
+    stride: 4 at f32, 8 at bf16), operands on 16 bytes."""
     k, n = a.shape[-1], b.shape[-1]
-    if k % 8 or n % 8 or a.data_ptr() % 16 or b.data_ptr() % 16:
+    per = 16 // a.element_size()
+    if k % per or n % per or a.data_ptr() % 16 or b.data_ptr() % 16:
         raise NotImplementedError(
-            f"the {name} kernel takes K and N multiples of 8 (TMA's 16-byte "
-            f"rows) and operands on 16 bytes, got K={k}, N={n}")
+            f"the {name} kernel takes K and N multiples of {per} (TMA's "
+            f"16-byte rows) and operands on 16 bytes, got K={k}, N={n}")
+
+
+def layout_tiles_plane(lay: MaskEmissionLayout) -> bool:
+    """True when the layout's valid rectangles tile the (rows_valid, sk)
+    plane exactly -- whole row bands of n_cb blocks, the last band the only
+    clipped one -- and the plane's words fit 32-bit indices: what the
+    kernels' emission (``gemm_emit.cuh::emit_share``) assumes."""
+    if lay.n_valid_blocks <= 0 or lay.n_valid_blocks % lay.n_cb:
+        return False
+    n_rb = lay.n_valid_blocks // lay.n_cb
+    return (n_rb * lay.rb >= lay.rows_valid
+            and (n_rb - 1) * lay.rb < lay.rows_valid
+            and lay.n_cb * lay.ck == lay.sk
+            and lay.rows_valid * lay.sk < 2 ** 31)
 
 
 def _forward(a: torch.Tensor, b: torch.Tensor, em: Optional[_Emission]
@@ -322,8 +349,7 @@ def _forward(a: torch.Tensor, b: torch.Tensor, em: Optional[_Emission]
     a, b = a.contiguous(), b.contiguous()
     m, k = a.shape
     n = b.shape[1]
-    if name == KERNEL_BF16:
-        _check_bf16_rows(name, a, b)
+    _check_rows(name, a, b)
     c, mask = _outputs(a, n, em, dtype=a.dtype)
     _launch(name, [a.data_ptr(), b.data_ptr(), c.data_ptr(), m, n, k],
             mask, em, a.device)
@@ -805,8 +831,7 @@ def _forward_grouped(a: torch.Tensor, b: torch.Tensor,
     a, b = a.contiguous(), b.contiguous()
     e, m, k = a.shape
     n = b.shape[2]
-    if name == KERNEL_GROUPED_BF16:
-        _check_bf16_rows(name, a, b)
+    _check_rows(name, a, b)
     c, mask = _outputs(a, n, em, dtype=a.dtype)
     _launch(name, [a.data_ptr(), b.data_ptr(), c.data_ptr(), e, m, n, k],
             mask, em, a.device)
