@@ -342,8 +342,10 @@ def phase_build(state) -> None:
             f"{hgmma} HGMMA instructions in its SASS (cuobjdump); ptxas "
             f"advisories: {advisories or 'none'}")
     # the f32 GEMM+RNG kernels (both operands split, the accumulator and a
-    # stage's sum in registers) may not spill
-    for name in (gemm_rng.KERNEL, gemm_rng.KERNEL_GROUPED):
+    # stage's sum in registers) and the persistent bf16 ones (a 128 x 256
+    # f32 accumulator beside a unit of Philox) may not spill
+    for name in (gemm_rng.KERNEL, gemm_rng.KERNEL_GROUPED,
+                 gemm_rng.KERNEL_BF16, gemm_rng.KERNEL_GROUPED_BF16):
         spills = [int(x) for line in build.ptxas_report(name)
                   for x in re.findall(r"(\d+) bytes spill", line)]
         regs = [int(x) for line in build.ptxas_report(name)
@@ -1480,6 +1482,16 @@ def phase_kernels_grouped(state) -> None:
 # qkv/bf16 main path
 BF16_SHAPES = FP8_SHAPES
 BF16_MAIN = "qkv"
+# ragged bf16 host calls, dense and grouped: M not a multiple of the
+# 128-row tile (an odd count of tile rows, so the last cluster's second CTA
+# has none), N not one of the 256-column tile, K not one of the 64-k
+# stage, and an odd tile count (253, 135) that is no multiple of 132, so
+# the persistent grid of clusters wraps unevenly; each with a plane whose
+# rows (SK = 200) end inside a 32-word unit: (E or None, M, K, N), logical
+# blocks, plane (B, H, SQ)
+BF16_RAGGED = (((None, 2904, 1000, 2776), (264, 2776, 1000), (1, 3, 96)),
+               ((9, 300, 520, 1144), (150, 1144, 520), (1, 3, 96)))
+BF16_RAGGED_SK = 200
 
 
 def gemm_rng_bf16_bound(m, n, k, mask_words, rounds, ops_rate, groups=1):
@@ -1494,6 +1506,67 @@ def gemm_rng_bf16_bound(m, n, k, mask_words, rounds, ops_rate, groups=1):
                 mask_words * 8 * (4 * rounds + 8) / ops_rate)
     return max(t_bytes, t_ops) * 1e3, ("operations" if t_ops >= t_bytes
                                        else "bytes")
+
+
+def sequential_yardstick(a, w, em, plane):
+    """The paper's sequential implementation of one bf16 host call: the
+    product by one PyTorch call (``torch.matmul``, ``torch.bmm`` for 3-d
+    operands), then the standalone Philox kernel (``philox_mask.cu``) for
+    the same plane, on the same stream. ``plane`` is (B, H, SQ); returns
+    (the callable, the plane it fills)."""
+    mb, mh, sq = plane
+    out = torch.empty((mb, mh, sq // 32, em.layout.sk), dtype=torch.int32,
+                      device=a.device)
+    product = torch.bmm if a.dim() == 3 else torch.matmul
+
+    def run():
+        product(a, w)
+        philox.philox_mask_into(
+            out, key_lo=em.key_lo, key_hi=em.key_hi, salt=em.salt,
+            threshold=em.threshold, rounds=em.rounds,
+            heads_global=em.heads_global, bh_offset=em.bh_offset)
+    return run, out
+
+
+def _bf16_ragged(state, rnd, grouped: bool) -> None:
+    """The ragged bf16 host call (BF16_RAGGED, dense or grouped): the plane
+    bitwise the plain one and the f32 host's, C within BF16_GEMM_TOL of the
+    plain version, emission on and off. Where a persistent walk drops or
+    repeats a tile (one CTA takes two tiles here, another one), C fails."""
+    (e, m, k, n), blocks, (mb, mh, sq) = BF16_RAGGED[int(grouped)]
+    key = gemm_rng.KERNEL_GROUPED_BF16 if grouped else gemm_rng.KERNEL_BF16
+    lead = (e,) if grouped else ()
+    a, w = rnd(*lead, m, k), rnd(*lead, k, n)
+    kw = dict(mask_batch=mb, mask_heads=mh, mask_sq=sq,
+              mask_sk=BF16_RAGGED_SK, p=0.1, seed=torch.tensor(77), salt=5,
+              block_m=blocks[0], block_n=blocks[1], block_k=blocks[2])
+    fn, plain = ((gemm_rng.gemm_with_rng_grouped,
+                  gemm_rng.gemm_with_rng_grouped_plain) if grouped else
+                 (gemm_rng.gemm_with_rng, gemm_rng.gemm_with_rng_plain))
+    c, mask = fn(a, w, **kw)
+    _, mask32 = fn(a.float(), w.float(), **kw)
+    want_c, want = plain(a, w, **kw)
+    c_off, none = (gemm_rng._forward_grouped if grouped else
+                   gemm_rng._forward)(a, w, None)
+    torch.cuda.synchronize()
+    if none is not None or not (torch.equal(mask, want)
+                                and torch.equal(mask, mask32)):
+        raise AssertionError(f"{key} ragged: plane != plain / the f32 "
+                             f"host's")
+    err = _close(f"{key} ragged C", c.float(), want_c.float(),
+                 BF16_GEMM_TOL, state, key)
+    err_off = _close(f"{key} ragged emission off C", c_off.float(),
+                     want_c.float(), BF16_GEMM_TOL, state, key)
+    tiles = (e or 1) * -(-m // 128) * -(-n // 256)
+    clusters = build.load(
+        gemm_rng.KERNEL_BF16).repro_gemm_rng_bf16_clusters()
+    log(f"[kernels] {key} ragged {'x'.join(map(str, (*lead, m, k)))} @ "
+        f"{'x'.join(map(str, (*lead, k, n)))}: {tiles} tiles of 128x256 on "
+        f"a persistent grid of at most {clusters} clusters of two CTAs, "
+        f"plane "
+        f"{mb}x{mh}x{sq // 32}x{BF16_RAGGED_SK} == plain and == the f32 "
+        f"host's bitwise; C max abs err {err:.3g}, emission off "
+        f"{err_off:.3g} (tol {BF16_GEMM_TOL} x (1+|C|))")
 
 
 def phase_kernels_bf16(state) -> None:
@@ -1541,11 +1614,20 @@ def phase_kernels_bf16(state) -> None:
         if launch_off()[1] is not None or \
                 gemm_rng.variant_counts(key)["plain"] != before + 1:
             raise AssertionError(f"{key}: the emission-off call emitted")
-        runs = {"rng": [], "plain": []}
-        for variant in ("rng", "plain", "plain", "rng"):   # in turns
-            runs[variant].append(cuda_time_ms(
-                launch if variant == "rng" else launch_off, 10))
-        ms, off_ms = (float(np.mean(runs[v])) for v in ("rng", "plain"))
+        # the sequential yardstick: torch.matmul, then the Philox kernel
+        _, em = gemm_rng._emission(a, w, mb, mh, sq, sq, 0.1, kw["seed"],
+                                   kw["salt"], 7, *blocks, 2048, 256, 0, 0)
+        seq, seq_plane = sequential_yardstick(a, w, em, QKV_MASK)
+        fns = {"rng": launch, "plain": launch_off, "seq": seq}
+        runs = {v: [] for v in fns}
+        for variant in ("rng", "plain", "seq", "seq", "plain", "rng"):
+            runs[variant].append(cuda_time_ms(fns[variant], 10))  # in turns
+        ms, off_ms, seq_ms = (float(np.mean(runs[v]))
+                              for v in ("rng", "plain", "seq"))
+        if not torch.equal(seq_plane, plane32):
+            raise AssertionError(f"{key} {label}: the Philox kernel's plane "
+                                 f"!= the hosts'")
+        del seq, seq_plane
         plain_ms = cuda_time_ms(
             lambda: gemm_rng.gemm_with_rng_plain(a, w, **kw), 2, warmup=1)
         plain_gemm_ms = cuda_time_ms(lambda: gemm_ref(a, w), 2, warmup=1)
@@ -1559,7 +1641,7 @@ def phase_kernels_bf16(state) -> None:
                            plain_variant_bound_ms=off_bound,
                            plain_variant_bound_by=off_by,
                            plain_variant_plain_ms=plain_gemm_ms,
-                           shape=[m, n, k])
+                           sequential_ms=seq_ms, shape=[m, n, k])
         flops = 2 * m * n * k
         log(f"[kernels] {key} {label} {m}x{n}x{k} + plane {mb}x{mh}x"
             f"{sq // 32}x{sq}: plane == plain and == the f32 host's "
@@ -1569,7 +1651,10 @@ def phase_kernels_bf16(state) -> None:
             f"{off_ms:.4f} ms (in turns {runs['plain']}, "
             f"{flops / off_ms / 1e9:.1f} TFLOP/s), the plane "
             f"{(ms - off_ms) / off_ms * 100:+.2f}% of the product; "
-            f"torch.matmul bf16 {lib_ms:.4f} ms; plain version "
+            f"torch.matmul bf16 {lib_ms:.4f} ms; the sequential yardstick "
+            f"(torch.matmul, then the Philox kernel) {seq_ms:.4f} ms (in "
+            f"turns {runs['seq']}; kernel / yardstick {ms / seq_ms:.3f}); "
+            f"plain version "
             f"{plain_ms:.2f} ms; bound {bound_ms:.4f} ms by {bound_by} "
             f"(emission off {off_bound:.4f}), kernel at "
             f"{bound_ms / ms * 100:.1f}% of bound | {state['smi']}")
@@ -1577,6 +1662,7 @@ def phase_kernels_bf16(state) -> None:
         gc.collect()
         torch.cuda.empty_cache()
     del plane32
+    _bf16_ragged(state, rnd, grouped=False)
     # Region 3 at a small shape: no plane, the emission-off variant
     m3, n3, k3, (b3, h3, s3) = REGION3
     a3, w3 = rnd(m3, k3), rnd(k3, n3)
@@ -1669,6 +1755,7 @@ def phase_kernels_grouped_bf16(state) -> None:
         if fault_ok:
             raise AssertionError(f"{key} {label}: the planted fault (one "
                                  f"expert's rows shifted) passed the check")
+        plane_want = want
         del c, mask, mask32, want, want_c
         launch = lambda: gemm_rng.gemm_with_rng_grouped(  # noqa: E731
             a, w, **kw)
@@ -1683,11 +1770,21 @@ def phase_kernels_grouped_bf16(state) -> None:
                          gemm_rng.gemm_grouped_plain(a, w).float(),
                          BF16_GEMM_TOL, state, key)
         del c_off
-        runs = {"rng": [], "plain": []}
-        for variant in ("rng", "plain", "plain", "rng"):   # in turns
-            runs[variant].append(cuda_time_ms(
-                launch if variant == "rng" else launch_off, 10))
-        ms, off_ms = (float(np.mean(runs[v])) for v in ("rng", "plain"))
+        # the sequential yardstick: torch.bmm, then the Philox kernel
+        _, em = gemm_rng._emission(a, w, *plane, plane[2], 0.1, kw["seed"],
+                                   kw["salt"], 7, *blocks, 2048, 256, 0, 0,
+                                   grouped=True)
+        seq, seq_plane = sequential_yardstick(a, w, em, plane)
+        fns = {"rng": launch, "plain": launch_off, "seq": seq}
+        runs = {v: [] for v in fns}
+        for variant in ("rng", "plain", "seq", "seq", "plain", "rng"):
+            runs[variant].append(cuda_time_ms(fns[variant], 10))  # in turns
+        ms, off_ms, seq_ms = (float(np.mean(runs[v]))
+                              for v in ("rng", "plain", "seq"))
+        if not torch.equal(seq_plane.reshape(-1), plane_want.reshape(-1)):
+            raise AssertionError(f"{key} {label}: the Philox kernel's plane "
+                                 f"!= the host's")
+        del seq, seq_plane, plane_want
         plain_ms = cuda_time_ms(
             lambda: gemm_rng.gemm_with_rng_grouped_plain(a, w, **kw), 1,
             warmup=1)
@@ -1705,7 +1802,8 @@ def phase_kernels_grouped_bf16(state) -> None:
                            plain_variant_bound_ms=off_bound,
                            plain_variant_bound_by=off_by,
                            plain_variant_plain_ms=plain_off_ms,
-                           shape=[e, m, n, k], blocks=list(blocks))
+                           sequential_ms=seq_ms, shape=[e, m, n, k],
+                           blocks=list(blocks))
         flops = 2 * e * m * n * k
         log(f"[kernels] {key} {label} {e}x({m}x{k})x({k}x{n}) blocks "
             f"{blocks} + plane {plane[0]}x{plane[1]}x{plane[2] // 32}x"
@@ -1718,13 +1816,17 @@ def phase_kernels_grouped_bf16(state) -> None:
             f"emission off {off_ms:.4f} ms (in turns {runs['plain']}, "
             f"{flops / off_ms / 1e9:.1f} TFLOP/s), the plane "
             f"{(ms - off_ms) / off_ms * 100:+.2f}% of the product; "
-            f"torch.bmm bf16 {bmm_ms:.4f} ms; plain version {plain_ms:.2f} "
+            f"torch.bmm bf16 {bmm_ms:.4f} ms; the sequential yardstick "
+            f"(torch.bmm, then the Philox kernel) {seq_ms:.4f} ms (in turns "
+            f"{runs['seq']}; kernel / yardstick {ms / seq_ms:.3f}); plain "
+            f"version {plain_ms:.2f} "
             f"ms (GEMM only {plain_off_ms:.2f}); bound {bound_ms:.4f} ms by "
             f"{bound_by} (emission off {off_bound:.4f}), kernel at "
             f"{bound_ms / ms * 100:.1f}% of bound | {state['smi']}")
         del a, w
         gc.collect()
         torch.cuda.empty_cache()
+    _bf16_ragged(state, rnd, grouped=True)
     # Region 3: both grouped hosts run the bf16 grouped kernel with the
     # emission off (the fp8 host unquantized, as JAX's) and return no plane
     (e, m, k, n), blocks, plane = GROUPED_REGION3
@@ -3153,6 +3255,13 @@ def kernel_records(state):
             out["shape"] = row["shape"]
         return out
 
+    def bf16_extras(row):
+        # rows 2b, 9b: the persistent body and the paper's sequential
+        # yardstick (the library call, then the standalone Philox kernel
+        # for the same plane)
+        return dict(shape=row["shape"], sequential_ms=row["sequential_ms"],
+                    body="src/repro_torch/kernels/csrc/gemm_bf16.cuh")
+
     def fp8_extras(row):
         return dict(shape=row["shape"], scaled_mm_ms=row["scaled_mm_ms"],
                     dequant_matmul_ms=row["dequant_matmul_ms"])
@@ -3194,7 +3303,7 @@ def kernel_records(state):
         (g8, "gemm_rng_grouped_fp8.cu", f"{g}:764", "train_moe",
          state["moe_launches"][g8], errs[g8], t[g8], fp8_extras(t[g8])),
         (k16, "gemm_rng_bf16.cu", f"{g}:143", "train_bf16", l16[k16],
-         errs[k16], t[k16], {"shape": t[k16]["shape"]}),
+         errs[k16], t[k16], bf16_extras(t[k16])),
         (f"{k16}_plain", "gemm_rng_bf16.cu", f"{g}:304", "train_bf16",
          state["bf16_variants"]["plain"], errs[k16], variant(t[k16]),
          {"shape": t[k16]["shape"]}),
@@ -3212,7 +3321,7 @@ def kernel_records(state):
          t[flash_bwd.KERNEL_DKV_BF16], modes(flash_bwd.KERNEL_DKV_BF16)),
         (g16, "gemm_rng_grouped_bf16.cu", f"{g}:551", "train_moe_bf16",
          state["moe_bf16_launches"][g16], errs[g16], t[g16],
-         {"shape": t[g16]["shape"]}),
+         bf16_extras(t[g16])),
         (f"{g16}_plain", "gemm_rng_grouped_bf16.cu", f"{g}:711",
          "train_moe_bf16", state["moe_bf16_variants"]["plain"], errs[g16],
          variant(t[g16]), {"shape": t[g16]["shape"]}),

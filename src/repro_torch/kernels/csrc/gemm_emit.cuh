@@ -13,14 +13,16 @@
 // depend on which CTA writes them. Only valid blocks are written: the
 // TPU's dummy overflow band is BlockSpec plumbing with no bits.
 //
-// Every kernel emits during its k-loop, on the producer warpgroup's three
-// spare warps (emit_share): the words of the rectangles, taken in block
-// order and row-major inside a block, are cut into one run of equal length
-// per CTA of the whole grid (blockIdx.x; the grouped hosts' experts are
-// part of it), so every CTA carries an equal share of the plane beside its
-// product. Where JAX emits a block at its grid step's "kk == 0", the CUDA
-// kernels spread the same words over the grid; a layout has to tile the
-// plane for that (layout_tiles_plane), as every JAX layout does.
+// The f32 and e4m3 kernels emit during their k-loop, on the producer
+// warpgroup's three spare warps (emit_share; the persistent bf16 kernels
+// take the same Emit in units of their own, gemm_walk.cuh): the words of
+// the rectangles, taken in block order and row-major inside a block, are
+// cut into one run of equal length per CTA of the whole grid (blockIdx.x;
+// the grouped hosts' experts are part of it), so every CTA carries an
+// equal share of the plane beside its product. Where JAX emits a block at
+// its grid step's "kk == 0", the CUDA kernels spread the same words over
+// the grid; a layout has to tile the plane for that (layout_tiles_plane),
+// as every JAX layout does.
 #pragma once
 
 #include <cstdint>

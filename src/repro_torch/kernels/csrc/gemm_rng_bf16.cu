@@ -19,23 +19,24 @@
 //
 // What bounds it on an H100: operations. bf16 tensor cores (989 TFLOP/s
 // dense) make the QKV product of a llama2-7b block at B=2, S=2048 (4096 x
-// 12288 x 4096, 412 GFLOP) 0.42 ms, and its plane's Philox (8.4 M words of
-// 8 calls each) about 0.07 ms at the issue rate, against 0.27 GB of bf16
-// operands and result and the plane (0.08 ms at 3.35 TB/s). The design
-// (gemm_tc.cuh's bf16 operand policy, shared with the grouped bf16 host
-// and, as a body, with the f32 hosts, on gemm_sm90.cuh's TMA, mbarriers
-// and wgmma): a TMA ring of bf16 tiles read by m64n128k16
-// wgmma with f32 sums on two consumer warpgroups, B read MN-major, 128 x
-// 128 CTA tiles, and the plane computed by the producer warpgroup's spare
-// warps during the k-loop (emit_share), as the e4m3 kernel does. Measured
-// by chip_smoke.py on an H100 80GB HBM3 at 700 W: 0.93 ms at QKV, 0.75 ms
-// with the emission off (cuBLAS's bf16 product alone: 0.53 ms); the plane
-// costs +4 % of the gate+up product but +120 % of the out-projection's,
-// whose product is too short for three RNG warps an SM to make 8.4 M
-// words (PERF.md).
+// 12288 x 4096, 412 GFLOP) 0.42 ms, against 0.27 GB of bf16 operands and
+// result and the 8.4 M-word plane (0.08 ms at 3.35 TB/s); the plane's
+// Philox is 8 calls a word on the integer pipes. The design
+// (gemm_bf16.cuh, shared with the grouped bf16 host): a persistent grid of
+// 2-CTA clusters, 128 x 256 tiles, B loaded once a cluster by TMA
+// multicast, m64n256k16 wgmma with f32 sums, the plane in 32-word units
+// made by the producer's spare warps and, one a stage, by the consumer
+// warps under the products. Measured on an H100 80GB HBM3 at 700 W
+// (PERF.md, chip_smoke.py): 0.79 ms at QKV, 0.59 ms with the emission off
+// (was 0.92 / 0.73 before this body; cuBLAS's product alone: 0.52, then
+// the standalone Philox kernel: 0.68 together). The product is bound by
+// its loads (0.49 ms of it without the products) and, like cuBLAS's, by
+// the 700 W limit; the plane costs +35-50 % at QKV and +100 % at the
+// out-projection, because the Philox words and the products slow each
+// other (scripts/probe_gemm_bf16.py).
 #include <cstdint>
 
-#include "gemm_tc.cuh"
+#include "gemm_bf16.cuh"
 
 // C = A @ B as described above and, when `mask` is not null, the layout's
 // blocks of the packed keep plane. K and N must be multiples of 8 and A, B
@@ -51,13 +52,25 @@ extern "C" int repro_gemm_rng_bf16(const void* a, const void* b, void* c,
                                    int heads_local, int heads_global,
                                    uint32_t threshold, int rounds,
                                    void* stream) {
-  using repro_gemm::tc::Bf16Ops;
-  return repro_gemm::tc::run<Bf16Ops, false>(a, b, c, 1, M, N, K, mask,
+  return repro_gemm::bf16::run<false>(a, b, c, 1, M, N, K, mask,
       rows_valid, sk, sq32, rb, ck, n_cb, n_valid_blocks, key_lo, key_hi,
       salt, bh_offset, heads_local, heads_global, threshold, rounds, stream);
 }
 
 // Dynamic shared memory of one CTA, in bytes (ptxas reports static only).
 extern "C" int repro_gemm_rng_bf16_smem_bytes() {
-  return repro_gemm::tc::smem_bytes<repro_gemm::tc::Bf16Ops>();
+  return repro_gemm::bf16::Ring<repro_gemm::walk::BN>::SMEM;
+}
+
+// The clusters of the persistent grid on the current device (at most;
+// fewer when a launch has fewer cluster tiles), or -1 when the runtime
+// cannot say.
+extern "C" int repro_gemm_rng_bf16_clusters() {
+  using namespace repro_gemm::bf16;
+  constexpr int BN = repro_gemm::walk::BN;
+  int clusters = 0;
+  return resident_clusters(gemm_bf16_kernel<BN, 7, false>,
+                           Ring<BN>::SMEM, &clusters)
+             ? -1
+             : clusters;
 }

@@ -27,19 +27,19 @@
 // (989 TFLOP/s dense) make a moonshot-v1-16b-a3b expert gate product at
 // B=2, S=2048 (64 x 480 x 2048 x 1408, 177 GFLOP) 0.179 ms; its 0.60 GB of
 // bf16 operands and result and f32 plane move in 0.179 ms at 3.35 TB/s;
-// the plane's Philox (4.2 M words of 8 calls each) takes about 0.04 ms at
-// the issue rate. The design is gemm_tc.cuh's bf16 policy (Bf16Ops),
-// shared with the dense bf16 host (a TMA ring of bf16 tiles read by
-// m64n128k16 wgmma with f32 sums on two consumer warpgroups, B read
-// MN-major through the transpose bit, the plane made by the producer
-// warpgroup's spare warps during the k-loop),
-// with 3-D tensor maps over (K, M, E) and (N, K, E): the capacity of 480
-// rows is 3.75 CTA rows of 128, and an expert's last CTA row reads TMA's
-// zeros past row 480, never the next expert's rows, and stores nothing
-// there.
+// the plane's Philox is 4.2 M words of 8 calls each. The design is the
+// dense bf16 host's persistent body (gemm_bf16.cuh: 2-CTA clusters
+// sharing B by TMA multicast, 128 x 256 tiles -- N = 1408 is 5.5 of them,
+// still faster than 11 of 128 -- the plane under the products), walked
+// expert by expert with 3-D tensor maps over (K, M, E) and (N, K, E): the
+// capacity of 480 rows is 3.75 tiles of 128, and an expert's last tile row
+// reads TMA's zeros past row 480, never the next expert's rows, and stores
+// nothing there. Measured on an H100 80GB HBM3 at 700 W (PERF.md): 0.43
+// ms at the gate, 0.33 ms with the emission off (was 0.46 / 0.39;
+// torch.bmm alone 0.27, then the standalone Philox kernel: 0.36).
 #include <cstdint>
 
-#include "gemm_tc.cuh"
+#include "gemm_bf16.cuh"
 
 // C[e] = A[e] @ B[e] for E experts as described above and, when `mask` is
 // not null, the layout's blocks of the packed keep plane. K and N must be
@@ -52,8 +52,7 @@ extern "C" int repro_gemm_rng_grouped_bf16(
     int n_valid_blocks, uint32_t key_lo, uint32_t key_hi, uint32_t salt,
     uint32_t bh_offset, int heads_local, int heads_global,
     uint32_t threshold, int rounds, void* stream) {
-  using repro_gemm::tc::Bf16Ops;
-  return repro_gemm::tc::run<Bf16Ops, true>(a, b, c, E, M, N, K, mask,
+  return repro_gemm::bf16::run<true>(a, b, c, E, M, N, K, mask,
       rows_valid, sk, sq32, rb, ck, n_cb, n_valid_blocks, key_lo, key_hi,
       salt, bh_offset, heads_local, heads_global, threshold, rounds, stream);
 }

@@ -1,21 +1,20 @@
-// The tensor-core GEMM of the fused f32 and bf16 GEMM+RNG kernels, one body
-// for both operand dtypes: C[e] = A[e] @ B[e] with f32 sums, and the
-// dropout plane emitted by the CTAs' spare warps while their consumer
-// warpgroups run the k-loop. The dense hosts (gemm_rng.cu at f32,
-// gemm_rng_bf16.cu at bf16) launch it with E = 1, the grouped hosts
-// (gemm_rng_grouped.cu, gemm_rng_grouped_bf16.cu) with one product an
-// expert; each is a library of its own.
+// The tensor-core GEMM of the fused f32 GEMM+RNG kernels: C[e] = A[e] @
+// B[e] with f32 sums on f32 operands split into exact bf16 triples, and
+// the dropout plane emitted by the CTAs' spare warps while their consumer
+// warpgroups run the k-loop. The dense host (gemm_rng.cu) launches it with
+// E = 1, the grouped host (gemm_rng_grouped.cu) with one product an
+// expert; each is a library of its own. (The bf16 hosts run a persistent
+// body of their own, gemm_bf16.cuh.)
 //
-// Operands. A (E, M, K) and B (E, K, N) are row-major in the policy's dtype
-// (E = 1: the dense host), B as the model keeps its weight: wgmma reads a
-// 16-bit B MN-major through the instruction's transpose bit, so nothing is
-// transposed. C (E, M, N) is row-major in the same dtype. Rows lie K (A), N
-// (B, C) elements apart; K and N must be multiples of 16 bytes' worth of
-// elements (TMA's row stride: 8 at bf16, 4 at f32), and the tensor maps
-// read zeros past M, N and K -- for the grouped hosts 3-D maps over (K, M,
-// E) and (N, K, E), so an expert's last CTA row reads zeros past its M
-// rows, never the next expert's -- and no tile size has to divide the
-// product.
+// Operands. A (E, M, K) and B (E, K, N) are row-major f32 (E = 1: the
+// dense host), B as the model keeps its weight: wgmma reads the 16-bit
+// parts of B MN-major through the instruction's transpose bit, so nothing
+// is transposed. C (E, M, N) is row-major f32. Rows lie K (A), N (B, C)
+// elements apart; K and N must be multiples of 4 (TMA's 16-byte row
+// stride), and the tensor maps read zeros past M, N and K -- for the
+// grouped host 3-D maps over (K, M, E) and (N, K, E), so an expert's last
+// CTA row reads zeros past its M rows, never the next expert's -- and no
+// tile size has to divide the product.
 //
 // The CTA (384 threads, one an SM; gemm_fp8.cuh's layout): warpgroup 0 is
 // the producer -- its warp 0 keeps TMA loads (cp.async.bulk.tensor,
@@ -29,16 +28,8 @@
 // rows, so a wave of CTAs shares its bands of A and B in L2; C stores stop
 // at each expert's M rows.
 //
-// The operand policy (Ops) is what differs between the dtypes: the stage's
-// tile loads, the products of a stage, the k-loop and the store.
-//  - Bf16Ops: every product a[i,k] * b[k,j] of two bf16 values is exact,
-//    the sums over k are f32 (wgmma's accumulator), and C[i,j] is that f32
-//    sum rounded to bf16 once -- the JAX kernels' dot_general with
-//    preferred_element_type=f32 into an f32 scratch, cast to the operand
-//    dtype at the flush. Stages of 64 k (one 128-byte bf16 row), five of
-//    them; four products a stage with both operands in shared memory; a
-//    stage goes back to the producer once the products of the next one are
-//    issued.
+// The operand policy (Ops) holds the stage's tile loads, the products of a
+// stage, the k-loop and the store:
 //  - F32Ops: both operands f32, each split into its exact bf16 triple (hi =
 //    bf16(x), mid = bf16(x - hi), lo = bf16(x - hi - mid); flash_sm90.cuh
 //    ::split3) and each f32 product a b taken as the six part products
@@ -84,100 +75,6 @@ constexpr int BM = 128;  // CTA rows: two consumer warpgroups of 64
 constexpr int BN = 128;  // CTA columns: the n of one wgmma
 constexpr int NT = 384;  // producer warpgroup + two consumer warpgroups
 constexpr int GROUP_M = 8;
-
-// ------------------------------------------------------------ bf16
-
-struct Bf16Ops {
-  using T = __nv_bfloat16;
-  static constexpr int kRowAlign = 8;  // elements in 16 bytes
-  static constexpr int BK = 64;        // k of a stage: one 128-byte row
-  static constexpr int KS = 16;        // k of one bf16 wgmma
-  static constexpr int STAGES = 5;
-  static constexpr int A_BYTES = BM * BK * 2;  // 128 rows of 128 bytes
-  static constexpr int B_BOX = BK * 64 * 2;    // 64 k rows of 64 n
-  static constexpr int STAGE_BYTES = A_BYTES + 2 * B_BOX;
-  static constexpr int EXTRA_BYTES = 0;  // shared memory past the ring
-  // no setmaxnreg: every warpgroup keeps the launch's 168 registers
-  static constexpr int kProducerRegs = 0;
-  static constexpr int kConsumerRegs = 0;
-
-  // A: boxes of 64 k x 128 rows (x 1 expert); B: boxes of 64 n x 64 k rows
-  template <bool GROUPED>
-  static bool make_maps(CUtensorMap* ma, CUtensorMap* mb, const void* a,
-                        const void* b, int E, int M, int N, int K) {
-    return make_map<GROUPED>(ma, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, a, E,
-                             M, K, K, BK, BM) &&
-           make_map<GROUPED>(mb, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, b, E,
-                             K, N, N, 64, BK);
-  }
-
-  template <bool GROUPED>
-  __device__ static __forceinline__ void load(uint32_t dst,
-                                              const CUtensorMap* ma,
-                                              const CUtensorMap* mb,
-                                              uint32_t bar, int kt, int m0,
-                                              int n0, int ex) {
-    tma_load<GROUPED>(dst, ma, bar, kt * BK, m0, ex);
-    tma_load<GROUPED>(dst + A_BYTES, mb, bar, n0, kt * BK, ex);
-    tma_load<GROUPED>(dst + A_BYTES + B_BOX, mb, bar, n0 + 64, kt * BK, ex);
-  }
-
-  // The k-loop of consumer warpgroup w (rows m0 + 64 w .. of expert ex's C,
-  // which starts at `c`) and its store.
-  __device__ static __forceinline__ void consume(uint32_t ring, uint32_t,
-                                                 uint32_t full,
-                                                 uint32_t empty,
-                                                 T* __restrict__ c, int M,
-                                                 int N, int K, int m0,
-                                                 int n0, int w) {
-    const int t = threadIdx.x % 128;
-    const int warp = t / 32;
-    const int lane = t % 32;
-    const int nkt = (K + BK - 1) / BK;
-
-    float d[64];
-#pragma unroll
-    for (int i = 0; i < 64; ++i) d[i] = 0.f;
-
-    for (int kt = 0; kt < nkt; ++kt) {
-      const int s = kt % STAGES;
-      mbar_wait(full + 8 * s, (kt / STAGES) & 1);
-      const uint32_t stage = ring + s * STAGE_BYTES;
-      // A: this warpgroup's 64 rows, K-major; slice j 32 bytes on (2 in
-      // the descriptor's address field). B: MN-major, slice j 16 k rows
-      // (2048 bytes) on, its second 64 n one box (B_BOX bytes) on.
-      const uint64_t da = smem_desc(stage + w * (64 * 128));
-      const uint64_t db = smem_desc_mn(stage + A_BYTES, B_BOX);
-      wgmma_fence();
-#pragma unroll
-      for (int j = 0; j < BK / KS; ++j)
-        wgmma_m64n128k16_bf16_bmn(d, da + 2 * j, db + (2048 >> 4) * j, 1);
-      wgmma_commit();
-      // the previous stage's products are done: its tiles go back
-      wgmma_wait1();
-      if (kt > 0) mbar_arrive(empty + 8 * ((kt - 1) % STAGES));
-    }
-    wgmma_wait0();
-    fence_regs(d);
-
-    // store: d's fragment layout -- row warp * 16 + lane / 4 (+ 8), column
-    // 8 g + 2 (lane % 4) (+ 1); N is even, so a pair is in or out together
-    const int r0 = m0 + 64 * w + warp * 16 + lane / 4;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int r = r0 + 8 * h;
-      if (r >= M) continue;
-      T* crow = c + static_cast<size_t>(r) * N;
-#pragma unroll
-      for (int g = 0; g < 16; ++g) {
-        const int col = n0 + 8 * g + 2 * (lane % 4);
-        if (col < N)
-          *reinterpret_cast<__nv_bfloat162*>(crow + col) =
-              __floats2bfloat162_rn(d[4 * g + 2 * h], d[4 * g + 2 * h + 1]);
-      }
-    }
-  }
-};
 
 // ------------------------------------------------------------ f32
 
@@ -374,8 +271,9 @@ struct F32Ops {
       bar_consumers();
     }
 
-    // store: the fragment layout as Bf16Ops's; N is a multiple of 4, so a
-    // pair is in or out together
+    // store: acc's fragment layout -- row warp * 16 + lane / 4 (+ 8),
+    // column 8 g + 2 (lane % 4) (+ 1); N is a multiple of 4, so a pair is
+    // in or out together
     const int r0 = m0 + 64 * w + warp * 16 + lane / 4;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {

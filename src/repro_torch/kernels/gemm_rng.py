@@ -9,9 +9,10 @@ the emission switched off, ``_plain_gemm_impl.kern`` (the paper's Region
 3) -- when its operands lie on a CUDA device, and the plain version when
 they lie on the CPU: ``csrc/gemm_rng.cu`` for f32 operands (each f32
 product as six bf16 ``wgmma`` part products of the operands' exact
-triples, f32 sums), ``csrc/gemm_rng_bf16.cu`` for bf16 ones (``wgmma``
-with f32 sums, C rounded once to bf16, as the JAX kernel's ``out_dtype``
-cast); both are instances of one tensor-core body, ``csrc/gemm_tc.cuh``.
+triples, f32 sums; the tensor-core body ``csrc/gemm_tc.cuh``),
+``csrc/gemm_rng_bf16.cu`` for bf16 ones (``wgmma`` with f32 sums, C
+rounded once to bf16, as the JAX kernel's ``out_dtype`` cast; a
+persistent body of its own, ``csrc/gemm_bf16.cuh``).
 Their tensor maps read rows of 16-byte multiples: K and N must be
 multiples of 4 (f32) or 8 (bf16) and the operands must start on 16 bytes,
 or the wrapper raises ``NotImplementedError``. A failed build or launch
@@ -21,9 +22,10 @@ kernel.
 The emission layout is judged on the JAX logical GEMM grid ``(gm, gn)``
 (``block_m``/``block_n`` as ``core/producer.pick_gemm_blocks`` gives them),
 so feasibility (Region 3) and the written rectangles are the JAX package's
-exactly; the CUDA kernel's own 128 x 128 CTA tiling of the product is
-independent of it, and every CTA writes an equal run of the layout's words
-(``csrc/gemm_emit.cuh``), which needs the layout to tile the plane
+exactly; the CUDA kernels' own CTA tiling of the product (128 x 128, or
+128 x 256 in clusters of two at bf16) is independent of it, and every CTA
+writes an equal run of the plane's words (``csrc/gemm_emit.cuh``;
+``csrc/gemm_walk.cuh`` at bf16), which needs the layout to tile the plane
 (``layout_tiles_plane``; every layout ``mask_emission_layout`` makes does).
 What bounds the kernel on an H100: see the note in ``csrc/gemm_rng.cu``.
 
@@ -328,7 +330,8 @@ def layout_tiles_plane(lay: MaskEmissionLayout) -> bool:
     """True when the layout's valid rectangles tile the (rows_valid, sk)
     plane exactly -- whole row bands of n_cb blocks, the last band the only
     clipped one -- and the plane's words fit 32-bit indices: what the
-    kernels' emission (``gemm_emit.cuh::emit_share``) assumes."""
+    kernels' emission (``gemm_emit.cuh::emit_share``, and the bf16
+    kernels' ``gemm_walk.cuh`` units) assumes."""
     if lay.n_valid_blocks <= 0 or lay.n_valid_blocks % lay.n_cb:
         return False
     n_rb = lay.n_valid_blocks // lay.n_cb
