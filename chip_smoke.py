@@ -18,12 +18,18 @@ Phases (each raises on failure; nothing is caught):
   2. each kernel against its plain PyTorch version on the card, then
      timed with CUDA events beside its bound and, where one PyTorch call
      computes the same function, that call's time: the Philox kernel
-     bitwise; the fused GEMM+RNG kernel at the training QKV shape (4096 x
-     12288 x 4096; on the tensor cores, both f32 operands split into
-     exact bf16 triples, six part products an f32 product; plane bitwise,
-     C within F32_GEMM_TOL of the plain version and F32_GEMM_F64_TOL of
-     the f64 product, limits the plain GEMM on bf16-rounded A, W must
-     fail; timed with the emission on and off in turns beside its bound at
+     bitwise (every round count and p in {0, 0.1, 1}, shard windows, SK
+     of 1, 6, 97 and 4097, a plane of several waves of its persistent
+     grid, a threshold equal to one of the plane's words, and the first
+     and last head rows of a plane of 2^31 words), timed at the serving,
+     QKV, training and moonshot planes beside its bound (philox_bound:
+     the fewest instructions a word needs at the issue rate and on the
+     busier integer pipe); the fused GEMM+RNG kernel at the training QKV
+     shape (4096 x 12288 x 4096; on the tensor cores, both f32 operands
+     split into exact bf16 triples, six part products an f32 product;
+     plane bitwise, C within F32_GEMM_TOL of the plain version and
+     F32_GEMM_F64_TOL of the f64 product, limits the plain GEMM on
+     bf16-rounded A, W must fail; timed with the emission on and off in turns beside its bound at
      that rate and the f32 SIMT rate's) and at a Region-3 shape (its
      plain-GEMM variant); flash forward, dq and
      dkv at B=2, H=32, S=2048, D=128 in all four dropout modes, with a
@@ -164,6 +170,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
 
 from repro_torch.kernels import build, launch_counts, philox  # noqa: E402
+from repro_torch.kernels import philox_common  # noqa: E402
 from repro_torch.kernels import flash_attention as flash  # noqa: E402
 from repro_torch.kernels import flash_attention_bwd as flash_bwd  # noqa
 from repro_torch.kernels import gemm_rng  # noqa: E402
@@ -195,6 +202,22 @@ ISSUE_LANES_PER_SM = 128           # 4 warp schedulers x 32 lanes a clock
 
 SERVE_SHAPE = (1, 32, 512, 512)    # llama2-7b plane at max_model_len 512
 TRAIN_SHAPE = (1, 32, 4096, 4096)  # a training-size plane
+QKV_PLANE = (2, 32, 2048, 2048)    # llama2-7b's training plane at B=2,
+                                   # S=2048 (the sequential yardstick's)
+MOONSHOT_PLANE = (2, 16, 2048, 2048)  # moonshot-v1-16b-a3b's, B=2, S=2048
+# a plane of 2^31 words (8 GiB), past 32-bit word indices
+HUGE_PLANE = (4, 64, 16384, 16384)
+# thread-instructions a clock a SM of Hopper's two integer pipes, each
+# half of the 128 issue lanes (NVIDIA's throughput table for compute
+# capability 9.0; scripts/probe_philox.py measured IMAD 64.0, LOP3 63.0,
+# ISETP 62.6 and IMAD + LOP3 together 123.4 on an H100 SXM): the
+# multiply-add pipe runs the 32x32->64 multiplies, the ALU pipe the xors
+# and the compares; either takes the pack's merges
+IMAD_PIPE_LANES = 64
+ALU_PIPE_LANES = 64
+# multiply-add pipe slots of one IMAD.WIDE.U32 (mul.wide.u32): it runs at
+# half rate, 31.3 a clock a SM where both of its words are used (the probe)
+MUL_WIDE_SLOTS = 2
 
 
 def log(msg: str) -> None:
@@ -215,18 +238,66 @@ def issue_ops_per_s() -> float:
     return sms * ISSUE_LANES_PER_SM * mhz * 1e6
 
 
-def philox_bound(shape, rounds: int, ops_rate: float):
-    """(bound_ms, bound_by) for one plane: 4 bytes written per packed word
-    against HBM, and the fewest int32 instructions a word needs against
-    the issue rate: 8 Philox calls x (4 a round: two 32x32->64 multiplies,
-    each giving both words, and two three-input xors; the key schedule is
-    the same for every thread) + 8 (4 compares, 4 bit merges)."""
+def philox_word_mix(rounds: int) -> dict:
+    """The fewest instructions one packed word needs (8 Philox calls of
+    ``rounds`` rounds on the counters (k, q32 * 8 + t, bh, salt), and its
+    32 keep bits), by kind, counting once what more than one word of the
+    plane shares. A round is two 32x32->64 multiplies (one instruction
+    each, giving both words) and two three-input xors; the key schedule is
+    the same for every thread. Shared: round 0 entirely (its products of
+    x0 = k and x2 = bh, y2 by column, y0 = .. ^ t by row), round 1's
+    product of x0 (row and t) and of x2 (column), and y0 (head and
+    column), round 2's product of x0 (head and column). What is left to a
+    call of one word: 1 multiply and 3 xors in rounds 1-2, 2 of each in
+    every later round; the pack, a compare and a merge a keep bit. 224 at
+    7 rounds (PERF.md: 246 when only a word's own calls share, 288 when
+    nothing is shared)."""
+    assert rounds >= 3
+    return {"multiplies": 8 * (1 + 2 * (rounds - 3)),
+            "xors": 8 * (3 + 2 * (rounds - 3)),
+            "compares": 32, "merges": 32}
+
+
+def philox_word_ops(rounds: int) -> int:
+    """Instructions one packed word needs at the fewest (philox_word_mix):
+    224 at 7 rounds. Every bound that adds the plane's Philox work counts
+    a word so, at the issue rate."""
+    return sum(philox_word_mix(rounds).values())
+
+
+def philox_word_pipe_clocks(rounds: int) -> float:
+    """SM clocks one packed word needs on Hopper's two integer pipes: the
+    multiplies on the multiply-add pipe, the xors and compares on the ALU
+    pipe, the merges split between them to even the load; the busier pipe
+    sets the time."""
+    mix = philox_word_mix(rounds)
+    mul = mix["multiplies"] * MUL_WIDE_SLOTS / IMAD_PIPE_LANES
+    alu = (mix["xors"] + mix["compares"]) / ALU_PIPE_LANES
+    merge = mix["merges"] / ((IMAD_PIPE_LANES + ALU_PIPE_LANES) / 2)
+    return max(mul, alu, (mul + alu + merge) / 2)
+
+
+def philox_times_ms(shape, rounds: int, ops_rate: float) -> dict:
+    """One plane's least times: its 4-byte words written once against HBM
+    ("bytes"), the fewest instructions a word needs at the issue rate
+    ("issue"), and at the busier integer pipe ("pipes")."""
     b, h, sq, sk = shape
     words = b * h * (sq // 32) * sk
-    t_bytes = words * 4 / HBM_BYTES_PER_S
-    t_ops = words * 8 * (4 * rounds + 8) / ops_rate
-    return max(t_bytes, t_ops) * 1e3, ("operations" if t_ops >= t_bytes
-                                       else "bytes")
+    sm_clocks = ops_rate / ISSUE_LANES_PER_SM
+    return {"bytes": words * 4 / HBM_BYTES_PER_S * 1e3,
+            "issue": words * philox_word_ops(rounds) / ops_rate * 1e3,
+            "pipes": words * philox_word_pipe_clocks(rounds) / sm_clocks
+            * 1e3}
+
+
+def philox_bound(shape, rounds: int, ops_rate: float):
+    """(bound_ms, bound_by) for one plane: the largest of
+    philox_times_ms's three times ("bytes", or "operations" for the
+    issue or the pipes' time)."""
+    t = philox_times_ms(shape, rounds, ops_rate)
+    ops = max(t["issue"], t["pipes"])
+    return max(t["bytes"], ops), ("operations" if ops >= t["bytes"]
+                                  else "bytes")
 
 
 def device_time_ms(fn, kernel: str, iters: int):
@@ -408,6 +479,49 @@ def _check_philox(state, shape, p, seed, salt, rounds,
     return got
 
 
+def _check_philox_threshold(state, shape, threshold) -> torch.Tensor:
+    """The kernel at a raw threshold (not one of threshold_from_p's) against
+    the plain version's words, bitwise."""
+    b, h, sq, sk = shape
+    out = torch.empty((b, h, sq // 32, sk), dtype=torch.int32, device="cuda")
+    args = dict(key_lo=0x9E37, key_hi=0x79B9, salt=13, threshold=threshold,
+                rounds=7)
+    philox.philox_mask_into(out, **args)
+    want = philox._plain_words(b, h, sq // 32, sk, 0x9E37, 0x79B9, 13,
+                               threshold, 7, h, 0, out.device)
+    torch.cuda.synchronize()
+    state["philox_err"] = max(state["philox_err"],
+                              max_abs_err(out, want.reshape(out.shape)))
+    if not torch.equal(out, want.reshape(out.shape)):
+        raise AssertionError(f"philox kernel != plain at {shape} "
+                             f"threshold={threshold:#x}")
+    return out
+
+
+def _check_philox_huge(state) -> None:
+    """HUGE_PLANE, 2^31 words: its first and last (b, h) rows bitwise the
+    plain version's, each made alone as a shard window of one head."""
+    b, h, sq, sk = HUGE_PLANE
+    p, seed, salt = 0.1, 2 ** 36 + 3, 21
+    got = philox.philox_dropout_mask(b, h, sq, sk, p, seed, salt, 7,
+                                     device="cuda")
+    for bb, hh in ((0, 0), (b - 1, h - 1)):
+        want = philox.philox_dropout_mask_plain(
+            1, 1, sq, sk, p, seed, salt, 7, heads_global=h,
+            bh_offset=bb * h + hh, device="cuda")
+        torch.cuda.synchronize()
+        if not torch.equal(got[bb, hh], want[0, 0]):
+            raise AssertionError(f"philox kernel != plain on head row "
+                                 f"({bb}, {hh}) of {HUGE_PLANE}")
+        state["philox_err"] = max(state["philox_err"],
+                                  max_abs_err(got[bb, hh], want[0, 0]))
+    log(f"[kernels] philox_mask {b}x{h}x{sq // 32}x{sk} "
+        f"({got.numel()} words, {got.numel() * 4 / 2 ** 30:.1f} GiB): head "
+        f"rows (0, 0) and ({b - 1}, {h - 1}) == plain bitwise")
+    del got
+    torch.cuda.empty_cache()
+
+
 def phase_kernels(state) -> None:
     n = 0
     _check_philox(state, SERVE_SHAPE, 0.1, 0x1234, 7, 7); n += 1
@@ -433,13 +547,41 @@ def phase_kernels(state) -> None:
     if torch.equal(lo, hi):
         raise AssertionError("key_hi did not reach the kernel")
     n += 2
+    # SK of 1, 97 (odd: the scalar stores' tail), 6 and 4097 (several
+    # waves of the persistent grid), and an odd-SK shard window
+    for shape in ((2, 3, 64, 1), (1, 4, 96, 97), (1, 2, 64, 6),
+                  (3, 5, 2080, 4097)):
+        for rounds in ((3, 7) if shape[3] == 97 else (7,)):
+            _check_philox(state, shape, 0.1, 2 ** 35 + 1, 5, rounds)
+            n += 1
+    _check_philox(state, (2, 3, 64, 97), 0.1, 2 ** 35 + 1, 5, 7,
+                  heads_global=5, bh_offset=7)
+    n += 1
+    # the card's compare and pack (push_keep's subtract and multiply-add
+    # with carry, in PTX) at a threshold equal to one of the plane's
+    # Philox words: that bit is kept, and dropped at threshold + 1
+    shape, (bb, hh, q, k) = (1, 2, 64, 98), (0, 1, 45, 77)
+    word = philox_common.philox4x32(k, q // 4, bb * shape[1] + hh, 13,
+                                    0x9E37, 0x79B9, 7)[q % 4]
+    at = _check_philox_threshold(state, shape, word)
+    past = _check_philox_threshold(state, shape, word + 1)
+    bit = lambda t: (int(t[bb, hh, q // 32, k]) >> (q % 32)) & 1  # noqa
+    if (bit(at), bit(past)) != (1, 0):
+        raise AssertionError("a Philox word equal to the threshold must be "
+                             "kept, one below it dropped")
+    _check_philox_threshold(state, shape, 0x80000000)
+    n += 3
     log(f"[kernels] philox_mask == plain bitwise on {n} cases "
-        f"(max_abs_err {state['philox_err']})")
+        f"(max_abs_err {state['philox_err']}); a word equal to the "
+        f"threshold kept, dropped at threshold + 1")
+    _check_philox_huge(state)
 
     ops_rate = issue_ops_per_s()
     timings = {}
-    for label, shape, iters, plain_iters in (("serve", SERVE_SHAPE, 200, 10),
-                                             ("train", TRAIN_SHAPE, 20, 2)):
+    for label, shape, iters, plain_iters in (
+            ("serve", SERVE_SHAPE, 200, 10), ("qkv", QKV_PLANE, 20, 1),
+            ("train", TRAIN_SHAPE, 20, 2), ("moonshot", MOONSHOT_PLANE, 20,
+                                            1)):
         b, h, sq, sk = shape
         out = torch.empty((b, h, sq // 32, sk), dtype=torch.int32,
                           device="cuda")
@@ -454,6 +596,7 @@ def phase_kernels(state) -> None:
                 b, h, sq, sk, 0.1, 0x1234, 7, 7, device="cuda"),
             plain_iters, warmup=1)
         bound_ms, bound_by = philox_bound(shape, 7, ops_rate)
+        parts = philox_times_ms(shape, 7, ops_rate)
         gelem = b * h * sq * sk / (ms * 1e-3) / 1e9
         timings[label] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                               bound_by=bound_by)
@@ -461,8 +604,12 @@ def phase_kernels(state) -> None:
             f"device {prof_ms} ms (profiler), {event_ms:.5f} ms a launch "
             f"back to back (CUDA events); {gelem:.1f} Gelem/s; plain "
             f"{plain_ms:.4f} ms; bound {bound_ms:.5f} ms by {bound_by} "
-            f"(issue {ops_rate / 1e12:.2f} Tinst/s), kernel at "
+            f"(bytes {parts['bytes']:.5f}, issue {parts['issue']:.5f} at "
+            f"{philox_word_ops(7)} instructions a word and "
+            f"{ops_rate / 1e12:.2f} Tinst/s, pipes {parts['pipes']:.5f} at "
+            f"{philox_word_pipe_clocks(7):.3f} SM clocks a word), kernel at "
             f"{bound_ms / ms * 100:.1f}% of bound | {state['smi']}")
+        del out
     state["philox_timing"] = timings
 
 
@@ -555,15 +702,15 @@ def gemm_rng_bound(m, n, k, mask_words, rounds, ops_rate, groups=1,
     one plane: operands and results read / written once, the plane written
     once, against HBM; the products as F32_SPLIT_PRODUCTS bf16 products
     each at the dense bf16 tensor-core rate, beside the plane's Philox
-    instructions (8 calls x (4 a round + 8) a word) at the issue rate (the
-    larger time: the tensor cores and the SIMT lanes run side by side).
+    instructions (philox_word_ops a word) at the issue rate (the larger
+    time: the tensor cores and the SIMT lanes run side by side).
     With ``simt`` the f32 SIMT form instead (the bound of the SIMT kernels
     these replaced): the f32 FMAs at the f32 rate plus the Philox
     instructions, which share the SMs' issue slots."""
     t_bytes = 4 * (groups * (m * k + k * n + m * n) + mask_words) \
         / HBM_BYTES_PER_S
     flops = 2 * groups * m * n * k
-    philox = mask_words * 8 * (4 * rounds + 8) / ops_rate
+    philox = mask_words * philox_word_ops(rounds) / ops_rate
     t_ops = (flops / F32_FLOPS_PER_S + philox if simt else
              max(F32_SPLIT_PRODUCTS * flops / BF16_FLOPS_PER_S, philox))
     return max(t_bytes, t_ops) * 1e3, ("operations" if t_ops >= t_bytes
@@ -591,9 +738,9 @@ def flash_bound(kind, b, h, s, d, pairs, elem=4, flops_rate=F32_FLOPS_PER_S,
     gradients; lse and delta f32). With ``ops_rate`` (the bf16 kernels,
     whose products could run on the tensor cores) the SIMT work that
     cannot is a third floor: an exponential a valid pair on the SFU (1/8
-    of the issue lanes) and the replayed keep bits, 8 Philox calls of (4 a
-    round + 8) instructions per 32 pairs; tensor cores and SIMT lanes run
-    side by side, so the floor is the larger time."""
+    of the issue lanes) and the replayed keep bits, philox_word_ops
+    instructions per 32 pairs; tensor cores and SIMT lanes run side by
+    side, so the floor is the larger time."""
     per = {"fwd": 4, "dq": 6, "dkv": 8}[kind] * d
     flops = per * pairs * b * h
     q_bytes = b * h * s * d * elem
@@ -615,11 +762,11 @@ def simt_floor_ms(pairs: int, rounds: int, ops_rate: float,
                   keep_bits: bool) -> float:
     """The SIMT work of ``pairs`` valid scores that the tensor cores cannot
     take, at the issue rate (flash_bound's third floor): an exponential a
-    pair on the SFU and, with ``keep_bits``, the replayed keep bits (8
-    Philox calls of 4 a round + 8 instructions per 32 pairs)."""
+    pair on the SFU and, with ``keep_bits``, the replayed keep bits
+    (philox_word_ops instructions per 32 pairs)."""
     ops = pairs / SFU_PER_ISSUE_LANE
     if keep_bits:
-        ops += pairs / 32 * 8 * (4 * rounds + 8)
+        ops += pairs / 32 * philox_word_ops(rounds)
     return ops / ops_rate * 1e3
 
 
@@ -1075,7 +1222,7 @@ def gemm_rng_fp8_bound(m, n, k, blocks, mask_words, rounds, ops_rate,
     t_bytes = (groups * (m * k + k * n + c_bytes * m * n)
                + 4 * (scales + mask_words)) / HBM_BYTES_PER_S
     t_ops = (2 * groups * m * n * k / FP8_FLOPS_PER_S
-             + mask_words * 8 * (4 * rounds + 8) / ops_rate)
+             + mask_words * philox_word_ops(rounds) / ops_rate)
     return max(t_bytes, t_ops) * 1e3, ("operations" if t_ops >= t_bytes
                                        else "bytes")
 
@@ -1503,7 +1650,7 @@ def gemm_rng_bf16_bound(m, n, k, mask_words, rounds, ops_rate, groups=1):
     t_bytes = (2 * groups * (m * k + k * n + m * n) + 4 * mask_words) \
         / HBM_BYTES_PER_S
     t_ops = max(2 * groups * m * n * k / BF16_FLOPS_PER_S,
-                mask_words * 8 * (4 * rounds + 8) / ops_rate)
+                mask_words * philox_word_ops(rounds) / ops_rate)
     return max(t_bytes, t_ops) * 1e3, ("operations" if t_ops >= t_bytes
                                        else "bytes")
 
@@ -3269,7 +3416,9 @@ def kernel_records(state):
     rows = [
         (philox.KERNEL, "philox_mask.cu", "src/repro/kernels/philox.py:40",
          "serve", state["philox_launches"], state["philox_err"],
-         dict(state["philox_timing"]["serve"], library_ms=None), {}),
+         dict(state["philox_timing"]["serve"], library_ms=None),
+         {"planes_ms": {label: row["ms"] for label, row
+                        in state["philox_timing"].items()}}),
         (k32, "gemm_rng.cu", f"{g}:143", "train",
          state["train_launches"][k32], errs[k32], t[k32],
          f32_extras(t[k32])),

@@ -137,4 +137,96 @@ REPRO_HD uint32_t packed_word(uint32_t r, uint32_t k, uint32_t sq32,
   return word;
 }
 
+// ---- the standalone kernel's word (philox_mask.cu) ----
+//
+// The 8 Philox calls of one packed word differ only in the counter word
+// x1 = q32 * 8 + t, so much of their first three rounds is the same for
+// all of them: round 0's two products (of x0 = k and x2 = bh) and its y2;
+// round 1's product of x2 (= that y2) and so its y0; round 2's product of
+// x0 (= that y0). packed_word_shared computes those once a word and only
+// the rest once a call: 7 + 8 * (6 + 4 * (ROUNDS - 3)) - 1 instructions
+// of Philox a word (182 at 7 rounds) in place of 8 * 4 * ROUNDS (224),
+// plus 2 a keep bit for the pack. Round 1's product of x0 = y0 ^ t
+// depends only on the row and t, so the compiler shares it too among the
+// words of one row that a thread makes. Its bits are packed_word's.
+
+// Both words of the 64-bit product a * b: one mul.wide.u32 on the card
+// (IMAD.WIDE.U32); from __umulhi and a low multiply ptxas fuses only some
+// of a word's products (scripts/probe_philox.py, variant plain_mul).
+struct Wide {
+  uint32_t hi, lo;
+};
+REPRO_HD Wide mul_wide(uint32_t a, uint32_t b) {
+#if defined(__CUDA_ARCH__)
+  uint64_t p;
+  asm("mul.wide.u32 %0, %1, %2;" : "=l"(p) : "r"(a), "r"(b));
+#else
+  const uint64_t p = static_cast<uint64_t>(a) * b;
+#endif
+  return Wide{static_cast<uint32_t>(p >> 32), static_cast<uint32_t>(p)};
+}
+
+// acc * 2 plus the keep bit of u (u >= threshold): on the card a
+// subtract u - threshold, whose carry (no borrow) is the keep bit, and an
+// add of acc to itself with that carry in: two instructions a bit, which
+// ptxas makes an IADD3 on the ALU pipe and an IMAD.X on the multiply-add
+// pipe.
+REPRO_HD uint32_t push_keep(uint32_t acc, uint32_t u, uint32_t threshold) {
+#if defined(__CUDA_ARCH__)
+  asm("{\n\t.reg .u32 d;\n\t"
+      "sub.cc.u32 d, %1, %2;\n\t"
+      "addc.u32 %0, %0, %0;\n\t}"
+      : "+r"(acc)
+      : "r"(u), "r"(threshold));
+  return acc;
+#else
+  return acc * 2u + (u >= threshold ? 1u : 0u);
+#endif
+}
+
+// packed_word's bits for the word at column k of a row whose packed row is
+// q32 and whose global head row is bh, with rounds 0-2 shared by the 8
+// calls.
+template <int ROUNDS>
+REPRO_HD uint32_t packed_word_shared(uint32_t k, uint32_t q32, uint32_t bh,
+                                     uint32_t salt, uint32_t k0,
+                                     uint32_t k1, uint32_t threshold) {
+  static_assert(ROUNDS >= 3, "rounds 0-2 are shared");
+  // round 0 of call t on (k, q32 * 8 + t, bh, salt): x1 = (q32 << 3) ^ t
+  const Wide a0 = mul_wide(kM0, k);
+  const Wide a1 = mul_wide(kM1, bh);
+  const uint32_t y0 = a1.hi ^ (q32 << 3) ^ k0;  // call t: y0 ^ t
+  const uint32_t y2 = a0.hi ^ salt ^ k1;
+  // round 1 on (y0 ^ t, a1.lo, y2, a0.lo): x2 and x1 shared
+  const Wide b1 = mul_wide(kM1, y2);
+  const uint32_t z0 = b1.hi ^ a1.lo ^ (k0 + kW0);
+  // round 2 on (z0, b1.lo, call t's y2, call t's lo0): x0 shared
+  const Wide c0 = mul_wide(kM0, z0);
+  uint32_t acc = 0;
+#pragma unroll
+  for (int t = 7; t >= 0; --t) {
+    const Wide b0 = mul_wide(kM0, y0 ^ static_cast<uint32_t>(t));
+    const Wide c1 = mul_wide(kM1, b0.hi ^ a0.lo ^ (k1 + kW1));
+    uint32_t x0 = c1.hi ^ b1.lo ^ (k0 + 2u * kW0);
+    uint32_t x1 = c1.lo;
+    uint32_t x2 = c0.hi ^ b0.lo ^ (k1 + 2u * kW1);
+    uint32_t x3 = c0.lo;
+#pragma unroll
+    for (int r = 3; r < ROUNDS; ++r) {
+      const Wide d0 = mul_wide(kM0, x0);
+      const Wide d1 = mul_wide(kM1, x2);
+      x0 = d1.hi ^ x1 ^ (k0 + static_cast<uint32_t>(r) * kW0);
+      x2 = d0.hi ^ x3 ^ (k1 + static_cast<uint32_t>(r) * kW1);
+      x1 = d1.lo;
+      x3 = d0.lo;
+    }
+    // bits 4t + 3 .. 4t, pushed from the word's highest bit down
+    acc = push_keep(acc, x3, threshold);
+    acc = push_keep(acc, x2, threshold);
+    acc = push_keep(acc, x1, threshold);
+    acc = push_keep(acc, x0, threshold);
+  }
+  return acc;
+}
+
 }  // namespace repro_philox

@@ -7,8 +7,19 @@ of one attention layer, and its plain PyTorch version.
 CUDA device, and computes the plain version when it lies on the CPU. There
 is no other path: a failed build or launch raises.
 
-What bounds the kernel on an H100 is instruction issue (8 Philox calls of
-ROUNDS rounds per 4-byte output word), not memory; see the note in
+What bounds the kernel on an H100 is integer instructions, not memory:
+8 Philox calls of ROUNDS rounds and 32 keep bits a 4-byte word, at least
+224 instructions a word at 7 rounds once the products and xors that
+several words share are counted once (``chip_smoke.philox_word_ops``).
+The multiplies run only on the multiply-add pipe, at half its rate, and
+the xors and compares only on the ALU pipe, each pipe half of the issue
+lanes, so the pipes' load, not the issue rate, sets the least time
+(``chip_smoke.philox_bound``). The kernel computes what a word's 8 calls
+share once (``packed_word_shared`` in ``csrc/philox.cuh``), makes each
+product one ``mul.wide.u32`` and each keep bit a subtract and an add with
+carry (one instruction on each pipe), and walks the plane with a
+persistent grid, each thread four consecutive words of a row at a time,
+with no division in its loop (``csrc/philox_walk.cuh``); see the note in
 ``csrc/philox_mask.cu``.
 
 Planes are ``torch.int32`` holding the uint32 bit pattern
