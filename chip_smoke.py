@@ -13,8 +13,10 @@ Phases (each raises on failure; nothing is caught):
      memory and ptxas advisories, and the HGMMA (wgmma) instructions in
      each tensor-core library's SASS (``cuobjdump --dump-sass``); the
      flash libraries' registers and spills by head dim (the f32 ones may
-     not spill at D = 128), and the f32 GEMM+RNG libraries' (which may not
-     spill);
+     not spill at D = 128, the bf16 ones at D = 256), the f32 GEMM+RNG
+     libraries' (which may not spill), and holds the flash libraries
+     that gained the D = 256 instances to the parent commit's SASS at
+     D <= 128 (FLASH_NARROW_SASS);
   2. each kernel against its plain PyTorch version on the card, then
      timed with CUDA events beside its bound and, where one PyTorch call
      computes the same function, that call's time: the Philox kernel
@@ -102,7 +104,27 @@ Phases (each raises on failure; nothing is caught):
      time, tokens/s, peak memory and a profiler trace beside phase 7's;
      then one step each of ffn_down/bf16, ffn_up/f32 under bf16 compute
      (the same kernels, bitwise the same loss) and ffn_up/fp8 under bf16
-     compute (the bf16-C instances of the dense and grouped e4m3 kernels).
+     compute (the bf16-C instances of the dense and grouped e4m3 kernels);
+ 10. fused-mode dropout (the paper's baseline: the keep bits drawn inside
+     the flash kernels) at llama2-7b width x 4, f32 and bf16 compute: one
+     step plan each of no dropout, fused, overlap at site "xla" (the plane
+     made by tensor ops, read by the kernels), qkv replay and qkv
+     premask, from one state and batch -- step time, peak memory, busy
+     share and device time by kernel each; fused and overlap/xla step-0
+     loss and grad norm bitwise equal; the fused step's launches against
+     the inert schedule's formula (flash kernels only); then two fused
+     steps of moonshot-v1-16b-a3b x 4 at bf16 compute;
+ 11. the Griffin hybrid at width: recurrentgemma-9b at full width and 6
+     of its 38 layers (two (R, R, A) super-blocks: RG-LRU blocks and
+     LOCAL attention with window 2048 over one kv head, head_dim 256;
+     2.36 B f32 parameters, the state donated to each step), B=1,
+     S=4096, compute_dtype=bf16, the bf16 flash kernels' D = 256
+     instances, site "ffn_up" / bf16 (L2's gate+up GEMM makes L5's plane,
+     carried past the recurrent L3, L4): step 0 under premask and 3
+     replay steps, step 0 bitwise equal; launches against the formula;
+     step time, peak memory, busy share, device time by kernel, the
+     RG-LRU scan's and the f32 unembedding's shares (each timed alone);
+     then one fused step.
 
 Phase 2 also checks the e4m3 GEMM+RNG kernel against its plain version
 at the four host shapes of phase 6 (QKV, out-projection, gate+up, down;
@@ -124,7 +146,12 @@ SQ=1024 and 960 < SK (within 1e-2 (|x| + rms(x)), lse 1e-4; each
 output's share of its limit printed; replay == premask bitwise; a
 planted fault in the keep bits must fail the check; the forward, dq and
 dkv timed in none, premask and replay beside the SIMT floor of their
-exponentials and keep bits); the grouped bf16 kernel at the grouped host shapes
+exponentials and keep bits), and at head_dim 256 (recurrentgemma-9b's
+LOCAL layer: B=1, 16 heads over one kv head, S=4096; none, fused,
+premask, replay, and replay with the window of 2048; the same limits,
+replay == fused == premask bitwise, the planted fault; timed with the
+window beside the bound and SDPA with the window as a mask); the
+grouped bf16 kernel at the grouped host shapes
 (plane bitwise the plain one's and the f32 grouped host's, bf16 C within
 1e-2 (1 + |C|), emission on and off in turns, a Region-3 call through
 both grouped hosts, and a planted fault -- one expert's C rows shifted by
@@ -144,8 +171,12 @@ ffn_down/fp8, and the reduced moonshot, arctic and an RWKV hybrid at
 ffn_up/bf16 and ffn_down/fp8 under compute_dtype=bf16 (the bf16
 tolerances; the hybrid's losses after step 0 at 1e-3, its grad norm at
 5e-2 and a leaf's change at 0.5, the spread of the JAX package against
-itself on it), card against CPU; every such run also holds each leaf's
-change over its 3 steps within 0.25 relative of the CPU's.
+itself on it), fused-mode dropout on the reduced llama2 and moonshot
+under attn_impl "pallas" and "xla" at f32 and bf16 compute, and the
+reduced recurrentgemma (RG-LRU, LOCAL window 32, head_dim 16) at
+ffn_up/f32, prev_gemm/f32 and ffn_up/bf16 under bf16 compute, card
+against CPU; every such run also holds each leaf's change over its 3
+steps within 0.25 relative of the CPU's.
 
 The second-to-last lines are the kernels' JSON record and the card's
 ``nvidia-smi`` name and power limit; the last line is the
@@ -397,8 +428,10 @@ def phase_build(state) -> None:
             *flash_libs):
         fn = getattr(ctypes.CDLL(str(libs[smem_lib])),
                      f"repro_{entry}_smem_bytes")
+        dims = flash.KERNEL_HEAD_DIMS[torch.bfloat16 if entry.endswith(
+            "bf16") else torch.float32]
         smem = (fn() if name.startswith("gemm") else
-                ", ".join(f"{fn(d)} at D={d}" for d in (16, 32, 64, 128)))
+                ", ".join(f"{fn(d)} at D={d}" for d in dims))
         advisories = sorted({
             re.sub(r" in function '[^']*'|line \d+", "", ln).strip()
             for ln in build.log_path(name).read_text().splitlines()
@@ -437,6 +470,67 @@ def phase_build(state) -> None:
                                  or max(by_d[128][1] + by_d[128][2])):
             raise AssertionError(f"{name}: the D = 128 instances spill "
                                  f"({by_d.get(128)})")
+        # the bf16 ones at D = 256 (two warpgroups, the D = 128 instance's
+        # registers a thread) may not spill either
+        if name not in f32_libs and (256 not in by_d
+                                     or max(by_d[256][1] + by_d[256][2])):
+            raise AssertionError(f"{name}: the D = 256 instances spill "
+                                 f"({by_d.get(256)})")
+    # the libraries whose sources gained the D = 256 instances keep their
+    # machine code at D <= 128: the digest of those kernels' SASS against
+    # the build of the parent commit's sources (FLASH_NARROW_SASS)
+    for name, want in FLASH_NARROW_SASS.items():
+        digest, count = narrow_sass_digest(libs[name])
+        if digest != want:
+            raise AssertionError(f"{name}: the SASS of its {count} kernels "
+                                 f"at D <= 128 changed (digest {digest}, "
+                                 f"the parent's {want})")
+        log(f"[build] {name}: its {count} kernels at D <= 128 run the "
+            f"parent's SASS, instruction for instruction (digest {digest})")
+
+
+# the digest (narrow_sass_digest) of each flash library's kernels at head
+# dims up to 128 as the parent commit's sources build them on the H100
+# machine's toolkit (scripts/probe_flash_d256.py --parent): the D = 256
+# instances left them unchanged
+FLASH_NARROW_SASS = {"flash_fwd_bf16": "5723879813a3fa94",
+                     "flash_dq_bf16": "48288393cc6d5c8b",
+                     "flash_dkv_bf16": "afbc9e9f1114be08",
+                     "flash_fwd_f32": "2d91498e26cf02bc"}
+
+
+def sass_by_function(lib) -> dict:
+    """The library's flash kernels, by (kernel, head dim, dropout mode) --
+    their first two template arguments; the mangled name itself carries a
+    hash of the source's path for the kernels in an anonymous namespace
+    -- -> their SASS instructions, without addresses or encodings."""
+    import re
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([cuobjdump, "--dump-sass", str(lib)], check=True,
+                          capture_output=True, text=True).stdout
+    instruction = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(.*?)\s*;")
+    out = {}
+    for body in sass.split("Function : ")[1:]:
+        m = re.search(r"(flash_\w*?kernel\w*?)ILi(\d+)ELi(\d+)E",
+                      body.split("\n", 1)[0])
+        if m:
+            out[(m.group(1), int(m.group(2)), int(m.group(3)))] = tuple(
+                instruction.findall(body))
+    return out
+
+
+def narrow_sass_digest(lib) -> tuple:
+    """(digest, kernels) of a flash library's instances at head dims up
+    to 128: a sha256 prefix of their (kernel, D, mode) keys and SASS, so
+    two builds with equal digests run the same machine code there."""
+    import hashlib
+    narrow = {key: code for key, code in sass_by_function(lib).items()
+              if key[1] <= 128}
+    h = hashlib.sha256()
+    for key in sorted(narrow):
+        h.update(repr(key).encode())
+        h.update("\n".join(narrow[key]).encode())
+    return h.hexdigest()[:16], len(narrow)
 
 
 def _ptxas_by_head_dim(name: str) -> dict:
@@ -473,9 +567,13 @@ def _check_philox(state, shape, p, seed, salt, rounds,
     err = max_abs_err(got, want)
     state["philox_err"] = max(state.get("philox_err", 0), err)
     if not torch.equal(got, want):
+        bad = (got != want).nonzero()
+        at = tuple(bad[0].tolist())
         raise AssertionError(f"philox kernel != plain at {shape} p={p} "
                              f"seed={seed} rounds={rounds} "
-                             f"window=({heads_global},{bh_offset})")
+                             f"window=({heads_global},{bh_offset}): "
+                             f"{len(bad)} words differ, the first at {at} "
+                             f"({int(got[at])} against {int(want[at])})")
     return got
 
 
@@ -1194,6 +1292,147 @@ def _flash_kernels(state, rnd, dtype, ops_rate) -> None:
     torch.cuda.empty_cache()
 
 
+# the bf16 flash kernels at head_dim 256, recurrentgemma-9b's LOCAL layer:
+# B=1, 16 query heads over one kv head (MQA), S=4096, causal; the dropout
+# modes without a window, then replay with its window of 2048, the main
+# path's mode, which is timed: (mode, local window)
+WIDE_SHAPE = (1, 16, 1, 4096, 256)
+WIDE_CASES = (("none", 0), ("fused", 0), ("premask", 0), ("replay", 0),
+              ("replay", 2048))
+
+
+def _flash_kernels_wide(state, rnd, ops_rate) -> None:
+    """The bf16 flash forward, dq and dkv instances at head_dim 256 (two
+    warpgroups a CTA, each one column half of the output) against their
+    plain versions in WIDE_CASES at BF16_FLASH_TOL (lse at FWD_TOL), replay
+    == premask == fused bitwise on the same inputs (the same counters), a
+    planted fault every check must fail (``_flash_fault``), then timed in
+    replay with the window beside the bound and SDPA's forward and
+    backward with the window as a boolean mask (kv expanded to the 16
+    heads), and each kernel by dropout mode (none, premask, replay,
+    fused) with the window."""
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+    from repro_torch.kernels.philox_common import seed_salt_smem
+    b, h, kvh, s, d = WIDE_SHAPE
+    names = [flash.instance(n, d) for n in
+             (flash.KERNEL_BF16, *flash_bwd.KERNELS[torch.bfloat16])]
+    tol = BF16_FLASH_TOL
+    timing = state.setdefault("timing", {})
+    seed = torch.tensor(9)
+    plane = philox.philox_dropout_mask_plain(b, h, s, s, 0.1, seed, 3,
+                                             device="cuda")
+    seed_salt = seed_salt_smem(seed, 3)
+    ops = {"premask": plane, "replay": seed_salt}
+    q, do = rnd(b, h, s, d), rnd(b, h, s, d)
+    kk, vv = rnd(b, kvh, s, d), rnd(b, kvh, s, d)
+    outs = {}
+    for mode, window in WIDE_CASES:
+        op = ops.get(mode)
+        args = dict(causal=True, local_window=window, dropout_p=0.1,
+                    mode=mode, seed=seed, salt=3)
+        before = launch_counts()
+        o, lse = flash.flash_attention_fwd(q, kk, vv, op, return_lse=True,
+                                           **args)
+        po, plse = flash.flash_attention_fwd_plain(q, kk, vv, op, **args)
+        dq, dk, dv = flash_bwd.flash_attention_bwd_heads(
+            q, kk, vv, o, lse, do, op, **args)
+        pdq, pdk, pdv = flash_bwd.flash_attention_bwd_plain(
+            q, kk, vv, po, plse, do, op, **args)
+        torch.cuda.synchronize()
+        after = launch_counts()
+        if any(after[n] != before[n] + 1 for n in names):
+            raise AssertionError(f"flash bf16 D={d}: the D={d} instances "
+                                 f"did not launch ({names})")
+        label = f"{mode} window={window} kv_heads={kvh} D={d} S={s}"
+        ratios = []
+        for name, key, got, want, t, scaled in (
+                ("o", names[0], o, po, tol, True),
+                ("lse", names[0], lse, plse, FWD_TOL, False),
+                ("dq", names[1], dq, pdq, tol, True),
+                ("dk", names[2], dk, pdk, tol, True),
+                ("dv", names[2], dv, pdv, tol, True)):
+            _close(f"{key} {name} {label}", got.float(), want.float(), t,
+                   state, key, scaled=scaled)
+            ratio = _within(got.float(), want.float(), t, scaled)[1]
+            ratios.append(f"{name} {ratio:.3g}")
+        log(f"[kernels] flash bf16 {b}x{h} {label}: {', '.join(ratios)} of "
+            f"their limits (tol {tol} x (|x| + rms(x)), lse {FWD_TOL} x "
+            f"(1+|x|); dk, dv per query head)")
+        if window == 0:
+            outs[mode] = (o, dq, dk, dv)
+        if mode == "premask":
+            _flash_fault(f"flash bf16 D={d}", q, kk, vv, do, plane,
+                         (o, dq, dk, dv), (tol, tol), True)
+        del po, plse, pdq, pdk, pdv
+    # replay, fused and premask consume the same bits
+    for mode in ("replay", "fused"):
+        if not all(torch.equal(x, y) for x, y in zip(outs[mode],
+                                                     outs["premask"])):
+            raise AssertionError(f"flash bf16 D={d}: {mode} != premask on "
+                                 f"the same inputs")
+    log(f"[kernels] flash bf16 D={d}: replay == fused == premask bitwise "
+        f"(o, dq, dk, dv)")
+    del outs
+
+    # timing: replay with the window, recurrentgemma's LOCAL layer
+    win = WIDE_CASES[-1][1]
+    args = dict(causal=True, local_window=win, dropout_p=0.1)
+    pairs = valid_pairs(s, s, True, win)
+    o, lse = flash.flash_attention_fwd(q, kk, vv, seed_salt, mode="replay",
+                                       return_lse=True, **args)
+    ke, ve = (t.expand(b, h, s, d).contiguous() for t in (kk, vv))
+    valid = flash.score_mask(0, s, s, s, True, win, q.device)
+    qs, ks, vs = (t.detach().clone().requires_grad_() for t in (q, ke, ve))
+    lib_out = sdpa(qs, ks, vs, attn_mask=valid)
+    lib_fwd = cuda_time_ms(lambda: sdpa(q, ke, ve, attn_mask=valid), 10)
+    lib_bwd = cuda_time_ms(lambda: torch.autograd.grad(
+        lib_out, (qs, ks, vs), do, retain_graph=True), 10)
+    del lib_out, qs, ks, vs
+    kw = dict(args, mode="replay")
+    plain_fwd = cuda_time_ms(lambda: flash.flash_attention_fwd_plain(
+        q, kk, vv, seed_salt, **kw), 2, warmup=1)
+    plain_bwd = cuda_time_ms(lambda: flash_bwd.flash_attention_bwd_plain(
+        q, kk, vv, o, lse, do, seed_salt, **kw), 2, warmup=1)
+    modes = {n: {} for n in names}
+    for mode in ("none", "premask", "replay", "fused"):
+        op = ops.get(mode)
+        mk = dict(args, mode=mode, seed=seed, salt=3)
+        om, lm = flash.flash_attention_fwd(q, kk, vv, op, return_lse=True,
+                                           **mk)
+        modes[names[0]][mode] = cuda_time_ms(
+            lambda: flash.flash_attention_fwd(q, kk, vv, op, **mk), 10)
+        for name, kind in zip(names[1:], ("dq", "dkv")):
+            ms = device_time_ms(lambda: flash_bwd.flash_attention_bwd(
+                q, kk, vv, om, lm, do, op, **mk), f"flash_{kind}_kernel", 10)
+            if ms is None:
+                raise AssertionError("the profiler saw no device time")
+            modes[name][mode] = ms
+    for name, kind in zip(names, ("fwd", "dq", "dkv")):
+        bound_ms, bound_by = flash_bound(kind, b, h, s, d, pairs, elem=2,
+                                         flops_rate=BF16_FLOPS_PER_S,
+                                         ops_rate=ops_rate)
+        ms = modes[name]["replay"]
+        plain_ms, lib_ms = ((plain_fwd, lib_fwd) if kind == "fwd"
+                            else (plain_bwd, lib_bwd))
+        timing[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                            bound_by=bound_by, library_ms=lib_ms,
+                            modes_ms=dict(modes[name]))
+        flops = {"fwd": 4, "dq": 6, "dkv": 8}[kind] * d * pairs * b * h
+        t = modes[name]
+        log(f"[kernels] {name} {b}x{h} kv=1 S={s} D={d} causal window={win} "
+            f"replay: {ms:.4f} ms a launch, {flops / ms / 1e9:.1f} TFLOP/s; "
+            f"plain {plain_ms:.2f} ms; SDPA "
+            f"{'forward' if kind == 'fwd' else 'backward (dq, dk, dv)'} with "
+            f"the window as a mask {lib_ms:.4f} ms (no dropout); bound "
+            f"{bound_ms:.4f} ms by {bound_by}, kernel at "
+            f"{bound_ms / ms * 100:.1f}% of bound; by mode: none "
+            f"{t['none']:.4f}, premask {t['premask']:.4f}, replay "
+            f"{t['replay']:.4f}, fused {t['fused']:.4f} ms | {state['smi']}")
+    del plane, q, do, kk, vv, ke, ve, o, lse
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 # the fp8 host at the four host GEMMs of a llama2-7b block at B=2, S=2048,
 # each with the training plane; "gate_up" hosts the ffn_up main path
 FP8_SHAPES = (("qkv", QKV_SHAPE), ("out_proj", (4096, 4096, 4096)),
@@ -1829,6 +2068,7 @@ def phase_kernels_bf16(state) -> None:
 
     # ---- flash forward, dq, dkv at bf16
     _flash_kernels(state, rnd, bf16, ops_rate)
+    _flash_kernels_wide(state, rnd, ops_rate)
 
 
 # the e4m3 kernels on bf16 operands (bf16 C): the dense host at llama2's
@@ -2230,9 +2470,10 @@ def rwkv_hybrid():
 
 
 def _train_run(cfg, replay, batch, seq, remat="block", opt=None,
-               site="qkv", gemm_dtype="f32"):
-    """A training RunConfig on the flash kernels. ``opt`` None is the
-    repo's default OptimizerConfig (lr 3e-4 after a 100-step warm-up)."""
+               site="qkv", gemm_dtype="f32", mode="overlap", impl="pallas"):
+    """A training RunConfig, on the flash kernels unless ``impl`` says
+    "xla". ``opt`` None is the repo's default OptimizerConfig (lr 3e-4
+    after a 100-step warm-up)."""
     from repro_torch.config.base import (
         DropoutPlanConfig,
         OptimizerConfig,
@@ -2244,8 +2485,8 @@ def _train_run(cfg, replay, batch, seq, remat="block", opt=None,
     )
     return RunConfig(
         model=cfg, shape=ShapeConfig("smoke", seq, batch, StepKind.TRAIN),
-        sharding=ShardingConfig(attn_impl="pallas", remat=remat),
-        dropout=DropoutPlanConfig(mode="overlap", site=site, p=0.1,
+        sharding=ShardingConfig(attn_impl=impl, remat=remat),
+        dropout=DropoutPlanConfig(mode=mode, site=site, p=0.1,
                                   gemm_dtype=gemm_dtype, attn_replay=replay,
                                   seed=0),
         train=TrainConfig(optimizer=opt or OptimizerConfig()))
@@ -2303,6 +2544,17 @@ REF_CHANGE_REL = 0.25
 # on the step-0 grad norm and 1.5e-4 on the step-2 loss (H100 80GB HBM3)
 HYBRID_BF16_TOLS = (BF16_REF_LOSS_REL, 1e-3, 5e-2)
 HYBRID_BF16_CHANGE_REL = 0.5
+# ... and a MoE at bf16 compute through the tensor-op attention (fused
+# mode, attn_impl "xla"), which rounds P to bf16 before P V: after the
+# first update the router carries a weight moved by a flipped bf16 ulp
+# into the tokens' experts, as tests/test_torch_bf16_grouped.py holds the
+# MoE's later steps (LATER_LOSS_REL, LATER_GRAD_NORM_REL; the port's
+# fused xla step against JAX's on the CPU: grad norm 8.3e-3 apart at step
+# 1, tests/test_torch_fused.py). The card against the CPU on the reduced
+# moonshot (H100 80GB HBM3): step-2 grad norm 1.16e-2 relative apart, the
+# loss 9.9e-5; step 0 stays at the bf16 limits. (step-0 loss, later
+# losses, step-0 grad norm, later grad norms)
+MOE_XLA_BF16_TOLS = (BF16_REF_LOSS_REL, 1e-3, BF16_REF_GRAD_NORM_REL, 1e-2)
 
 
 def _card_vs_cpu(cfg, run, master, label, gn_tol=FP8_REF_TOL,
@@ -2311,7 +2563,8 @@ def _card_vs_cpu(cfg, run, master, label, gn_tol=FP8_REF_TOL,
     """3 make_train_step steps on the card and on the CPU from the same
     weights: loss and grad norm of every step within 1e-4 (fp8: 1e-3 and
     ``gn_tol`` after step 0; bf16 compute: ``bf16_tols``, the step-0 and
-    later losses' and the grad norm's) and the final weights within 1e-4
+    later losses' and the grad norm's, or with a fourth entry the step-0
+    and later grad norms') and the final weights within 1e-4
     (fp8: 3 x lr; bf16: 4 x lr) and each leaf's change within
     ``change_rel`` of the CPU's."""
     from repro_torch.optim import adamw_init
@@ -2334,7 +2587,8 @@ def _card_vs_cpu(cfg, run, master, label, gn_tol=FP8_REF_TOL,
                                                   runs["cuda"][1])):
         tol, gtol = (FP8_REF_TOL, gn_tol) if fp8 and i > 0 else (1e-4, 1e-4)
         if bf16:
-            tol, gtol = bf16_tols[0 if i == 0 else 1], bf16_tols[2]
+            tol = bf16_tols[0 if i == 0 else 1]
+            gtol = bf16_tols[2 if i == 0 else len(bf16_tols) - 1]
         worst = [max(worst[0], abs(lc - lg) / abs(lc)),
                  max(worst[1], abs(gc_ - gg) / abs(gc_))]
         ratio = [max(ratio[0], abs(lc - lg) / (tol * (1 + abs(lc)))),
@@ -2361,8 +2615,10 @@ def _card_vs_cpu(cfg, run, master, label, gn_tol=FP8_REF_TOL,
                                  f"the CPU's")
         change = max(change, rel)
     card_losses = [round(loss, 6) for loss, _ in runs["cuda"][1]]
+    later_gn = (f", then {bf16_tols[3]}" if len(bf16_tols) > 3 else "")
     tols = (f"bf16 tolerances (loss {bf16_tols[0]}, then "
-            f"{bf16_tols[1]}, grad norm {bf16_tols[2]} relative, weights "
+            f"{bf16_tols[1]}, grad norm {bf16_tols[2]}{later_gn} relative, "
+            f"weights "
             f"{BF16_REF_WEIGHT_ATOL})" if bf16 else
             '1e-4 at step 0, then fp8 tolerances' if fp8 else 'within 1e-4')
     log(f"[train-ref] {cfg.name} B=2 S=256 {label}: 3 steps card == CPU "
@@ -2383,7 +2639,11 @@ def phase_train_reference(state) -> None:
     reduced llama2 and yi at qkv/bf16 and the reduced moonshot, arctic and
     an RWKV hybrid at ffn_up/bf16 and ffn_down/fp8 (the bf16 limits; the
     hybrid's losses after step 0, grad norm and leaf changes at
-    HYBRID_BF16_*)."""
+    HYBRID_BF16_*); then fused-mode dropout on the reduced llama2 and
+    moonshot under both attention impls at f32 and bf16 compute, and the
+    reduced recurrentgemma (Griffin: RG-LRU blocks and LOCAL attention,
+    head_dim 16, window 32, MQA) on the flash kernels at ffn_up/f32,
+    prev_gemm/f32 and ffn_up/bf16 under bf16 compute."""
     from repro_torch.config import get_arch
     from repro_torch.config.base import OptimizerConfig
     from repro_torch.core import producer
@@ -2443,6 +2703,32 @@ def phase_train_reference(state) -> None:
                                     else BF16_REF_TOLS),
                          change_rel=(HYBRID_BF16_CHANGE_REL if hybrid
                                      else REF_CHANGE_REL))
+    # fused mode: the keep bits drawn inside attention -- the flash
+    # kernels' mode "fused", or each q-chunk of the tensor-op attention
+    for arch in ("llama2-7b", "moonshot-v1-16b-a3b"):
+        cfg = get_arch(arch, reduced=True)
+        master = init_train_state(cfg, seed=1, device="cpu")["master"]
+        for impl in ("pallas", "xla"):
+            run = _train_run(cfg, "auto", 2, 256, opt=opt, site="xla",
+                             mode="fused", impl=impl)
+            for dt in (torch.float32, torch.bfloat16):
+                moe_xla = cfg.moe is not None and impl == "xla"
+                _card_vs_cpu(cfg, run, master, f"fused attn_impl={impl} "
+                             f"compute_dtype={str(dt)[6:]}",
+                             compute_dtype=dt,
+                             bf16_tols=(MOE_XLA_BF16_TOLS if moe_xla
+                                        else BF16_REF_TOLS))
+    # the Griffin hybrid: LOCAL layers through the flash kernels with the
+    # window, the carried plane past the recurrent blocks
+    cfg = get_arch("recurrentgemma-9b", reduced=True)
+    master = init_train_state(cfg, seed=1, device="cpu")["master"]
+    for site, dtype, dt in (("ffn_up", "f32", torch.float32),
+                            ("prev_gemm", "f32", torch.float32),
+                            ("ffn_up", "bf16", torch.bfloat16)):
+        run = _train_run(cfg, "off", 2, 256, opt=opt, site=site,
+                         gemm_dtype=dtype)
+        _card_vs_cpu(cfg, run, master, f"{site}/{dtype} compute_dtype="
+                     f"{str(dt)[6:]} attn_replay=off", compute_dtype=dt)
 
 
 # ------------------------------------------------------------------ phase 5
@@ -2459,6 +2745,31 @@ def _host_kernels(gemm_dtype: str, compute_dtype=torch.float32):
     if bf16 or gemm_dtype == "bf16":
         return gemm_rng.KERNEL_BF16, gemm_rng.KERNEL_GROUPED_BF16
     return gemm_rng.KERNEL, gemm_rng.KERNEL_GROUPED
+
+
+def _flash_names(compute_dtype, cfg=None):
+    """The flash forward, dq and dkv instances a model's attention layers
+    launch: the kernels of the compute dtype, at ``cfg``'s head dim (the
+    D = 256 instances count apart)."""
+    d = cfg.head_dim if cfg is not None else 0
+    return tuple(flash.instance(n, d) for n in (
+        flash.KERNELS[compute_dtype], *flash_bwd.KERNELS[compute_dtype]))
+
+
+def _expected_fused_launches(cfg, remat: str, steps: int,
+                             compute_dtype=torch.float32):
+    """Kernel launches of ``steps`` fused-mode steps: the schedule is inert
+    (no producer, no plane), so each attention layer launches the flash
+    forward (twice under remat="block") and dq and dkv once, and nothing
+    else runs a kernel."""
+    from repro_torch.config.base import AttentionKind
+    f = 2 if remat == "block" else 1
+    fwd, dq, dkv = _flash_names(compute_dtype, cfg)
+    n_attn = sum(k in (AttentionKind.FULL, AttentionKind.LOCAL)
+                 for k in cfg.layer_kinds())
+    n = {k: 0 for k in launch_counts()}
+    n[fwd], n[dq], n[dkv] = f * n_attn, n_attn, n_attn
+    return {k: v * steps for k, v in n.items()}
 
 
 def _expected_launches(sched, remat: str, steps: int, cfg=None,
@@ -2483,12 +2794,8 @@ def _expected_launches(sched, remat: str, steps: int, cfg=None,
     units)."""
     from repro_torch.core import producer
     f = 2 if remat == "block" else 1
-    bf16 = compute_dtype == torch.bfloat16
     host, grouped = _host_kernels(sched.plan.gemm_dtype, compute_dtype)
-    fwd, dq, dkv = ((flash.KERNEL_BF16, flash_bwd.KERNEL_DQ_BF16,
-                     flash_bwd.KERNEL_DKV_BF16) if bf16 else
-                    (flash.KERNEL, flash_bwd.KERNEL_DQ,
-                     flash_bwd.KERNEL_DKV))
+    fwd, dq, dkv = _flash_names(compute_dtype, cfg)
     first_dense = (cfg.moe.first_dense_layers
                    if cfg is not None and cfg.moe is not None else None)
     n = {k: 0 for k in launch_counts()}
@@ -2729,6 +3036,8 @@ def _profile_train(step_fn, st, batch, record, smi) -> None:
                     e.key) for e in prof.key_averages()), reverse=True)
     busy = sum(r[0] for r in rows) / 1e6
     record["busy_share"] = busy / wall
+    record["wall_s"] = wall
+    record["kernels_ms"] = {key: us / 1e3 for us, _, key in rows if us > 0}
     log(f"[train-profile] one step: wall {wall:.3f}s, device busy "
         f"{busy:.3f}s ({busy / wall * 100:.1f}%) | {smi}")
     for us, count, key in rows[:12]:
@@ -3361,6 +3670,322 @@ def phase_train_moe_bf16(state) -> None:
     torch.cuda.empty_cache()
 
 
+# ------------------------------------------------------------------ phase 10
+# the dropout modes at llama2-7b width x 4, one step plan each: (label,
+# mode, site, attn_replay); "overlap/xla" makes the plane with tensor ops
+# beside the plain QKV GEMM and the flash kernels read it (premask), so its
+# step is the fused step but for where the bits are drawn
+FUSED_MODES = (("none", "none", "xla", "off"),
+               ("fused", "fused", "xla", "off"),
+               ("overlap/xla", "overlap", "xla", "off"),
+               ("qkv/replay", "overlap", "qkv", "auto"),
+               ("qkv/premask", "overlap", "qkv", "off"))
+
+
+def _timed_steps(step_fn, st, batch, n=2):
+    """Step times (host clock to a synchronize) of ``n`` steps from ``st``
+    after one warm-up step, and the warm-up's metrics."""
+    x, y = batch
+    _, m = step_fn(st, x, y)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        step_fn(st, x, y)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return m, times
+
+
+def _kernel_groups(kernels_ms: dict) -> dict:
+    """A profile's device time grouped by kernel: each flash kernel, the
+    GEMM+RNG hosts (``gemm_rng_*_kernel``, the bf16 ``gemm_bf16_kernel``),
+    the Philox kernel, the GEMM libraries (cuBLAS's gemm and nvjet
+    kernels, CUTLASS's) and everything else."""
+    out = {"flash_fwd": 0.0, "flash_dq": 0.0, "flash_dkv": 0.0,
+           "gemm_rng": 0.0, "philox_mask": 0.0, "cublas_gemm": 0.0,
+           "other": 0.0}
+    for key, ms in kernels_ms.items():
+        k = key.lower()
+        group = next((g for g in ("flash_fwd", "flash_dq", "flash_dkv",
+                                  "gemm_rng", "philox_mask") if g in k),
+                     "gemm_rng" if "gemm_bf16_kernel" in k else None)
+        if group is None and ("gemm" in k or "nvjet" in k
+                              or "cutlass" in k):
+            group = "cublas_gemm"
+        out[group or "other"] += ms
+    return {k: round(v, 4) for k, v in out.items()}
+
+
+def phase_train_fused(state) -> None:
+    """Fused-mode dropout, the paper's baseline, at llama2-7b width x 4
+    (B=2, S=2048, p=0.1, remat="block"), at f32 and bf16 compute: one step
+    plan each of FUSED_MODES from the same state and batch -- its step-0
+    loss, step time, peak memory, busy share and the profiler's device
+    time by kernel. The fused and overlap/xla steps draw the same bits,
+    one inside the flash kernels, one with tensor ops ahead of them:
+    their losses and grad norms are bitwise equal. A fused step launches
+    the flash kernels as the inert schedule implies and no GEMM+RNG host
+    and no Philox kernel. Then one fused step of moonshot-v1-16b-a3b x 4
+    at bf16 compute."""
+    from repro_torch.config import get_arch
+    from repro_torch.train import (
+        compile_run_schedule,
+        init_train_state,
+        make_train_step,
+    )
+    cfg = dataclasses.replace(get_arch("llama2-7b"), n_layers=TRAIN_LAYERS)
+    rec = state.setdefault("train_fused", {})
+    for dt in (torch.float32, torch.bfloat16):
+        dname = str(dt)[6:]
+        gc.collect()
+        torch.cuda.empty_cache()
+        st = init_train_state(cfg, seed=0, device="cuda")
+        batch = _batches(cfg, _train_run(cfg, "off", TRAIN_B, TRAIN_S),
+                         "cuda", 1)[0]
+        out = {}
+        for label, mode, site, replay in FUSED_MODES:
+            run = _train_run(cfg, replay, TRAIN_B, TRAIN_S, site=site,
+                             mode=mode, gemm_dtype=("bf16" if dt ==
+                                                    torch.bfloat16
+                                                    else "f32"))
+            sched = compile_run_schedule(cfg, run)
+            step = make_train_step(cfg, run, compute_dtype=dt)
+            torch.cuda.reset_peak_memory_stats()
+            reset_launch_counts()
+            _, m0 = step(st, *batch)
+            torch.cuda.synchronize()
+            counts = launch_counts()
+            if mode == "fused":
+                want = _expected_fused_launches(cfg, "block", 1, dt)
+                if sched.active or counts != want:
+                    raise AssertionError(f"fused {dname}: launches {counts} "
+                                         f"!= {want} (schedule active: "
+                                         f"{sched.active})")
+            m, times = _timed_steps(step, st, batch)
+            r = dict(loss0=float(m0["loss"]), grad_norm0=float(
+                m0["grad_norm"]), step_s=float(np.mean(times)),
+                times=[round(t, 4) for t in times],
+                peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                launches={k: v for k, v in counts.items() if v})
+            if not all(np.isfinite(v) for v in (r["loss0"],
+                                                 r["grad_norm0"])):
+                raise AssertionError(f"{label} {dname}: non-finite {r}")
+            prof = {}
+            _profile_train(step, st, batch, prof, state["smi"])
+            r.update(busy_share=prof["busy_share"],
+                     kernels=_kernel_groups(prof["kernels_ms"]))
+            out[label] = (m0, r)
+            log(f"[train-fused] llama2-7b x{TRAIN_LAYERS} {dname} {label}: "
+                f"loss {r['loss0']:.7f}, grad norm {r['grad_norm0']:.6f}, "
+                f"step {r['step_s']:.4f} s ({r['times']}), peak "
+                f"{r['peak_gib']:.2f} GiB, busy {r['busy_share'] * 100:.1f}%"
+                f", device ms by kernel {r['kernels']} | {state['smi']}")
+        mf, mo = out["fused"][0], out["overlap/xla"][0]
+        if not (torch.equal(mf["loss"], mo["loss"])
+                and torch.equal(mf["grad_norm"], mo["grad_norm"])):
+            raise AssertionError(f"fused {dname}: loss / grad norm != "
+                                 f"overlap/xla's")
+        if torch.equal(mf["loss"], out["none"][0]["loss"]):
+            raise AssertionError(f"fused {dname}: loss == no dropout's")
+        log(f"[train-fused] {dname}: fused and overlap/xla step-0 loss and "
+            f"grad norm bitwise equal ({float(mf['loss']):.7f}); fused "
+            f"launched the flash kernels only, as the inert schedule "
+            f"implies")
+        rec[dname] = {label: r for label, (_, r) in out.items()}
+        del st, out, mf, mo
+    # moonshot x 4, one fused step at bf16 compute (the state donated)
+    bf16 = torch.bfloat16
+    cfg = _moonshot()
+    run = _train_run(cfg, "off", TRAIN_B, TRAIN_S, site="xla", mode="fused")
+    st = _moe_state(cfg)
+    batches = _batches(cfg, run, "cuda", 2)
+    step = make_train_step(cfg, run, donate=True, compute_dtype=bf16)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    times, losses = [], []
+    for x, y in batches:
+        t0 = time.perf_counter()
+        st, m = step(st, x, y)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append((float(m["loss"]), float(m["grad_norm"])))
+    counts, want = launch_counts(), _expected_fused_launches(
+        cfg, "block", 2, bf16)
+    if counts != want or not all(np.isfinite(v) for row in losses
+                                 for v in row):
+        raise AssertionError(f"moonshot fused bf16: launches {counts} != "
+                             f"{want} or metrics {losses}")
+    rec["moonshot_bf16"] = dict(step_s=times[-1], losses=losses,
+                                peak_gib=torch.cuda.max_memory_allocated()
+                                / 2 ** 30)
+    log(f"[train-fused] moonshot-v1-16b-a3b x{MOE_LAYERS} bf16 fused: 2 "
+        f"steps (loss, grad norm) {losses}, step times "
+        f"{[round(t, 4) for t in times]} s (the first includes set-up), "
+        f"peak {rec['moonshot_bf16']['peak_gib']:.2f} GiB; launches == the "
+        f"fused formula | {state['smi']}")
+    del st, step, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+# ------------------------------------------------------------------ phase 11
+GRIFFIN_LAYERS, GRIFFIN_B, GRIFFIN_S = 6, 1, 4096
+
+
+def phase_train_griffin(state) -> None:
+    """recurrentgemma-9b at full width and 6 of its 38 layers -- two (R, R,
+    A) super-blocks: four RG-LRU blocks and two LOCAL attention layers
+    (window 2048, 16 query heads over one kv head, head_dim 256) -- at
+    B=1, S=4096 (the window binds), compute_dtype=bf16, the bf16 flash
+    kernels' D = 256 instances, p=0.1, remat="block", site "ffn_up" /
+    bf16: L2's gate+up GEMM makes L5's plane, carried past L3 and L4
+    (emit stride 3). Step 0 under premask (its updated weights kept on the
+    host) and 3 replay steps from the same state, step 0 bitwise equal;
+    launches against the schedule's formula; then one fused step. The
+    state is donated to each step. Records step time, peak memory, busy
+    share and the device time by kernel, and the shares of the RG-LRU scan
+    and the f32 unembedding (each timed alone on the step's shapes)."""
+    from repro_torch.config import get_arch
+    from repro_torch.config.base import AttentionKind
+    from repro_torch.models.rglru import _scan_recurrence
+    from repro_torch.train import (
+        compile_run_schedule,
+        init_train_state,
+        make_train_step,
+    )
+    bf16 = torch.bfloat16
+    cfg = dataclasses.replace(get_arch("recurrentgemma-9b"),
+                              n_layers=GRIFFIN_LAYERS)
+    assert (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+            cfg.d_ff, cfg.vocab_size, cfg.local_window) == (
+        4096, 16, 1, 256, 12288, 256000, 2048)
+    assert cfg.layer_kinds() == (AttentionKind.RECURRENT,
+                                 AttentionKind.RECURRENT,
+                                 AttentionKind.LOCAL) * 2
+    tag = "[train-griffin]"
+    b, s = GRIFFIN_B, GRIFFIN_S
+    run_r = _train_run(cfg, "auto", b, s, site="ffn_up", gemm_dtype="bf16")
+    run_p = _train_run(cfg, "off", b, s, site="ffn_up", gemm_dtype="bf16")
+    sched_r = compile_run_schedule(cfg, run_r)
+    sched_p = compile_run_schedule(cfg, run_p)
+    for sched in (sched_r, sched_p):
+        log(f"{tag} {sched.explain()}")
+    if [a.emit_stride for a in sched_r.assignments if a.consumes] != \
+            [3, 3] or not (sched_r.replay and sched_p.carried):
+        raise AssertionError(f"unexpected schedule:\n{sched_r.explain()}")
+
+    def fresh():
+        gc.collect()
+        torch.cuda.empty_cache()
+        return init_train_state(cfg, seed=0, device="cuda")
+
+    torch.cuda.reset_peak_memory_stats()
+    st = fresh()
+    n_params = sum(t.numel() for t in leaves(st["master"]))
+    log(f"{tag} {cfg.name} x{cfg.n_layers} layers: {n_params / 1e9:.3f}B "
+        f"f32 params + AdamW moments on the card")
+    batches = _batches(cfg, run_r, "cuda", 3)
+    step_r = make_train_step(cfg, run_r, donate=True, compute_dtype=bf16)
+    step_p = make_train_step(cfg, run_p, donate=True, compute_dtype=bf16)
+    reset_launch_counts()
+    st, m_p = step_p(st, *batches[0])
+    updated_p = [t.cpu() for t in leaves(st["master"])]
+    counts_p = launch_counts()
+    del st
+    st = fresh()
+    reset_launch_counts()
+    times, losses = [], []
+    for i, (x, y) in enumerate(batches):
+        t0 = time.perf_counter()
+        st, m = step_r(st, x, y)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append((float(m["loss"]), float(m["grad_norm"])))
+        if i == 0 and not (torch.equal(m["loss"], m_p["loss"])
+                           and torch.equal(m["grad_norm"], m_p["grad_norm"])
+                           and all(torch.equal(t.cpu(), u) for t, u in zip(
+                               leaves(st["master"]), updated_p))):
+            raise AssertionError("griffin: replay and premask step 0 differ")
+    del updated_p
+    counts = _add_counts(launch_counts(), counts_p)
+    want = _add_counts(
+        _expected_launches(sched_r, "block", 3, cfg, compute_dtype=bf16),
+        _expected_launches(sched_p, "block", 1, cfg, compute_dtype=bf16))
+    if counts != want or not all(np.isfinite(v) for row in losses
+                                 for v in row):
+        raise AssertionError(f"griffin: launches {counts} != {want} or "
+                             f"metrics {losses}")
+    fwd = flash.instance(flash.KERNEL_BF16, cfg.head_dim)
+    if counts[fwd] == 0:
+        raise AssertionError(f"griffin: {fwd} never launched")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    step_s = float(np.mean(times[1:]))
+    rec = state["train_griffin"] = dict(step_s=step_s, peak_gib=peak,
+                                        tokens_per_s=b * s / step_s,
+                                        losses=losses, launches=counts)
+    log(f"{tag} ffn_up/bf16: step 0 (premask) + 3 steps (replay): (loss, "
+        f"grad norm) {losses}; replay and premask step 0 bitwise equal "
+        f"(loss, grad norm, all updated weights); launches {counts} == the "
+        f"schedule's formula; step times {[round(t, 4) for t in times]} s, "
+        f"steady {step_s:.4f} s = {b * s / step_s:.1f} tokens/s, peak "
+        f"{peak:.2f} GiB | {state['smi']}")
+    _profile_train(step_r, st, batches[0], rec, state["smi"])
+    rec["kernels"] = _kernel_groups(rec.pop("kernels_ms"))
+    # the RG-LRU scan and the f32 unembedding, each timed alone at the
+    # step's shapes: the scan forward and backward a recurrent layer (the
+    # forward twice under remat), the logits GEMM and its two dgrads
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    la = -torch.rand((b, s, cfg.d_model), generator=gen, device="cuda")
+    ga = torch.randn((b, s, cfg.d_model), generator=gen, device="cuda")
+    la.requires_grad_()
+    ga.requires_grad_()
+    ct = torch.randn_like(ga)
+
+    def scan_fb():
+        h = _scan_recurrence(la, ga)
+        torch.autograd.grad(h, (la, ga), ct)
+
+    scan_ms = cuda_time_ms(scan_fb, 3) + cuda_time_ms(
+        lambda: _scan_recurrence(la.detach(), ga.detach()), 3)
+    n_rec = sum(k == AttentionKind.RECURRENT for k in cfg.layer_kinds())
+    xs = torch.randn((b * s, cfg.d_model), generator=gen, device="cuda")
+    w = torch.randn((cfg.d_model, cfg.vocab_size), generator=gen,
+                    device="cuda")
+    g = torch.randn((b * s, cfg.vocab_size), generator=gen, device="cuda")
+    unembed_ms = (cuda_time_ms(lambda: xs @ w, 3)
+                  + cuda_time_ms(lambda: g @ w.T, 3)
+                  + cuda_time_ms(lambda: xs.T @ g, 3))
+    del la, ga, ct, xs, w, g
+    rec["scan_share"] = n_rec * scan_ms / 1e3 / step_s
+    rec["unembed_share"] = unembed_ms / 1e3 / step_s
+    log(f"{tag} the RG-LRU scan (forward twice, backward once a layer, "
+        f"timed alone): {scan_ms:.3f} ms a layer x {n_rec} = "
+        f"{rec['scan_share'] * 100:.1f}% of the step; the f32 unembedding "
+        f"and its two dgrads (timed alone): {unembed_ms:.3f} ms = "
+        f"{rec['unembed_share'] * 100:.1f}%; device ms by kernel "
+        f"{rec['kernels']} | {state['smi']}")
+    # one fused step from the replay state
+    run_f = _train_run(cfg, "off", b, s, site="xla", mode="fused")
+    step_f = make_train_step(cfg, run_f, donate=True, compute_dtype=bf16)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    st, m = step_f(st, *batches[0])
+    torch.cuda.synchronize()
+    rec["fused_step_s"] = time.perf_counter() - t0
+    counts, want = launch_counts(), _expected_fused_launches(
+        cfg, "block", 1, bf16)
+    if counts != want or not np.isfinite(float(m["loss"])):
+        raise AssertionError(f"griffin fused: launches {counts} != {want} "
+                             f"or loss {float(m['loss'])}")
+    log(f"{tag} one fused step: loss {float(m['loss']):.6f}, "
+        f"{rec['fused_step_s']:.4f} s (its first call), launches == the "
+        f"fused formula | {state['smi']}")
+    del st, step_r, step_p, step_f, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def kernel_records(state):
     """One record a TPU kernel instance (each function that reaches
     pl.pallas_call, at each operand dtype the port runs), in the order of
@@ -3392,8 +4017,13 @@ def kernel_records(state):
                     bound_by=row["plain_variant_bound_by"],
                     library_ms=row["library_ms"])
 
+    fused = state["train_fused"]
+
     def modes(name):
-        return {"modes_ms": t[name]["modes_ms"]}
+        # the launches of a fused step of llama2 x 4 at the kernel's dtype
+        dname = "bfloat16" if name.endswith("bf16") else "float32"
+        return {"modes_ms": t[name]["modes_ms"], "fused_step_launches":
+                fused[dname]["fused"]["launches"].get(name, 0)}
 
     def f32_extras(row):
         # rows 2, 3, 9, 10: the tensor-core body they instantiate
@@ -3468,6 +4098,19 @@ def kernel_records(state):
          "src/repro/kernels/flash_attention_bwd.py:137", "train_bf16",
          l16[flash_bwd.KERNEL_DKV_BF16], errs[flash_bwd.KERNEL_DKV_BF16],
          t[flash_bwd.KERNEL_DKV_BF16], modes(flash_bwd.KERNEL_DKV_BF16)),
+        *((flash.instance(n, 256),
+           f"{flash.SOURCES.get(n) or flash_bwd.SOURCES[n]}.cu",
+           replaces, "train_griffin",
+           state["train_griffin"]["launches"][flash.instance(n, 256)],
+           errs[flash.instance(n, 256)], t[flash.instance(n, 256)],
+           {"modes_ms": t[flash.instance(n, 256)]["modes_ms"],
+            "shape": list(WIDE_SHAPE), "local_window": WIDE_CASES[-1][1]})
+          for n, replaces in (
+              (flash.KERNEL_BF16, "src/repro/kernels/flash_attention.py:58"),
+              (flash_bwd.KERNEL_DQ_BF16,
+               "src/repro/kernels/flash_attention_bwd.py:77"),
+              (flash_bwd.KERNEL_DKV_BF16,
+               "src/repro/kernels/flash_attention_bwd.py:137"))),
         (g16, "gemm_rng_grouped_bf16.cu", f"{g}:551", "train_moe_bf16",
          state["moe_bf16_launches"][g16], errs[g16], t[g16],
          bf16_extras(t[g16])),
@@ -3509,7 +4152,8 @@ def main() -> int:
                   phase_kernels_grouped_bf16, phase_serve_reference,
                   phase_serve, phase_train_reference, phase_train,
                   phase_train_sites, phase_train_moe, phase_train_bf16,
-                  phase_train_moe_bf16):
+                  phase_train_moe_bf16, phase_train_fused,
+                  phase_train_griffin):
         phase(state)
         log(f"[time] {phase.__name__} done at "
             f"{time.perf_counter() - t0:.1f}s")

@@ -3,7 +3,9 @@
 The port keeps the JAX layout (``(d_in, d_out)`` weights used as
 ``x @ w``, stacks carrying a leading ``count`` axis), so the conversion is
 a plain copy of every array, with the tree's structure checked against
-the config.
+the config: the stacks' units and counts, each RG-LRU layer's leaves, and
+the token embedding's (vocab, d_model) shape (tied embeddings carry no
+separate unembedding).
 """
 from __future__ import annotations
 
@@ -12,10 +14,15 @@ from typing import Any
 import numpy as np
 import torch
 
-from repro_torch.config.base import ModelConfig
+from repro_torch.config.base import AttentionKind, ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.transformer import build_stacks
 from repro_torch.tree import leaves
+
+
+# the JAX package's RG-LRU layer (models/rglru.py::rglru_init)
+RGLRU_LEAVES = ("b_a", "b_i", "conv_b", "conv_w", "lambda", "w_a", "w_gate",
+                "w_i", "w_out", "w_x")
 
 
 def _convert(node, device):
@@ -44,5 +51,18 @@ def params_from_jax(np_tree: Any, cfg: ModelConfig,
             if np.shape(leaf)[0] != spec.count:
                 raise ValueError(f"stacked leaf {np.shape(leaf)} lacks the "
                                  f"leading count {spec.count}")
+        for j, (kind, _) in enumerate(spec.unit):
+            mix = sorted(stack[f"l{j}"]["mix"])
+            if kind == AttentionKind.RECURRENT and mix != list(RGLRU_LEAVES):
+                raise ValueError(f"RG-LRU layer l{j} of {cfg.name} has "
+                                 f"leaves {mix}, not {list(RGLRU_LEAVES)}")
+    if cfg.frontend == "token":
+        shape = tuple(np.shape(np_tree["embed"]))
+        if shape != (cfg.vocab_size, cfg.d_model):
+            raise ValueError(f"embed {shape} is not (vocab, d_model) = "
+                             f"{(cfg.vocab_size, cfg.d_model)}")
+        if cfg.tie_embeddings and "unembed" in np_tree:
+            raise ValueError(f"{cfg.name} ties its embeddings, but the tree "
+                             "carries an unembedding")
     return _convert(np_tree, resolve_device(device))
 

@@ -1,9 +1,11 @@
 """Attention cores.
 
 ``attention_xla`` — q-chunked attention in plain tensor ops (memory
-    O(chunk * SK)); the prefill path. In overlap mode it consumes packed
-    keep bits made by a producer; the fused mode (bits generated inside
-    each chunk) is not ported yet.
+    O(chunk * SK)); the prefill path and the training path under
+    ``attn_impl="xla"``. In overlap mode it consumes packed keep bits made
+    by a producer; in fused mode (the paper's baseline) each chunk draws
+    its own keep bits (``DropoutPlan.chunk_keep_mask``): the same counters,
+    so the same bits.
 """
 from __future__ import annotations
 
@@ -60,7 +62,8 @@ def attention_xla(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q (B,H,SQ,D); k,v (B,KV,SK,D); H % KV == 0. Returns (B,H,SQ,D).
 
     With an enabled ``plan``, ``packed_mask`` carries the producer's
-    packed keep bits (overlap mode)."""
+    packed keep bits (overlap mode); without one (fused mode) the bits
+    are drawn inside each chunk, a padded last chunk's rows included."""
     b, h, sq, d = q.shape
     kv, sk = k.shape[1], k.shape[2]
     g = h // kv
@@ -68,10 +71,6 @@ def attention_xla(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         scale = 1.0 / (d ** 0.5)
     dropped = plan is not None and plan.enabled
     p_drop = plan.cfg.p if dropped else 0.0
-    if dropped and packed_mask is None:
-        raise NotImplementedError(
-            "fused-mode dropout inside attention_xla is not ported yet "
-            "(ROADMAP: port queue)")
     if g > 1:
         k = torch.repeat_interleave(k, g, dim=1)
         v = torch.repeat_interleave(v, g, dim=1)
@@ -80,7 +79,7 @@ def attention_xla(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if pad:
         # padded query rows produce garbage rows that are sliced off below
         q = torch.nn.functional.pad(q, (0, 0, 0, pad))
-        if dropped:
+        if dropped and packed_mask is not None:
             # keep the last chunk's mask rows aligned with its queries
             packed_mask = torch.nn.functional.pad(packed_mask,
                                                   (0, 0, 0, pad // 32))
@@ -90,9 +89,12 @@ def attention_xla(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         q_start = ci * cq
         qc = q[:, :, q_start:q_start + cq]
         keep = None
-        if dropped:
+        if dropped and packed_mask is not None:
             pm = packed_mask[:, :, ci * (cq // 32):(ci + 1) * (cq // 32)]
             keep = dropout_rng.unpack_block(pm, cq)
+        elif dropped:
+            keep = plan.chunk_keep_mask(b, h, q_start, cq, sk, layer_idx,
+                                        step, device=q.device)
         outs.append(_chunk_attend(qc, k, v, q_start, sk, causal,
                                   local_window, scale, keep, p_drop,
                                   probs_dtype))

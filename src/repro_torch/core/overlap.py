@@ -62,3 +62,17 @@ class DropoutPlan:
             batch, n_heads, sq, sk, self.cfg.p, self.step_seed(step),
             self.salt(layer_idx), self.cfg.philox_rounds,
             self.cfg.philox_bits, device=device)
+
+    def chunk_keep_mask(self, batch: int, n_heads: int, q_start: int,
+                        cq: int, sk: int, layer_idx, step,
+                        device: DeviceLike = None) -> Optional[torch.Tensor]:
+        """Fused mode's keep bits of one attention q-chunk, bool (B, H, cq,
+        SK) for query rows [q_start, q_start + cq), drawn where the chunk
+        is attended: the same counters, so the same bits, as the packed
+        plane's rows. None when the plan is disabled."""
+        if not self.enabled:
+            return None
+        return dropout_rng.keep_mask_block(
+            batch, n_heads, q_start, cq, sk, self.cfg.p,
+            self.step_seed(step), self.salt(layer_idx),
+            self.cfg.philox_rounds, self.cfg.philox_bits, device=device)

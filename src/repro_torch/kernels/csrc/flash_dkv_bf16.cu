@@ -46,6 +46,12 @@
 // replace dP^T: the peak is dK, dV, dP^T, one set of fragments and a
 // chunk, about 240 live values. Shared memory: K, V and two stages of Q,
 // dO, lse, Delta, 99 KB at D = 128 -- two CTAs an SM.
+//
+// At D = 256 dK and dV alone would take 256 registers a thread: two
+// warpgroups then take the same 64 keys, each both score products in full
+// (the same arithmetic, so the same P_drop and dS) and dV, dK over one
+// 128-column half of dO and Q -- the D = 128 instance's registers, with
+// the score products run twice. 195 KB of shared memory: one CTA an SM.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -76,6 +82,12 @@ __host__ __device__ constexpr int stage_bytes() {
   return (2 * tile_bytes<D>() + 2 * 256 + 1023) / 1024 * 1024;
 }
 
+// warpgroups a CTA, each holding D / dkv_warpgroups<D>() columns of dK, dV
+template <int D>
+__host__ __device__ constexpr int dkv_warpgroups() {
+  return D > 128 ? 2 : 1;
+}
+
 template <int D>
 constexpr int dkv_smem_bytes() {
   // alignment slack, K, V, two stages, three mbarriers
@@ -83,7 +95,7 @@ constexpr int dkv_smem_bytes() {
 }
 
 template <int D, int MODE>
-__global__ void __launch_bounds__(WG, 1)
+__global__ void __launch_bounds__(WG * dkv_warpgroups<D>(), 1)
     flash_dkv_kernel_sm90(const __grid_constant__ CUtensorMap map_q,
                           const __grid_constant__ CUtensorMap map_k,
                           const __grid_constant__ CUtensorMap map_v,
@@ -91,6 +103,8 @@ __global__ void __launch_bounds__(WG, 1)
                           DkvArgs p) {
   constexpr int TILE = tile_bytes<D>();
   constexpr int STAGE = stage_bytes<D>();
+  constexpr int WGS = dkv_warpgroups<D>();
+  constexpr int NC = D / WGS;  // dK, dV columns a warpgroup holds
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t ks = (raw + 1023u) & ~1023u;
@@ -98,7 +112,11 @@ __global__ void __launch_bounds__(WG, 1)
   const uint32_t ring = vs + TILE;
   const uint32_t bar = ring + 2 * STAGE;  // K / V's barrier, then stage s's
 
-  const int t = threadIdx.x, w = t / 32, l = t % 32, c = l % 4;
+  const int t = WGS == 1 ? threadIdx.x : threadIdx.x % WG;
+  const int w = t / 32, l = t % 32, c = l % 4;
+  const int col0 = WGS == 1 ? 0 : NC * (threadIdx.x / WG);
+  // this warpgroup's columns of a Q or dO tile: col0 / 64 boxes in
+  const uint32_t half = (col0 / 64) * 64 * row_bytes<D>();
   const int ki = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int kvh = h / (p.H / p.KV);
   const int k_start = ki * BK;
@@ -115,7 +133,7 @@ __global__ void __launch_bounds__(WG, 1)
       ++n;
     }
 
-  if (t == 0) {
+  if (threadIdx.x == 0) {
     for (int i = 0; i < 3; ++i) mbar_init(bar + 8 * i, 1);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
@@ -128,7 +146,7 @@ __global__ void __launch_bounds__(WG, 1)
     bulk_load(st + 2 * TILE, lse_g + q_start, 256, full);
     bulk_load(st + 2 * TILE + 256, delta_g + q_start, 256, full);
   };
-  if (t == 0) {
+  if (threadIdx.x == 0) {
     const int kv_row = (b * p.KV + kvh) * p.SK + k_start;
     mbar_expect_tx(bar, 2 * TILE);
     load_tile<D>(ks, &map_k, bar, kv_row);
@@ -136,7 +154,7 @@ __global__ void __launch_bounds__(WG, 1)
     for (int s = 0; s < 2 && s < n; ++s) load_stage(s, (q_first + s) * BQ);
   }
 
-  float dk[D / 2], dv[D / 2];
+  float dk[NC / 2], dv[NC / 2];
   zero(dk);
   zero(dv);
   mbar_wait_or_trap(bar, 0);
@@ -201,23 +219,23 @@ __global__ void __launch_bounds__(WG, 1)
     // P_drop's fragments are released before dS's are made
     uint32_t a[3][4][4];
     a_frags(st, a);
-    add_product<D>(dv, a, dot);
+    add_product<NC>(dv, a, dot + half);
     a_frags(dpt, a);
-    add_product<D>(dk, a, qt);
+    add_product<NC>(dk, a, qt + half);
 
     // every warp's products and reads of this stage are done: refill it
     __syncthreads();
-    if (t == 0 && it + 2 < n) load_stage(s, q_start + 2 * BQ);
+    if (threadIdx.x == 0 && it + 2 < n) load_stage(s, q_start + 2 * BQ);
   }
 
   const size_t row0 = (static_cast<size_t>(b) * p.H + h) * p.SK + k_start +
                       16 * w + l / 4;
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
-    __nv_bfloat16* krow = p.dk + (row0 + 8 * hh) * D;
-    __nv_bfloat16* vrow = p.dv + (row0 + 8 * hh) * D;
+    __nv_bfloat16* krow = p.dk + (row0 + 8 * hh) * D + col0;
+    __nv_bfloat16* vrow = p.dv + (row0 + 8 * hh) * D + col0;
 #pragma unroll
-    for (int g = 0; g < D / 8; ++g) {
+    for (int g = 0; g < NC / 8; ++g) {
       *reinterpret_cast<__nv_bfloat162*>(krow + 8 * g + 2 * c) =
           __floats2bfloat162_rn(dk[4 * g + 2 * hh], dk[4 * g + 2 * hh + 1]);
       *reinterpret_cast<__nv_bfloat162*>(vrow + 8 * g + 2 * c) =
@@ -233,8 +251,8 @@ int launch(const CUtensorMap (&maps)[4], const DkvArgs& p, cudaStream_t s) {
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<dim3(p.SK / BK, p.H, p.B), WG, smem, s>>>(maps[0], maps[1],
-                                                     maps[2], maps[3], p);
+  kernel<<<dim3(p.SK / BK, p.H, p.B), WG * dkv_warpgroups<D>(), smem, s>>>(
+      maps[0], maps[1], maps[2], maps[3], p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -259,7 +277,7 @@ int run_d(const void* q, const void* k, const void* v, const void* dout,
 
 // dk, dv (B,H,SK,D) per query head, bf16, from bf16 q (B,H,SQ,D), k/v
 // (B,KV,SK,D), dout (B,H,SQ,D) and f32 lse, delta (B,H,SQ), all contiguous
-// and on 16 bytes; SQ and SK multiples of 64; D in {16, 32, 64, 128}. The
+// and on 16 bytes; SQ and SK multiples of 64; D in {16, 32, 64, 128, 256}. The
 // arguments of repro_flash_dkv (flash_dkv_f32.cu); dq is not written. Launches
 // on `stream`; returns the CUDA error code (0 on success),
 // cudaErrorInvalidValue for what it does not take or a tensor map that
@@ -296,6 +314,7 @@ extern "C" int repro_flash_dkv_bf16(
     case 32: return run_d<32>(q, k, v, dout, p, mode, s);
     case 64: return run_d<64>(q, k, v, dout, p, mode, s);
     case 128: return run_d<128>(q, k, v, dout, p, mode, s);
+    case 256: return run_d<256>(q, k, v, dout, p, mode, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -307,6 +326,7 @@ extern "C" int repro_flash_dkv_bf16_smem_bytes(int D) {
     case 32: return dkv_smem_bytes<32>();
     case 64: return dkv_smem_bytes<64>();
     case 128: return dkv_smem_bytes<128>();
+    case 256: return dkv_smem_bytes<256>();
     default: return 0;
   }
 }

@@ -51,6 +51,13 @@
 // 0.0615 %, and fewer at every shape and mode measured.
 // dq is rounded once to bf16 at the store. Shared memory: Q, dO and two
 // stages of K and V, 99 KB at D = 128 -- two CTAs an SM.
+//
+// At D = 256 dq alone would take 128 registers a thread beside S, dP, the
+// fragments and a product chunk: two warpgroups then take the same 64
+// query rows, each both score products in full (the same arithmetic, so
+// the same dS) and dS K and dq over one 128-column half of K -- the D = 128
+// instance's registers, with the score products run twice. 193 KB of
+// shared memory: one CTA an SM.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -73,6 +80,12 @@ struct DqArgs {
   int causal, local_window;
   Dropout dp;
 };
+
+// warpgroups a CTA, each holding D / dq_warpgroups<D>() columns of dq
+template <int D>
+__host__ __device__ constexpr int dq_warpgroups() {
+  return D > 128 ? 2 : 1;
+}
 
 template <int D>
 constexpr int dq_smem_bytes() {
@@ -224,15 +237,172 @@ __global__ void __launch_bounds__(WG, 1)
   }
 }
 
+// The D = 256 instance (dq_warpgroups<D>() == 2): the kernel above with
+// two warpgroups on the same 64 query rows, each both score products
+// and dS K and dq over one 128-column half of K. A kernel of its own, so
+// that the D <= 128 instances above keep their machine code.
+template <int D, int MODE>
+__global__ void __launch_bounds__(WG * dq_warpgroups<D>(), 1)
+    flash_dq_kernel_wide(const __grid_constant__ CUtensorMap map_q,
+                         const __grid_constant__ CUtensorMap map_k,
+                         const __grid_constant__ CUtensorMap map_v,
+                         const __grid_constant__ CUtensorMap map_do,
+                         DqArgs p) {
+  constexpr int TILE = tile_bytes<D>();
+  constexpr int NC = D / dq_warpgroups<D>();  // dq columns a warpgroup holds
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t qs = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t dos = qs + TILE;
+  const uint32_t ring = dos + TILE;  // stage s: K at ring + 2 s TILE, then V
+  const uint32_t bar = ring + 4 * TILE;  // Q / dO's barrier, then stage s's
+
+  const int t = threadIdx.x % WG, w = t / 32, l = t % 32, c = l % 4;
+  const int col0 = NC * (threadIdx.x / WG);  // this warpgroup's columns
+  const int qi = gridDim.x - 1 - blockIdx.x;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int kvh = h / (p.H / p.KV);
+  const int q_start = qi * BQ;
+  const int q_offset = p.SK - p.SQ;
+  const int q_row = (b * p.H + h) * p.SQ + q_start;
+  const int kv_row = (b * p.KV + kvh) * p.SK;
+
+  // the k-blocks that hold a valid score: one contiguous run
+  int k_first = 0, n = 0;
+  for (int ki = 0; ki < p.SK / BK; ++ki)
+    if (tile_runs(q_start, ki * BK, q_offset, p.causal, p.local_window)) {
+      if (n == 0) k_first = ki;
+      ++n;
+    }
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 3; ++i) mbar_init(bar + 8 * i, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    mbar_expect_tx(bar, 2 * TILE);
+    load_tile<D>(qs, &map_q, bar, q_row);
+    load_tile<D>(dos, &map_do, bar, q_row);
+    for (int s = 0; s < 2 && s < n; ++s) {
+      const uint32_t full = bar + 8 + 8 * s;
+      mbar_expect_tx(full, 2 * TILE);
+      load_tile<D>(ring + 2 * s * TILE, &map_k, full,
+                   kv_row + (k_first + s) * BK);
+      load_tile<D>(ring + (2 * s + 1) * TILE, &map_v, full,
+                   kv_row + (k_first + s) * BK);
+    }
+  }
+
+  // this thread's rows: q_start + 16 w + l / 4 + 8 hh
+  const size_t row0 = static_cast<size_t>(q_row) + 16 * w + l / 4;
+  float lse[2], delta[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    lse[hh] = p.lse[row0 + 8 * hh];
+    delta[hh] = p.delta[row0 + 8 * hh];
+  }
+  float dq[NC / 2];
+  zero(dq);
+  mbar_wait_or_trap(bar, 0);
+
+  for (int it = 0; it < n; ++it) {
+    const int s = it & 1;
+    const int k_start = (k_first + it) * BK;
+    const uint32_t ks = ring + 2 * s * TILE, vs = ks + TILE;
+    mbar_wait_or_trap(bar + 8 + 8 * s, (it >> 1) & 1);
+
+    // S = Q K^T, then dP = dO V^T, committed apart (rows are queries,
+    // columns keys): the keep bits are made under both products, P's
+    // exponentials under the dP product
+    float sc[32], dp[32];  // replaced by their first products
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < D / 16; ++j)
+      wgmma_ss_n64(sc, desc_k<D>(qs, j), desc_k<D>(ks, j), j);
+    wgmma_commit();
+#pragma unroll
+    for (int j = 0; j < D / 16; ++j)
+      wgmma_ss_n64(dp, desc_k<D>(dos, j), desc_k<D>(vs, j), j);
+    wgmma_commit();
+    uint32_t kb[2];
+    keep_fwd<MODE>(p.dp, b, h, p.H, p.SQ, p.SK, q_start, k_start, kb);
+    wgmma_wait1();
+    fence_acc(sc);
+
+    // element (hh, g, e): query q_start + 16w + l/4 + 8hh, key k_start +
+    // 8g + 2c + e; sc becomes P, then dp becomes dS * scale
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int q_pos = q_start + 16 * w + l / 4 + 8 * hh + q_offset;
+#pragma unroll
+      for (int g = 0; g < 8; ++g)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int i = 4 * g + 2 * hh + e;
+          float v = sc[i] * p.scale;
+          if ((p.causal || p.local_window > 0) &&
+              !score_valid(q_pos, k_start + 8 * g + 2 * c + e, p.causal,
+                           p.local_window))
+            v = neg_big();
+          sc[i] = expf(v - lse[hh]);
+        }
+    }
+    wgmma_wait0();
+    fence_acc(dp);
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+      for (int g = 0; g < 8; ++g)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int i = 4 * g + 2 * hh + e;
+          float gd = dp[i];
+          if (MODE != kNone)
+            gd = ((kb[hh] >> (2 * g + e)) & 1u) ? gd * p.dp.inv_keep : 0.f;
+          dp[i] = sc[i] * (gd - delta[hh]) * p.scale;
+        }
+
+    // dq += dS K with dS as hi + mid + lo, the smallest parts first: this
+    // k-block's product is one of its own, folded into dq by f32 adds
+    uint32_t a[3][4][4];
+    a_frags(dp, a);
+    add_product<NC, true>(dq, a, ks + (col0 / 64) * 64 * row_bytes<D>());
+
+    // every warp's products on this stage are done: refill it
+    __syncthreads();
+    if (threadIdx.x == 0 && it + 2 < n) {
+      const uint32_t full = bar + 8 + 8 * s;
+      mbar_expect_tx(full, 2 * TILE);
+      load_tile<D>(ks, &map_k, full, kv_row + k_start + 2 * BK);
+      load_tile<D>(vs, &map_v, full, kv_row + k_start + 2 * BK);
+    }
+  }
+
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    __nv_bfloat16* row = p.dq + (row0 + 8 * hh) * D + col0;
+#pragma unroll
+    for (int g = 0; g < NC / 8; ++g)
+      *reinterpret_cast<__nv_bfloat162*>(row + 8 * g + 2 * c) =
+          __floats2bfloat162_rn(dq[4 * g + 2 * hh], dq[4 * g + 2 * hh + 1]);
+  }
+}
+
 template <int D, int MODE>
 int launch(const CUtensorMap (&maps)[4], const DqArgs& p, cudaStream_t s) {
   constexpr int smem = dq_smem_bytes<D>();
-  auto kernel = flash_dq_kernel<D, MODE>;
+  // only the kernel this D runs is instantiated
+  const auto kernel = [] {
+    if constexpr (dq_warpgroups<D>() == 1)
+      return flash_dq_kernel<D, MODE>;
+    else
+      return flash_dq_kernel_wide<D, MODE>;
+  }();
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<dim3(p.SQ / BQ, p.H, p.B), WG, smem, s>>>(maps[0], maps[1],
-                                                     maps[2], maps[3], p);
+  kernel<<<dim3(p.SQ / BQ, p.H, p.B), WG * dq_warpgroups<D>(), smem, s>>>(
+      maps[0], maps[1], maps[2], maps[3], p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -257,8 +427,8 @@ int run_d(const void* q, const void* k, const void* v, const void* dout,
 
 // dq (B,H,SQ,D) bf16 from bf16 q (B,H,SQ,D), k/v (B,KV,SK,D), dout
 // (B,H,SQ,D) and f32 lse, delta (B,H,SQ), all contiguous and on 16 bytes;
-// SQ and SK multiples of 64; D in {16, 32, 64, 128}. The arguments of
-// repro_flash_dq (flash_dq_f32.cu); dk and dv are not written. Launches on
+// SQ and SK multiples of 64; D in {16, 32, 64, 128, 256}. The arguments
+// of repro_flash_dq (flash_dq_f32.cu); dk and dv are not written. Launches on
 // `stream`; returns the CUDA error code (0 on success),
 // cudaErrorInvalidValue for what it does not take or a tensor map that
 // cuTensorMapEncodeTiled refuses.
@@ -293,6 +463,7 @@ extern "C" int repro_flash_dq_bf16(
     case 32: return run_d<32>(q, k, v, dout, p, mode, s);
     case 64: return run_d<64>(q, k, v, dout, p, mode, s);
     case 128: return run_d<128>(q, k, v, dout, p, mode, s);
+    case 256: return run_d<256>(q, k, v, dout, p, mode, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -304,6 +475,7 @@ extern "C" int repro_flash_dq_bf16_smem_bytes(int D) {
     case 32: return dq_smem_bytes<32>();
     case 64: return dq_smem_bytes<64>();
     case 128: return dq_smem_bytes<128>();
+    case 256: return dq_smem_bytes<256>();
     default: return 0;
   }
 }

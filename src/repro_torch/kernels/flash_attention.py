@@ -26,7 +26,9 @@ order of the f32 sums and writes O in bf16, lse in f32; f32 q/k/v run
 triples as well and sums the six part products of each f32 product that
 reach 2^-16, the f32 function up to the order of the sums. What bounds
 each on an H100 and how it tiles: see the notes in the CUDA sources. Both
-take SQ and SK multiples of 64 and head_dim in {16, 32, 64, 128};
+take SQ and SK multiples of 64 and head_dim in {16, 32, 64, 128}, the bf16
+one also 256 (``KERNEL_HEAD_DIMS``; two warpgroups a CTA, each holding
+one column half of O, counted as the instance ``flash_fwd_bf16_d256``);
 anything else on the card raises.
 
 The seed-salt word is host data: the kernels take its four words by
@@ -60,13 +62,25 @@ KERNELS = {torch.float32: KERNEL, torch.bfloat16: KERNEL_BF16}
 SOURCES = {KERNEL: "flash_fwd_f32", KERNEL_BF16: "flash_fwd_bf16"}
 
 NEG_BIG = float(np.float32(-0.7 * np.finfo(np.float32).max))
-KERNEL_HEAD_DIMS = (16, 32, 64, 128)
+# head dims each dtype's kernels take; f32 at 256 waits for its own tiling
+# (ROADMAP queue 2: its operand triples fill shared memory at 128)
+KERNEL_HEAD_DIMS = {torch.float32: (16, 32, 64, 128),
+                    torch.bfloat16: (16, 32, 64, 128, 256)}
+# the head dim whose instances count their launches apart (name + "_d256")
+WIDE_HEAD_DIM = 256
 KERNEL_TILE = 64
 # plain versions: score elements per q-chunk
 _PLAIN_CHUNK_ELEMS = 1 << 24
 _MODE_CODE = {"none": 0, "premask": 1, "replay": 2, "fused": 2}
 
-_launches = {name: 0 for name in KERNELS.values()}
+def instance(name: str, head_dim: int) -> str:
+    """The launch counter of kernel ``name`` at ``head_dim``: the D = 256
+    instances (two warpgroups a CTA) count apart from the narrower ones."""
+    return f"{name}_d{head_dim}" if head_dim == WIDE_HEAD_DIM else name
+
+
+_launches = {n: 0 for dtype, name in KERNELS.items()
+             for n in {instance(name, d) for d in KERNEL_HEAD_DIMS[dtype]}}
 _fns = {}
 
 
@@ -234,14 +248,18 @@ def score_mask(q0: int, cq: int, sq: int, sk: int, causal: bool,
     return valid
 
 
-def kernel_shape_unsupported_reason(sq: int, sk: int,
-                                    head_dim: int) -> Optional[str]:
-    """Why the CUDA kernels cannot take this shape, None when they can."""
-    if sq % KERNEL_TILE or sk % KERNEL_TILE or head_dim not in \
-            KERNEL_HEAD_DIMS:
-        return (f"the flash kernels take SQ, SK multiples of {KERNEL_TILE} "
-                f"and head_dim in {KERNEL_HEAD_DIMS}; got SQ={sq} SK={sk} "
-                f"D={head_dim}")
+def kernel_shape_unsupported_reason(sq: int, sk: int, head_dim: int,
+                                    dtype=torch.float32) -> Optional[str]:
+    """Why the CUDA kernels of ``dtype`` cannot take this shape, None when
+    they can."""
+    dims = KERNEL_HEAD_DIMS[dtype]
+    if sq % KERNEL_TILE or sk % KERNEL_TILE or head_dim not in dims:
+        wait = (" (f32 at head_dim 256: ROADMAP queue 2, the f32 flash "
+                "kernels at head_dim 256)" if head_dim not in dims and
+                head_dim in KERNEL_HEAD_DIMS[torch.bfloat16] else "")
+        return (f"the {str(dtype).removeprefix('torch.')} flash kernels "
+                f"take SQ, SK multiples of {KERNEL_TILE} and head_dim in "
+                f"{dims}; got SQ={sq} SK={sk} D={head_dim}{wait}")
     return None
 
 
@@ -253,7 +271,7 @@ def check_kernel_shapes(q: torch.Tensor, k: torch.Tensor,
             f"the flash kernels take f32 or bf16 q/k/v of one dtype, got "
             f"{q.dtype}, {k.dtype}, {v.dtype}")
     reason = kernel_shape_unsupported_reason(q.shape[2], k.shape[2],
-                                             q.shape[3])
+                                             q.shape[3], q.dtype)
     if reason is not None:
         raise ValueError(reason)
 
@@ -294,7 +312,7 @@ def _fwd_kernel(q, k, v, dp: Dropout, causal, local_window, scale):
                                torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
-    _launches[name] += 1
+    _launches[instance(name, d)] += 1
     return out, lse
 
 

@@ -23,7 +23,9 @@ build or launch raises. All four are tensor-core kernels on Hopper
 two f32 operands split into exact hi + mid + lo triples of bf16 values and
 the six part products that reach 2^-16 summed in f32; the bf16 dq and dkv
 are ``csrc/flash_dq_bf16.cu`` and ``csrc/flash_dkv_bf16.cu``, where only
-dS and P_drop are f32 and enter as triples. No kernel uses atomics, so a
+dS and P_drop are f32 and enter as triples (at head_dim 256 two
+warpgroups a CTA, each holding one column half of dq or of dk and dv,
+counted as ``flash_dq_bf16_d256`` / ``flash_dkv_bf16_d256``). No kernel uses atomics, so a
 step is bitwise reproducible; what bounds each is in its CUDA source.
 """
 from __future__ import annotations
@@ -36,9 +38,11 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import (
+    KERNEL_HEAD_DIMS,
     NEG_BIG,
     Dropout,
     check_kernel_shapes,
+    instance,
     keep_rows,
     q_chunk,
     resolve_dropout,
@@ -56,7 +60,8 @@ KERNELS = {torch.float32: (KERNEL_DQ, KERNEL_DKV),
 SOURCES = {KERNEL_DQ: "flash_dq_f32", KERNEL_DKV: "flash_dkv_f32",
            KERNEL_DQ_BF16: "flash_dq_bf16", KERNEL_DKV_BF16: "flash_dkv_bf16"}
 
-_launches = {name: 0 for pair in KERNELS.values() for name in pair}
+_launches = {n: 0 for dtype, pair in KERNELS.items() for name in pair
+             for n in {instance(name, d) for d in KERNEL_HEAD_DIMS[dtype]}}
 _fns = {}
 
 
@@ -101,7 +106,7 @@ def _bwd_kernel(name, q, k, v, do, lse, delta, out_a, out_b, dp: Dropout,
             torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
-    _launches[name] += 1
+    _launches[instance(name, d)] += 1
 
 
 def _bwd_plain(q, k, v, do, lse, delta, dp: Dropout, causal, local_window,

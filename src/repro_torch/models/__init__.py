@@ -1,5 +1,5 @@
 """Decoder model for the serving path (dense full-attention stacks) and the
-training path (dense, MoE and RWKV-hybrid stacks)."""
+training path (dense, MoE, RWKV-hybrid and Griffin stacks)."""
 from repro_torch.models.transformer import (
     Runtime,
     StackSpec,

@@ -7,7 +7,10 @@ dropout plane is made under the QKV projection by the fused GEMM+RNG
 kernel and consumed by flash attention -- read from the plane (premask),
 or re-derived from the same counters in the kernels (replay, with the
 plane discarded). With site "prev_gemm" the NEXT attention layer's plane
-is made under this layer's out-projection and carried to it.
+is made under this layer's out-projection and carried to it. In fused
+mode (the paper's baseline) no plane exists: the flash kernels draw the
+keep bits from the counters inside attention, as the tensor-op attention
+draws them inside each q-chunk.
 """
 from __future__ import annotations
 
@@ -128,10 +131,14 @@ def attn_apply(p, x, cfg: ModelConfig, *, kind: AttentionKind,
     chunked tensor-op attention. Direct calls may omit ``asg``: a
     single-layer assignment is compiled on the spot. Sharding policies
     are not ported (the schedule compiler refuses them). Returns y, or
-    (y, next plane) when ``emit_next``."""
+    (y, next plane) when ``emit_next``. A fused-mode plan makes no plane
+    and takes no producer: the keep bits are drawn inside attention, by
+    the flash kernels under ``impl="pallas"`` (mode "fused"; the JAX
+    package's ``_pallas_ok`` sends such a layer to the tensor-op attention
+    instead, ROADMAP queue 3) and per q-chunk under ``impl="xla"``."""
     b, s, _ = x.shape
     if impl == "pallas":
-        reason = _flash_unsupported_reason(plan, s, cfg.head_dim)
+        reason = _flash_unsupported_reason(plan, s, cfg.head_dim, x.dtype)
         if reason is not None:
             raise NotImplementedError(f"attn_impl='pallas': {reason}")
     positions = torch.arange(s, dtype=torch.int32, device=x.device)
@@ -176,9 +183,8 @@ def attn_apply(p, x, cfg: ModelConfig, *, kind: AttentionKind,
                                           step, device=x.device)
 
     if impl == "pallas":
-        out = _attn_pallas_sharded(
-            q, k, v, packed, plan, local,
-            replay_key=(layer_idx, step) if replay else None)
+        out = _attn_pallas_sharded(q, k, v, packed, plan, local, layer_idx,
+                                   step, replay=replay)
     else:
         out = attention_xla(
             q, k, v, causal=True, local_window=local, plan=plan,
@@ -197,38 +203,49 @@ def attn_apply(p, x, cfg: ModelConfig, *, kind: AttentionKind,
     return (y, mask_in) if emit_next else y
 
 
-def _flash_unsupported_reason(plan, s: int, head_dim: int) -> Optional[str]:
+def _flash_unsupported_reason(plan, s: int, head_dim: int,
+                              dtype=torch.float32) -> Optional[str]:
     """Why the flash kernels cannot run this layer, None when they can.
     The CUDA kernels' own limits, where the JAX package's ``_pallas_ok``
-    has its TPU grid's (s % 128) and hands such a layer to the tensor-op
-    attention: in the port, ``attn_impl="pallas"`` always means the
-    kernels. Fused-mode (in-attention RNG) training is not ported on
-    either attention path."""
-    if plan is not None and plan.enabled and not plan.overlapped:
-        return (f"dropout mode={plan.cfg.mode!r} is not ported yet "
-                "(ROADMAP: port queue, fused-mode dropout)")
-    return kernel_shape_unsupported_reason(s, s, head_dim)
+    has its TPU grid's (s % 128), and refuses fused-mode plans, and hands
+    such a layer to the tensor-op attention: in the port,
+    ``attn_impl="pallas"`` always means the kernels, fused mode included
+    (they draw the keep bits from the counters). The kernels make the
+    32-bit scheme only: a fused plan with ``philox_bits=8`` (the XLA-only
+    scheme) cannot run in them."""
+    if (plan is not None and plan.enabled and not plan.overlapped
+            and plan.cfg.philox_bits != 32):
+        return (f"fused-mode dropout with philox_bits="
+                f"{plan.cfg.philox_bits} draws the XLA-only scheme, which "
+                "the flash kernels do not make")
+    return kernel_shape_unsupported_reason(s, s, head_dim, dtype)
 
 
-def _attn_pallas_sharded(q, k, v, packed, plan, local, replay_key=None):
+def _attn_pallas_sharded(q, k, v, packed, plan, local, layer_idx, step,
+                         replay: bool = False):
     """The flash kernels on one device (the no-policy branch of the JAX
-    function). ``replay_key`` = (layer_idx, step) selects mode "replay":
-    the only dropout operand is the (4,) seed-salt word."""
+    function). ``replay`` selects mode "replay": the only dropout operand
+    is the (4,) seed-salt word. A fused-mode plan runs mode "fused": the
+    kernels take the step seed and the layer salt and draw the bits
+    themselves."""
     p_drop = plan.cfg.p if (plan is not None and plan.enabled) else 0.0
-    if replay_key is not None and p_drop > 0.0:
+    seed, salt = 0, 0
+    if replay and p_drop > 0.0:
         mode = "replay"
     elif packed is not None and p_drop > 0.0:
         mode = "premask"
+    elif p_drop > 0.0 and not plan.overlapped:
+        mode = "fused"
+        seed, salt = plan.step_seed(step), plan.salt(layer_idx)
     else:
         mode = "none"
     rounds = plan.cfg.philox_rounds if plan is not None else 7
     if mode == "replay":
-        layer_idx, step = replay_key
         operand = seed_salt_smem(plan.step_seed(step), plan.salt(layer_idx))
     else:
         operand = packed if mode == "premask" else None
     return flash_attention_mosaic(q, k, v, operand, True, local, p_drop,
-                                  mode, 0, 0, rounds)
+                                  mode, seed, salt, rounds)
 
 
 def attn_prefill(p, x, cfg: ModelConfig, *, kind: AttentionKind,
@@ -239,8 +256,8 @@ def attn_prefill(p, x, cfg: ModelConfig, *, kind: AttentionKind,
     reserves decode room in the cache (>= s + new tokens)."""
     if kind != AttentionKind.FULL:
         raise NotImplementedError(
-            "LOCAL-attention prefill caches are not ported yet (ROADMAP: "
-            "port queue, LOCAL paging)")
+            f"{kind.value}-layer prefill caches are not ported yet "
+            "(ROADMAP queue 1 item 4, the contiguous-cache serving path)")
     b, s, _ = x.shape
     positions = torch.arange(s, dtype=torch.int32, device=x.device)
     q, k, v = _project_qkv(p, x, cfg, positions)

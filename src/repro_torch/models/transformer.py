@@ -1,6 +1,7 @@
 """Model assembly: stacks of layer units, init, the training forward
-(dense, MoE and RWKV-hybrid stacks of full-attention and WKV layers),
-prefill, and decode through paged KV pools (dense full-attention stacks).
+(dense, MoE, RWKV-hybrid and Griffin stacks of full-attention, local-
+attention, WKV and RG-LRU layers), prefill, and decode through paged KV
+pools (dense full-attention stacks).
 
 Parameters mirror the JAX package's pytree: ``params["stacks"][i]`` holds
 a stack's repeating unit with every tensor carrying a leading ``count``
@@ -35,6 +36,7 @@ from repro_torch.models.layers import (
     token_shift,
 )
 from repro_torch.models.moe import moe_apply, moe_init
+from repro_torch.models.rglru import rglru_apply, rglru_init
 from repro_torch.models.rwkv import rwkv_apply, rwkv_init
 
 
@@ -107,14 +109,12 @@ def _index(tree, i: int):
 def _layer_init(gen, cfg: ModelConfig, kind: AttentionKind, tag: str,
                 count: int, device):
     lead = (count,)
-    if kind in (AttentionKind.LOCAL, AttentionKind.RECURRENT):
-        raise NotImplementedError(
-            f"{kind.value} layers are not ported yet (ROADMAP: port queue, "
-            "LOCAL and recurrent layers)")
     p = {"norm_mix": norm_init(cfg, lead=lead, device=device),
          "norm_ffn": norm_init(cfg, lead=lead, device=device)}
-    if kind == AttentionKind.FULL:
+    if kind in (AttentionKind.FULL, AttentionKind.LOCAL):
         p["mix"] = attn_init(gen, cfg, lead=lead, device=device)
+    elif kind == AttentionKind.RECURRENT:
+        p["mix"] = rglru_init(gen, cfg, lead=lead, device=device)
     else:
         p["mix"] = rwkv_init(gen, cfg, lead=lead, device=device)
     if tag == "moe":
@@ -182,13 +182,13 @@ def unembed(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 
 def _mix_forward(p, x, cfg: ModelConfig, rt: Runtime, kind, layer_idx,
                  mask_in=None, emit_next: bool = False, asg=None):
-    """Returns (y, next plane or None)."""
+    """Returns (y, next plane or None). LOCAL layers run attention with
+    their window (``attn_apply`` reads it from ``kind``); recurrent and WKV
+    mixers take no plane (``block_apply`` carries it past them)."""
     if kind == AttentionKind.WKV:
         return rwkv_apply(p, x, cfg), None
-    if kind != AttentionKind.FULL:
-        raise NotImplementedError(
-            f"{kind.value} mixers are not ported yet (ROADMAP: port queue, "
-            "LOCAL and recurrent layers)")
+    if kind == AttentionKind.RECURRENT:
+        return rglru_apply(p, x, cfg), None
     y = attn_apply(p, x, cfg, kind=kind, plan=rt.plan, layer_idx=layer_idx,
                    step=rt.step, chunk_q=rt.chunk_q,
                    probs_dtype=rt.probs_dtype,
@@ -246,8 +246,10 @@ def block_apply(p, x, cfg: ModelConfig, rt: Runtime, kind, tag, layer_idx,
     HostAssignment from the compiled schedule; with ``emit`` (a
     carried-site schedule) the block consumes ``mask_in`` and emits the
     next attention layer's plane under its out-projection ("prev_gemm") or
-    FFN GEMM ("ffn_up" / "ffn_down"). Mixer-only blocks (RWKV time-mix)
-    pass the carry through untouched."""
+    FFN GEMM ("ffn_up" / "ffn_down"). Mixer-only blocks (RWKV time-mix,
+    Griffin's RG-LRU) pass the carry through untouched: the plane the last
+    attention block emitted (for layer ``layer_idx + asg.emit_stride``, the
+    next attention layer) rides past them."""
     is_attn = kind in (AttentionKind.FULL, AttentionKind.LOCAL)
     ffn_hosts = (emit and is_attn and asg is not None
                  and asg.emit_site in ("ffn_up", "ffn_down"))

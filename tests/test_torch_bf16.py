@@ -592,25 +592,38 @@ def test_bf16_eval_step_equals_jax():
 
 
 def test_bf16_unported_raise():
-    """What the port still refuses at bf16 compute raises, naming the
-    ROADMAP: fused-mode dropout training (the in-attention RNG, on the
-    reduced llama2 and, with its grouped hosts now ported, the reduced
-    moonshot) and LOCAL / recurrent layers (recurrentgemma). The grouped
-    bf16 host and the fp8 host under bf16 compute run
-    (tests/test_torch_bf16_grouped.py)."""
+    """What the port still refuses raises, naming the ROADMAP: the f32
+    flash kernels at head_dim 256 (recurrentgemma at f32 compute under
+    ``attn_impl="pallas"``; its bf16 step runs), prefill caches of LOCAL
+    layers (queue 1 item 4), and fused-mode dropout with a producer site
+    (``ValueError``, as in JAX). Fused-mode training and LOCAL / recurrent
+    layers are ported (tests/test_torch_fused.py,
+    tests/test_torch_rglru.py)."""
+    from repro_torch.models.attention import attn_init, attn_prefill
+    from repro_torch.config.base import AttentionKind
+    cfg = get_arch("recurrentgemma-9b", reduced=True)
+    wide = dataclasses.replace(cfg, head_dim=256)
+    knobs = _bf16_knobs("ffn_up", "auto")
+    run = dataclasses.replace(base._port_run("recurrentgemma-9b", knobs),
+                              model=wide)
+    master = base.init_train_state(wide, seed=0, device="cpu")["master"]
+    x, y = (torch.from_numpy(t) for t in batch_for_step(wide, run.shape, 0))
+    with pytest.raises(NotImplementedError,
+                       match="D=256.*ROADMAP queue 2"):
+        make_grad_fn(wide, run)(master, x, y, 0)
+    loss, _, _ = make_grad_fn(wide, run, compute_dtype=BF16)(master, x, y, 0)
+    assert torch.isfinite(loss)
+    p = attn_init(torch.Generator().manual_seed(0), cfg)
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 4"):
+        attn_prefill(p, torch.zeros((1, 64, cfg.d_model)), cfg,
+                     kind=AttentionKind.LOCAL)
     for arch in ("llama2-7b", "moonshot-v1-16b-a3b"):
-        cfg = get_arch(arch, reduced=True)
-        knobs = _bf16_knobs("xla", "off")
+        knobs = _bf16_knobs("qkv", "off")
         knobs["dropout"]["mode"] = "fused"
         run = base._port_run(arch, knobs)
-        master = base.init_train_state(cfg, seed=0, device="cpu")["master"]
-        x, y = (torch.from_numpy(t)
-                for t in batch_for_step(cfg, run.shape, 0))
-        with pytest.raises(NotImplementedError, match="ROADMAP.*fused"):
-            make_grad_fn(cfg, run, compute_dtype=BF16)(master, x, y, 0)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*LOCAL"):
-        base.init_train_state(get_arch("recurrentgemma-9b", reduced=True),
-                              seed=0, device="cpu")
+        with pytest.raises(ValueError, match="overlap"):
+            make_grad_fn(get_arch(arch, reduced=True), run,
+                         compute_dtype=BF16)
 
 
 # ------------------------------------------------------------ on the card

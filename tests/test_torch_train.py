@@ -201,9 +201,12 @@ def test_flash_path_runs_the_plan_or_raises():
     """``attn_impl="pallas"`` always runs the flash kernels (their plain
     versions here). At S=192, which the JAX package's s % 128 gate hands
     to the tensor-op attention, the plan is premask and the flash path
-    gives the tensor-op attention's result. Where the kernels cannot go,
-    and where the plan and the path disagree, the call raises; a producer
-    whose kernel layout check contradicts the plan raises too."""
+    gives the tensor-op attention's result; so does a fused-mode plan,
+    which JAX's gate also hands to the tensor-op attention and the port
+    runs in the kernels' mode "fused" (the same bits). Where the kernels
+    cannot go, and where the plan and the path disagree, the call raises;
+    a producer whose kernel layout check contradicts the plan raises
+    too."""
     cfg = get_arch("llama2-7b", reduced=True)
     p = attn_init(torch.Generator().manual_seed(0), cfg)
     plan = DropoutPlan(DropoutPlanConfig(mode="overlap", site="qkv", p=0.1,
@@ -222,8 +225,15 @@ def test_flash_path_runs_the_plan_or_raises():
     with pytest.raises(NotImplementedError, match="SQ=96"):
         attn_apply(p, x(96), cfg, plan=plan, impl="pallas", **kw)
     fused = DropoutPlan(DropoutPlanConfig(mode="fused", p=0.1))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        attn_apply(p, x(128), cfg, plan=fused, impl="pallas", **kw)
+    x128 = x(128)
+    got = attn_apply(p, x128, cfg, plan=fused, impl="pallas", **kw)
+    want = attn_apply(p, x128, cfg, plan=fused, impl="xla", **kw)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=2e-5,
+                               rtol=2e-5)
+    fused8 = DropoutPlan(DropoutPlanConfig(mode="fused", p=0.1,
+                                           philox_bits=8))
+    with pytest.raises(NotImplementedError, match="philox_bits=8"):
+        attn_apply(p, x128, cfg, plan=fused8, impl="pallas", **kw)
     replay = inline_assignment(cfg, plan, 2, 128, attn_impl="pallas")
     assert replay.how == producer.HOW_REPLAY
     with pytest.raises(ValueError, match="replay"):
