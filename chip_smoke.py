@@ -13,7 +13,7 @@ Phases (each raises on failure; nothing is caught):
      memory and ptxas advisories, and the HGMMA (wgmma) instructions in
      each tensor-core library's SASS (``cuobjdump --dump-sass``); the
      flash libraries' registers and spills by head dim (the f32 ones may
-     not spill at D = 128, the bf16 ones at D = 256), the f32 GEMM+RNG
+     not spill at D = 128, none at D = 256), the f32 GEMM+RNG
      libraries' (which may not spill), and holds the flash libraries
      that gained the D = 256 instances to the parent commit's SASS at
      D <= 128 (FLASH_NARROW_SASS);
@@ -23,7 +23,8 @@ Phases (each raises on failure; nothing is caught):
      bitwise (every round count and p in {0, 0.1, 1}, shard windows, SK
      of 1, 6, 97 and 4097, a plane of several waves of its persistent
      grid, a threshold equal to one of the plane's words, and the first
-     and last head rows of a plane of 2^31 words), timed at the serving,
+     and last head rows of a plane of 2^31 words; the plain version on
+     the card against the plain version on the CPU), timed at the serving,
      QKV, training and moonshot planes beside its bound (philox_bound:
      the fewest instructions a word needs at the issue rate and on the
      busier integer pipe); the fused GEMM+RNG kernel at the training QKV
@@ -42,7 +43,9 @@ Phases (each raises on failure; nothing is caught):
      time against SDPA's forward and the dq + dkv pair's against SDPA's
      whole backward; f32 O and lse within F32_FWD_TOL, the gradients
      within GRAD_TOL, limits that the plain forward on bf16-rounded K, V
-     and the plain backward on bf16-rounded K, V, dO must fail);
+     and the plain backward on bf16-rounded K, V, dO must fail), and the
+     f32 flash kernels at head_dim 256 (recurrentgemma-9b's LOCAL layer,
+     as the bf16 ones below, at the f32 limits with both controls);
   3. serving: the reduced llama2 on the card against the same engine on
      the CPU, then ``ServeEngine`` on llama2-7b at full width and depth
      (f32 random weights from a seed): 8 requests, 4 slots, 64 new tokens
@@ -124,7 +127,14 @@ Phases (each raises on failure; nothing is caught):
      replay steps, step 0 bitwise equal; launches against the formula;
      step time, peak memory, busy share, device time by kernel, the
      RG-LRU scan's and the f32 unembedding's shares (each timed alone);
-     then one fused step.
+     then one fused step;
+ 12. the same at f32 compute: recurrentgemma-9b x 6 (GRIFFIN_F32_LAYERS)
+     at full width, site "ffn_up" / f32 (the f32 GEMM+RNG host) on the
+     f32 flash kernels' D = 256 instances, premask step 0 and 3 replay
+     steps (step 0 bitwise equal), launches against the formula, one
+     fused step, the same records; then the premask step 0 of one (R, R,
+     A) super-block at the same width, batch and sequence on the card and
+     on the CPU, loss and grad norm within 1e-4 and 5e-3 relative.
 
 Phase 2 also checks the e4m3 GEMM+RNG kernel against its plain version
 at the four host shapes of phase 6 (QKV, out-projection, gate+up, down;
@@ -174,7 +184,8 @@ tolerances; the hybrid's losses after step 0 at 1e-3, its grad norm at
 itself on it), fused-mode dropout on the reduced llama2 and moonshot
 under attn_impl "pallas" and "xla" at f32 and bf16 compute, and the
 reduced recurrentgemma (RG-LRU, LOCAL window 32, head_dim 16) at
-ffn_up/f32, prev_gemm/f32 and ffn_up/bf16 under bf16 compute, card
+ffn_up/f32, prev_gemm/f32 and ffn_up/bf16 under bf16 compute, and at
+head_dim 256 at ffn_up/f32 (the f32 D = 256 flash kernels), card
 against CPU; every such run also holds each leaf's change over its 3
 steps within 0.25 relative of the CPU's.
 
@@ -470,10 +481,9 @@ def phase_build(state) -> None:
                                  or max(by_d[128][1] + by_d[128][2])):
             raise AssertionError(f"{name}: the D = 128 instances spill "
                                  f"({by_d.get(128)})")
-        # the bf16 ones at D = 256 (two warpgroups, the D = 128 instance's
-        # registers a thread) may not spill either
-        if name not in f32_libs and (256 not in by_d
-                                     or max(by_d[256][1] + by_d[256][2])):
+        # nor may the D = 256 ones (two warpgroups, the D = 128 instance's
+        # accumulators a thread), bf16 or f32
+        if 256 not in by_d or max(by_d[256][1] + by_d[256][2]):
             raise AssertionError(f"{name}: the D = 256 instances spill "
                                  f"({by_d.get(256)})")
     # the libraries whose sources gained the D = 256 instances keep their
@@ -491,12 +501,15 @@ def phase_build(state) -> None:
 
 # the digest (narrow_sass_digest) of each flash library's kernels at head
 # dims up to 128 as the parent commit's sources build them on the H100
-# machine's toolkit (scripts/probe_flash_d256.py --parent): the D = 256
-# instances left them unchanged
+# machine's toolkit (scripts/probe_flash_d256.py --parent for the bf16
+# libraries and the f32 forward, scripts/probe_flash_f32_d256.py --parent
+# for the f32 dq and dkv): the D = 256 instances left them unchanged
 FLASH_NARROW_SASS = {"flash_fwd_bf16": "5723879813a3fa94",
                      "flash_dq_bf16": "48288393cc6d5c8b",
                      "flash_dkv_bf16": "afbc9e9f1114be08",
-                     "flash_fwd_f32": "2d91498e26cf02bc"}
+                     "flash_fwd_f32": "2d91498e26cf02bc",
+                     "flash_dq_f32": "d0cb93aadc90a4f5",
+                     "flash_dkv_f32": "8f21ffb879ca7812"}
 
 
 def sass_by_function(lib) -> dict:
@@ -620,9 +633,29 @@ def _check_philox_huge(state) -> None:
     torch.cuda.empty_cache()
 
 
+def _check_philox_plain_devices(state, shape, p, seed, salt,
+                                rounds) -> None:
+    """The plain version on the card (int64 tensor ops on CUDA) against
+    the plain version on the CPU, bitwise: the kernel's checks hold it to
+    the first."""
+    b, h, sq, sk = shape
+    args = (b, h, sq, sk, p, seed, salt, rounds)
+    on_card = philox.philox_dropout_mask_plain(*args, device="cuda").cpu()
+    on_cpu = philox.philox_dropout_mask_plain(*args, device="cpu")
+    if not torch.equal(on_card, on_cpu):
+        bad = (on_card != on_cpu).nonzero()
+        raise AssertionError(f"philox plain version on the card != on the "
+                             f"CPU at {shape}: {len(bad)} words differ, the "
+                             f"first at {tuple(bad[0].tolist())}")
+    log(f"[kernels] philox plain version {shape} p={p} seed={seed}: on the "
+        f"card == on the CPU bitwise ({on_cpu.numel()} words)")
+
+
 def phase_kernels(state) -> None:
     n = 0
     _check_philox(state, SERVE_SHAPE, 0.1, 0x1234, 7, 7); n += 1
+    _check_philox_plain_devices(state, SERVE_SHAPE, 0.1, 0x1234, 7, 7)
+    _check_philox_plain_devices(state, (2, 3, 1024, 96), 0.1, 5, 11, 7)
     _check_philox(state, TRAIN_SHAPE, 0.1, 2 ** 40 + 99, 3, 7); n += 1
     _check_philox(state, (2, 3, 1024, 96), 0.1, 5, 11, 7); n += 1
     # shard window: batch row 1, heads 4..7 of a (2, 8) plane
@@ -979,8 +1012,9 @@ def phase_kernels_train(state) -> None:
         f"kernel at {bound_ms / ms * 100:.1f}% of bound | {state['smi']}")
     del a, w, c, mask, want_c, want_mask
 
-    # ---- flash forward, dq, dkv
+    # ---- flash forward, dq, dkv (at head_dim 128, then 256)
     _flash_kernels(state, rnd, torch.float32, ops_rate)
+    _flash_kernels_wide(state, rnd, ops_rate, torch.float32)
 
 
 # flash cases each dtype is checked in, (mode, local window, kv heads or
@@ -1292,31 +1326,39 @@ def _flash_kernels(state, rnd, dtype, ops_rate) -> None:
     torch.cuda.empty_cache()
 
 
-# the bf16 flash kernels at head_dim 256, recurrentgemma-9b's LOCAL layer:
-# B=1, 16 query heads over one kv head (MQA), S=4096, causal; the dropout
-# modes without a window, then replay with its window of 2048, the main
-# path's mode, which is timed: (mode, local window)
+# the flash kernels at head_dim 256, recurrentgemma-9b's LOCAL layer: B=1,
+# 16 query heads over one kv head (MQA), S=4096, causal; the dropout modes
+# without a window, then replay with its window of 2048, the main path's
+# mode, which is timed: (mode, local window)
 WIDE_SHAPE = (1, 16, 1, 4096, 256)
 WIDE_CASES = (("none", 0), ("fused", 0), ("premask", 0), ("replay", 0),
               ("replay", 2048))
 
 
-def _flash_kernels_wide(state, rnd, ops_rate) -> None:
-    """The bf16 flash forward, dq and dkv instances at head_dim 256 (two
-    warpgroups a CTA, each one column half of the output) against their
-    plain versions in WIDE_CASES at BF16_FLASH_TOL (lse at FWD_TOL), replay
-    == premask == fused bitwise on the same inputs (the same counters), a
-    planted fault every check must fail (``_flash_fault``), then timed in
-    replay with the window beside the bound and SDPA's forward and
-    backward with the window as a boolean mask (kv expanded to the 16
-    heads), and each kernel by dropout mode (none, premask, replay,
-    fused) with the window."""
+def _flash_kernels_wide(state, rnd, ops_rate, dtype) -> None:
+    """The flash forward, dq and dkv instances of ``dtype`` at head_dim 256
+    (two warpgroups a CTA, each one column half of the output; the f32
+    ones stream the walked tiles in 32-column slices) against their plain
+    versions in WIDE_CASES -- bf16 at BF16_FLASH_TOL (lse at FWD_TOL),
+    f32 at F32_FWD_TOL (O and lse) and GRAD_TOL, with the precision
+    controls (``_flash_fwd_precision_control``,
+    ``_flash_precision_control``) failing them -- replay == premask ==
+    fused bitwise on the same inputs (the same counters), a planted fault
+    every check must fail (``_flash_fault``), then timed in replay with
+    the window beside the bound and SDPA's forward and backward with the
+    window as a boolean mask (kv expanded to the 16 heads), and each
+    kernel by dropout mode (none, premask, replay, fused) with the
+    window."""
     from torch.nn.functional import scaled_dot_product_attention as sdpa
     from repro_torch.kernels.philox_common import seed_salt_smem
+    bf16 = dtype == torch.bfloat16
     b, h, kvh, s, d = WIDE_SHAPE
     names = [flash.instance(n, d) for n in
-             (flash.KERNEL_BF16, *flash_bwd.KERNELS[torch.bfloat16])]
-    tol = BF16_FLASH_TOL
+             (flash.KERNELS[dtype], *flash_bwd.KERNELS[dtype])]
+    out_tol, grad_tol, lse_tol = (
+        (BF16_FLASH_TOL, BF16_FLASH_TOL, FWD_TOL) if bf16
+        else (F32_FWD_TOL, GRAD_TOL, F32_FWD_TOL))
+    tag = f"flash {'bf16' if bf16 else 'f32'} D={d}"
     timing = state.setdefault("timing", {})
     seed = torch.tensor(9)
     plane = philox.philox_dropout_mask_plain(b, h, s, s, 0.1, seed, 3,
@@ -1341,37 +1383,46 @@ def _flash_kernels_wide(state, rnd, ops_rate) -> None:
         torch.cuda.synchronize()
         after = launch_counts()
         if any(after[n] != before[n] + 1 for n in names):
-            raise AssertionError(f"flash bf16 D={d}: the D={d} instances "
-                                 f"did not launch ({names})")
+            raise AssertionError(f"{tag}: the D={d} instances did not "
+                                 f"launch ({names})")
+        if any(t.dtype != dtype for t in (o, dq, dk, dv)) or \
+                lse.dtype != torch.float32:
+            raise AssertionError(f"{tag} output dtypes")
         label = f"{mode} window={window} kv_heads={kvh} D={d} S={s}"
         ratios = []
         for name, key, got, want, t, scaled in (
-                ("o", names[0], o, po, tol, True),
-                ("lse", names[0], lse, plse, FWD_TOL, False),
-                ("dq", names[1], dq, pdq, tol, True),
-                ("dk", names[2], dk, pdk, tol, True),
-                ("dv", names[2], dv, pdv, tol, True)):
+                ("o", names[0], o, po, out_tol, bf16),
+                ("lse", names[0], lse, plse, lse_tol, False),
+                ("dq", names[1], dq, pdq, grad_tol, bf16),
+                ("dk", names[2], dk, pdk, grad_tol, bf16),
+                ("dv", names[2], dv, pdv, grad_tol, bf16)):
             _close(f"{key} {name} {label}", got.float(), want.float(), t,
                    state, key, scaled=scaled)
             ratio = _within(got.float(), want.float(), t, scaled)[1]
             ratios.append(f"{name} {ratio:.3g}")
-        log(f"[kernels] flash bf16 {b}x{h} {label}: {', '.join(ratios)} of "
-            f"their limits (tol {tol} x (|x| + rms(x)), lse {FWD_TOL} x "
-            f"(1+|x|); dk, dv per query head)")
+        rule = (f"tol {out_tol} x (|x| + rms(x)), lse {lse_tol} x (1+|x|)"
+                if bf16 else f"o, lse {out_tol}, dq, dk, dv {grad_tol} x "
+                f"(1+|x|)")
+        log(f"[kernels] {tag} {b}x{h} {label}: {', '.join(ratios)} of "
+            f"their limits ({rule}; dk, dv per query head)")
         if window == 0:
             outs[mode] = (o, dq, dk, dv)
         if mode == "premask":
-            _flash_fault(f"flash bf16 D={d}", q, kk, vv, do, plane,
-                         (o, dq, dk, dv), (tol, tol), True)
+            _flash_fault(tag, q, kk, vv, do, plane, (o, dq, dk, dv),
+                         (out_tol, grad_tol), bf16)
+            if not bf16:
+                _flash_fwd_precision_control(q, kk, vv, plane, po, plse)
+                _flash_precision_control(q, kk, vv, do, po, plse, plane,
+                                         (pdq, pdk, pdv))
         del po, plse, pdq, pdk, pdv
     # replay, fused and premask consume the same bits
     for mode in ("replay", "fused"):
         if not all(torch.equal(x, y) for x, y in zip(outs[mode],
                                                      outs["premask"])):
-            raise AssertionError(f"flash bf16 D={d}: {mode} != premask on "
-                                 f"the same inputs")
-    log(f"[kernels] flash bf16 D={d}: replay == fused == premask bitwise "
-        f"(o, dq, dk, dv)")
+            raise AssertionError(f"{tag}: {mode} != premask on the same "
+                                 f"inputs")
+    log(f"[kernels] {tag}: replay == fused == premask bitwise (o, dq, dk, "
+        f"dv)")
     del outs
 
     # timing: replay with the window, recurrentgemma's LOCAL layer
@@ -1408,9 +1459,13 @@ def _flash_kernels_wide(state, rnd, ops_rate) -> None:
                 raise AssertionError("the profiler saw no device time")
             modes[name][mode] = ms
     for name, kind in zip(names, ("fwd", "dq", "dkv")):
-        bound_ms, bound_by = flash_bound(kind, b, h, s, d, pairs, elem=2,
-                                         flops_rate=BF16_FLOPS_PER_S,
-                                         ops_rate=ops_rate)
+        # bf16: the bf16 tensor cores; f32: six bf16 products an f32
+        # product (both operands split into exact triples) on them; the
+        # SIMT floor of the exponentials and the replayed bits beside
+        bound_ms, bound_by = flash_bound(
+            kind, b, h, s, d, pairs, elem=2 if bf16 else 4,
+            flops_rate=BF16_FLOPS_PER_S / (1 if bf16 else F32_SPLIT_PRODUCTS),
+            ops_rate=ops_rate)
         ms = modes[name]["replay"]
         plain_ms, lib_ms = ((plain_fwd, lib_fwd) if kind == "fwd"
                             else (plain_bwd, lib_bwd))
@@ -1419,12 +1474,14 @@ def _flash_kernels_wide(state, rnd, ops_rate) -> None:
                             modes_ms=dict(modes[name]))
         flops = {"fwd": 4, "dq": 6, "dkv": 8}[kind] * d * pairs * b * h
         t = modes[name]
+        rate = ("" if bf16 else
+                f" at {F32_SPLIT_PRODUCTS} bf16 products an f32 product")
         log(f"[kernels] {name} {b}x{h} kv=1 S={s} D={d} causal window={win} "
             f"replay: {ms:.4f} ms a launch, {flops / ms / 1e9:.1f} TFLOP/s; "
             f"plain {plain_ms:.2f} ms; SDPA "
             f"{'forward' if kind == 'fwd' else 'backward (dq, dk, dv)'} with "
             f"the window as a mask {lib_ms:.4f} ms (no dropout); bound "
-            f"{bound_ms:.4f} ms by {bound_by}, kernel at "
+            f"{bound_ms:.4f} ms by {bound_by}{rate}, kernel at "
             f"{bound_ms / ms * 100:.1f}% of bound; by mode: none "
             f"{t['none']:.4f}, premask {t['premask']:.4f}, replay "
             f"{t['replay']:.4f}, fused {t['fused']:.4f} ms | {state['smi']}")
@@ -2068,7 +2125,7 @@ def phase_kernels_bf16(state) -> None:
 
     # ---- flash forward, dq, dkv at bf16
     _flash_kernels(state, rnd, bf16, ops_rate)
-    _flash_kernels_wide(state, rnd, ops_rate)
+    _flash_kernels_wide(state, rnd, ops_rate, bf16)
 
 
 # the e4m3 kernels on bf16 operands (bf16 C): the dense host at llama2's
@@ -2643,7 +2700,8 @@ def phase_train_reference(state) -> None:
     moonshot under both attention impls at f32 and bf16 compute, and the
     reduced recurrentgemma (Griffin: RG-LRU blocks and LOCAL attention,
     head_dim 16, window 32, MQA) on the flash kernels at ffn_up/f32,
-    prev_gemm/f32 and ffn_up/bf16 under bf16 compute."""
+    prev_gemm/f32 and ffn_up/bf16 under bf16 compute, and at head_dim 256
+    at ffn_up/f32 (the f32 D = 256 instances)."""
     from repro_torch.config import get_arch
     from repro_torch.config.base import OptimizerConfig
     from repro_torch.core import producer
@@ -2729,6 +2787,17 @@ def phase_train_reference(state) -> None:
                          gemm_dtype=dtype)
         _card_vs_cpu(cfg, run, master, f"{site}/{dtype} compute_dtype="
                      f"{str(dt)[6:]} attn_replay=off", compute_dtype=dt)
+    # ... and at head_dim 256 at f32 compute: the f32 flash kernels' D = 256
+    # instances
+    wide = dataclasses.replace(cfg, head_dim=256)
+    master = init_train_state(wide, seed=1, device="cpu")["master"]
+    run = _train_run(wide, "off", 2, 256, opt=opt, site="ffn_up")
+    reset_launch_counts()
+    _card_vs_cpu(wide, run, master, "head_dim=256 ffn_up/f32 compute_dtype="
+                 "float32 attn_replay=off")
+    if launch_counts()[flash.instance(flash.KERNEL, 256)] == 0:
+        raise AssertionError("the reduced recurrentgemma at head_dim 256 did "
+                             "not launch the f32 D = 256 forward")
 
 
 # ------------------------------------------------------------------ phase 5
@@ -3831,21 +3900,27 @@ def phase_train_fused(state) -> None:
 
 # ------------------------------------------------------------------ phase 11
 GRIFFIN_LAYERS, GRIFFIN_B, GRIFFIN_S = 6, 1, 4096
+# phase 12, at f32 compute: the depth (6 if the f32 state of two (R, R, A)
+# super-blocks fits the card's 80 GB, as phase 11's bf16 run of them does
+# at 58.7 GiB) and the depth of its step on the CPU (one super-block)
+GRIFFIN_F32_LAYERS, GRIFFIN_CPU_LAYERS = 6, 3
 
 
-def phase_train_griffin(state) -> None:
-    """recurrentgemma-9b at full width and 6 of its 38 layers -- two (R, R,
-    A) super-blocks: four RG-LRU blocks and two LOCAL attention layers
+def _griffin_main_path(state, key, compute_dtype, n_layers) -> dict:
+    """recurrentgemma-9b at full width and ``n_layers`` of its 38 layers
+    -- (R, R, A) super-blocks: RG-LRU blocks and LOCAL attention layers
     (window 2048, 16 query heads over one kv head, head_dim 256) -- at
-    B=1, S=4096 (the window binds), compute_dtype=bf16, the bf16 flash
-    kernels' D = 256 instances, p=0.1, remat="block", site "ffn_up" /
-    bf16: L2's gate+up GEMM makes L5's plane, carried past L3 and L4
-    (emit stride 3). Step 0 under premask (its updated weights kept on the
-    host) and 3 replay steps from the same state, step 0 bitwise equal;
-    launches against the schedule's formula; then one fused step. The
-    state is donated to each step. Records step time, peak memory, busy
-    share and the device time by kernel, and the shares of the RG-LRU scan
-    and the f32 unembedding (each timed alone on the step's shapes)."""
+    B=1, S=4096 (the window binds), ``compute_dtype``, the flash kernels'
+    D = 256 instances of that dtype, p=0.1, remat="block", site "ffn_up"
+    with the GEMM+RNG host of the compute dtype (bf16 under bf16 compute,
+    f32 at f32): L2's gate+up GEMM makes L5's plane, carried past L3 and
+    L4 (emit stride 3). Step 0 under premask (its updated weights kept on
+    the host) and 3 replay steps from the same state, step 0 bitwise
+    equal; launches against the schedule's formula; then one fused step.
+    The state is donated to each step. Records (under state[key]) step
+    time, peak memory, busy share and the device time by kernel, and the
+    shares of the RG-LRU scan and the f32 unembedding (each timed alone
+    on the step's shapes)."""
     from repro_torch.config import get_arch
     from repro_torch.config.base import AttentionKind
     from repro_torch.models.rglru import _scan_recurrence
@@ -3854,25 +3929,28 @@ def phase_train_griffin(state) -> None:
         init_train_state,
         make_train_step,
     )
-    bf16 = torch.bfloat16
+    dt = compute_dtype
+    gemm_dtype = "bf16" if dt == torch.bfloat16 else "f32"
     cfg = dataclasses.replace(get_arch("recurrentgemma-9b"),
-                              n_layers=GRIFFIN_LAYERS)
+                              n_layers=n_layers)
     assert (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
             cfg.d_ff, cfg.vocab_size, cfg.local_window) == (
         4096, 16, 1, 256, 12288, 256000, 2048)
     assert cfg.layer_kinds() == (AttentionKind.RECURRENT,
                                  AttentionKind.RECURRENT,
-                                 AttentionKind.LOCAL) * 2
-    tag = "[train-griffin]"
+                                 AttentionKind.LOCAL) * (n_layers // 3)
+    tag = f"[{key.replace('_', '-')}]"
     b, s = GRIFFIN_B, GRIFFIN_S
-    run_r = _train_run(cfg, "auto", b, s, site="ffn_up", gemm_dtype="bf16")
-    run_p = _train_run(cfg, "off", b, s, site="ffn_up", gemm_dtype="bf16")
+    run_r = _train_run(cfg, "auto", b, s, site="ffn_up",
+                       gemm_dtype=gemm_dtype)
+    run_p = _train_run(cfg, "off", b, s, site="ffn_up",
+                       gemm_dtype=gemm_dtype)
     sched_r = compile_run_schedule(cfg, run_r)
     sched_p = compile_run_schedule(cfg, run_p)
     for sched in (sched_r, sched_p):
         log(f"{tag} {sched.explain()}")
     if [a.emit_stride for a in sched_r.assignments if a.consumes] != \
-            [3, 3] or not (sched_r.replay and sched_p.carried):
+            [3] * (n_layers // 3) or not (sched_r.replay and sched_p.carried):
         raise AssertionError(f"unexpected schedule:\n{sched_r.explain()}")
 
     def fresh():
@@ -3883,11 +3961,12 @@ def phase_train_griffin(state) -> None:
     torch.cuda.reset_peak_memory_stats()
     st = fresh()
     n_params = sum(t.numel() for t in leaves(st["master"]))
-    log(f"{tag} {cfg.name} x{cfg.n_layers} layers: {n_params / 1e9:.3f}B "
-        f"f32 params + AdamW moments on the card")
+    log(f"{tag} {cfg.name} x{cfg.n_layers} layers at compute_dtype="
+        f"{str(dt)[6:]}: {n_params / 1e9:.3f}B f32 params + AdamW moments "
+        f"on the card")
     batches = _batches(cfg, run_r, "cuda", 3)
-    step_r = make_train_step(cfg, run_r, donate=True, compute_dtype=bf16)
-    step_p = make_train_step(cfg, run_p, donate=True, compute_dtype=bf16)
+    step_r = make_train_step(cfg, run_r, donate=True, compute_dtype=dt)
+    step_p = make_train_step(cfg, run_p, donate=True, compute_dtype=dt)
     reset_launch_counts()
     st, m_p = step_p(st, *batches[0])
     updated_p = [t.cpu() for t in leaves(st["master"])]
@@ -3906,30 +3985,31 @@ def phase_train_griffin(state) -> None:
                            and torch.equal(m["grad_norm"], m_p["grad_norm"])
                            and all(torch.equal(t.cpu(), u) for t, u in zip(
                                leaves(st["master"]), updated_p))):
-            raise AssertionError("griffin: replay and premask step 0 differ")
+            raise AssertionError(f"{tag} replay and premask step 0 differ")
     del updated_p
     counts = _add_counts(launch_counts(), counts_p)
     want = _add_counts(
-        _expected_launches(sched_r, "block", 3, cfg, compute_dtype=bf16),
-        _expected_launches(sched_p, "block", 1, cfg, compute_dtype=bf16))
+        _expected_launches(sched_r, "block", 3, cfg, compute_dtype=dt),
+        _expected_launches(sched_p, "block", 1, cfg, compute_dtype=dt))
     if counts != want or not all(np.isfinite(v) for row in losses
                                  for v in row):
-        raise AssertionError(f"griffin: launches {counts} != {want} or "
+        raise AssertionError(f"{tag} launches {counts} != {want} or "
                              f"metrics {losses}")
-    fwd = flash.instance(flash.KERNEL_BF16, cfg.head_dim)
+    fwd = flash.instance(flash.KERNELS[dt], cfg.head_dim)
     if counts[fwd] == 0:
-        raise AssertionError(f"griffin: {fwd} never launched")
+        raise AssertionError(f"{tag} {fwd} never launched")
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     step_s = float(np.mean(times[1:]))
-    rec = state["train_griffin"] = dict(step_s=step_s, peak_gib=peak,
-                                        tokens_per_s=b * s / step_s,
-                                        losses=losses, launches=counts)
-    log(f"{tag} ffn_up/bf16: step 0 (premask) + 3 steps (replay): (loss, "
-        f"grad norm) {losses}; replay and premask step 0 bitwise equal "
-        f"(loss, grad norm, all updated weights); launches {counts} == the "
-        f"schedule's formula; step times {[round(t, 4) for t in times]} s, "
-        f"steady {step_s:.4f} s = {b * s / step_s:.1f} tokens/s, peak "
-        f"{peak:.2f} GiB | {state['smi']}")
+    rec = state[key] = dict(step_s=step_s, peak_gib=peak, layers=n_layers,
+                            tokens_per_s=b * s / step_s, losses=losses,
+                            launches=counts)
+    log(f"{tag} ffn_up/{gemm_dtype}: step 0 (premask) + 3 steps (replay): "
+        f"(loss, grad norm) {losses}; replay and premask step 0 bitwise "
+        f"equal (loss, grad norm, all updated weights); launches {counts} "
+        f"== the schedule's formula; step times "
+        f"{[round(t, 4) for t in times]} s, steady {step_s:.4f} s = "
+        f"{b * s / step_s:.1f} tokens/s, peak {peak:.2f} GiB | "
+        f"{state['smi']}")
     _profile_train(step_r, st, batches[0], rec, state["smi"])
     rec["kernels"] = _kernel_groups(rec.pop("kernels_ms"))
     # the RG-LRU scan and the f32 unembedding, each timed alone at the
@@ -3967,16 +4047,16 @@ def phase_train_griffin(state) -> None:
         f"{rec['kernels']} | {state['smi']}")
     # one fused step from the replay state
     run_f = _train_run(cfg, "off", b, s, site="xla", mode="fused")
-    step_f = make_train_step(cfg, run_f, donate=True, compute_dtype=bf16)
+    step_f = make_train_step(cfg, run_f, donate=True, compute_dtype=dt)
     reset_launch_counts()
     t0 = time.perf_counter()
     st, m = step_f(st, *batches[0])
     torch.cuda.synchronize()
     rec["fused_step_s"] = time.perf_counter() - t0
     counts, want = launch_counts(), _expected_fused_launches(
-        cfg, "block", 1, bf16)
+        cfg, "block", 1, dt)
     if counts != want or not np.isfinite(float(m["loss"])):
-        raise AssertionError(f"griffin fused: launches {counts} != {want} "
+        raise AssertionError(f"{tag} fused: launches {counts} != {want} "
                              f"or loss {float(m['loss'])}")
     log(f"{tag} one fused step: loss {float(m['loss']):.6f}, "
         f"{rec['fused_step_s']:.4f} s (its first call), launches == the "
@@ -3984,6 +4064,59 @@ def phase_train_griffin(state) -> None:
     del st, step_r, step_p, step_f, batches
     gc.collect()
     torch.cuda.empty_cache()
+    return rec
+
+
+def phase_train_griffin(state) -> None:
+    """recurrentgemma-9b x GRIFFIN_LAYERS at bf16 compute, ffn_up/bf16, on
+    the bf16 flash kernels' D = 256 instances (``_griffin_main_path``)."""
+    _griffin_main_path(state, "train_griffin", torch.bfloat16,
+                       GRIFFIN_LAYERS)
+
+
+def phase_train_griffin_f32(state) -> None:
+    """recurrentgemma-9b x GRIFFIN_F32_LAYERS at f32 compute, ffn_up/f32,
+    on the f32 flash kernels' D = 256 instances (``_griffin_main_path``);
+    then the premask step 0 of its first GRIFFIN_CPU_LAYERS layers (one
+    super-block, the same width, batch and sequence) on the card and on
+    the CPU from the same weights: loss and grad norm within the limits
+    of the bf16 phases' card-against-CPU runs (BF16_REF_TOLS: 1e-4 and
+    5e-3 relative)."""
+    from repro_torch.config import get_arch
+    from repro_torch.train import init_train_state, make_train_step
+    from repro_torch.optim import adamw_init
+    rec = _griffin_main_path(state, "train_griffin_f32", torch.float32,
+                             GRIFFIN_F32_LAYERS)
+    cfg = dataclasses.replace(get_arch("recurrentgemma-9b"),
+                              n_layers=GRIFFIN_CPU_LAYERS)
+    run = _train_run(cfg, "off", GRIFFIN_B, GRIFFIN_S, site="ffn_up")
+    step = make_train_step(cfg, run)
+    master = init_train_state(cfg, seed=0, device="cpu")["master"]
+    x, y = _batches(cfg, run, "cpu", 1)[0]
+    got = {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        m0 = to_device(master, dev)
+        _, m = step({"master": m0, "opt": adamw_init(m0), "step": 0},
+                    x.to(dev), y.to(dev))
+        got[dev] = (float(m["loss"]), float(m["grad_norm"]),
+                    time.perf_counter() - t0)
+        del m0, m
+        gc.collect()
+        torch.cuda.empty_cache()
+    (lg, gg, tg), (lc, gc_, tc) = got["cuda"], got["cpu"]
+    loss_tol, _, gn_tol = BF16_REF_TOLS
+    loss_rel, gn_rel = abs(lg - lc) / abs(lc), abs(gg - gc_) / abs(gc_)
+    rec["cpu_step0"] = dict(layers=GRIFFIN_CPU_LAYERS, card=(lg, gg),
+                            cpu=(lc, gc_), loss_rel=loss_rel, gn_rel=gn_rel)
+    if loss_rel > loss_tol or gn_rel > gn_tol or not np.isfinite(lg + gg):
+        raise AssertionError(f"griffin f32 x{GRIFFIN_CPU_LAYERS} step 0: "
+                             f"card {(lg, gg)} != CPU {(lc, gc_)}")
+    log(f"[train-griffin-f32] x{GRIFFIN_CPU_LAYERS} layers (one super-block) "
+        f"at full width, B={GRIFFIN_B} S={GRIFFIN_S}, ffn_up/f32 premask "
+        f"step 0: card (loss, grad norm) {(lg, gg)} in {tg:.1f} s, CPU "
+        f"{(lc, gc_)} in {tc:.1f} s: {loss_rel:.3g} and {gn_rel:.3g} "
+        f"relative apart (limits {loss_tol}, {gn_tol}) | {state['smi']}")
 
 
 def kernel_records(state):
@@ -3993,7 +4126,9 @@ def kernel_records(state):
     drives the kernel: serving (1), the qkv/f32 main run (2-6), the
     ffn_up/fp8 main run (7, 8), the moonshot ffn_up/f32 step (9), the
     moonshot ffn_up/fp8 main run (10, 11), the qkv/bf16 main run at
-    compute_dtype=bf16 (the bf16 instances of 2-6), the moonshot
+    compute_dtype=bf16 (the bf16 instances of 2-6), recurrentgemma's main
+    runs at bf16 and f32 compute (the D = 256 instances of 4-6 at each
+    dtype), the moonshot
     ffn_up/bf16 main run at compute_dtype=bf16 (the bf16 instances of 9
     and 10) and its ffn_up/fp8 step (the bf16-C instances of 7, 8 and 11).
     The emission-off variants (3, 8, 10 and their bf16 instances) run only
@@ -4100,16 +4235,17 @@ def kernel_records(state):
          t[flash_bwd.KERNEL_DKV_BF16], modes(flash_bwd.KERNEL_DKV_BF16)),
         *((flash.instance(n, 256),
            f"{flash.SOURCES.get(n) or flash_bwd.SOURCES[n]}.cu",
-           replaces, "train_griffin",
-           state["train_griffin"]["launches"][flash.instance(n, 256)],
+           replaces, path,
+           state[path]["launches"][flash.instance(n, 256)],
            errs[flash.instance(n, 256)], t[flash.instance(n, 256)],
            {"modes_ms": t[flash.instance(n, 256)]["modes_ms"],
             "shape": list(WIDE_SHAPE), "local_window": WIDE_CASES[-1][1]})
-          for n, replaces in (
-              (flash.KERNEL_BF16, "src/repro/kernels/flash_attention.py:58"),
-              (flash_bwd.KERNEL_DQ_BF16,
-               "src/repro/kernels/flash_attention_bwd.py:77"),
-              (flash_bwd.KERNEL_DKV_BF16,
+          for dtype, path in ((torch.bfloat16, "train_griffin"),
+                              (torch.float32, "train_griffin_f32"))
+          for n, replaces in zip(
+              (flash.KERNELS[dtype], *flash_bwd.KERNELS[dtype]),
+              ("src/repro/kernels/flash_attention.py:58",
+               "src/repro/kernels/flash_attention_bwd.py:77",
                "src/repro/kernels/flash_attention_bwd.py:137"))),
         (g16, "gemm_rng_grouped_bf16.cu", f"{g}:551", "train_moe_bf16",
          state["moe_bf16_launches"][g16], errs[g16], t[g16],
@@ -4153,7 +4289,7 @@ def main() -> int:
                   phase_serve, phase_train_reference, phase_train,
                   phase_train_sites, phase_train_moe, phase_train_bf16,
                   phase_train_moe_bf16, phase_train_fused,
-                  phase_train_griffin):
+                  phase_train_griffin, phase_train_griffin_f32):
         phase(state)
         log(f"[time] {phase.__name__} done at "
             f"{time.perf_counter() - t0:.1f}s")

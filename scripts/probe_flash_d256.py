@@ -48,13 +48,14 @@ CASES = (("none", 0, 16, 1, 16, 2048), ("fused", 0, 16, 1, 16, 2048),
          ("replay", 0, 1, 1, 16, 2048), ("replay", 2048, 1, 1, 16, 4096))
 
 
-def build_parent(parent) -> dict:
-    """The parent's four libraries, one nvcc each, started together."""
+def build_parent(parent, names=LIBS) -> dict:
+    """The parent's libraries ``names``, one nvcc each, started
+    together."""
     out = build.build_dir() / "probe_flash_d256"
     out.mkdir(parents=True, exist_ok=True)
     csrc = Path(parent) / "src/repro_torch/kernels/csrc"
     procs = {}
-    for name in LIBS:
+    for name in names:
         lib = out / f"libparent_{name}.so"
         procs[name] = (lib, subprocess.Popen(
             [build.nvcc(), *build.NVCC_FLAGS, "-o", str(lib),

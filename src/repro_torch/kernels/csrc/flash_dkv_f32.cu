@@ -52,6 +52,7 @@
 
 #include <cstdint>
 
+#include "flash_f32_wide.cuh"
 #include "flash_sm90.cuh"
 
 namespace {
@@ -304,11 +305,187 @@ int run_d(const void* q, const void* k, const void* v, const void* dout,
   }
 }
 
+// The D = 256 instance (flash_f32_wide.cuh): two warpgroups on the same 64
+// keys, each the score products in full and dK, dV over one 128-column
+// half of Q and dO. K and V are split once into their triples; each
+// q-block's Q and dO come as 32-column slices, two a step. dK and dV of a
+// half are 128 accumulators a thread, as at D = 128, where with both score
+// tiles and a fragment triple they take 254-255 registers: here the CTA
+// walks its q-blocks
+// twice, once for dV (S^T = K Q^T over Q's slices, four steps, then dV +=
+// P_drop^T dO over the half's slices of dO, four steps) and once for dK
+// (S^T again, dP^T = V dO^T over dO's slices, then dK += dS^T Q over the
+// half's slices of Q): the score products of S^T run twice, the others
+// once. The keep bits are made under S^T's first step, the rows' lse and
+// Delta copied aside in its fill. Shared memory: the K and V triples (192
+// KB), two slice triples (24 KB) and this q-block's lse and Delta, 222,720
+// bytes -- one CTA an SM. A kernel of its own, so that the instances above
+// keep their machine code.
+template <int D, int MODE>
+__global__ void __launch_bounds__(wide::THREADS, 1)
+    flash_dkv_kernel_wide(const float* __restrict__ q,
+                          const float* __restrict__ k,
+                          const float* __restrict__ v,
+                          const float* __restrict__ dout, DkvArgs p) {
+  static_assert(D == wide::D, "the wide instance is the D = 256 one");
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t ks = (raw + 1023u) & ~1023u;
+  const uint32_t vs = ks + 3 * wide::TILE;  // each triple hi, mid, lo
+  const uint32_t buf = vs + 3 * wide::TILE;  // two slice triples
+  const uint32_t rows = buf + 2 * wide::SLICE3;  // 64 lse, then 64 Delta
+  const float* lse_s =
+      reinterpret_cast<const float*>(smem_raw + (rows - raw));
+  const float* delta_s = lse_s + 64;
+
+  const int t = threadIdx.x % WG, w = t / 32, l = t % 32, c = l % 4;
+  const int ki = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int kvh = h / (p.H / p.KV);
+  const int k_start = ki * BK;
+  const int q_offset = p.SK - p.SQ;
+  const size_t bh = static_cast<size_t>(b) * p.H + h;
+  const size_t q_row = bh * p.SQ;
+  const size_t kv_row = static_cast<size_t>(b * p.KV + kvh) * p.SK + k_start;
+  // this thread's keys: k_start + 16 w + l / 4 + 8 hh
+  const int key0 = k_start + 16 * w + l / 4;
+  float* dk_rows = p.dk + (bh * p.SK + k_start) * wide::D;
+  float* dv_rows = p.dv + (bh * p.SK + k_start) * wide::D;
+
+  // the q-blocks that hold a valid score: one contiguous run
+  int q_first = 0, n = 0;
+  for (int qi = 0; qi < p.SQ / BQ; ++qi)
+    if (tile_runs(qi * BQ, k_start, q_offset, p.causal, p.local_window)) {
+      if (n == 0) q_first = qi;
+      ++n;
+    }
+
+  float acc[wide::HALF / 2];  // this warpgroup's half of dV, then of dK
+  zero(acc);
+  if (n == 0) {
+    wide::store_half(dv_rows, acc);
+    wide::store_half(dk_rows, acc);
+    return;
+  }
+  wide::split_rows(k + kv_row * wide::D, ks);
+  wide::split_rows(v + kv_row * wide::D, vs);
+  auto block = [&](const float* x, int it) {
+    return x + (q_row + static_cast<size_t>(q_first + it) * BQ) * wide::D;
+  };
+  // the q-block's lse and Delta aside, read by the softmax below
+  auto rows_of = [&](int q_start) {
+    return [&, q_start] {
+      if (threadIdx.x < 64)
+        st_shared_f1(rows + 4 * threadIdx.x,
+                     p.lse[q_row + q_start + threadIdx.x]);
+      else if (threadIdx.x < 128)
+        st_shared_f1(rows + 4 * threadIdx.x,
+                     p.delta[q_row + q_start + threadIdx.x - 64]);
+    };
+  };
+  // S^T = K Q^T of q-block it, to P (element i = 4 g + 2 hh + e: key key0 +
+  // 8 hh, query q_start + 8 g + 2 c + e), and its keep bits
+  auto probs = [&](auto& sl, float (&pr)[32], uint32_t (&kb)[2], int it) {
+    const int q_start = (q_first + it) * BQ;
+    wide::scores(pr, sl, ks, buf, [&] {
+      keep_dkv<MODE>(p.dp, b, h, p.H, p.SQ, p.SK, q_start, k_start, kb);
+    }, rows_of(q_start));
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int g = i / 4, hh = (i / 2) % 2, e = i % 2;
+      const int qc = 8 * g + 2 * c + e;
+      float x = pr[i] * p.scale;
+      if ((p.causal || p.local_window > 0) &&
+          !score_valid(q_start + qc + q_offset, key0 + 8 * hh, p.causal,
+                       p.local_window))
+        x = neg_big();
+      pr[i] = expf(x - lse_s[qc]);
+    }
+  };
+  auto kept = [&](float x, const uint32_t (&kb)[2], int i) {
+    const int g = i / 4, hh = (i / 2) % 2, e = i % 2;
+    if (MODE == kNone) return x;
+    return ((kb[hh] >> (2 * g + e)) & 1u) ? x * p.dp.inv_keep : 0.f;
+  };
+
+  // dV += P_drop^T dO: step j of q-block j / 8, S^T over Q (0-3), dV over
+  // the halves of dO (4-7)
+  {
+    auto sl = wide::stream(
+        [&](int j) {
+          const int r = j % 8;
+          return r < 4 ? wide::score_pair(block(q, j / 8), r)
+                       : wide::half_pair(block(dout, j / 8), r - 4);
+        });
+    for (int it = 0; it < n; ++it) {
+      float pr[32];
+      uint32_t kb[2];
+      probs(sl, pr, kb, it);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) pr[i] = kept(pr[i], kb, i);
+      uint32_t a[3][4][4];
+      a_frags(pr, a);
+      wide::add_half(acc, sl, a, buf);
+    }
+  }
+  wide::store_half(dv_rows, acc);
+
+  // dK += dS^T Q: step j of q-block j / 12, S^T over Q (0-3), dP^T over
+  // dO (4-7), dK over the halves of Q (8-11)
+  zero(acc);
+  {
+    auto sl = wide::stream(
+        [&](int j) {
+          const int r = j % 12;
+          const float* x = block(r / 4 == 1 ? dout : q, j / 12);
+          return r < 8 ? wide::score_pair(x, r % 4)
+                       : wide::half_pair(x, r % 4);
+        });
+    for (int it = 0; it < n; ++it) {
+      float pr[32], dpt[32];
+      uint32_t kb[2];
+      probs(sl, pr, kb, it);
+      wide::scores(dpt, sl, vs, buf);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int g = i / 4, e = i % 2;
+        const int qc = 8 * g + 2 * c + e;
+        dpt[i] = pr[i] * (kept(dpt[i], kb, i) - delta_s[qc]) * p.scale;
+      }
+      uint32_t a[3][4][4];
+      a_frags(dpt, a);
+      wide::add_half(acc, sl, a, buf);
+    }
+  }
+  wide::store_half(dk_rows, acc);
+}
+
+// alignment slack, the K and V triples, two slice triples, a q-block's lse
+// and Delta
+constexpr int kWideSmemBytes = 1024 + 6 * wide::TILE + 2 * wide::SLICE3 + 512;
+
+int launch_wide(const void* q, const void* k, const void* v,
+                const void* dout, const DkvArgs& p, int mode,
+                cudaStream_t s) {
+  constexpr int D = wide::D;
+  if (mode != kNone && mode != kPremask && mode != kCounters)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto kernel = mode == kNone      ? flash_dkv_kernel_wide<D, kNone>
+                      : mode == kPremask ? flash_dkv_kernel_wide<D, kPremask>
+                                         : flash_dkv_kernel_wide<D, kCounters>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kWideSmemBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<dim3(p.SK / BK, p.H, p.B), wide::THREADS, kWideSmemBytes, s>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout), p);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // dk, dv (B,H,SK,D) per query head, f32, from f32 q (B,H,SQ,D), k/v
 // (B,KV,SK,D), dout (B,H,SQ,D), lse and delta (B,H,SQ), all contiguous and
-// on 16 bytes; SQ and SK multiples of 64; D in {16, 32, 64, 128}; the
+// on 16 bytes; SQ and SK multiples of 64; D in {16, 32, 64, 128, 256}; the
 // arguments of repro_flash_dq (flash_dq_f32.cu). dq is not written.
 // Launches on `stream`; returns the CUDA error code (0 on success),
 // cudaErrorInvalidValue for what it does not take or a tensor map that
@@ -344,6 +521,7 @@ extern "C" int repro_flash_dkv(
     case 32: return run_d<32>(q, k, v, dout, p, mode, s);
     case 64: return run_d<64>(q, k, v, dout, p, mode, s);
     case 128: return run_d<128>(q, k, v, dout, p, mode, s);
+    case 256: return launch_wide(q, k, v, dout, p, mode, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -355,6 +533,7 @@ extern "C" int repro_flash_dkv_smem_bytes(int D) {
     case 32: return dkv_smem_bytes<32>();
     case 64: return dkv_smem_bytes<64>();
     case 128: return dkv_smem_bytes<128>();
+    case 256: return kWideSmemBytes;
     default: return 0;
   }
 }

@@ -49,6 +49,7 @@
 
 #include <cstdint>
 
+#include "flash_f32_wide.cuh"
 #include "flash_sm90.cuh"
 
 namespace {
@@ -269,11 +270,135 @@ int run_d(const void* q, const void* k, const void* v, const void* dout,
   }
 }
 
+// The D = 256 instance (flash_f32_wide.cuh): two warpgroups on the same 64
+// query rows, each both score products in full and dS K and dq over one
+// 128-column half of K. Q and dO are split once into their triples; each
+// k-block's K and V come as 32-column slices, twelve steps of two: S =
+// Q K^T over K's slices, dP = dO V^T over V's (four steps each, the part
+// products chained over D), then dq += dS K over the half's slices of K
+// (four steps, each warpgroup one slice a step, each folded into dq by
+// f32 adds). The keep bits are made under S's first step. Shared memory: the
+// Q and dO triples (192 KB) and two slice triples (24 KB), 222,208 bytes
+// -- one CTA an SM. A kernel of its own, so that the instances above keep
+// their machine code.
+template <int D, int MODE>
+__global__ void __launch_bounds__(wide::THREADS, 1)
+    flash_dq_kernel_wide(const float* __restrict__ q,
+                         const float* __restrict__ k,
+                         const float* __restrict__ v,
+                         const float* __restrict__ dout, DqArgs p) {
+  static_assert(D == wide::D, "the wide instance is the D = 256 one");
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t qs = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t dos = qs + 3 * wide::TILE;  // each triple hi, mid, lo
+  const uint32_t buf = dos + 3 * wide::TILE;  // two slice triples
+
+  const int t = threadIdx.x % WG, w = t / 32, l = t % 32, c = l % 4;
+  const int qi = gridDim.x - 1 - blockIdx.x;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int kvh = h / (p.H / p.KV);
+  const int q_start = qi * BQ;
+  const int q_offset = p.SK - p.SQ;
+  const size_t q_row = static_cast<size_t>(b * p.H + h) * p.SQ + q_start;
+  const size_t kv_row = static_cast<size_t>(b * p.KV + kvh) * p.SK;
+
+  // the k-blocks that hold a valid score: one contiguous run
+  int k_first = 0, n = 0;
+  for (int ki = 0; ki < p.SK / BK; ++ki)
+    if (tile_runs(q_start, ki * BK, q_offset, p.causal, p.local_window)) {
+      if (n == 0) k_first = ki;
+      ++n;
+    }
+
+  // this thread's rows: q_start + 16 w + l / 4 + 8 hh; its warpgroup's
+  // half of dq
+  const size_t row0 = q_row + 16 * w + l / 4;
+  float dq[wide::HALF / 2];
+  zero(dq);
+  if (n > 0) {
+    float lse[2], delta[2];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      lse[hh] = p.lse[row0 + 8 * hh];
+      delta[hh] = p.delta[row0 + 8 * hh];
+    }
+    // step j of k-block j / 12: S over K (0-3), dP over V (4-7), dq over
+    // the halves of K (8-11)
+    auto sl = wide::stream(
+        [&](int j) {
+          const int it = j / 12, r = j % 12;
+          const float* rows =
+              (r / 4 == 1 ? v : k) +
+              (kv_row + static_cast<size_t>(k_first + it) * BK) * wide::D;
+          return r < 8 ? wide::score_pair(rows, r % 4)
+                       : wide::half_pair(rows, r % 4);
+        });
+    wide::split_rows(q + q_row * wide::D, qs);
+    wide::split_rows(dout + q_row * wide::D, dos);
+
+    for (int it = 0; it < n; ++it) {
+      const int k_start = (k_first + it) * BK;
+      // S = Q K^T, then dP = dO V^T (rows are queries, columns keys); the
+      // keep bits made under S's first step
+      float sc[32], dp[32];
+      uint32_t kb[2];
+      wide::scores(sc, sl, qs, buf, [&] {
+        keep_fwd<MODE>(p.dp, b, h, p.H, p.SQ, p.SK, q_start, k_start, kb);
+      });
+      wide::scores(dp, sl, dos, buf);
+
+      // element i = 4 g + 2 hh + e: query q_start + 16w + l/4 + 8hh, key
+      // k_start + 8g + 2c + e; sc becomes P, then dp becomes dS * scale
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int g = i / 4, hh = (i / 2) % 2, e = i % 2;
+        const int q_pos = q_start + 16 * w + l / 4 + 8 * hh + q_offset;
+        float x = sc[i] * p.scale;
+        if ((p.causal || p.local_window > 0) &&
+            !score_valid(q_pos, k_start + 8 * g + 2 * c + e, p.causal,
+                         p.local_window))
+          x = neg_big();
+        const float pr = expf(x - lse[hh]);
+        float gd = dp[i];
+        if (MODE != kNone)
+          gd = ((kb[hh] >> (2 * g + e)) & 1u) ? gd * p.dp.inv_keep : 0.f;
+        dp[i] = pr * (gd - delta[hh]) * p.scale;
+      }
+
+      // dq += dS K over this warpgroup's half, both sides as triples
+      uint32_t a[3][4][4];
+      a_frags(dp, a);
+      wide::add_half(dq, sl, a, buf);
+    }
+  }
+  wide::store_half(p.dq + q_row * wide::D, dq);
+}
+
+// alignment slack, the Q and dO triples, two slice triples
+constexpr int kWideSmemBytes = 1024 + 6 * wide::TILE + 2 * wide::SLICE3;
+
+int launch_wide(const void* q, const void* k, const void* v,
+                const void* dout, const DqArgs& p, int mode, cudaStream_t s) {
+  constexpr int D = wide::D;
+  if (mode != kNone && mode != kPremask && mode != kCounters)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto kernel = mode == kNone      ? flash_dq_kernel_wide<D, kNone>
+                      : mode == kPremask ? flash_dq_kernel_wide<D, kPremask>
+                                         : flash_dq_kernel_wide<D, kCounters>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kWideSmemBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<dim3(p.SQ / BQ, p.H, p.B), wide::THREADS, kWideSmemBytes, s>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout), p);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // dq (B,H,SQ,D) f32 from f32 q (B,H,SQ,D), k/v (B,KV,SK,D), dout
 // (B,H,SQ,D), lse and delta (B,H,SQ), all contiguous and on 16 bytes; SQ
-// and SK multiples of 64; D in {16, 32, 64, 128}; mode 0 none, 1 premask
+// and SK multiples of 64; D in {16, 32, 64, 128, 256}; mode 0 none, 1 premask
 // (plane (B,H,SQ/32,SK) int32), 2 counters (the Philox key words; replay
 // and fused). dk and dv are not written (repro_flash_dkv,
 // flash_dkv_f32.cu, takes the same arguments). Launches on `stream`;
@@ -310,6 +435,7 @@ extern "C" int repro_flash_dq(
     case 32: return run_d<32>(q, k, v, dout, p, mode, s);
     case 64: return run_d<64>(q, k, v, dout, p, mode, s);
     case 128: return run_d<128>(q, k, v, dout, p, mode, s);
+    case 256: return launch_wide(q, k, v, dout, p, mode, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -321,6 +447,7 @@ extern "C" int repro_flash_dq_smem_bytes(int D) {
     case 32: return dq_smem_bytes<32>();
     case 64: return dq_smem_bytes<64>();
     case 128: return dq_smem_bytes<128>();
+    case 256: return kWideSmemBytes;
     default: return 0;
   }
 }

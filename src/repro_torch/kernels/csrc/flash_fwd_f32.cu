@@ -41,11 +41,183 @@
 // 1.76 to 1.30 ms.
 #include <cstdint>
 
+#include "flash_f32_wide.cuh"
 #include "flash_fwd_sm90.cuh"
+
+namespace {
+
+using namespace repro_flash;
+using namespace repro_flash::tc;
+
+// The D = 256 instance (flash_f32_wide.cuh): two warpgroups on the same 64
+// query rows, each the score product, the online softmax and the keep bits
+// in full and P V and O over one 128-column half of V. Q is split once
+// into its triple; each k-block's K and V come as 32-column slices, eight
+// steps of two: S = Q K^T over K's slices (four steps, the part products
+// chained over D; the keep bits made under the first), then O += P V over
+// the half's slices of V (four steps, each warpgroup one slice a step).
+// The arithmetic of a k-block is the body's (flash_fwd_sm90.cuh: the same
+// softmax, O scaled by alpha, then each chunk of P V a product of its own
+// folded in by f32 adds). Shared memory:
+// the Q triple (96 KB) and two slice triples (24 KB), 123,904 bytes -- one
+// CTA an SM. A kernel of its own, so that the body's instances keep their
+// machine code.
+template <int D, int MODE>
+__global__ void __launch_bounds__(wide::THREADS, 1)
+    flash_fwd_kernel_wide(const float* __restrict__ q,
+                          const float* __restrict__ k,
+                          const float* __restrict__ v,
+                          fwd::FwdArgs<float> p) {
+  static_assert(D == wide::D, "the wide instance is the D = 256 one");
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t qs = (smem_u32(smem_raw) + 1023u) & ~1023u;  // hi, mid, lo
+  const uint32_t buf = qs + 3 * wide::TILE;  // two slice triples
+
+  const int t = threadIdx.x % WG, w = t / 32, l = t % 32, c = l % 4;
+  const int qi = gridDim.x - 1 - blockIdx.x;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int kvh = h / (p.H / p.KV);
+  const int q_start = qi * BQ;
+  const int q_offset = p.SK - p.SQ;
+  const size_t q_row = static_cast<size_t>(b * p.H + h) * p.SQ + q_start;
+  const size_t kv_row = static_cast<size_t>(b * p.KV + kvh) * p.SK;
+
+  // the k-blocks that hold a valid score: one contiguous run
+  int k_first = 0, n = 0;
+  for (int ki = 0; ki < p.SK / BK; ++ki)
+    if (tile_runs(q_start, ki * BK, q_offset, p.causal, p.local_window)) {
+      if (n == 0) k_first = ki;
+      ++n;
+    }
+
+  float o[wide::HALF / 2];  // this warpgroup's half of O
+  zero(o);
+  float m[2] = {neg_big(), neg_big()}, lsum[2] = {0.f, 0.f};
+  if (n > 0) {
+    // step j of k-block j / 8: S over K (0-3), P V over the halves of V
+    // (4-7)
+    auto sl = wide::stream(
+        [&](int j) {
+          const int r = j % 8;
+          const float* rows =
+              (r < 4 ? k : v) +
+              (kv_row + static_cast<size_t>(k_first + j / 8) * BK) * wide::D;
+          return r < 4 ? wide::score_pair(rows, r)
+                       : wide::half_pair(rows, r - 4);
+        });
+    wide::split_rows(q + q_row * wide::D, qs);
+
+    for (int it = 0; it < n; ++it) {
+      const int k_start = (k_first + it) * BK;
+      float sc[32];
+      uint32_t kb[2];
+      wide::scores(sc, sl, qs, buf, [&] {
+        keep_fwd<MODE>(p.dp, b, h, p.H, p.SQ, p.SK, q_start, k_start, kb);
+      });
+
+      // online softmax on the fragment: element (hh, g, e) is sc[4g+2hh+e]
+      float alpha[2];
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int q_pos = q_start + 16 * w + l / 4 + 8 * hh + q_offset;
+        float mc = neg_big();
+#pragma unroll
+        for (int g = 0; g < 8; ++g)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float x = sc[4 * g + 2 * hh + e] * p.scale;
+            if ((p.causal || p.local_window > 0) &&
+                !score_valid(q_pos, k_start + 8 * g + 2 * c + e, p.causal,
+                             p.local_window))
+              x = neg_big();
+            sc[4 * g + 2 * hh + e] = x;
+            mc = fmaxf(mc, x);
+          }
+        mc = fmaxf(mc, __shfl_xor_sync(0xffffffffu, mc, 1));
+        mc = fmaxf(mc, __shfl_xor_sync(0xffffffffu, mc, 2));
+        const float m_new = fmaxf(m[hh], mc);
+        alpha[hh] = expf(m[hh] - m_new);
+        float rs = 0.f;
+#pragma unroll
+        for (int g = 0; g < 8; ++g)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float ev = expf(sc[4 * g + 2 * hh + e] - m_new);
+            rs += ev;
+            sc[4 * g + 2 * hh + e] =
+                ((kb[hh] >> (2 * g + e)) & 1u) ? ev : 0.f;
+          }
+        rs += __shfl_xor_sync(0xffffffffu, rs, 1);
+        rs += __shfl_xor_sync(0xffffffffu, rs, 2);
+        lsum[hh] = alpha[hh] * lsum[hh] + rs;
+        m[hh] = m_new;
+      }
+
+      // O = O * alpha + P V over this warpgroup's half, both sides split
+#pragma unroll
+      for (int i = 0; i < wide::HALF / 2; ++i) o[i] = o[i] * alpha[(i / 2) % 2];
+      uint32_t pa[3][4][4];
+      a_frags(sc, pa);
+      wide::add_half(o, sl, pa, buf);
+    }
+  }
+
+  float li[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) li[hh] = lsum[hh] == 0.f ? 1.f : lsum[hh];
+#pragma unroll
+  for (int i = 0; i < wide::HALF / 2; ++i)
+    o[i] = o[i] / li[(i / 2) % 2] * p.dp.inv_keep;
+  wide::store_half(p.o + q_row * wide::D, o);
+  if (c == 0 && threadIdx.x < WG) {
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+      p.lse[q_row + 16 * w + l / 4 + 8 * hh] = m[hh] + logf(li[hh]);
+  }
+}
+
+// alignment slack, the Q triple, two slice triples
+constexpr int kWideSmemBytes = 1024 + 3 * wide::TILE + 2 * wide::SLICE3;
+
+// the D = 256 instance's launch, with repro_flash::fwd::run's checks
+int run_wide(const void* q, const void* k, const void* v, void* out,
+             void* lse, int B, int H, int KV, int SQ, int SK, float scale,
+             int causal, int local_window, int mode, const void* plane,
+             uint32_t threshold, float inv_keep, uint32_t key_lo,
+             uint32_t key_hi, uint32_t salt, uint32_t bh_offset,
+             int heads_global, int rounds, cudaStream_t s) {
+  constexpr int D = wide::D;
+  const uintptr_t align =
+      reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+      reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(out);
+  if (B <= 0 || H <= 0 || KV <= 0 || H % KV || SQ <= 0 || SK <= 0 ||
+      SQ % BQ || SK % BK || heads_global <= 0 || align % 16 ||
+      (mode == kPremask && plane == nullptr) ||
+      (mode != kNone && mode != kPremask && mode != kCounters))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const fwd::FwdArgs<float> p{
+      static_cast<float*>(out), static_cast<float*>(lse), B, H, KV, SQ, SK,
+      scale, causal, local_window,
+      Dropout{static_cast<const int32_t*>(plane), threshold, key_lo, key_hi,
+              salt, bh_offset, static_cast<uint32_t>(heads_global), rounds,
+              inv_keep}};
+  const auto kernel = mode == kNone      ? flash_fwd_kernel_wide<D, kNone>
+                      : mode == kPremask ? flash_fwd_kernel_wide<D, kPremask>
+                                         : flash_fwd_kernel_wide<D, kCounters>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kWideSmemBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<dim3(SQ / BQ, H, B), wide::THREADS, kWideSmemBytes, s>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
 
 // out, lse <- flash attention of f32 q (B,H,SQ,D), k/v (B,KV,SK,D), all
 // contiguous and on 16 bytes; out and lse f32; SQ and SK multiples of 64;
-// D in {16, 32, 64, 128}; mode 0 = none, 1 = premask (plane), 2 = counters
+// D in {16, 32, 64, 128, 256}; mode 0 = none, 1 = premask (plane), 2 = counters
 // (key words). Launches on `stream`; returns the CUDA error code (0 on
 // success), cudaErrorInvalidValue for what it does not take or a tensor
 // map that cuTensorMapEncodeTiled refuses (repro_flash::fwd::run).
@@ -55,6 +227,11 @@ extern "C" int repro_flash_fwd(
     int local_window, int mode, const void* plane, uint32_t threshold,
     float inv_keep, uint32_t key_lo, uint32_t key_hi, uint32_t salt,
     uint32_t bh_offset, int heads_global, int rounds, void* stream) {
+  if (D == repro_flash::wide::D)
+    return run_wide(q, k, v, out, lse, B, H, KV, SQ, SK, scale, causal,
+                    local_window, mode, plane, threshold, inv_keep, key_lo,
+                    key_hi, salt, bh_offset, heads_global, rounds,
+                    static_cast<cudaStream_t>(stream));
   return repro_flash::fwd::run<repro_flash::fwd::F32Ops>(
       q, k, v, out, lse, B, H, KV, SQ, SK, D, scale, causal, local_window,
       mode, plane, threshold, inv_keep, key_lo, key_hi, salt, bh_offset,
@@ -63,5 +240,6 @@ extern "C" int repro_flash_fwd(
 
 // dynamic shared memory a CTA of the D instance takes (0 for another D)
 extern "C" int repro_flash_fwd_smem_bytes(int D) {
+  if (D == repro_flash::wide::D) return kWideSmemBytes;
   return repro_flash::fwd::smem_bytes<repro_flash::fwd::F32Ops>(D);
 }

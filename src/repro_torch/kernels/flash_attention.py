@@ -26,10 +26,11 @@ order of the f32 sums and writes O in bf16, lse in f32; f32 q/k/v run
 triples as well and sums the six part products of each f32 product that
 reach 2^-16, the f32 function up to the order of the sums. What bounds
 each on an H100 and how it tiles: see the notes in the CUDA sources. Both
-take SQ and SK multiples of 64 and head_dim in {16, 32, 64, 128}, the bf16
-one also 256 (``KERNEL_HEAD_DIMS``; two warpgroups a CTA, each holding
-one column half of O, counted as the instance ``flash_fwd_bf16_d256``);
-anything else on the card raises.
+take SQ and SK multiples of 64 and head_dim in {16, 32, 64, 128, 256}
+(``KERNEL_HEAD_DIMS``; at 256 two warpgroups a CTA, each holding one
+column half of O, counted as the instances ``flash_fwd_bf16_d256`` and
+``flash_fwd_f32_d256``; the f32 one streams K and V in 32-column slices,
+``csrc/flash_f32_wide.cuh``); anything else on the card raises.
 
 The seed-salt word is host data: the kernels take its four words by
 value, so it stays on the CPU and reading it costs no device sync.
@@ -62,11 +63,10 @@ KERNELS = {torch.float32: KERNEL, torch.bfloat16: KERNEL_BF16}
 SOURCES = {KERNEL: "flash_fwd_f32", KERNEL_BF16: "flash_fwd_bf16"}
 
 NEG_BIG = float(np.float32(-0.7 * np.finfo(np.float32).max))
-# head dims each dtype's kernels take; f32 at 256 waits for its own tiling
-# (ROADMAP queue 2: its operand triples fill shared memory at 128)
-KERNEL_HEAD_DIMS = {torch.float32: (16, 32, 64, 128),
+# head dims each dtype's kernels take
+KERNEL_HEAD_DIMS = {torch.float32: (16, 32, 64, 128, 256),
                     torch.bfloat16: (16, 32, 64, 128, 256)}
-# the head dim whose instances count their launches apart (name + "_d256")
+# the head dim whose instances count their launches apart
 WIDE_HEAD_DIM = 256
 KERNEL_TILE = 64
 # plain versions: score elements per q-chunk
@@ -75,8 +75,13 @@ _MODE_CODE = {"none": 0, "premask": 1, "replay": 2, "fused": 2}
 
 def instance(name: str, head_dim: int) -> str:
     """The launch counter of kernel ``name`` at ``head_dim``: the D = 256
-    instances (two warpgroups a CTA) count apart from the narrower ones."""
-    return f"{name}_d{head_dim}" if head_dim == WIDE_HEAD_DIM else name
+    instances (two warpgroups a CTA) count apart from the narrower ones,
+    as their library's name and the head dim (``flash_fwd_bf16_d256``,
+    ``flash_dq_f32_d256``)."""
+    if head_dim != WIDE_HEAD_DIM:
+        return name
+    library = name if name.endswith("_bf16") else f"{name}_f32"
+    return f"{library}_d{head_dim}"
 
 
 _launches = {n: 0 for dtype, name in KERNELS.items()
@@ -254,12 +259,9 @@ def kernel_shape_unsupported_reason(sq: int, sk: int, head_dim: int,
     they can."""
     dims = KERNEL_HEAD_DIMS[dtype]
     if sq % KERNEL_TILE or sk % KERNEL_TILE or head_dim not in dims:
-        wait = (" (f32 at head_dim 256: ROADMAP queue 2, the f32 flash "
-                "kernels at head_dim 256)" if head_dim not in dims and
-                head_dim in KERNEL_HEAD_DIMS[torch.bfloat16] else "")
         return (f"the {str(dtype).removeprefix('torch.')} flash kernels "
                 f"take SQ, SK multiples of {KERNEL_TILE} and head_dim in "
-                f"{dims}; got SQ={sq} SK={sk} D={head_dim}{wait}")
+                f"{dims}; got SQ={sq} SK={sk} D={head_dim}")
     return None
 
 

@@ -287,3 +287,76 @@ def test_philox_shared_word_shard_window(walker, window):
         whole = philox_mask_ref(3, 8, 64, 100, p, seed, salt)
         tile = np.asarray(whole)[1:3, 4:8]
         assert np.array_equal(got.reshape(tile.shape), tile)
+
+
+GRID_SIZES_PROGRAM = r"""
+#include <cstdio>
+#include <cstdlib>
+#include <vector>
+#include "philox_walk.cuh"
+using namespace repro_philox;
+
+// The kernel's loop on every persistent grid of 1 .. max_ctas CTAs (as
+// launch_of sizes it from sms = ctas, per_sm = 1): prints each grid size
+// on which a word of the plane is stored twice, never, or past its end,
+// then the number of grid sizes walked.
+int main(int argc, char** argv) {
+  const walk::Plane p = walk::plane_of(
+      strtoul(argv[1], 0, 10), strtoul(argv[2], 0, 10),
+      strtoul(argv[3], 0, 10), strtoul(argv[4], 0, 10),
+      strtoul(argv[2], 0, 10), 0);
+  const int max_ctas = atoi(argv[5]);
+  const bool vec = p.sk % walk::WORDS == 0;
+  const uint64_t total = uint64_t(p.batch) * p.heads_local * p.sq32 * p.sk;
+  std::vector<unsigned char> seen(total);
+  for (int ctas = 1; ctas <= max_ctas; ++ctas) {
+    const walk::Launch at = walk::launch_of(p, ctas, 1);
+    std::fill(seen.begin(), seen.end(), 0);
+    uint64_t marks = 0, twice = 0, beyond = 0;
+    for (uint32_t i = 0; i < at.ctas * uint32_t(walk::kThreads); ++i)
+      for (walk::Cursor c = walk::cursor_at(i, p); c.b < p.batch;
+           walk::advance(c, at.step, p))
+        for (uint32_t j = 0; j < uint32_t(walk::WORDS); ++j) {
+          if (!vec && c.grp * walk::WORDS + j >= p.sk) continue;
+          const uint64_t w = c.word + j;
+          if (w >= total) { ++beyond; continue; }
+          twice += seen[w];
+          seen[w] = 1;
+          ++marks;
+        }
+    if (marks != total || twice || beyond)
+      std::printf("grid %d (%u CTAs): %llu of %llu words, %llu twice, "
+                  "%llu beyond\n", ctas, at.ctas, (unsigned long long)marks,
+                  (unsigned long long)total, (unsigned long long)twice,
+                  (unsigned long long)beyond);
+  }
+  std::printf("%d\n", max_ctas);
+  return 0;
+}
+"""
+
+
+@pytest.mark.parametrize("shape", [(1, 32, 512, 512), (1, 32, 1024, 1024),
+                                   (1, 8, 1024, 4097)],
+                         ids=["serve", "1x32x1024", "sk_4097"])
+def test_philox_walk_every_grid_size(tmp_path, shape):
+    """The kernel sizes its persistent grid on its first launch in a
+    process from the occupancy query (``occupancy`` in philox_mask.cu),
+    whatever that returns: every grid of 1 to 4 x 132 CTAs (the H100's
+    SMs at the 4 CTAs a SM the instance holds) stores every word of the
+    plane exactly once -- the smoke's serving plane, where a first launch
+    once differed from the plain version on the card, a plane that needs
+    more CTAs than fit, and one whose SK is not a multiple of the words a
+    thread makes (the scalar stores)."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("no g++: the walk is compiled from the CUDA headers")
+    src, exe = tmp_path / "grids.cc", tmp_path / "grids"
+    src.write_text(GRID_SIZES_PROGRAM)
+    subprocess.run([gxx, "-std=c++17", "-O2", f"-I{build.CSRC}", "-o",
+                    str(exe), str(src)], check=True)
+    b, h, sq, sk = shape
+    res = subprocess.run([str(exe), str(b), str(h), str(sq // 32), str(sk),
+                          str(4 * SMS)], check=True, capture_output=True,
+                         text=True)
+    assert res.stdout.split("\n")[:-1] == [str(4 * SMS)], res.stdout[:2000]
