@@ -16,7 +16,11 @@ Phases (each raises on failure; nothing is caught):
      not spill at D = 128, none at D = 256), the f32 GEMM+RNG
      libraries' (which may not spill), and holds the flash libraries
      that gained the D = 256 instances to the parent commit's SASS at
-     D <= 128 (FLASH_NARROW_SASS);
+     D <= 128 (FLASH_NARROW_SASS) and the D = 256 kernels that are not
+     split between their warpgroups (the f32 dq, the bf16 forward, dq and
+     dkv) to theirs (FLASH_WIDE_SASS); where a checkout of the parent
+     commit is unpacked in build/parent, its f32 forward and dkv are built
+     beside them for phase 2;
   2. each kernel against its plain PyTorch version on the card, then
      timed with CUDA events beside its bound and, where one PyTorch call
      computes the same function, that call's time: the Philox kernel
@@ -45,7 +49,11 @@ Phases (each raises on failure; nothing is caught):
      within GRAD_TOL, limits that the plain forward on bf16-rounded K, V
      and the plain backward on bf16-rounded K, V, dO must fail), and the
      f32 flash kernels at head_dim 256 (recurrentgemma-9b's LOCAL layer,
-     as the bf16 ones below, at the f32 limits with both controls);
+     as the bf16 ones below, at the f32 limits with both controls; the
+     forward and dkv, which split their products between the two
+     warpgroups, timed in turns with the parent commit's where phase 1
+     built those, SDPA's causal call without the window printed beside
+     the masked one);
   3. serving: the reduced llama2 on the card against the same engine on
      the CPU, then ``ServeEngine`` on llama2-7b at full width and depth
      (f32 random weights from a seed): 8 requests, 4 slots, 64 new tokens
@@ -405,9 +413,11 @@ def phase_build(state) -> None:
     import ctypes
     import re
     t0 = time.perf_counter()
+    parent = _start_parent_build()
     libs = build.build_all()
     log(f"[build] {len(libs)} kernel(s) in {time.perf_counter() - t0:.1f}s "
         f"-> {build.build_dir()}")
+    state["parent_f32"] = _finish_parent_build(parent)
     for name in libs:
         for line in build.ptxas_report(name):
             if "(C75" not in line:   # advisories: once each, below
@@ -497,7 +507,68 @@ def phase_build(state) -> None:
                                  f"the parent's {want})")
         log(f"[build] {name}: its {count} kernels at D <= 128 run the "
             f"parent's SASS, instruction for instruction (digest {digest})")
+    # and at D = 256 every kernel but the two split ones (SPLIT_KERNELS):
+    # the f32 dq and the bf16 forward, dq and dkv (FLASH_WIDE_SASS)
+    for name, want in FLASH_WIDE_SASS.items():
+        digest, count = wide_sass_digest(libs[name])
+        if digest != want:
+            raise AssertionError(f"{name}: the SASS of its {count} kernels "
+                                 f"at D = 256 changed (digest {digest}, the "
+                                 f"parent's {want})")
+        log(f"[build] {name}: its {count} kernels at D = 256 run the "
+            f"parent's SASS, instruction for instruction (digest {digest})")
 
+
+# The parent commit's sources, where a checkout of it is unpacked beside
+# this script (git archive <commit> | tar -x -C build/parent): phase 2
+# times its f32 forward and dkv at head_dim 256 in turns with the split
+# ones. A checkout of the committed files alone has none; phase 2 then
+# quotes PROBE_IN_TURNS.
+PARENT_CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "build", "parent", "src", "repro_torch",
+                           "kernels", "csrc")
+PARENT_LIBS = ("flash_fwd_f32", "flash_dkv_f32")
+
+
+def _start_parent_build():
+    """The parent's PARENT_LIBS, one nvcc each, started (None without a
+    parent checkout)."""
+    if not os.path.isdir(PARENT_CSRC):
+        return None
+    out = build.build_dir() / "parent"
+    out.mkdir(parents=True, exist_ok=True)
+    return {name: (out / f"libparent_{name}.so", subprocess.Popen(
+        [build.nvcc(), *build.NVCC_FLAGS, "-o",
+         str(out / f"libparent_{name}.so"),
+         os.path.join(PARENT_CSRC, f"{name}.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        for name in PARENT_LIBS}
+
+
+def _finish_parent_build(procs):
+    """name -> the parent's library, once its nvcc is done (None without
+    a parent checkout)."""
+    if procs is None:
+        log(f"[build] no parent checkout at {PARENT_CSRC}: phase 2 quotes "
+            f"the probe's parent timings")
+        return None
+    libs = {}
+    for name, (lib, proc) in procs.items():
+        out = proc.communicate()[0]
+        if proc.returncode:
+            raise RuntimeError(f"parent {name}: nvcc failed\n{out}")
+        libs[name] = lib
+    log(f"[build] the parent's {', '.join(libs)} from {PARENT_CSRC}")
+    return libs
+
+
+# the digest (wide_sass_digest) of the flash kernels at head dim 256 that
+# are not split between the warpgroups, as the parent commit's sources build
+# them (scripts/probe_flash_f32_d256_split.py --parent)
+FLASH_WIDE_SASS = {"flash_dq_f32": "d56b6d9d4a5fbca2",
+                   "flash_fwd_bf16": "1ddde3cc16359d22",
+                   "flash_dq_bf16": "fd4d84fe54487e82",
+                   "flash_dkv_bf16": "fa9ffd87906d21b5"}
 
 # the digest (narrow_sass_digest) of each flash library's kernels at head
 # dims up to 128 as the parent commit's sources build them on the H100
@@ -532,18 +603,37 @@ def sass_by_function(lib) -> dict:
     return out
 
 
-def narrow_sass_digest(lib) -> tuple:
-    """(digest, kernels) of a flash library's instances at head dims up
-    to 128: a sha256 prefix of their (kernel, D, mode) keys and SASS, so
+def _sass_digest(lib, keep) -> tuple:
+    """(digest, kernels) of a flash library's instances whose (kernel, D,
+    mode) key ``keep`` takes: a sha256 prefix of their keys and SASS, so
     two builds with equal digests run the same machine code there."""
     import hashlib
-    narrow = {key: code for key, code in sass_by_function(lib).items()
-              if key[1] <= 128}
+    kept = {key: code for key, code in sass_by_function(lib).items()
+            if keep(key)}
     h = hashlib.sha256()
-    for key in sorted(narrow):
+    for key in sorted(kept):
         h.update(repr(key).encode())
-        h.update("\n".join(narrow[key]).encode())
-    return h.hexdigest()[:16], len(narrow)
+        h.update("\n".join(kept[key]).encode())
+    return h.hexdigest()[:16], len(kept)
+
+
+def narrow_sass_digest(lib) -> tuple:
+    """_sass_digest of a flash library's instances at head dims up to
+    128."""
+    return _sass_digest(lib, lambda key: key[1] <= 128)
+
+
+# the f32 kernels at D = 256 that split their products between the two
+# warpgroups (csrc/flash_wide_map.cuh); the other D = 256 instances keep
+# their parent's machine code (FLASH_WIDE_SASS)
+SPLIT_KERNELS = ("flash_fwd_kernel_wide", "flash_dkv_kernel_wide")
+
+
+def wide_sass_digest(lib) -> tuple:
+    """_sass_digest of a flash library's instances at head dim 256 but the
+    split ones (SPLIT_KERNELS)."""
+    return _sass_digest(
+        lib, lambda key: key[1] == 256 and key[0] not in SPLIT_KERNELS)
 
 
 def _ptxas_by_head_dim(name: str) -> dict:
@@ -1438,6 +1528,14 @@ def _flash_kernels_wide(state, rnd, ops_rate, dtype) -> None:
     lib_fwd = cuda_time_ms(lambda: sdpa(q, ke, ve, attn_mask=valid), 10)
     lib_bwd = cuda_time_ms(lambda: torch.autograd.grad(
         lib_out, (qs, ks, vs), do, retain_graph=True), 10)
+    # context, not a yardstick: SDPA causal without the window covers
+    # more pairs than the kernels' (valid_pairs)
+    lib_out = sdpa(qs, ks, vs, is_causal=True)
+    causal_fwd = cuda_time_ms(lambda: sdpa(q, ke, ve, is_causal=True), 10)
+    causal_bwd = cuda_time_ms(lambda: torch.autograd.grad(
+        lib_out, (qs, ks, vs), do, retain_graph=True), 10)
+    causal_pairs = valid_pairs(s, s, True, 0) / pairs
+    causal_ms = {True: causal_fwd, False: causal_bwd}
     del lib_out, qs, ks, vs
     kw = dict(args, mode="replay")
     plain_fwd = cuda_time_ms(lambda: flash.flash_attention_fwd_plain(
@@ -1458,6 +1556,8 @@ def _flash_kernels_wide(state, rnd, ops_rate, dtype) -> None:
             if ms is None:
                 raise AssertionError("the profiler saw no device time")
             modes[name][mode] = ms
+    in_turns = ({} if bf16 else
+                _time_parent_wide(state, q, kk, vv, do, seed_salt, args))
     for name, kind in zip(names, ("fwd", "dq", "dkv")):
         # bf16: the bf16 tensor cores; f32: six bf16 products an f32
         # product (both operands split into exact triples) on them; the
@@ -1484,10 +1584,75 @@ def _flash_kernels_wide(state, rnd, ops_rate, dtype) -> None:
             f"{bound_ms:.4f} ms by {bound_by}{rate}, kernel at "
             f"{bound_ms / ms * 100:.1f}% of bound; by mode: none "
             f"{t['none']:.4f}, premask {t['premask']:.4f}, replay "
-            f"{t['replay']:.4f}, fused {t['fused']:.4f} ms | {state['smi']}")
+            f"{t['replay']:.4f}, fused {t['fused']:.4f} ms; SDPA causal "
+            f"without the window {causal_ms[kind == 'fwd']:.4f} ms "
+            f"({causal_pairs:.2f}x the pairs) | {state['smi']}")
+        if kind in in_turns:
+            timing[name]["parent_ms"] = in_turns[kind]
     del plane, q, do, kk, vv, ke, ve, o, lse
     gc.collect()
     torch.cuda.empty_cache()
+
+
+# The parent commit's f32 forward and dkv at head_dim 256 against the split
+# ones, in turns, from scripts/probe_flash_f32_d256_split.py --parent
+# (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md): the WIDE_SHAPE, replay,
+# window 2048: kind -> (parent ms, split ms), each the mean of its two
+# turns
+PROBE_IN_TURNS = {"fwd": (2.4685, 1.8413), "dkv": (6.3340, 5.3434)}
+
+
+def _time_parent_wide(state, q, k, v, do, op, args) -> dict:
+    """The parent's f32 forward (CUDA events) and dkv (the profiler) at
+    head_dim 256 in turns with the split ones (parent, split, split,
+    parent), replay with the window, where phase 1 built the parent's
+    (``_start_parent_build``); the probe's figures (PROBE_IN_TURNS)
+    otherwise. Returns kind -> the parent's mean ms."""
+    import ctypes
+    libs = state.get("parent_f32")
+    if not libs:
+        for kind, (theirs, mine) in PROBE_IN_TURNS.items():
+            log(f"[kernels] flash {kind} f32 D=256: no parent at hand; the "
+                f"probe in turns: parent {theirs} ms, split {mine} ms "
+                f"({theirs / mine:.3f}x)")
+        return {}
+    tree = {flash.KERNEL: flash._kernel_fn(flash.KERNEL),
+            flash_bwd.KERNEL_DKV: flash_bwd._kernel_fn(flash_bwd.KERNEL_DKV)}
+    parent = {}
+    for kname, lib in ((flash.KERNEL, "flash_fwd_f32"),
+                       (flash_bwd.KERNEL_DKV, "flash_dkv_f32")):
+        fn = getattr(ctypes.CDLL(str(libs[lib])), f"repro_{kname}")
+        fn.argtypes, fn.restype = tree[kname].argtypes, ctypes.c_int
+        parent[kname] = fn
+    kw = dict(args, mode="replay")
+    o, lse = flash.flash_attention_fwd(q, k, v, op, return_lse=True, **kw)
+    times = {"parent": {"fwd": [], "dkv": []},
+             "split": {"fwd": [], "dkv": []}}
+    try:
+        for who in ("parent", "split", "split", "parent"):
+            use = parent if who == "parent" else tree
+            flash._fns[flash.KERNEL] = use[flash.KERNEL]
+            flash_bwd._fns[flash_bwd.KERNEL_DKV] = use[flash_bwd.KERNEL_DKV]
+            times[who]["fwd"].append(cuda_time_ms(
+                lambda: flash.flash_attention_fwd(q, k, v, op, **kw), 10))
+            times[who]["dkv"].append(device_time_ms(
+                lambda: flash_bwd.flash_attention_bwd(q, k, v, o, lse, do, op,
+                                                      **kw),
+                "flash_dkv_kernel", 10))
+    finally:
+        flash._fns.update({flash.KERNEL: tree[flash.KERNEL]})
+        flash_bwd._fns.update({flash_bwd.KERNEL_DKV:
+                               tree[flash_bwd.KERNEL_DKV]})
+    out = {}
+    for kind in ("fwd", "dkv"):
+        theirs, mine = times["parent"][kind], times["split"][kind]
+        out[kind] = sum(theirs) / len(theirs)
+        log(f"[kernels] flash {kind} f32 D=256 replay window="
+            f"{args['local_window']}: in turns (parent, split, split, parent)"
+            f" {theirs[0]:.4f}, {mine[0]:.4f}, {mine[1]:.4f}, {theirs[1]:.4f} "
+            f"ms: the split kernel {out[kind] / (sum(mine) / 2):.3f}x the "
+            f"parent's | {state['smi']}")
+    return out
 
 
 # the fp8 host at the four host GEMMs of a llama2-7b block at B=2, S=2048,

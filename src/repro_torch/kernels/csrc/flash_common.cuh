@@ -29,10 +29,11 @@ struct Dropout {
 };
 
 // Whether the (q-block, k-block) tile holds any valid score: the JAX
-// kernels' block skip, applied only when causal (as there).
-__device__ __forceinline__ bool tile_runs(int q_start, int k_start,
-                                          int q_offset, int causal,
-                                          int local_window) {
+// kernels' block skip, applied only when causal (as there). A host
+// compiler runs it too (flash_wide_map.cuh).
+__host__ __device__ __forceinline__ bool tile_runs(int q_start, int k_start,
+                                                   int q_offset, int causal,
+                                                   int local_window) {
   if (!causal) return true;
   const int q_lo = q_start + q_offset;
   const int q_hi = q_start + BQ - 1 + q_offset;

@@ -305,163 +305,276 @@ int run_d(const void* q, const void* k, const void* v, const void* dout,
   }
 }
 
-// The D = 256 instance (flash_f32_wide.cuh): two warpgroups on the same 64
-// keys, each the score products in full and dK, dV over one 128-column
-// half of Q and dO. K and V are split once into their triples; each
-// q-block's Q and dO come as 32-column slices, two a step. dK and dV of a
-// half are 128 accumulators a thread, as at D = 128, where with both score
-// tiles and a fragment triple they take 254-255 registers: here the CTA
-// walks its q-blocks
-// twice, once for dV (S^T = K Q^T over Q's slices, four steps, then dV +=
-// P_drop^T dO over the half's slices of dO, four steps) and once for dK
-// (S^T again, dP^T = V dO^T over dO's slices, then dK += dS^T Q over the
-// half's slices of Q): the score products of S^T run twice, the others
-// once. The keep bits are made under S^T's first step, the rows' lse and
-// Delta copied aside in its fill. Shared memory: the K and V triples (192
-// KB), two slice triples (24 KB) and this q-block's lse and Delta, 222,720
-// bytes -- one CTA an SM. A kernel of its own, so that the instances above
+namespace map = wide_map;
+
+// A CTA of the D = 256 instance: where its tiles and rows lie, and its
+// walks over the q-blocks (flash_dkv_kernel_wide)
+template <int MODE>
+struct DkvWide {
+  const float* q;
+  const float* dout;
+  const DkvArgs& p;  // the kernel's own (__grid_constant__): no copy
+  // K, V triples; the slice buffers; this q-block's 64 lse, then 64 Delta;
+  // the exchange; a zero word
+  uint32_t ks, vs, buf, rows, xchg, zero_word;
+  int tid, wg, t, c;
+  int k_start, q_offset, b, h;
+  int key0, q0;      // this thread's first key; its warpgroup's first query
+  uint32_t my_rows;  // the warpgroup's rows of a slice (its score B)
+  size_t q_row;
+  map::Run run;
+
+  // the 64 rows that step r of q-block it walks, the address read after
+  // the barrier before it (ld_shared_u32 of the zero word)
+  __device__ __forceinline__ const float* block(int it, int r) const {
+    return (map::dkv_reads_do(r) ? dout : q) +
+           (q_row + static_cast<size_t>(run.first + it) * BQ) * wide::D +
+           wide::ld_shared_u32(zero_word);
+  }
+
+  __device__ __forceinline__ float kept(float x, const uint32_t (&kb)[2],
+                                        int i) const {
+    const int g = i / 4, hh = (i / 2) % 2, e = i % 2;
+    if (MODE == kNone) return x;
+    return ((kb[hh] >> (2 * g + e)) & 1u) ? x * p.dp.inv_keep : 0.f;
+  }
+
+  // this warpgroup's half of a 64 x 64 fragment across (the first
+  // warpgroup writes, the second reads and writes, the first reads), then
+  // the whole fragment's triple
+  __device__ __forceinline__ void across(const float (&mine)[16],
+                                         uint32_t (&a)[3][4][4]) const {
+    float other[16];
+    auto slot = [&](int i) { return xchg + 4 * map::dkv_xchg(t, i); };
+    if (wg == 0) {
+#pragma unroll
+      for (int i = 0; i < 16; ++i) st_shared_f1(slot(i), mine[i]);
+    }
+    __syncthreads();
+    if (wg == 1) {
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        other[i] = ld_shared_f1(slot(i));
+        st_shared_f1(slot(i), mine[i]);
+      }
+    }
+    __syncthreads();
+    if (wg == 0) {
+#pragma unroll
+      for (int i = 0; i < 16; ++i) other[i] = ld_shared_f1(slot(i));
+    }
+    float full[32];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      full[map::dkv_full(0, i)] = wg == 0 ? mine[i] : other[i];
+      full[map::dkv_full(1, i)] = wg == 0 ? other[i] : mine[i];
+    }
+    a_frags(full, a);
+  }
+
+  // One walk over the q-blocks into acc, this warpgroup's half of dV (DV:
+  // its dO phase's products) or of dK (dP^T, then dK over Q's slices;
+  // map::dkv_steps)
+  template <bool DV>
+  __device__ __forceinline__ void walk(float (&acc)[wide::HALF / 2]) const {
+    constexpr bool DK = !DV;
+    constexpr int STEPS = map::dkv_steps(DK);
+    for (int it = 0; it < run.n; ++it) {
+      const int q_start = (run.first + it) * BQ;
+      const bool full = map::tile_full(q_start, k_start, q_offset, p.causal,
+                                       p.local_window);
+      float pr[16], dpt[16];  // this warpgroup's S^T, then P; dP^T, dS^T
+      uint32_t kb[2];
+      uint32_t a[3][4][4];  // P_drop^T's triple, or dS^T's
+#pragma unroll
+      for (int r = 0; r < STEPS; ++r) {
+        const int s = map::dkv_slice(r);
+        const bool own = map::dkv_owner(s) == wg;
+        // the step's two slices into the buffer once every product on it
+        // is done, visible to the tensor cores (block() reads the zero
+        // word: the loads stay behind the barrier)
+        __syncthreads();
+        wide::SliceRegs<wide::THREADS> x[2];
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+          x[j] = wide::load_slice<wide::THREADS>(
+              block(it, r), s + j, tid);
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+          wide::store_slice<wide::THREADS>(x[j], buf + j * wide::SLICE3,
+                                           tid);
+        wide::fence_async();
+        __syncthreads();
+        if (map::dkv_phase(r) == 0) {
+          // S^T of this warpgroup's queries over the two slices
+          wgmma_fence();
+#pragma unroll
+          for (int j = 0; j < 2; ++j)
+            wide::score_slice<32>(pr, ks, s + j,
+                                  buf + j * wide::SLICE3 + my_rows,
+                                  r == 0 && j == 0);
+          wgmma_commit();
+          if (r == 0) {
+            wide::keep_dkv_half<MODE>(p.dp, b, h, p.H, p.SQ, p.SK,
+                                      q_start + q0, k_start, kb);
+            if (tid < 64)
+              st_shared_f1(rows + 4 * tid, p.lse[q_row + q_start + tid]);
+            else if (tid < 128)
+              st_shared_f1(rows + 4 * tid,
+                           p.delta[q_row + q_start + tid - 64]);
+          }
+          wgmma_wait0();
+          fence_acc(pr);
+        } else if (DK && map::dkv_phase(r) == 1) {
+          // dP^T of this warpgroup's queries over the two slices
+          wgmma_fence();
+#pragma unroll
+          for (int j = 0; j < 2; ++j)
+            wide::score_slice<32>(dpt, vs, s + j,
+                                  buf + j * wide::SLICE3 + my_rows,
+                                  r == map::DKV_PHASE && j == 0);
+          wgmma_commit();
+          wgmma_wait0();
+          fence_acc(dpt);
+        } else {
+          // dV (over dO's slices) or dK (over Q's) of their 64 columns by
+          // the warpgroup that owns them
+          float part[wide::SW];
+          if (own) {
+            wgmma_fence();
+            wide::product_pair(part, a, buf);
+            wgmma_commit();
+          }
+          if (own) {
+            wgmma_wait0();
+            fence_acc(part);
+#pragma unroll
+            for (int i = 0; i < wide::SW; ++i)
+              acc[wide::SW * map::dkv_block(s) + i] += part[i];
+          }
+        }
+        if (r == map::DKV_PHASE - 1) {
+          // P of this warpgroup's queries (element i = 4 g + 2 hh + e: key
+          // key0 + 8 hh, query q_start + q0 + 8 g + 2 c + e); P_drop
+          // across (DV)
+          float pd[16];
+#pragma unroll
+          for (int i = 0; i < 16; ++i) {
+            const int g = i / 4, hh = (i / 2) % 2, e = i % 2;
+            const int qc = q0 + 8 * g + 2 * c + e;
+            float x = pr[i] * p.scale;
+            if (!full && !score_valid(q_start + qc + q_offset, key0 + 8 * hh,
+                                      p.causal, p.local_window))
+              x = neg_big();
+            pr[i] = expf(x - ld_shared_f1(rows + 4 * qc));
+            pd[i] = kept(pr[i], kb, i);
+          }
+          if (DV) across(pd, a);
+        } else if (DK && r == 2 * map::DKV_PHASE - 1) {
+          // dS^T of this warpgroup's queries, across
+#pragma unroll
+          for (int i = 0; i < 16; ++i) {
+            const int g = i / 4, e = i % 2;
+            const int qc = q0 + 8 * g + 2 * c + e;
+            dpt[i] = pr[i] *
+                     (kept(dpt[i], kb, i) - ld_shared_f1(rows + 256 + 4 * qc)) *
+                     p.scale;
+          }
+          across(dpt, a);
+        }
+      }
+    }
+  }
+};
+
+// The D = 256 instance (flash_f32_wide.cuh), split by queries: two
+// warpgroups on the same 64 keys, warpgroup wg taking the 32 queries
+// dkv_query0(wg) .. of every score tile and owning D's columns 128 wg ..
+// of dK and dV (flash_wide_map.cuh). K and V are split once into their
+// triples. The CTA walks its q-blocks twice, in steps of two 32-column
+// slices that its 256 threads split into the one pair of slice buffers
+// between two barriers. The first walk makes dV: Q's slices for S^T = K
+// Q^T (each warpgroup an m64n32 product of its queries over the full D,
+// its keep bits made under the first step), P and P_drop of its queries,
+// P_drop^T's halves crossing through shared memory into the whole 64 x 64
+// fragment's triple, then dO's slices, each pair one m64n64 product dV +=
+// P_drop^T dO by the warpgroup that owns both (folded in by f32 adds). The
+// second makes dK: S^T again, dP^T = V dO^T over dO's slices, dS^T across
+// the same way, dK += dS^T Q over Q's slices. Five products a pair where
+// both warpgroups running every score product took eight; the score
+// products' halves cost about what whole ones did, so the gain is the
+// output products' width and the fewer walked slices. What was tried and
+// lost (PERF.md): one walk making both (four products) held dK, dV, P,
+// dP^T and the triple at once, spilled 1.4 KB at 255 registers and crashed
+// ptxas; one-slice steps (m64n32 output products) ran slower; splitting
+// the next step's slices under the products (two pairs of buffers, in V's
+// space during the dV walk) or loading them a step ahead gained nothing
+// and spilled. The loads read their address after the step's first
+// barrier (the zero word, DkvWide::block): ptxas otherwise hoisted the
+// read-only loads of later steps above the barriers and spilled. Shared
+// memory: the K and V triples (192 KB), the pair of slice triples (24 KB),
+// this q-block's lse and Delta, the exchange (8 KB: the first warpgroup
+// writes its half, the second takes it and leaves its own in the same
+// floats) and the zero word, 230,928 bytes -- one CTA an SM; 227-241
+// registers, no spill. A kernel of its own, so that the instances above
 // keep their machine code.
 template <int D, int MODE>
 __global__ void __launch_bounds__(wide::THREADS, 1)
     flash_dkv_kernel_wide(const float* __restrict__ q,
                           const float* __restrict__ k,
                           const float* __restrict__ v,
-                          const float* __restrict__ dout, DkvArgs p) {
+                          const float* __restrict__ dout,
+                          const __grid_constant__ DkvArgs p) {
   static_assert(D == wide::D, "the wide instance is the D = 256 one");
   extern __shared__ uint8_t smem_raw[];
-  const uint32_t raw = smem_u32(smem_raw);
-  const uint32_t ks = (raw + 1023u) & ~1023u;
+  const uint32_t ks = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t vs = ks + 3 * wide::TILE;  // each triple hi, mid, lo
   const uint32_t buf = vs + 3 * wide::TILE;  // two slice triples
   const uint32_t rows = buf + 2 * wide::SLICE3;  // 64 lse, then 64 Delta
-  const float* lse_s =
-      reinterpret_cast<const float*>(smem_raw + (rows - raw));
-  const float* delta_s = lse_s + 64;
+  const uint32_t zero_word = rows + 512 + 4 * map::DKV_XCHG_FLOATS;
+  if (threadIdx.x == 0) wide::st_shared_u32(zero_word, 0);
 
-  const int t = threadIdx.x % WG, w = t / 32, l = t % 32, c = l % 4;
+  // the warpgroup, uniform across each warp to the compiler (CUTLASS's
+  // canonical_warp_group_idx): products under a branch on it are not then
+  // serialized (ptxas's C7518)
+  const int tid = threadIdx.x;
+  const int wg = __shfl_sync(0xffffffffu, tid / WG, 0);
+  const int t = tid % WG, w = t / 32, l = t % 32;
   const int ki = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int kvh = h / (p.H / p.KV);
   const int k_start = ki * BK;
   const int q_offset = p.SK - p.SQ;
   const size_t bh = static_cast<size_t>(b) * p.H + h;
-  const size_t q_row = bh * p.SQ;
   const size_t kv_row = static_cast<size_t>(b * p.KV + kvh) * p.SK + k_start;
-  // this thread's keys: k_start + 16 w + l / 4 + 8 hh
-  const int key0 = k_start + 16 * w + l / 4;
+  const int q0 = map::dkv_query0(wg);
   float* dk_rows = p.dk + (bh * p.SK + k_start) * wide::D;
   float* dv_rows = p.dv + (bh * p.SK + k_start) * wide::D;
+  const DkvWide<MODE> cta{
+      q, dout, p, ks, vs, buf, rows, rows + 512, zero_word, tid, wg, t,
+      l % 4, k_start, q_offset, b, h, k_start + 16 * w + l / 4, q0,
+      static_cast<uint32_t>(q0 * wide::SW * 2), bh * p.SQ,
+      map::q_run(k_start, p.SQ, q_offset, p.causal, p.local_window)};
 
-  // the q-blocks that hold a valid score: one contiguous run
-  int q_first = 0, n = 0;
-  for (int qi = 0; qi < p.SQ / BQ; ++qi)
-    if (tile_runs(qi * BQ, k_start, q_offset, p.causal, p.local_window)) {
-      if (n == 0) q_first = qi;
-      ++n;
-    }
-
-  float acc[wide::HALF / 2];  // this warpgroup's half of dV, then of dK
+  // this warpgroup's half of dV, then of dK, each zeroed where its walk
+  // begins (zeros kept through the other walk were spilled)
+  float acc[wide::HALF / 2];
   zero(acc);
-  if (n == 0) {
-    wide::store_half(dv_rows, acc);
-    wide::store_half(dk_rows, acc);
-    return;
-  }
-  wide::split_rows(k + kv_row * wide::D, ks);
-  wide::split_rows(v + kv_row * wide::D, vs);
-  auto block = [&](const float* x, int it) {
-    return x + (q_row + static_cast<size_t>(q_first + it) * BQ) * wide::D;
-  };
-  // the q-block's lse and Delta aside, read by the softmax below
-  auto rows_of = [&](int q_start) {
-    return [&, q_start] {
-      if (threadIdx.x < 64)
-        st_shared_f1(rows + 4 * threadIdx.x,
-                     p.lse[q_row + q_start + threadIdx.x]);
-      else if (threadIdx.x < 128)
-        st_shared_f1(rows + 4 * threadIdx.x,
-                     p.delta[q_row + q_start + threadIdx.x - 64]);
-    };
-  };
-  // S^T = K Q^T of q-block it, to P (element i = 4 g + 2 hh + e: key key0 +
-  // 8 hh, query q_start + 8 g + 2 c + e), and its keep bits
-  auto probs = [&](auto& sl, float (&pr)[32], uint32_t (&kb)[2], int it) {
-    const int q_start = (q_first + it) * BQ;
-    wide::scores(pr, sl, ks, buf, [&] {
-      keep_dkv<MODE>(p.dp, b, h, p.H, p.SQ, p.SK, q_start, k_start, kb);
-    }, rows_of(q_start));
-#pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      const int g = i / 4, hh = (i / 2) % 2, e = i % 2;
-      const int qc = 8 * g + 2 * c + e;
-      float x = pr[i] * p.scale;
-      if ((p.causal || p.local_window > 0) &&
-          !score_valid(q_start + qc + q_offset, key0 + 8 * hh, p.causal,
-                       p.local_window))
-        x = neg_big();
-      pr[i] = expf(x - lse_s[qc]);
-    }
-  };
-  auto kept = [&](float x, const uint32_t (&kb)[2], int i) {
-    const int g = i / 4, hh = (i / 2) % 2, e = i % 2;
-    if (MODE == kNone) return x;
-    return ((kb[hh] >> (2 * g + e)) & 1u) ? x * p.dp.inv_keep : 0.f;
-  };
-
-  // dV += P_drop^T dO: step j of q-block j / 8, S^T over Q (0-3), dV over
-  // the halves of dO (4-7)
-  {
-    auto sl = wide::stream(
-        [&](int j) {
-          const int r = j % 8;
-          return r < 4 ? wide::score_pair(block(q, j / 8), r)
-                       : wide::half_pair(block(dout, j / 8), r - 4);
-        });
-    for (int it = 0; it < n; ++it) {
-      float pr[32];
-      uint32_t kb[2];
-      probs(sl, pr, kb, it);
-#pragma unroll
-      for (int i = 0; i < 32; ++i) pr[i] = kept(pr[i], kb, i);
-      uint32_t a[3][4][4];
-      a_frags(pr, a);
-      wide::add_half(acc, sl, a, buf);
-    }
+  if (cta.run.n > 0) {
+    // fenced, and the zero word seen, by the first step's barriers
+    wide::split_rows(k + kv_row * wide::D, ks);
+    wide::split_rows(v + kv_row * wide::D, vs);
+    cta.template walk<true>(acc);
   }
   wide::store_half(dv_rows, acc);
-
-  // dK += dS^T Q: step j of q-block j / 12, S^T over Q (0-3), dP^T over
-  // dO (4-7), dK over the halves of Q (8-11)
   zero(acc);
-  {
-    auto sl = wide::stream(
-        [&](int j) {
-          const int r = j % 12;
-          const float* x = block(r / 4 == 1 ? dout : q, j / 12);
-          return r < 8 ? wide::score_pair(x, r % 4)
-                       : wide::half_pair(x, r % 4);
-        });
-    for (int it = 0; it < n; ++it) {
-      float pr[32], dpt[32];
-      uint32_t kb[2];
-      probs(sl, pr, kb, it);
-      wide::scores(dpt, sl, vs, buf);
-#pragma unroll
-      for (int i = 0; i < 32; ++i) {
-        const int g = i / 4, e = i % 2;
-        const int qc = 8 * g + 2 * c + e;
-        dpt[i] = pr[i] * (kept(dpt[i], kb, i) - delta_s[qc]) * p.scale;
-      }
-      uint32_t a[3][4][4];
-      a_frags(dpt, a);
-      wide::add_half(acc, sl, a, buf);
-    }
-  }
+  if (cta.run.n > 0) cta.template walk<false>(acc);
   wide::store_half(dk_rows, acc);
 }
 
 // alignment slack, the K and V triples, two slice triples, a q-block's lse
-// and Delta
-constexpr int kWideSmemBytes = 1024 + 6 * wide::TILE + 2 * wide::SLICE3 + 512;
+// and Delta, the exchange, the zero word (on 16 bytes)
+constexpr int kWideSmemBytes = 1024 + 6 * wide::TILE + 2 * wide::SLICE3 +
+                               512 + 4 * wide_map::DKV_XCHG_FLOATS + 16;
 
 int launch_wide(const void* q, const void* k, const void* v,
                 const void* dout, const DkvArgs& p, int mode,

@@ -280,7 +280,10 @@ int run_d(const void* q, const void* k, const void* v, const void* dout,
 // f32 adds). The keep bits are made under S's first step. Shared memory: the
 // Q and dO triples (192 KB) and two slice triples (24 KB), 222,208 bytes
 // -- one CTA an SM. A kernel of its own, so that the instances above keep
-// their machine code.
+// their machine code. It keeps this first design (both warpgroups run the
+// score products, the fills one after another with the products) on
+// Stream, scores and add_half until it is split like the forward and dkv
+// (flash_wide_map.cuh): its machine code is unchanged by them.
 template <int D, int MODE>
 __global__ void __launch_bounds__(wide::THREADS, 1)
     flash_dq_kernel_wide(const float* __restrict__ q,

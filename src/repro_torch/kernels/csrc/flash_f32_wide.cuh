@@ -9,43 +9,54 @@
 // 232,448 bytes a CTA may take). At D = 256 one 64 x 256 triple is 98,304
 // bytes: two fit (the tiles a CTA keeps for its whole walk: Q in the
 // forward, Q and dO in dq, K and V in dkv), the tiles it walks over do not.
+// Those come as slices of 32 columns, each split into a slice triple of
+// 12,288 bytes (a 64 x 32 bf16 tile in load_tile's D = 32 layout: 64-byte
+// rows in the 64-byte swizzle) by the threads, straight from device
+// memory: no TMA and no staging tile. The walked tiles are shared by the
+// CTAs of a head (MQA: by all heads), so the loads mostly hit L2.
 //
-// The design, the same in all three kernels:
-//  - two warpgroups a CTA on the same 64 rows (q-blocks in the forward and
-//    dq, k-blocks in dkv); each runs the score products in full (the same
-//    arithmetic, so the same scores, probabilities and keep bits) and owns
-//    one 128-column half of the output (O, dq, or dK and dV): 64 f32
-//    accumulators a thread, as at D = 128, where a thread of one
-//    warpgroup holding all 256 columns would need 128 and spill;
-//  - the kept tiles split once into their triples (split_rows); the tiles
-//    walked over come as slices of 32 columns, split into one of two slice
-//    triples of 12,288 bytes (a slice is a 64 x 32 bf16 tile in
-//    load_tile's D = 32 layout: 64-byte rows in the 64-byte swizzle);
-//  - a score product (S = Q K^T, dP = dO V^T, S^T = K Q^T, dP^T = V dO^T)
-//    reduces over D slice by slice: each step holds two slices, and its
-//    six part products, smallest first, add into the scores inside the
-//    tensor core, 96 chained part products over D (48 at D = 128).
-//    Folding each step's sum in by f32 adds, as the f32 GEMM folds its
-//    stages, needs a fresh 32-register sum beside the scores: dq and dkv
-//    then spilled (840 and 124 bytes) and dq ran 1.46x slower; chained,
-//    dq, dk, dv read 0.50, 0.44, 0.35 of the smoke's f32 limit at its
-//    shape (folded 0.23, 0.26, 0.12; the bf16-rounded control 10x the
-//    limit; scripts/probe_flash_f32_d256.py --variants folded);
-//  - a second product (P V, dS K, P_drop^T dO, dS^T Q) reads the slices of
-//    the warpgroup's own half, one a step and warpgroup (slice s and 4 + s
-//    in the two buffers), each an m64n32 product folded into its 32
-//    columns of the output (add_product6 at D = 32);
-//  - every slice is split from device memory by all 256 threads, one
-//    16-byte chunk of each part a thread, when its step begins (Stream):
-//    no TMA and no staging tile. The walked tiles are shared by the
-//    CTAs of a head (MQA: by all heads), so the loads mostly hit L2;
-//    loading the next step's values into registers while a step's
-//    products ran left dq as fast and made dkv 2 % slower (variant
-//    ahead).
-// Shared memory: the forward 123,904 bytes, dq 222,208, dkv 222,720 -- one
-// CTA an SM. Products per pair of (query, key): as at D = 128, plus the
-// second warpgroup's score products (1.5x the forward's, 1.33x dq's; dkv
-// runs S^T a third time, flash_dkv_f32.cu).
+// What bounds them. Six bf16 part products an f32 product (the parts that
+// reach 2^-16, smallest first) on the tensor cores: at recurrentgemma's
+// LOCAL layer (1 x 16 x 4096 x 256, window 2048) 0.63 ms for the forward's
+// two products, 1.25 ms for dkv's four. Beside them, on the SIMT units:
+// the splits (about 12 instructions a pair of values, every walked slice
+// of every tile), the exponentials and, in replay, the keep bits.
+//
+// Two designs. Both give each of the two warpgroups of a CTA one
+// 128-column half of the output (64 f32 accumulators a thread an output,
+// as at D = 128: one warpgroup holding all 256 columns would spill).
+//  - dq (Stream, scores, add_half): both warpgroups run the score products
+//    in full on the same 64 rows (the same arithmetic, so the same
+//    scores), each step's pair of slices split by all 256 threads between
+//    two CTA barriers, one after another with the products. The scores'
+//    part products chain over D inside the tensor core, 96 of them:
+//    folding each step by f32 adds spilled (dq 840 bytes) and ran 1.46x
+//    slower; chained, dq reads 0.50 of the smoke's limit.
+//  - The forward and dkv split the score products between the warpgroups
+//    (flash_wide_map.cuh says who takes what). The forward splits them by
+//    D: each warpgroup reduces a partial S over its own 128 columns of D
+//    (m64n64), the two partial tiles cross through shared memory and both
+//    add them, so both hold the same scores; it then touches only its own
+//    half of every walked tile, one slice a step, with barriers of its own,
+//    splitting the next step's slice (loaded into registers a step
+//    earlier) into the other of its two buffers while the step's products
+//    run. dkv splits them by queries: each warpgroup computes the m64n32
+//    columns of S^T and dP^T of its 32 queries over the full D, with their
+//    keep bits and exponentials, and P_drop^T and dS^T cross through shared
+//    memory so each holds the whole fragment for its output half; it walks
+//    its q-blocks twice, for dV (Q, dO) and for dK (Q, dO, Q), in steps of
+//    two slices filled between two CTA barriers, each output step one
+//    m64n64 product. The warpgroup index is made warp-uniform
+//    (__shfl_sync), or ptxas serializes the products under the branches
+//    on it (C7518).
+// Shared memory: the forward 182,272 bytes, dq 222,208, dkv 230,928 -- one
+// CTA an SM. Registers: the forward 255, dq 205-238, dkv 227-241, no
+// spill. Products per pair of (query, key): dq 1.33x what the work needs,
+// the forward 1x (it was 1.5x), dkv 1.25x (2x). Measured on the H100
+// (PERF.md, scripts/probe_flash_f32_d256_split.py): an m64n32 product
+// costs about what an m64n64 one does, and the splits of the walked
+// slices, not the products, hold both kernels (without them the forward
+// runs 1.36 ms where it runs 1.85, dkv 3.5 where 5.4).
 #pragma once
 
 #include <cuda.h>
@@ -55,6 +66,7 @@
 #include <cstdint>
 
 #include "flash_sm90.cuh"
+#include "flash_wide_map.cuh"
 
 namespace repro_flash {
 namespace wide {
@@ -249,6 +261,243 @@ __device__ __forceinline__ void store_half(float* rows,
     for (int g = 0; g < HALF / 8; ++g)
       *reinterpret_cast<float2*>(row + 8 * g + 2 * c) =
           make_float2(acc[4 * g + 2 * hh], acc[4 * g + 2 * hh + 1]);
+  }
+}
+
+
+// ------------------------------------------------ the split kernels' pieces
+// (the forward's and dkv's wide kernels; flash_wide_map.cuh says which
+// warpgroup takes which slice, rows and columns at each step)
+
+__device__ __forceinline__ void fence_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// the 128 threads of warpgroup wg wait for each other (named barrier 1 +
+// wg; __syncthreads is barrier 0)
+__device__ __forceinline__ void wg_sync(int wg) {
+  asm volatile("bar.sync %0, 128;" ::"r"(1 + wg) : "memory");
+}
+
+// d (+)= A (64 x 16, shared, K-major) * B (16 x 32, shared, K-major): bf16
+// operands, f32 sums; d is replaced when `accumulate` is 0
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t da,
+                                             uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// A thread's share of a 64 x 32 f32 slice split by THREADS threads: units
+// t, t + THREADS, ... of its 256 (unit u: row u / 4, columns 8 (u % 4) ..)
+template <int THREADS>
+struct SliceRegs {
+  Unit u[64 * SW / 8 / THREADS];
+};
+
+// slice s (columns 32 s ..) of the 64 rows at `rows` into registers
+template <int THREADS>
+__device__ __forceinline__ SliceRegs<THREADS> load_slice(const float* rows,
+                                                         int s, int t) {
+  SliceRegs<THREADS> r;
+#pragma unroll
+  for (int i = 0; i < 64 * SW / 8 / THREADS; ++i) {
+    const int u = t + THREADS * i;
+    r.u[i] = load_unit(rows + (u / 4) * D + SW * s + 8 * (u % 4));
+  }
+  return r;
+}
+
+// The 32-bit word at addr. Where a global address depends on it, its
+// read-only loads (__ldg) stay behind the barrier before this read: ptxas
+// may otherwise hoist the loads of later steps above the barriers, each
+// step's registers then live across the whole walk.
+__device__ __forceinline__ uint32_t ld_shared_u32(uint32_t addr) {
+  uint32_t v;
+  asm volatile("ld.shared.u32 %0, [%1];" : "=r"(v) : "r"(addr));
+  return v;
+}
+__device__ __forceinline__ void st_shared_u32(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared.u32 [%0], %1;" ::"r"(addr), "r"(v) : "memory");
+}
+
+// the registers' triple into the slice buffer at buf (store_pair's layout)
+template <int THREADS>
+__device__ __forceinline__ void store_slice(const SliceRegs<THREADS>& r,
+                                            uint32_t buf, int t) {
+#pragma unroll
+  for (int i = 0; i < 64 * SW / 8 / THREADS; ++i) {
+    const int u = t + THREADS * i;
+    store_unit(r.u[i],
+               buf + swizzle<row_bytes<SW>()>((u / 4) * row_bytes<SW>() +
+                                               16 * (u % 4)),
+               SLICE);
+  }
+}
+
+// d (+)= A B^T over slice s of D (columns 32 s .., k16 slices 2 s and
+// 2 s + 1 of A): A the 64 x 256 triple at a (parts TILE apart), B the N
+// rows of the slice triple from b (parts SLICE apart), both K-major; the
+// six part products, smallest first; d replaced by the first when
+// `first`. The caller fences and commits.
+template <int N>
+__device__ __forceinline__ void score_slice(float (&d)[N / 2], uint32_t a,
+                                            int s, uint32_t b, bool first) {
+  const uint64_t da = pinned(desc_k<D>(a, 0)), db = pinned(desc_k<SW>(b, 0));
+#pragma unroll
+  for (int n = 0; n < 6; ++n)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const uint64_t x = desc_at(da, part_a(n) * TILE +
+                                         slice_bytes<D>(2 * s + j));
+      const uint64_t y = desc_at(db, part_b(n) * SLICE + slice_bytes<SW>(j));
+      const int acc = !first || n > 0 || j > 0;
+      if constexpr (N == 64)
+        wgmma_ss_n64(d, x, y, acc);
+      else
+        wgmma_ss_n32(d, x, y, acc);
+    }
+}
+
+// d = A B for A the triple of a 64 x 64 fragment (a_frags) and B the slice
+// triple at b read MN-major (its rows k): one m64n32 product of six part
+// products, smallest first (add_product6's at D = 32, without its fence,
+// commit and wait)
+__device__ __forceinline__ void product_slice(float (&d)[SW / 2],
+                                              const uint32_t (&a)[3][4][4],
+                                              uint32_t b) {
+  const uint64_t db = pinned(desc_mn<SW>(b, 0));
+#pragma unroll
+  for (int n = 0; n < 24; ++n) {
+    const int j = n % 4;
+    const uint64_t y =
+        desc_at(db, part_b(n / 4) * SLICE + j * 16 * row_bytes<SW>());
+    wgmma_rs<SW>(d, a[part_a(n / 4)][j], y, n);
+  }
+}
+
+// d = A B for A the triple of a 64 x 64 fragment (a_frags) and B two slice
+// triples side by side -- the slices at b and b + SLICE3, 64 columns --
+// read MN-major: one m64n64 product of six part products, smallest first,
+// the second slice the descriptor's next 32 columns (its leading offset)
+__device__ __forceinline__ void product_pair(float (&d)[SW],
+                                             const uint32_t (&a)[3][4][4],
+                                             uint32_t b) {
+  const uint64_t db = pinned(static_cast<uint64_t>(
+      (desc_mn<SW>(b, 0) & ~(0x3FFFull << 16)) |
+      (static_cast<uint64_t>(SLICE3 >> 4) << 16)));
+#pragma unroll
+  for (int n = 0; n < 24; ++n) {
+    const int j = n % 4;
+    const uint64_t y =
+        desc_at(db, part_b(n / 4) * SLICE + j * 16 * row_bytes<SW>());
+    wgmma_rs<2 * SW>(d, a[part_a(n / 4)][j], y, n);
+  }
+}
+
+// keep_fwd's word kb[hh] alone (its rows 16 w + l / 4 + 8 hh): the
+// forward's warpgroup hh makes it, half of the calls of keep_fwd
+template <int MODE>
+__device__ __forceinline__ uint32_t keep_fwd_rows(const Dropout& dp, int b,
+                                                  int h, int H, int SQ,
+                                                  int SK, int q_start,
+                                                  int k_start, int hh) {
+  const int t = threadIdx.x % WG, w = t / 32, l = t % 32, c = l % 4;
+  const int row = q_start + 16 * w + l / 4;
+  uint32_t kb = 0;
+  if (MODE == kPremask) {
+    const int32_t* words =
+        dp.plane +
+        (static_cast<size_t>(b) * H + h) * (SQ / 32) * SK +
+        static_cast<size_t>(row / 32) * SK + k_start + 2 * c;
+    const int sh = (row & 31) + 8 * hh;  // row + 8 is in the same word
+#pragma unroll
+    for (int idx = 0; idx < 16; ++idx)
+      kb |= ((static_cast<uint32_t>(words[8 * (idx >> 1) + (idx & 1)]) >>
+              sh) & 1u) << idx;
+  } else if (MODE == kCounters) {
+    const uint32_t bh = repro_philox::global_bh(
+        static_cast<uint32_t>(b * H + h), static_cast<uint32_t>(H),
+        dp.heads_global, dp.bh_offset);
+    const int i = (l >> 2) & 3;  // this row within its group of 4
+    uint32_t mine = 0;           // nibble j: key index 4 i + j
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int idx = 4 * i + j;
+      const uint32_t key = k_start + 8 * (idx >> 1) + 2 * c + (idx & 1);
+      mine |= repro_philox::keep_nibble(
+                  key, static_cast<uint32_t>((row >> 2) + 2 * hh), bh,
+                  dp.salt, dp.k0, dp.k1, dp.threshold, dp.rounds)
+              << (4 * j);
+    }
+#pragma unroll
+    for (int src = 0; src < 4; ++src) {
+      const uint32_t v =
+          __shfl_sync(0xffffffffu, mine, (l & ~12) | (src << 2));
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        kb |= ((v >> (4 * j + i)) & 1u) << (4 * src + j);
+    }
+  } else {
+    kb = 0xFFFFu;
+  }
+  return kb;
+}
+
+// keep_dkv's bits of the 32 queries q0 .. q0 + 31 alone (q0 a multiple of
+// 32; dkv's m64n32 half): bit 2 g + e of kb[hh] keeps query q0 + 8 g + 2 c
+// + e at key k_start + 16 w + l / 4 + 8 hh, g < 4; half of keep_dkv's
+// calls
+template <int MODE>
+__device__ __forceinline__ void keep_dkv_half(const Dropout& dp, int b,
+                                              int h, int H, int SQ, int SK,
+                                              int q0, int k_start,
+                                              uint32_t (&kb)[2]) {
+  const int t = threadIdx.x % WG, w = t / 32, l = t % 32, c = l % 4;
+  const int key = k_start + 16 * w + l / 4;
+  kb[0] = kb[1] = 0;
+  if (MODE == kPremask) {
+    const int32_t* words =
+        dp.plane +
+        (static_cast<size_t>(b) * H + h) * (SQ / 32) * SK +
+        static_cast<size_t>(q0 / 32) * SK + key;
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const uint32_t wd = static_cast<uint32_t>(words[8 * hh]);
+#pragma unroll
+      for (int g = 0; g < 4; ++g)
+        kb[hh] |= ((wd >> (8 * g + 2 * c)) & 3u) << (2 * g);
+    }
+  } else if (MODE == kCounters) {
+    const uint32_t bh = repro_philox::global_bh(
+        static_cast<uint32_t>(b * H + h), static_cast<uint32_t>(H),
+        dp.heads_global, dp.bh_offset);
+    const int odd = c & 1;
+    uint32_t mine = 0;  // nibble g: queries 4 (q0 / 4 + 2 g + c / 2) ..
+#pragma unroll
+    for (int g = 0; g < 4; ++g)
+      mine |= repro_philox::keep_nibble(
+                  static_cast<uint32_t>(key + 8 * odd),
+                  static_cast<uint32_t>(q0 / 4 + 2 * g + (c >> 1)), bh,
+                  dp.salt, dp.k0, dp.k1, dp.threshold, dp.rounds)
+              << (4 * g);
+    const uint32_t other = __shfl_xor_sync(0xffffffffu, mine, 1);
+    const uint32_t n0 = odd ? other : mine, n1 = odd ? mine : other;
+#pragma unroll
+    for (int g = 0; g < 4; ++g) {
+      kb[0] |= ((n0 >> (4 * g + 2 * odd)) & 3u) << (2 * g);
+      kb[1] |= ((n1 >> (4 * g + 2 * odd)) & 3u) << (2 * g);
+    }
+  } else {
+    kb[0] = kb[1] = 0xFFu;
   }
 }
 

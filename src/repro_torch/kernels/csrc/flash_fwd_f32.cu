@@ -49,19 +49,25 @@ namespace {
 using namespace repro_flash;
 using namespace repro_flash::tc;
 
-// The D = 256 instance (flash_f32_wide.cuh): two warpgroups on the same 64
-// query rows, each the score product, the online softmax and the keep bits
-// in full and P V and O over one 128-column half of V. Q is split once
-// into its triple; each k-block's K and V come as 32-column slices, eight
-// steps of two: S = Q K^T over K's slices (four steps, the part products
-// chained over D; the keep bits made under the first), then O += P V over
-// the half's slices of V (four steps, each warpgroup one slice a step).
-// The arithmetic of a k-block is the body's (flash_fwd_sm90.cuh: the same
-// softmax, O scaled by alpha, then each chunk of P V a product of its own
-// folded in by f32 adds). Shared memory:
-// the Q triple (96 KB) and two slice triples (24 KB), 123,904 bytes -- one
-// CTA an SM. A kernel of its own, so that the body's instances keep their
-// machine code.
+// The D = 256 instance (flash_f32_wide.cuh), split by D: two warpgroups
+// on the same 64 query rows, warpgroup wg owning D's columns 128 wg ..
+// (flash_wide_map.cuh). Q is split once into its triple. Each k-block is
+// eight steps a warpgroup, each one 32-column slice of its own half, split
+// by the warpgroup's 128 threads into one of its two slice buffers: K's
+// four slices, over which it reduces its partial scores (m64n64, the part
+// products chained over its 128 columns of D), then V's four, each an
+// m64n32 product of P and the slice folded into its 32 columns of O by f32
+// adds. While a step's products run, the warpgroup splits the next step's
+// slice (loaded into registers a step earlier) into the other buffer and
+// loads the one after: one barrier a step, the warpgroup's own. After the
+// fourth step the two partial score tiles cross through shared memory
+// (with the two row groups' keep bits, each warpgroup having made one),
+// and each warpgroup adds them -- the same sum in both -- and runs the
+// online softmax of flash_fwd_sm90.cuh's body in full. Shared memory: the
+// Q triple (96 KB), four slice triples (48 KB) and the exchange (33 KB),
+// 182,272 bytes -- one CTA an SM. Steps of two slices (one m64n64 product
+// of P V) spilled and ran 5 % slower. A kernel of its own, so that the
+// body's instances keep their machine code.
 template <int D, int MODE>
 __global__ void __launch_bounds__(wide::THREADS, 1)
     flash_fwd_kernel_wide(const float* __restrict__ q,
@@ -69,11 +75,18 @@ __global__ void __launch_bounds__(wide::THREADS, 1)
                           const float* __restrict__ v,
                           fwd::FwdArgs<float> p) {
   static_assert(D == wide::D, "the wide instance is the D = 256 one");
+  namespace map = wide_map;
   extern __shared__ uint8_t smem_raw[];
-  const uint32_t qs = (smem_u32(smem_raw) + 1023u) & ~1023u;  // hi, mid, lo
-  const uint32_t buf = qs + 3 * wide::TILE;  // two slice triples
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t qs = (raw + 1023u) & ~1023u;  // hi, mid, lo
+  const uint32_t bufs = qs + 3 * wide::TILE;   // two slice triples a wg
+  const uint32_t xchg = bufs + 4 * wide::SLICE3;
+  float* xs = reinterpret_cast<float*>(smem_raw + (xchg - raw));
+  uint32_t* xk = reinterpret_cast<uint32_t*>(xs + map::FWD_XCHG_FLOATS);
 
+  const int wg = threadIdx.x / WG;
   const int t = threadIdx.x % WG, w = t / 32, l = t % 32, c = l % 4;
+  const uint32_t mine = bufs + 2 * wg * wide::SLICE3;
   const int qi = gridDim.x - 1 - blockIdx.x;
   const int h = blockIdx.y, b = blockIdx.z;
   const int kvh = h / (p.H / p.KV);
@@ -94,71 +107,138 @@ __global__ void __launch_bounds__(wide::THREADS, 1)
   zero(o);
   float m[2] = {neg_big(), neg_big()}, lsum[2] = {0.f, 0.f};
   if (n > 0) {
-    // step j of k-block j / 8: S over K (0-3), P V over the halves of V
-    // (4-7)
-    auto sl = wide::stream(
-        [&](int j) {
-          const int r = j % 8;
-          const float* rows =
-              (r < 4 ? k : v) +
-              (kv_row + static_cast<size_t>(k_first + j / 8) * BK) * wide::D;
-          return r < 4 ? wide::score_pair(rows, r)
-                       : wide::half_pair(rows, r - 4);
-        });
+    // the slice step r of k-block it walks, into registers, and from them
+    // into the buffer at dst
+    using Regs = wide::SliceRegs<WG>;
+    auto load = [&](int it, int r) {
+      return wide::load_slice<WG>(
+          (map::fwd_reads_v(r) ? v : k) +
+              (kv_row + static_cast<size_t>(k_first + it) * BK) * wide::D,
+          map::fwd_slice(wg, r), t);
+    };
+    auto store = [&](const Regs& x, uint32_t dst) {
+      wide::store_slice<WG>(x, dst, t);
+      wide::fence_async();
+    };
     wide::split_rows(q + q_row * wide::D, qs);
+    Regs pre = load(0, 0);
+    store(pre, mine);
+    __syncthreads();
+    pre = load(0, 1);
 
     for (int it = 0; it < n; ++it) {
       const int k_start = (k_first + it) * BK;
+      const bool full = map::tile_full(q_start, k_start, q_offset, p.causal,
+                                       p.local_window);
       float sc[32];
-      uint32_t kb[2];
-      wide::scores(sc, sl, qs, buf, [&] {
-        keep_fwd<MODE>(p.dp, b, h, p.H, p.SQ, p.SK, q_start, k_start, kb);
-      });
-
-      // online softmax on the fragment: element (hh, g, e) is sc[4g+2hh+e]
-      float alpha[2];
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        const int q_pos = q_start + 16 * w + l / 4 + 8 * hh + q_offset;
-        float mc = neg_big();
-#pragma unroll
-        for (int g = 0; g < 8; ++g)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            float x = sc[4 * g + 2 * hh + e] * p.scale;
-            if ((p.causal || p.local_window > 0) &&
-                !score_valid(q_pos, k_start + 8 * g + 2 * c + e, p.causal,
-                             p.local_window))
-              x = neg_big();
-            sc[4 * g + 2 * hh + e] = x;
-            mc = fmaxf(mc, x);
-          }
-        mc = fmaxf(mc, __shfl_xor_sync(0xffffffffu, mc, 1));
-        mc = fmaxf(mc, __shfl_xor_sync(0xffffffffu, mc, 2));
-        const float m_new = fmaxf(m[hh], mc);
-        alpha[hh] = expf(m[hh] - m_new);
-        float rs = 0.f;
-#pragma unroll
-        for (int g = 0; g < 8; ++g)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const float ev = expf(sc[4 * g + 2 * hh + e] - m_new);
-            rs += ev;
-            sc[4 * g + 2 * hh + e] =
-                ((kb[hh] >> (2 * g + e)) & 1u) ? ev : 0.f;
-          }
-        rs += __shfl_xor_sync(0xffffffffu, rs, 1);
-        rs += __shfl_xor_sync(0xffffffffu, rs, 2);
-        lsum[hh] = alpha[hh] * lsum[hh] + rs;
-        m[hh] = m_new;
-      }
-
-      // O = O * alpha + P V over this warpgroup's half, both sides split
-#pragma unroll
-      for (int i = 0; i < wide::HALF / 2; ++i) o[i] = o[i] * alpha[(i / 2) % 2];
+      uint32_t kb[2], my_kb = 0;
       uint32_t pa[3][4][4];
-      a_frags(sc, pa);
-      wide::add_half(o, sl, pa, buf);
+#pragma unroll
+      for (int r = 0; r < map::FWD_STEPS; ++r) {
+        const uint32_t cur = mine + (r % 2) * wide::SLICE3;
+        // while the step's products run: the next step's slice into the
+        // other buffer (its products done: the last step's barrier), then
+        // the registers loaded with the one after
+        auto fill = [&] {
+          if (r + 1 < map::FWD_STEPS || it + 1 < n)
+            store(pre, mine + ((r + 1) % 2) * wide::SLICE3);
+          if (r + 2 < map::FWD_STEPS || it + 1 < n)
+            pre = load(it + (r + 2) / map::FWD_STEPS,
+                       (r + 2) % map::FWD_STEPS);
+        };
+        if (!map::fwd_reads_v(r)) {
+          // this warpgroup's partial S = Q K^T over the slice
+          wgmma_fence();
+          wide::score_slice<64>(sc, qs, map::fwd_slice(wg, r), cur, r == 0);
+          wgmma_commit();
+          if (r == 0)
+            my_kb = wide::keep_fwd_rows<MODE>(p.dp, b, h, p.H, p.SQ, p.SK,
+                                              q_start, k_start,
+                                              map::fwd_keep_rows(wg));
+          fill();
+          wgmma_wait0();
+          fence_acc(sc);
+        } else {
+          // O's 32 columns of the slice += P V
+          float part[wide::SW / 2];
+          wgmma_fence();
+          wide::product_slice(part, pa, cur);
+          wgmma_commit();
+          fill();
+          wgmma_wait0();
+          fence_acc(part);
+          const int blk = r - map::FWD_STEPS / 2;
+#pragma unroll
+          for (int i = 0; i < wide::SW / 2; ++i)
+            o[(wide::SW / 2) * blk + i] += part[i];
+        }
+        if (r == map::FWD_STEPS / 2 - 1) {
+          // the partial scores and keep words across; S = the sum of both
+#pragma unroll
+          for (int i = 0; i < 32; i += 4)
+            *reinterpret_cast<float4*>(xs + map::fwd_xchg(wg, t, i)) =
+                make_float4(sc[i], sc[i + 1], sc[i + 2], sc[i + 3]);
+          xk[map::fwd_keep_xchg(wg, t)] = my_kb;
+          __syncthreads();
+#pragma unroll
+          for (int i = 0; i < 32; i += 4) {
+            const float4 y = *reinterpret_cast<const float4*>(
+                xs + map::fwd_xchg(1 - wg, t, i));
+            sc[i] += y.x;
+            sc[i + 1] += y.y;
+            sc[i + 2] += y.z;
+            sc[i + 3] += y.w;
+          }
+          const uint32_t other_kb = xk[map::fwd_keep_xchg(1 - wg, t)];
+          kb[0] = wg == 0 ? my_kb : other_kb;
+          kb[1] = wg == 0 ? other_kb : my_kb;
+          __syncthreads();  // both read: the next k-block may write
+
+          // online softmax on the fragment: element (hh, g, e) is
+          // sc[4g+2hh+e]
+          float alpha[2];
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            const int q_pos = q_start + 16 * w + l / 4 + 8 * hh + q_offset;
+            float mc = neg_big();
+#pragma unroll
+            for (int g = 0; g < 8; ++g)
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                float x = sc[4 * g + 2 * hh + e] * p.scale;
+                if (!full && !score_valid(q_pos, k_start + 8 * g + 2 * c + e,
+                                          p.causal, p.local_window))
+                  x = neg_big();
+                sc[4 * g + 2 * hh + e] = x;
+                mc = fmaxf(mc, x);
+              }
+            mc = fmaxf(mc, __shfl_xor_sync(0xffffffffu, mc, 1));
+            mc = fmaxf(mc, __shfl_xor_sync(0xffffffffu, mc, 2));
+            const float m_new = fmaxf(m[hh], mc);
+            alpha[hh] = expf(m[hh] - m_new);
+            float rs = 0.f;
+#pragma unroll
+            for (int g = 0; g < 8; ++g)
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const float ev = expf(sc[4 * g + 2 * hh + e] - m_new);
+                rs += ev;
+                sc[4 * g + 2 * hh + e] =
+                    ((kb[hh] >> (2 * g + e)) & 1u) ? ev : 0.f;
+              }
+            rs += __shfl_xor_sync(0xffffffffu, rs, 1);
+            rs += __shfl_xor_sync(0xffffffffu, rs, 2);
+            lsum[hh] = alpha[hh] * lsum[hh] + rs;
+            m[hh] = m_new;
+          }
+          // O = O * alpha, then P V over the half's slices of V
+#pragma unroll
+          for (int i = 0; i < wide::HALF / 2; ++i)
+            o[i] = o[i] * alpha[(i / 2) % 2];
+          a_frags(sc, pa);
+        }
+        wide::wg_sync(wg);
+      }
     }
   }
 
@@ -176,8 +256,10 @@ __global__ void __launch_bounds__(wide::THREADS, 1)
   }
 }
 
-// alignment slack, the Q triple, two slice triples
-constexpr int kWideSmemBytes = 1024 + 3 * wide::TILE + 2 * wide::SLICE3;
+// alignment slack, the Q triple, four slice triples, the exchange
+constexpr int kWideSmemBytes =
+    1024 + 3 * wide::TILE + 4 * wide::SLICE3 +
+    4 * (wide_map::FWD_XCHG_FLOATS + wide_map::FWD_KEEP_WORDS);
 
 // the D = 256 instance's launch, with repro_flash::fwd::run's checks
 int run_wide(const void* q, const void* k, const void* v, void* out,

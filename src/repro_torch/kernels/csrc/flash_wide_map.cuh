@@ -1,0 +1,147 @@
+// The step maps of the split f32 flash kernels at head_dim 256 (the wide
+// kernels of flash_fwd_f32.cu and flash_dkv_f32.cu, flash_f32_wide.cuh):
+// which 32-column slice of a walked tile each warpgroup splits at each
+// step, which rows and columns of the score tile and of the output it
+// owns, and where each exchanged element lands. Plain integer functions,
+// so a host compiler runs them too: tests/test_torch_flash_wide_split.py
+// compiles this header with g++ and holds the maps to exact coverage.
+//
+// Fragments. Thread t of a warpgroup (warp w = t / 32, lane l, c = l % 4)
+// holds element i of an m64nN f32 accumulator at row 16 w + l / 4 + 8 hh
+// and column 8 g + 2 c + e, for i = 4 g + 2 hh + e (flash_sm90.cuh). The
+// same thread of either warpgroup holds the same positions of a tile of
+// the same width: an exchange through shared memory pairs thread t with
+// thread t.
+#pragma once
+
+#include <cstdint>
+
+#include "flash_common.cuh"
+
+#if defined(__CUDACC__)
+#define WIDE_HD __host__ __device__ __forceinline__
+#else
+#define WIDE_HD inline
+#endif
+
+namespace repro_flash {
+namespace wide_map {
+
+constexpr int D = 256;
+constexpr int SW = 32;                // columns of a slice
+constexpr int SLICES = D / SW;        // slices of a row: 8
+constexpr int HALF_SLICES = SLICES / 2;
+constexpr int WG_THREADS = 128;
+
+// ------------------------------------------------------------ the forward
+// Split by D. Each warpgroup reduces S = Q K^T over its own 128 columns of
+// D (a partial 64 x 64 sum), the two partial sums cross through shared
+// memory and each warpgroup adds them (x + y == y + x in f32, so both hold
+// the same scores); each then runs the online softmax in full and P V over
+// its own 128 columns of V, its half of O. A k-block is FWD_STEPS steps a
+// warpgroup, one slice each: K's slices of the half (0-3), then V's.
+constexpr int FWD_STEPS = 2 * HALF_SLICES;
+
+WIDE_HD bool fwd_reads_v(int r) { return r >= HALF_SLICES; }
+
+// the slice of D (0-7) that warpgroup wg splits at step r of a k-block:
+// for K the k range of its partial scores, for V its output columns
+WIDE_HD int fwd_slice(int wg, int r) {
+  return HALF_SLICES * wg + r % HALF_SLICES;
+}
+
+// the float of the exchange at which thread t of warpgroup wg leaves
+// element i (0-31) of its partial scores: float4s of 4 consecutive
+// elements, a warpgroup's 128 threads side by side; the other warpgroup's
+// thread t reads them there (and both wait for each other before the next
+// k-block's are written)
+WIDE_HD int fwd_xchg(int wg, int t, int i) {
+  return (wg * 8 + i / 4) * 4 * WG_THREADS + 4 * t + i % 4;
+}
+constexpr int FWD_XCHG_FLOATS = 2 * 32 * WG_THREADS;
+
+// the keep-bit words: warpgroup wg makes those of rows hh = wg (the row
+// group 16 w + l / 4 + 8 wg of each thread), thread t leaves its word at
+// fwd_keep_xchg and takes the other row group's from the other warpgroup
+WIDE_HD int fwd_keep_rows(int wg) { return wg; }
+WIDE_HD int fwd_keep_xchg(int wg, int t) { return wg * WG_THREADS + t; }
+constexpr int FWD_KEEP_WORDS = 2 * WG_THREADS;
+
+// ----------------------------------------------------------------- dK, dV
+// Split by queries. Each warpgroup computes the columns of the transposed
+// score tiles (rows keys, columns queries) of its 32 queries over the full
+// D: S^T = K Q^T and dP^T = V dO^T as m64n32 products, B the slices' rows
+// dkv_query0(wg) ..; its keep bits and exponentials of those columns only.
+// P_drop^T and then dS^T cross through shared memory, so each warpgroup
+// holds the whole 64 x 64 fragment as the A operand of its output half:
+// dV and dK over the columns of the slices dkv_owner gives it. The CTA
+// walks its q-blocks twice, in steps of two slices side by side (64
+// columns; the CTA's 256 threads split them). The walk that makes dV: Q's
+// slices for S^T (steps 0-3), then dO's for dV (4-7). The walk that makes
+// dK: Q's slices for S^T (0-3), dO's for dP^T (4-7), Q's again for dK
+// (8-11). In the output phases both slices of a step lie in one
+// warpgroup's half (one m64n64 product), and the halves take turns.
+constexpr int DKV_PHASE = SLICES / 2;  // steps of a phase
+
+// steps of a q-block in the walk that makes dK (else dV)
+WIDE_HD constexpr int dkv_steps(bool dk) { return (dk ? 3 : 2) * DKV_PHASE; }
+
+// 0: S^T over Q; 1: dV or dP^T over dO; 2: dK over Q
+WIDE_HD int dkv_phase(int r) { return r / DKV_PHASE; }
+WIDE_HD bool dkv_reads_do(int r) { return dkv_phase(r) == 1; }
+
+// the first of step r's two slices (the second is the next)
+WIDE_HD int dkv_slice(int r) {
+  const int m = r % DKV_PHASE;
+  return dkv_phase(r) == 0 ? 2 * m : (m % 2) * HALF_SLICES + 2 * (m / 2);
+}
+
+// the warpgroup whose output half holds slice s's columns, and the
+// 64-column block within it of the step's two slices from s
+WIDE_HD int dkv_owner(int s) { return s / HALF_SLICES; }
+WIDE_HD int dkv_block(int s) { return (s % HALF_SLICES) / 2; }
+
+// the first of warpgroup wg's 32 queries (the columns of its score tiles)
+WIDE_HD int dkv_query0(int wg) { return SW * wg; }
+
+// Element i (0-15) of warpgroup wg's m64n32 half is element
+// dkv_full(wg, i) of the m64n64 fragment of all 64 queries: its column
+// 8 g + 2 c + e is query dkv_query0(wg) + that.
+WIDE_HD int dkv_full(int wg, int i) { return 16 * wg + i; }
+
+// The float of the exchange of element i (0-15) of thread t's half. One
+// region for both warpgroups: the first writes its half; the second's
+// thread t reads the first's thread t there and then writes its own half
+// into the same floats; the first reads that.
+WIDE_HD int dkv_xchg(int t, int i) {
+  return (i / 4) * 4 * WG_THREADS + 4 * t + i % 4;
+}
+constexpr int DKV_XCHG_FLOATS = 16 * WG_THREADS;
+
+// Whether every score of the (q-block, k-block) tile is valid (score_valid
+// of flash_common.cuh), so its elements need no mask
+WIDE_HD bool tile_full(int q_start, int k_start, int q_offset, int causal,
+                       int local_window) {
+  const int q_lo = q_start + q_offset, q_hi = q_start + BQ - 1 + q_offset;
+  return (!causal || k_start + BK - 1 <= q_lo) &&
+         (local_window <= 0 || k_start > q_hi - local_window);
+}
+
+// The q-blocks that hold a valid score of the k-block at k_start: one
+// contiguous run (the JAX kernels' block skip is causal with a window)
+struct Run {
+  int first, n;
+};
+WIDE_HD Run q_run(int k_start, int sq, int q_offset, int causal,
+                  int local_window) {
+  Run run{0, 0};
+  for (int qi = 0; qi < sq / BQ; ++qi)
+    if (tile_runs(qi * BQ, k_start, q_offset, causal, local_window)) {
+      if (run.n == 0) run.first = qi;
+      ++run.n;
+    }
+  return run;
+}
+
+}  // namespace wide_map
+}  // namespace repro_flash
