@@ -17,10 +17,9 @@ Phases (each raises on failure; nothing is caught):
      libraries' (which may not spill), and holds the flash libraries
      that gained the D = 256 instances to the parent commit's SASS at
      D <= 128 (FLASH_NARROW_SASS) and the D = 256 kernels that are not
-     split between their warpgroups (the f32 dq, the bf16 forward, dq and
-     dkv) to theirs (FLASH_WIDE_SASS); where a checkout of the parent
-     commit is unpacked in build/parent, its f32 forward and dkv are built
-     beside them for phase 2;
+     redesigned (the bf16 dq and dkv) to theirs (FLASH_WIDE_SASS); where a
+     checkout of the parent commit is unpacked in build/parent, its f32 dq
+     and bf16 forward are built beside them for phase 2;
   2. each kernel against its plain PyTorch version on the card, then
      timed with CUDA events beside its bound and, where one PyTorch call
      computes the same function, that call's time: the Philox kernel
@@ -48,12 +47,14 @@ Phases (each raises on failure; nothing is caught):
      whole backward; f32 O and lse within F32_FWD_TOL, the gradients
      within GRAD_TOL, limits that the plain forward on bf16-rounded K, V
      and the plain backward on bf16-rounded K, V, dO must fail), and the
-     f32 flash kernels at head_dim 256 (recurrentgemma-9b's LOCAL layer,
-     as the bf16 ones below, at the f32 limits with both controls; the
-     forward and dkv, which split their products between the two
-     warpgroups, timed in turns with the parent commit's where phase 1
-     built those, SDPA's causal call without the window printed beside
-     the masked one);
+     f32 flash kernels at head_dim 256 (recurrentgemma-9b's LOCAL layer
+     and small GQA / MHA shapes, as the bf16 ones below, at the f32
+     limits with both controls; the
+     redesigned dq and bf16 forward timed in turns with the parent
+     commit's where phase 1 built those, the share of the bf16 forward's
+     O values that differ from the plain version's printed for both,
+     SDPA's causal call without the window printed beside the masked
+     one);
   3. serving: the reduced llama2 on the card against the same engine on
      the CPU, then ``ServeEngine`` on llama2-7b at full width and depth
      (f32 random weights from a seed): 8 requests, 4 slots, 64 new tokens
@@ -351,9 +352,10 @@ def philox_bound(shape, rounds: int, ops_rate: float):
 
 
 def device_time_ms(fn, kernel: str, iters: int):
-    """Mean device time of the kernels whose name holds ``kernel``, from a
-    torch.profiler trace of ``iters`` calls; None when the trace holds no
-    device time."""
+    """Device time a call of the kernels whose name holds ``kernel`` (all
+    of them: the f32 dq at head_dim 256 is two launches, its split pass and
+    its products), from a torch.profiler trace of ``iters`` calls; None when
+    the trace holds no device time."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -361,13 +363,12 @@ def device_time_ms(fn, kernel: str, iters: int):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    total_us, count = 0.0, 0
+    total_us = 0.0
     for evt in prof.key_averages():
         if kernel in evt.key:
             total_us += getattr(evt, "device_time_total",
                                 getattr(evt, "cuda_time_total", 0.0))
-            count += evt.count
-    return total_us / count / 1e3 if count and total_us > 0 else None
+    return total_us / iters / 1e3 if total_us > 0 else None
 
 
 def cuda_time_ms(fn, iters: int, warmup: int = 3) -> float:
@@ -417,7 +418,7 @@ def phase_build(state) -> None:
     libs = build.build_all()
     log(f"[build] {len(libs)} kernel(s) in {time.perf_counter() - t0:.1f}s "
         f"-> {build.build_dir()}")
-    state["parent_f32"] = _finish_parent_build(parent)
+    state["parent_wide"] = _finish_parent_build(parent)
     for name in libs:
         for line in build.ptxas_report(name):
             if "(C75" not in line:   # advisories: once each, below
@@ -492,10 +493,14 @@ def phase_build(state) -> None:
             raise AssertionError(f"{name}: the D = 128 instances spill "
                                  f"({by_d.get(128)})")
         # nor may the D = 256 ones (two warpgroups, the D = 128 instance's
-        # accumulators a thread), bf16 or f32
+        # accumulators a thread), bf16 or f32, nor keep a stack frame
         if 256 not in by_d or max(by_d[256][1] + by_d[256][2]):
             raise AssertionError(f"{name}: the D = 256 instances spill "
                                  f"({by_d.get(256)})")
+        frames = _stack_frames(name, 256)
+        if not frames or max(frames):
+            raise AssertionError(f"{name}: the D = 256 instances keep a "
+                                 f"stack frame ({frames} bytes)")
     # the libraries whose sources gained the D = 256 instances keep their
     # machine code at D <= 128: the digest of those kernels' SASS against
     # the build of the parent commit's sources (FLASH_NARROW_SASS)
@@ -507,8 +512,8 @@ def phase_build(state) -> None:
                                  f"the parent's {want})")
         log(f"[build] {name}: its {count} kernels at D <= 128 run the "
             f"parent's SASS, instruction for instruction (digest {digest})")
-    # and at D = 256 every kernel but the two split ones (SPLIT_KERNELS):
-    # the f32 dq and the bf16 forward, dq and dkv (FLASH_WIDE_SASS)
+    # and at D = 256 every kernel but the redesigned ones (SPLIT_KERNELS):
+    # the bf16 dq and dkv (FLASH_WIDE_SASS)
     for name, want in FLASH_WIDE_SASS.items():
         digest, count = wide_sass_digest(libs[name])
         if digest != want:
@@ -521,13 +526,16 @@ def phase_build(state) -> None:
 
 # The parent commit's sources, where a checkout of it is unpacked beside
 # this script (git archive <commit> | tar -x -C build/parent): phase 2
-# times its f32 forward and dkv at head_dim 256 in turns with the split
-# ones. A checkout of the committed files alone has none; phase 2 then
-# quotes PROBE_IN_TURNS.
+# times its f32 dq and bf16 forward at head_dim 256 in turns with the
+# redesigned ones (REDESIGNED). A checkout of the committed files alone
+# has none; phase 2 then quotes PROBE_IN_TURNS.
 PARENT_CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                            "build", "parent", "src", "repro_torch",
                            "kernels", "csrc")
-PARENT_LIBS = ("flash_fwd_f32", "flash_dkv_f32")
+# dtype -> (kind, library) of the D = 256 kernel redesigned last
+REDESIGNED = {torch.float32: ("dq", "flash_dq_f32"),
+              torch.bfloat16: ("fwd", "flash_fwd_bf16")}
+PARENT_LIBS = tuple(lib for _, lib in REDESIGNED.values())
 
 
 def _start_parent_build():
@@ -563,11 +571,9 @@ def _finish_parent_build(procs):
 
 
 # the digest (wide_sass_digest) of the flash kernels at head dim 256 that
-# are not split between the warpgroups, as the parent commit's sources build
-# them (scripts/probe_flash_f32_d256_split.py --parent)
-FLASH_WIDE_SASS = {"flash_dq_f32": "d56b6d9d4a5fbca2",
-                   "flash_fwd_bf16": "1ddde3cc16359d22",
-                   "flash_dq_bf16": "fd4d84fe54487e82",
+# are not redesigned (the bf16 dq and dkv), as the parent commit's sources
+# build them (scripts/probe_flash_f32_d256_split.py --parent)
+FLASH_WIDE_SASS = {"flash_dq_bf16": "fd4d84fe54487e82",
                    "flash_dkv_bf16": "fa9ffd87906d21b5"}
 
 # the digest (narrow_sass_digest) of each flash library's kernels at head
@@ -623,10 +629,13 @@ def narrow_sass_digest(lib) -> tuple:
     return _sass_digest(lib, lambda key: key[1] <= 128)
 
 
-# the f32 kernels at D = 256 that split their products between the two
-# warpgroups (csrc/flash_wide_map.cuh); the other D = 256 instances keep
-# their parent's machine code (FLASH_WIDE_SASS)
-SPLIT_KERNELS = ("flash_fwd_kernel_wide", "flash_dkv_kernel_wide")
+# the kernels at D = 256 redesigned for Hopper: the f32 forward, dq and
+# dkv, which split their products between the two warpgroups
+# (csrc/flash_wide_map.cuh), and the bf16 forward (flash_fwd_kernel_wide
+# in both forward libraries); the other D = 256 instances keep their
+# parent's machine code (FLASH_WIDE_SASS)
+SPLIT_KERNELS = ("flash_fwd_kernel_wide", "flash_dq_kernel_split",
+                 "flash_dkv_kernel_wide")
 
 
 def wide_sass_digest(lib) -> tuple:
@@ -634,6 +643,21 @@ def wide_sass_digest(lib) -> tuple:
     split ones (SPLIT_KERNELS)."""
     return _sass_digest(
         lib, lambda key: key[1] == 256 and key[0] not in SPLIT_KERNELS)
+
+
+def _stack_frames(name: str, head_dim: int) -> list:
+    """The stack frame bytes of each flash kernel instance at head_dim in
+    the library's ptxas report."""
+    import re
+    out, d = [], None
+    for line in build.ptxas_report(name):
+        m = re.search(r"flash_\w*kernel\w*ILi(\d+)E", line)
+        if "Compiling entry" in line:
+            d = int(m.group(1)) if m else None
+        elif d == head_dim and (m := re.search(r"(\d+) bytes stack frame",
+                                               line)):
+            out.append(int(m.group(1)))
+    return out
 
 
 def _ptxas_by_head_dim(name: str) -> dict:
@@ -1423,6 +1447,10 @@ def _flash_kernels(state, rnd, dtype, ops_rate) -> None:
 WIDE_SHAPE = (1, 16, 1, 4096, 256)
 WIDE_CASES = (("none", 0), ("fused", 0), ("premask", 0), ("replay", 0),
               ("replay", 2048))
+# GQA and MHA at small shapes, two with SQ % 128 == 64 (the bf16 forward's
+# last CTA with one row group): (mode, local window, B, H, KV, S)
+WIDE_GQA_CASES = (("none", 0, 2, 4, 2, 192), ("premask", 128, 1, 4, 2, 320),
+                  ("replay", 64, 1, 8, 2, 256), ("fused", 0, 1, 4, 4, 192))
 
 
 def _flash_kernels_wide(state, rnd, ops_rate, dtype) -> None:
@@ -1432,9 +1460,11 @@ def _flash_kernels_wide(state, rnd, ops_rate, dtype) -> None:
     versions in WIDE_CASES -- bf16 at BF16_FLASH_TOL (lse at FWD_TOL),
     f32 at F32_FWD_TOL (O and lse) and GRAD_TOL, with the precision
     controls (``_flash_fwd_precision_control``,
-    ``_flash_precision_control``) failing them -- replay == premask ==
-    fused bitwise on the same inputs (the same counters), a planted fault
-    every check must fail (``_flash_fault``), then timed in replay with
+    ``_flash_precision_control``) failing them -- and in WIDE_GQA_CASES
+    (GQA, MHA, SQ % 128 == 64, every mode, with and without a window),
+    replay == premask == fused bitwise on the same inputs (the same
+    counters), a planted fault every check must fail (``_flash_fault``),
+    then timed in replay with
     the window beside the bound and SDPA's forward and backward with the
     window as a boolean mask (kv expanded to the 16 heads), and each
     kernel by dropout mode (none, premask, replay, fused) with the
@@ -1457,7 +1487,7 @@ def _flash_kernels_wide(state, rnd, ops_rate, dtype) -> None:
     ops = {"premask": plane, "replay": seed_salt}
     q, do = rnd(b, h, s, d), rnd(b, h, s, d)
     kk, vv = rnd(b, kvh, s, d), rnd(b, kvh, s, d)
-    outs = {}
+    outs, replay_o = {}, None
     for mode, window in WIDE_CASES:
         op = ops.get(mode)
         args = dict(causal=True, local_window=window, dropout_p=0.1,
@@ -1497,6 +1527,12 @@ def _flash_kernels_wide(state, rnd, ops_rate, dtype) -> None:
             f"their limits ({rule}; dk, dv per query head)")
         if window == 0:
             outs[mode] = (o, dq, dk, dv)
+        elif bf16:
+            # O's order of f32 sums, against the plain version's
+            replay_o = po
+            log(f"[kernels] {tag} {label}: O differs from the plain "
+                f"version's in {float((o != po).float().mean()) * 100:.4f} "
+                f"% of its bf16 values")
         if mode == "premask":
             _flash_fault(tag, q, kk, vv, do, plane, (o, dq, dk, dv),
                          (out_tol, grad_tol), bf16)
@@ -1505,6 +1541,36 @@ def _flash_kernels_wide(state, rnd, ops_rate, dtype) -> None:
                 _flash_precision_control(q, kk, vv, do, po, plse, plane,
                                          (pdq, pdk, pdv))
         del po, plse, pdq, pdk, pdv
+    # GQA and MHA, among them SQ % 128 == 64, at small shapes
+    for mode, window, gb, gh, gkv, gs in WIDE_GQA_CASES:
+        gq, gdo = rnd(gb, gh, gs, d), rnd(gb, gh, gs, d)
+        gk, gv = rnd(gb, gkv, gs, d), rnd(gb, gkv, gs, d)
+        op = {"premask": philox.philox_dropout_mask_plain(
+            gb, gh, gs, gs, 0.1, seed, 3, device="cuda"),
+              "replay": seed_salt}.get(mode)
+        args = dict(causal=True, local_window=window, dropout_p=0.1,
+                    mode=mode, seed=seed, salt=3)
+        o, lse = flash.flash_attention_fwd(gq, gk, gv, op, return_lse=True,
+                                           **args)
+        po, plse = flash.flash_attention_fwd_plain(gq, gk, gv, op, **args)
+        got = (o, lse, *flash_bwd.flash_attention_bwd_heads(
+            gq, gk, gv, o, lse, gdo, op, **args))
+        want = (po, plse, *flash_bwd.flash_attention_bwd_plain(
+            gq, gk, gv, po, plse, gdo, op, **args))
+        label = (f"{mode} window={window} {gb}x{gh} kv_heads={gkv} D={d} "
+                 f"S={gs}")
+        ratios = []
+        for name, key, g, w, t, scaled in zip(
+                ("o", "lse", "dq", "dk", "dv"),
+                (names[0], names[0], names[1], names[2], names[2]), got, want,
+                (out_tol, lse_tol, grad_tol, grad_tol, grad_tol),
+                (bf16, False, bf16, bf16, bf16)):
+            _close(f"{key} {name} {label}", g.float(), w.float(), t, state,
+                   key, scaled=scaled)
+            ratios.append(f"{name} "
+                          f"{_within(g.float(), w.float(), t, scaled)[1]:.3g}")
+        log(f"[kernels] {tag} {label}: {', '.join(ratios)} of their limits")
+        del gq, gdo, gk, gv, o, lse, po, plse, got, want
     # replay, fused and premask consume the same bits
     for mode in ("replay", "fused"):
         if not all(torch.equal(x, y) for x, y in zip(outs[mode],
@@ -1556,8 +1622,8 @@ def _flash_kernels_wide(state, rnd, ops_rate, dtype) -> None:
             if ms is None:
                 raise AssertionError("the profiler saw no device time")
             modes[name][mode] = ms
-    in_turns = ({} if bf16 else
-                _time_parent_wide(state, q, kk, vv, do, seed_salt, args))
+    in_turns = _time_parent_wide(state, dtype, q, kk, vv, do, seed_salt,
+                                 args, want_o=replay_o if bf16 else None)
     for name, kind in zip(names, ("fwd", "dq", "dkv")):
         # bf16: the bf16 tensor cores; f32: six bf16 products an f32
         # product (both operands split into exact triples) on them; the
@@ -1589,70 +1655,73 @@ def _flash_kernels_wide(state, rnd, ops_rate, dtype) -> None:
             f"({causal_pairs:.2f}x the pairs) | {state['smi']}")
         if kind in in_turns:
             timing[name]["parent_ms"] = in_turns[kind]
-    del plane, q, do, kk, vv, ke, ve, o, lse
+    del plane, q, do, kk, vv, ke, ve, o, lse, replay_o
     gc.collect()
     torch.cuda.empty_cache()
 
 
-# The parent commit's f32 forward and dkv at head_dim 256 against the split
-# ones, in turns, from scripts/probe_flash_f32_d256_split.py --parent
-# (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md): the WIDE_SHAPE, replay,
-# window 2048: kind -> (parent ms, split ms), each the mean of its two
-# turns
-PROBE_IN_TURNS = {"fwd": (2.4685, 1.8413), "dkv": (6.3340, 5.3434)}
+# The parent commit's f32 dq and bf16 forward at head_dim 256 against the
+# redesigned ones, in turns, from this script's run with the parent
+# checkout in build/parent (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md): the
+# WIDE_SHAPE, replay, window 2048: dtype -> (parent ms, redesigned ms),
+# each the mean of its two turns
+PROBE_IN_TURNS = {torch.float32: (3.4389, 2.4402),
+                  torch.bfloat16: (0.9897, 0.7080)}
 
 
-def _time_parent_wide(state, q, k, v, do, op, args) -> dict:
-    """The parent's f32 forward (CUDA events) and dkv (the profiler) at
-    head_dim 256 in turns with the split ones (parent, split, split,
-    parent), replay with the window, where phase 1 built the parent's
-    (``_start_parent_build``); the probe's figures (PROBE_IN_TURNS)
-    otherwise. Returns kind -> the parent's mean ms."""
+def _time_parent_wide(state, dtype, q, k, v, do, op, args,
+                      want_o=None) -> dict:
+    """The parent's kernel of REDESIGNED[dtype] at head_dim 256 (the f32 dq
+    by the profiler, the bf16 forward by CUDA events) in turns with the
+    redesigned one (parent, tree, tree, parent), replay with the window,
+    where phase 1 built the parent's (``_start_parent_build``); the
+    probe's figures (PROBE_IN_TURNS) otherwise. Given the plain version's
+    O of the replay with the window, the bf16 forward's share of O's bf16
+    values that differ from it is printed for the parent's kernel too.
+    Returns kind -> the parent's mean ms."""
     import ctypes
-    libs = state.get("parent_f32")
+    kind, lib = REDESIGNED[dtype]
+    libs = state.get("parent_wide")
     if not libs:
-        for kind, (theirs, mine) in PROBE_IN_TURNS.items():
-            log(f"[kernels] flash {kind} f32 D=256: no parent at hand; the "
-                f"probe in turns: parent {theirs} ms, split {mine} ms "
-                f"({theirs / mine:.3f}x)")
+        theirs, mine = PROBE_IN_TURNS[dtype]
+        log(f"[kernels] {lib} D=256: no parent at hand; the probe in turns: "
+            f"parent {theirs} ms, redesigned {mine} ms "
+            f"({theirs / mine:.3f}x)")
         return {}
-    tree = {flash.KERNEL: flash._kernel_fn(flash.KERNEL),
-            flash_bwd.KERNEL_DKV: flash_bwd._kernel_fn(flash_bwd.KERNEL_DKV)}
-    parent = {}
-    for kname, lib in ((flash.KERNEL, "flash_fwd_f32"),
-                       (flash_bwd.KERNEL_DKV, "flash_dkv_f32")):
-        fn = getattr(ctypes.CDLL(str(libs[lib])), f"repro_{kname}")
-        fn.argtypes, fn.restype = tree[kname].argtypes, ctypes.c_int
-        parent[kname] = fn
+    module = flash if kind == "fwd" else flash_bwd
+    kname = flash.KERNELS[dtype] if kind == "fwd" else flash_bwd.KERNEL_DQ
+    tree = module._kernel_fn(kname)
+    parent = getattr(ctypes.CDLL(str(libs[lib])), f"repro_{kname}")
+    parent.argtypes, parent.restype = tree.argtypes, ctypes.c_int
     kw = dict(args, mode="replay")
     o, lse = flash.flash_attention_fwd(q, k, v, op, return_lse=True, **kw)
-    times = {"parent": {"fwd": [], "dkv": []},
-             "split": {"fwd": [], "dkv": []}}
+    times = {"parent": [], "tree": []}
     try:
-        for who in ("parent", "split", "split", "parent"):
-            use = parent if who == "parent" else tree
-            flash._fns[flash.KERNEL] = use[flash.KERNEL]
-            flash_bwd._fns[flash_bwd.KERNEL_DKV] = use[flash_bwd.KERNEL_DKV]
-            times[who]["fwd"].append(cuda_time_ms(
-                lambda: flash.flash_attention_fwd(q, k, v, op, **kw), 10))
-            times[who]["dkv"].append(device_time_ms(
-                lambda: flash_bwd.flash_attention_bwd(q, k, v, o, lse, do, op,
-                                                      **kw),
-                "flash_dkv_kernel", 10))
+        for who in ("parent", "tree", "tree", "parent"):
+            module._fns[kname] = parent if who == "parent" else tree
+            if kind == "fwd":
+                times[who].append(cuda_time_ms(
+                    lambda: flash.flash_attention_fwd(q, k, v, op, **kw), 10))
+            else:
+                times[who].append(device_time_ms(
+                    lambda: flash_bwd.flash_attention_bwd(q, k, v, o, lse, do,
+                                                          op, **kw),
+                    "flash_dq_kernel", 10))
+        if want_o is not None:
+            module._fns[kname] = parent
+            got = flash.flash_attention_fwd(q, k, v, op, **kw)
+            log(f"[kernels] {lib} D=256 replay window={args['local_window']}"
+                f": the parent's O differs from the plain version's in "
+                f"{float((got != want_o).float().mean()) * 100:.4f} % of its "
+                f"bf16 values")
     finally:
-        flash._fns.update({flash.KERNEL: tree[flash.KERNEL]})
-        flash_bwd._fns.update({flash_bwd.KERNEL_DKV:
-                               tree[flash_bwd.KERNEL_DKV]})
-    out = {}
-    for kind in ("fwd", "dkv"):
-        theirs, mine = times["parent"][kind], times["split"][kind]
-        out[kind] = sum(theirs) / len(theirs)
-        log(f"[kernels] flash {kind} f32 D=256 replay window="
-            f"{args['local_window']}: in turns (parent, split, split, parent)"
-            f" {theirs[0]:.4f}, {mine[0]:.4f}, {mine[1]:.4f}, {theirs[1]:.4f} "
-            f"ms: the split kernel {out[kind] / (sum(mine) / 2):.3f}x the "
-            f"parent's | {state['smi']}")
-    return out
+        module._fns[kname] = tree
+    theirs, mine = times["parent"], times["tree"]
+    log(f"[kernels] {lib} D=256 replay window={args['local_window']}: in "
+        f"turns (parent, tree, tree, parent) {theirs[0]:.4f}, {mine[0]:.4f}, "
+        f"{mine[1]:.4f}, {theirs[1]:.4f} ms: the redesigned kernel "
+        f"{sum(theirs) / sum(mine):.3f}x the parent's | {state['smi']}")
+    return {kind: sum(theirs) / len(theirs)}
 
 
 # the fp8 host at the four host GEMMs of a llama2-7b block at B=2, S=2048,

@@ -1,13 +1,13 @@
 #!/usr/bin/env python3
-"""The split f32 flash forward and dkv at head_dim 256 on the card. A probe,
-not part of the port: it builds the six flash libraries and prints ptxas's
-registers and spills of the f32 ones by head dim; with ``--parent DIR``
-(the root of another checkout, e.g. unpacked from ``git archive <commit>``
-into a directory under ``build/``) it builds that checkout's six
-libraries beside them, one nvcc each, all started together, and prints
-each library's ``chip_smoke.narrow_sass_digest`` (D <= 128) and
-``chip_smoke.wide_sass_digest`` (the D = 256 kernels that are not the
-split forward and dkv) of both builds: the values of
+"""The split f32 flash forward, dq and dkv at head_dim 256 on the card. A
+probe, not part of the port: it builds the six flash libraries and prints
+ptxas's registers and spills of the f32 ones by head dim; with ``--parent
+DIR`` (the root of another checkout, e.g. unpacked from ``git archive
+<commit>`` into a directory under ``build/``) it builds that checkout's
+six libraries beside them, one nvcc each, all started together, and
+prints each library's ``chip_smoke.narrow_sass_digest`` (D <= 128) and
+``chip_smoke.wide_sass_digest`` (the D = 256 kernels that are not
+redesigned, ``chip_smoke.SPLIT_KERNELS``) of both builds: the values of
 ``chip_smoke.FLASH_NARROW_SASS`` and ``FLASH_WIDE_SASS``.
 
 Then it holds the forward, dq and dkv at D = 256 against their plain
@@ -16,7 +16,8 @@ versions on small MQA / GQA shapes and at recurrentgemma-9b's LOCAL layer
 dropout modes, with and without its window of 2048, printing each
 output's share of its limit (F32_FWD_TOL for O and lse, GRAD_TOL for dq,
 dk, dv) without stopping, and times the forward (CUDA events) and dq and
-dkv (the profiler's device time) at that shape with the window in the
+dkv (the profiler's device time a call; dq's is its split pass and its
+products) at that shape with the window in the
 four modes, in turns with the parent's (parent, tree, tree, parent) and
 with edited copies of the tree (``--variants a,b``, each joinable by
 "+"; their ptxas counts and checks printed too):
@@ -25,8 +26,12 @@ with edited copies of the tree (``--variants a,b``, each joinable by
             products are done, not while they run;
   noexp     no exponentials (the forward's softmax, dkv's P): a wrong
             output, for timing;
+  noxchg    dq's partial scores not exchanged: a wrong output, for
+            timing;
   nofill    no walked slice loaded or split (the products read what the
-            buffers hold): a wrong output, for timing.
+            buffers hold; dq: no triples written, no bulk copy issued, each
+            part's barrier completed by an arrival): a wrong output, for
+            timing.
 
 The checks of the variants that give a wrong output by design (WRONG) are
 printed and do not stop the timing.
@@ -69,7 +74,7 @@ SMALL = (("none", 0, 1, 1, 2, 128), ("premask", 0, 1, 1, 2, 128),
          ("replay", 0, 2, 2, 4, 192), ("premask", 128, 2, 1, 4, 320))
 MODES = ("none", "premask", "replay", "fused")
 # variants whose output is wrong by design, for timing
-WRONG = ("noexp", "nofill")
+WRONG = ("noexp", "nofill", "noxchg")
 
 # variant -> (file in csrc, text, its replacement, count)
 VARIANTS = {
@@ -81,7 +86,15 @@ VARIANTS = {
     const int u = t + THREADS * i;
     store_unit(""", """  for (int i = 0; i < 0; ++i) {
     const int u = t + THREADS * i;
-    store_unit(""", 1)],
+    store_unit(""", 1),
+               ("flash_dq_f32.cu", """    mbar_expect_tx(bar, SLICE);
+    bulk_load(""", """    mbar_arrive(bar);
+    if (false) bulk_load(""", 1),
+               ("flash_dq_f32.cu", "<<<dim3(blocks, 2), wide::THREADS",
+                "<<<dim3(1, 1), wide::THREADS", 1)],
+    "noxchg": [("flash_dq_f32.cu", """  for (int round = 0; round < 2; ++round) {
+    if (wg == 0) {""", """  for (int round = 0; round < 0; ++round) {
+    if (wg == 0) {""", 1)],
     "serial": [("flash_fwd_f32.cu", """          fill();
           wgmma_wait0();""", """          wgmma_wait0();
           fill();""", 2)]
@@ -283,7 +296,7 @@ def main() -> int:
     import concurrent.futures as cf
     others = ([("parent", Path(args.parent) / "src/repro_torch/kernels/csrc",
                 LIBS)] if args.parent else []) + [
-        (n, edited_csrc(n), ("flash_fwd_f32", "flash_dkv_f32"))
+        (n, edited_csrc(n), F32)
         for n in variants]
     with cf.ThreadPoolExecutor(1 + len(others)) as pool:
         tree = pool.submit(build.build_all, list(LIBS) + [philox.KERNEL])

@@ -12,8 +12,10 @@
 // Those come as slices of 32 columns, each split into a slice triple of
 // 12,288 bytes (a 64 x 32 bf16 tile in load_tile's D = 32 layout: 64-byte
 // rows in the 64-byte swizzle) by the threads, straight from device
-// memory: no TMA and no staging tile. The walked tiles are shared by the
-// CTAs of a head (MQA: by all heads), so the loads mostly hit L2.
+// memory: no TMA and no staging tile (dq's come split, by TMA:
+// flash_dq_f32.cu).
+// The walked tiles are shared by the CTAs of a head (MQA: by all heads), so
+// the loads mostly hit L2.
 //
 // What bounds them. Six bf16 part products an f32 product (the parts that
 // reach 2^-16, smallest first) on the tensor cores: at recurrentgemma's
@@ -22,40 +24,37 @@
 // the splits (about 12 instructions a pair of values, every walked slice
 // of every tile), the exponentials and, in replay, the keep bits.
 //
-// Two designs. Both give each of the two warpgroups of a CTA one
-// 128-column half of the output (64 f32 accumulators a thread an output,
-// as at D = 128: one warpgroup holding all 256 columns would spill).
-//  - dq (Stream, scores, add_half): both warpgroups run the score products
-//    in full on the same 64 rows (the same arithmetic, so the same
-//    scores), each step's pair of slices split by all 256 threads between
-//    two CTA barriers, one after another with the products. The scores'
-//    part products chain over D inside the tensor core, 96 of them:
-//    folding each step by f32 adds spilled (dq 840 bytes) and ran 1.46x
-//    slower; chained, dq reads 0.50 of the smoke's limit.
-//  - The forward and dkv split the score products between the warpgroups
-//    (flash_wide_map.cuh says who takes what). The forward splits them by
-//    D: each warpgroup reduces a partial S over its own 128 columns of D
+// How they split their work (flash_wide_map.cuh says who takes what; each
+// of the two warpgroups of a CTA holds one 128-column half of the output,
+// 64 f32 accumulators a thread, as at D = 128):
+//  - The forward and dq split the score products by D: each warpgroup
+//    reduces a partial S (dq: and dP) over its own 128 columns of D
 //    (m64n64), the two partial tiles cross through shared memory and both
-//    add them, so both hold the same scores; it then touches only its own
-//    half of every walked tile, one slice a step, with barriers of its own,
-//    splitting the next step's slice (loaded into registers a step
-//    earlier) into the other of its two buffers while the step's products
-//    run. dkv splits them by queries: each warpgroup computes the m64n32
+//    add them, so both hold the same scores; each then touches only its
+//    own half of every walked tile, one slice a step. The forward splits
+//    the next step's slice (loaded into registers a step earlier) into the
+//    other of its two buffers while the step's products run, with barriers
+//    of its own. dq takes its slices already split: flash_dq_kernel_triples
+//    writes K and V once a call as triples into device memory, in the
+//    slice buffers' layout, and each warpgroup's thread 0 issues them part
+//    by part by bulk copies (TMA) into a ring of three part stages with
+//    full and empty mbarriers, each part of the next step issued as soon
+//    as the products that read it in this step are done.
+//  - dkv splits them by queries: each warpgroup computes the m64n32
 //    columns of S^T and dP^T of its 32 queries over the full D, with their
 //    keep bits and exponentials, and P_drop^T and dS^T cross through shared
 //    memory so each holds the whole fragment for its output half; it walks
 //    its q-blocks twice, for dV (Q, dO) and for dK (Q, dO, Q), in steps of
 //    two slices filled between two CTA barriers, each output step one
-//    m64n64 product. The warpgroup index is made warp-uniform
-//    (__shfl_sync), or ptxas serializes the products under the branches
-//    on it (C7518).
-// Shared memory: the forward 182,272 bytes, dq 222,208, dkv 230,928 -- one
-// CTA an SM. Registers: the forward 255, dq 205-238, dkv 227-241, no
-// spill. Products per pair of (query, key): dq 1.33x what the work needs,
-// the forward 1x (it was 1.5x), dkv 1.25x (2x). Measured on the H100
-// (PERF.md, scripts/probe_flash_f32_d256_split.py): an m64n32 product
-// costs about what an m64n64 one does, and the splits of the walked
-// slices, not the products, hold both kernels (without them the forward
+//    m64n64 product.
+// The warpgroup index is made warp-uniform (__shfl_sync), or ptxas
+// serializes the products under the branches on it (C7518). Shared memory:
+// the forward 182,272 bytes, dq 230,496, dkv 230,928 -- one CTA an SM.
+// Products per pair of (query, key): the forward and dq 1x what the work
+// needs, dkv 1.25x. Measured on the H100 (PERF.md,
+// scripts/probe_flash_f32_d256_split.py): an m64n32 product costs about
+// what an m64n64 one does, and the threads' splits of the walked slices,
+// not the products, hold the forward and dkv (without them the forward
 // runs 1.36 ms where it runs 1.85, dkv 3.5 where 5.4).
 #pragma once
 
@@ -119,132 +118,6 @@ __device__ __forceinline__ void split_rows(const float* src, uint32_t dst) {
                    swizzle<128>(row * 128 + byte % 128),
                TILE);
   }
-}
-
-// Thread t's unit of two slices (row t / 4, columns 8 (t % 4) ..)
-struct Pair {
-  Unit a, b;
-};
-
-// slices sa and sb (columns 32 sa .., 32 sb ..) of the 64 rows at `rows`
-__device__ __forceinline__ Pair load_pair(const float* rows, int sa,
-                                          int sb) {
-  const int t = threadIdx.x;
-  const float* p = rows + (t / 4) * D + 8 * (t % 4);
-  return Pair{load_unit(p + SW * sa), load_unit(p + SW * sb)};
-}
-
-// the pair's triples into the two slice buffers at buf, SLICE3 apart
-__device__ __forceinline__ void store_pair(const Pair& v, uint32_t buf) {
-  const int t = threadIdx.x;
-  const uint32_t off = swizzle<row_bytes<SW>()>((t / 4) * row_bytes<SW>() +
-                                                16 * (t % 4));
-  store_unit(v.a, buf + off, SLICE);
-  store_unit(v.b, buf + SLICE3 + off, SLICE);
-}
-
-// The slices a CTA splits, one step at a time: `load(j)` is the Pair of
-// step j.
-template <class Load>
-struct Stream {
-  Load load;
-  int j;
-
-  // Step j's slices into the buffers at buf once every warp's products on
-  // them are done (each warpgroup has waited on its own), the stores
-  // visible to the tensor cores. `between` runs after the first barrier
-  // (the CTA's other shared data of the step).
-  template <class Between = Nothing>
-  __device__ __forceinline__ void fill(uint32_t buf,
-                                       Between&& between = Between()) {
-    __syncthreads();
-    store_pair(load(j++), buf);
-    between();
-    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-    __syncthreads();
-  }
-};
-
-template <class Load>
-__device__ __forceinline__ Stream<Load> stream(Load load) {
-  return Stream<Load>{load, 0};
-}
-
-// d (+)= A B^T over slices sa and sb of D: A the 64 x 256 triple at a
-// (parts TILE apart), B the slice triples in the buffers at buf, both read
-// K-major; the six part products, smallest first, each over both slices'
-// k16 steps; d replaced by the first when `first`. The caller fences and
-// commits.
-__device__ __forceinline__ void score_step(float (&d)[32], uint32_t a,
-                                           uint32_t buf, int sa, int sb,
-                                           bool first) {
-  const uint64_t da = pinned(desc_k<D>(a, 0)), db = pinned(desc_k<SW>(buf, 0));
-#pragma unroll
-  for (int n = 0; n < 6; ++n)
-#pragma unroll
-    for (int s = 0; s < 2; ++s)
-#pragma unroll
-      for (int j = 0; j < SW / 16; ++j)
-        wgmma_ss_n64(
-            d,
-            desc_at(da, part_a(n) * TILE +
-                            slice_bytes<D>((SW / 16) * (s ? sb : sa) + j)),
-            desc_at(db, part_b(n) * SLICE + s * SLICE3 + slice_bytes<SW>(j)),
-            !first || n > 0 || s > 0 || j > 0);
-}
-
-// The four score steps over the slices of the 64 rows the stream walks,
-// the A triple at a: s = A B^T. `under` runs while the first step's
-// products are in flight; `between` is the first step's fill's
-// (Stream::fill).
-template <class S, class Under = Nothing, class Between = Nothing>
-__device__ __forceinline__ void scores(float (&s)[32], S& st, uint32_t a,
-                                       uint32_t buf, Under&& under = Under(),
-                                       Between&& between = Between()) {
-#pragma unroll
-  for (int step = 0; step < D / SW / 2; ++step) {
-    if (step == 0)
-      st.fill(buf, between);
-    else
-      st.fill(buf);
-    wgmma_fence();
-    score_step(s, a, buf, 2 * step, 2 * step + 1, step == 0);
-    wgmma_commit();
-    if (step == 0) under();
-    wgmma_wait0();
-    fence_acc(s);
-  }
-}
-
-// acc (this warpgroup's HALF columns) += A B for A the triple of a 64 x 64
-// fragment (a_frags) and B the slices of this warpgroup's half of the rows
-// the stream walks: step s, slice s of the half (columns 32 s ..) from the
-// warpgroup's buffer, an m64n32 product of six part products, smallest
-// first, folded into those columns by f32 adds (add_product6)
-template <class S>
-__device__ __forceinline__ void add_half(float (&acc)[HALF / 2], S& st,
-                                         const uint32_t (&a)[3][4][4],
-                                         uint32_t buf) {
-  const uint32_t mine = buf + (threadIdx.x / WG) * SLICE3;
-#pragma unroll
-  for (int s = 0; s < HALF / SW; ++s) {
-    st.fill(buf);
-    float part[SW / 2];
-#pragma unroll
-    for (int i = 0; i < SW / 2; ++i) part[i] = acc[(SW / 2) * s + i];
-    add_product6<SW>(part, a, mine);
-#pragma unroll
-    for (int i = 0; i < SW / 2; ++i) acc[(SW / 2) * s + i] = part[i];
-  }
-}
-
-// the Pair of a step that walks rows: a score step (slices 2 s, 2 s + 1)
-// or a half step (slice s for the first warpgroup, 4 + s for the second)
-__device__ __forceinline__ Pair score_pair(const float* rows, int s) {
-  return load_pair(rows, 2 * s, 2 * s + 1);
-}
-__device__ __forceinline__ Pair half_pair(const float* rows, int s) {
-  return load_pair(rows, s, HALF / SW + s);
 }
 
 // this warpgroup's HALF columns of a 64-row fragment (rows 16 w + l / 4

@@ -25,27 +25,23 @@
 // JAX kernel folds its blocks. Keep bits: premask reads the plane, replay
 // / fused re-derive them from the Philox counters (keep_fwd), while the S
 // product runs. GQA: head h reads kv head h / (H / KV). O stays in
-// registers (kCols / 2 floats a thread) and is rounded once to q's dtype at
+// registers (D / 2 floats a thread) and is rounded once to q's dtype at
 // the store. The bits do not depend on the tiling; only the order of
 // float sums does.
 //
 // The operand policy (Ops) is what differs between the dtypes: the
-// warpgroups a CTA and how they share the rows and columns of O, where the
-// tiles come from, the S = Q K^T product and the P V product.
+// warpgroups a CTA (each taking 64 query rows of its own), where the tiles
+// come from, the S = Q K^T product and the P V product.
 //  - Bf16Ops: one warpgroup. Q by TMA once; K and V tiles through a
 //    two-stage TMA ring with mbarriers, the next k-block in flight while
 //    this one computes. S is D / 16 m64n64k16 wgmma with both operands
 //    K-major in shared memory (a product of two bf16 values is exact in
 //    f32); P V is the three parts of P against V, read MN-major, at the
 //    full width D, then one f32 multiply-add an element. 80 KB of shared
-//    memory at D = 128: two CTAs an SM. At D = 256 the O accumulator would
-//    take 128 registers a thread and P V's product another 128, past the
-//    255 a thread has: two warpgroups then take the same 64 query rows,
-//    each the full S (both run all 16 k16 slices, the same arithmetic, so
-//    the same P and the same keep bits) and the P V product and O of one
-//    128-column half of V -- the registers of the D = 128 instance, and
-//    one and a half times its products a column. Q and two stages of K
-//    and V take 160 KB: one CTA an SM.
+//    memory at D = 128: two CTAs an SM. Up to D = 128 only: at D = 256 the
+//    O accumulator and P V's own would take 256 registers a thread, so
+//    flash_fwd_bf16.cu's kernel of its own accumulates P V into O inside
+//    the tensor core, 128 query rows a CTA (flash_fwd_kernel_wide).
 //  - F32Ops: both operands of both products are f32, each split into its
 //    exact bf16 triple and multiplied as the six part products that reach
 //    2^-16, smallest first (flash_sm90.cuh: score6, add_product6). The f32
@@ -109,11 +105,7 @@ struct Walk {
 template <int D>
 struct Bf16Ops {
   using Out = __nv_bfloat16;
-  // warpgroups a CTA; those taking rows of their own; O's columns each holds
-  static constexpr int kWarpgroups = D > 128 ? 2 : 1;
-  static constexpr int kRowGroups = 1;
-  static constexpr int kCols = D / kWarpgroups;
-  static constexpr int kMaxD = 256;
+  static constexpr int kWarpgroups = 1;  // each 64 query rows of its own
   static constexpr int TILE = tile_bytes<D>();
   // alignment slack, Q, two stages of K and V, three mbarriers
   static constexpr int kSmemBytes = 1024 + 5 * TILE + 24;
@@ -168,32 +160,26 @@ struct Bf16Ops {
 
   __device__ __forceinline__ void under_score(int) const {}
 
-  // O = O * alpha + P V (P = hi + mid + lo) of k-block `it` over this
-  // warpgroup's kCols columns of V, then the stage refilled with k-block
-  // it + 2
-  __device__ __forceinline__ void add_pv(float (&o)[kCols / 2],
+  // O = O * alpha + P V (P = hi + mid + lo) of k-block `it`, then the
+  // stage refilled with k-block it + 2
+  __device__ __forceinline__ void add_pv(float (&o)[D / 2],
                                          const float (&alpha)[2],
                                          const uint32_t (&pa)[3][4][4],
                                          int it) const {
     const int s = it & 1;
     const uint32_t ks = ring + 2 * s * TILE, vs = ks + TILE;
-    // this warpgroup's columns start kCols / 64 boxes into the V tile
-    const uint32_t vc =
-        kWarpgroups == 1
-            ? vs
-            : vs + (threadIdx.x / WG) * (kCols / 64) * 64 * row_bytes<D>();
-    float pv[kCols / 2];  // replaced by the first product
+    float pv[D / 2];  // replaced by the first product
     wgmma_fence();
 #pragma unroll
     for (int j = 0; j < 4; ++j)
 #pragma unroll
       for (int i = 0; i < 3; ++i)
-        wgmma_rs<kCols>(pv, pa[i][j], desc_mn<D>(vc, j), i + j);
+        wgmma_rs<D>(pv, pa[i][j], desc_mn<D>(vs, j), i + j);
     wgmma_commit();
     wgmma_wait0();
     fence_acc(pv);
 #pragma unroll
-    for (int g = 0; g < kCols / 8; ++g)
+    for (int g = 0; g < D / 8; ++g)
 #pragma unroll
       for (int i = 0; i < 4; ++i)
         o[4 * g + i] = o[4 * g + i] * alpha[i / 2] + pv[4 * g + i];
@@ -214,10 +200,7 @@ struct Bf16Ops {
 template <int D>
 struct F32Ops {
   using Out = float;
-  static constexpr int kWarpgroups = 2;
-  static constexpr int kRowGroups = 2;
-  static constexpr int kCols = D;
-  static constexpr int kMaxD = 128;
+  static constexpr int kWarpgroups = 2;  // each 64 query rows of its own
   static constexpr int THREADS = kWarpgroups * WG;
   static constexpr int TILE = tile_bytes<D>();
   static constexpr int TILE32 = tile_bytes32<D>();
@@ -334,22 +317,18 @@ __global__ void __launch_bounds__(WG * Ops::kWarpgroups, 1)
   extern __shared__ uint8_t smem_raw[];
   Ops ops((smem_u32(smem_raw) + 1023u) & ~1023u, &map_q, &map_k, &map_v);
 
-  // warpgroup g of the CTA takes query rows q_start .. q_start + 63 (its
-  // own rows where the Ops' warpgroups split the rows, kRowGroups > 1; the
-  // CTA's rows and its kCols columns of O where they split the columns);
-  // the last CTA's second row group may lie past SQ (no rows: it takes part
-  // in the loads and splits, makes no keep bits and stores nothing)
-  constexpr int WGS = Ops::kWarpgroups, RGS = Ops::kRowGroups;
-  constexpr int NO = Ops::kCols;
+  // warpgroup g of the CTA takes query rows q_start .. q_start + 63; the
+  // last CTA's second warpgroup may lie past SQ (no rows: it takes part in
+  // the loads and splits, makes no keep bits and stores nothing)
+  constexpr int WGS = Ops::kWarpgroups;
   const int t = WGS == 1 ? threadIdx.x : threadIdx.x % WG;
   const int w = t / 32, l = t % 32, c = l % 4;
   const int qi = gridDim.x - 1 - blockIdx.x;
   const int h = blockIdx.y, b = blockIdx.z;
   const int kvh = h / (p.H / p.KV);
-  const int q_cta = qi * BQ * RGS;
-  const int q_start = q_cta + (RGS == 1 ? 0 : BQ * (threadIdx.x / WG));
-  const bool has_rows = RGS == 1 || q_start < p.SQ;
-  const int col0 = NO == D ? 0 : NO * (threadIdx.x / WG);
+  const int q_cta = qi * BQ * WGS;
+  const int q_start = q_cta + (WGS == 1 ? 0 : BQ * (threadIdx.x / WG));
+  const bool has_rows = WGS == 1 || q_start < p.SQ;
   const int q_offset = p.SK - p.SQ;
   const int kv_row = (b * p.KV + kvh) * p.SK;
 
@@ -359,7 +338,7 @@ __global__ void __launch_bounds__(WG * Ops::kWarpgroups, 1)
   for (int ki = 0; ki < p.SK / BK; ++ki) {
     bool run = false;
 #pragma unroll
-    for (int g = 0; g < RGS; ++g)
+    for (int g = 0; g < WGS; ++g)
       run = run || tile_runs(q_cta + BQ * g, ki * BK, q_offset, p.causal,
                              p.local_window);
     if (run) {
@@ -369,7 +348,7 @@ __global__ void __launch_bounds__(WG * Ops::kWarpgroups, 1)
   }
 
   ops.start((b * p.H + h) * p.SQ + q_cta, Walk{kv_row, k_first, n});
-  float o[NO / 2];
+  float o[D / 2];
   zero(o);
   float m[2] = {neg_big(), neg_big()}, lsum[2] = {0.f, 0.f};
   ops.ready();
@@ -434,12 +413,12 @@ __global__ void __launch_bounds__(WG * Ops::kWarpgroups, 1)
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
     const float li = lsum[hh] == 0.f ? 1.f : lsum[hh];
-    typename Ops::Out* orow = p.o + (row0 + 8 * hh) * D + col0;
+    typename Ops::Out* orow = p.o + (row0 + 8 * hh) * D;
 #pragma unroll
-    for (int g = 0; g < NO / 8; ++g)
+    for (int g = 0; g < D / 8; ++g)
       store2(orow + 8 * g + 2 * c, o[4 * g + 2 * hh] / li * p.dp.inv_keep,
              o[4 * g + 2 * hh + 1] / li * p.dp.inv_keep);
-    if (c == 0 && col0 == 0) p.lse[row0 + 8 * hh] = m[hh] + logf(li);
+    if (c == 0) p.lse[row0 + 8 * hh] = m[hh] + logf(li);
   }
 }
 
@@ -449,12 +428,12 @@ template <int D, int MODE, template <int> class Ops>
 int launch(const CUtensorMap (&maps)[3],
            const FwdArgs<typename Ops<D>::Out>& p, cudaStream_t s) {
   constexpr int smem = Ops<D>::kSmemBytes;
-  constexpr int WGS = Ops<D>::kWarpgroups, RGS = Ops<D>::kRowGroups;
+  constexpr int WGS = Ops<D>::kWarpgroups;
   auto kernel = flash_fwd_kernel<D, MODE, Ops<D>>;
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<dim3((p.SQ / BQ + RGS - 1) / RGS, p.H, p.B), WG * WGS, smem,
+  kernel<<<dim3((p.SQ / BQ + WGS - 1) / WGS, p.H, p.B), WG * WGS, smem,
            s>>>(maps[0], maps[1], maps[2], p);
   return static_cast<int>(cudaGetLastError());
 }
@@ -477,8 +456,8 @@ int run_d(const void* q, const void* k, const void* v,
 
 // out, lse <- flash attention of q (B,H,SQ,D), k/v (B,KV,SK,D) in the
 // policy's dtype, all contiguous and on 16 bytes; out in that dtype, lse
-// f32; SQ and SK multiples of 64; D in {16, 32, 64, 128} and, where the
-// policy takes it (Ops::kMaxD), 256. mode 0 = none,
+// f32; SQ and SK multiples of 64; D in {16, 32, 64, 128} (the D = 256
+// kernels are their libraries' own). mode 0 = none,
 // 1 = premask (plane (B,H,SQ/32,SK) int32), 2 = counters (the Philox key
 // words: replay and fused). Launches on `stream`; returns the CUDA error
 // code (0 on success), cudaErrorInvalidValue for what it does not take or
@@ -510,10 +489,6 @@ int run(const void* q, const void* k, const void* v, void* out, void* lse,
     case 32: return run_d<32, Ops>(q, k, v, p, mode, s);
     case 64: return run_d<64, Ops>(q, k, v, p, mode, s);
     case 128: return run_d<128, Ops>(q, k, v, p, mode, s);
-    case 256:
-      if constexpr (Ops<16>::kMaxD >= 256)
-        return run_d<256, Ops>(q, k, v, p, mode, s);
-      return static_cast<int>(cudaErrorInvalidValue);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -526,9 +501,6 @@ int smem_bytes(int D) {
     case 32: return Ops<32>::kSmemBytes;
     case 64: return Ops<64>::kSmemBytes;
     case 128: return Ops<128>::kSmemBytes;
-    case 256:
-      if constexpr (Ops<16>::kMaxD >= 256) return Ops<256>::kSmemBytes;
-      return 0;
     default: return 0;
   }
 }

@@ -1,10 +1,14 @@
-// The step maps of the split f32 flash kernels at head_dim 256 (the wide
-// kernels of flash_fwd_f32.cu and flash_dkv_f32.cu, flash_f32_wide.cuh):
-// which 32-column slice of a walked tile each warpgroup splits at each
-// step, which rows and columns of the score tile and of the output it
-// owns, and where each exchanged element lands. Plain integer functions,
-// so a host compiler runs them too: tests/test_torch_flash_wide_split.py
-// compiles this header with g++ and holds the maps to exact coverage.
+// The step maps of the flash kernels at head_dim 256 that split their work
+// between warpgroups: the f32 forward, dq and dkv (flash_fwd_f32.cu,
+// flash_dq_f32.cu, flash_dkv_f32.cu, on flash_f32_wide.cuh) -- which
+// 32-column slice of a walked tile each warpgroup takes at each step,
+// which rows and columns of the score tile and of the output it owns, where
+// each exchanged element lands, and where dq's K and V triples lie in
+// device memory -- and the query rows of the bf16 forward's warpgroups
+// (flash_fwd_bf16.cu). Plain integer functions, so a host compiler runs
+// them too: tests/test_torch_flash_wide_split.py and
+// tests/test_torch_flash_d256_rule2.py compile this header with g++ and
+// hold the maps to exact coverage.
 //
 // Fragments. Thread t of a warpgroup (warp w = t / 32, lane l, c = l % 4)
 // holds element i of an m64nN f32 accumulator at row 16 w + l / 4 + 8 hh
@@ -14,6 +18,7 @@
 // thread t.
 #pragma once
 
+#include <cstddef>
 #include <cstdint>
 
 #include "flash_common.cuh"
@@ -60,9 +65,10 @@ WIDE_HD int fwd_xchg(int wg, int t, int i) {
 }
 constexpr int FWD_XCHG_FLOATS = 2 * 32 * WG_THREADS;
 
-// the keep-bit words: warpgroup wg makes those of rows hh = wg (the row
-// group 16 w + l / 4 + 8 wg of each thread), thread t leaves its word at
-// fwd_keep_xchg and takes the other row group's from the other warpgroup
+// the keep-bit words (the forward's and dq's): warpgroup wg makes those of
+// rows hh = wg (the row group 16 w + l / 4 + 8 wg of each thread), thread t
+// leaves its word at fwd_keep_xchg and takes the other row group's from the
+// other warpgroup
 WIDE_HD int fwd_keep_rows(int wg) { return wg; }
 WIDE_HD int fwd_keep_xchg(int wg, int t) { return wg * WG_THREADS + t; }
 constexpr int FWD_KEEP_WORDS = 2 * WG_THREADS;
@@ -117,6 +123,81 @@ WIDE_HD int dkv_xchg(int t, int i) {
   return (i / 4) * 4 * WG_THREADS + 4 * t + i % 4;
 }
 constexpr int DKV_XCHG_FLOATS = 16 * WG_THREADS;
+
+// --------------------------------------------------------------------- dq
+// Split by D, as the forward. A k-block is DQ_STEPS steps a warpgroup, one
+// slice of its own half of D each: K's four (its partial S = Q K^T over
+// its 128 columns of D, Q's same columns as A), V's four (its partial dP =
+// dO V^T), then K's four again (dq += dS K over its 128 output columns).
+// The partial S and dP cross through shared memory (dq_xchg; S with the
+// keep words, each warpgroup having made one row group's, fwd_keep_xchg)
+// and both warpgroups add them, so both hold the same S and dP and each
+// makes the whole dS, the A operand of its half of dq.
+constexpr int DQ_STEPS = 3 * HALF_SLICES;
+
+// 0: S over K; 1: dP over V; 2: dq over K
+WIDE_HD int dq_phase(int r) { return r / HALF_SLICES; }
+WIDE_HD bool dq_reads_v(int r) { return dq_phase(r) == 1; }
+
+// the slice of D (0-7) that warpgroup wg takes at step r of a k-block: the
+// k range of its partial scores (the same columns of Q or dO), or its
+// output columns
+WIDE_HD int dq_slice(int wg, int r) {
+  return HALF_SLICES * wg + r % HALF_SLICES;
+}
+
+// The exchange of a partial score tile, in two rounds of 16 floats a
+// thread (one region of 16 x 128 floats): element i (0-31) of thread t
+// goes in round i / 16 to float dq_xchg(t, i). The first warpgroup writes
+// the round's floats, the second's thread t reads the first's thread t
+// there, adds, and writes its own into the same floats; the first reads
+// those and adds.
+WIDE_HD int dq_xchg(int t, int i) {
+  return ((i % 16) / 4) * 4 * WG_THREADS + 4 * t + i % 4;
+}
+constexpr int DQ_XCHG_FLOATS = 16 * WG_THREADS;
+
+// dq's K and V triples in device memory (its workspace), written once a
+// call by flash_dq_kernel_triples. A 64 x 32 slice of one part of a
+// k-block is one SLICE_PART-byte run in the 64-byte swizzle of a 64-row
+// bf16 tile of 32 columns -- the bytes at which the threads of the other
+// split kernels store a slice (flash_f32_wide.cuh, store_slice) -- so one
+// bulk copy (TMA) lands it in a slice buffer as it is. The runs lie
+// (tensor, k-block, slice, part) in row-major order: K's k-blocks, then
+// V's, each k-block's 8 slices, each slice's hi, mid, lo.
+constexpr int SLICE_PART = 64 * SW * 2;
+
+// a byte offset of a 64-byte-swizzled tile (tc::swizzle<64>): the 16-byte
+// chunk bits of a row xor the row's bits 1-2
+WIDE_HD uint32_t swizzle64(uint32_t off) {
+  return off ^ (((off >> 7) & 3u) << 4);
+}
+
+// the first byte of part p of slice s of global k-block kb (rows 64 kb ..
+// of the (B * KV * SK, D) tensor) of V (else K), of `blocks` k-blocks a
+// tensor
+WIDE_HD size_t dq_ws_part(bool v, int blocks, int kb, int s, int p) {
+  return ((static_cast<size_t>(v ? blocks : 0) + kb) * SLICES * 3 +
+          3 * s + p) *
+         SLICE_PART;
+}
+
+// the byte of element (row, col) of that k-block's rows (row < 64, col <
+// D) in part p
+WIDE_HD size_t dq_ws_byte(bool v, int blocks, int kb, int row, int col,
+                          int p) {
+  return dq_ws_part(v, blocks, kb, col / SW, p) +
+         swizzle64(static_cast<uint32_t>(row * SW * 2 + (col % SW) * 2));
+}
+
+// ------------------------------------------------- the bf16 forward's rows
+// A CTA takes 128 query rows, 64 each for its two consumer warpgroups;
+// where SQ % 128 == 64 the last CTA's second warpgroup has none.
+WIDE_HD int fwd_bf16_ctas(int sq) { return (sq / BQ + 1) / 2; }
+WIDE_HD int fwd_bf16_q_start(int qi, int cw) { return 2 * BQ * qi + BQ * cw; }
+WIDE_HD bool fwd_bf16_has_rows(int qi, int cw, int sq) {
+  return fwd_bf16_q_start(qi, cw) < sq;
+}
 
 // Whether every score of the (q-block, k-block) tile is valid (score_valid
 // of flash_common.cuh), so its elements need no mask

@@ -27,10 +27,13 @@ triples as well and sums the six part products of each f32 product that
 reach 2^-16, the f32 function up to the order of the sums. What bounds
 each on an H100 and how it tiles: see the notes in the CUDA sources. Both
 take SQ and SK multiples of 64 and head_dim in {16, 32, 64, 128, 256}
-(``KERNEL_HEAD_DIMS``; at 256 two warpgroups a CTA, each holding one
-column half of O, counted as the instances ``flash_fwd_bf16_d256`` and
-``flash_fwd_f32_d256``; the f32 one streams K and V in 32-column slices,
-``csrc/flash_f32_wide.cuh``); anything else on the card raises.
+(``KERNEL_HEAD_DIMS``; at 256 each library runs a kernel of its own,
+counted as the instances ``flash_fwd_bf16_d256`` and ``flash_fwd_f32_d256``:
+the bf16 one 128 query rows a CTA, a producer warpgroup feeding two
+consumers that accumulate P V into O inside the tensor core; the f32 one
+two warpgroups on 64 rows, the score products split between them by D, K
+and V streamed in 32-column slices, ``csrc/flash_f32_wide.cuh``); anything
+else on the card raises.
 
 The seed-salt word is host data: the kernels take its four words by
 value, so it stays on the CPU and reading it costs no device sync.

@@ -27,7 +27,9 @@ dS and P_drop are f32 and enter as triples. At head_dim 256 each kernel
 runs two warpgroups a CTA, each holding one column half of dq or of dk
 and dv, counted apart as ``flash_dq_bf16_d256`` / ``flash_dkv_bf16_d256``
 and ``flash_dq_f32_d256`` / ``flash_dkv_f32_d256`` (the f32 ones stream
-the walked tiles in 32-column slices, ``csrc/flash_f32_wide.cuh``). No
+the walked tiles in 32-column slices, ``csrc/flash_f32_wide.cuh``; the
+f32 dq takes them already split, from K's and V's bf16 triples that the
+same launch writes into a workspace on the card, ``_dq_workspace``). No
 kernel uses atomics, so a step is bitwise reproducible; what bounds each
 is in its CUDA source.
 """
@@ -43,6 +45,7 @@ from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import (
     KERNEL_HEAD_DIMS,
     NEG_BIG,
+    WIDE_HEAD_DIM,
     Dropout,
     check_kernel_shapes,
     instance,
@@ -91,15 +94,26 @@ def _kernel_fn(name: str):
     return _fns[name]
 
 
+def _dq_workspace(name, b, kvh, sk, d, device) -> Optional[torch.Tensor]:
+    """The scratch the dq kernel ``name`` takes on the card, or None: the
+    f32 one at head_dim 256 writes K's and V's bf16 triples there (hi,
+    mid, lo of each value, 1.5x their f32 bytes, laid out by ``dq_ws_part``
+    of ``csrc/flash_wide_map.cuh``)."""
+    if name != KERNEL_DQ or d != WIDE_HEAD_DIM:
+        return None
+    return torch.empty(2 * 3 * b * kvh * sk * d * 2, dtype=torch.uint8,
+                       device=device)
+
+
 def _bwd_kernel(name, q, k, v, do, lse, delta, out_a, out_b, dp: Dropout,
                 causal, local_window, scale):
-    """One launch of ``name`` (dq writes out_a; dkv writes out_a = dk_h and
-    out_b = dv_h)."""
+    """One launch of ``name`` (dq writes out_a, with its workspace in dk's
+    place; dkv writes out_a = dk_h and out_b = dv_h)."""
     b, h, sq, d = q.shape
     kvh, sk = k.shape[1], k.shape[2]
     ptrs = [q, k, v, do, lse, delta]
-    outs = ([out_a, None, None] if out_b is None
-            else [None, out_a, out_b])
+    outs = ([out_a, _dq_workspace(name, b, kvh, sk, d, q.device), None]
+            if out_b is None else [None, out_a, out_b])
     with torch.cuda.device(q.device):
         err = _kernel_fn(name)(
             *[t.data_ptr() for t in ptrs],

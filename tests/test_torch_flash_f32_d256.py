@@ -165,7 +165,7 @@ def test_f32_d256_wrappers_reach_the_f32_entry_points(fake_card):
                for _, args in fake_card[1:])
     csrc = Path(build.CSRC)
     for src, kernel in (("flash_fwd_f32", "flash_fwd_kernel_wide"),
-                        ("flash_dq_f32", "flash_dq_kernel_wide"),
+                        ("flash_dq_f32", "flash_dq_kernel_split"),
                         ("flash_dkv_f32", "flash_dkv_kernel_wide")):
         text = (csrc / f"{src}.cu").read_text()
         assert kernel in text and '#include "flash_f32_wide.cuh"' in text
