@@ -16,10 +16,9 @@ Phases (each raises on failure; nothing is caught):
      not spill at D = 128, none at D = 256), the f32 GEMM+RNG
      libraries' (which may not spill), and holds the flash libraries
      that gained the D = 256 instances to the parent commit's SASS at
-     D <= 128 (FLASH_NARROW_SASS) and the D = 256 kernels that are not
-     redesigned (the bf16 dq and dkv) to theirs (FLASH_WIDE_SASS); where a
-     checkout of the parent commit is unpacked in build/parent, its f32 dq
-     and bf16 forward are built beside them for phase 2;
+     D <= 128 (FLASH_NARROW_SASS); where a checkout of the parent commit
+     is unpacked in build/parent, its bf16 dq and dkv are built beside
+     them for phase 2;
   2. each kernel against its plain PyTorch version on the card, then
      timed with CUDA events beside its bound and, where one PyTorch call
      computes the same function, that call's time: the Philox kernel
@@ -50,11 +49,11 @@ Phases (each raises on failure; nothing is caught):
      f32 flash kernels at head_dim 256 (recurrentgemma-9b's LOCAL layer
      and small GQA / MHA shapes, as the bf16 ones below, at the f32
      limits with both controls; the
-     redesigned dq and bf16 forward timed in turns with the parent
-     commit's where phase 1 built those, the share of the bf16 forward's
-     O values that differ from the plain version's printed for both,
-     SDPA's causal call without the window printed beside the masked
-     one);
+     redesigned bf16 dq and dkv timed in turns with the parent commit's
+     where phase 1 built those, the share of the bf16 O, dq, dk and dv
+     values that differ from the plain version's printed for the tree
+     and the parent, SDPA's causal call without the window printed beside
+     the masked one);
   3. serving: the reduced llama2 on the card against the same engine on
      the CPU, then ``ServeEngine`` on llama2-7b at full width and depth
      (f32 random weights from a seed): 8 requests, 4 slots, 64 new tokens
@@ -512,30 +511,21 @@ def phase_build(state) -> None:
                                  f"the parent's {want})")
         log(f"[build] {name}: its {count} kernels at D <= 128 run the "
             f"parent's SASS, instruction for instruction (digest {digest})")
-    # and at D = 256 every kernel but the redesigned ones (SPLIT_KERNELS):
-    # the bf16 dq and dkv (FLASH_WIDE_SASS)
-    for name, want in FLASH_WIDE_SASS.items():
-        digest, count = wide_sass_digest(libs[name])
-        if digest != want:
-            raise AssertionError(f"{name}: the SASS of its {count} kernels "
-                                 f"at D = 256 changed (digest {digest}, the "
-                                 f"parent's {want})")
-        log(f"[build] {name}: its {count} kernels at D = 256 run the "
-            f"parent's SASS, instruction for instruction (digest {digest})")
 
 
 # The parent commit's sources, where a checkout of it is unpacked beside
 # this script (git archive <commit> | tar -x -C build/parent): phase 2
-# times its f32 dq and bf16 forward at head_dim 256 in turns with the
-# redesigned ones (REDESIGNED). A checkout of the committed files alone
-# has none; phase 2 then quotes PROBE_IN_TURNS.
+# times its bf16 dq and dkv at head_dim 256 in turns with the redesigned
+# ones (REDESIGNED). A checkout of the committed files alone has none;
+# phase 2 then quotes PROBE_IN_TURNS.
 PARENT_CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                            "build", "parent", "src", "repro_torch",
                            "kernels", "csrc")
-# dtype -> (kind, library) of the D = 256 kernel redesigned last
-REDESIGNED = {torch.float32: ("dq", "flash_dq_f32"),
-              torch.bfloat16: ("fwd", "flash_fwd_bf16")}
-PARENT_LIBS = tuple(lib for _, lib in REDESIGNED.values())
+# dtype -> (kind, library) of each D = 256 kernel redesigned last
+REDESIGNED = {torch.bfloat16: (("dq", "flash_dq_bf16"),
+                               ("dkv", "flash_dkv_bf16"))}
+PARENT_LIBS = tuple(lib for kernels in REDESIGNED.values()
+                    for _, lib in kernels)
 
 
 def _start_parent_build():
@@ -558,7 +548,7 @@ def _finish_parent_build(procs):
     a parent checkout)."""
     if procs is None:
         log(f"[build] no parent checkout at {PARENT_CSRC}: phase 2 quotes "
-            f"the probe's parent timings")
+            f"the parent timings of PROBE_IN_TURNS")
         return None
     libs = {}
     for name, (lib, proc) in procs.items():
@@ -569,12 +559,6 @@ def _finish_parent_build(procs):
     log(f"[build] the parent's {', '.join(libs)} from {PARENT_CSRC}")
     return libs
 
-
-# the digest (wide_sass_digest) of the flash kernels at head dim 256 that
-# are not redesigned (the bf16 dq and dkv), as the parent commit's sources
-# build them (scripts/probe_flash_f32_d256_split.py --parent)
-FLASH_WIDE_SASS = {"flash_dq_bf16": "fd4d84fe54487e82",
-                   "flash_dkv_bf16": "fa9ffd87906d21b5"}
 
 # the digest (narrow_sass_digest) of each flash library's kernels at head
 # dims up to 128 as the parent commit's sources build them on the H100
@@ -609,40 +593,18 @@ def sass_by_function(lib) -> dict:
     return out
 
 
-def _sass_digest(lib, keep) -> tuple:
-    """(digest, kernels) of a flash library's instances whose (kernel, D,
-    mode) key ``keep`` takes: a sha256 prefix of their keys and SASS, so
-    two builds with equal digests run the same machine code there."""
+def narrow_sass_digest(lib) -> tuple:
+    """(digest, kernels) of a flash library's instances at head dims up to
+    128: a sha256 prefix of their (kernel, D, mode) keys and SASS, so two
+    builds with equal digests run the same machine code there."""
     import hashlib
     kept = {key: code for key, code in sass_by_function(lib).items()
-            if keep(key)}
+            if key[1] <= 128}
     h = hashlib.sha256()
     for key in sorted(kept):
         h.update(repr(key).encode())
         h.update("\n".join(kept[key]).encode())
     return h.hexdigest()[:16], len(kept)
-
-
-def narrow_sass_digest(lib) -> tuple:
-    """_sass_digest of a flash library's instances at head dims up to
-    128."""
-    return _sass_digest(lib, lambda key: key[1] <= 128)
-
-
-# the kernels at D = 256 redesigned for Hopper: the f32 forward, dq and
-# dkv, which split their products between the two warpgroups
-# (csrc/flash_wide_map.cuh), and the bf16 forward (flash_fwd_kernel_wide
-# in both forward libraries); the other D = 256 instances keep their
-# parent's machine code (FLASH_WIDE_SASS)
-SPLIT_KERNELS = ("flash_fwd_kernel_wide", "flash_dq_kernel_split",
-                 "flash_dkv_kernel_wide")
-
-
-def wide_sass_digest(lib) -> tuple:
-    """_sass_digest of a flash library's instances at head dim 256 but the
-    split ones (SPLIT_KERNELS)."""
-    return _sass_digest(
-        lib, lambda key: key[1] == 256 and key[0] not in SPLIT_KERNELS)
 
 
 def _stack_frames(name: str, head_dim: int) -> list:
@@ -1447,16 +1409,17 @@ def _flash_kernels(state, rnd, dtype, ops_rate) -> None:
 WIDE_SHAPE = (1, 16, 1, 4096, 256)
 WIDE_CASES = (("none", 0), ("fused", 0), ("premask", 0), ("replay", 0),
               ("replay", 2048))
-# GQA and MHA at small shapes, two with SQ % 128 == 64 (the bf16 forward's
-# last CTA with one row group): (mode, local window, B, H, KV, S)
+# GQA and MHA at small shapes, two with SQ % 128 == 64 (the last CTA of
+# the bf16 forward and dq with one row group): (mode, local window, B, H,
+# KV, S)
 WIDE_GQA_CASES = (("none", 0, 2, 4, 2, 192), ("premask", 128, 1, 4, 2, 320),
                   ("replay", 64, 1, 8, 2, 256), ("fused", 0, 1, 4, 4, 192))
 
 
 def _flash_kernels_wide(state, rnd, ops_rate, dtype) -> None:
     """The flash forward, dq and dkv instances of ``dtype`` at head_dim 256
-    (two warpgroups a CTA, each one column half of the output; the f32
-    ones stream the walked tiles in 32-column slices) against their plain
+    (kernels of their own; the f32 ones stream the walked tiles in
+    32-column slices) against their plain
     versions in WIDE_CASES -- bf16 at BF16_FLASH_TOL (lse at FWD_TOL),
     f32 at F32_FWD_TOL (O and lse) and GRAD_TOL, with the precision
     controls (``_flash_fwd_precision_control``,
@@ -1487,7 +1450,7 @@ def _flash_kernels_wide(state, rnd, ops_rate, dtype) -> None:
     ops = {"premask": plane, "replay": seed_salt}
     q, do = rnd(b, h, s, d), rnd(b, h, s, d)
     kk, vv = rnd(b, kvh, s, d), rnd(b, kvh, s, d)
-    outs, replay_o = {}, None
+    outs, windowed = {}, None
     for mode, window in WIDE_CASES:
         op = ops.get(mode)
         args = dict(causal=True, local_window=window, dropout_p=0.1,
@@ -1528,11 +1491,10 @@ def _flash_kernels_wide(state, rnd, ops_rate, dtype) -> None:
         if window == 0:
             outs[mode] = (o, dq, dk, dv)
         elif bf16:
-            # O's order of f32 sums, against the plain version's
-            replay_o = po
-            log(f"[kernels] {tag} {label}: O differs from the plain "
-                f"version's in {float((o != po).float().mean()) * 100:.4f} "
-                f"% of its bf16 values")
+            # the orders of f32 sums, against the plain version's
+            windowed = (po, pdq, pdk, pdv)
+            log(f"[kernels] {tag} {label}: "
+                + differing_shares((o, dq, dk, dv), windowed))
         if mode == "premask":
             _flash_fault(tag, q, kk, vv, do, plane, (o, dq, dk, dv),
                          (out_tol, grad_tol), bf16)
@@ -1622,8 +1584,8 @@ def _flash_kernels_wide(state, rnd, ops_rate, dtype) -> None:
             if ms is None:
                 raise AssertionError("the profiler saw no device time")
             modes[name][mode] = ms
-    in_turns = _time_parent_wide(state, dtype, q, kk, vv, do, seed_salt,
-                                 args, want_o=replay_o if bf16 else None)
+    parent_ms = _time_parent_wide(state, dtype, q, kk, vv, do, seed_salt,
+                                  args, windowed)
     for name, kind in zip(names, ("fwd", "dq", "dkv")):
         # bf16: the bf16 tensor cores; f32: six bf16 products an f32
         # product (both operands split into exact triples) on them; the
@@ -1653,75 +1615,124 @@ def _flash_kernels_wide(state, rnd, ops_rate, dtype) -> None:
             f"{t['replay']:.4f}, fused {t['fused']:.4f} ms; SDPA causal "
             f"without the window {causal_ms[kind == 'fwd']:.4f} ms "
             f"({causal_pairs:.2f}x the pairs) | {state['smi']}")
-        if kind in in_turns:
-            timing[name]["parent_ms"] = in_turns[kind]
-    del plane, q, do, kk, vv, ke, ve, o, lse, replay_o
+        if kind in parent_ms:
+            timing[name]["parent_ms"] = parent_ms[kind]
+    del plane, q, do, kk, vv, ke, ve, o, lse, windowed
     gc.collect()
     torch.cuda.empty_cache()
 
 
-# The parent commit's f32 dq and bf16 forward at head_dim 256 against the
+# The parent commit's bf16 dq and dkv at head_dim 256 against the
 # redesigned ones, in turns, from this script's run with the parent
 # checkout in build/parent (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md): the
-# WIDE_SHAPE, replay, window 2048: dtype -> (parent ms, redesigned ms),
-# each the mean of its two turns
-PROBE_IN_TURNS = {torch.float32: (3.4389, 2.4402),
-                  torch.bfloat16: (0.9897, 0.7080)}
+# WIDE_SHAPE, replay, window 2048: kind -> (parent ms, redesigned ms), each
+# the mean of its two turns
+PROBE_IN_TURNS = {"dq": (1.1712, 0.6498), "dkv": (1.5157, 1.0705)}
 
 
-def _time_parent_wide(state, dtype, q, k, v, do, op, args,
-                      want_o=None) -> dict:
-    """The parent's kernel of REDESIGNED[dtype] at head_dim 256 (the f32 dq
-    by the profiler, the bf16 forward by CUDA events) in turns with the
-    redesigned one (parent, tree, tree, parent), replay with the window,
-    where phase 1 built the parent's (``_start_parent_build``); the
-    probe's figures (PROBE_IN_TURNS) otherwise. Given the plain version's
-    O of the replay with the window, the bf16 forward's share of O's bf16
-    values that differ from it is printed for the parent's kernel too.
-    Returns kind -> the parent's mean ms."""
+def differing_shares(got, want) -> str:
+    """The share of each bf16 output (O, dq, dk, dv) whose values differ
+    from the plain version's, as one phrase."""
+    return ", ".join(
+        f"{name} {float((g != w).float().mean()) * 100:.4f} %"
+        for name, g, w in zip(("O", "dq", "dk", "dv"), got, want)
+    ) + " of their bf16 values differ from the plain version's"
+
+
+def parent_kernel(kind, dtype, lib):
+    """(module, kernel name, the parent library's entry point with the
+    tree's argument types) of the flash kernel ``kind`` at ``dtype``."""
     import ctypes
-    kind, lib = REDESIGNED[dtype]
-    libs = state.get("parent_wide")
-    if not libs:
-        theirs, mine = PROBE_IN_TURNS[dtype]
-        log(f"[kernels] {lib} D=256: no parent at hand; the probe in turns: "
-            f"parent {theirs} ms, redesigned {mine} ms "
-            f"({theirs / mine:.3f}x)")
-        return {}
     module = flash if kind == "fwd" else flash_bwd
-    kname = flash.KERNELS[dtype] if kind == "fwd" else flash_bwd.KERNEL_DQ
+    kname = (flash.KERNELS[dtype] if kind == "fwd" else
+             flash_bwd.KERNELS[dtype][kind == "dkv"])
+    fn = getattr(ctypes.CDLL(str(lib)), f"repro_{kname}")
+    fn.argtypes, fn.restype = module._kernel_fn(kname).argtypes, ctypes.c_int
+    return module, kname, fn
+
+
+def time_flash(kind, q, k, v, do, op, kw, o, lse) -> float:
+    """ms of one call of the flash kernel ``kind``: the forward by CUDA
+    events, dq and dkv by the profiler (their backward call runs both)."""
+    if kind == "fwd":
+        return cuda_time_ms(lambda: flash.flash_attention_fwd(
+            q, k, v, op, **kw), 10)
+    ms = device_time_ms(lambda: flash_bwd.flash_attention_bwd(
+        q, k, v, o, lse, do, op, **kw), f"flash_{kind}_kernel", 10)
+    if ms is None:
+        raise AssertionError("the profiler saw no device time")
+    return ms
+
+
+def in_turns(kind, module, kname, parent, q, k, v, do, op, kw):
+    """(parent ms, tree ms) of the kernel ``kind`` in turns (parent, tree,
+    tree, parent) on the same inputs, its entry point swapped in
+    ``module``'s cache; the forward's o and lse feed the backward."""
     tree = module._kernel_fn(kname)
-    parent = getattr(ctypes.CDLL(str(libs[lib])), f"repro_{kname}")
-    parent.argtypes, parent.restype = tree.argtypes, ctypes.c_int
-    kw = dict(args, mode="replay")
     o, lse = flash.flash_attention_fwd(q, k, v, op, return_lse=True, **kw)
     times = {"parent": [], "tree": []}
     try:
         for who in ("parent", "tree", "tree", "parent"):
             module._fns[kname] = parent if who == "parent" else tree
-            if kind == "fwd":
-                times[who].append(cuda_time_ms(
-                    lambda: flash.flash_attention_fwd(q, k, v, op, **kw), 10))
-            else:
-                times[who].append(device_time_ms(
-                    lambda: flash_bwd.flash_attention_bwd(q, k, v, o, lse, do,
-                                                          op, **kw),
-                    "flash_dq_kernel", 10))
-        if want_o is not None:
-            module._fns[kname] = parent
-            got = flash.flash_attention_fwd(q, k, v, op, **kw)
-            log(f"[kernels] {lib} D=256 replay window={args['local_window']}"
-                f": the parent's O differs from the plain version's in "
-                f"{float((got != want_o).float().mean()) * 100:.4f} % of its "
-                f"bf16 values")
+            times[who].append(time_flash(kind, q, k, v, do, op, kw, o, lse))
     finally:
         module._fns[kname] = tree
-    theirs, mine = times["parent"], times["tree"]
-    log(f"[kernels] {lib} D=256 replay window={args['local_window']}: in "
-        f"turns (parent, tree, tree, parent) {theirs[0]:.4f}, {mine[0]:.4f}, "
-        f"{mine[1]:.4f}, {theirs[1]:.4f} ms: the redesigned kernel "
-        f"{sum(theirs) / sum(mine):.3f}x the parent's | {state['smi']}")
-    return {kind: sum(theirs) / len(theirs)}
+    return times["parent"], times["tree"]
+
+
+def flash_outputs(q, k, v, do, op, kw, entries=()):
+    """O, dq, dk, dv of the flash kernels with the entry points
+    ``entries`` ((module, kernel name, entry point) each, from
+    ``parent_kernel``) swapped in for the call."""
+    tree = {}
+    try:
+        for module, kname, fn in entries:
+            tree[kname] = (module, module._kernel_fn(kname))
+            module._fns[kname] = fn
+        o, lse = flash.flash_attention_fwd(q, k, v, op, return_lse=True,
+                                           **kw)
+        return (o, *flash_bwd.flash_attention_bwd_heads(q, k, v, o, lse, do,
+                                                        op, **kw))
+    finally:
+        for kname, (module, fn) in tree.items():
+            module._fns[kname] = fn
+
+
+def _time_parent_wide(state, dtype, q, k, v, do, op, args,
+                      windowed=None) -> dict:
+    """The parent's kernels of REDESIGNED[dtype] at head_dim 256 in turns
+    with the redesigned ones (parent, tree, tree, parent), replay with the
+    window, where phase 1 built the parent's (``_start_parent_build``); the
+    figures of PROBE_IN_TURNS otherwise. Given the plain version's outputs
+    of that case (``windowed``: O, dq, dk, dv), the shares of the parent's
+    bf16 outputs that differ from them are printed too. Returns kind ->
+    the parent's mean ms."""
+    kernels = REDESIGNED.get(dtype, ())
+    libs = state.get("parent_wide")
+    if not libs:
+        for kind, lib in kernels:
+            theirs, mine = PROBE_IN_TURNS[kind]
+            log(f"[kernels] {lib} D=256: no parent at hand; in turns in "
+                f"this script's run with the parent: parent {theirs} ms, "
+                f"redesigned {mine} ms ({theirs / mine:.3f}x)")
+        return {}
+    entries = {kind: parent_kernel(kind, dtype, libs[lib])
+               for kind, lib in kernels}
+    kw = dict(args, mode="replay")
+    out = {}
+    for kind, lib in kernels:
+        theirs, mine = in_turns(kind, *entries[kind], q, k, v, do, op, kw)
+        log(f"[kernels] {lib} D=256 replay window={args['local_window']}: "
+            f"in turns (parent, tree, tree, parent) {theirs[0]:.4f}, "
+            f"{mine[0]:.4f}, {mine[1]:.4f}, {theirs[1]:.4f} ms: the "
+            f"redesigned kernel {sum(theirs) / sum(mine):.3f}x the parent's "
+            f"| {state['smi']}")
+        out[kind] = sum(theirs) / len(theirs)
+    if windowed is not None and entries:
+        got = flash_outputs(q, k, v, do, op, kw, entries.values())
+        log(f"[kernels] the parent's bf16 D=256 kernels, replay window="
+            f"{args['local_window']}: " + differing_shares(got, windowed))
+    return out
 
 
 # the fp8 host at the four host GEMMs of a llama2-7b block at B=2, S=2048,
@@ -4140,6 +4151,12 @@ GRIFFIN_LAYERS, GRIFFIN_B, GRIFFIN_S = 6, 1, 4096
 GRIFFIN_F32_LAYERS, GRIFFIN_CPU_LAYERS = 6, 3
 
 
+# the flash kernels' device time a step in phases 11 and 12 (one profiled
+# replay step) before the bf16 dq and dkv at head_dim 256 were redesigned
+# (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md, section 5)
+GRIFFIN_FLASH_MS_BEFORE = {torch.bfloat16: 8.02, torch.float32: 23.30}
+
+
 def _griffin_main_path(state, key, compute_dtype, n_layers) -> dict:
     """recurrentgemma-9b at full width and ``n_layers`` of its 38 layers
     -- (R, R, A) super-blocks: RG-LRU blocks and LOCAL attention layers
@@ -4246,6 +4263,11 @@ def _griffin_main_path(state, key, compute_dtype, n_layers) -> dict:
         f"{state['smi']}")
     _profile_train(step_r, st, batches[0], rec, state["smi"])
     rec["kernels"] = _kernel_groups(rec.pop("kernels_ms"))
+    rec["flash_ms"] = sum(rec["kernels"][g] for g in
+                          ("flash_fwd", "flash_dq", "flash_dkv"))
+    log(f"{tag} the flash kernels: {rec['flash_ms']:.3f} ms of device time "
+        f"a step (before the bf16 backward at head_dim 256 was redesigned: "
+        f"{GRIFFIN_FLASH_MS_BEFORE[dt]} ms) | {state['smi']}")
     # the RG-LRU scan and the f32 unembedding, each timed alone at the
     # step's shapes: the scan forward and backward a recurrent layer (the
     # forward twice under remat), the logits GEMM and its two dgrads

@@ -8,23 +8,47 @@ unpacked from ``git archive <commit>`` into a directory under ``build/``)
 it builds that checkout's four libraries too and compares each kernel at
 head dims up to 128 with the parent's, instruction for instruction
 (cuobjdump's SASS; the first difference printed), and each library's
-``chip_smoke.narrow_sass_digest`` and ``wide_sass_digest`` of both
-builds. Then, at D = 256, it holds the forward, dq and dkv against their
-plain versions (``chip_smoke.BF16_FLASH_TOL``, lse at
-``chip_smoke.FWD_TOL``) in dropout modes none, fused, premask and replay,
-with MHA, GQA and recurrentgemma-9b's MQA (16 query heads, one kv head)
-and its local window of 2048 at S = 4096, and at SQ = 192 and 320 (SQ %
-128 == 64: the forward's last CTA has one row group), printing each
+``chip_smoke.narrow_sass_digest`` of both builds (the values of
+``chip_smoke.FLASH_NARROW_SASS``). Then, at D = 256, it holds the
+forward, dq and dkv against their plain versions
+(``chip_smoke.BF16_FLASH_TOL``, lse at ``chip_smoke.FWD_TOL``) in dropout
+modes none, fused, premask and replay, with MHA, GQA and
+recurrentgemma-9b's MQA (16 query heads, one kv head) and its local
+window of 2048 at S = 4096, and at SQ = 192 and 320 (SQ % 128 == 64: the
+last CTA of the forward and dq has one row group), printing each
 output's share of its limit and not stopping; plants the smoke's fault
-in the keep bits (the checks must fail it); prints the share of O's bf16
-values that differ from the plain version's at recurrentgemma's shape
-(of the tree's forward and, with ``--parent``, of the parent's); and
-times the three kernels there (replay) beside SDPA's causal forward and
-backward on the same inputs, and, with ``--parent``, the forward in
-turns with the parent's (parent, tree, tree, parent) in every mode with
-the window.
+in the keep bits (the checks must fail it); checks replay, fused and
+premask bitwise equal at recurrentgemma's shape; prints the share of
+the bf16 O, dq, dk and dv values that differ from the plain version's
+there, replay with the window (of the tree's kernels and, with
+``--parent``, of the parent's); and times the three kernels there
+(replay) beside SDPA's causal forward and backward on the same inputs,
+and, with ``--parent``, each of them in turns with the parent's (parent,
+tree, tree, parent) in every mode with the window (the forward by CUDA
+events, dq and dkv by the profiler). With ``--variants a,b`` (each
+joinable by "+") it builds edited copies of the tree's dq and dkv, prints
+their ptxas counts and times them in replay and none with the window,
+after the tree and before it again (every output but n128's wrong by
+design):
 
-    python3 scripts/probe_flash_d256.py [--parent DIR]
+  noscores  no score product issued (S, dP; S^T, dP^T);
+  noout     no output product issued (dq += dS K; dV, dK);
+  noxchg    dkv's consumers not waiting for each other at the exchange;
+  noload    no Q, dO (dkv) or K, V (dq) tile loaded past the first
+            stages: each barrier completed by its arrival;
+  noturns   dq's consumers issuing without turns;
+  n128      dq += dS K as two m64n128k16 products a part and slice, not
+            one m64n256k16;
+  solo      dq's second consumer without rows (half of dq left unwritten).
+
+With ``--sass`` it prints, for each D = 256 kernel of the tree (the
+replay instance), its SASS as a trace of its wgmma (G and the shape),
+warpgroup fences (A: WARPGROUP.ARRIVE, D: WARPGROUP.DEPBAR and its
+argument) and barriers (B), with the count of other instructions between
+them.
+
+    python3 scripts/probe_flash_d256.py [--parent DIR] [--variants a,b]
+        [--sass]
 
 Needs one NVIDIA Hopper GPU and nvcc; prints one line a check and a
 timing, each with the card's name and power limit.
@@ -61,6 +85,82 @@ CASES = (("none", 0, 16, 1, 16, 2048), ("fused", 0, 16, 1, 16, 2048),
          ("replay", 64, 1, 1, 2, 320), ("fused", 0, 4, 1, 4, 192))
 MODES = ("none", "premask", "replay", "fused")
 FWD = flash.KERNELS[torch.bfloat16]
+BWD = ("flash_dq_bf16", "flash_dkv_bf16")
+
+# variant -> (file in csrc, text, its replacement, count)
+VARIANTS = {
+    "noscores": [
+        ("flash_dkv_bf16.cu", "      wgmma_ss_n32(st, ",
+         "      if (j < 0) wgmma_ss_n32(st, ", 1),
+        ("flash_dkv_bf16.cu", "      wgmma_ss_n32(dpt, ",
+         "      if (j < 0) wgmma_ss_n32(dpt, ", 1),
+        ("flash_dq_bf16.cu", "        wgmma_ss_n64(sc, desc_k<D>(qa, jj)",
+         "        if (jj < 0) wgmma_ss_n64(sc, desc_k<D>(qa, jj)", 1),
+        ("flash_dq_bf16.cu", "        wgmma_ss_n64(dp, desc_k<D>(da, jj)",
+         "        if (jj < 0) wgmma_ss_n64(dp, desc_k<D>(da, jj)", 1)],
+    "noout": [
+        ("flash_dkv_bf16.cu", "      wgmma_rs<128>(acc, ",
+         "      if (i < 0) wgmma_rs<128>(acc, ", 1),
+        ("flash_dq_bf16.cu", "          wgmma_rs<D>(dq, ",
+         "          if (i < 0) wgmma_rs<D>(dq, ", 1)],
+    "noxchg": [
+        ("flash_dkv_bf16.cu", "    named_sync(kXchgBarrier, 2 * WG);\n", "",
+         2)],
+    "noload": [
+        ("flash_dkv_bf16.cu", """        mbar_expect_tx(f, 2 * TILE + kStageRows);
+        load_tile<D>(""", """        mbar_expect_tx(f, it < 2 ? 2 * TILE + kStageRows : 0);
+        if (it < 2) load_tile<D>(""", 1),
+        ("flash_dkv_bf16.cu", """        load_tile<D>(st + TILE, &map_do""",
+         """        if (it < 2) load_tile<D>(st + TILE, &map_do""", 1),
+        ("flash_dkv_bf16.cu", """        bulk_load(rows + s * kStageRows, """,
+         """        if (it < 2) bulk_load(rows + s * kStageRows, """, 1),
+        ("flash_dkv_bf16.cu", """        bulk_load(rows + s * kStageRows + 256,""",
+         """        if (it < 2) bulk_load(rows + s * kStageRows + 256,""", 1),
+        ("flash_dq_bf16.cu", """        mbar_expect_tx(full + 8 * slot, TILE);
+        load_tile<D>(""", """        mbar_expect_tx(full + 8 * slot, tile < kSlots ? TILE : 0);
+        if (tile < kSlots) load_tile<D>(""", 1)],
+    "noturns": [
+        ("flash_dq_bf16.cu", "  const bool pingpong = groups == 2;",
+         "  const bool pingpong = false;", 1)],
+    "n128": [
+        ("flash_dq_bf16.cu",
+         "          wgmma_rs<D>(dq, a[i][jj], desc_mn<D>(ks, jj), 1);",
+         """          for (int hf = 0; hf < 2; ++hf)
+            wgmma_rs<128>(*reinterpret_cast<float(*)[64]>(dq + 64 * hf),
+                          a[i][jj], desc_mn<D>(ks + hf * 16384, jj), 1);""",
+         1)],
+    "solo": [
+        ("flash_dq_bf16.cu",
+         "  const int groups = map::fwd_bf16_has_rows(qi, 1, p.SQ) ? 2 : 1;",
+         "  const int groups = 1;", 1)],
+}
+
+
+def sass_trace(code, limit=6000) -> str:
+    """A kernel's SASS as a trace of its wgmma, warpgroup fences and
+    barriers, with the count of other instructions between them."""
+    import re
+    out, run = [], 0
+    for ins in code:
+        op = ins.split()[0] if not ins.startswith("@") else ins.split()[1]
+        if op.startswith("HGMMA"):
+            m = re.search(r"64x(\d+)x16", op)
+            tok = f"G{m.group(1) if m else ''}"
+        elif op.startswith("WARPGROUP.ARRIVE"):
+            tok = "A"
+        elif op.startswith("WARPGROUP.DEPBAR"):
+            m = re.search(r"0x(\w+)", ins)
+            tok = f"D{m.group(1) if m else ''}"
+        elif op.startswith(("BAR.", "SYNCS.")):
+            tok = "B"
+        else:
+            run += 1
+            continue
+        if run:
+            out.append(f"({run})")
+            run = 0
+        out.append(tok)
+    return " ".join(out)[:limit]
 
 
 def build_parent(parent, names=LIBS) -> dict:
@@ -134,28 +234,37 @@ def check_case(mode, window, kvh, b, h, s, rnd, card) -> bool:
     return good
 
 
-def fwd_fn(lib):
-    """The bf16 forward's entry point in the library at ``lib``, with the
-    tree's argument types."""
-    tree = flash._kernel_fn(FWD)
-    fn = getattr(ctypes.CDLL(str(lib)), f"repro_{FWD}")
-    fn.argtypes, fn.restype = tree.argtypes, ctypes.c_int
-    return fn
-
-
-def rounding_share(q, k, v, op, kw) -> float:
-    """The share of the installed forward's bf16 O values that differ from
-    the plain version's."""
-    o = flash.flash_attention_fwd(q, k, v, op, **kw)
-    po, _ = flash.flash_attention_fwd_plain(q, k, v, op, **kw)
-    return float((o != po).float().mean())
+def build_variant(name: str) -> dict:
+    """dq and dkv from a copy of csrc with the variant's edits (``name``
+    joined by "+"): library name -> (library, ptxas log)."""
+    import shutil
+    from probe_flash_f32_d256_split import nvcc_all
+    root = build.build_dir() / "probe_flash_d256" / name
+    csrc = root / "csrc"
+    if csrc.exists():
+        shutil.rmtree(csrc)
+    shutil.copytree(build.CSRC, csrc)
+    for part in name.split("+"):
+        for fname, old, new, count in VARIANTS[part]:
+            path = csrc / fname
+            text = path.read_text()
+            if text.count(old) != count:
+                raise RuntimeError(f"variant {part}: {text.count(old)} of "
+                                   f"{count} texts found in {fname}")
+            path.write_text(text.replace(old, new))
+    return nvcc_all(csrc, root, BWD, name)
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", help="root of another checkout whose flash "
                     "libraries to build and compare")
+    ap.add_argument("--variants", default="",
+                    help=f"edited copies to time: {', '.join(VARIANTS)}")
+    ap.add_argument("--sass", action="store_true",
+                    help="print the D = 256 kernels' wgmma traces")
     args = ap.parse_args()
+    variants = [v for v in args.variants.split(",") if v]
     if not torch.cuda.is_available():
         print("probe_flash_d256: no CUDA device", file=sys.stderr)
         return 1
@@ -163,6 +272,13 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     build.build_all(list(LIBS) + [philox.KERNEL])
     parent = build_parent(args.parent) if args.parent else {}
+    built = {name: build_variant(name) for name in variants}
+    for name, libs in built.items():
+        for lib, (_, log) in libs.items():
+            for kernel, (regs, st, ld, frame) in ptxas_wide(log).items():
+                print(f"[build] {name} {lib} {kernel} D=256: {min(regs)}-"
+                      f"{max(regs)} registers, spill stores {max(st)}, stack "
+                      f"frame {max(frame)} bytes | {card}", flush=True)
     for name in LIBS:
         for kernel, (regs, st, ld, frame) in ptxas_wide(
                 build.log_path(name).read_text()).items():
@@ -188,11 +304,28 @@ def main() -> int:
                   f"kernels run the same SASS here; parent digest "
                   f"{smoke.narrow_sass_digest(parent[name])}; first "
                   f"difference: {sass_diff(mine, theirs)}", flush=True)
-        line = (f"[sass] {name}: tree wide "
-                f"{smoke.wide_sass_digest(build.library_path(name))}")
-        if name in parent:
-            line += f"; parent wide {smoke.wide_sass_digest(parent[name])}"
-        print(line, flush=True)
+    for name in LIBS:
+        advisories = sorted({line.split("(C75")[1][:200] for line in
+                             build.log_path(name).read_text().splitlines()
+                             if "(C75" in line})
+        print(f"[build] {name}: ptxas advisories {advisories} | {card}",
+              flush=True)
+    for name, libs in built.items():
+        for lib, (_, log) in libs.items():
+            advisories = sorted({line.split("(C75")[1][:200] for line in
+                                 log.splitlines() if "(C75" in line})
+            print(f"[build] {name} {lib}: ptxas advisories {advisories}",
+                  flush=True)
+            for key, code in smoke.sass_by_function(libs[lib][0]).items():
+                if args.sass and key[1] == D and key[2] == 2:
+                    print(f"[sass] {name} {lib} {key[0]} D=256 replay: "
+                          f"{sass_trace(code)}", flush=True)
+    for name in LIBS if args.sass else ():
+        for key, code in smoke.sass_by_function(
+                build.library_path(name)).items():
+            if key[1] == D and key[2] == 2:
+                print(f"[sass] {name} {key[0]} D=256 replay: "
+                      f"{sass_trace(code)}", flush=True)
     gen = torch.Generator(device="cuda").manual_seed(0)
 
     def rnd(*shape):
@@ -239,38 +372,79 @@ def main() -> int:
     print(f"[time] SDPA bf16 D=256 causal (no window, kv expanded): forward "
           f"{lib_fwd:.4f} ms, backward {lib_bwd:.4f} ms | {card}", flush=True)
 
-    tree_fn = flash._kernel_fn(FWD)
-    builds = {"tree": tree_fn}
-    if "flash_fwd_bf16" in parent:
-        builds["parent"] = fwd_fn(parent["flash_fwd_bf16"])
-    try:
-        for who, fn in builds.items():
-            flash._fns[FWD] = fn
-            share = rounding_share(q, k, v, op, kw)
-            print(f"[check] {who} forward D=256 {b}x{h} kv=1 S={s} window="
-                  f"{win} replay: {share * 100:.4f} % of O's bf16 values "
-                  f"differ from the plain version's | {card}", flush=True)
-        if "parent" in builds:
-            ops = {"premask": philox.philox_dropout_mask_plain(
-                b, h, s, s, 0.1, torch.tensor(9), 3, device="cuda"),
-                   "replay": op}
-            for mode in MODES:
-                mk = dict(causal=True, local_window=win, dropout_p=0.1,
-                          mode=mode, seed=torch.tensor(9), salt=3)
-                times = []
-                for who in ("parent", "tree", "tree", "parent"):
-                    flash._fns[FWD] = builds[who]
-                    times.append(smoke.cuda_time_ms(
-                        lambda: flash.flash_attention_fwd(
-                            q, k, v, ops.get(mode), **mk), 10))
-                print(f"[time] forward D=256 {b}x{h} kv=1 S={s} window={win}"
-                      f" {mode}: in turns (parent, tree, tree, parent) "
-                      f"{', '.join(f'{t:.4f}' for t in times)} ms: the tree "
-                      f"{(times[0] + times[3]) / (times[1] + times[2]):.3f}x "
-                      f"the parent's | {card}", flush=True)
-    finally:
-        flash._fns[FWD] = tree_fn
-    return 0
+    # replay, fused and premask consume the same bits: bitwise the same
+    ops = {"premask": philox.philox_dropout_mask_plain(
+        b, h, s, s, 0.1, torch.tensor(9), 3, device="cuda"), "replay": op}
+    outs = {}
+    for mode in ("premask", "replay", "fused"):
+        mk = dict(causal=True, local_window=win, dropout_p=0.1, mode=mode,
+                  seed=torch.tensor(9), salt=3)
+        outs[mode] = smoke.flash_outputs(q, k, v, do, ops.get(mode), mk)
+    same = all(torch.equal(x, y) for mode in ("replay", "fused")
+               for x, y in zip(outs[mode], outs["premask"]))
+    print(f"[check] D=256 {b}x{h} kv=1 S={s} window={win}: replay == fused "
+          f"== premask bitwise (o, dq, dk, dv): {same} | {card}", flush=True)
+    ok &= same
+    del outs
+
+    # the share of each output's bf16 values off the plain version's
+    po, plse = flash.flash_attention_fwd_plain(q, k, v, op, **kw)
+    want = (po, *flash_bwd.flash_attention_bwd_plain(q, k, v, po, plse, do,
+                                                     op, **kw))
+    libs = {"fwd": "flash_fwd_bf16", "dq": "flash_dq_bf16",
+            "dkv": "flash_dkv_bf16"}
+    entries = {kind: smoke.parent_kernel(kind, torch.bfloat16, parent[lib])
+               for kind, lib in libs.items() if lib in parent}
+    for who, swapped in (("tree", ()), ("parent", entries.values())):
+        if who == "parent" and not entries:
+            continue
+        got = smoke.flash_outputs(q, k, v, do, op, kw, swapped)
+        print(f"[check] {who} D=256 {b}x{h} kv=1 S={s} window={win} replay: "
+              f"{smoke.differing_shares(got, want)} | {card}", flush=True)
+    del want, po, plse
+
+    # in turns with the parent's, every mode with the window
+    for kind, (module, kname, fn) in entries.items():
+        for mode in MODES:
+            mk = dict(causal=True, local_window=win, dropout_p=0.1,
+                      mode=mode, seed=torch.tensor(9), salt=3)
+            theirs, mine = smoke.in_turns(kind, module, kname, fn, q, k, v,
+                                          do, ops.get(mode), mk)
+            print(f"[time] {kind} D=256 {b}x{h} kv=1 S={s} window={win} "
+                  f"{mode}: in turns (parent, tree, tree, parent) "
+                  f"{theirs[0]:.4f}, {mine[0]:.4f}, {mine[1]:.4f}, "
+                  f"{theirs[1]:.4f} ms: the tree "
+                  f"{sum(theirs) / sum(mine):.3f}x the parent's | {card}",
+                  flush=True)
+
+    # the variants, between two turns of the tree, replay and none
+    for mode in ("replay", "none"):
+        mk = dict(causal=True, local_window=win, dropout_p=0.1, mode=mode,
+                  seed=torch.tensor(9), salt=3)
+        mo, ml = flash.flash_attention_fwd(q, k, v, ops.get(mode),
+                                           return_lse=True, **mk)
+        for kind in ("dq", "dkv") if built else ():
+            tree = flash_bwd._kernel_fn(flash_bwd.KERNELS[torch.bfloat16][
+                kind == "dkv"])
+            times = [("tree", smoke.time_flash(kind, q, k, v, do,
+                                               ops.get(mode), mk, mo, ml))]
+            for name, libs in built.items():
+                module, kname, fn = smoke.parent_kernel(
+                    kind, torch.bfloat16, libs[BWD[kind == "dkv"]][0])
+                try:
+                    module._fns[kname] = fn
+                    times.append((name, smoke.time_flash(
+                        kind, q, k, v, do, ops.get(mode), mk, mo, ml)))
+                finally:
+                    module._fns[kname] = tree
+            times.append(("tree", smoke.time_flash(kind, q, k, v, do,
+                                                   ops.get(mode), mk, mo,
+                                                   ml)))
+            print(f"[time] {kind} D=256 {b}x{h} kv=1 S={s} window={win} "
+                  f"{mode}: " + ", ".join(f"{who} {ms:.4f}"
+                                          for who, ms in times)
+                  + f" ms | {card}", flush=True)
+    return 0 if ok else 1
 
 
 if __name__ == "__main__":

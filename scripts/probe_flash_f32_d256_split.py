@@ -5,10 +5,8 @@ ptxas's registers and spills of the f32 ones by head dim; with ``--parent
 DIR`` (the root of another checkout, e.g. unpacked from ``git archive
 <commit>`` into a directory under ``build/``) it builds that checkout's
 six libraries beside them, one nvcc each, all started together, and
-prints each library's ``chip_smoke.narrow_sass_digest`` (D <= 128) and
-``chip_smoke.wide_sass_digest`` (the D = 256 kernels that are not
-redesigned, ``chip_smoke.SPLIT_KERNELS``) of both builds: the values of
-``chip_smoke.FLASH_NARROW_SASS`` and ``FLASH_WIDE_SASS``.
+prints each library's ``chip_smoke.narrow_sass_digest`` (D <= 128) of
+both builds: the values of ``chip_smoke.FLASH_NARROW_SASS``.
 
 Then it holds the forward, dq and dkv at D = 256 against their plain
 versions on small MQA / GQA shapes and at recurrentgemma-9b's LOCAL layer
@@ -319,12 +317,10 @@ def main() -> int:
         print_ptxas(tag, libs, card)
     for name in LIBS:
         mine = build.library_path(name)
-        line = (f"[sass] {name}: tree narrow {smoke.narrow_sass_digest(mine)}"
-                f", wide {smoke.wide_sass_digest(mine)}")
+        line = f"[sass] {name}: tree narrow {smoke.narrow_sass_digest(mine)}"
         if "parent" in built:
             theirs = built["parent"][name][0]
-            line += (f"; parent narrow {smoke.narrow_sass_digest(theirs)}, "
-                     f"wide {smoke.wide_sass_digest(theirs)}")
+            line += f"; parent narrow {smoke.narrow_sass_digest(theirs)}"
         print(line, flush=True)
 
     gen = torch.Generator(device="cuda").manual_seed(0)

@@ -415,7 +415,7 @@ struct DkvWide {
                                   r == 0 && j == 0);
           wgmma_commit();
           if (r == 0) {
-            wide::keep_dkv_half<MODE>(p.dp, b, h, p.H, p.SQ, p.SK,
+            keep_dkv_half<MODE>(p.dp, b, h, p.H, p.SQ, p.SK,
                                       q_start + q0, k_start, kb);
             if (tid < 64)
               st_shared_f1(rows + 4 * tid, p.lse[q_row + q_start + tid]);

@@ -152,23 +152,6 @@ __device__ __forceinline__ void wg_sync(int wg) {
   asm volatile("bar.sync %0, 128;" ::"r"(1 + wg) : "memory");
 }
 
-// d (+)= A (64 x 16, shared, K-major) * B (16 x 32, shared, K-major): bf16
-// operands, f32 sums; d is replaced when `accumulate` is 0
-__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t da,
-                                             uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
-      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15])
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
 // A thread's share of a 64 x 32 f32 slice split by THREADS threads: units
 // t, t + THREADS, ... of its 256 (unit u: row u / 4, columns 8 (u % 4) ..)
 template <int THREADS>
@@ -323,55 +306,6 @@ __device__ __forceinline__ uint32_t keep_fwd_rows(const Dropout& dp, int b,
     kb = 0xFFFFu;
   }
   return kb;
-}
-
-// keep_dkv's bits of the 32 queries q0 .. q0 + 31 alone (q0 a multiple of
-// 32; dkv's m64n32 half): bit 2 g + e of kb[hh] keeps query q0 + 8 g + 2 c
-// + e at key k_start + 16 w + l / 4 + 8 hh, g < 4; half of keep_dkv's
-// calls
-template <int MODE>
-__device__ __forceinline__ void keep_dkv_half(const Dropout& dp, int b,
-                                              int h, int H, int SQ, int SK,
-                                              int q0, int k_start,
-                                              uint32_t (&kb)[2]) {
-  const int t = threadIdx.x % WG, w = t / 32, l = t % 32, c = l % 4;
-  const int key = k_start + 16 * w + l / 4;
-  kb[0] = kb[1] = 0;
-  if (MODE == kPremask) {
-    const int32_t* words =
-        dp.plane +
-        (static_cast<size_t>(b) * H + h) * (SQ / 32) * SK +
-        static_cast<size_t>(q0 / 32) * SK + key;
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      const uint32_t wd = static_cast<uint32_t>(words[8 * hh]);
-#pragma unroll
-      for (int g = 0; g < 4; ++g)
-        kb[hh] |= ((wd >> (8 * g + 2 * c)) & 3u) << (2 * g);
-    }
-  } else if (MODE == kCounters) {
-    const uint32_t bh = repro_philox::global_bh(
-        static_cast<uint32_t>(b * H + h), static_cast<uint32_t>(H),
-        dp.heads_global, dp.bh_offset);
-    const int odd = c & 1;
-    uint32_t mine = 0;  // nibble g: queries 4 (q0 / 4 + 2 g + c / 2) ..
-#pragma unroll
-    for (int g = 0; g < 4; ++g)
-      mine |= repro_philox::keep_nibble(
-                  static_cast<uint32_t>(key + 8 * odd),
-                  static_cast<uint32_t>(q0 / 4 + 2 * g + (c >> 1)), bh,
-                  dp.salt, dp.k0, dp.k1, dp.threshold, dp.rounds)
-              << (4 * g);
-    const uint32_t other = __shfl_xor_sync(0xffffffffu, mine, 1);
-    const uint32_t n0 = odd ? other : mine, n1 = odd ? mine : other;
-#pragma unroll
-    for (int g = 0; g < 4; ++g) {
-      kb[0] |= ((n0 >> (4 * g + 2 * odd)) & 3u) << (2 * g);
-      kb[1] |= ((n1 >> (4 * g + 2 * odd)) & 3u) << (2 * g);
-    }
-  } else {
-    kb[0] = kb[1] = 0xFFu;
-  }
 }
 
 }  // namespace wide

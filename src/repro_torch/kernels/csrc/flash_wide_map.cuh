@@ -4,10 +4,13 @@
 // 32-column slice of a walked tile each warpgroup takes at each step,
 // which rows and columns of the score tile and of the output it owns, where
 // each exchanged element lands, and where dq's K and V triples lie in
-// device memory -- and the query rows of the bf16 forward's warpgroups
-// (flash_fwd_bf16.cu). Plain integer functions, so a host compiler runs
-// them too: tests/test_torch_flash_wide_split.py and
-// tests/test_torch_flash_d256_rule2.py compile this header with g++ and
+// device memory -- and the bf16 ones (flash_fwd_bf16.cu, flash_dq_bf16.cu,
+// flash_dkv_bf16.cu): the query rows of the forward's and dq's consumer
+// warpgroups, dq's k-blocks and its ring of K and V tiles, and dkv's
+// queries, output columns and exchange. Plain integer functions, so a host
+// compiler runs them too: tests/test_torch_flash_wide_split.py,
+// tests/test_torch_flash_d256_rule2.py and
+// tests/test_torch_flash_bwd_bf16_d256.py compile this header with g++ and
 // hold the maps to exact coverage.
 //
 // Fragments. Thread t of a warpgroup (warp w = t / 32, lane l, c = l % 4)
@@ -199,6 +202,40 @@ WIDE_HD bool fwd_bf16_has_rows(int qi, int cw, int sq) {
   return fwd_bf16_q_start(qi, cw) < sq;
 }
 
+// ------------------------------------------------------ the bf16 dq's walk
+// dq takes the forward's rows (fwd_bf16_ctas, fwd_bf16_q_start,
+// fwd_bf16_has_rows: 128 a CTA, 64 a consumer warpgroup) and walks the
+// k-blocks that hold a valid score for a row of the CTA (dq_bf16_k_run; a
+// consumer's k-block without one adds exact zeros). Its producer brings
+// each k-block's V, then its K, into a ring of DQ_BF16_SLOTS tile slots:
+// tile dq_bf16_tile(j, k) of the walk lands in slot dq_bf16_slot(tile) in
+// the phase dq_bf16_parity(tile) of the slot's full barrier, and the slot
+// takes tile + DQ_BF16_SLOTS once the consumers have released tile (the
+// same phase of its empty barrier). A consumer's k-block j waits for K and
+// V (S = Q K^T and dP = dO V^T, one turn), releases V once dP is done,
+// then issues dq += dS K (the next turn) and releases K once that is done:
+// V first in the walk, since K stays longer.
+constexpr int DQ_BF16_SLOTS = 3;
+WIDE_HD int dq_bf16_tile(int j, bool k) { return 2 * j + (k ? 1 : 0); }
+WIDE_HD int dq_bf16_slot(int tile) { return tile % DQ_BF16_SLOTS; }
+WIDE_HD int dq_bf16_parity(int tile) {
+  return (tile / DQ_BF16_SLOTS) & 1;
+}
+
+// ----------------------------------------------------- the bf16 dK and dV
+// 64 keys a CTA, two consumer warpgroups. The score products are split by
+// queries as the f32 dkv's (dkv_query0: consumer cw computes the m64n32
+// columns of S^T and dP^T of its 32 queries over the full D, with their
+// keep bits and exponentials); consumer cw leaves its P_drop^T half in
+// region dkv_bf16_region(0, cw) of the exchange and its dS^T half in
+// region dkv_bf16_region(1, cw), element i of thread t at float
+// dkv_xchg(t, i) of the region, and takes the other's halves from there,
+// so each holds the whole 64 x 64 fragment (dkv_full) as the A operand of
+// dV and dK over its own output columns dkv_bf16_col0(cw) .. + 127.
+constexpr int DKV_BF16_XCHG_FLOATS = 4 * DKV_XCHG_FLOATS;
+WIDE_HD int dkv_bf16_region(int q, int cw) { return 2 * q + cw; }
+WIDE_HD int dkv_bf16_col0(int cw) { return (D / 2) * cw; }
+
 // Whether every score of the (q-block, k-block) tile is valid (score_valid
 // of flash_common.cuh), so its elements need no mask
 WIDE_HD bool tile_full(int q_start, int k_start, int q_offset, int causal,
@@ -221,6 +258,25 @@ WIDE_HD Run q_run(int k_start, int sq, int q_offset, int causal,
       if (run.n == 0) run.first = qi;
       ++run.n;
     }
+  return run;
+}
+
+// The k-blocks that hold a valid score for a row of the bf16 dq's CTA qi
+// (its consumers' rows, fwd_bf16_q_start): one contiguous run
+WIDE_HD Run dq_bf16_k_run(int qi, int sq, int sk, int causal,
+                          int local_window) {
+  Run run{0, 0};
+  for (int ki = 0; ki < sk / BK; ++ki) {
+    bool any = false;
+    for (int cw = 0; cw < 2; ++cw)
+      any = any || (fwd_bf16_has_rows(qi, cw, sq) &&
+                    tile_runs(fwd_bf16_q_start(qi, cw), ki * BK, sk - sq,
+                              causal, local_window));
+    if (any) {
+      if (run.n == 0) run.first = ki;
+      ++run.n;
+    }
+  }
   return run;
 }
 

@@ -78,7 +78,7 @@ _MODE_CODE = {"none": 0, "premask": 1, "replay": 2, "fused": 2}
 
 def instance(name: str, head_dim: int) -> str:
     """The launch counter of kernel ``name`` at ``head_dim``: the D = 256
-    instances (two warpgroups a CTA) count apart from the narrower ones,
+    instances (kernels of their own) count apart from the narrower ones,
     as their library's name and the head dim (``flash_fwd_bf16_d256``,
     ``flash_dq_f32_d256``)."""
     if head_dim != WIDE_HEAD_DIM:

@@ -23,13 +23,17 @@ build or launch raises. All four are tensor-core kernels on Hopper
 two f32 operands split into exact hi + mid + lo triples of bf16 values and
 the six part products that reach 2^-16 summed in f32; the bf16 dq and dkv
 are ``csrc/flash_dq_bf16.cu`` and ``csrc/flash_dkv_bf16.cu``, where only
-dS and P_drop are f32 and enter as triples. At head_dim 256 each kernel
-runs two warpgroups a CTA, each holding one column half of dq or of dk
-and dv, counted apart as ``flash_dq_bf16_d256`` / ``flash_dkv_bf16_d256``
-and ``flash_dq_f32_d256`` / ``flash_dkv_f32_d256`` (the f32 ones stream
-the walked tiles in 32-column slices, ``csrc/flash_f32_wide.cuh``; the
-f32 dq takes them already split, from K's and V's bf16 triples that the
-same launch writes into a workspace on the card, ``_dq_workspace``). No
+dS and P_drop are f32 and enter as triples. At head_dim 256 each library
+runs a kernel of its own, counted apart as ``flash_dq_bf16_d256`` /
+``flash_dkv_bf16_d256`` and ``flash_dq_f32_d256`` / ``flash_dkv_f32_d256``:
+the bf16 dq takes 128 query rows a CTA, a producer warpgroup feeding two
+consumers of 64 rows each; the bf16 dkv 64 keys a CTA, a producer and two
+consumers that split the score products by queries and each hold one
+column half of dk and dv; the f32 ones run two warpgroups a CTA, each
+holding one column half of the output, and stream the walked tiles in
+32-column slices (``csrc/flash_f32_wide.cuh``; the f32 dq takes them
+already split, from K's and V's bf16 triples that the same launch writes
+into a workspace on the card, ``_dq_workspace``). No
 kernel uses atomics, so a step is bitwise reproducible; what bounds each
 is in its CUDA source.
 """
