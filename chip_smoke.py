@@ -142,7 +142,22 @@ Phases (each raises on failure; nothing is caught):
      steps (step 0 bitwise equal), launches against the formula, one
      fused step, the same records; then the premask step 0 of one (R, R,
      A) super-block at the same width, batch and sequence on the card and
-     on the CPU, loss and grad norm within 1e-4 and 5e-3 relative.
+     on the CPU, loss and grad norm within 1e-4 and 5e-3 relative;
+ 13. serving every layer kind at width through the contiguous caches
+     (``make_prefill_step`` / ``make_serve_step``: ``models.prefill`` and
+     ``models.decode_step``), f32 random weights from a seed, TF32 off:
+     recurrentgemma-9b x 6 (RG-LRU and LOCAL ring caches; B=2, prompt
+     2560 past the 2048 window, 64 new tokens, the ring rolled in the
+     prefill and wrapping in the decode), the same at kv_bits=8 (16 new
+     tokens against the 16-bit run's logits), moonshot-v1-16b-a3b x 4
+     (MoE decode at B=4, prompt 512, dropless capacity) and rwkv6-7b x 4
+     (B=2, prompt 500, not a multiple of the 16-token chunk): each step's
+     logits against the forward on the prompt plus the decoded tokens
+     (teacher-forced) at SERVE_FWD_TOL, a control that must fail it (the
+     ring unrolled; ``len`` one too many; the RWKV state one token too
+     many), first-token time, decode tokens/s and peak memory. This path
+     runs no CUDA kernel of the port: it is plain torch, as JAX's is
+     plain jnp.
 
 Phase 2 also checks the e4m3 GEMM+RNG kernel against its plain version
 at the four host shapes of phase 6 (QKV, out-projection, gate+up, down;
@@ -4375,6 +4390,257 @@ def phase_train_griffin_f32(state) -> None:
         f"relative apart (limits {loss_tol}, {gn_tol}) | {state['smi']}")
 
 
+# ------------------------------------------------------------------ phase 13
+SERVE_NEW, SERVE_INT8_NEW = 64, 16
+# decode against the teacher-forced forward: the JAX package's own limit
+# (tests/test_models_smoke.py::test_prefill_decode_matches_forward, 2e-3
+# absolute on logits of rms about 1), scaled by the forward logits' rms
+# where that exceeds 1
+SERVE_FWD_TOL = 2e-3
+# the int8 cache's logits against the 16-bit cache's, in units of their
+# rms: 8-bit keys and values carry up to 1/254 of their row's largest
+# magnitude, which moves the attention outputs by a few parts in a
+# thousand; the argmax tokens are printed, not held
+SERVE_INT8_TOL = 0.1
+# (key, arch, layers, batch, prompt): the depth cut to a few layers, the
+# widths the published ones
+SERVE_RUNS = (("griffin", "recurrentgemma-9b", 6, 2, 2560),
+              ("moe", "moonshot-v1-16b-a3b", 4, 4, 512),
+              ("rwkv", "rwkv6-7b", 4, 2, 500))
+
+
+def _serve_cfg(arch: str, layers: int):
+    """``arch`` at full width and ``layers`` of its layers. moonshot's
+    routing is made dropless (capacity_factor = E / k, so an expert holds
+    every token of a call): at its training factor of 1.25 a decode step
+    of 4 tokens gives each expert one slot and drops the tokens that
+    collide there, so no decode step could equal the forward, whose
+    capacity counts 2,304 tokens; Moonlight serves without drops."""
+    from repro_torch.config import get_arch
+    from repro_torch.config.base import AttentionKind
+    cfg = dataclasses.replace(get_arch(arch), n_layers=layers)
+    if arch == "recurrentgemma-9b":
+        assert (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+                cfg.d_ff, cfg.vocab_size, cfg.local_window) == (
+            4096, 16, 1, 256, 12288, 256000, 2048)
+        assert cfg.layer_kinds() == (AttentionKind.RECURRENT,
+                                     AttentionKind.RECURRENT,
+                                     AttentionKind.LOCAL) * (layers // 3)
+    elif arch == "moonshot-v1-16b-a3b":
+        m = cfg.moe
+        assert (cfg.d_model, cfg.n_heads, cfg.head_dim, cfg.vocab_size,
+                m.n_experts, m.top_k, m.d_ff_expert, m.n_shared_experts,
+                m.first_dense_layers) == (2048, 16, 128, 163840, 64, 6,
+                                          1408, 2, 1)
+        cf = -(-100 * m.n_experts // m.top_k) / 100       # 10.67
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            m, capacity_factor=cf))
+    else:
+        assert (cfg.d_model, cfg.n_heads, cfg.rwkv_head_dim, cfg.d_ff,
+                cfg.vocab_size) == (4096, 64, 64, 14336, 65536)
+        assert cfg.layer_kinds() == (AttentionKind.WKV,) * layers
+    return cfg
+
+
+def _teacher_forced(serve_step, params, caches, fed):
+    """Decode ``fed`` (B, n) one column a step from ``caches``; returns the
+    logits of every step (B, n, V)."""
+    outs = []
+    for i in range(fed.shape[1]):
+        lg, caches = serve_step(params, fed[:, i:i + 1], caches)
+        outs.append(lg[:, 0])
+    return torch.stack(outs, dim=1)
+
+
+def _profile_decode(serve_step, params, caches, fed, tag, smi) -> dict:
+    """Where a decode step's time goes: a torch.profiler trace of the
+    device over ``fed.shape[1]`` teacher-forced steps; device busy share =
+    summed kernel and copy time over the wall time (the profiler on)."""
+    from torch.profiler import ProfilerActivity, profile
+    n = fed.shape[1]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _teacher_forced(serve_step, params, caches, fed)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = sorted(((getattr(e, "device_time_total",
+                            getattr(e, "cuda_time_total", 0.0)), e.count,
+                    e.key) for e in prof.key_averages()), reverse=True)
+    busy = sum(r[0] for r in rows) / 1e6
+    log(f"{tag} profile, {n} decode steps: wall {wall * 1e3 / n:.3f} ms a "
+        f"step, device busy {busy * 1e3 / n:.3f} ms a step "
+        f"({busy / wall * 100:.1f}%), {sum(r[1] for r in rows) / n:.0f} "
+        f"device activities a step | {smi}")
+    for us, count, key in rows[:6]:
+        log(f"{tag}   {us / 1e3 / n:9.4f} ms a step {count // n:5d}x "
+            f"{key[:90]}")
+    return dict(busy_share=busy / wall, device_ms_step=busy * 1e3 / n,
+                wall_ms_step=wall * 1e3 / n,
+                top=[(key[:60], us / 1e3 / n) for us, _, key in rows[:6]])
+
+
+def _serve_control(key, cfg, prompt, caches, prefill_step, params):
+    """Caches that hold a wrong prompt state, for the control: the LOCAL
+    rings unrolled (slot i holds key s - w + i, not the ring's position
+    % w, so each decode step masks and overwrites the wrong slot); the
+    attention caches' ``len`` one too many; the RWKV state one token too
+    many (whose decode reads no length: the prompt's last token fed
+    twice)."""
+    from repro_torch.config.base import AttentionKind
+    from repro_torch.models import build_stacks
+    if key == "rwkv":
+        return prefill_step(params, torch.cat([prompt, prompt[:, -1:]],
+                                              dim=1))[1]
+    caches = tree_map(torch.clone, caches)
+    s = prompt.shape[1]
+    for spec, stack in zip(build_stacks(cfg), caches):
+        for j, (kind, _) in enumerate(spec.unit):
+            c = stack[f"l{j}"]
+            if key == "griffin" and kind == AttentionKind.LOCAL:
+                w = c["k"].shape[3]
+                for f in ("k", "v"):
+                    c[f] = torch.roll(c[f], -(s % w), dims=3)
+            elif key == "moe" and kind == AttentionKind.FULL:
+                c["len"] = c["len"] + 1
+    return caches
+
+
+def _int8_caches(cfg, caches):
+    """The prefill's 16-bit attention caches quantized as the int8 cache
+    stores them (``quantize_kv``: int8 values, f32 scales per token and
+    head); the JAX package's prefill writes 16-bit caches and fills an
+    int8 cache only by decode."""
+    from repro_torch.models import build_stacks
+    from repro_torch.models.attention import quantize_kv
+    out = []
+    for spec, stack in zip(build_stacks(cfg), caches):
+        new = {}
+        for key, c in stack.items():
+            if "k" in c:
+                kq, ks = quantize_kv(c["k"])
+                vq, vs = quantize_kv(c["v"])
+                new[key] = {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs,
+                            "len": c["len"].clone()}
+            else:
+                new[key] = tree_map(torch.clone, c)
+        out.append(new)
+    return out
+
+
+def _serve_run(state, key, arch, layers, b, plen) -> dict:
+    from repro_torch.models import Runtime, forward, model_init
+    from repro_torch.train import make_prefill_step, make_serve_step
+    cfg = _serve_cfg(arch, layers)
+    tag = f"[serve-layers {key}]"
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = model_init(cfg, seed=0, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    prompt = torch.randint(0, cfg.vocab_size, (b, plen), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    prefill_step = make_prefill_step(cfg, capacity=plen + SERVE_NEW)
+    serve_step = make_serve_step(cfg)
+    prefill_s = []                   # the first call, then the same again
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, caches = prefill_step(params, prompt)
+        tok = logits[:, -1].argmax(dim=-1, keepdim=True).to(torch.int32)
+        torch.cuda.synchronize()
+        prefill_s.append(time.perf_counter() - t0)
+    # decode updates the attention caches in place: keep the prompt's
+    kept = tree_map(torch.clone, caches)
+    outs, fed = [logits[:, 0]], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(SERVE_NEW):
+        fed.append(tok)
+        lg, caches = serve_step(params, tok, caches)
+        outs.append(lg[:, 0])
+        tok = lg[:, 0].argmax(dim=-1, keepdim=True).to(torch.int32)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    fed = torch.cat(fed, dim=1)                        # (B, SERVE_NEW)
+    got = torch.stack(outs, dim=1)                     # (B, SERVE_NEW+1, V)
+    del caches, outs
+    with torch.no_grad():
+        full, _ = forward(params, cfg, Runtime(),
+                          torch.cat([prompt, fed], dim=1))
+    want = full[:, plen - 1:].clone()
+    del full
+    rms = float(want.pow(2).mean().sqrt())
+    limit = SERVE_FWD_TOL * max(1.0, rms)
+    err = float((got - want).abs().max())
+    # the control decodes one token fewer: with ``len`` one too many the
+    # last would write past the FULL caches' capacity
+    ctrl = _serve_control(key, cfg, prompt, kept, prefill_step, params)
+    ctrl_err = float((_teacher_forced(serve_step, params, ctrl, fed[:, :-1])
+                      - want[:, 1:-1]).abs().max())
+    del ctrl
+    rec = dict(batch=b, prompt=plen, new=SERVE_NEW, layers=layers,
+               prefill_ms=prefill_s[1] * 1e3,
+               prefill_first_call_ms=prefill_s[0] * 1e3,
+               decode_tok_s=b * SERVE_NEW / decode_s,
+               decode_step_ms=decode_s * 1e3 / SERVE_NEW, peak_gib=peak_gib,
+               rms=rms, limit=limit, err=err, ctrl_err=ctrl_err)
+    log(f"{tag} {arch} x{layers} at full width, B={b}, prompt {plen}, "
+        f"{SERVE_NEW} new tokens: first token (prefill) "
+        f"{prefill_s[1] * 1e3:.2f} ms (the first call "
+        f"{prefill_s[0] * 1e3:.2f}), decode {rec['decode_step_ms']:.3f} ms "
+        f"a step = {rec['decode_tok_s']:.1f} tokens/s, peak memory "
+        f"{peak_gib:.2f} GiB | decode against the teacher-forced forward: "
+        f"max |err| {err:.3g} (limit {limit:.3g} = {SERVE_FWD_TOL} x "
+        f"max(1, rms {rms:.4g})); control {ctrl_err:.3g} | {state['smi']}")
+    if not np.isfinite(err) or err > limit:
+        raise AssertionError(f"{tag} decode off the forward: {err} > {limit}")
+    if not ctrl_err > limit:
+        raise AssertionError(f"{tag} the control passed: {ctrl_err} <= "
+                             f"{limit}")
+    rec["profile"] = _profile_decode(serve_step, params,
+                                     tree_map(torch.clone, kept),
+                                     fed[:, :8], tag, state["smi"])
+    if key == "griffin":
+        caches8 = _int8_caches(cfg, kept)
+        n = SERVE_INT8_NEW
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got8 = _teacher_forced(serve_step, params, caches8, fed[:, :n])
+        torch.cuda.synchronize()
+        dec8_s = time.perf_counter() - t0
+        ref = got[:, 1:n + 1]
+        rms16 = float(ref.pow(2).mean().sqrt())
+        err8 = float((got8 - ref).abs().max())
+        same = float((got8.argmax(-1) == ref.argmax(-1)).float().mean())
+        rec["int8"] = dict(new=n, err=err8, rms=rms16,
+                           limit=SERVE_INT8_TOL * rms16,
+                           decode_tok_s=b * n / dec8_s, argmax_same=same)
+        log(f"{tag} kv_bits=8 (the prefill's caches quantized by "
+            f"quantize_kv), {n} new tokens teacher-forced: logits against "
+            f"the 16-bit cache's max |err| {err8:.4g} (limit "
+            f"{SERVE_INT8_TOL} x rms {rms16:.4g}), argmax tokens equal "
+            f"{same:.4f} of {b * n}, decode {b * n / dec8_s:.1f} tokens/s "
+            f"| {state['smi']}")
+        if not np.isfinite(err8) or err8 > SERVE_INT8_TOL * rms16:
+            raise AssertionError(f"{tag} int8 off the 16-bit cache: {err8}")
+        del caches8, got8
+    del params, kept, got, want, prompt, fed
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_serve_layers(state) -> None:
+    """Serving every layer kind at width through the contiguous caches
+    (SERVE_RUNS): each run's prefill, decode, teacher-forced check and
+    control (``_serve_run``); recorded under state["serve_layers"]."""
+    state["serve_layers"] = {
+        key: _serve_run(state, key, arch, layers, b, plen)
+        for key, arch, layers, b, plen in SERVE_RUNS}
+
+
 def kernel_records(state):
     """One record a TPU kernel instance (each function that reaches
     pl.pallas_call, at each operand dtype the port runs), in the order of
@@ -4545,7 +4811,8 @@ def main() -> int:
                   phase_serve, phase_train_reference, phase_train,
                   phase_train_sites, phase_train_moe, phase_train_bf16,
                   phase_train_moe_bf16, phase_train_fused,
-                  phase_train_griffin, phase_train_griffin_f32):
+                  phase_train_griffin, phase_train_griffin_f32,
+                  phase_serve_layers):
         phase(state)
         log(f"[time] {phase.__name__} done at "
             f"{time.perf_counter() - t0:.1f}s")

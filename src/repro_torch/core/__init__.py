@@ -8,7 +8,7 @@ schedule    — compile_schedule: per-layer producer decisions frozen into a
 producer    — the physical mask producers the schedule's HOW_* tags name.
 attention   — attention cores consuming the plan.
 """
-from repro_torch.core.attention import attention_xla
+from repro_torch.core.attention import attention_decode, attention_xla
 from repro_torch.core.overlap import DropoutPlan
 from repro_torch.core.schedule import (
     DropoutSchedule,
@@ -20,6 +20,7 @@ __all__ = [
     "DropoutPlan",
     "DropoutSchedule",
     "HostAssignment",
+    "attention_decode",
     "attention_xla",
     "compile_schedule",
 ]

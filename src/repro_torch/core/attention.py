@@ -6,6 +6,8 @@
     by a producer; in fused mode (the paper's baseline) each chunk draws
     its own keep bits (``DropoutPlan.chunk_keep_mask``): the same counters,
     so the same bits.
+``attention_decode`` — one query token against a KV cache of which the
+    first ``cache_len`` entries are valid (no dropout at inference).
 """
 from __future__ import annotations
 
@@ -100,3 +102,32 @@ def attention_xla(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                   probs_dtype))
     out = outs[0] if n_chunks == 1 else torch.cat(outs, dim=2)
     return out[:, :, :sq] if pad else out
+
+
+def attention_decode(q1: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, cache_len: int,
+                     local_window: int = 0,
+                     scale: Optional[float] = None) -> torch.Tensor:
+    """One-token decode: q1 (B, H, 1, D) against caches (B, KV, S, D) of
+    which ``cache_len`` entries are valid (the last ``local_window`` of
+    them, when given). The scores sum in f32; the probabilities are cast
+    to the cache's dtype for the value product, as in the JAX package
+    (whose sequence-sharded layout is not ported)."""
+    b, h, _, d = q1.shape
+    kv, s = k_cache.shape[1], k_cache.shape[2]
+    if scale is None:
+        scale = 1.0 / (d ** 0.5)
+    f32 = torch.float32
+    qg = q1.reshape(b, kv, h // kv, d)
+    scores = torch.einsum("bkgd,bksd->bkgs", qg.to(f32),
+                          k_cache.to(f32)) * scale
+    pos = torch.arange(s, device=q1.device)
+    valid = pos < cache_len
+    if local_window:
+        valid = valid & (pos >= cache_len - local_window)
+    scores = scores.masked_fill(~valid, _NEG)
+    m = torch.amax(scores, dim=-1, keepdim=True)
+    p = torch.exp(scores - m)
+    p = p / torch.sum(p, dim=-1, keepdim=True)
+    out = torch.einsum("bkgs,bksd->bkgd", p.to(v_cache.dtype), v_cache)
+    return out.reshape(b, h, 1, d)

@@ -1,10 +1,13 @@
-"""Decoder model for the serving path (dense full-attention stacks) and the
-training path (dense, MoE, RWKV-hybrid and Griffin stacks)."""
+"""Decoder model for the training path and the serving paths (dense, MoE,
+RWKV-hybrid and Griffin stacks; the paged decode takes dense
+full-attention stacks)."""
 from repro_torch.models.transformer import (
     Runtime,
     StackSpec,
     block_apply,
     build_stacks,
+    cache_init,
+    decode_step,
     decode_step_paged,
     embed_inputs,
     forward,
@@ -21,6 +24,8 @@ __all__ = [
     "StackSpec",
     "block_apply",
     "build_stacks",
+    "cache_init",
+    "decode_step",
     "decode_step_paged",
     "embed_inputs",
     "forward",

@@ -1,6 +1,8 @@
 """GQA attention block: projections, rope, qk-norm, the training forward
 with the dropout plan (``attn_apply``), prefill with cache construction,
-and decode against a paged KV pool.
+decode against a contiguous cache (``attn_decode``: FULL caches and LOCAL
+ring caches, 16-bit or int8 with per-(token, head) scales) and decode
+against a paged KV pool.
 
 This is where the paper's topology lives: with site "qkv" the packed
 dropout plane is made under the QKV projection by the fused GEMM+RNG
@@ -248,28 +250,157 @@ def _attn_pallas_sharded(q, k, v, packed, plan, local, layer_idx, step,
                                   mode, seed, salt, rounds)
 
 
+def attn_cache_init(cfg: ModelConfig, kind: AttentionKind, batch: int,
+                    max_len: int, dtype, kv_bits: int = 16,
+                    device=None) -> Dict[str, torch.Tensor]:
+    """Zero cache of one attention layer. A LOCAL layer keeps a ring of
+    ``min(max_len, local_window)`` slots, a FULL one ``max_len``.
+    ``kv_bits=8`` stores int8 keys and values with f32 scales per (token,
+    head). ``len`` is a host int32 scalar: the decode step reads the
+    position on the host and never from the card."""
+    size = (min(max_len, cfg.local_window)
+            if kind == AttentionKind.LOCAL else max_len)
+    shape = (batch, cfg.n_kv_heads, size, cfg.head_dim)
+    length = torch.tensor(0, dtype=torch.int32)
+    if kv_bits == 8:
+        def scale():
+            return torch.zeros(shape[:3] + (1,), dtype=torch.float32,
+                               device=device)
+        return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
+                "v": torch.zeros(shape, dtype=torch.int8, device=device),
+                "k_scale": scale(), "v_scale": scale(), "len": length}
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device),
+            "len": length}
+
+
+def quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(B, KV, S, D) -> (int8 values, f32 scales (B, KV, S, 1)).
+    ``torch.round`` rounds half to even, as ``jnp.round`` does."""
+    xf = x.to(torch.float32)
+    scale = torch.amax(torch.abs(xf), dim=-1, keepdim=True) / 127.0 + 1e-8
+    q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
+    return q, scale
+
+
 def attn_prefill(p, x, cfg: ModelConfig, *, kind: AttentionKind,
                  plan=None, layer_idx=0, step=0, chunk_q: int = 1024,
                  capacity: int = 0
                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Prefill: full-sequence attention + cache construction. ``capacity``
-    reserves decode room in the cache (>= s + new tokens)."""
-    if kind != AttentionKind.FULL:
-        raise NotImplementedError(
-            f"{kind.value}-layer prefill caches are not ported yet "
-            "(ROADMAP queue 1 item 4, the contiguous-cache serving path)")
+    reserves decode room in FULL caches (>= s + new tokens). A LOCAL
+    layer attends within its window and keeps its last ``local_window``
+    keys as a ring, slot = position % window (zero-padded while the prompt
+    is shorter than the window)."""
     b, s, _ = x.shape
     positions = torch.arange(s, dtype=torch.int32, device=x.device)
     q, k, v = _project_qkv(p, x, cfg, positions)
-    out = attention_xla(q, k, v, causal=True, plan=None, chunk_q=chunk_q)
+    local = cfg.local_window if kind == AttentionKind.LOCAL else 0
+    out = attention_xla(q, k, v, causal=True, local_window=local, plan=None,
+                        chunk_q=chunk_q)
     out = out.transpose(1, 2).reshape(b, s, -1)
     y = out @ p["w_o"].to(x.dtype)
-    cap = max(capacity, s)
-    pad = (0, 0, 0, cap - s)
-    cache = {"k": torch.nn.functional.pad(k, pad),
-             "v": torch.nn.functional.pad(v, pad),
+    if kind == AttentionKind.LOCAL and s >= local:
+        # ring layout: roll the last-w tail by s so that
+        # cache[(s - w + i) % w] = key(s - w + i)
+        k_cache = torch.roll(k[:, :, -local:], s % local, dims=2)
+        v_cache = torch.roll(v[:, :, -local:], s % local, dims=2)
+    else:
+        size = local if kind == AttentionKind.LOCAL else max(capacity, s)
+        pad = (0, 0, 0, size - s)
+        k_cache = torch.nn.functional.pad(k, pad)
+        v_cache = torch.nn.functional.pad(v, pad)
+    cache = {"k": k_cache, "v": v_cache,
              "len": torch.tensor(s, dtype=torch.int32)}
     return y, cache
+
+
+def attn_decode(p, x1, cache, cfg: ModelConfig, *, kind: AttentionKind
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Single-token decode, the cache READ-ONLY. x1 (B, 1, D).
+
+    Returns (y, update) with update = {"k_tok", "v_tok", "len"} (and the
+    int8 cache's "k_scale_tok" / "v_scale_tok"): the caller writes the
+    token column into the stacked cache once for all layers
+    (``models.transformer._apply_cache_updates``)."""
+    b = x1.shape[0]
+    pos = int(cache["len"])
+    positions = torch.full((1,), pos, dtype=torch.int32, device=x1.device)
+    q, k, v = _project_qkv(p, x1, cfg, positions)  # (B,H,1,hd) / (B,KV,1,hd)
+    size = cache["k"].shape[2]
+    out = attention_decode_appended(
+        q, cache["k"], cache["v"], k, v, pos, size,
+        kind == AttentionKind.LOCAL, k_scale=cache.get("k_scale"),
+        v_scale=cache.get("v_scale"))
+    y = out.transpose(1, 2).reshape(b, 1, -1) @ p["w_o"].to(x1.dtype)
+    length = torch.tensor(pos + 1, dtype=torch.int32)
+    if "k_scale" in cache:
+        kq, ks = quantize_kv(k)
+        vq, vs = quantize_kv(v)
+        return y, {"k_tok": kq, "v_tok": vq, "k_scale_tok": ks,
+                   "v_scale_tok": vs, "len": length}
+    return y, {"k_tok": k.to(cache["k"].dtype),
+               "v_tok": v.to(cache["v"].dtype), "len": length}
+
+
+def _decode_scores_partial(qg, k_chunk, v_chunk, slot_offset: int,
+                           n_slots: int, pos: int, size: int,
+                           is_local: bool, scale: float,
+                           k_scale=None, v_scale=None):
+    """Unnormalized partial softmax of qg (b, kv, g, d) over one cache
+    chunk. A LOCAL ring's valid slots are those below min(pos, size),
+    less the slot ``pos % size`` once the ring is full (its key leaves the
+    window as the current token enters). Returns (m, l (b, kv, g, 1),
+    num (b, kv, g, d)), f32."""
+    if k_scale is not None:  # int8 cache: dequantize the tile
+        k_chunk = k_chunk.to(torch.float32) * k_scale
+        v_chunk = (v_chunk.to(torch.float32) * v_scale).to(qg.dtype)
+    f32 = torch.float32
+    scores = torch.einsum("bkgd,bksd->bkgs", qg.to(f32),
+                          k_chunk.to(qg.dtype).to(f32)) * scale
+    slot_ids = slot_offset + torch.arange(n_slots, device=qg.device)
+    if is_local:
+        valid = slot_ids < min(pos, size)
+        if pos >= size:
+            valid = valid & (slot_ids != pos % size)
+    else:
+        valid = slot_ids < pos
+    scores = scores.masked_fill(~valid, _NEG)
+    m = torch.amax(scores, dim=-1, keepdim=True)
+    pr = torch.exp(scores - m).masked_fill(~valid, 0.0)
+    l = torch.sum(pr, dim=-1, keepdim=True)
+    num = torch.einsum("bkgs,bksd->bkgd", pr.to(v_chunk.dtype),
+                       v_chunk).to(f32)
+    return m, l, num
+
+
+def attention_decode_appended(q, k_cache, v_cache, k_new, v_new, pos: int,
+                              size: int, is_local: bool, k_scale=None,
+                              v_scale=None, policy=None):
+    """Decode attention over the read-only cache plus the current token,
+    whose key and value are folded in as a virtual slot: the softmax over
+    cache ++ self. q (B, H, 1, D); caches (B, KV, size, D). The JAX
+    package's single-device branch; its sequence-sharded flash-decoding
+    branch (a sharding policy) is not ported."""
+    if policy is not None:
+        raise NotImplementedError(
+            "sequence-sharded decode attention under a sharding policy is "
+            "not ported yet (ROADMAP queue 1 item 8, multi-device)")
+    b, h, _, d = q.shape
+    kv = k_cache.shape[1]
+    f32 = torch.float32
+    scale = 1.0 / (d ** 0.5)
+    qg = q.reshape(b, kv, h // kv, d)
+    s_self = torch.einsum("bkgd,bkxd->bkgx", qg.to(f32),
+                          k_new[:, :, 0:1].to(q.dtype).to(f32)) * scale
+    m, l, num = _decode_scores_partial(qg, k_cache, v_cache, 0, size, pos,
+                                       size, is_local, scale, k_scale,
+                                       v_scale)
+    m_all = torch.maximum(m, s_self)
+    num = (num * torch.exp(m - m_all)
+           + torch.exp(s_self - m_all) * v_new[:, :, 0:1].to(f32))
+    den = l * torch.exp(m - m_all) + torch.exp(s_self - m_all)
+    return (num / den).to(q.dtype).reshape(b, h, 1, d)
 
 
 def attn_decode_paged(p, x, cfg: ModelConfig, pool_k, pool_v, phys_idx,

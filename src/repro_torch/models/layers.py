@@ -156,7 +156,8 @@ def _receptance(p, xr: torch.Tensor) -> torch.Tensor:
 
 
 def ffn_apply(p, x: torch.Tensor, cfg: ModelConfig,
-              shifted: Optional[torch.Tensor] = None, host=None):
+              shifted: Optional[torch.Tensor] = None, host=None,
+              dtype=None):
     """x (..., d_model) through the SwiGLU / GeGLU / GELU FFN, or the RWKV
     channel-mix FFN, whose ``shifted`` is the token-shifted input.
 
@@ -165,15 +166,22 @@ def ffn_apply(p, x: torch.Tensor, cfg: ModelConfig,
     projection (one concatenated GEMM for gated FFNs, the block's largest;
     the key projection of channel-mix), "ffn_down" under the down (value)
     projection. With a host the return value is (y, packed plane); the bits
-    are those of every other producer site."""
+    are those of every other producer site.
+
+    ``dtype`` is the compute dtype where ``x`` comes in f32 (a norm's output
+    before its rounding, ``models.transformer._residual_norm``): the gate
+    and up GEMMs then cast their operands each on its own, so their
+    cotangents meet in f32, unrounded, as they do in the JAX package's
+    compiled block. The value is the same as with ``x`` rounded first."""
+    dt = dtype or x.dtype
     if host is not None:
-        return _ffn_apply_hosted(p, x, cfg, host, shifted)
-    dt = x.dtype
+        return _ffn_apply_hosted(p, x, cfg, host, shifted, dt)
     if cfg.ffn in (FFNKind.SWIGLU, FFNKind.GEGLU):
-        g = x @ p["w_gate"].to(dt)
-        u = x @ p["w_up"].to(dt)
+        g = x.to(dt) @ p["w_gate"].to(dt)
+        u = x.to(dt) @ p["w_up"].to(dt)
         act = _ffn_act(cfg)(g.to(torch.float32))
         return (act.to(dt) * u) @ p["w_down"].to(dt)
+    x = x.to(dt)
     if cfg.ffn == FFNKind.RWKV_CHANNEL:
         xk, xr = _channel_mix_inputs(p, x, shifted)
         k = _relu_sq(xk @ p["w_key"].to(dt))
@@ -184,7 +192,7 @@ def ffn_apply(p, x: torch.Tensor, cfg: ModelConfig,
 
 
 def _ffn_apply_hosted(p, x: torch.Tensor, cfg: ModelConfig, host,
-                      shifted: Optional[torch.Tensor]):
+                      shifted: Optional[torch.Tensor], dt):
     """The FFN with the mask producer hosted under its up or down GEMM
     (producer.gemm_with_mask, the schedule's planned ``host.how``). RWKV
     channel-mix hosts through the grouped kernel as its E=1 case ("ffn_up"
@@ -192,7 +200,6 @@ def _ffn_apply_hosted(p, x: torch.Tensor, cfg: ModelConfig, host,
     schedule planned it; otherwise the standalone producer keeps the carry
     alive -- same bits either way. Returns (y, packed plane)."""
     from repro_torch.core import producer
-    dt = x.dtype
     lead = x.shape[:-1]
     x2d = x.reshape(-1, x.shape[-1])
 
@@ -207,16 +214,17 @@ def _ffn_apply_hosted(p, x: torch.Tensor, cfg: ModelConfig, host,
         if host.site == "ffn_up":
             # one concatenated gate+up GEMM: the block's largest host
             w_gu = torch.cat([p["w_gate"], p["w_up"]], dim=1)
-            gu, mask = host_gemm(x2d, w_gu)
+            gu, mask = host_gemm(x2d.to(dt), w_gu)
             g, u = gu[:, :f], gu[:, f:]
             h = act(g.to(torch.float32)).to(dt) * u
             y2d = h @ p["w_down"].to(dt)
         else:
-            g = x2d @ p["w_gate"].to(dt)
-            u = x2d @ p["w_up"].to(dt)
+            g = x2d.to(dt) @ p["w_gate"].to(dt)
+            u = x2d.to(dt) @ p["w_up"].to(dt)
             h = act(g.to(torch.float32)).to(dt) * u
             y2d, mask = host_gemm(h, p["w_down"])
         return y2d.reshape(*lead, -1), mask
+    x, x2d = x.to(dt), x2d.to(dt)
     if cfg.ffn == FFNKind.GELU:
         if host.site == "ffn_up":
             h2d, mask = host_gemm(x2d, p["w_up"])

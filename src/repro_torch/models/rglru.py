@@ -1,5 +1,5 @@
 """RG-LRU recurrent block (Griffin / RecurrentGemma): the JAX package's
-``models/rglru.py``, training forward only.
+``models/rglru.py``, the training forward and the serving path.
 
 Block: x -> [linear -> causal conv1d(4) -> RG-LRU] o [linear -> GeLU]
          -> linear out.
@@ -18,8 +18,10 @@ another order than JAX's odd-even scan: the states agree to a few f32
 ulps of the largest term (tests/test_torch_rglru.py states the limit).
 No attention-score matrix exists, so attention dropout does not apply to
 these layers; the Griffin pattern's local-attention layers do use it.
-``rglru_prefill`` / ``rglru_decode`` (the serving path) are not ported
-yet (ROADMAP queue 1 item 4).
+Serving keeps O(1) state a sequence (``rglru_cache_init``): the f32
+recurrent state ``h`` (B, R), the conv's last 3 inputs (B, 3, R) and the
+host-side length; ``rglru_prefill`` runs the scan and fills it,
+``rglru_decode`` takes one step.
 """
 from __future__ import annotations
 
@@ -67,12 +69,18 @@ def rglru_init(gen: torch.Generator, cfg: ModelConfig,
     }
 
 
-def _causal_conv(p, u: torch.Tensor) -> torch.Tensor:
+def _causal_conv(p, u: torch.Tensor,
+                 tail: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Depthwise causal conv of width 4 over u (B, T, R), in u's dtype:
-    tap i multiplies the input i - 3 steps back (zeros before the start)."""
+    tap i multiplies the input 3 - i steps back. ``tail`` (B, 3, R)
+    carries the 3 inputs before u (a decode step's cache); without it they
+    are zeros."""
     dt = u.dtype
     w = p["conv_w"].to(dt)
-    full = F.pad(u, (0, 0, _CONV_W - 1, 0))          # (B, T + 3, R)
+    if tail is None:
+        full = F.pad(u, (0, 0, _CONV_W - 1, 0))      # (B, T + 3, R)
+    else:
+        full = torch.cat([tail.to(dt), u], dim=1)
     t = u.shape[1]
     out = sum(full[:, i:i + t, :] * w[i] for i in range(_CONV_W))
     return out + p["conv_b"].to(dt)
@@ -129,3 +137,61 @@ def rglru_apply(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     h = _scan_recurrence(log_a, gated)
     out = (h * gate).to(dt)
     return out @ p["w_out"].to(dt)
+
+
+def rglru_cache_init(cfg: ModelConfig, batch: int, dtype,
+                     device=None) -> Dict[str, torch.Tensor]:
+    """Zero decode state: ``h`` f32 (B, R), ``conv`` (B, 3, R) in
+    ``dtype``, ``len`` a host int32 scalar."""
+    r = cfg.d_model
+    return {
+        "h": torch.zeros((batch, r), dtype=torch.float32, device=device),
+        "conv": torch.zeros((batch, _CONV_W - 1, r), dtype=dtype,
+                            device=device),
+        "len": torch.tensor(0, dtype=torch.int32),
+    }
+
+
+def rglru_prefill(p, x: torch.Tensor, cfg: ModelConfig
+                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The training forward over the prompt x (B, T, D), keeping the last
+    state and the conv's last 3 inputs (zero-padded in front when
+    T < 3)."""
+    dt = x.dtype
+    b, t, _ = x.shape
+    u = x @ p["w_x"].to(dt)
+    gate = F.gelu((x @ p["w_gate"].to(dt)).to(torch.float32),
+                  approximate="tanh")
+    c = _causal_conv(p, u)
+    log_a, gated = _gates(p, c)
+    h = _scan_recurrence(log_a, gated)
+    out = (h * gate).to(dt) @ p["w_out"].to(dt)
+    tail = u[:, -(_CONV_W - 1):, :]
+    if t < _CONV_W - 1:
+        tail = F.pad(tail, (0, 0, _CONV_W - 1 - t, 0))
+    cache = {"h": h[:, -1, :], "conv": tail,
+             "len": torch.tensor(t, dtype=torch.int32)}
+    return out, cache
+
+
+def rglru_decode(p, x1: torch.Tensor, cache, cfg: ModelConfig
+                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One token x1 (B, 1, D): h = a h + sqrt(max(1 - a^2, 0)) (i c).
+    Returns (y (B, 1, D), the new state); ``cache`` is read only."""
+    dt = x1.dtype
+    u = x1 @ p["w_x"].to(dt)                          # (B, 1, R)
+    gate = F.gelu((x1 @ p["w_gate"].to(dt)).to(torch.float32),
+                  approximate="tanh")
+    c = _causal_conv(p, u, tail=cache["conv"])
+    log_a, gated = _gates(p, c)
+    a = torch.exp(log_a[:, 0])
+    b_term = torch.sqrt(torch.clamp(1.0 - a * a, min=0.0)) * gated[:, 0]
+    h = a * cache["h"] + b_term                       # (B, R)
+    out = (h[:, None, :] * gate).to(dt) @ p["w_out"].to(dt)
+    new_cache = {
+        "h": h,
+        "conv": torch.cat([cache["conv"][:, 1:], u.to(cache["conv"].dtype)],
+                          dim=1),
+        "len": cache["len"] + 1,
+    }
+    return out, new_cache

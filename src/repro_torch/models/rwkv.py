@@ -1,5 +1,5 @@
 """RWKV6 (Finch) time-mix with data-dependent decay: the JAX package's
-``models/rwkv.py``, training forward only.
+``models/rwkv.py``, the training forward and the serving path.
 
 Recurrence (per head, K = V = head_dim):
     S_t = diag(w_t) S_{t-1} + k_t v_t^T
@@ -9,8 +9,11 @@ The training forward evaluates it in chunks of L tokens: within a chunk the
 pairwise decay exp(cum[t-1] - cum[s]) <= 1 is computed directly, and the
 state crosses chunks in a Python loop (JAX's ``lax.scan``). No Pallas kernel
 runs here in JAX, so the port is plain torch. Attention dropout does not
-apply (no score matrix). ``rwkv_prefill`` and ``rwkv_decode`` (the serving
-path) are not ported yet and raise (ROADMAP: port queue).
+apply (no score matrix). Serving keeps O(1) state a sequence
+(``rwkv_cache_init``): the f32 WKV state (B, H, K, V), the last inputs of
+the time-mix and of the channel-mix FFN (their token shifts) and the
+host-side length. ``rwkv_prefill`` runs the chunked form over the prompt,
+``rwkv_decode`` the one-step recurrence (``wkv_step``).
 """
 from __future__ import annotations
 
@@ -130,8 +133,19 @@ def wkv_chunked(r, k, v, logw, u, s0, chunk: int = _CHUNK):
     return torch.cat(outs, dim=2), s
 
 
-def rwkv_apply(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """Training forward. x (B, T, D)."""
+def wkv_step(r1, k1, v1, logw1, u, s):
+    """One decode step. r1, k1, v1, logw1 (B, H, K) f32; u (H, K); s (B, H,
+    K, V). Returns (o (B, H, V), the new state)."""
+    bonus = s + (u[None] * k1)[..., None] * v1[..., None, :]
+    o = torch.einsum("bhk,bhkv->bhv", r1, bonus)
+    s_new = s * torch.exp(logw1)[..., None] + k1[..., None] * v1[..., None, :]
+    return o, s_new
+
+
+def _time_mix(p, x: torch.Tensor, cfg: ModelConfig
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The chunked time-mix over x (B, T, D) from a zero state. Returns
+    (y (B, T, D), the final state (B, H, K, V) f32)."""
     b, t, d = x.shape
     h, hd = cfg.n_heads, cfg.rwkv_head_dim
     shifted = token_shift(x)
@@ -146,20 +160,69 @@ def rwkv_apply(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
         return F.pad(a, (0, 0, 0, pad)) if pad else a
 
     s0 = torch.zeros((b, h, hd, hd), dtype=torch.float32, device=x.device)
-    o, _ = wkv_chunked(to_bhtk(r), to_bhtk(k), to_bhtk(v), to_bhtk(logw),
-                       p["u"].to(torch.float32), s0)
+    o, s_fin = wkv_chunked(to_bhtk(r), to_bhtk(k), to_bhtk(v), to_bhtk(logw),
+                           p["u"].to(torch.float32), s0)
     o = o[:, :, :t].permute(0, 2, 1, 3)             # (B, T, H, hd)
     o = _group_norm(p, o).to(x.dtype) * g.reshape(b, t, h, hd)
-    return o.reshape(b, t, d) @ p["w_o"].to(x.dtype)
+    return o.reshape(b, t, d) @ p["w_o"].to(x.dtype), s_fin
 
 
-def rwkv_prefill(*_args, **_kw):
-    raise NotImplementedError(
-        "rwkv_prefill is not ported yet (ROADMAP: port queue, RWKV / "
-        "recurrent serving)")
+def rwkv_apply(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Training forward. x (B, T, D)."""
+    return _time_mix(p, x, cfg)[0]
 
 
-def rwkv_decode(*_args, **_kw):
-    raise NotImplementedError(
-        "rwkv_decode is not ported yet (ROADMAP: port queue, RWKV / "
-        "recurrent serving)")
+def rwkv_cache_init(cfg: ModelConfig, batch: int, dtype,
+                    device=None) -> Dict[str, torch.Tensor]:
+    """Zero decode state: ``s`` f32 (B, H, K, V), the time-mix and
+    channel-mix shifts (B, D) in ``dtype``, ``len`` a host int32 scalar."""
+    h, hd = cfg.n_heads, cfg.rwkv_head_dim
+
+    def shift():
+        return torch.zeros((batch, cfg.d_model), dtype=dtype, device=device)
+
+    return {
+        "s": torch.zeros((batch, h, hd, hd), dtype=torch.float32,
+                         device=device),
+        "shift_tm": shift(),
+        "shift_cm": shift(),
+        "len": torch.tensor(0, dtype=torch.int32),
+    }
+
+
+def rwkv_prefill(p, x: torch.Tensor, cfg: ModelConfig
+                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The time-mix over the prompt x (B, T, D), any T: the chunked form
+    pads T to a multiple of the 16-token chunk with state-neutral zeros.
+    The caller (the block) stores the channel-mix shift ``shift_cm``."""
+    b, t, d = x.shape
+    y, s_fin = _time_mix(p, x, cfg)
+    cache = {"s": s_fin, "shift_tm": x[:, -1, :],
+             "shift_cm": torch.zeros((b, d), dtype=x.dtype, device=x.device),
+             "len": torch.tensor(t, dtype=torch.int32)}
+    return y, cache
+
+
+def rwkv_decode(p, x1: torch.Tensor, cache, cfg: ModelConfig
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One token x1 (B, 1, D) against the cached state (read only).
+    Returns (y (B, 1, D), the new state)."""
+    b, _, d = x1.shape
+    h, hd = cfg.n_heads, cfg.rwkv_head_dim
+    shifted = cache["shift_tm"][:, None, :].to(x1.dtype)
+    mixed = _mix_inputs(p, x1, shifted)
+    r, k, v, g, logw = _project(p, mixed, b, 1, h, hd)
+
+    def sq(a):                                       # (B,1,H,hd) -> (B,H,hd)
+        return a[:, 0].to(torch.float32)
+
+    o, s_new = wkv_step(sq(r), sq(k), sq(v), sq(logw),
+                        p["u"].to(torch.float32), cache["s"])
+    o = _group_norm(p, o.reshape(b, 1, h, hd)).to(x1.dtype)
+    o = o * g.reshape(b, 1, h, hd)
+    y = o.reshape(b, 1, d) @ p["w_o"].to(x1.dtype)
+    new_cache = dict(cache)
+    new_cache["s"] = s_new
+    new_cache["shift_tm"] = x1[:, 0, :]
+    new_cache["len"] = cache["len"] + 1
+    return y, new_cache

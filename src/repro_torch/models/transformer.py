@@ -1,7 +1,8 @@
 """Model assembly: stacks of layer units, init, the training forward
 (dense, MoE, RWKV-hybrid and Griffin stacks of full-attention, local-
-attention, WKV and RG-LRU layers), prefill, and decode through paged KV
-pools (dense full-attention stacks).
+attention, WKV and RG-LRU layers), serving through contiguous caches for
+every layer kind (``cache_init``, ``prefill``, ``decode_step``), and decode
+through paged KV pools (dense full-attention stacks).
 
 Parameters mirror the JAX package's pytree: ``params["stacks"][i]`` holds
 a stack's repeating unit with every tensor carrying a leading ``count``
@@ -23,6 +24,8 @@ from repro_torch.core.overlap import DropoutPlan
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.attention import (
     attn_apply,
+    attn_cache_init,
+    attn_decode,
     attn_decode_paged,
     attn_init,
     attn_prefill,
@@ -36,8 +39,20 @@ from repro_torch.models.layers import (
     token_shift,
 )
 from repro_torch.models.moe import moe_apply, moe_init
-from repro_torch.models.rglru import rglru_apply, rglru_init
-from repro_torch.models.rwkv import rwkv_apply, rwkv_init
+from repro_torch.models.rglru import (
+    rglru_apply,
+    rglru_cache_init,
+    rglru_decode,
+    rglru_init,
+    rglru_prefill,
+)
+from repro_torch.models.rwkv import (
+    rwkv_apply,
+    rwkv_cache_init,
+    rwkv_decode,
+    rwkv_init,
+    rwkv_prefill,
+)
 
 
 @dataclasses.dataclass
@@ -198,15 +213,20 @@ def _mix_forward(p, x, cfg: ModelConfig, rt: Runtime, kind, layer_idx,
 
 
 def _ffn_forward(p, x, cfg: ModelConfig, rt: Runtime, tag, layer_idx=0,
-                 asg=None, mask_shape=None):
+                 asg=None, mask_shape=None, dtype=None):
     """Returns (y, aux loss or None, next plane or None). When the schedule
     gives this block an FFN emission (asg.emit_site "ffn_up" /
     "ffn_down"), the FFN hosts the NEXT attention layer's mask producer
     under one of its GEMMs: the dense fused kernel, or the grouped kernel
     for MoE expert and RWKV channel-mix FFNs; a block whose grouped shape
     cannot host was planned standalone (or tensor-op), and that producer
-    keeps the carry alive -- the same bits."""
+    keeps the carry alive -- the same bits. ``dtype`` as in ``ffn_apply``:
+    the compute dtype when ``x`` is the f32 norm output of a model without
+    MoE layers, which each GEMM then casts on its own."""
     from repro_torch.core import producer
+    dt = dtype or x.dtype
+    if cfg.ffn == FFNKind.RWKV_CHANNEL:
+        x = x.to(dt)               # read with its shift, as one operand
     mask_next = None
     host = None
     if (asg is not None and mask_shape is not None
@@ -234,9 +254,24 @@ def _ffn_forward(p, x, cfg: ModelConfig, rt: Runtime, tag, layer_idx=0,
     shifted = token_shift(x) if cfg.ffn == FFNKind.RWKV_CHANNEL else None
     if host is not None:
         y, mask_next = ffn_apply(p["ffn"], x, cfg, shifted=shifted,
-                                 host=host)
+                                 host=host, dtype=dt)
         return y, None, mask_next
-    return ffn_apply(p["ffn"], x, cfg, shifted=shifted), None, None
+    return ffn_apply(p["ffn"], x, cfg, shifted=shifted, dtype=dt), None, None
+
+
+def _residual_norm(p_norm, x: torch.Tensor, y: torch.Tensor,
+                   cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(x + y rounded to x's dtype, norm(x + y) in f32). The residual
+    stream keeps the rounded sum; the norm reads the sum before that
+    rounding and its output stays f32 until each FFN GEMM casts its own
+    operand (``ffn_apply(dtype=)``). That is the JAX package's block as
+    XLA compiles it: its excess precision keeps the f32 add that feeds the
+    norm's upcast, and the f32 sum of the GEMMs' cotangents that feeds the
+    norm's backward, dropping the source's bf16 round trips. At f32 this
+    is the plain x + y and norm(x + y), bitwise. Models without MoE layers
+    only (``block_apply``)."""
+    s = x.to(torch.float32) + y.to(torch.float32)
+    return s.to(x.dtype), norm_apply(p_norm, s, cfg)
 
 
 def block_apply(p, x, cfg: ModelConfig, rt: Runtime, kind, tag, layer_idx,
@@ -257,15 +292,23 @@ def block_apply(p, x, cfg: ModelConfig, rt: Runtime, kind, tag, layer_idx,
     y, mask_next = _mix_forward(
         p["mix"], h, cfg, rt, kind, layer_idx, mask_in=mask_in,
         emit_next=emit and is_attn and not ffn_hosts, asg=asg)
-    x = x + y
-    h2 = norm_apply(p["norm_ffn"], x, cfg)
+    if cfg.moe is None:
+        x, h2 = _residual_norm(p["norm_ffn"], x, y, cfg)
+    else:
+        # a model with MoE layers rounds the sum as JAX's source does, in
+        # every block: the unrounded sum carries the card's one-ulp GEMM
+        # differences into the routers' top-k, and its bf16 runs on the
+        # card leave the CPU's (scripts/probe_bf16_card_vs_cpu.py); in its
+        # dense blocks alone the unrounded sum moves its routers off JAX's
+        x = x + y
+        h2 = norm_apply(p["norm_ffn"], x, cfg)
     if ffn_hosts:
         b, s = x.shape[0], x.shape[1]
         f, aux, mask_next = _ffn_forward(
             p, h2, cfg, rt, tag, layer_idx=layer_idx, asg=asg,
-            mask_shape=(b, cfg.n_heads, s, s))
+            mask_shape=(b, cfg.n_heads, s, s), dtype=x.dtype)
     else:
-        f, aux, _ = _ffn_forward(p, h2, cfg, rt, tag)
+        f, aux, _ = _ffn_forward(p, h2, cfg, rt, tag, dtype=x.dtype)
     if emit and not is_attn:
         mask_next = mask_in        # the carry rides through mixer-only blocks
     if mask_next is not None and asg is not None:
@@ -356,25 +399,79 @@ def forward(params, cfg: ModelConfig, rt: Runtime, inputs
 
 
 # --------------------------------------------------------------------------
-# prefill
+# caches / prefill / decode
 # --------------------------------------------------------------------------
+#
+# A layer's cache is a dict of tensors: attention {"k", "v", "len"} (int8
+# caches add "k_scale", "v_scale"), RG-LRU {"h", "conv", "len"}, WKV {"s",
+# "shift_tm", "shift_cm", "len"}; a stack's caches carry a leading
+# ``count`` dimension, as its parameters do. The lengths are int32 tensors
+# on the host: a decode step reads its position there, never from the card.
+
+_ATTN_KINDS = (AttentionKind.FULL, AttentionKind.LOCAL)
+
+
+def _layer_cache_init(cfg, kind, batch, max_len, dtype, kv_bits, device):
+    if kind in _ATTN_KINDS:
+        return attn_cache_init(cfg, kind, batch, max_len, dtype, kv_bits,
+                               device=device)
+    if kind == AttentionKind.RECURRENT:
+        return rglru_cache_init(cfg, batch, dtype, device=device)
+    return rwkv_cache_init(cfg, batch, dtype, device=device)
+
+
+def _stack_fields(per_pos: List[Dict[str, torch.Tensor]]
+                  ) -> Dict[str, torch.Tensor]:
+    """One stacked cache from a layer's caches at each unit position."""
+    return {f: torch.stack([c[f] for c in per_pos]) for f in per_pos[0]}
+
+
+def cache_init(cfg: ModelConfig, batch: int, max_len: int, dtype,
+               prefilled_len: int = 0, kv_bits: int = 16,
+               device: DeviceLike = None) -> List[Any]:
+    """Zero caches for decode on ``device`` (the card unless asked),
+    stacked to match params["stacks"]. With ``prefilled_len`` > 0 the
+    caches advertise that many valid positions (a decode cell built
+    without a prefill)."""
+    dev = resolve_device(device)
+    caches = []
+    for spec in build_stacks(cfg):
+        unit = {}
+        for j, (kind, _) in enumerate(spec.unit):
+            c = _layer_cache_init(cfg, kind, batch, max_len, dtype, kv_bits,
+                                  dev)
+            if prefilled_len:
+                c["len"] = torch.tensor(prefilled_len, dtype=torch.int32)
+            unit[f"l{j}"] = _stack_fields([c] * spec.count)
+        caches.append(unit)
+    return caches
+
 
 def _layer_prefill(p, x, cfg, rt: Runtime, kind, tag, layer_idx, capacity):
     h = norm_apply(p["norm_mix"], x, cfg)
-    y, cache = attn_prefill(p["mix"], h, cfg, kind=kind, plan=None,
-                            layer_idx=layer_idx, step=rt.step,
-                            chunk_q=rt.chunk_q, capacity=capacity)
+    if kind in _ATTN_KINDS:
+        y, cache = attn_prefill(p["mix"], h, cfg, kind=kind, plan=None,
+                                layer_idx=layer_idx, step=rt.step,
+                                chunk_q=rt.chunk_q, capacity=capacity)
+    elif kind == AttentionKind.RECURRENT:
+        y, cache = rglru_prefill(p["mix"], h, cfg)
+    else:
+        y, cache = rwkv_prefill(p["mix"], h, cfg)
     x = x + y
     h2 = norm_apply(p["norm_ffn"], x, cfg)
-    return x + ffn_apply(p["ffn"], h2, cfg), cache
+    if kind == AttentionKind.WKV:
+        cache["shift_cm"] = h2[:, -1, :]
+    f, _, _ = _ffn_forward(p, h2, cfg, rt, tag)
+    return x + f, cache
 
 
 def prefill(params, cfg: ModelConfig, rt: Runtime, inputs,
             capacity: int = 0, last_pos: Optional[int] = None
             ) -> Tuple[torch.Tensor, List[Any]]:
     """Returns (logits (B,1,V) at ``last_pos`` or the last position,
-    caches): per stack, per unit position, {"k","v": (count,B,KV,cap,hd),
-    "len": (count,)}."""
+    caches): per stack, per unit position, the layer's cache fields
+    stacked over ``count`` (FULL k / v (count,B,KV,cap,hd) with cap =
+    max(capacity, S))."""
     x = embed_inputs(params, cfg, inputs, rt)
     caches = []
     for spec, stack_params in zip(build_stacks(cfg), params["stacks"]):
@@ -388,13 +485,88 @@ def prefill(params, cfg: ModelConfig, rt: Runtime, inputs,
                                       spec.base + pos * unit_len + j,
                                       capacity)
                 per_layer[f"l{j}"].append(c)
-        caches.append({key: {f: torch.stack([c[f] for c in cs])
-                             for f in ("k", "v", "len")}
+        caches.append({key: _stack_fields(cs)
                        for key, cs in per_layer.items()})
     x = norm_apply(params["final_norm"], x, cfg)
     x_last = x[:, -1:, :] if last_pos is None else \
         x[:, int(last_pos):int(last_pos) + 1, :]
     return unembed(params, cfg, x_last), caches
+
+
+def _layer_decode(p, x1, cache, cfg, rt: Runtime, kind, tag):
+    """The cache is READ-ONLY here. Returns (x, update): an attention
+    layer's update is its token column ({"k_tok", "v_tok", "len"}, written
+    by ``_apply_cache_updates``); a recurrent or WKV layer's is its whole
+    (small) new state."""
+    h = norm_apply(p["norm_mix"], x1, cfg)
+    if kind in _ATTN_KINDS:
+        y, update = attn_decode(p["mix"], h, cache, cfg, kind=kind)
+    elif kind == AttentionKind.RECURRENT:
+        y, update = rglru_decode(p["mix"], h, cache, cfg)
+    else:
+        y, update = rwkv_decode(p["mix"], h, cache, cfg)
+    x1 = x1 + y
+    h2 = norm_apply(p["norm_ffn"], x1, cfg)
+    shifted_cm = None
+    if kind == AttentionKind.WKV:
+        shifted_cm = cache["shift_cm"]
+        update = dict(update)
+        update["shift_cm"] = h2[:, 0, :]
+    if tag == "moe":
+        f, _, _ = _ffn_forward(p, h2, cfg, rt, tag)
+    else:
+        sh = (shifted_cm[:, None, :].to(h2.dtype)
+              if cfg.ffn == FFNKind.RWKV_CHANNEL else None)
+        f = ffn_apply(p["ffn"], h2, cfg, shifted=sh)
+    return x1 + f, update
+
+
+def _apply_cache_updates(spec: StackSpec, stack_cache, updates):
+    """Merge a stack's per-layer decode updates into its caches: one
+    token-column write for each attention cache and field, in place, at
+    slot ``pos % size`` for a LOCAL ring and ``pos`` for FULL (O(layers x
+    token) writes, not O(cache)); a recurrent / WKV layer's new state
+    replaces its old. Returns the stack's caches."""
+    new_stack = {}
+    for j, (kind, _) in enumerate(spec.unit):
+        key = f"l{j}"
+        cache, upd = stack_cache[key], _stack_fields(updates[key])
+        if kind not in _ATTN_KINDS:
+            new_stack[key] = upd                 # the full small state
+            continue
+        size = cache["k"].shape[3]               # (count, B, KV, size, D)
+        pos = int(cache["len"][0])               # equal across the stack
+        slot = pos % size if kind == AttentionKind.LOCAL else pos
+        for f in ("k", "v", "k_scale", "v_scale"):
+            if f in cache:
+                cache[f][:, :, :, slot] = upd[f + "_tok"][:, :, :, 0]
+        cache["len"] = upd["len"]
+        new_stack[key] = cache
+    return new_stack
+
+
+def decode_step(params, cfg: ModelConfig, rt: Runtime, inputs, caches
+                ) -> Tuple[torch.Tensor, List[Any]]:
+    """One token for every sequence. inputs (B, 1) tokens or (B, 1, D)
+    embeddings. Returns (logits (B, 1, V), the caches): the attention
+    caches take the token column in place (the JAX version returns new
+    arrays), so the caller reads only the returned caches afterwards."""
+    x = embed_inputs(params, cfg, inputs, rt)
+    new_caches = []
+    for spec, stack_params, stack_cache in zip(
+            build_stacks(cfg), params["stacks"], caches):
+        updates: Dict[str, List[Dict[str, torch.Tensor]]] = {
+            f"l{j}": [] for j in range(len(spec.unit))}
+        for pos in range(spec.count):
+            for j, (kind, tag) in enumerate(spec.unit):
+                key = f"l{j}"
+                x, u = _layer_decode(_index(stack_params[key], pos), x,
+                                     _index(stack_cache[key], pos), cfg, rt,
+                                     kind, tag)
+                updates[key].append(u)
+        new_caches.append(_apply_cache_updates(spec, stack_cache, updates))
+    x = norm_apply(params["final_norm"], x, cfg)
+    return unembed(params, cfg, x), new_caches
 
 
 # --------------------------------------------------------------------------

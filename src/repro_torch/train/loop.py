@@ -16,6 +16,10 @@ master to ``compute_dtype`` (f32 or bf16) under autograd, so the gradients
 come back f32 on the master and AdamW runs in f32. The checkpointing
 ``TrainRunner`` and the dropout contract of the JAX package's
 ``launch/train.py`` are not ported yet (ROADMAP).
+
+``make_prefill_step`` / ``make_serve_step`` wrap ``models.prefill`` and
+``models.decode_step`` (the contiguous caches of every layer kind) with
+no dropout plan, at step 0 and the caller's compute dtype.
 """
 from __future__ import annotations
 
@@ -28,7 +32,13 @@ from repro_torch.config.base import ModelConfig, RunConfig
 from repro_torch.core.overlap import DropoutPlan
 from repro_torch.core.schedule import compile_schedule
 from repro_torch.device import DeviceLike
-from repro_torch.models import Runtime, forward, model_init
+from repro_torch.models import (
+    Runtime,
+    decode_step,
+    forward,
+    model_init,
+    prefill,
+)
 from repro_torch.optim import adamw_init
 from repro_torch.optim.adamw import _adamw_update
 from repro_torch.tree import leaves, tree_map, unflatten_like
@@ -71,9 +81,9 @@ def _not_ported(what: str) -> NotImplementedError:
 _COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
 
 
-def _check_ported(policy, compute_dtype) -> None:
+def _check_ported(policy, compute_dtype, what: str = "training") -> None:
     if policy is not None:
-        raise _not_ported("training under a sharding policy")
+        raise _not_ported(f"{what} under a sharding policy")
     if compute_dtype not in _COMPUTE_DTYPES:
         raise ValueError(f"compute_dtype={compute_dtype}; the step computes "
                          f"in one of {_COMPUTE_DTYPES}")
@@ -205,3 +215,32 @@ def make_eval_step(cfg: ModelConfig, run: RunConfig, policy=None,
         return cross_entropy(logits, y)
 
     return eval_step
+
+
+def make_serve_step(cfg: ModelConfig, policy=None,
+                    compute_dtype=torch.float32) -> Callable:
+    """serve_step(params, inputs, caches) -> (logits (B, 1, V), caches):
+    one decode token for every sequence (``models.decode_step``)."""
+    _check_ported(policy, compute_dtype, "serving")
+
+    @torch.no_grad()
+    def serve_step(params, inputs, caches):
+        rt = Runtime(plan=None, step=0, compute_dtype=compute_dtype)
+        return decode_step(params, cfg, rt, inputs, caches)
+
+    return serve_step
+
+
+def make_prefill_step(cfg: ModelConfig, policy=None,
+                      compute_dtype=torch.float32,
+                      capacity: int = 0) -> Callable:
+    """prefill_step(params, inputs) -> (logits (B, 1, V), caches), the FULL
+    caches holding ``capacity`` positions (``models.prefill``)."""
+    _check_ported(policy, compute_dtype, "serving")
+
+    @torch.no_grad()
+    def prefill_step(params, inputs):
+        rt = Runtime(plan=None, step=0, compute_dtype=compute_dtype)
+        return prefill(params, cfg, rt, inputs, capacity=capacity)
+
+    return prefill_step

@@ -255,17 +255,34 @@ def test_moe_apply_policy_raises():
 
 def test_rwkv_time_mix_equals_jax():
     """rwkv_apply (token shift, LoRA mixing, chunked WKV, group norm) within
-    1e-4 of JAX's at a length the chunk does not divide."""
+    1e-4 of JAX's at a length the chunk does not divide, and one
+    ``rwkv_decode`` step (``wkv_step``) from a random state within 1e-4 of
+    JAX's: the output and every field of the new state."""
     _, cfg = _hybrid_cfgs()
     jcfg = _hybrid_cfgs()[0]
     jp = jrwkv.rwkv_init(jax.random.PRNGKey(4), jcfg)
+    tp = tree.tree_map(torch.from_numpy, _np(jp))
     x = _x(2, 2, 40, cfg.d_model)
-    got = rwkv.rwkv_apply(tree.tree_map(torch.from_numpy, _np(jp)),
-                          torch.from_numpy(x), cfg)
+    got = rwkv.rwkv_apply(tp, torch.from_numpy(x), cfg)
     want = jrwkv.rwkv_apply(jp, jnp.asarray(x), jcfg)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        rwkv.rwkv_decode(None, None, None, cfg)
+    hd = cfg.rwkv_head_dim
+    state = {"s": _x(5, 2, cfg.n_heads, hd, hd),
+             "shift_tm": _x(6, 2, cfg.d_model),
+             "shift_cm": _x(7, 2, cfg.d_model),
+             "len": np.asarray(40, np.int32)}
+    x1 = _x(8, 2, 1, cfg.d_model)
+    got, gstate = rwkv.rwkv_decode(
+        tp, torch.from_numpy(x1),
+        {k: torch.from_numpy(v) for k, v in state.items()}, cfg)
+    want, wstate = jrwkv.rwkv_decode(
+        jp, jnp.asarray(x1), {k: jnp.asarray(v) for k, v in state.items()},
+        jcfg)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    assert sorted(gstate) == sorted(wstate)
+    for k in gstate:
+        np.testing.assert_allclose(gstate[k].numpy(), np.asarray(wstate[k]),
+                                   err_msg=k, **TOL)
 
 
 def test_channel_mix_ffn_and_token_shift_equal_jax():
