@@ -157,7 +157,27 @@ Phases (each raises on failure; nothing is caught):
      ring unrolled; ``len`` one too many; the RWKV state one token too
      many), first-token time, decode tokens/s and peak memory. This path
      runs no CUDA kernel of the port: it is plain torch, as JAX's is
-     plain jnp.
+     plain jnp;
+ 14. the training launcher (``launch/train.py``'s ``train``, the path of
+     ``python -m repro_torch.launch.train``) at llama2-7b's full width, 4
+     layers (2 where three checkpoints of 12 bytes a parameter do not fit
+     on the disk under build/), B=2, S=2048, site "qkv", f32, the flash
+     kernels, replay, 8 steps: the schedule proven by the counter layer,
+     the dropout contract frozen; run A twice uninterrupted under a
+     TrajectoryRecorder (loss bits, the Philox kernel's digest of the probe
+     plane), run B under a ChaosMonkey (killed mid-forward at step 4 and
+     mid-backward at step 7) with a checkpoint every 3 steps and the write
+     of step 6 killed before it is published: A's two runs must agree
+     bitwise, and B's recovered loss bits and mask digests must equal A's
+     bitwise; then the launcher resumes from B's checkpoint with
+     the same plan ("dropout contract verified", steps 6-7 against A's),
+     with site "ffn_up" ("recompiled": the counter layer proves the new
+     schedule) and with p = 0.2 (ContractMismatchError, the control); the
+     kernels' launches over every step run against the schedule's formula;
+     step time, the checkpoint's host gather and write seconds, the stall
+     a save adds to its step, restore seconds and time to recover, beside
+     the card's name and power limit. The checkpoint directory is deleted
+     at the end.
 
 Phase 2 also checks the e4m3 GEMM+RNG kernel against its plain version
 at the four host shapes of phase 6 (QKV, out-projection, gate+up, down;
@@ -234,6 +254,12 @@ import torch
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
 
+from repro_torch.distributed.chaos import (  # noqa: E402
+    ChaosCheckpointer,
+    ChaosError,
+    TrajectoryMismatch,
+    TrajectoryRecorder,
+)
 from repro_torch.kernels import build, launch_counts, philox  # noqa: E402
 from repro_torch.kernels import philox_common  # noqa: E402
 from repro_torch.kernels import flash_attention as flash  # noqa: E402
@@ -369,20 +395,25 @@ def device_time_ms(fn, kernel: str, iters: int):
     """Device time a call of the kernels whose name holds ``kernel`` (all
     of them: the f32 dq at head_dim 256 is two launches, its split pass and
     its products), from a torch.profiler trace of ``iters`` calls; None when
-    the trace holds no device time."""
+    three traces in a row hold no device time for it. The profiler has
+    returned one such trace, unexplained, in a run whose other traces were
+    whole (PERF.md, open questions), so an empty trace is taken again."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total_us = 0.0
-    for evt in prof.key_averages():
-        if kernel in evt.key:
-            total_us += getattr(evt, "device_time_total",
-                                getattr(evt, "cuda_time_total", 0.0))
-    return total_us / iters / 1e3 if total_us > 0 else None
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        total_us = 0.0
+        for evt in prof.key_averages():
+            if kernel in evt.key:
+                total_us += getattr(evt, "device_time_total",
+                                    getattr(evt, "cuda_time_total", 0.0))
+        if total_us > 0:
+            return total_us / iters / 1e3
+    return None
 
 
 def cuda_time_ms(fn, iters: int, warmup: int = 3) -> float:
@@ -4641,6 +4672,323 @@ def phase_serve_layers(state) -> None:
         for key, arch, layers, b, plen in SERVE_RUNS}
 
 
+# ----------------------------------------------------------------- phase 14
+# the training launcher (launch/train.py) at llama2-7b's full width, cut in
+# depth: 8 steps, a checkpoint every 3, run B killed mid-forward at step 4
+# and mid-backward at step 7 with its step-6 write killed before publishing
+LAUNCHER_STEPS = 8
+LAUNCHER_CKPT_EVERY = 3
+LAUNCHER_FAULTS = ((4, "forward"), (7, "backward"))
+LAUNCHER_KILL = 6
+LAUNCHER_LAYERS = (4, 2)           # the deepest whose checkpoints fit
+# checkpoints on disk at once in run B: the latest, the killed write's
+# temporary file and the retried write's
+LAUNCHER_CKPTS_ON_DISK = 3
+CKPT_BYTES_PER_PARAM = 12          # the f32 master and two moments
+
+
+class _StepClock:
+    """When each step of a run finished (host clock after the step's
+    synchronize) and when each injected fault fired: the recovery time of
+    a fault at step s is the time from the fault to the end of step s's
+    re-run."""
+
+    def __init__(self):
+        self.done = []                 # (step, t)
+        self.faults = []               # (step, t)
+
+    def wrap_done(self, step_fn):
+        def timed(st, x, y):
+            step = int(st["step"])
+            out = step_fn(st, x, y)
+            torch.cuda.synchronize()
+            self.done.append((step, time.perf_counter()))
+            return out
+        return timed
+
+    def wrap_faults(self, step_fn):
+        def watched(st, x, y):
+            try:
+                return step_fn(st, x, y)
+            except ChaosError:
+                self.faults.append((int(st["step"]), time.perf_counter()))
+                raise
+        return watched
+
+    def recoveries(self):
+        return [next(t - tf for st, t in self.done if st == s and t > tf)
+                for s, tf in self.faults]
+
+
+class _TimedCheckpointer(ChaosCheckpointer):
+    """A ChaosCheckpointer that times each save's wait for the previous
+    write, its host gather, each file write and each restore."""
+
+    def __init__(self, directory, kill_steps=()):
+        super().__init__(directory, kill_steps=kill_steps, async_save=True)
+        self.saves, self.writes, self.restores = [], [], []
+
+    def save(self, step, st, contract=None):
+        t0 = time.perf_counter()
+        self.wait()
+        t1 = time.perf_counter()
+        super().save(step, st, contract=contract)
+        self.saves.append((step, t1 - t0, time.perf_counter() - t1))
+
+    def _write(self, step, host_state):
+        t0 = time.perf_counter()
+        super()._write(step, host_state)
+        self.writes.append((step, time.perf_counter() - t0))
+
+    def restore(self, step, template):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = super().restore(step, template)
+        torch.cuda.synchronize()
+        self.restores.append((step, time.perf_counter() - t0))
+        return out
+
+
+def _loss(bits: int) -> float:
+    return float(np.uint32(bits).view(np.float32))
+
+
+class _CountingRecorder(TrajectoryRecorder):
+    """A TrajectoryRecorder on the card that counts its records (one
+    standalone Philox launch each)."""
+
+    def __init__(self, plan, batch, heads, seq):
+        super().__init__(plan, batch, heads, seq, seq, device="cuda")
+        self.records = 0
+
+    def record(self, step, loss):
+        self.records += 1
+        super().record(step, loss)
+
+
+def _bitwise(what, want, got) -> None:
+    """Fail phase 14, naming the step, unless ``got`` visited ``want``'s
+    steps with the same loss bits and mask digests."""
+    try:
+        want.assert_identical(got)
+    except TrajectoryMismatch as e:
+        raise AssertionError(f"[launcher] {what}: {e}") from e
+
+
+def _launcher_run(cfg, ckpt_every, ckpt_dir):
+    run = _train_run(cfg, "auto", TRAIN_B, TRAIN_S)
+    return dataclasses.replace(run, train=dataclasses.replace(
+        run.train, checkpoint_every=ckpt_every, checkpoint_dir=ckpt_dir))
+
+
+def _launcher_layers(root):
+    """The deepest LAUNCHER_LAYERS cut whose run-B checkpoints fit on the
+    disk under ``root``, its parameter count and the bytes it needs."""
+    from repro_torch.config import get_arch
+    free = shutil.disk_usage(root).free
+    for layers in LAUNCHER_LAYERS:
+        cfg = dataclasses.replace(get_arch("llama2-7b"), n_layers=layers)
+        assert (cfg.d_model, cfg.n_heads, cfg.head_dim, cfg.d_ff) == \
+            (4096, 32, 128, 11008)
+        n = cfg.param_count()
+        need = LAUNCHER_CKPTS_ON_DISK * CKPT_BYTES_PER_PARAM * n + 2 ** 31
+        if free >= need:
+            return cfg, n, need, free
+    raise AssertionError(f"[launcher] {free / 2 ** 30:.1f} GiB free under "
+                         f"{root}: no cut of {LAUNCHER_LAYERS} layers fits "
+                         f"{LAUNCHER_CKPTS_ON_DISK} checkpoints")
+
+
+def phase_train_launcher(state) -> None:
+    """Phase 14: ``launch.train.train`` at llama2-7b's full width (the cut
+    depth that fits on the disk), B=2, S=2048, site "qkv", f32, the flash
+    kernels, replay: runs A twice uninterrupted under a TrajectoryRecorder
+    (they must agree bitwise), run B
+    under a ChaosMonkey (mid-forward and mid-backward kills) with its
+    step-6 checkpoint write killed; B's loss bits and mask digests against
+    A's; then the launcher resumes from B's checkpoint with the same plan
+    ("verified", steps 6 and 7 against A's), with site "ffn_up"
+    ("recompiled", proven by the counter layer) and with p = 0.2 (must
+    raise ContractMismatchError). Every kernel of the path launched in
+    the runs; the checkpoint directory is deleted at the end."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "launcher_ckpt")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    try:
+        _launcher_main_path(state, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _launcher_main_path(state, root) -> None:
+    from repro_torch.checkpoint import Checkpointer, ContractMismatchError
+    from repro_torch.core.overlap import DropoutPlan
+    from repro_torch.distributed.chaos import ChaosMonkey, Fault
+    from repro_torch.launch import train as launcher
+    t_phase = time.perf_counter()
+    cfg, n_params, need, free = _launcher_layers(root)
+    log(f"[launcher] llama2-7b width x {cfg.n_layers} layers "
+        f"({n_params / 1e9:.3f}B params by the config, {CKPT_BYTES_PER_PARAM}"
+        f" B a param: {CKPT_BYTES_PER_PARAM * n_params / 1e9:.2f} GB a "
+        f"checkpoint): {free / 2 ** 30:.1f} GiB free under build/, run B "
+        f"needs "
+        f"{need / 2 ** 30:.1f} GiB ({LAUNCHER_CKPTS_ON_DISK} checkpoints); "
+        f"tried {LAUNCHER_LAYERS} layers, deepest first")
+    steps = LAUNCHER_STEPS
+    run = _launcher_run(cfg, steps + 1, os.path.join(root, "a"))
+    plan = DropoutPlan(run.dropout)
+    h, s = cfg.n_heads, TRAIN_S
+
+    def uninterrupted(tag):
+        rec = _CountingRecorder(plan, TRAIN_B, h, s)
+        clock = _StepClock()
+        ckpt = _TimedCheckpointer(os.path.join(root, tag))
+        out = launcher.train(
+            dataclasses.replace(run, train=dataclasses.replace(
+                run.train, checkpoint_dir=ckpt.directory)), steps,
+            device="cuda", checkpointer=ckpt,
+            wrap_step=lambda f: clock.wrap_done(rec.wrap_step(f)))
+        if out.report.steps_completed != steps or out.report.restarts:
+            raise AssertionError(f"[launcher] run {tag}: {out.report}")
+        n = sum(t.numel() for t in leaves(out.state["master"]))
+        del out
+        gc.collect()
+        torch.cuda.empty_cache()
+        return rec, clock, n
+
+    reset_launch_counts()
+    rec_a, clock_a, n_params = uninterrupted("a")
+    rec_a2, _, _ = uninterrupted("a2")
+    steps_a = [float(t) for t in
+               np.diff([0.0] + [t for _, t in clock_a.done])[1:]]
+    _bitwise("two uninterrupted runs A", rec_a, rec_a2)
+    if not all(np.isfinite(_loss(v)) for v in rec_a.loss_bits.values()):
+        raise AssertionError("[launcher] run A: non-finite loss")
+    log(f"[launcher] runs A twice, uninterrupted: losses "
+        f"{[_loss(rec_a.loss_bits[i]) for i in range(steps)]}; loss bits "
+        f"and mask digests bitwise equal; step times "
+        f"{[round(t, 4) for t in steps_a]} s | {state['smi']}")
+
+    # run B: the same under faults, one checkpoint write killed
+    ckpt_dir_b = os.path.join(root, "b")
+    rec_b = _CountingRecorder(plan, TRAIN_B, h, s)
+    clock_b = _StepClock()
+    monkey = ChaosMonkey([Fault(st, ph) for st, ph in LAUNCHER_FAULTS])
+    ckpt_b = _TimedCheckpointer(ckpt_dir_b, kill_steps={LAUNCHER_KILL})
+    run_b = dataclasses.replace(run, train=dataclasses.replace(
+        run.train, checkpoint_every=LAUNCHER_CKPT_EVERY,
+        checkpoint_dir=ckpt_dir_b))
+    t0 = time.perf_counter()
+    out_b = launcher.train(
+        run_b, steps, device="cuda", checkpointer=ckpt_b,
+        wrap_step=lambda f: clock_b.wrap_faults(monkey.wrap_step(
+            clock_b.wrap_done(rec_b.wrap_step(f)))))
+    wall_b = time.perf_counter() - t0
+    rep = out_b.report
+    del out_b
+    gc.collect()
+    torch.cuda.empty_cache()
+    if (rep.steps_completed, rep.restarts, rep.failed_saves) != \
+            (steps, len(LAUNCHER_FAULTS), 1) or \
+            ckpt_b.killed_writes != [LAUNCHER_KILL] or monkey.pending:
+        raise AssertionError(f"[launcher] run B: {rep}, killed writes "
+                             f"{ckpt_b.killed_writes}, pending faults "
+                             f"{monkey.pending}")
+    _bitwise("run B against run A", rec_a, rec_b)
+    recov = clock_b.recoveries()
+    gathers = [round(g, 3) for _, _, g in ckpt_b.saves]
+    waits = [round(w, 3) for _, w, _ in ckpt_b.saves]
+    log(f"[launcher] run B: {rep.steps_completed} steps, faults "
+        f"{monkey.injected}, restarts {rep.restarts}, failed saves "
+        f"{rep.failed_saves} (write of step {LAUNCHER_KILL} killed), "
+        f"{rec_b.replays} replayed steps, {rec_b.records} step runs of a "
+        f"{n_params / 1e9:.3f}B-parameter model in "
+        f"{wall_b:.1f} s; loss bits and mask digests bitwise run A's")
+    log(f"[launcher] checkpoints ({CKPT_BYTES_PER_PARAM * n_params / 1e9:.2f}"
+        f" GB each): host gather {gathers} s, file write "
+        f"{[(st, round(w, 3)) for st, w in ckpt_b.writes]} s, a save's wait "
+        f"for the previous write {waits} s, so the stall a save adds to its "
+        f"step {[round(w + g, 3) for w, g in zip(waits, gathers)]} s; "
+        f"restore {[(st, round(r, 3)) for st, r in ckpt_b.restores]} s; time "
+        f"to recover (fault to the end of the failed step's re-run) "
+        f"{[(st, round(r, 3)) for (st, _), r in zip(clock_b.faults, recov)]}"
+        f" s | {state['smi']}")
+
+    # resume through the launcher from B's checkpoint: the same plan
+    rec_r = _CountingRecorder(plan, TRAIN_B, h, s)
+    ckpt_r = _TimedCheckpointer(ckpt_dir_b)
+    out = launcher.train(run_b, steps, device="cuda", checkpointer=ckpt_r,
+                         wrap_step=rec_r.wrap_step)
+    latest = out.resumed_from
+    if out.contract_status != "verified" or latest != 2 * \
+            LAUNCHER_CKPT_EVERY or out.report.steps_completed != steps:
+        raise AssertionError(f"[launcher] same-plan resume: "
+                             f"{out.contract_status} from {latest}")
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
+    if sorted(rec_r.loss_bits) != list(range(latest, steps)):
+        raise AssertionError(f"[launcher] the resume ran steps "
+                             f"{sorted(rec_r.loss_bits)}")
+    for i in range(latest, steps):
+        if rec_r.loss_bits[i] != rec_a.loss_bits[i] or \
+                rec_r.mask_digest[i] != rec_a.mask_digest[i]:
+            raise AssertionError(
+                f"[launcher] resumed step {i} differs from run A's: loss "
+                f"bits {rec_r.loss_bits[i]:#010x} vs "
+                f"{rec_a.loss_bits[i]:#010x}, mask digests "
+                f"{rec_r.mask_digest[i][:12]} vs {rec_a.mask_digest[i][:12]}")
+    counts = launch_counts()
+    sched = launcher.compile_run_schedule(cfg, run)
+    n_runs = rec_a.records + rec_a2.records + rec_b.records + rec_r.records
+    want = _expected_launches(sched, run.sharding.remat, n_runs)
+    want[philox.KERNEL] += n_runs            # one digest plane a step run
+    if counts != want:
+        raise AssertionError(f"[launcher] launches {counts} != {want}")
+    state["launcher_launches"] = counts
+    log(f"[launcher] resume, same plan: dropout contract verified, from "
+        f"step {latest}, steps {latest}..{steps - 1} bitwise run A's; "
+        f"restore {[(st, round(r, 3)) for st, r in ckpt_r.restores]} s; "
+        f"launches over the {n_runs} step runs "
+        f"of A, A, B and the resume {counts} == the schedule's formula (+1 "
+        f"Philox plane a step for the recorder's digest)")
+
+    # a changed realization: re-proven by the counter layer
+    moved = dataclasses.replace(run_b, dropout=dataclasses.replace(
+        run_b.dropout, site="ffn_up"))
+    out = launcher.train(moved, latest, device="cuda",
+                         checkpointer=Checkpointer(ckpt_dir_b))
+    if out.contract_status != "recompiled" or out.report.steps_completed \
+            != latest:
+        raise AssertionError(f"[launcher] site ffn_up resume: "
+                             f"{out.contract_status}")
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the control: a changed p changes the bits and must be refused
+    drifted = dataclasses.replace(run_b, dropout=dataclasses.replace(
+        run_b.dropout, p=0.2))
+    try:
+        launcher.train(drifted, latest, device="cuda",
+                       checkpointer=Checkpointer(ckpt_dir_b))
+    except ContractMismatchError as e:
+        refused = str(e).splitlines()[1].strip()
+    else:
+        raise AssertionError("[launcher] a resume with p=0.2 was not "
+                             "refused")
+    log(f"[launcher] resume with site ffn_up: recompiled (the counter layer "
+        f"proved the new schedule); with p=0.2: ContractMismatchError "
+        f"({refused}); phase {time.perf_counter() - t_phase:.1f} s")
+    state["train_launcher"] = dict(
+        layers=cfg.n_layers, params=n_params,
+        step_s=float(np.mean(steps_a[1:])), gather_s=gathers,
+        write_s=[w for _, w in ckpt_b.writes],
+        restore_s=[r for _, r in ckpt_b.restores], recover_s=recov)
+
+
 def kernel_records(state):
     """One record a TPU kernel instance (each function that reaches
     pl.pallas_call, at each operand dtype the port runs), in the order of
@@ -4655,7 +5003,9 @@ def kernel_records(state):
     and 10) and its ffn_up/fp8 step (the bf16-C instances of 7, 8 and 11).
     The emission-off variants (3, 8, 10 and their bf16 instances) run only
     in Region 3, which none of these paths plans: their launches are 0
-    there, and phase 2 launches and checks them directly."""
+    there, and phase 2 launches and checks them directly. Rows 1, 2, 4, 5
+    and 6 also carry ``launches_launcher``: their launches in phase 14's
+    runs of the training launcher."""
     t, errs = state["timing"], state["errs"]
     g = "src/repro/kernels/gemm_rng.py"
     k32, k8 = gemm_rng.KERNEL, gemm_rng.KERNEL_FP8
@@ -4786,6 +5136,13 @@ def kernel_records(state):
          moe_fp8b["launches"][g8b], errs[g8b], t[g8b],
          {"shape": t[g8b]["shape"]}),
     ]
+    # phase 14 drives rows 1, 2, 4, 5 and 6 again, through the launcher
+    for i, row in enumerate(rows):
+        if row[0] in state["launcher_launches"] and row[0] in (
+                philox.KERNEL, k32, flash.KERNEL, flash_bwd.KERNEL_DQ,
+                flash_bwd.KERNEL_DKV):
+            rows[i] = row[:7] + ({**row[7], "launches_launcher":
+                                  state["launcher_launches"][row[0]]},)
     recs = []
     for name, src, replaces, path, launches, err, tm, extra in rows:
         recs.append({"name": name, "route": "cuda",
@@ -4812,7 +5169,7 @@ def main() -> int:
                   phase_train_sites, phase_train_moe, phase_train_bf16,
                   phase_train_moe_bf16, phase_train_fused,
                   phase_train_griffin, phase_train_griffin_f32,
-                  phase_serve_layers):
+                  phase_serve_layers, phase_train_launcher):
         phase(state)
         log(f"[time] {phase.__name__} done at "
             f"{time.perf_counter() - t0:.1f}s")

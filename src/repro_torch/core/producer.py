@@ -95,6 +95,20 @@ def pick_gemm_blocks(m: int, n: int, k: int
     return bm, bn, bk
 
 
+def shard_host_gemm(m: int, n: int, k: int, batch_shards: int = 1,
+                    head_shards: int = 1) -> Tuple[int, int, int]:
+    """Per-shard (m_loc, n_loc, k) of a dense host GEMM under the mask
+    plane's shard layout (the JAX package's function): rows follow the
+    batch shards, columns the head shards; a dim that does not divide
+    stays global. The schedule compiler and the counter layer
+    (``analysis/counters.py``) derive a planned shard's grid from it."""
+    m_loc = m // batch_shards if batch_shards > 1 and m % batch_shards == 0 \
+        else m
+    n_loc = n // head_shards if head_shards > 1 and n % head_shards == 0 \
+        else n
+    return m_loc, n_loc, k
+
+
 def mask_kernel_unsupported_reason(plan: DropoutPlan, sq: int, sk: int,
                                    fused: bool = True) -> Optional[str]:
     """Why the TPU mask producers cannot represent this plan/shape — None
@@ -384,26 +398,38 @@ def moe_expert_capacity(moe, tokens: int) -> int:
 
 
 def grouped_host_shapes(cfg: ModelConfig, batch: int, seq: int,
+                        batch_shards: int = 1, head_shards: int = 1,
+                        seq_dispatch: bool = False,
                         moe_block: Optional[bool] = None
                         ) -> Dict[str, Tuple[int, int, int, int]]:
     """(E, C, k, n) of the grouped candidate host GEMMs of a block whose FFN
-    has no dense 2D GEMM, on one device: the MoE expert einsum (E, C, D) x
+    has no dense 2D GEMM: the MoE expert einsum (E, C, D) x
     (E, D, F) -- "ffn_up" under the gate projection, "ffn_down" under the
     down projection -- and the RWKV channel-mix key / value GEMMs as E=1.
     ``moe_block`` is the per-layer block kind (a MoE stack's first-dense
     layers can carry an RWKV channel-mix FFN); None means cfg.moe is set.
-    (JAX's shard arguments estimate a sharded run's local grid; the port
-    plans one device.)"""
+    The shard arguments estimate a planned shard's local grid with JAX's
+    arithmetic (tokens chunked over the batch shards, and over the head
+    shards too under ``seq_dispatch``; experts split over the batch shards,
+    an expert's width over the head shards): the counter layer proves the
+    topology-2 cells on it. The port runs one device."""
     d = cfg.d_model
-    toks = batch * seq
+    tok_shards = max(1, batch_shards) * (max(1, head_shards)
+                                         if seq_dispatch else 1)
+    toks = (batch * seq) // tok_shards
     if moe_block is None:
         moe_block = cfg.moe is not None
     if moe_block:
         m = cfg.moe
-        cap = moe_expert_capacity(m, toks)
-        return {"ffn_up": (m.n_experts, cap, d, m.d_ff_expert),
-                "ffn_down": (m.n_experts, cap, m.d_ff_expert, d)}
+        e, cap = m.n_experts, moe_expert_capacity(m, toks)
+        if batch_shards > 1 and e % batch_shards == 0:
+            e, cap = e // batch_shards, tok_shards * cap
+        f = m.d_ff_expert
+        if head_shards > 1 and f % head_shards == 0:
+            f //= head_shards
+        return {"ffn_up": (e, cap, d, f), "ffn_down": (e, cap, f, d)}
     if cfg.ffn == FFNKind.RWKV_CHANNEL:
+        toks = (batch * seq) // max(1, batch_shards)
         return {"ffn_up": (1, toks, d, cfg.d_ff),
                 "ffn_down": (1, toks, cfg.d_ff, d)}
     return {}

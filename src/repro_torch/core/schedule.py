@@ -15,8 +15,12 @@ hosting "ffn_up" / "ffn_down" through the grouped kernel; ``gemm_dtype``
 "f32", "bf16" and "fp8" (dense and grouped hosts); ``attn_impl`` "xla" and
 "pallas"; the replay upgrade. ``attn_impl="pallas"`` keeps the knob's JAX
 name: in the port it selects the hand-written CUDA kernels (fused and
-grouped GEMM+RNG hosts, flash forward and backward). ``site="auto"`` and
-sharding policies raise ``NotImplementedError`` naming the ROADMAP item.
+grouped GEMM+RNG hosts, flash forward and backward). A ``ShardInfo``
+plans a mesh's shard-local producers as JAX's compiler does (the lint's
+topology sweep proves those plans); running one, and a sharding policy,
+is not ported. ``site="auto"`` raises ``NotImplementedError`` naming the
+ROADMAP item. ``compile_schedule(..., verify=True)`` proves the plan
+through the counter layer (``repro_torch.analysis``).
 """
 from __future__ import annotations
 
@@ -156,6 +160,15 @@ class DropoutSchedule:
         head += (f" gemm_dtype={p.gemm_dtype} impl={self.attn_impl} "
                  f"carried={'yes' if self.carried else 'no'}")
         lines = [head]
+        if self.shard.policy_installed:
+            s = self.shard
+            lines.append(
+                f"  sharding: mask plane (b x h) = "
+                f"{s.batch_shards} x {s.head_shards} shards "
+                f"(batch axes {list(s.batch_axes)}, "
+                f"head axes {list(s.head_axes)}) -> "
+                + ("shard-local producers" if self.sharded
+                   else "replicated/XLA producers"))
         if not self.active:
             lines.append("  inert: no attention-score dropout to "
                          "schedule")
@@ -267,6 +280,10 @@ def _fused_capability(plan: DropoutPlan, cfg: ModelConfig, batch: int,
         return (HOW_STANDALONE, sharded,
                 f"no hostable {site} GEMM in this block")
     m, n, k = gemm
+    # a planned shard's rows follow the batch shards, its columns the head
+    # shards (the local grid; m, n themselves on one device)
+    m, n, k = producer.shard_host_gemm(m, n, k, shard.batch_shards,
+                                       shard.head_shards)
     blocks = producer.pick_gemm_blocks(m, n, k)
     if blocks is None:
         return HOW_XLA, False, f"GEMM ({m},{n},{k}) does not tile"
@@ -292,7 +309,8 @@ def _check_host_dtype(plan: DropoutPlan) -> None:
 
 def _grouped_capability(plan: DropoutPlan, cfg: ModelConfig, batch: int,
                         seq: int, site: str, shard: ShardInfo,
-                        attn_impl: str, block_is_moe: Optional[bool] = None
+                        attn_impl: str, moe_seq_dispatch: bool = False,
+                        block_is_moe: Optional[bool] = None
                         ) -> Tuple[str, bool, str]:
     """(how, sharded, reason) for hosting one mask under the GROUPED GEMM
     of a block whose FFN has no dense 2D host: the MoE expert einsum or the
@@ -309,8 +327,10 @@ def _grouped_capability(plan: DropoutPlan, cfg: ModelConfig, batch: int,
     if early is not None:
         return early
     sharded = shard.policy_installed
-    g = producer.grouped_host_shapes(cfg, batch, seq,
-                                     moe_block=block_is_moe).get(site)
+    g = producer.grouped_host_shapes(
+        cfg, batch, seq, batch_shards=shard.batch_shards,
+        head_shards=shard.head_shards, seq_dispatch=moe_seq_dispatch,
+        moe_block=block_is_moe).get(site)
     if g is None:
         return (HOW_STANDALONE, sharded,
                 f"no hostable {site} GEMM in this block")
@@ -330,17 +350,19 @@ def _grouped_capability(plan: DropoutPlan, cfg: ModelConfig, batch: int,
     return HOW_GEMM_GROUPED, sharded, ""
 
 
-def _standalone_capability(plan: DropoutPlan, seq: int,
-                           attn_impl: str) -> Tuple[str, str]:
-    """(how, reason) for a standalone (bootstrap / Region-3) producer on
-    one device."""
+def _standalone_capability(plan: DropoutPlan, shard: ShardInfo, seq: int,
+                           attn_impl: str) -> Tuple[str, bool, str]:
+    """(how, sharded, reason) for a standalone (bootstrap / Region-3)
+    producer."""
     if attn_impl != "pallas":
-        return HOW_XLA, "impl != pallas (no fused kernels)"
+        return HOW_XLA, False, "impl != pallas (no fused kernels)"
     reason = producer.mask_kernel_unsupported_reason(plan, seq, seq,
                                                      fused=False)
     if reason is not None:
-        return HOW_XLA, reason
-    return HOW_STANDALONE, ""
+        return HOW_XLA, False, reason
+    if shard.policy_installed and not shard.active:
+        return HOW_XLA, False, "mask (b, h) not shardable on this mesh"
+    return HOW_STANDALONE, shard.policy_installed, ""
 
 
 def _replay_reason(plan: DropoutPlan, cfg: ModelConfig, seq: int,
@@ -428,6 +450,7 @@ def _compile(cfg: ModelConfig, plan_cfg: DropoutPlanConfig, batch: int,
                     block_is_moe or cfg.ffn == FFNKind.RWKV_CHANNEL):
                 e_how, _, e_reason = _grouped_capability(
                     plan, cfg, batch, seq, site, shard, attn_impl,
+                    moe_seq_dispatch=moe_seq_dispatch,
                     block_is_moe=block_is_moe)
             else:
                 # a MoE stack's first-dense layers carry a dense FFN
@@ -441,16 +464,21 @@ def _compile(cfg: ModelConfig, plan_cfg: DropoutPlanConfig, batch: int,
                         emit_how=e_how, emit_reason=e_reason)
             prev = max((a for a in attn_layers if a < l), default=-1)
             if prev < 0:
-                how, reason = _standalone_capability(plan, seq, attn_impl)
+                how, sh, reason = _standalone_capability(plan, shard, seq,
+                                                         attn_impl)
                 asgs.append(HostAssignment(
                     layer=l, kind=kind.value, consumes=True,
                     site="standalone", producer=-1, how=how,
+                    sharded=sh and how != HOW_XLA,
                     reason=reason or "bootstrap: no producer GEMM before "
                                      "the first attention layer", **emit))
             else:
+                p_how = asgs[prev].emit_how
                 asgs.append(HostAssignment(
                     layer=l, kind=kind.value, consumes=True, site=site,
-                    producer=prev, how=asgs[prev].emit_how,
+                    producer=prev, how=p_how,
+                    sharded=(p_how != HOW_XLA and shard.policy_installed
+                             and shard.active),
                     reason=asgs[prev].emit_reason, **emit))
     # zero-HBM upgrade: counter replay at the consumer wherever the flash
     # kernels can reconstruct the producer's counters exactly
@@ -498,18 +526,34 @@ def _check_scan_periodicity(cfg: ModelConfig, sched: DropoutSchedule):
 
 def compile_schedule(model_cfg: ModelConfig, plan, batch: int, seq: int,
                      *, policy=None, attn_impl: str = "xla",
-                     moe_seq_dispatch: bool = False,
+                     moe_seq_dispatch: bool = False, verify: bool = False,
                      shard: Optional[ShardInfo] = None) -> DropoutSchedule:
     """Compile the per-layer dropout schedule for one (model, plan, shape)
     cell. ``plan`` is a DropoutPlanConfig or DropoutPlan. Results are
-    cached: the same inputs return the identical object."""
+    cached: the same inputs return the identical object.
+
+    ``verify=True`` runs the static mask-safety verifier's counter layer
+    (``repro_torch.analysis``) over the compiled schedule and raises
+    ``repro_torch.analysis.MaskSafetyError`` on any finding: integer
+    arithmetic over the kernels' walks, no kernel runs.
+
+    ``shard`` plans for a mesh this process does not hold (the pure
+    arithmetic the lint's topology sweep and a resharded restore's
+    contract check use). Such a schedule is for analysis: the model's
+    forward refuses it, as it refuses a sharding ``policy``, which is not
+    ported."""
     plan_cfg = plan.cfg if isinstance(plan, DropoutPlan) else plan
     if plan_cfg is None:
         raise ValueError("compile_schedule requires a dropout plan")
-    if policy is not None or (shard is not None and shard.policy_installed):
+    if policy is not None:
         raise _not_ported("a sharding policy")
-    return _compile(model_cfg, plan_cfg, batch, seq, shard or ShardInfo(),
-                    attn_impl, moe_seq_dispatch)
+    sched = _compile(model_cfg, plan_cfg, batch, seq, shard or ShardInfo(),
+                     attn_impl, moe_seq_dispatch)
+    if verify:
+        # imported lazily: the analysis imports this module
+        from repro_torch.analysis import verify_schedule
+        verify_schedule(model_cfg, sched)
+    return sched
 
 
 def inline_assignment(model_cfg: ModelConfig, plan: DropoutPlan,
@@ -526,9 +570,11 @@ def inline_assignment(model_cfg: ModelConfig, plan: DropoutPlan,
     asg = sched.for_layer(sched.first_consumer)
     if asg.site in CARRIED_DROPOUT_SITES and asg.how != HOW_REPLAY:
         # (a replay consumer needs no carry at all: keep it as it is)
-        how, reason = _standalone_capability(plan, seq, attn_impl)
+        how, sh, reason = _standalone_capability(plan, sched.shard, seq,
+                                                 attn_impl)
         asg = dataclasses.replace(
             asg, site="standalone", how=how,
+            sharded=sh and how != HOW_XLA,
             reason=reason or "no scan carry outside the model")
     return asg
 

@@ -4,18 +4,23 @@ dropout path uses, so restarting at step N reproduces the token stream.
 Tokens follow a log-uniform ("Zipf-ish") rank distribution. The batches
 are the JAX package's, token for token.
 
-The prefetch thread and on-device placement of the JAX package
-(``Prefetcher``, ``device_batch``) are not ported yet (ROADMAP); callers move
-the numpy arrays with ``torch.from_numpy(...).to(device)``.
+``device_batch`` puts a step's batch on a device (the card unless asked)
+from pinned host memory with ``non_blocking=True``, so the copy overlaps
+the host's next work; ``Prefetcher`` makes the next batches on a
+background thread, a queue of ``depth`` ahead (the JAX package's). A
+sharding policy (batch-over-data placement) is not ported.
 """
 from __future__ import annotations
 
-from typing import Tuple
+import queue
+import threading
+from typing import Iterator, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.config.base import ModelConfig, ShapeConfig
+from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels.philox_common import U32_MASK, philox4x32
 
 
@@ -50,3 +55,77 @@ def embed_batch_for_step(cfg: ModelConfig, shape: ShapeConfig, step: int,
     emb = rng.standard_normal(
         (shape.global_batch, shape.seq_len, cfg.d_model)).astype(np.float32)
     return emb, labels
+
+
+def _to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if device.type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
+def device_batch(cfg: ModelConfig, shape: ShapeConfig, step: int,
+                 policy=None, seed: int = 0, device: DeviceLike = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The batch of ``step`` on ``device`` (the card unless asked): tokens
+    (B, S) or, for an embedding frontend, embeddings (B, S, D), and labels
+    (B, S). On the card the host arrays are pinned and copied without
+    blocking the host. ``policy`` (a sharded placement) is not ported."""
+    if policy is not None:
+        raise NotImplementedError(
+            "device_batch under a sharding policy is not ported yet "
+            "(ROADMAP: port queue, multi-device)")
+    dev = resolve_device(device)
+    if cfg.frontend == "token":
+        x, y = batch_for_step(cfg, shape, step, seed)
+    else:
+        x, y = embed_batch_for_step(cfg, shape, step, seed)
+    return _to_device(x, dev), _to_device(y, dev)
+
+
+class Prefetcher:
+    """Background-thread prefetch of synthetic batches (a depth-N queue of
+    (step, batch) from ``start_step`` on)."""
+
+    def __init__(self, cfg: ModelConfig, shape: ShapeConfig,
+                 start_step: int, seed: int = 0, depth: int = 2,
+                 policy=None, device: DeviceLike = None):
+        if policy is not None:
+            raise NotImplementedError(
+                "Prefetcher under a sharding policy is not ported yet "
+                "(ROADMAP: port queue, multi-device)")
+        self.cfg, self.shape, self.seed = cfg, shape, seed
+        self.device = resolve_device(device)
+        self._q: "queue.Queue" = queue.Queue(maxsize=depth)
+        self._stop = threading.Event()
+        self._step = start_step
+        self._thread = threading.Thread(target=self._worker, daemon=True)
+        self._thread.start()
+
+    def _worker(self):
+        step = self._step
+        while not self._stop.is_set():
+            batch = device_batch(self.cfg, self.shape, step, seed=self.seed,
+                                 device=self.device)
+            while not self._stop.is_set():
+                try:
+                    self._q.put((step, batch), timeout=0.1)
+                    break
+                except queue.Full:
+                    continue
+            step += 1
+
+    def __iter__(self) -> Iterator:
+        return self
+
+    def __next__(self):
+        return self._q.get()
+
+    def stop(self):
+        self._stop.set()
+        try:
+            while True:
+                self._q.get_nowait()
+        except queue.Empty:
+            pass
+        self._thread.join(timeout=2.0)

@@ -121,6 +121,40 @@ def global_bh(local_bh: IntOrTensor, heads_local: int, heads_global: int,
                   + lb % heads_local)
 
 
+def shard_plane_windows(batch: int, heads: int, batch_shards: int = 1,
+                        head_shards: int = 1
+                        ) -> Tuple[Tuple[int, int, int], ...]:
+    """(bh_offset, batch_local, heads_local) of every shard-local
+    producer's tile of the (B, H) mask plane under a (batch_shards x
+    head_shards) split, in pure ints (the JAX package's function). A dim
+    that does not divide stays unsplit (that shard dimension is
+    replicated)."""
+    if batch % max(batch_shards, 1):
+        batch_shards = 1
+    if heads % max(head_shards, 1):
+        head_shards = 1
+    b_loc = batch // batch_shards
+    h_loc = heads // head_shards
+    return tuple((ib * b_loc * heads + ih * h_loc, b_loc, h_loc)
+                 for ib in range(batch_shards)
+                 for ih in range(head_shards))
+
+
+def shard_bh_intervals(bh_offset: int, batch_local: int,
+                       heads_local: int, heads_global: int
+                       ) -> Tuple[Tuple[int, int], ...]:
+    """Half-open intervals of global flattened (b*H + h) counter indices
+    that a shard-local producer covers, the int mirror of ``global_bh``: a
+    (b_loc, h_loc) tile starting at ``bh_offset`` owns h_loc contiguous
+    indices a local batch row, strided by H_global."""
+    off = int(bh_offset)
+    if heads_local == heads_global:
+        return ((off, off + batch_local * heads_local),)
+    return tuple((off + b * heads_global,
+                  off + b * heads_global + heads_local)
+                 for b in range(batch_local))
+
+
 def packed_tile_from_counters(q32_start: int, k_start: int,
                               bh: torch.Tensor, salt: int, k0: int, k1: int,
                               threshold: int, rows32: int, bk: int,

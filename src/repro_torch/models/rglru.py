@@ -88,12 +88,17 @@ def _causal_conv(p, u: torch.Tensor,
 
 def _gates(p, c: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """(log a, i * c), both f32, from the conv output c (B, T, R): the gate
-    GEMMs run in c's dtype and their sums are cast to f32 before the
-    sigmoid, as JAX casts them."""
+    GEMMs run in c's dtype, and each adds its bias in f32 before the
+    sigmoid. That is JAX's function as XLA compiles it: its source adds
+    the bias in c's dtype and casts the sum to f32, and the compiled
+    program drops that rounding (excess precision; at f32 both are the
+    same sum)."""
     dt = c.dtype
     f32 = torch.float32
-    r_gate = torch.sigmoid((c @ p["w_a"].to(dt) + p["b_a"].to(dt)).to(f32))
-    i_gate = torch.sigmoid((c @ p["w_i"].to(dt) + p["b_i"].to(dt)).to(f32))
+    r_gate = torch.sigmoid((c @ p["w_a"].to(dt)).to(f32)
+                           + p["b_a"].to(dt).to(f32))
+    i_gate = torch.sigmoid((c @ p["w_i"].to(dt)).to(f32)
+                           + p["b_i"].to(dt).to(f32))
     lam = p["lambda"].to(f32)
     softplus = torch.logaddexp(lam, torch.zeros_like(lam))
     log_a = -_C * softplus * r_gate

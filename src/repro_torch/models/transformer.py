@@ -275,9 +275,14 @@ def _residual_norm(p_norm, x: torch.Tensor, y: torch.Tensor,
 
 
 def block_apply(p, x, cfg: ModelConfig, rt: Runtime, kind, tag, layer_idx,
-                asg=None, mask_in=None, emit: bool = False):
+                asg=None, mask_in=None, emit: bool = False, x32=None):
     """One pre-norm block: x + mix(norm(x)), then + ffn(norm(x)). Returns
-    (x, aux loss or None, next plane or None). ``asg`` is the block's
+    (x, aux loss or None, next plane or None, the unrounded f32 output or
+    None). ``x32`` is the previous block's unrounded f32 output inside one
+    stack unit: the first norm reads it, as JAX's compiled scan body does
+    between the blocks of a unit (the residual ``x`` stays rounded; across
+    units the scan carry rounds it; models without MoE layers only, and at
+    f32 it is ``x`` itself). ``asg`` is the block's
     HostAssignment from the compiled schedule; with ``emit`` (a
     carried-site schedule) the block consumes ``mask_in`` and emits the
     next attention layer's plane under its out-projection ("prev_gemm") or
@@ -288,7 +293,8 @@ def block_apply(p, x, cfg: ModelConfig, rt: Runtime, kind, tag, layer_idx,
     is_attn = kind in (AttentionKind.FULL, AttentionKind.LOCAL)
     ffn_hosts = (emit and is_attn and asg is not None
                  and asg.emit_site in ("ffn_up", "ffn_down"))
-    h = norm_apply(p["norm_mix"], x, cfg)
+    h = (norm_apply(p["norm_mix"], x, cfg) if x32 is None
+         else norm_apply(p["norm_mix"], x32, cfg).to(x.dtype))
     y, mask_next = _mix_forward(
         p["mix"], h, cfg, rt, kind, layer_idx, mask_in=mask_in,
         emit_next=emit and is_attn and not ffn_hosts, asg=asg)
@@ -317,7 +323,10 @@ def block_apply(p, x, cfg: ModelConfig, rt: Runtime, kind, tag, layer_idx,
             # replay-planned consumers never read a plane: a retained
             # GEMM-hosted emission ran for the RNG-under-GEMM overlap only
             mask_next = None
-    return x + f, aux, mask_next
+    if cfg.moe is not None:
+        return x + f, aux, mask_next, None
+    out32 = x.to(torch.float32) + f.to(torch.float32)
+    return out32.to(x.dtype), aux, mask_next, out32
 
 
 def _add_aux(total, aux):
@@ -356,6 +365,10 @@ def forward(params, cfg: ModelConfig, rt: Runtime, inputs
         sched = schedule_mod.compile_schedule(
             cfg, rt.plan.cfg, x.shape[0], x.shape[1],
             attn_impl=rt.attn_impl)
+    if sched is not None and sched.shard.policy_installed:
+        raise NotImplementedError(
+            "a schedule planned for a sharded mesh does not run on one "
+            "device (ROADMAP: port queue, sharding policies)")
     active = sched is not None and sched.active
     carry_mask = active and sched.carried
     mask_buf = None
@@ -377,12 +390,12 @@ def forward(params, cfg: ModelConfig, rt: Runtime, inputs
 
             def unit_apply(x, mask, _up=up, _pos=pos, _spec=spec,
                            _ul=unit_len, _asgs=unit_asgs):
-                aux = None
+                aux = x32 = None
                 for j, (kind, tag) in enumerate(_spec.unit):
-                    x, a, mask = block_apply(
+                    x, a, mask, x32 = block_apply(
                         _up[f"l{j}"], x, cfg, rt, kind, tag,
                         _spec.base + _pos * _ul + j, asg=_asgs[j],
-                        mask_in=mask, emit=carry_mask)
+                        mask_in=mask, emit=carry_mask, x32=x32)
                     aux = _add_aux(aux, a)
                 return x, aux, mask
 

@@ -11,14 +11,17 @@ One engine owns:
     per shape bucket, reseeded per request);
   * a ``PackedMaskCache`` holding each request's per-layer packed mask
     planes on the device, so every decode step's dropout row is a slice
-    of a resident plane (one Philox kernel launch per request and layer).
+    of a resident plane (one Philox kernel launch per request and layer);
+  * the admission-time ``DropoutContract`` per request, re-verified
+    through ``checkpoint.contract.verify_resume`` whenever a schedule
+    template moves: a realization drift must re-prove itself through the
+    counter layer, an identity drift fails fast.
 
 The engine clock is wall time with fast-forward over idle gaps. Every
 step ends by copying its logits to the host, which synchronizes the
 device, so the latencies measure finished work.
 
-Not ported yet: the admission-time ``DropoutContract`` and speculative
-decoding (``spec_k > 1`` raises).
+Not ported yet: speculative decoding (``spec_k > 1`` raises).
 """
 from __future__ import annotations
 
@@ -29,6 +32,10 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch.checkpoint.contract import (
+    contract_from_schedule,
+    verify_resume,
+)
 from repro_torch.config.base import DropoutPlanConfig, ModelConfig
 from repro_torch.core.schedule import (
     ScheduleBucket,
@@ -192,12 +199,34 @@ class ServeEngine:
         mask_seq = _round_up(cap, 32)
         bucket = ScheduleBucket.of(self.cfg, self.plan, batch=1,
                                    seq=mask_seq)
-        template = self.schedule_buckets.get(
+        template, gen = self.schedule_buckets.get(
             bucket, lambda: compile_schedule(
                 self.cfg, self.plan, 1, mask_seq))
+        sched = reseed_schedule(template, self.request_seed(req))
         req.bucket = bucket
         req.mask_seq = mask_seq
-        req.schedule = reseed_schedule(template, self.request_seed(req))
+        req.schedule = sched
+        req.contract = contract_from_schedule(self.cfg, sched)
+        req.contract_generation = gen
+
+    def verify_request_contract(self, req: Request) -> str:
+        """Fail fast when a request's schedule realization drifts from its
+        admission-time ``DropoutContract`` (the bucket template was
+        replaced since admission): a realization drift must re-prove
+        itself through the counter layer ("recompiled"); an identity drift
+        (different bits) raises ContractMismatchError, never a silent
+        recompile."""
+        gen = self.schedule_buckets.generation(req.bucket)
+        if gen == req.contract_generation:
+            return "verified"
+        template, gen = self.schedule_buckets.get(req.bucket, None)
+        sched = reseed_schedule(template, self.request_seed(req))
+        current = contract_from_schedule(self.cfg, sched)
+        verdict = verify_resume(req.contract, current, self.cfg, sched)
+        req.schedule = sched
+        req.contract = current
+        req.contract_generation = gen
+        return verdict
 
     # ---------------------------------------------------------- prefill
     def _prefill_request(self, req: Request, now: float) -> None:

@@ -16,14 +16,16 @@ bits).
 
 At admission each request gets its own ``DropoutSchedule``: one compiled
 template per ``ScheduleBucket``, reseeded per request
-(``reseed_schedule``).
+(``reseed_schedule``), and the ``DropoutContract`` frozen from it. The
+engine re-checks that contract against the bucket's template generation
+(``ServeEngine.verify_request_contract``).
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
 import enum
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 from repro_torch.serve.paged_kv import PageAllocation, PagePool
 
@@ -48,6 +50,8 @@ class Request:
     alloc: Optional[PageAllocation] = None
     schedule: Any = None              # per-request DropoutSchedule
     bucket: Any = None                # ScheduleBucket key
+    contract: Any = None              # admission-time DropoutContract
+    contract_generation: int = -1     # bucket-cache generation verified
     mask_seq: int = 0                 # packed-plane seq (multiple of 32)
     length: int = 0                   # tokens written to pages
     output: List[int] = dataclasses.field(default_factory=list)
@@ -71,21 +75,37 @@ class ScheduleBucketCache:
     """Compiled-schedule templates keyed by ``ScheduleBucket``.
 
     One ``compile_schedule`` per shape bucket; every further request in
-    the bucket stamps its schedule out by reseeding the template."""
+    the bucket stamps its schedule out by reseeding the template. Each
+    entry carries a ``generation`` counter: replacing a template (a config
+    push, code drift) bumps it, which tells the engine to re-verify every
+    affected request's admission-time DropoutContract before using the new
+    template."""
 
     def __init__(self):
-        self._entries: Dict[Any, Any] = {}
+        self._entries: Dict[Any, Tuple[Any, int]] = {}
         self.hits = 0
         self.misses = 0
 
     def get(self, bucket, compile_fn):
-        template = self._entries.get(bucket)
-        if template is not None:
+        """(template, generation) of ``bucket``, compiling on a miss."""
+        ent = self._entries.get(bucket)
+        if ent is not None:
             self.hits += 1
-            return template
+            return ent
         self.misses += 1
-        template = self._entries[bucket] = compile_fn()
-        return template
+        ent = self._entries[bucket] = (compile_fn(), 0)
+        return ent
+
+    def generation(self, bucket) -> int:
+        ent = self._entries.get(bucket)
+        return -1 if ent is None else ent[1]
+
+    def replace(self, bucket, template) -> int:
+        """Swap a bucket's template, bumping its generation (drift
+        injection for tests, hot config pushes)."""
+        gen = self.generation(bucket) + 1
+        self._entries[bucket] = (template, gen)
+        return gen
 
     def stats(self) -> Dict[str, int]:
         return {"hits": self.hits, "misses": self.misses,

@@ -13,9 +13,10 @@ AdamW. It is functional: it returns a new state and leaves the old one as
 it was, unless the caller donates the state (``donate=True``: updated in
 place). Mixed precision as in the JAX package: each step casts the f32
 master to ``compute_dtype`` (f32 or bf16) under autograd, so the gradients
-come back f32 on the master and AdamW runs in f32. The checkpointing
-``TrainRunner`` and the dropout contract of the JAX package's
-``launch/train.py`` are not ported yet (ROADMAP).
+come back f32 on the master and AdamW runs in f32. The checkpointed,
+crash-recovering launcher around it is ``launch/train.py`` (the
+``TrainRunner`` of ``distributed/fault.py``, the dropout contract of
+``checkpoint/contract.py``).
 
 ``make_prefill_step`` / ``make_serve_step`` wrap ``models.prefill`` and
 ``models.decode_step`` (the contiguous caches of every layer kind) with
@@ -109,9 +110,11 @@ def _log_schedule(context: str, sched) -> None:
     log.info("%s:\n%s", context, sched.explain())
 
 
-def compile_run_schedule(cfg: ModelConfig, run: RunConfig, policy=None):
+def compile_run_schedule(cfg: ModelConfig, run: RunConfig, policy=None,
+                         verify: bool = False):
     """The train step's DropoutSchedule for one RunConfig, compiled for the
-    per-microbatch shape the forward sees."""
+    per-microbatch shape the forward sees; ``verify`` proves it through
+    the counter layer first (``compile_schedule(verify=True)``)."""
     if policy is not None:
         raise _not_ported("training under a sharding policy")
     micro = run.train.microbatch
@@ -119,7 +122,8 @@ def compile_run_schedule(cfg: ModelConfig, run: RunConfig, policy=None):
         else run.shape.global_batch
     return compile_schedule(cfg, run.dropout, b_eff, run.shape.seq_len,
                             attn_impl=run.sharding.attn_impl,
-                            moe_seq_dispatch=run.sharding.moe_seq_dispatch)
+                            moe_seq_dispatch=run.sharding.moe_seq_dispatch,
+                            verify=verify)
 
 
 def make_grad_fn(cfg: ModelConfig, run: RunConfig, policy=None,

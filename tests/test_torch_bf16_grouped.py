@@ -300,10 +300,15 @@ LATER_GRAD_NORM_REL = 1e-2
 # attention (both bf16, the same bits): step-0 grad norm 6.711 against
 # 6.901 (2.8e-2; the f32 step's is 7.361), 5.4e-2 at step 2, and a leaf's
 # change over the 3 steps up to 0.27 apart. The port against JAX's flash
-# path: grad norm 3.5e-2 at step 0, 2.4e-2 at step 2 (1.2e-2 from JAX's
-# tensor-op path at step 0), a leaf's change up to 0.30, the loss within
-# 1.4e-4. A master left unchanged still reads 1, one moved the wrong way 2.
-HYBRID_GRAD_NORM_REL = 5e-2
+# path, rounding as JAX's compiled body does (models/transformer.py::
+# _residual_norm, and the first norm of a unit's second block reading the
+# first block's unrounded sum): grad norm 1.6e-2, 2.5e-4 and 3.0e-2 at
+# steps 0-2, a leaf's change up to 0.30, the loss within 2.7e-5. When the
+# port rounded as JAX's source does it read 3.5e-2 at step 0, 2.4e-2 at
+# step 2 and 0.30, under limits of 5e-2 and 0.5: the grad norm's limit is
+# tightened, the change's is not (its gap did not shrink). A master left
+# unchanged still reads 1, one moved the wrong way 2.
+HYBRID_GRAD_NORM_REL = 4e-2
 HYBRID_CHANGE_REL = 0.5
 
 
@@ -367,6 +372,9 @@ def test_bf16_three_step_trajectory_equals_jax(arch, site, dtype, replay):
         loss_rel = b16.LOSS_REL if i == 0 else LATER_LOSS_REL
         gn_rel = HYBRID_GRAD_NORM_REL if arch == "rwkv-hybrid" else (
             b16.GRAD_NORM_REL if i == 0 else LATER_GRAD_NORM_REL)
+        print(f"{arch} step {i}: grad norm {float(m['grad_norm'])} against "
+              f"JAX's {float(jm['grad_norm'])}, loss {float(m['loss'])} "
+              f"against {float(jm['loss'])}")
         for key in ("loss", "ce", "aux"):
             assert float(m[key]) == pytest.approx(
                 float(jm[key]), rel=loss_rel, abs=1e-6), (i, key)
@@ -383,6 +391,9 @@ def test_bf16_three_step_trajectory_equals_jax(arch, site, dtype, replay):
         w0 = np.asarray(w0, np.float64)
         d_port = got.numpy().astype(np.float64) - w0
         d_jax = np.asarray(want, np.float64) - w0
+        gap = np.linalg.norm(d_port - d_jax) / max(np.linalg.norm(d_jax),
+                                                   1e-30)
+        print(f"{arch} {path}: change {gap} from JAX's")
         assert np.linalg.norm(d_port - d_jax) <= \
             change_rel * np.linalg.norm(d_jax), path
 
