@@ -61,7 +61,8 @@ Phases (each raises on failure; nothing is caught):
      launches exactly once per mask-cache miss (8 x 32 = 256), and every
      plane the cache created equals the plain version bitwise;
   4. training reference: ``make_train_step`` on the reduced llama2 and yi
-     (B=2, S=256, site "qkv", flash kernels, replay and premask) on the
+     (B=2, S=128; S=256 for the bf16 MoE and RWKV-hybrid runs; site
+     "qkv", flash kernels, replay and premask) on the
      card against the same steps on the CPU, 3 steps, allclose at 1e-4;
   5. training at width: llama2-7b at full width and 4 layers (f32 random
      weights from a seed, 1.07 B parameters), B=2, S=2048, p=0.1, site
@@ -117,7 +118,7 @@ Phases (each raises on failure; nothing is caught):
      (the same kernels, bitwise the same loss) and ffn_up/fp8 under bf16
      compute (the bf16-C instances of the dense and grouped e4m3 kernels);
  10. fused-mode dropout (the paper's baseline: the keep bits drawn inside
-     the flash kernels) at llama2-7b width x 4, f32 and bf16 compute: one
+     the flash kernels) at llama2-7b width x 2, f32 and bf16 compute: one
      step plan each of no dropout, fused, overlap at site "xla" (the plane
      made by tensor ops, read by the kernels), qkv replay and qkv
      premask, from one state and batch -- step time, peak memory, busy
@@ -141,8 +142,9 @@ Phases (each raises on failure; nothing is caught):
      f32 flash kernels' D = 256 instances, premask step 0 and 3 replay
      steps (step 0 bitwise equal), launches against the formula, one
      fused step, the same records; then the premask step 0 of one (R, R,
-     A) super-block at the same width, batch and sequence on the card and
-     on the CPU, loss and grad norm within 1e-4 and 5e-3 relative;
+     A) super-block at the same width and batch, S=2560 (past the window),
+     on the card and on the CPU, loss and grad norm within 1e-4 and 5e-3
+     relative;
  13. serving every layer kind at width through the contiguous caches
      (``make_prefill_step`` / ``make_serve_step``: ``models.prefill`` and
      ``models.decode_step``), f32 random weights from a seed, TF32 off:
@@ -177,7 +179,24 @@ Phases (each raises on failure; nothing is caught):
      step time, the checkpoint's host gather and write seconds, the stall
      a save adds to its step, restore seconds and time to recover, beside
      the card's name and power limit. The checkpoint directory is deleted
-     at the end.
+     at the end;
+ 15. ``site="auto"`` with the perf model calibrated on the card
+     (``repro_torch.tune``): every host cell's (plain GEMM, standalone
+     Philox, fused GEMM+RNG) triple timed in turns at llama2-7b's four host
+     GEMMs and moonshot's grouped gate, f32 and bf16, the model fitted to
+     them (it must beat the closed-form GH100 constants) and each cell's
+     closed-form and calibrated predictions printed beside its measured
+     time; the gated search on llama2-7b's QKV host at bf16
+     (``philox_bits=8`` must die at the mask-bit gate, a candidate must
+     pass all four gates); ``site="auto"`` at llama2-7b width x 4 resolved
+     under the closed-form GH100 and under the calibrated table, each
+     resolved site's 3 replay steps and premask step 0 bitwise the same
+     steps at the site fixed (loss bits, the flash kernels' dropout
+     operands' digests), step times printed; the Layer-2 walk of that step
+     at full width on fake tensors (replay and premask clean, no kernel
+     launched, the leaky mutant flagged MS-D1), its node counts and
+     seconds. It adds no kernel: each one it runs is held against its
+     plain version in phase 2.
 
 Phase 2 also checks the e4m3 GEMM+RNG kernel against its plain version
 at the four host shapes of phase 6 (QKV, out-projection, gate+up, down;
@@ -2850,6 +2869,14 @@ def _batches(cfg, run, device, n):
 # reduced-model runs at the full rate from step 1, so the weights move
 # measurably
 REF_OPT = dict(lr=1e-3, warmup_steps=1)
+# phase 4's batch and sequence: the CPU's half of each run takes most of
+# the phase; 128 still plans replay and exceeds the reduced
+# recurrentgemma's window of 32. The runs with bf16 MoE or RWKV-hybrid
+# steps (the grouped hosts', moonshot's fused mode) keep 256: their
+# card-against-CPU spread sits near its limits, and at 128 moonshot's
+# ffn_down/fp8 step 2 at bf16 compute read its grad norm 1.0 % off
+# (limit 0.5 %)
+REF_B, REF_S, REF_S_GROUPED_BF16 = 2, 128, 256
 # fp8 after the first update: an activation that differs in its last f32
 # bit between the card and the CPU now and then rounds to the other e4m3
 # neighbour, and Adam turns a flipped near-zero gradient into a weight
@@ -2969,7 +2996,8 @@ def _card_vs_cpu(cfg, run, master, label, gn_tol=FP8_REF_TOL,
             f"weights "
             f"{BF16_REF_WEIGHT_ATOL})" if bf16 else
             '1e-4 at step 0, then fp8 tolerances' if fp8 else 'within 1e-4')
-    log(f"[train-ref] {cfg.name} B=2 S=256 {label}: 3 steps card == CPU "
+    log(f"[train-ref] {cfg.name} B={run.shape.global_batch} "
+        f"S={run.shape.seq_len} {label}: 3 steps card == CPU "
         f"(losses {card_losses}; grad norms and weights {tols}; each "
         f"leaf's change within {change_rel} relative); measured "
         f"largest differences: loss {worst[0]:.3g}, grad norm "
@@ -3002,16 +3030,16 @@ def phase_train_reference(state) -> None:
         cfg = get_arch(arch, reduced=True)
         master = init_train_state(cfg, seed=1, device="cpu")["master"]
         for replay in ("auto", "off"):
-            _card_vs_cpu(cfg, _train_run(cfg, replay, 2, 256, opt=opt),
+            _card_vs_cpu(cfg, _train_run(cfg, replay, REF_B, REF_S, opt=opt),
                          master, f"qkv/f32 attn_replay={replay}")
         if arch == "llama2-7b":
             for site, dtype in (("prev_gemm", "f32"), ("ffn_up", "fp8")):
-                run = _train_run(cfg, "off", 2, 256, opt=opt, site=site,
+                run = _train_run(cfg, "off", REF_B, REF_S, opt=opt, site=site,
                                  gemm_dtype=dtype)
                 _card_vs_cpu(cfg, run, master,
                              f"{site}/{dtype} attn_replay=off")
         # bf16 compute: the bf16 GEMM+RNG and flash kernels
-        _card_vs_cpu(cfg, _train_run(cfg, "auto", 2, 256, opt=opt,
+        _card_vs_cpu(cfg, _train_run(cfg, "auto", REF_B, REF_S, opt=opt,
                                      gemm_dtype="bf16"),
                      master, "qkv/bf16 compute_dtype=bf16 attn_replay=auto",
                      compute_dtype=torch.bfloat16)
@@ -3022,7 +3050,7 @@ def phase_train_reference(state) -> None:
         cfg = get_arch(arch, reduced=True)
         master = init_train_state(cfg, seed=1, device="cpu")["master"]
         for site, dtype in (("ffn_up", "f32"), ("ffn_down", "fp8")):
-            run = _train_run(cfg, "off", 2, 256, opt=opt, site=site,
+            run = _train_run(cfg, "off", REF_B, REF_S, opt=opt, site=site,
                              gemm_dtype=dtype)
             sched = compile_run_schedule(cfg, run)
             if producer.HOW_GEMM_GROUPED not in {a.emit_how for a in
@@ -3039,8 +3067,8 @@ def phase_train_reference(state) -> None:
         hybrid = cfg.moe is None
         master = init_train_state(cfg, seed=1, device="cpu")["master"]
         for site, dtype in (("ffn_up", "bf16"), ("ffn_down", "fp8")):
-            run = _train_run(cfg, "off", 2, 256, opt=opt, site=site,
-                             gemm_dtype=dtype)
+            run = _train_run(cfg, "off", REF_B, REF_S_GROUPED_BF16, opt=opt,
+                             site=site, gemm_dtype=dtype)
             sched = compile_run_schedule(cfg, run)
             if producer.HOW_GEMM_GROUPED not in {a.emit_how for a in
                                                  sched.assignments}:
@@ -3058,7 +3086,8 @@ def phase_train_reference(state) -> None:
         cfg = get_arch(arch, reduced=True)
         master = init_train_state(cfg, seed=1, device="cpu")["master"]
         for impl in ("pallas", "xla"):
-            run = _train_run(cfg, "auto", 2, 256, opt=opt, site="xla",
+            seq = REF_S if cfg.moe is None else REF_S_GROUPED_BF16
+            run = _train_run(cfg, "auto", REF_B, seq, opt=opt, site="xla",
                              mode="fused", impl=impl)
             for dt in (torch.float32, torch.bfloat16):
                 moe_xla = cfg.moe is not None and impl == "xla"
@@ -3074,7 +3103,7 @@ def phase_train_reference(state) -> None:
     for site, dtype, dt in (("ffn_up", "f32", torch.float32),
                             ("prev_gemm", "f32", torch.float32),
                             ("ffn_up", "bf16", torch.bfloat16)):
-        run = _train_run(cfg, "off", 2, 256, opt=opt, site=site,
+        run = _train_run(cfg, "off", REF_B, REF_S, opt=opt, site=site,
                          gemm_dtype=dtype)
         _card_vs_cpu(cfg, run, master, f"{site}/{dtype} compute_dtype="
                      f"{str(dt)[6:]} attn_replay=off", compute_dtype=dt)
@@ -3082,7 +3111,7 @@ def phase_train_reference(state) -> None:
     # instances
     wide = dataclasses.replace(cfg, head_dim=256)
     master = init_train_state(wide, seed=1, device="cpu")["master"]
-    run = _train_run(wide, "off", 2, 256, opt=opt, site="ffn_up")
+    run = _train_run(wide, "off", REF_B, REF_S, opt=opt, site="ffn_up")
     reset_launch_counts()
     _card_vs_cpu(wide, run, master, "head_dim=256 ffn_up/f32 compute_dtype="
                  "float32 attn_replay=off")
@@ -4035,6 +4064,9 @@ def phase_train_moe_bf16(state) -> None:
 # mode, site, attn_replay); "overlap/xla" makes the plane with tensor ops
 # beside the plain QKV GEMM and the flash kernels read it (premask), so its
 # step is the fused step but for where the bits are drawn
+# phase 10's llama2-7b depth: its host-bound tensor-op steps take most of
+# the phase
+FUSED_LAYERS = 2
 FUSED_MODES = (("none", "none", "xla", "off"),
                ("fused", "fused", "xla", "off"),
                ("overlap/xla", "overlap", "xla", "off"),
@@ -4078,8 +4110,9 @@ def _kernel_groups(kernels_ms: dict) -> dict:
 
 
 def phase_train_fused(state) -> None:
-    """Fused-mode dropout, the paper's baseline, at llama2-7b width x 4
-    (B=2, S=2048, p=0.1, remat="block"), at f32 and bf16 compute: one step
+    """Fused-mode dropout, the paper's baseline, at llama2-7b width x
+    FUSED_LAYERS (B=2, S=2048, p=0.1, remat="block"), at f32 and bf16
+    compute: one step
     plan each of FUSED_MODES from the same state and batch -- its step-0
     loss, step time, peak memory, busy share and the profiler's device
     time by kernel. The fused and overlap/xla steps draw the same bits,
@@ -4094,7 +4127,7 @@ def phase_train_fused(state) -> None:
         init_train_state,
         make_train_step,
     )
-    cfg = dataclasses.replace(get_arch("llama2-7b"), n_layers=TRAIN_LAYERS)
+    cfg = dataclasses.replace(get_arch("llama2-7b"), n_layers=FUSED_LAYERS)
     rec = state.setdefault("train_fused", {})
     for dt in (torch.float32, torch.bfloat16):
         dname = str(dt)[6:]
@@ -4136,7 +4169,7 @@ def phase_train_fused(state) -> None:
             r.update(busy_share=prof["busy_share"],
                      kernels=_kernel_groups(prof["kernels_ms"]))
             out[label] = (m0, r)
-            log(f"[train-fused] llama2-7b x{TRAIN_LAYERS} {dname} {label}: "
+            log(f"[train-fused] llama2-7b x{FUSED_LAYERS} {dname} {label}: "
                 f"loss {r['loss0']:.7f}, grad norm {r['grad_norm0']:.6f}, "
                 f"step {r['step_s']:.4f} s ({r['times']}), peak "
                 f"{r['peak_gib']:.2f} GiB, busy {r['busy_share'] * 100:.1f}%"
@@ -4195,6 +4228,9 @@ GRIFFIN_LAYERS, GRIFFIN_B, GRIFFIN_S = 6, 1, 4096
 # super-blocks fits the card's 80 GB, as phase 11's bf16 run of them does
 # at 58.7 GiB) and the depth of its step on the CPU (one super-block)
 GRIFFIN_F32_LAYERS, GRIFFIN_CPU_LAYERS = 6, 3
+# ... and the sequence of that step: the CPU's half takes most of the
+# phase; 2560 is still past the LOCAL window of 2048
+GRIFFIN_CPU_S = 2560
 
 
 # the flash kernels' device time a step in phases 11 and 12 (one profiled
@@ -4380,10 +4416,10 @@ def phase_train_griffin_f32(state) -> None:
     """recurrentgemma-9b x GRIFFIN_F32_LAYERS at f32 compute, ffn_up/f32,
     on the f32 flash kernels' D = 256 instances (``_griffin_main_path``);
     then the premask step 0 of its first GRIFFIN_CPU_LAYERS layers (one
-    super-block, the same width, batch and sequence) on the card and on
-    the CPU from the same weights: loss and grad norm within the limits
-    of the bf16 phases' card-against-CPU runs (BF16_REF_TOLS: 1e-4 and
-    5e-3 relative)."""
+    super-block, the same width and batch, GRIFFIN_CPU_S tokens) on the
+    card and on the CPU from the same weights: loss and grad norm within
+    the limits of the bf16 phases' card-against-CPU runs (BF16_REF_TOLS:
+    1e-4 and 5e-3 relative)."""
     from repro_torch.config import get_arch
     from repro_torch.train import init_train_state, make_train_step
     from repro_torch.optim import adamw_init
@@ -4391,7 +4427,7 @@ def phase_train_griffin_f32(state) -> None:
                              GRIFFIN_F32_LAYERS)
     cfg = dataclasses.replace(get_arch("recurrentgemma-9b"),
                               n_layers=GRIFFIN_CPU_LAYERS)
-    run = _train_run(cfg, "off", GRIFFIN_B, GRIFFIN_S, site="ffn_up")
+    run = _train_run(cfg, "off", GRIFFIN_B, GRIFFIN_CPU_S, site="ffn_up")
     step = make_train_step(cfg, run)
     master = init_train_state(cfg, seed=0, device="cpu")["master"]
     x, y = _batches(cfg, run, "cpu", 1)[0]
@@ -4415,7 +4451,7 @@ def phase_train_griffin_f32(state) -> None:
         raise AssertionError(f"griffin f32 x{GRIFFIN_CPU_LAYERS} step 0: "
                              f"card {(lg, gg)} != CPU {(lc, gc_)}")
     log(f"[train-griffin-f32] x{GRIFFIN_CPU_LAYERS} layers (one super-block) "
-        f"at full width, B={GRIFFIN_B} S={GRIFFIN_S}, ffn_up/f32 premask "
+        f"at full width, B={GRIFFIN_B} S={GRIFFIN_CPU_S}, ffn_up/f32 premask "
         f"step 0: card (loss, grad norm) {(lg, gg)} in {tg:.1f} s, CPU "
         f"{(lc, gc_)} in {tc:.1f} s: {loss_rel:.3g} and {gn_rel:.3g} "
         f"relative apart (limits {loss_tol}, {gn_tol}) | {state['smi']}")
@@ -4989,6 +5025,241 @@ def _launcher_main_path(state, root) -> None:
         restore_s=[r for _, r in ckpt_b.restores], recover_s=recov)
 
 
+# ------------------------------------------------------------------ phase 15
+# the search's cell: llama2-7b's QKV host at bf16 on the training plane
+AUTO_SEARCH_DTYPE = "bf16"
+AUTO_STEPS = 3
+AUTO_DEVICE = "cuda"
+
+
+def _flash_operand_digests(log_to: list):
+    """A wrapper of ``models.attention.flash_attention_mosaic`` that
+    appends, a call, the digest of the dropout operands the flash kernels
+    get: the plane's bytes under premask, the seed-salt words under replay
+    (``log_to``). Returns (install, restore)."""
+    import hashlib
+
+    from repro_torch.models import attention
+    orig = attention.flash_attention_mosaic
+
+    def wrapped(q, k, v, mask_packed=None, causal=True, local_window=0,
+                dropout_p=0.0, mode="none", seed=0, salt=0, rounds=7,
+                heads_global=0):
+        if mode == "premask":
+            data = mask_packed.contiguous().cpu().numpy().tobytes()
+        else:
+            data = repr((mode, philox_common.seed_salt_words(seed, salt),
+                         float(dropout_p))).encode()
+        log_to.append((mode, hashlib.sha256(data).hexdigest()[:16]))
+        return orig(q, k, v, mask_packed, causal, local_window, dropout_p,
+                    mode, seed, salt, rounds, heads_global)
+
+    def install():
+        attention.flash_attention_mosaic = wrapped
+
+    def restore():
+        attention.flash_attention_mosaic = orig
+    return install, restore
+
+
+def _auto_trajectory(cfg, site, st0, batches):
+    """AUTO_STEPS replay steps from ``st0`` and step 0 again under premask
+    at ``site``: each step's loss bits, the digests of the flash kernels'
+    dropout operands, the resolved site and the step times."""
+    from repro_torch.train import compile_run_schedule, make_train_step
+    out = {"loss_bits": [], "digests": [], "times": []}
+    digests = []
+    install, restore = _flash_operand_digests(digests)
+    install()
+    try:
+        for replay, steps in (("auto", AUTO_STEPS), ("off", 1)):
+            run = _train_run(cfg, replay, TRAIN_B, TRAIN_S, site=site)
+            sched = compile_run_schedule(cfg, run)
+            out.setdefault("resolved", []).append(sched.resolved_site)
+            step = make_train_step(cfg, run)
+            st = st0
+            for i in range(steps):
+                digests.clear()
+                t0 = time.perf_counter()
+                st, m = step(st, *batches[i])
+                torch.cuda.synchronize()
+                out["times"].append(time.perf_counter() - t0)
+                out["loss_bits"].append(int(np.float32(float(
+                    m["loss"])).view(np.uint32)))
+                out["digests"].append(tuple(digests))
+            del st
+    finally:
+        restore()
+    return out
+
+
+def phase_train_auto(state) -> None:
+    """site="auto" on the card, with the perf model calibrated there:
+    (a) every host cell's (plain GEMM, standalone Philox, fused GEMM+RNG)
+    triple timed in turns (``tune/calibrate.py``: llama2-7b's four host
+    GEMMs and moonshot's grouped gate at B=2, S=2048, f32 and bf16) and
+    the model fitted to them, one fit a host dtype, each of which must
+    beat the closed-form GH100 constants; per cell the closed-form and
+    calibrated predictions beside the measured time; (b) the gated search on llama2-7b's QKV host at
+    bf16: philox_bits=8 must die at the mask-bit gate and a candidate must
+    pass all four gates; (c) site="auto" at llama2-7b width x 4 resolved
+    under the closed-form GH100 and under the calibrated table (the
+    search's blocks in it): for each resolved site, 3 replay steps and
+    step 0 again under premask, their loss bits and the flash kernels'
+    dropout operands (plane digests, seed-salt words) bitwise those of the
+    same steps with the site fixed; (d) the Layer-2 walk of that step at
+    full width, on fake tensors, under replay and premask: clean, no
+    kernel launched, and the leaky mutant flagged MS-D1. No kernel is
+    added: every kernel here is held against its plain version in phase
+    2."""
+    from repro_torch.analysis import dataflow, rules
+    from repro_torch.config import get_arch
+    from repro_torch.config.base import DropoutPlanConfig
+    from repro_torch.core import producer
+    from repro_torch.core.overlap import DropoutPlan
+    from repro_torch.train import init_train_state
+    from repro_torch.tune import calibrate, search
+    from repro_torch.tune.tables import TunedTable, overlay
+    t_phase = time.perf_counter()
+    rec = state.setdefault("train_auto", {})
+    smi = state["smi"]
+    # (a) calibration: one fit a host dtype
+    t0 = time.perf_counter()
+    ms = calibrate.measure_cells(("f32", "bf16"), repeats=5)
+    cals = calibrate.fit_by_dtype(ms, calibrate.card_source(len(ms)))
+    rows = calibrate.residual_rows_by_dtype(ms, cals)
+    for r in rows:
+        m = r["measurement"]
+        log(f"[auto] calibration {r['arch']} {r['site']}/{r['dtype']}: "
+            f"measured fused {r['measured_s'] * 1e3:.4f} ms (plain GEMM "
+            f"{m['t_dot'] * 1e3:.4f}, Philox {m['t_rng'] * 1e3:.4f}), "
+            f"GH100 closed form {r['pred_closed_form_s'] * 1e3:.4f} ms, "
+            f"calibrated {r['pred_calibrated_s'] * 1e3:.4f} ms | {smi}")
+    for dtype, cal in sorted(cals.items()):
+        log(f"[auto] {dtype} fit: mean relative error "
+            f"{cal.residual_closed_form:.4f} (GH100) -> "
+            f"{cal.residual_calibrated:.4f} (calibrated) over "
+            f"{cal.n_cells} cells; mma {cal.mma_flops:.4g} flop/s, hbm "
+            f"{cal.hbm_bw:.4g} B/s, non-mma {cal.nonmma_ops:.4g} op/s, "
+            f"rng interference {cal.rng_interference:.4g}, gemm "
+            f"interference {cal.gemm_interference:.4g}, step "
+            f"{cal.step_overhead:.4g} s")
+        if not cal.residual_calibrated < cal.residual_closed_form:
+            raise AssertionError(f"[auto] the {dtype} calibration does not "
+                                 "beat the closed-form GH100 model")
+    log(f"[auto] calibration {time.perf_counter() - t0:.1f} s")
+    rec["calibration"] = dict(
+        {d: c.to_json() for d, c in cals.items()},
+        rows=[{k: v for k, v in r.items() if k != "measurement"}
+              for r in rows])
+    # (b) the gated search on one cell
+    t0 = time.perf_counter()
+    full = get_arch("llama2-7b")
+    mask = (TRAIN_B, full.n_heads, TRAIN_S, TRAIN_S)
+    gemm = producer.block_gemm_shapes(full, TRAIN_B, TRAIN_S)["qkv"]
+    tuning = search.tune_cell("llama2-7b", "qkv", gemm, mask,
+                              cals[AUTO_SEARCH_DTYPE].hardware(),
+                              dtype=AUTO_SEARCH_DTYPE, device=AUTO_DEVICE,
+                              max_gate_runs=8)
+    log(f"[auto] search llama2-7b qkv/{AUTO_SEARCH_DTYPE} {gemm} on "
+        f"{mask}: default {tuning.default} (score "
+        f"{tuning.score_default:.6g} s) -> {tuning.tuned} (score "
+        f"{tuning.score_tuned:.6g} s); taken {tuning.accepted}, admitted "
+        f"{tuning.admitted}, gate-rejected {tuning.rejected} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    if not any(".pb8" in c and g == "mask_bits" for c, g in tuning.rejected):
+        raise AssertionError("[auto] philox_bits=8 did not die at the "
+                             "mask-bit gate")
+    if not tuning.admitted:
+        raise AssertionError("[auto] no candidate passed the four gates")
+    table = TunedTable(calibrations=cals, gemm_blocks=(
+        {gemm: tuning.tuned.blocks} if tuning.tuned != tuning.default
+        else {}), mask_cols=({(TRAIN_S, TRAIN_S): tuning.tuned.mask_cols}
+                             if tuning.tuned != tuning.default else {}))
+    os.makedirs("build", exist_ok=True)
+    table.save(os.path.join("build", "chip_smoke_TUNED_torch.json"))
+    rec["search"] = dict(accepted=tuning.accepted, admitted=tuning.admitted,
+                         rejected=tuning.rejected)
+    # (c) site="auto" at width, under each model, against the fixed site
+    cfg = dataclasses.replace(full, n_layers=TRAIN_LAYERS)
+    plan = DropoutPlanConfig(mode="overlap", p=0.1, site="auto")
+    picks = {}
+    for label, tbl in (("GH100", None), ("calibrated", table)):
+        with overlay(tbl):
+            ranked = producer.rank_host_sites(cfg, DropoutPlan(plan),
+                                              TRAIN_B, TRAIN_S)
+        picks[label] = ranked[0][0]
+        log(f"[auto] llama2-7b x{TRAIN_LAYERS} B={TRAIN_B} S={TRAIN_S} "
+            f"site=auto under {label}: {picks[label]} (ranking "
+            f"{[(s_, f'{v * 1e6:+.2f}us') for s_, v in ranked]})")
+    measured = calibrate.measured_site_costs(
+        [m for m in ms if m.arch == "llama2-7b"], "f32")
+    best = min(measured, key=measured.get)[1]
+    costs = [(s_, round(v * 1e3, 4)) for (_, s_), v in measured.items()]
+    verdict = "agrees" if best == picks["calibrated"] else "disagrees"
+    log(f"[auto] measured added cost of hosting at f32 (fused - plain "
+        f"GEMM): {costs} ms: cheapest {best}; the calibrated model picks "
+        f"{picks['calibrated']} ({verdict})")
+    rec["picks"] = dict(picks, measured=best)
+    st0 = init_train_state(cfg, seed=0, device=AUTO_DEVICE)
+    batches = _batches(cfg, _train_run(cfg, "auto", TRAIN_B, TRAIN_S),
+                       AUTO_DEVICE, AUTO_STEPS)
+    for label, tbl in (("GH100", None), ("calibrated", table)):
+        site = picks[label]
+        with overlay(tbl):
+            auto = _auto_trajectory(cfg, "auto", st0, batches)
+            fixed = _auto_trajectory(cfg, site, st0, batches)
+        if auto["resolved"] != [site, site]:
+            raise AssertionError(f"[auto] {label}: resolved "
+                                 f"{auto['resolved']}, ranked {site}")
+        if (auto["loss_bits"], auto["digests"]) != (fixed["loss_bits"],
+                                                    fixed["digests"]):
+            raise AssertionError(f"[auto] {label}: site=auto's steps differ "
+                                 f"from {site}'s: {auto['loss_bits']} vs "
+                                 f"{fixed['loss_bits']}")
+        if auto["loss_bits"][0] != auto["loss_bits"][AUTO_STEPS]:
+            raise AssertionError(f"[auto] {label}: replay and premask step "
+                                 f"0 differ")
+        rec[f"steps_{label}"] = dict(site=site, auto_s=auto["times"],
+                                     fixed_s=fixed["times"])
+        log(f"[auto] {label} -> {site}: {AUTO_STEPS} replay steps and "
+            f"premask step 0, loss bits {[hex(b) for b in auto['loss_bits']]}"
+            f" and {sum(len(d) for d in auto['digests'])} flash operand "
+            f"digests bitwise the fixed site's; step s auto "
+            f"{[round(t, 4) for t in auto['times']]}, fixed "
+            f"{[round(t, 4) for t in fixed['times']]} | {smi}")
+    del st0, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (d) the Layer-2 walk of that step at full width, fake tensors
+    reset_launch_counts()
+    with overlay(table):
+        for replay in ("auto", "off"):
+            tm = {}
+            rep = dataflow.analyze_model(
+                cfg, dataclasses.replace(plan, attn_replay=replay), TRAIN_B,
+                TRAIN_S, device=AUTO_DEVICE, timings=tm,
+                cell=f"llama2-7b x{TRAIN_LAYERS} site=auto replay={replay}")
+            if not rep.ok:
+                raise AssertionError(rep.render())
+            log(f"[auto] Layer 2 at full width, {rep.cell}: clean; forward "
+                f"{tm['fwd_nodes']} nodes traced in {tm['fwd_trace_s']:.2f} "
+                f"s, walked in {tm['fwd_walk_s']:.3f} s; grad "
+                f"{tm['grad_nodes']} nodes in {tm['grad_trace_s']:.2f} s, "
+                f"walked in {tm['grad_walk_s']:.3f} s")
+            rec[f"layer2_{replay}"] = tm
+        leak = dataflow.analyze_leaky_model(cfg, plan, TRAIN_B, TRAIN_S,
+                                            device=AUTO_DEVICE)
+    if [f.rule for f in leak.findings] != [rules.MASK_RESIDUAL_LEAK]:
+        raise AssertionError(f"[auto] the leaky mutant: {leak.render()}")
+    if any(launch_counts().values()):
+        raise AssertionError(f"[auto] a kernel launched during the walk: "
+                             f"{launch_counts()}")
+    log(f"[auto] the leaky mutant at full width flagged "
+        f"{leak.findings[0].rule}; no kernel launched during the walks; "
+        f"phase {time.perf_counter() - t_phase:.1f} s")
+
+
 def kernel_records(state):
     """One record a TPU kernel instance (each function that reaches
     pl.pallas_call, at each operand dtype the port runs), in the order of
@@ -5169,7 +5440,8 @@ def main() -> int:
                   phase_train_sites, phase_train_moe, phase_train_bf16,
                   phase_train_moe_bf16, phase_train_fused,
                   phase_train_griffin, phase_train_griffin_f32,
-                  phase_serve_layers, phase_train_launcher):
+                  phase_serve_layers, phase_train_launcher,
+                  phase_train_auto):
         phase(state)
         log(f"[time] {phase.__name__} done at "
             f"{time.perf_counter() - t0:.1f}s")

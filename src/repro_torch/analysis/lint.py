@@ -1,24 +1,25 @@
-"""Config-sweep CLI of the static mask-safety verifier (the counter layer).
+"""Config-sweep CLI of the static mask-safety verifier.
 
     PYTHONPATH=src python -m repro_torch.analysis.lint             # all cells
     PYTHONPATH=src python -m repro_torch.analysis.lint --config yi-6b \\
-        --site ffn_up --dtype fp8 --topologies 1,2
+        --site auto --dtype fp8 --topologies 1,2
     PYTHONPATH=src python -m repro_torch.analysis.lint --mutate counter-overlap
 
-Per cell (config x site x gemm_dtype x topology) the counter layer runs on
-the full-size architecture at DEFAULT_BATCH x DEFAULT_SEQ: integer
-arithmetic over the compiled schedule and the port's kernel walks
-(``counters``), nothing traced, built or launched. The flags are the JAX
-package's (``python -m repro.analysis.lint``).
-
-Not ported: ``site="auto"`` (the schedule compiler raises for it; its cells
-are reported as not ported and counted neither clean nor failing) and
-Layer 2, the dataflow walk (``--jaxpr auto|all`` says so and runs
-nothing; ``--mutate residual-leak`` exits 2).
+Per cell (config x site x gemm_dtype x topology) Layer 1, the counter
+layer, runs on the full-size architecture at DEFAULT_BATCH x DEFAULT_SEQ:
+integer arithmetic over the compiled schedule and the port's kernel walks
+(``counters``), nothing traced, built or launched. Layer 2, the dataflow
+walk (``dataflow``), traces the reduced same-family config once per
+(config, site) on fake tensors -- ``--jaxpr`` keeps the JAX package's
+flag name, and walks the FX graph of the forward and of its gradient:
+``auto`` once per (config, site), ``all`` per dtype too, ``off`` skips it.
+``site="auto"`` cells are planned by the perf model and proven like any
+other. The flags are the JAX package's (``python -m repro.analysis.lint``).
 
 Exit codes: 0 every linted cell clean; 1 findings (each printed with its
 rule ID), or an injected mutation caught by the rule JAX's lint names for
 it; 2 a usage error, or a mutation that slipped past the analyzer.
+Nothing executes a kernel in any mode.
 """
 from __future__ import annotations
 
@@ -26,7 +27,7 @@ import argparse
 import sys
 from typing import List, Optional
 
-from repro_torch.analysis import counters, rules
+from repro_torch.analysis import counters, dataflow, rules
 from repro_torch.config.base import (
     DROPOUT_SITES,
     GEMM_DTYPES,
@@ -39,6 +40,9 @@ from repro_torch.core.schedule import ShardInfo, compile_schedule
 # arithmetic, small enough to sweep every shipped config in seconds
 DEFAULT_BATCH = 8
 DEFAULT_SEQ = 1024
+# dataflow trace shape (reduced configs)
+JAXPR_BATCH = 2
+JAXPR_SEQ = 256
 
 MUTATIONS = ("counter-overlap", "emission-gap", "shard-window",
              "stride", "residual-leak", "reshard-window",
@@ -62,11 +66,9 @@ _MUTATION_RULE = {
     "philox-stride": rules.EMISSION_GAP,
     "replay-tile-row": rules.COUNTER_OVERLAP,
 }
-# Layer 2 (the dataflow walk) is not ported
-_LAYER2 = ("residual-leak",)
 # the site a mutation lints when none is given: JAX's lint takes "auto",
-# which resolves to "ffn_up" on its default cell (yi-6b at 8 x 1024); the
-# port plans no "auto"
+# which resolves to "ffn_up" on its default cell (yi-6b at 8 x 1024) under
+# its TPU constants; the port's mutations pin that site
 MUTATION_SITE = "ffn_up"
 
 
@@ -110,17 +112,26 @@ def lint_cell(arch: str, site: str, dtype: str, *, batch: int,
     return counters.analyze_schedule(cfg, sched, cell=cell)
 
 
+def lint_cell_jaxpr(arch: str, site: str, dtype: str) -> rules.Report:
+    """Layer-2 verdict (the dataflow walk) on the reduced config."""
+    cfg = get_arch(arch, reduced=True)
+    return dataflow.analyze_model(
+        cfg, _plan(site, dtype), JAXPR_BATCH, JAXPR_SEQ,
+        attn_impl="pallas", device="cpu",
+        cell=f"{arch}[reduced] site={site} dtype={dtype}")
+
+
 def _run_mutation(kind: str, arch: str, site: str, dtype: str,
                   batch: int, seq: int) -> int:
     """Corrupt one cell and demand the matching rule fires. Returns the
     process exit code: 1 when the corruption is caught (a genuine lint
-    failure, named), 2 when it slipped past the analyzer or cannot be
-    checked here."""
+    failure, named), 2 when it slipped past the analyzer."""
     want = _MUTATION_RULE[kind]
-    if kind in _LAYER2:
-        print(f"[lint] mutation {kind!r} needs Layer 2 (the dataflow "
-              "walk), which is not ported yet: nothing was checked")
-        return 2
+    if kind == "residual-leak":
+        rep = dataflow.analyze_leaky_model(
+            get_arch(arch, reduced=True), _plan(site, dtype), JAXPR_BATCH,
+            JAXPR_SEQ, device="cpu")
+        return _verdict(rep, kind, want)
     cfg = get_arch(arch)
     # reshard-window needs a sharded schedule (a 2-way model-axis
     # topology); philox-stride a standalone emission (premask
@@ -139,6 +150,10 @@ def _run_mutation(kind: str, arch: str, site: str, dtype: str,
         cell=f"{arch} site={site} dtype={dtype} mutate={kind}",
         findings=tuple(counters.check_emissions(cfg, sched, emissions)),
         checked_emissions=len(emissions))
+    return _verdict(rep, kind, want)
+
+
+def _verdict(rep: rules.Report, kind: str, want: str) -> int:
     print(rep.render())
     if any(f.rule == want for f in rep.findings):
         print(f"[lint] mutation {kind!r} caught by {want}")
@@ -156,16 +171,17 @@ def main(argv: Optional[List[str]] = None) -> int:
     ap.add_argument("--config", default=None,
                     help="arch id (default: every shipped config)")
     ap.add_argument("--site", default=None, choices=DROPOUT_SITES,
-                    help="producer site (default: sweep all; 'auto' is not "
-                         "ported)")
+                    help="producer site (default: sweep all)")
     ap.add_argument("--dtype", default=None, choices=GEMM_DTYPES,
                     help="host GEMM dtype (default: sweep all)")
     ap.add_argument("--batch", type=int, default=DEFAULT_BATCH)
     ap.add_argument("--seq", type=int, default=DEFAULT_SEQ)
     ap.add_argument("--jaxpr", default="auto",
                     choices=("auto", "off", "all"),
-                    help="Layer 2 (the dataflow walk): not ported yet; "
-                         "only 'off' runs as asked")
+                    help="Layer 2, the dataflow walk over the FX graph of "
+                         "the forward and its gradient (the JAX flag's "
+                         "name): once per (config, site) [auto], per dtype "
+                         "[all], or skipped")
     ap.add_argument("--mutate", default=None, choices=MUTATIONS,
                     help="inject one corruption; exit 1 iff the matching "
                          "rule catches it")
@@ -189,31 +205,23 @@ def main(argv: Optional[List[str]] = None) -> int:
     dtypes = [args.dtype] if args.dtype else list(GEMM_DTYPES)
 
     if args.mutate:
-        site = args.site or MUTATION_SITE
-        if site == "auto":
-            print("[lint] site='auto' is not ported: pick a fixed site")
-            return 2
-        return _run_mutation(args.mutate, archs[0], site, dtypes[0],
+        return _run_mutation(args.mutate, archs[0],
+                             args.site or MUTATION_SITE, dtypes[0],
                              args.batch, args.seq)
-    if args.jaxpr != "off":
-        print(f"[lint] --jaxpr {args.jaxpr}: Layer 2 (the dataflow walk) "
-              "is not ported yet; the counter layer runs alone")
 
     shards = [s for t in sorted(set(topologies))
               for s in topology_shards(t)]
-    bad = cells = skipped = not_ported = 0
+    bad = cells = skipped = 0
     for arch in archs:
         for site in sites:
-            if site == "auto":
-                not_ported += len(dtypes) * len(shards)
-                if not args.quiet:
-                    print(f"[not ported] {arch} site=auto: the port plans "
-                          "no 'auto' site")
-                continue
-            for dtype in dtypes:
-                for shard in shards:
-                    rep = lint_cell(arch, site, dtype, batch=args.batch,
-                                    seq=args.seq, shard=shard)
+            for di, dtype in enumerate(dtypes):
+                reps = [lint_cell(arch, site, dtype, batch=args.batch,
+                                  seq=args.seq, shard=shard)
+                        for shard in shards]
+                if args.jaxpr == "all" or (args.jaxpr == "auto"
+                                           and di == 0):
+                    reps.append(lint_cell_jaxpr(arch, site, dtype))
+                for rep in reps:
                     if rep is None:      # topology can't tile the plane
                         skipped += 1
                         continue
@@ -223,8 +231,6 @@ def main(argv: Optional[List[str]] = None) -> int:
                     if not rep.ok or not args.quiet:
                         print(rep.render())
     skip = f", {skipped} skipped (indivisible topology)" if skipped else ""
-    if not_ported:
-        skip += f", {not_ported} not ported (site=auto)"
     print(f"[lint] {cells} cells, {bad} with findings{skip}")
     return 1 if bad else 0
 

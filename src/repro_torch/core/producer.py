@@ -75,18 +75,37 @@ def _largest_divisor(dim: int, cap: int) -> int:
     return 1
 
 
+_DTYPE_BYTES = {"f32": 4, "bf16": 2, "fp8": 1}
+
+
+def _tuned_tables():
+    """The tuned-table module (``repro_torch.tune.tables``), imported on
+    first use: with no table installed every hook returns the shipped
+    default."""
+    from repro_torch.tune import tables
+    return tables
+
+
 def mask_cols_cap(sq: int, sk: int) -> int:
-    """The fused kernels' emission column block for this plane. The port
-    has no tuned table yet, so this is the shipped default."""
-    return _MASK_COLS_CAP
+    """The fused kernels' emission column block for this plane: the active
+    tuned table's (proven) choice, else the shipped default. Planner
+    feasibility, the launched kernel's layout and the verifier's emission
+    walk all resolve through this function."""
+    return _tuned_tables().active_mask_cols(sq, sk, default=_MASK_COLS_CAP)
 
 
 def pick_gemm_blocks(m: int, n: int, k: int
                      ) -> Optional[Tuple[int, int, int]]:
     """The logical block shape of a model-path fused GEMM, or None when
     the operand shapes do not tile cleanly (the caller keeps the plain
-    GEMM and the tensor-op producer). The emission layout is judged on
-    the grid this gives."""
+    GEMM and the tensor-op producer). The emission layout is judged on the
+    grid this gives (and the e4m3 hosts' scale tiles are these blocks). An
+    installed tuned table overrides the answer for the exact shapes it
+    carries a proven entry for; the schedule compiler, the kernels'
+    wrappers and ``repro_torch.analysis`` all resolve through here."""
+    tuned = _tuned_tables().active_blocks(m, n, k)
+    if tuned is not None:
+        return tuned
     bm = _largest_divisor(m, _BLOCK_M_CAP)
     bn = _largest_divisor(n, _BLOCK_N_CAP)
     bk = _largest_divisor(k, _BLOCK_K_CAP)
@@ -433,3 +452,56 @@ def grouped_host_shapes(cfg: ModelConfig, batch: int, seq: int,
         return {"ffn_up": (1, toks, d, cfg.d_ff),
                 "ffn_down": (1, toks, cfg.d_ff, d)}
     return {}
+
+
+def rank_host_sites(cfg: ModelConfig, plan: DropoutPlan, batch: int,
+                    seq: int, hw=None, batch_shards: int = 1,
+                    head_shards: int = 1, seq_dispatch: bool = False
+                    ) -> Tuple[Tuple[str, float], ...]:
+    """Tileable candidate host GEMMs ranked best first by the perf model
+    (``perfmodel.rank_host_gemms``): Region-1 headroom under closed-form
+    hardware, negated net added cost under calibrated hardware. The JAX
+    package's function, but the hardware when none is passed is the
+    active tuned table's calibrated one, else ``GH100`` -- the card the
+    port runs on (JAX falls back to ``TPU_V5E``). MoE expert and RWKV
+    channel-mix blocks contribute their grouped FFN hosts, ranked on the
+    grid the per-layer capability later judges."""
+    from repro_torch.perfmodel.hardware import GH100
+    from repro_torch.perfmodel.model import rank_host_gemms
+    if hw is None:
+        hw = _tuned_tables().active_hardware(plan.cfg.gemm_dtype)
+    mask_elems = float(batch) * cfg.n_heads * seq * seq
+    dtype_bytes = _DTYPE_BYTES.get(plan.cfg.gemm_dtype, 4)
+    shapes = {}
+    for site, (m, n, k) in block_gemm_shapes(cfg, batch, seq).items():
+        m_loc = m // batch_shards
+        if pick_gemm_blocks(m_loc, n, k) is not None:
+            shapes[site] = (m_loc, n, k)
+    grouped = {}
+    for site, (e, c, k, n) in grouped_host_shapes(
+            cfg, batch, seq, batch_shards=batch_shards,
+            head_shards=head_shards, seq_dispatch=seq_dispatch).items():
+        if pick_gemm_blocks(c, n, k) is not None:
+            grouped[site] = (e, c, n, k)
+    if not shapes and not grouped:
+        return ()
+    return rank_host_gemms(shapes, mask_elems, hw=hw or GH100,
+                           rounds=plan.cfg.philox_rounds,
+                           dtype_bytes=dtype_bytes, grouped=grouped)
+
+
+def pick_host_site(cfg: ModelConfig, plan: DropoutPlan, batch: int,
+                   seq: int, fuse_ok: bool = True, hw=None,
+                   batch_shards: int = 1) -> str:
+    """Resolve site="auto" to a concrete host: the best-ranked block GEMM
+    that tiles for the fused kernel (``rank_host_sites``), or "xla" when
+    the plan is not an overlap plan, the kernels cannot make its planes or
+    nothing qualifies -- the JAX package's rule."""
+    if not (plan.enabled and plan.overlapped):
+        return "xla"
+    if not fuse_ok or mask_kernel_unsupported_reason(
+            plan, seq, seq) is not None:
+        return "xla"
+    ranked = rank_host_sites(cfg, plan, batch, seq, hw=hw,
+                             batch_shards=batch_shards)
+    return ranked[0][0] if ranked else "xla"

@@ -18,9 +18,11 @@ name: in the port it selects the hand-written CUDA kernels (fused and
 grouped GEMM+RNG hosts, flash forward and backward). A ``ShardInfo``
 plans a mesh's shard-local producers as JAX's compiler does (the lint's
 topology sweep proves those plans); running one, and a sharding policy,
-is not ported. ``site="auto"`` raises ``NotImplementedError`` naming the
-ROADMAP item. ``compile_schedule(..., verify=True)`` proves the plan
-through the counter layer (``repro_torch.analysis``).
+is not ported. ``site="auto"`` resolves as JAX's does: the block's
+candidate host GEMMs ranked by the perf model (``producer.rank_host_sites``
+on ``hw``, the active tuned table's calibrated hardware, or ``GH100``),
+the ranking shown in ``explain()``. ``compile_schedule(..., verify=True)``
+proves the plan through the counter layer (``repro_torch.analysis``).
 """
 from __future__ import annotations
 
@@ -98,6 +100,7 @@ class DropoutSchedule:
     shard: ShardInfo
     carried: bool
     assignments: Tuple[HostAssignment, ...]
+    headroom: Tuple[Tuple[str, float], ...] = ()   # site="auto" ranking
     moe_seq_dispatch: bool = False
 
     @property
@@ -169,6 +172,9 @@ class DropoutSchedule:
                 f"head axes {list(s.head_axes)}) -> "
                 + ("shard-local producers" if self.sharded
                    else "replicated/XLA producers"))
+        for site, hr in self.headroom:
+            lines.append(f"  auto candidate {site}: "
+                         f"headroom {hr * 1e6:+.2f}us")
         if not self.active:
             lines.append("  inert: no attention-score dropout to "
                          "schedule")
@@ -232,8 +238,8 @@ class DropoutSchedule:
 
 def _not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP: port queue, site='auto' / "
-        "sharding policies)")
+        f"{what} is not ported yet (ROADMAP: port queue, sharding "
+        "policies)")
 
 
 def _next_attn_stride(kinds: Tuple[AttentionKind, ...], period: int,
@@ -399,9 +405,31 @@ def _replay_assignment(a: HostAssignment,
     return dataclasses.replace(a, **changes) if changes else a
 
 
+def _resolve_auto(cfg: ModelConfig, plan: DropoutPlan, batch: int,
+                  seq: int, shard: ShardInfo, attn_impl: str, hw,
+                  moe_seq_dispatch: bool = False):
+    """site="auto": rank the block's candidate host GEMMs by the perf
+    model (``producer.rank_host_sites`` -> ``perfmodel.rank_host_gemms``)
+    and take the best one; "xla" when none qualifies. The shard counts and
+    dispatch layout ride along so the grouped candidates are ranked on the
+    grid the per-layer capability later judges (the JAX package's
+    function)."""
+    if attn_impl != "pallas":
+        return "xla", ()
+    if producer.mask_kernel_unsupported_reason(plan, seq, seq) is not None:
+        return "xla", ()
+    if shard.policy_installed and not shard.active:
+        return "xla", ()
+    ranked = producer.rank_host_sites(cfg, plan, batch, seq, hw=hw,
+                                      batch_shards=shard.batch_shards,
+                                      head_shards=shard.head_shards,
+                                      seq_dispatch=moe_seq_dispatch)
+    return (ranked[0][0], ranked) if ranked else ("xla", ())
+
+
 @functools.lru_cache(maxsize=256)
 def _compile(cfg: ModelConfig, plan_cfg: DropoutPlanConfig, batch: int,
-             seq: int, shard: ShardInfo, attn_impl: str,
+             seq: int, shard: ShardInfo, attn_impl: str, hw,
              moe_seq_dispatch: bool = False) -> DropoutSchedule:
     plan = DropoutPlan(plan_cfg)
     kinds = cfg.layer_kinds()
@@ -418,8 +446,10 @@ def _compile(cfg: ModelConfig, plan_cfg: DropoutPlanConfig, batch: int,
     if not overlap or not attn_layers:
         return inert
     site = plan_cfg.site
+    headroom: Tuple[Tuple[str, float], ...] = ()
     if site == "auto":
-        raise _not_ported("site='auto'")
+        site, headroom = _resolve_auto(cfg, plan, batch, seq, shard,
+                                       attn_impl, hw, moe_seq_dispatch)
     carried = site in CARRIED_DROPOUT_SITES
     moe_first_dense = cfg.moe.first_dense_layers if cfg.moe else 0
     period = len(cfg.block_pattern)
@@ -488,7 +518,8 @@ def _compile(cfg: ModelConfig, plan_cfg: DropoutPlanConfig, batch: int,
     sched = DropoutSchedule(
         model=cfg.name, plan=plan_cfg, resolved_site=site, batch=batch,
         seq=seq, attn_impl=attn_impl, shard=shard, carried=carried,
-        assignments=tuple(asgs), moe_seq_dispatch=moe_seq_dispatch)
+        assignments=tuple(asgs), headroom=headroom,
+        moe_seq_dispatch=moe_seq_dispatch)
     _check_scan_periodicity(cfg, sched)
     return sched
 
@@ -525,12 +556,15 @@ def _check_scan_periodicity(cfg: ModelConfig, sched: DropoutSchedule):
 
 
 def compile_schedule(model_cfg: ModelConfig, plan, batch: int, seq: int,
-                     *, policy=None, attn_impl: str = "xla",
+                     *, policy=None, attn_impl: str = "xla", hw=None,
                      moe_seq_dispatch: bool = False, verify: bool = False,
                      shard: Optional[ShardInfo] = None) -> DropoutSchedule:
     """Compile the per-layer dropout schedule for one (model, plan, shape)
-    cell. ``plan`` is a DropoutPlanConfig or DropoutPlan. Results are
-    cached: the same inputs return the identical object.
+    cell. ``plan`` is a DropoutPlanConfig or DropoutPlan (site may be
+    "auto"; ``hw`` the ``perfmodel.Hardware`` it is ranked on, default the
+    active tuned table's or ``GH100``). Results are cached: the same
+    inputs return the identical object (``clear_cache``; installing a
+    tuned table clears it).
 
     ``verify=True`` runs the static mask-safety verifier's counter layer
     (``repro_torch.analysis``) over the compiled schedule and raises
@@ -548,7 +582,7 @@ def compile_schedule(model_cfg: ModelConfig, plan, batch: int, seq: int,
     if policy is not None:
         raise _not_ported("a sharding policy")
     sched = _compile(model_cfg, plan_cfg, batch, seq, shard or ShardInfo(),
-                     attn_impl, moe_seq_dispatch)
+                     attn_impl, hw, moe_seq_dispatch)
     if verify:
         # imported lazily: the analysis imports this module
         from repro_torch.analysis import verify_schedule
@@ -620,3 +654,9 @@ def reseed_schedule(sched: DropoutSchedule, seed: int) -> DropoutSchedule:
         return sched
     return dataclasses.replace(
         sched, plan=dataclasses.replace(sched.plan, seed=seed))
+
+
+def clear_cache() -> None:
+    """Drop compiled schedules (a tuned table's install does: a schedule
+    embeds its block and site choices)."""
+    _compile.cache_clear()

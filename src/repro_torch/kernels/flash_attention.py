@@ -36,13 +36,16 @@ and V streamed in 32-column slices, ``csrc/flash_f32_wide.cuh``); anything
 else on the card raises.
 
 The seed-salt word is host data: the kernels take its four words by
-value, so it stays on the CPU and reading it costs no device sync.
+value, so it stays on the CPU and reading it costs no device sync. The
+launch is the operator ``repro_torch::flash_fwd`` (the backward's
+``repro_torch::flash_dq`` and ``::flash_dkv``): a fake-tensor trace
+(``analysis/dataflow.py``) records one node a launch and runs nothing.
 """
 from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -53,7 +56,6 @@ from repro_torch.kernels.philox_common import (
     from_int32_bits,
     global_bh,
     philox4x32,
-    seed_salt_smem,
     seed_salt_words,
     threshold_from_p,
 )
@@ -184,9 +186,10 @@ def resolve_dropout(mode: str, mask_packed, *, batch: int, n_heads: int,
         return Dropout("premask", plane=plane, **common)
     if mode == "replay":
         if mask_packed is None:
-            mask_packed = seed_salt_smem(seed, salt)
-        words = from_int32_bits(_check_replay_operand(mask_packed)).tolist()
-        k0, k1, salt_w, off = words
+            k0, k1, salt_w, off = seed_salt_words(seed, salt)
+        else:
+            k0, k1, salt_w, off = from_int32_bits(
+                _check_replay_operand(mask_packed)).tolist()
         return Dropout("replay", key_lo=k0, key_hi=k1, salt=salt_w,
                        bh_offset=off, heads_global=heads_global or n_heads,
                        **common)
@@ -352,6 +355,45 @@ def _fwd_plain(q, k, v, dp: Dropout, causal, local_window, scale):
     return out.to(q.dtype), lse
 
 
+def dropout_args(dp: Dropout) -> list:
+    """A resolved ``Dropout`` as an operator's arguments (the plane first,
+    None when the call reads none)."""
+    return [dp.plane, dp.mode, dp.threshold, dp.inv_keep, dp.key_lo,
+            dp.key_hi, dp.salt, dp.bh_offset, dp.heads_global, dp.rounds]
+
+
+def dropout_of(plane, mode, threshold, inv_keep, key_lo, key_hi, salt,
+               bh_offset, heads_global, rounds) -> Dropout:
+    """The inverse of ``dropout_args``."""
+    return Dropout(mode, plane, threshold, inv_keep, key_lo, key_hi, salt,
+                   bh_offset, heads_global, rounds)
+
+
+@torch.library.custom_op("repro_torch::flash_fwd", mutates_args=())
+def _flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  plane: Optional[torch.Tensor], mode: str, threshold: int,
+                  inv_keep: float, key_lo: int, key_hi: int, salt: int,
+                  bh_offset: int, heads_global: int, rounds: int,
+                  causal: bool, local_window: int, scale: float
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One launch of the forward kernel as an operator of its own: the
+    kernel on the card, the plain version on the CPU. A trace
+    (``make_fx``) records it as one opaque node and runs neither."""
+    dp = dropout_of(plane, mode, threshold, inv_keep, key_lo, key_hi, salt,
+                    bh_offset, heads_global, rounds)
+    if q.device.type == "cuda":
+        return _fwd_kernel(q, k, v, dp, causal, local_window, scale)
+    return _fwd_plain(q, k, v, dp, causal, local_window, scale)
+
+
+@_flash_fwd_op.register_fake
+def _(q, k, v, plane, mode, threshold, inv_keep, key_lo, key_hi, salt,
+      bh_offset, heads_global, rounds, causal, local_window, scale):
+    b, h, sq, _ = q.shape
+    return q.new_empty(q.shape), q.new_empty((b, h, sq),
+                                             dtype=torch.float32)
+
+
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         mask_packed=None, *, causal: bool = True,
                         local_window: int = 0, dropout_p: float = 0.0,
@@ -363,7 +405,8 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     TPU grid's ``block_q``/``block_k``: the CUDA kernel tiles by 64 x 64,
     and no tiling changes a bit. "premask" takes the (B,H,SQ//32,SK) int32
     plane, "replay" the (4,) seed-salt word (built from seed/salt when
-    omitted). Returns out, or (out, lse)."""
+    omitted). The launch is the operator ``repro_torch::flash_fwd``.
+    Returns out, or (out, lse)."""
     batch, n_heads, sq, d = q.shape
     kv_heads, sk = k.shape[1], k.shape[2]
     if n_heads % kv_heads:
@@ -374,12 +417,10 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          heads_global=heads_global)
     if scale is None:
         scale = 1.0 / (d ** 0.5)
-    if q.device.type == "cuda":
-        out, lse = _fwd_kernel(q, k, v, dp, causal, local_window, scale)
-    elif q.device.type == "cpu":
-        out, lse = _fwd_plain(q, k, v, dp, causal, local_window, scale)
-    else:
+    if q.device.type not in ("cuda", "cpu"):
         raise ValueError(f"no flash kernel for device {q.device}")
+    out, lse = _flash_fwd_op(q, k, v, *dropout_args(dp), causal,
+                             local_window, scale)
     return (out, lse) if return_lse else out
 
 

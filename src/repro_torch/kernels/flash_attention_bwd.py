@@ -52,6 +52,8 @@ from repro_torch.kernels.flash_attention import (
     WIDE_HEAD_DIM,
     Dropout,
     check_kernel_shapes,
+    dropout_args,
+    dropout_of,
     instance,
     keep_rows,
     q_chunk,
@@ -131,11 +133,14 @@ def _bwd_kernel(name, q, k, v, do, lse, delta, out_a, out_b, dp: Dropout,
 
 
 def _bwd_plain(q, k, v, do, lse, delta, dp: Dropout, causal, local_window,
-               scale):
+               scale, part: str = "all"):
     """Per-query-head (dq, dk_h, dv_h) in plain tensor ops, per q-chunk, in
-    f32 on the upcast inputs; each rounded once to q's dtype."""
+    f32 on the upcast inputs; each rounded once to q's dtype. ``part``
+    "dq" or "dkv" computes only what the one kernel writes (the other
+    outputs None); the same arithmetic either way."""
     b, h, sq, d = q.shape
     kvh, sk = k.shape[1], k.shape[2]
+    want_dq, want_dkv = part in ("all", "dq"), part in ("all", "dkv")
     kf, vf = k.to(torch.float32), v.to(torch.float32)
     if h != kvh:
         kf = torch.repeat_interleave(kf, h // kvh, dim=1)
@@ -160,10 +165,95 @@ def _bwd_plain(q, k, v, do, lse, delta, dp: Dropout, causal, local_window,
             dpr = torch.where(keep, dpr * dp.inv_keep, 0.0)
             p_drop = torch.where(keep, p * dp.inv_keep, 0.0)
         ds = p * (dpr - delta[:, :, rows, None])
-        dq[:, :, rows] = (ds @ kf) * scale
-        dk_h += torch.einsum("bhqk,bhqd->bhkd", ds, qc) * scale
-        dv_h += torch.einsum("bhqk,bhqd->bhkd", p_drop, doc)
-    return dq.to(q.dtype), dk_h.to(q.dtype), dv_h.to(q.dtype)
+        if want_dq:
+            dq[:, :, rows] = (ds @ kf) * scale
+        if want_dkv:
+            dk_h += torch.einsum("bhqk,bhqd->bhkd", ds, qc) * scale
+            dv_h += torch.einsum("bhqk,bhqd->bhkd", p_drop, doc)
+    return (dq.to(q.dtype) if want_dq else None,
+            dk_h.to(q.dtype) if want_dkv else None,
+            dv_h.to(q.dtype) if want_dkv else None)
+
+
+def _bwd_launch(name, q, k, v, do, lse, delta, dp: Dropout, causal,
+                local_window, scale):
+    """One launch of the dq (``name`` its instance) or dkv kernel on the
+    card: dq, or (dk_h, dv_h)."""
+    check_kernel_shapes(q, k, v)
+    if do.dtype != q.dtype:
+        raise NotImplementedError(f"the flash kernels take dO in q's "
+                                  f"dtype {q.dtype}, got {do.dtype}")
+    q, k, v, do = (t.contiguous() for t in (q, k, v, do))
+    lse, delta = lse.contiguous(), delta.contiguous()
+    if dp.plane is not None:
+        dp = dataclasses.replace(dp, plane=dp.plane.contiguous())
+    args = (dp, causal, local_window, scale)
+    if name in (KERNEL_DQ, KERNEL_DQ_BF16):
+        dq = torch.empty_like(q)
+        _bwd_kernel(name, q, k, v, do, lse, delta, dq, None, *args)
+        return dq
+    b, h, _, d = q.shape
+    dk_h = torch.empty((b, h, k.shape[2], d), dtype=q.dtype,
+                       device=q.device)
+    dv_h = torch.empty_like(dk_h)
+    _bwd_kernel(name, q, k, v, do, lse, delta, dk_h, dv_h, *args)
+    return dk_h, dv_h
+
+
+@torch.library.custom_op("repro_torch::flash_dq", mutates_args=())
+def _flash_dq_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 do: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
+                 plane: Optional[torch.Tensor], mode: str, threshold: int,
+                 inv_keep: float, key_lo: int, key_hi: int, salt: int,
+                 bh_offset: int, heads_global: int, rounds: int,
+                 causal: bool, local_window: int, scale: float
+                 ) -> torch.Tensor:
+    """One launch of the dq kernel as an operator of its own: the kernel
+    on the card, the plain version's dq on the CPU. A trace records it as
+    one opaque node and runs neither."""
+    dp = dropout_of(plane, mode, threshold, inv_keep, key_lo, key_hi, salt,
+                    bh_offset, heads_global, rounds)
+    if q.device.type == "cuda":
+        return _bwd_launch(KERNELS[q.dtype][0], q, k, v, do, lse, delta, dp,
+                           causal, local_window, scale)
+    return _bwd_plain(q, k, v, do, lse, delta, dp, causal, local_window,
+                      scale, part="dq")[0]
+
+
+@_flash_dq_op.register_fake
+def _(q, k, v, do, lse, delta, plane, mode, threshold, inv_keep, key_lo,
+      key_hi, salt, bh_offset, heads_global, rounds, causal, local_window,
+      scale):
+    return q.new_empty(q.shape)
+
+
+@torch.library.custom_op("repro_torch::flash_dkv", mutates_args=())
+def _flash_dkv_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  do: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
+                  plane: Optional[torch.Tensor], mode: str, threshold: int,
+                  inv_keep: float, key_lo: int, key_hi: int, salt: int,
+                  bh_offset: int, heads_global: int, rounds: int,
+                  causal: bool, local_window: int, scale: float
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One launch of the dkv kernel as an operator of its own: (dk_h,
+    dv_h) per query head, the kernel on the card, the plain version's on
+    the CPU. A trace records it as one opaque node and runs neither."""
+    dp = dropout_of(plane, mode, threshold, inv_keep, key_lo, key_hi, salt,
+                    bh_offset, heads_global, rounds)
+    if q.device.type == "cuda":
+        return _bwd_launch(KERNELS[q.dtype][1], q, k, v, do, lse, delta, dp,
+                           causal, local_window, scale)
+    return _bwd_plain(q, k, v, do, lse, delta, dp, causal, local_window,
+                      scale, part="dkv")[1:]
+
+
+@_flash_dkv_op.register_fake
+def _(q, k, v, do, lse, delta, plane, mode, threshold, inv_keep, key_lo,
+      key_hi, salt, bh_offset, heads_global, rounds, causal, local_window,
+      scale):
+    b, h, _, d = q.shape
+    shape = (b, h, k.shape[2], d)
+    return q.new_empty(shape), q.new_empty(shape)
 
 
 def flash_attention_bwd_heads(q, k, v, o, lse, do,
@@ -175,7 +265,8 @@ def flash_attention_bwd_heads(q, k, v, o, lse, do,
                                          torch.Tensor]:
     """(dq, dk_h, dv_h) in q's dtype, dk / dv per query head (B, H, SK, D)
     as the dkv kernel writes them, before the GQA group sum: the kernels on
-    a CUDA device, the plain version on the CPU."""
+    a CUDA device, the plain version on the CPU (the operators
+    ``repro_torch::flash_dq`` and ``repro_torch::flash_dkv``)."""
     batch, n_heads, sq, d = q.shape
     sk = k.shape[2]
     dp = resolve_dropout(mode, mask_packed, batch=batch, n_heads=n_heads,
@@ -184,29 +275,13 @@ def flash_attention_bwd_heads(q, k, v, o, lse, do,
                          heads_global=heads_global)
     if scale is None:
         scale = 1.0 / (d ** 0.5)
+    if q.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"no flash kernel for device {q.device}")
     delta = torch.sum(do.to(torch.float32) * o.to(torch.float32), dim=-1)
-    if q.device.type == "cuda":
-        check_kernel_shapes(q, k, v)
-        q, k, v, do = (t.contiguous() for t in (q, k, v, do))
-        lse, delta = lse.contiguous(), delta.contiguous()
-        if dp.plane is not None:
-            dp = dataclasses.replace(dp, plane=dp.plane.contiguous())
-        if do.dtype != q.dtype:
-            raise NotImplementedError(f"the flash kernels take dO in q's "
-                                      f"dtype {q.dtype}, got {do.dtype}")
-        dq = torch.empty_like(q)
-        dk_h = torch.empty((batch, n_heads, sk, d), dtype=q.dtype,
-                           device=q.device)
-        dv_h = torch.empty_like(dk_h)
-        args = (dp, causal, local_window, scale)
-        dq_name, dkv_name = KERNELS[q.dtype]
-        _bwd_kernel(dq_name, q, k, v, do, lse, delta, dq, None, *args)
-        _bwd_kernel(dkv_name, q, k, v, do, lse, delta, dk_h, dv_h, *args)
-        return dq, dk_h, dv_h
-    if q.device.type == "cpu":
-        return _bwd_plain(q, k, v, do, lse, delta, dp, causal, local_window,
-                          scale)
-    raise ValueError(f"no flash kernel for device {q.device}")
+    args = (*dropout_args(dp), causal, local_window, scale)
+    dq = _flash_dq_op(q, k, v, do, lse, delta, *args)
+    dk_h, dv_h = _flash_dkv_op(q, k, v, do, lse, delta, *args)
+    return dq, dk_h, dv_h
 
 
 def flash_attention_bwd(q, k, v, o, lse, do,

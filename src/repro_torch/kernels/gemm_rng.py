@@ -57,15 +57,22 @@ tile holds. In Region 3 both return the plain grouped product of the
 operands' dtype (the fp8 host unquantized, as JAX's does) and no plane.
 
 Every host takes f32 or bf16 operands (both of one dtype) and returns C in
-that dtype; other dtypes raise ``NotImplementedError``. Each kernel
-instance counts its launches under its own name: the bf16-operand e4m3
-instances are ``gemm_rng_fp8_bf16`` and ``gemm_rng_grouped_fp8_bf16``.
+that dtype; other dtypes raise ``NotImplementedError``. Each launch is an
+operator of its own -- ``repro_torch::gemm_rng`` (the f32 / bf16 hosts,
+dense or grouped) and ``repro_torch::gemm_rng_fp8`` (the e4m3 hosts) --
+whose one implementation launches the kernel for CUDA operands and runs
+the plain version for CPU ones, so a fake-tensor trace
+(``analysis/dataflow.py``) records one opaque node a launch and runs
+nothing; the ``autograd.Function``s around them keep the backward. Each
+kernel instance counts its launches under its own name: the bf16-operand
+e4m3 instances are ``gemm_rng_fp8_bf16`` and
+``gemm_rng_grouped_fp8_bf16``.
 """
 from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import Iterator, Optional, Tuple
+from typing import Iterator, List, Optional, Tuple
 
 import torch
 
@@ -341,22 +348,84 @@ def layout_tiles_plane(lay: MaskEmissionLayout) -> bool:
             and lay.rows_valid * lay.sk < 2 ** 31)
 
 
+def _pack(em: Optional[_Emission]) -> List[int]:
+    """An emission as the int list an operator takes (empty: none)."""
+    if em is None:
+        return []
+    return [*dataclasses.astuple(em.layout), em.sq32, em.heads_local,
+            em.heads_global, em.key_lo, em.key_hi, em.salt, em.bh_offset,
+            em.threshold, em.rounds]
+
+
+def _unpack(words: List[int]) -> Optional[_Emission]:
+    """The inverse of ``_pack``."""
+    if not words:
+        return None
+    n = len(dataclasses.fields(MaskEmissionLayout))
+    return _Emission(MaskEmissionLayout(*words[:n]), *words[n:])
+
+
+def _plane_out(a: torch.Tensor, mask: Optional[torch.Tensor]
+               ) -> torch.Tensor:
+    """An operator's plane output: the plane, or an empty one in Region 3
+    (an operator returns tensors only)."""
+    if mask is None:
+        return torch.empty((0, 0), dtype=torch.int32, device=a.device)
+    return mask
+
+
+def _fake_outputs(a: torch.Tensor, n: int, emission: List[int],
+                  dtype: torch.dtype):
+    """The outputs' shapes without running anything (a trace's
+    ``register_fake``)."""
+    rows, sk = (emission[1], emission[2]) if emission else (0, 0)
+    return (a.new_empty((*a.shape[:-1], n), dtype=dtype),
+            a.new_empty((rows, sk), dtype=torch.int32))
+
+
+def _launch_host(name: str, a: torch.Tensor, b: torch.Tensor,
+                 em: Optional[_Emission]
+                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """One launch of the f32 / bf16 host ``name``, dense (a (M, K)) or
+    grouped (a (E, M, K))."""
+    a, b = a.contiguous(), b.contiguous()
+    _check_rows(name, a, b)
+    n = b.shape[-1]
+    c, mask = _outputs(a, n, em, dtype=a.dtype)
+    _launch(name, [a.data_ptr(), b.data_ptr(), c.data_ptr(),
+                   *a.shape[:-1], n, a.shape[-1]], mask, em, a.device)
+    return c, mask
+
+
+@torch.library.custom_op("repro_torch::gemm_rng", mutates_args=())
+def _gemm_rng_op(a: torch.Tensor, b: torch.Tensor, emission: List[int]
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One launch of the f32 / bf16 host of the operands' dtype as an
+    operator of its own, dense or grouped (by a's rank): the kernel on the
+    card, the plain version on the CPU. A trace (``make_fx``) records it
+    as one opaque node and runs neither."""
+    em = _unpack(emission)
+    grouped = a.dim() == 3
+    name = (_GROUPED if grouped else _DENSE)[a.dtype]
+    if _check_device(a, name):
+        c, mask = _launch_host(name, a, b, em)
+    else:
+        c, mask = (_plain_grouped if grouped else _plain)(a, b, em)
+    return c, _plane_out(a, mask)
+
+
+@_gemm_rng_op.register_fake
+def _(a, b, emission):
+    return _fake_outputs(a, b.shape[-1], emission, a.dtype)
+
+
 def _forward(a: torch.Tensor, b: torch.Tensor, em: Optional[_Emission]
              ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """(C in the operands' dtype, flattened plane or None) on the operands'
     device: the kernel of their dtype on the card, the plain version on the
-    CPU."""
-    name = _DENSE[a.dtype]
-    if not _check_device(a, name):
-        return _plain(a, b, em)
-    a, b = a.contiguous(), b.contiguous()
-    m, k = a.shape
-    n = b.shape[1]
-    _check_rows(name, a, b)
-    c, mask = _outputs(a, n, em, dtype=a.dtype)
-    _launch(name, [a.data_ptr(), b.data_ptr(), c.data_ptr(), m, n, k],
-            mask, em, a.device)
-    return c, mask
+    CPU (``repro_torch::gemm_rng``)."""
+    c, mask = _gemm_rng_op(a, b, _pack(em))
+    return c, None if em is None else mask
 
 
 def _plain(a, b, em: Optional[_Emission]):
@@ -648,6 +717,54 @@ def _check_fp8_kmajor(name: str, a_q: torch.Tensor, a_s: torch.Tensor,
     return ldk
 
 
+@torch.library.custom_op("repro_torch::gemm_rng_fp8", mutates_args=())
+def _gemm_rng_fp8_op(a_q: torch.Tensor, a_s: torch.Tensor,
+                     bt_q: torch.Tensor, bt_s: torch.Tensor,
+                     blocks: List[int], emission: List[int],
+                     out_dtype: torch.dtype
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One launch of the e4m3 host of ``out_dtype`` on K-major operands as
+    an operator of its own, dense (a_q (M, K)) or grouped (a_q (E, M, K)):
+    the kernel on the card, the plain version on the CPU (on the
+    operands laid out as JAX's, contiguous). A trace records it as one
+    opaque node and runs neither."""
+    em = _unpack(emission)
+    blocks = tuple(blocks)
+    grouped = a_q.dim() == 3
+    name = (_GROUPED_FP8 if grouped else _FP8)[out_dtype]
+    if not _check_device(a_q, name):
+        bm, bn, bk = blocks
+        k = a_q.shape[-1]
+        n = bt_q.shape[-2]
+        a_q = a_q.contiguous()
+        b_q = bt_q.transpose(-1, -2).contiguous()
+        if grouped:
+            e = a_q.shape[0]
+            b_s = bt_s.reshape(e, n // bn, k // bk).transpose(1, 2).reshape(
+                e * (k // bk), n // bn)
+            c = gemm_grouped_fp8_plain(a_q, a_s, b_q, b_s, blocks, out_dtype)
+        else:
+            c = gemm_fp8_plain(a_q, a_s, b_q, bt_s.T.contiguous(),
+                               blocks).to(out_dtype)
+        mask = None if em is None else _plain_plane(em, a_q.device)
+        return c, _plane_out(a_q, mask)
+    groups = a_q.shape[0] if grouped else 0
+    ldk = _check_fp8_kmajor(name, a_q, a_s, bt_q, bt_s, blocks, groups)
+    bm, bn, bk = blocks
+    n = bt_q.shape[-2]
+    c, mask = _outputs(a_q, n, em, dtype=out_dtype)
+    _launch(name,
+            [a_q.data_ptr(), bt_q.data_ptr(), a_s.data_ptr(),
+             bt_s.data_ptr(), c.data_ptr(), *a_q.shape[:-1], n,
+             a_q.shape[-1], ldk, bm, bn, bk], mask, em, a_q.device)
+    return c, _plane_out(a_q, mask)
+
+
+@_gemm_rng_fp8_op.register_fake
+def _(a_q, a_s, bt_q, bt_s, blocks, emission, out_dtype):
+    return _fake_outputs(a_q, bt_q.shape[-2], emission, out_dtype)
+
+
 def gemm_rng_fp8_kmajor(a_q: torch.Tensor, a_s: torch.Tensor,
                         bt_q: torch.Tensor, bt_s: torch.Tensor,
                         blocks: Tuple[int, int, int],
@@ -658,21 +775,11 @@ def gemm_rng_fp8_kmajor(a_q: torch.Tensor, a_s: torch.Tensor,
     rows of one stride as ``pad_k16`` gives them, and their scales a_s
     (M/bm, K/bk), bt_s (N/bn, K/bk) (= b_s.T). Launches the kernel instance
     of ``out_dtype`` (f32, or bf16 for bf16 model operands: C rounded once)
-    for CUDA tensors (or raises), the plain version for CPU ones: (C,
-    flattened plane or None)."""
-    name = _FP8[out_dtype]
-    if not _check_device(a_q, name):
-        return _plain_fp8(a_q, a_s, bt_q.T, bt_s.T, blocks, em, out_dtype)
-    ldk = _check_fp8_kmajor(name, a_q, a_s, bt_q, bt_s, blocks)
-    bm, bn, bk = blocks
-    m, k = a_q.shape
-    n = bt_q.shape[0]
-    c, mask = _outputs(a_q, n, em, dtype=out_dtype)
-    _launch(name,
-            [a_q.data_ptr(), bt_q.data_ptr(), a_s.data_ptr(),
-             bt_s.data_ptr(), c.data_ptr(), m, n, k, ldk, bm, bn, bk], mask,
-            em, a_q.device)
-    return c, mask
+    for CUDA tensors (or raises), the plain version for CPU ones
+    (``repro_torch::gemm_rng_fp8``): (C, flattened plane or None)."""
+    c, mask = _gemm_rng_fp8_op(a_q, a_s, bt_q, bt_s, list(blocks),
+                               _pack(em), out_dtype)
+    return c, None if em is None else mask
 
 
 def gemm_rng_fp8_quantized(a_q: torch.Tensor, a_s: torch.Tensor,
@@ -683,12 +790,10 @@ def gemm_rng_fp8_quantized(a_q: torch.Tensor, a_s: torch.Tensor,
                            ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """The fp8 host on operands already quantized per logical block
     ``blocks`` = (bm, bn, bk), in JAX's layout (b_q (K, N), b_s (K/bk,
-    N/bn)): (C in ``out_dtype``, flattened plane or None). Launches the
-    kernel for CUDA tensors, on b's bytes and scales transposed to K-major
+    N/bn)): (C in ``out_dtype``, flattened plane or None), through
+    ``gemm_rng_fp8_kmajor`` on b's bytes and scales transposed to K-major
     (both operands' rows zero-padded to a multiple of 16 bytes where K is
-    not); the plain version for CPU ones."""
-    if not _check_device(a_q, KERNEL_FP8):
-        return _plain_fp8(a_q, a_s, b_q, b_s, blocks, em, out_dtype)
+    not): the kernel for CUDA tensors, the plain version for CPU ones."""
     if b_q.dim() != 2 or b_s.dim() != 2:
         raise ValueError(f"{KERNEL_FP8} takes a 2-d (K, N) operand, got "
                          f"{tuple(b_q.shape)}")
@@ -827,18 +932,8 @@ def _forward_grouped(a: torch.Tensor, b: torch.Tensor,
                      ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """(C in the operands' dtype, flattened plane or None) of the grouped
     host on the operands' device: the kernel of their dtype on the card,
-    the plain version on the CPU."""
-    name = _GROUPED[a.dtype]
-    if not _check_device(a, name):
-        return _plain_grouped(a, b, em)
-    a, b = a.contiguous(), b.contiguous()
-    e, m, k = a.shape
-    n = b.shape[2]
-    _check_rows(name, a, b)
-    c, mask = _outputs(a, n, em, dtype=a.dtype)
-    _launch(name, [a.data_ptr(), b.data_ptr(), c.data_ptr(), e, m, n, k],
-            mask, em, a.device)
-    return c, mask
+    the plain version on the CPU (``repro_torch::gemm_rng``)."""
+    return _forward(a, b, em)
 
 
 def _grouped_dgrad(a, b, dc, needs, cast=lambda t: t):
@@ -976,25 +1071,8 @@ def gemm_rng_grouped_fp8_kmajor(a_q: torch.Tensor, a_s: torch.Tensor,
     gk) as ``kmajor_grouped`` does (rows of one stride, as ``pad_k16``
     gives them): (C in ``out_dtype``, flattened plane or None). Launches the
     kernel instance of ``out_dtype`` for CUDA tensors (or raises), the
-    plain version for CPU ones."""
-    e, m, k = a_q.shape
-    n = bt_q.shape[1]
-    name = _GROUPED_FP8[out_dtype]
-    if not _check_device(a_q, name):
-        _, bn, bk = blocks
-        b_q = bt_q.transpose(1, 2)
-        b_s = bt_s.reshape(e, n // bn, k // bk).transpose(1, 2).reshape(
-            e * (k // bk), n // bn)
-        c = gemm_grouped_fp8_plain(a_q, a_s, b_q, b_s, blocks, out_dtype)
-        return c, None if em is None else _plain_plane(em, a_q.device)
-    ldk = _check_fp8_kmajor(name, a_q, a_s, bt_q, bt_s, blocks, groups=e)
-    bm, bn, bk = blocks
-    c, mask = _outputs(a_q, n, em, dtype=out_dtype)
-    _launch(name,
-            [a_q.data_ptr(), bt_q.data_ptr(), a_s.data_ptr(),
-             bt_s.data_ptr(), c.data_ptr(), e, m, n, k, ldk, bm, bn, bk],
-            mask, em, a_q.device)
-    return c, mask
+    plain version for CPU ones (``repro_torch::gemm_rng_fp8``)."""
+    return gemm_rng_fp8_kmajor(a_q, a_s, bt_q, bt_s, blocks, em, out_dtype)
 
 
 def gemm_rng_grouped_fp8_quantized(a_q: torch.Tensor, a_s: torch.Tensor,
@@ -1006,13 +1084,11 @@ def gemm_rng_grouped_fp8_quantized(a_q: torch.Tensor, a_s: torch.Tensor,
                                               Optional[torch.Tensor]]:
     """The grouped fp8 host on operands already quantized by
     ``quantize_grouped`` (JAX's layout: b_q (E, K, N), b_s (E*gk, gn)):
-    (C in ``out_dtype``, flattened plane or None). Launches the kernel for
-    CUDA tensors, on b's bytes and scales transposed to K-major (both
-    operands' rows zero-padded to a multiple of 16 bytes where K is not);
-    the plain version for CPU ones."""
-    if not _check_device(a_q, KERNEL_GROUPED_FP8):
-        c = gemm_grouped_fp8_plain(a_q, a_s, b_q, b_s, blocks, out_dtype)
-        return c, None if em is None else _plain_plane(em, a_q.device)
+    (C in ``out_dtype``, flattened plane or None), through
+    ``gemm_rng_grouped_fp8_kmajor`` on b's bytes and scales transposed to
+    K-major (both operands' rows zero-padded to a multiple of 16 bytes where
+    K is not): the kernel for CUDA tensors, the plain version for CPU
+    ones."""
     _, bn, bk = blocks
     if b_q.dim() != 3 or b_s.dim() != 2:
         raise ValueError(f"{KERNEL_GROUPED_FP8} takes a 3-d (E, K, N) "

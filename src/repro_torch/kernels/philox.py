@@ -23,7 +23,9 @@ with no division in its loop (``csrc/philox_walk.cuh``); see the note in
 ``csrc/philox_mask.cu``.
 
 Planes are ``torch.int32`` holding the uint32 bit pattern
-(``philox_common.to_int32_bits``).
+(``philox_common.to_int32_bits``). The launch is the operator
+``repro_torch::philox_mask`` (it writes ``out``): a fake-tensor trace
+(``analysis/dataflow.py``) records it as one node and runs nothing.
 """
 from __future__ import annotations
 
@@ -99,23 +101,15 @@ def _plain_words(batch: int, n_heads: int, sq32: int, sk: int, key_lo: int,
     return out
 
 
-def philox_mask_into(out: torch.Tensor, *, key_lo: int, key_hi: int,
-                     salt: int, threshold: int, rounds: int = 7,
-                     heads_global: int = 0, bh_offset: int = 0
-                     ) -> torch.Tensor:
-    """Fill ``out`` (B, H, SQ//32, SK) int32 with the packed keep plane.
-    ``heads_global``/``bh_offset`` make the call shard-local: ``out`` is
-    the (B, H) tile of the global (B_global, H_global) plane that starts
-    at flattened index ``bh_offset``."""
+@torch.library.custom_op("repro_torch::philox_mask", mutates_args=("out",))
+def _philox_op(out: torch.Tensor, key_lo: int, key_hi: int, salt: int,
+               threshold: int, rounds: int, heads_global: int,
+               bh_offset: int) -> None:
+    """One launch as an operator of its own: the kernel on a CUDA ``out``,
+    the plain version on a CPU one. A trace (``make_fx``) records it as
+    one opaque node and runs neither (``register_fake`` below)."""
     global _launches
-    if out.dtype != torch.int32 or out.dim() != 4 or not out.is_contiguous():
-        raise ValueError(f"out must be a contiguous 4-d int32 tensor, got "
-                         f"{out.dtype} {tuple(out.shape)}")
-    if rounds not in SUPPORTED_PHILOX_ROUNDS:
-        raise ValueError(f"rounds={rounds}; expected one of "
-                         f"{SUPPORTED_PHILOX_ROUNDS}")
     batch, n_heads, sq32, sk = out.shape
-    heads_global = heads_global or n_heads
     if out.device.type == "cuda":
         fn = _kernel_fn()
         with torch.cuda.device(out.device):
@@ -126,12 +120,36 @@ def philox_mask_into(out: torch.Tensor, *, key_lo: int, key_hi: int,
             raise RuntimeError(f"philox_mask kernel launch failed: "
                                f"cudaError {err}")
         _launches += 1
-        return out
-    if out.device.type != "cpu":
-        raise ValueError(f"no philox_mask kernel for device {out.device}")
+        return
     out.copy_(_plain_words(batch, n_heads, sq32, sk, key_lo, key_hi, salt,
                            threshold, rounds, heads_global, bh_offset,
                            out.device).reshape(out.shape))
+
+
+@_philox_op.register_fake
+def _(out, key_lo, key_hi, salt, threshold, rounds, heads_global,
+      bh_offset):
+    return None
+
+
+def philox_mask_into(out: torch.Tensor, *, key_lo: int, key_hi: int,
+                     salt: int, threshold: int, rounds: int = 7,
+                     heads_global: int = 0, bh_offset: int = 0
+                     ) -> torch.Tensor:
+    """Fill ``out`` (B, H, SQ//32, SK) int32 with the packed keep plane.
+    ``heads_global``/``bh_offset`` make the call shard-local: ``out`` is
+    the (B, H) tile of the global (B_global, H_global) plane that starts
+    at flattened index ``bh_offset``."""
+    if out.dtype != torch.int32 or out.dim() != 4 or not out.is_contiguous():
+        raise ValueError(f"out must be a contiguous 4-d int32 tensor, got "
+                         f"{out.dtype} {tuple(out.shape)}")
+    if rounds not in SUPPORTED_PHILOX_ROUNDS:
+        raise ValueError(f"rounds={rounds}; expected one of "
+                         f"{SUPPORTED_PHILOX_ROUNDS}")
+    if out.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"no philox_mask kernel for device {out.device}")
+    _philox_op(out, key_lo, key_hi, salt, threshold, rounds,
+               heads_global or out.shape[1], bh_offset)
     return out
 
 

@@ -32,7 +32,6 @@ from repro_torch.kernels.flash_attention import (
     flash_attention_mosaic,
     kernel_shape_unsupported_reason,
 )
-from repro_torch.kernels.philox_common import seed_salt_smem
 from repro_torch.models.layers import apply_rope, dense_init, rms_head_norm
 
 
@@ -243,9 +242,10 @@ def _attn_pallas_sharded(q, k, v, packed, plan, local, layer_idx, step,
         mode = "none"
     rounds = plan.cfg.philox_rounds if plan is not None else 7
     if mode == "replay":
-        operand = seed_salt_smem(plan.step_seed(step), plan.salt(layer_idx))
-    else:
-        operand = packed if mode == "premask" else None
+        # the kernels take the seed-salt word's four words by value, made
+        # here from the step seed and the layer salt
+        seed, salt = plan.step_seed(step), plan.salt(layer_idx)
+    operand = packed if mode == "premask" else None
     return flash_attention_mosaic(q, k, v, operand, True, local, p_drop,
                                   mode, seed, salt, rounds)
 

@@ -7,12 +7,12 @@ as one ``(count, ...)`` tensor).
 """
 from __future__ import annotations
 
-import functools
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils._python_dispatch import _disable_current_modes
 
 from repro_torch.config.base import FFNKind, ModelConfig, NormKind
 
@@ -82,12 +82,23 @@ def rope_freqs(head_dim: int, theta: float) -> np.ndarray:
                             / head_dim))
 
 
-@functools.lru_cache(maxsize=None)
+_ROPE_FREQS: dict = {}
+
+
 def _rope_freqs_on(head_dim: int, theta: float,
                    device: torch.device) -> torch.Tensor:
-    """``rope_freqs`` resident on ``device`` (copied there once)."""
-    return torch.from_numpy(np.asarray(rope_freqs(head_dim, theta),
-                                       np.float32)).to(device)
+    """``rope_freqs`` resident on ``device`` (copied there once). Made
+    outside any dispatch mode, so a fake-tensor trace
+    (``analysis.dataflow``) takes it as a constant and keeps nothing of
+    its own here."""
+    key = (head_dim, theta, device)
+    freqs = _ROPE_FREQS.get(key)
+    if freqs is None:
+        with _disable_current_modes():
+            freqs = torch.from_numpy(np.asarray(
+                rope_freqs(head_dim, theta), np.float32)).to(device)
+        _ROPE_FREQS[key] = freqs
+    return freqs
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,

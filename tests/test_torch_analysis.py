@@ -435,23 +435,21 @@ def test_lint_cli_single_cell_and_topologies(capsys):
 
 
 def test_lint_cli_auto_and_layer2_not_ported(capsys):
-    """site="auto" cells are reported as not ported (not clean, not
-    failing); --jaxpr says Layer 2 is not ported; neither prints
-    "caught"."""
+    """site="auto" cells, once reported as not ported, are planned by the
+    perf model and proven like a fixed site's, by the counter layer and
+    by Layer 2 (the dataflow walk, once ported too); a mutation on an
+    "auto" cell is caught; nothing says "not ported"."""
     assert lint.main(["--config", "yi-6b", "--site", "auto"]) == 0
     out = capsys.readouterr().out
-    assert "not ported" in out and "0 cells" in out
-    assert "Layer 2" in out and "caught" not in out
-    assert lint.main(["--config", "yi-6b", "--mutate",
-                      "residual-leak"]) == 2
-    out = capsys.readouterr().out
-    assert "not ported" in out and "caught" not in out
+    assert "not ported" not in out and "caught" not in out
+    assert "[lint] 4 cells, 0 with findings" in out
+    assert "yi-6b[reduced] site=auto" in out
     assert lint.main(["--config", "yi-6b", "--site", "auto", "--mutate",
-                      "counter-overlap"]) == 2
+                      "counter-overlap"]) == 1
+    assert "caught by" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("kind", [k for k in lint.MUTATIONS
-                                  if k != "residual-leak"])
+@pytest.mark.parametrize("kind", lint.MUTATIONS)
 def test_lint_cli_mutation_modes(kind, capsys):
     """``lint --mutate <kind>`` exits 1 with the matching rule named."""
     assert lint.main(["--config", "yi-6b", "--dtype", "f32", "--mutate",

@@ -552,15 +552,24 @@ def test_griffin_bf16_three_step_trajectory_equals_jax(impl, site, replay):
             CHANGE_REL * np.linalg.norm(d_jax), path
 
 
-def test_griffin_unit_rounds_as_compiled_jax():
+# the 2-block bf16 recurrentgemma's logits against JAX's jitted forward,
+# Frobenius, relative: the port reads 0 on some hosts and 6.35e-4 on
+# others (XLA's CPU code is not bitwise the same on every host), the same
+# port with the second block's norm reading the rounded sum 4.3e-3
+GRIFFIN_UNIT_REL = 1.5e-3
+
+
+def test_griffin_unit_rounds_as_compiled_jax(monkeypatch):
     """Two RG-LRU blocks of one stack unit at bf16 compute: the logits are
-    bitwise JAX's jitted forward's (the second block's first norm reads
-    the first block's unrounded sum; rounded it was 4.3e-3 off, Frobenius,
-    relative)."""
+    within GRIFFIN_UNIT_REL of JAX's jitted forward's (the second block's
+    first norm reads the first block's unrounded sum), and the control --
+    that norm reading the rounded sum -- lies outside it. The limit is
+    not bitwise: XLA's CPU code differs from host to host."""
     from repro.models import Runtime as JRuntime
     from repro.models import forward as j_forward
     from repro.models.transformer import model_init as j_model_init
     from repro_torch.models import Runtime, forward
+    from repro_torch.models import transformer
     jcfg = dataclasses.replace(j_get_arch("recurrentgemma-9b", reduced=True),
                                n_layers=2)
     cfg = dataclasses.replace(get_arch("recurrentgemma-9b", reduced=True),
@@ -575,10 +584,21 @@ def test_griffin_unit_rounds_as_compiled_jax():
         jnp.asarray(tokens))
     params = tree.tree_map(lambda t: t.to(BF16),
                            params_from_jax(master, cfg, device="cpu"))
-    with torch.no_grad():
-        got, _ = forward(params, cfg, Runtime(compute_dtype=BF16),
-                         torch.from_numpy(tokens))
-    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+    def logits():
+        with torch.no_grad():
+            return forward(params, cfg, Runtime(compute_dtype=BF16),
+                           torch.from_numpy(tokens))[0].float().numpy()
+
+    rel = _rel(logits(), want)
+    block = transformer.block_apply
+    monkeypatch.setattr(transformer, "block_apply",
+                        lambda *a, x32=None, **k: block(*a, x32=None, **k))
+    rel_rounded = _rel(logits(), want)
+    print(f"griffin unit logits from JAX's jitted forward: {rel:.3g}; the "
+          f"rounded-sum control {rel_rounded:.3g} (limit "
+          f"{GRIFFIN_UNIT_REL})")
+    assert rel <= GRIFFIN_UNIT_REL < rel_rounded
 
 
 # JAX's compiled bf16 block keeps two sums in f32 that its source rounds

@@ -33,6 +33,7 @@ from repro.core.schedule import compile_schedule as j_compile
 from repro.kernels import gemm_rng as jg
 from repro.kernels import quant as jquant
 from repro.kernels.ref import philox_mask_ref
+from repro.perfmodel.hardware import GH100 as J_GH100
 from repro_torch.config import get_arch
 from repro_torch.config.base import (
     AttentionKind,
@@ -46,6 +47,7 @@ from repro_torch.core.overlap import DropoutPlan
 from repro_torch.core.schedule import compile_schedule
 from repro_torch.kernels import gemm_rng as tg
 from repro_torch.kernels import launch_counts, ops, quant, reset_launch_counts
+from repro_torch.perfmodel.hardware import GH100
 
 P, SEED = 0.25, 5
 C_TOL = dict(atol=3e-5, rtol=3e-5)
@@ -633,14 +635,17 @@ def test_first_dense_channel_mix_plans_on_its_own_grid():
 
 def test_grouped_bf16_plan_raises():
     """A grouped bf16 plan plans (its text is JAX's:
-    ``test_schedule_text_equals_jax[bf16]``); what the port still refuses
-    for it raises, naming the ROADMAP: ``site="auto"`` (the perf model and
-    autotuner) and a sharding policy (multi-device)."""
-    _, cfg = _moe_cfgs()
-    with pytest.raises(NotImplementedError, match="ROADMAP.*auto"):
-        compile_schedule(cfg, DropoutPlanConfig(
-            **_plan_kw("auto", gemm_dtype="bf16")), 2, 128,
-            attn_impl="pallas")
+    ``test_schedule_text_equals_jax[bf16]``), ``site="auto"`` included
+    since the perf model is ported (its text JAX's at the same hardware);
+    what the port still refuses for it raises, naming the ROADMAP: a
+    sharding policy (multi-device)."""
+    jcfg, cfg = _moe_cfgs()
+    kw = _plan_kw("auto", gemm_dtype="bf16")
+    assert compile_schedule(
+        cfg, DropoutPlanConfig(**kw), 2, 128, attn_impl="pallas",
+        hw=GH100).explain() == j_compile(
+        jcfg, JPlanConfig(**kw), 2, 128, attn_impl="pallas",
+        hw=J_GH100).explain()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         compile_schedule(cfg, DropoutPlanConfig(
             **_plan_kw("ffn_up", gemm_dtype="bf16")), 2, 128,

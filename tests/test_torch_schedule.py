@@ -122,21 +122,27 @@ def test_gemm_planning_helpers_equal_jax(shape):
 
 
 def test_unported_sites_and_dtypes_raise():
-    """site="auto" and a sharding policy raise, at f32 and with a grouped
-    bf16 host (a MoE expert einsum); dense and grouped bf16 hosts are
-    ported and plan."""
+    """A sharding policy raises; site="auto" plans since the perf model is
+    ported (it raised before), at f32 and with a grouped bf16 host (a MoE
+    expert einsum), as JAX's does on the same hardware; dense and grouped
+    bf16 hosts are ported and plan."""
+    from repro.perfmodel.hardware import GH100 as J_GH100
+    from repro_torch.perfmodel.hardware import GH100
     cfg = get_arch("llama2-7b", reduced=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        compile_schedule(cfg, DropoutPlanConfig(mode="overlap", site="auto"),
-                         2, 128, attn_impl="pallas")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         compile_schedule(cfg, DropoutPlanConfig(mode="overlap"), 2, 128,
                          policy=object(), attn_impl="pallas")
     moe = get_arch("moonshot-v1-16b-a3b", reduced=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        compile_schedule(moe, DropoutPlanConfig(mode="overlap", site="auto",
-                                                gemm_dtype="bf16"),
-                         2, 128, attn_impl="pallas")
+    for c, jc, dtype in ((cfg, j_get_arch("llama2-7b", reduced=True), "f32"),
+                         (moe, j_get_arch("moonshot-v1-16b-a3b",
+                                          reduced=True), "bf16")):
+        kw = dict(mode="overlap", site="auto", gemm_dtype=dtype)
+        got = compile_schedule(c, DropoutPlanConfig(**kw), 2, 128,
+                               attn_impl="pallas", hw=GH100)
+        assert got.resolved_site != "auto"
+        assert got.explain() == j_compile(jc, JPlanConfig(**kw), 2, 128,
+                                          attn_impl="pallas",
+                                          hw=J_GH100).explain()
     sched = compile_schedule(moe, DropoutPlanConfig(
         mode="overlap", site="ffn_up", gemm_dtype="bf16"), 2, 128,
         attn_impl="pallas")

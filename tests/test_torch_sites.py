@@ -43,6 +43,7 @@ from repro.models import layers as jlayers
 from repro.models.transformer import Runtime as JRuntime
 from repro.models.transformer import forward as j_forward
 from repro.models.transformer import model_init as j_model_init
+from repro.perfmodel.hardware import GH100 as J_GH100
 from repro.train.loop import cross_entropy as j_cross_entropy
 from repro.train.loop import init_train_state as j_init_state
 from repro.train.loop import make_train_step as j_make_train_step
@@ -68,6 +69,7 @@ from repro_torch.data import batch_for_step
 from repro_torch.models import Runtime, attention, forward
 from repro_torch.models.layers import ffn_apply
 from repro_torch.optim import adamw_init
+from repro_torch.perfmodel.hardware import GH100
 from repro_torch.train import make_grad_fn, make_train_step
 
 ARCHS = ["llama2-7b", "yi-6b"]
@@ -336,8 +338,9 @@ def test_grouped_hosts_raise():
     """RWKV channel-mix FFNs host "ffn_up" / "ffn_down" through the grouped
     kernel (E=1): the schedule equals JAX's and plans it, and ``ffn_apply``
     gives JAX's hosted y (1e-4) and plane (bitwise); a bf16 grouped host
-    plans as JAX's too. What the port still lacks raises: ``site="auto"``
-    over such a stack."""
+    plans as JAX's too, and so does ``site="auto"`` over such a stack
+    since the perf model is ported (at the same hardware; it raised
+    before)."""
     jcfg, cfg = _small_cfgs(ffn=(JFFNKind.RWKV_CHANNEL, FFNKind.RWKV_CHANNEL))
     kw = dict(mode="overlap", p=0.25, seed=5, site="ffn_up")
     plan_cfg = DropoutPlanConfig(**kw)
@@ -369,6 +372,9 @@ def test_grouped_hosts_raise():
         cfg, DropoutPlanConfig(**kw16), 2, 128,
         attn_impl="pallas").explain() == j_compile(
         jcfg, JPlanConfig(**kw16), 2, 128, attn_impl="pallas").explain()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        compile_schedule(cfg, DropoutPlanConfig(**dict(kw16, site="auto")),
-                         2, 128, attn_impl="pallas")
+    kw_auto = dict(kw16, site="auto")
+    assert compile_schedule(
+        cfg, DropoutPlanConfig(**kw_auto), 2, 128, attn_impl="pallas",
+        hw=GH100).explain() == j_compile(
+        jcfg, JPlanConfig(**kw_auto), 2, 128, attn_impl="pallas",
+        hw=J_GH100).explain()
