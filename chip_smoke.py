@@ -142,7 +142,7 @@ Phases (each raises on failure; nothing is caught):
      f32 flash kernels' D = 256 instances, premask step 0 and 3 replay
      steps (step 0 bitwise equal), launches against the formula, one
      fused step, the same records; then the premask step 0 of one (R, R,
-     A) super-block at the same width and batch, S=2560 (past the window),
+     A) super-block at the same width and batch, S=2304 (past the window),
      on the card and on the CPU, loss and grad norm within 1e-4 and 5e-3
      relative;
  13. serving every layer kind at width through the contiguous caches
@@ -197,6 +197,29 @@ Phases (each raises on failure; nothing is caught):
      launched, the leaky mutant flagged MS-D1), its node counts and
      seconds. It adds no kernel: each one it runs is held against its
      plain version in phase 2.
+ 16. multi-rank (``repro_torch.launch.multirank``, spawned by
+     ``launch.mesh.run_ranks`` after phase 1 built every kernel): two
+     ranks sharing the one card over gloo (NCCL refuses two ranks on one
+     device; gloo's CUDA payloads staged through the host), llama2-7b at
+     full width x 2 layers, B=2, S=2048: (a) tensor parallel on (model=2),
+     site "qkv", replay, at f32 and then bf16 compute, 2 steps each; (b)
+     data parallel on (data=2), site "prev_gemm", premask, 2 steps; (c)
+     moonshot-v1-16b-a3b at full width x 2 layers expert parallel on
+     (data=2), site "ffn_up" on the grouped host at f32: one step, and its
+     first MoE layer's forward and backward against the single-device
+     layer on each source's tokens (y, the x gradient and the router's and
+     experts' weight gradients 2e-4, aux 0.1, the hosted plane tile
+     bitwise); and (d), beside them, one NCCL rank on a (model=1) mesh,
+     one step.
+     In every run the n-th dropout operand a rank's flash kernels read is
+     the one of the (step, layer, forward or recomputation) the n-th call
+     serves: bitwise its ``shard_plane_windows`` tile of that
+     single-device plane, or its replay word with the rank's offset
+     (digests), in the single-device run's modes; losses and grad norms
+     against the same steps on one device here (2e-5 relative at f32,
+     5e-5 at bf16); step times printed with the card's name and power
+     limit -- two ranks sharing one card over gloo, not a scaling
+     measurement.
 
 Phase 2 also checks the e4m3 GEMM+RNG kernel against its plain version
 at the four host shapes of phase 6 (QKV, out-projection, gate+up, down;
@@ -265,6 +288,7 @@ import os
 import shutil
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -4229,8 +4253,9 @@ GRIFFIN_LAYERS, GRIFFIN_B, GRIFFIN_S = 6, 1, 4096
 # at 58.7 GiB) and the depth of its step on the CPU (one super-block)
 GRIFFIN_F32_LAYERS, GRIFFIN_CPU_LAYERS = 6, 3
 # ... and the sequence of that step: the CPU's half takes most of the
-# phase; 2560 is still past the LOCAL window of 2048
-GRIFFIN_CPU_S = 2560
+# phase; 2304 is still past the LOCAL window of 2048 (2560 before phase
+# 16 was added)
+GRIFFIN_CPU_S = 2304
 
 
 # the flash kernels' device time a step in phases 11 and 12 (one profiled
@@ -5260,6 +5285,170 @@ def phase_train_auto(state) -> None:
         f"phase {time.perf_counter() - t_phase:.1f} s")
 
 
+MULTIRANK_BASE = dict(arch="llama2-7b", layers=2, batch=2, seq=2048, p=0.1,
+                      seed=3, device="cuda", steps=2)
+MULTIRANK_RUNS = (
+    ("tp/f32", ((2,), ("model",)), dict(site="qkv", replay="auto",
+                                        compute="f32", gemm_dtype="f32")),
+    ("tp/bf16", ((2,), ("model",)), dict(site="qkv", replay="auto",
+                                         compute="bf16", gemm_dtype="bf16")),
+    ("dp/f32", ((2,), ("data",)), dict(site="prev_gemm", replay="off",
+                                       compute="f32", gemm_dtype="f32")),
+)
+MULTIRANK_MOE = dict(arch="moonshot-v1-16b-a3b", layers=2, batch=2,
+                     seq=2048, p=0.1, seed=3, device="cuda", site="ffn_up",
+                     replay="off", gemm_dtype="f32", steps=1,
+                     mesh=((2,), ("data",)))
+# loss, grad norm (relative); the bf16 limit between the clean run's gap
+# (1.75e-5) and the smallest a planted dropout fault gives (1.6e-4;
+# scripts/probe_multirank_faults.py)
+MULTIRANK_TOL = {"f32": 2e-5, "bf16": 5e-5}
+MOE_Y_TOL, MOE_AUX_TOL = 2e-4, 0.1
+MULTIRANK_DEADLINE_S = 150
+
+
+def _rel(a: float, b: float) -> float:
+    return abs(a - b) / max(abs(b), 1e-30)
+
+
+def _merge(total: dict, counts: dict) -> dict:
+    return {k: total.get(k, 0) + counts.get(k, 0)
+            for k in set(total) | set(counts)}
+
+
+def _check_operands(tag, r, ref=None) -> None:
+    """Every flash call's dropout operand the one its place in the run's
+    order names (``multirank.check_operands``), and, given the
+    single-device run ``ref``, the same dropout modes in the same order."""
+    consumed, expected, bad = r["operands"]
+    if bad or consumed == 0:
+        raise AssertionError(f"{tag} rank {r['rank']}: {consumed} dropout "
+                             f"operands read, {expected} expected, at the "
+                             f"wrong place (index, (step, layer, pass), "
+                             f"mode, digest): {bad[:3]}")
+    if ref is not None and r["modes"] != ref["modes"]:
+        raise AssertionError(f"{tag} rank {r['rank']}: dropout modes "
+                             f"{r['modes']}, one device {ref['modes']}")
+
+
+def phase_multirank(state) -> None:
+    """Phase 16: sharded training and the MoE dispatch on two gloo ranks
+    sharing the card, then one NCCL rank (module docstring)."""
+    from repro_torch.launch import multirank
+    from repro_torch.launch.mesh import run_ranks
+    t0 = time.perf_counter()
+    smi = state["smi"]
+    refs = {}
+    for tag, _mesh, kw in MULTIRANK_RUNS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        refs[tag] = multirank.train_job(
+            0, 1, dict(MULTIRANK_BASE, **kw, mesh=None))
+        _check_operands(f"[multirank] {tag} one device", refs[tag])
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[multirank] single-device references in "
+        f"{time.perf_counter() - t0:.1f}s")
+    items = [("train", dict(MULTIRANK_BASE, **kw, mesh=mesh))
+             for _tag, mesh, kw in MULTIRANK_RUNS]
+    items += [("train", MULTIRANK_MOE), ("moe", MULTIRANK_MOE)]
+    # (d) one NCCL rank on a (model=1) mesh, beside the gloo ranks' first
+    # (smallest) runs: the process group and the DeviceMesh on NCCL
+    nccl = {}
+
+    def _nccl():
+        job = dict(MULTIRANK_BASE, **MULTIRANK_RUNS[0][2], steps=1,
+                   mesh=((1,), ("model",)))
+        try:
+            nccl["res"] = run_ranks(multirank.train_job, 1, (job,),
+                                    backend="nccl", deadline_s=90,
+                                    timeout_s=60)
+        except BaseException as e:          # raised after the join
+            nccl["err"] = e
+
+    thread = threading.Thread(target=_nccl)
+    thread.start()
+    res = run_ranks(multirank.jobs, 2, (items,), backend="gloo",
+                    deadline_s=MULTIRANK_DEADLINE_S, timeout_s=60)
+    thread.join()
+    if "err" in nccl:
+        raise nccl["err"]
+    log(f"[multirank] two gloo ranks and the NCCL rank done at "
+        f"{time.perf_counter() - t0:.1f}s")
+    launches = {}
+    note = ("two ranks sharing one card through gloo on the host (not "
+            "NCCL; not a scaling measurement)")
+    for i, (tag, mesh, kw) in enumerate(MULTIRANK_RUNS):
+        tol = MULTIRANK_TOL[kw["compute"]]
+        ref = refs[tag]
+        for rank_res in res:
+            r = rank_res[i]
+            _check_operands(f"[multirank] {tag}", r, ref)
+            for key in ("losses", "grad_norms"):
+                errs = [_rel(a, b) for a, b in zip(r[key], ref[key])]
+                if max(errs) > tol:
+                    raise AssertionError(
+                        f"[multirank] {tag} rank {r['rank']} {key} "
+                        f"{r[key]} vs one device {ref[key]}: {errs} > {tol}")
+            launches = _merge(launches, r["launches"])
+        r0 = res[0][i]
+        log(f"[multirank] {tag} mesh {dict(zip(mesh[1], mesh[0]))} site "
+            f"{kw['site']} ({'replay' if kw['replay'] == 'auto' else 'premask'}"
+            f"): losses {r0['losses']} (one device {ref['losses']}), grad "
+            f"norms {r0['grad_norms']} (one device {ref['grad_norms']}), "
+            f"within {tol} relative; {r0['operands'][0]} dropout operands a "
+            f"rank, each in turn its (step, layer)'s window "
+            f"{[x[i]['window'] for x in res]} tile / word bitwise, the modes "
+            f"one device's")
+        log(f"[multirank] {tag} step times {[round(t, 4) for t in r0['step_s']]}"
+            f" s (rank 0; {note}); one device "
+            f"{[round(t, 4) for t in ref['step_s']]} s; the run with its "
+            f"set-up {r0['job_s']:.1f} s | {smi}")
+    n = len(MULTIRANK_RUNS)
+    for rank_res in res:
+        mt, mo = rank_res[n], rank_res[n + 1]
+        if not all(np.isfinite(v) for v in mt["losses"] + mt["grad_norms"]):
+            raise AssertionError(f"[multirank] moe step not finite: {mt}")
+        if (MULTIRANK_MOE["device"] == "cuda"
+                and mt["launches"][gemm_rng.KERNEL_GROUPED] == 0):
+            raise AssertionError("[multirank] moe step launched no grouped "
+                                 "host")
+        _check_operands("[multirank] moe", mt)
+        launches = _merge(launches, mt["launches"])
+        if not (mo["y_err"] <= MOE_Y_TOL and mo["gx_err"] <= MOE_Y_TOL
+                and max(mo["gw_err"].values()) <= MOE_Y_TOL
+                and abs(mo["aux"] - mo["aux_ref"]) <= MOE_AUX_TOL
+                and mo["tile_ok"]):
+            raise AssertionError(f"[multirank] moe layer rank {mo['rank']}:"
+                                 f" {mo}")
+    mt, mo = res[0][n], res[0][n + 1]
+    log(f"[multirank] moe {MULTIRANK_MOE['arch']} x{MULTIRANK_MOE['layers']}"
+        f" (data=2) ffn_up/f32: loss {mt['losses']}, grad norm "
+        f"{mt['grad_norms']}, step {[round(t, 4) for t in mt['step_s']]} s "
+        f"({note}); {mt['operands'][0]} dropout operands a rank, each the "
+        f"one its place names; its MoE layer through {mo['how']}: y "
+        f"{mo['y_err']:.3g}, the x gradient {mo['gx_err']:.3g} and the "
+        f"weight gradients "
+        f"{ {k: float(f'{v:.3g}') for k, v in mo['gw_err'].items()} } "
+        f"(over their largest entry) from the single-device layer on each "
+        f"source's tokens, within {MOE_Y_TOL}; aux {mo['aux']:.6f} vs "
+        f"{mo['aux_ref']:.6f}, the hosted tile bitwise; forward + backward "
+        f"{mo['step_s']:.4f} s | {smi}")
+    (nr,) = nccl["res"]
+    _check_operands("[multirank] nccl", nr)
+    if _rel(nr["losses"][0], refs["tp/f32"]["losses"][0]) > 2e-5:
+        raise AssertionError(f"[multirank] nccl loss {nr['losses']} vs "
+                             f"{refs['tp/f32']['losses']}")
+    launches = _merge(launches, nr["launches"])
+    state["multirank_launches"] = launches
+    log(f"[multirank] one NCCL rank on (model=1): loss {nr['losses'][0]} "
+        f"== one device's within 2e-5, step {nr['step_s'][0]:.4f} s (its "
+        f"first, beside the gloo ranks) | {smi}")
+    log(f"[multirank] launches over every rank and run: "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    log(f"[multirank] phase 16 in {time.perf_counter() - t0:.1f}s")
+
+
 def kernel_records(state):
     """One record a TPU kernel instance (each function that reaches
     pl.pallas_call, at each operand dtype the port runs), in the order of
@@ -5276,7 +5465,8 @@ def kernel_records(state):
     in Region 3, which none of these paths plans: their launches are 0
     there, and phase 2 launches and checks them directly. Rows 1, 2, 4, 5
     and 6 also carry ``launches_launcher``: their launches in phase 14's
-    runs of the training launcher."""
+    runs of the training launcher; rows 1, 2, 4-6, 9 and the bf16 2, 4-6
+    carry ``launches_multirank``: phase 16's, over every rank."""
     t, errs = state["timing"], state["errs"]
     g = "src/repro/kernels/gemm_rng.py"
     k32, k8 = gemm_rng.KERNEL, gemm_rng.KERNEL_FP8
@@ -5414,6 +5604,14 @@ def kernel_records(state):
                 flash_bwd.KERNEL_DKV):
             rows[i] = row[:7] + ({**row[7], "launches_launcher":
                                   state["launcher_launches"][row[0]]},)
+    # phase 16 drives rows 1, 2, 4-6 and 9 (and 2b, 4b-6b) shard-local
+    for i, row in enumerate(rows):
+        if row[0] in state["multirank_launches"] and row[0] in (
+                philox.KERNEL, k32, flash.KERNEL, flash_bwd.KERNEL_DQ,
+                flash_bwd.KERNEL_DKV, g32, k16, flash.KERNEL_BF16,
+                flash_bwd.KERNEL_DQ_BF16, flash_bwd.KERNEL_DKV_BF16):
+            rows[i] = row[:7] + ({**row[7], "launches_multirank":
+                                  state["multirank_launches"][row[0]]},)
     recs = []
     for name, src, replaces, path, launches, err, tm, extra in rows:
         recs.append({"name": name, "route": "cuda",
@@ -5441,7 +5639,7 @@ def main() -> int:
                   phase_train_moe_bf16, phase_train_fused,
                   phase_train_griffin, phase_train_griffin_f32,
                   phase_serve_layers, phase_train_launcher,
-                  phase_train_auto):
+                  phase_train_auto, phase_multirank):
         phase(state)
         log(f"[time] {phase.__name__} done at "
             f"{time.perf_counter() - t0:.1f}s")

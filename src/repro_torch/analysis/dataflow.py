@@ -30,7 +30,12 @@ Violations:
                                 residuals would look like here. Forward
                                 trace only, as in JAX.
   MS-D2 mask-collective-crossing a tainted operand of a ``_c10d_functional``
-                                / ``c10d`` operator
+                                / ``c10d`` operator. ``analyze_sharded_model``
+                                traces a step under a sharding policy on a
+                                fake process group, so the graph holds the
+                                step's real collectives (DTensor's
+                                redistributions and the shard_map bodies'
+                                own).
   MS-D3 mask-token-gather        a tainted data operand (the first) of
                                 ``gather``, ``scatter*``, ``index_select``,
                                 ``index.Tensor``, ``index_put``, ``sort``
@@ -399,3 +404,116 @@ def analyze_leaky_model(cfg: ModelConfig, plan_cfg, batch: int, seq: int,
     return analyze_mutant_model(cfg, plan_cfg, batch, seq, leak,
                                 attn_impl=attn_impl, device=device,
                                 cell=f"{cfg.name} [leak-mutant]")
+
+
+def _fake_group(world: int):
+    """A fake process group of ``world`` ranks in this process (rank 0),
+    started when none runs; returns whether this call started it."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    if dist.is_initialized():
+        if dist.get_world_size() != world:
+            raise RuntimeError(f"a process group of {dist.get_world_size()} "
+                               f"ranks runs; the trace needs {world}")
+        return False
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=world)
+    return True
+
+
+def analyze_sharded_model(cfg: ModelConfig, plan_cfg, batch: int, seq: int,
+                          *, mesh_shape=(2,), axes=("model",),
+                          with_grad: bool = True,
+                          extra: Optional[Callable] = None,
+                          graphs: Optional[list] = None) -> rules.Report:
+    """Trace one step of ``cfg`` (the flash path, ``attn_impl="pallas"``)
+    under a ShardingPolicy on a ``mesh_shape`` mesh of a fake process
+    group (one process, rank 0's view) and walk
+    its forward and, with ``with_grad``, its ``remat="block"`` gradient.
+    The traced function takes rank 0's parameter shards and batch rows as
+    plain fake tensors and wraps them as DTensors, so the graph holds the
+    local ops and every collective the sharded step runs. ``extra(plan,
+    policy, logits)`` adds outputs (a mutant); ``graphs`` (a list) gets the
+    traced GraphModules."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.compat import placements
+    from repro_torch.core.schedule import compile_schedule
+    from repro_torch.distributed.sharding import ShardingPolicy, distribute
+    from repro_torch.distributed.specs import param_specs
+    from repro_torch.models import Runtime, forward
+    from repro_torch.tree import leaves, unflatten_like
+    world = 1
+    for n in mesh_shape:
+        world *= n
+    started = _fake_group(world)
+    try:
+        mesh = init_device_mesh("cpu", tuple(mesh_shape),
+                                mesh_dim_names=tuple(axes))
+        policy = ShardingPolicy(mesh)
+        sched = compile_schedule(cfg, plan_cfg, batch, seq, policy=policy,
+                                 attn_impl="pallas")
+        params, inputs = trace_inputs(cfg, batch, seq, "cpu")
+        specs = leaves(param_specs(params, policy))
+        pls = [placements(sp, mesh) for sp in specs]
+        x_spec = policy.spec(("batch",) + (None,) * (inputs.ndim - 1),
+                             tuple(inputs.shape))
+        x_pl = placements(x_spec, mesh)
+        local = [distribute(t, sp, mesh).to_local()
+                 for t, sp in zip(leaves(params), specs)]
+        x_local = distribute(inputs, x_spec, mesh).to_local()
+        plan = DropoutPlan(plan_cfg)
+        cell = (f"{cfg.name} site={plan_cfg.site} mesh="
+                f"{dict(zip(axes, mesh_shape))}")
+
+        def fwd(flat, x, remat):
+            p = unflatten_like(params, [
+                DTensor.from_local(t, mesh, pl, run_check=False)
+                for t, pl in zip(flat, pls)])
+            xd = DTensor.from_local(x, mesh, x_pl, run_check=False)
+            rt = Runtime(plan=plan, step=0, remat=remat,
+                         attn_impl="pallas", schedule=sched, policy=policy)
+            logits, aux = forward(p, cfg, rt, xd)
+            out = (logits.to_local(), aux.to_local())
+            if extra is not None:
+                out += tuple(extra(plan, policy, logits))
+            return out
+
+        gm = trace(lambda f, x: fwd(f, x, "none"), local, x_local)
+        if graphs is not None:
+            graphs.append(gm)
+        rep = analyze_graph(gm, cfg, sched, cell=cell + " [fwd]")
+        findings, nodes = list(rep.findings), rep.checked_eqns
+        if with_grad:
+            def grad(f, x):
+                f = [t.detach().requires_grad_() for t in f]
+                logits, aux = fwd(f, x, "block")[:2]
+                return torch.autograd.grad(logits.sum() + aux.sum(), f,
+                                           allow_unused=True)
+
+            gm_g = trace(grad, local, x_local)
+            if graphs is not None:
+                graphs.append(gm_g)
+            rep_g = analyze_graph(gm_g, cfg, sched, check_residuals=False,
+                                  check_outputs=False, cell=cell + " [bwd]")
+            findings.extend(rep_g.findings)
+            nodes += rep_g.checked_eqns
+        return rules.Report(cell=cell, findings=tuple(findings),
+                            checked_eqns=nodes)
+    finally:
+        if started:
+            dist.destroy_process_group()
+
+
+def collective_nodes(gm) -> List[str]:
+    """The collective operators of a traced graph, by name."""
+    graph = gm.graph if isinstance(gm, torch.fx.GraphModule) else gm
+    out = []
+    for node in graph.nodes:
+        if node.op == "call_function":
+            ns, name = _op_name(node.target)
+            if ns in _COLLECTIVE_NAMESPACES:
+                out.append(f"{ns}::{name}")
+    return out

@@ -25,6 +25,12 @@ failure surfaces at the next ``wait()`` as CheckpointWriteError, the type
 TrainRunner catches to fall back to the previous checkpoint instead of
 spending a restart on it.
 
+A state of DTensors (a sharded run) is gathered whole on every rank of
+its mesh (a collective: every rank calls ``save``), and rank 0 writes it;
+``restore(..., shardings=)`` places each leaf on a mesh by a tree of
+``NamedSharding`` (``distributed/specs.to_shardings``), which may differ
+from the mesh that saved: the elastic re-mesh.
+
 The dropout contract (checkpoint/contract.py) rides inside the same .npz
 under a ``__dropout_contract__`` key, so the atomic replace covers params
 and contract together: a checkpoint never holds params from one schedule
@@ -44,7 +50,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from repro_torch.tree import leaves_with_paths, unflatten_like
+from repro_torch.tree import leaves_with_paths, tree_map, unflatten_like
 
 _STEP_RE = re.compile(r"^ckpt_(\d+)\.npz$")
 
@@ -129,6 +135,15 @@ def _read_npz(path: str) -> Dict[str, np.ndarray]:
     return out
 
 
+def _writes_here(state) -> bool:
+    """False on the ranks of a sharded state that do not write (all but
+    rank 0 of the process group)."""
+    import torch.distributed as dist
+    sharded = any(hasattr(leaf, "device_mesh")
+                  for _, leaf in leaves_with_paths(state))
+    return not (sharded and dist.is_initialized() and dist.get_rank() != 0)
+
+
 def _leaf_dtype(leaf) -> np.dtype:
     if isinstance(leaf, torch.Tensor):
         return torch.empty((), dtype=leaf.dtype).numpy().dtype
@@ -138,6 +153,8 @@ def _leaf_dtype(leaf) -> np.dtype:
 def _restored(arr: np.ndarray, tmpl):
     """``arr`` in the template leaf's form: a tensor on its device, or a
     Python int for an int leaf."""
+    if hasattr(tmpl, "device_mesh"):      # a DTensor: placed by shardings
+        return torch.from_numpy(np.ascontiguousarray(arr))
     if isinstance(tmpl, torch.Tensor):
         return torch.from_numpy(np.ascontiguousarray(arr)).to(tmpl.device)
     if isinstance(tmpl, int):
@@ -166,6 +183,8 @@ class Checkpointer:
         verify the mask lineage."""
         self.wait()  # one outstanding async save at a time
         host_state = self._gather(state)
+        if not _writes_here(state):
+            return
         if contract is not None:
             host_state[_CONTRACT_KEY] = np.frombuffer(
                 contract.to_json().encode(), dtype=np.uint8)
@@ -182,6 +201,8 @@ class Checkpointer:
         out, on_card = {}, False
         for path, leaf in leaves_with_paths(state):
             _check_dtype(leaf)
+            if hasattr(leaf, "full_tensor"):      # a DTensor: whole here
+                leaf = leaf.full_tensor()
             if isinstance(leaf, torch.Tensor) and leaf.device.type == "cuda":
                 buf = self._pinned.get(path)
                 if buf is None or buf.shape != leaf.shape or \
@@ -273,11 +294,14 @@ class Checkpointer:
             blob = z[_CONTRACT_KEY].tobytes().decode()
         return DropoutContract.from_json(blob)
 
-    def restore(self, step: int, template):
+    def restore(self, step: int, template, shardings=None):
         """Restore into the structure of ``template``, each leaf on the
-        device of the template's leaf. Shapes and dtypes must match the
-        template: a silent dtype cast would change the numerics of a
-        bitwise replay."""
+        device of the template's leaf -- or, with ``shardings`` (a
+        matching tree of ``NamedSharding``), placed on that leaf's mesh by
+        its spec, each rank keeping its slices: the elastic re-mesh (the
+        mesh may differ from the one that saved). Shapes and dtypes must
+        match the template: a silent dtype cast would change the numerics
+        of a bitwise replay."""
         path = os.path.join(self.directory, f"ckpt_{step}.npz")
         arrays = {k: v for k, v in _read_npz(path).items()
                   if not k.startswith(_META_PREFIX)}
@@ -299,6 +323,17 @@ class Checkpointer:
                     "silently; restore with a matching template or convert "
                     "the checkpoint explicitly")
             flat.append(arr)
-        return unflatten_like(template, [
+        if shardings is None and any(hasattr(t, "device_mesh")
+                                     for _, t in leaves_with_paths(template)):
+            raise ValueError("a sharded template restores with shardings= "
+                             "(distributed.specs.to_shardings)")
+        state = unflatten_like(template, [
             _restored(arr, tmpl) for arr, (_, tmpl) in
             zip(flat, leaves_with_paths(template))])
+        if shardings is None:
+            return state
+        from repro_torch.distributed.sharding import distribute
+        return tree_map(
+            lambda t, sh: distribute(
+                t.to(sh.mesh.device_type), sh.spec, sh.mesh)
+            if isinstance(t, torch.Tensor) else t, state, shardings)

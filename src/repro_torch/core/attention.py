@@ -17,6 +17,7 @@ import torch
 
 from repro_torch.core import dropout_rng
 from repro_torch.core.overlap import DropoutPlan
+from repro_torch.distributed.sharding import constrain, replicate_like
 
 _NEG = -1e30
 
@@ -111,8 +112,10 @@ def attention_decode(q1: torch.Tensor, k_cache: torch.Tensor,
     """One-token decode: q1 (B, H, 1, D) against caches (B, KV, S, D) of
     which ``cache_len`` entries are valid (the last ``local_window`` of
     them, when given). The scores sum in f32; the probabilities are cast
-    to the cache's dtype for the value product, as in the JAX package
-    (whose sequence-sharded layout is not ported)."""
+    to the cache's dtype for the value product, as in the JAX package.
+    Under a sharding policy the caches may be DTensors with the sequence
+    dim sharded ("kv_seq"): the softmax reductions then become small
+    collectives (flash-decoding), as GSPMD makes them in JAX."""
     b, h, _, d = q1.shape
     kv, s = k_cache.shape[1], k_cache.shape[2]
     if scale is None:
@@ -125,9 +128,10 @@ def attention_decode(q1: torch.Tensor, k_cache: torch.Tensor,
     valid = pos < cache_len
     if local_window:
         valid = valid & (pos >= cache_len - local_window)
-    scores = scores.masked_fill(~valid, _NEG)
+    scores = scores.masked_fill(~replicate_like(valid, scores), _NEG)
     m = torch.amax(scores, dim=-1, keepdim=True)
     p = torch.exp(scores - m)
     p = p / torch.sum(p, dim=-1, keepdim=True)
     out = torch.einsum("bkgs,bksd->bkgd", p.to(v_cache.dtype), v_cache)
+    out = constrain(out, "batch", "kv_heads", None, None)
     return out.reshape(b, h, 1, d)

@@ -30,7 +30,13 @@ consuming layer (site "qkv") or, for the carried sites, in the previous
 attention block: its out-projection ("prev_gemm", models/attention.py) or
 an FFN GEMM ("ffn_up" / "ffn_down", ``FFNHost`` -> models/layers.py for
 dense and RWKV channel-mix FFNs, models/moe.py for MoE expert FFNs).
-Shard-local producers (a sharding policy) are not ported yet.
+
+With a sharding policy the kernel producers run SHARD-LOCAL inside
+``compat.shard_map``: each rank makes its (b_loc, h_loc) tile of the plane
+under its slice of the host GEMM, with the plane's global head count and
+its tile's (b, h) offset (``heads_global`` / ``bh_offset``) in the
+counters, so its bits are the global plane's slice exactly and no plane
+crosses a collective.
 """
 from __future__ import annotations
 
@@ -60,12 +66,6 @@ _BLOCK_K_CAP = 512
 _MASK_COLS_CAP = 2048
 # the TPU standalone philox kernel's column block
 _PHILOX_COLS_CAP = 512
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP: port queue, sharded "
-        "producers)")
 
 
 def _largest_divisor(dim: int, cap: int) -> int:
@@ -153,6 +153,77 @@ def mask_kernel_unsupported_reason(plan: DropoutPlan, sq: int, sk: int,
     return None
 
 
+# --------------------------------------------------------------------------
+# shard-local execution context
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class ShardExec:
+    """Live mesh context for shard-local producers, rebuilt from the
+    installed ShardingPolicy at execute time (the compiled schedule carries
+    only the hashable ShardInfo)."""
+    mesh: Any
+    batch_axes: Tuple[str, ...]
+    head_axes: Tuple[str, ...]
+    batch_shards: int
+    head_shards: int
+
+    def _spec_axes(self, axes: Tuple[str, ...]):
+        if not axes:
+            return None
+        return axes if len(axes) > 1 else axes[0]
+
+    @property
+    def b_spec(self):
+        return self._spec_axes(self.batch_axes)
+
+    @property
+    def h_spec(self):
+        return self._spec_axes(self.head_axes)
+
+
+def shard_exec(policy, batch: int, n_heads: int) -> Optional[ShardExec]:
+    """Shard-local context for a (batch, n_heads) plane under ``policy``,
+    or None when no mesh axis divides either dim (the kernel then runs on
+    the replicated tensors, as GSPMD replicates it in JAX)."""
+    if policy is None:
+        return None
+    from repro_torch.distributed.sharding import mask_plane_shards
+    (b_axes, nb), (h_axes, nh) = mask_plane_shards(policy, batch, n_heads)
+    if nb * nh == 1:
+        return None
+    return ShardExec(mesh=policy.mesh, batch_axes=b_axes, head_axes=h_axes,
+                     batch_shards=nb, head_shards=nh)
+
+
+def _flat_axis_index(axes: Tuple[str, ...]) -> int:
+    """This rank's flattened (row-major) index along ``axes`` (inside a
+    shard_map body)."""
+    from repro_torch.compat import axis_index
+    return axis_index(axes) if axes else 0
+
+
+def shard_mask_tile(shard: Optional[ShardExec], batch: int, n_heads: int,
+                    sq: int, sk: int):
+    """This rank's tile of the (batch, n_heads) plane -- callable only
+    inside a shard_map body over ``shard.mesh``. Returns (local plane
+    shape, heads_global, bh_offset) for the kernels' global-position
+    counters; with ``shard`` None the whole plane ((batch, n_heads, sq,
+    sk), 0, 0)."""
+    if shard is None:
+        return (batch, n_heads, sq, sk), 0, 0
+    b_loc = batch // shard.batch_shards
+    h_loc = n_heads // shard.head_shards
+    b0 = _flat_axis_index(shard.batch_axes) * b_loc
+    h0 = _flat_axis_index(shard.head_axes) * h_loc
+    return (b_loc, h_loc, sq, sk), n_heads, b0 * n_heads + h0
+
+
+def _plane_spec(shard: ShardExec):
+    from repro_torch.compat import P
+    return P(shard.b_spec, shard.h_spec, None, None)
+
+
 def standalone_packed_mask(plan: DropoutPlan, batch: int, n_heads: int,
                            sq: int, sk: int, layer_idx, step,
                            use_kernel: bool = True, policy=None,
@@ -162,17 +233,34 @@ def standalone_packed_mask(plan: DropoutPlan, batch: int, n_heads: int,
     on the CPU), else the plain tensor-op producer. Same bits either way.
     Used for the Region-3 remainder and to bootstrap the first consumer of
     a carried-site pipeline (no producer GEMM precedes it); the schedule's
-    planned ``how`` decides ``use_kernel``."""
-    if policy is not None:
-        raise _not_ported("a shard-local standalone producer")
+    planned ``how`` decides ``use_kernel``. With a ``policy`` whose mesh
+    splits the plane, the kernel runs shard-local (each rank its (b, h)
+    tile) and the plane comes back a DTensor."""
     seed = plan.step_seed(step)
     salt = plan.salt(layer_idx)
+    dev = device if policy is None or device is not None else \
+        torch.device(policy.mesh.device_type)
     if use_kernel and plan.cfg.philox_bits == 32:
-        return ops.dropout_mask(batch, n_heads, sq, sk, plan.cfg.p, seed,
-                                salt, plan.cfg.philox_rounds, device=device)
+        shard = shard_exec(policy, batch, n_heads)
+        if shard is None:
+            return ops.dropout_mask(batch, n_heads, sq, sk, plan.cfg.p,
+                                    seed, salt, plan.cfg.philox_rounds,
+                                    device=dev)
+        from repro_torch.compat import shard_map
+
+        def body():
+            (b_loc, h_loc, _sq, _sk), hg, off = shard_mask_tile(
+                shard, batch, n_heads, sq, sk)
+            return ops.dropout_mask(b_loc, h_loc, sq, sk, plan.cfg.p, seed,
+                                    salt, plan.cfg.philox_rounds,
+                                    heads_global=hg, bh_offset=off,
+                                    device=dev)
+
+        return shard_map(body, mesh=shard.mesh, in_specs=(),
+                         out_specs=_plane_spec(shard))()
     return dropout_rng.packed_mask(
         batch, n_heads, sq, sk, plan.cfg.p, seed, salt,
-        plan.cfg.philox_rounds, plan.cfg.philox_bits, device=device)
+        plan.cfg.philox_rounds, plan.cfg.philox_bits, device=dev)
 
 
 def replay_unsupported_reason(plan: DropoutPlan, sq: int, sk: int,
@@ -217,8 +305,10 @@ def _host_call(gemm_dtype: str, fn, fp8_fn, a: torch.Tensor,
 
 def _fused_gemm_call(x2d: torch.Tensor, w2d: torch.Tensor,
                      plan: DropoutPlan, mask_shape, seed, salt,
-                     blocks: Tuple[int, int, int], gemm_dtype: str):
-    """One fused GEMM+RNG launch in the plan's host dtype (``_host_call``).
+                     blocks: Tuple[int, int, int], gemm_dtype: str,
+                     heads_global: int = 0, bh_offset=0):
+    """One fused GEMM+RNG launch in the plan's host dtype (``_host_call``),
+    on a shard's tile when ``heads_global`` / ``bh_offset`` say so.
     Returns (y2d, plane or None)."""
     batch, n_heads, sq, sk = mask_shape
     bm, bn, bk = blocks
@@ -227,19 +317,23 @@ def _fused_gemm_call(x2d: torch.Tensor, w2d: torch.Tensor,
         mask_batch=batch, mask_heads=n_heads, mask_sq=sq, mask_sk=sk,
         p=plan.cfg.p, seed=seed, salt=salt, rounds=plan.cfg.philox_rounds,
         block_m=bm, block_n=bn, block_k=bk,
-        mask_block_cols=mask_cols_cap(sq, sk))
+        mask_block_cols=mask_cols_cap(sq, sk), heads_global=heads_global,
+        bh_offset=bh_offset)
 
 
 def gemm_with_mask(x2d: torch.Tensor, w2d: torch.Tensor, plan: DropoutPlan,
                    mask_shape: Tuple[int, int, int, int], layer_idx, step,
-                   how: str) -> Tuple[torch.Tensor, torch.Tensor]:
+                   how: str, policy=None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """y = x2d @ w2d with the packed plane for ``mask_shape`` = (B, H, SQ,
     SK) made by the schedule's planned producer ``how``: HOW_XLA (the plain
     GEMM and the tensor-op producer), HOW_GEMM (the fused GEMM+RNG kernel)
     or HOW_STANDALONE (Region 3: the same kernel with emission off, then
     the standalone Philox kernel). Runs exactly that producer, and raises
-    where the kernel's own layout check disagrees with the plan. Returns
-    (y2d, plane)."""
+    where the kernel's own layout check disagrees with the plan. With a
+    ``policy`` the kernel runs shard-local (``_gemm_with_mask_sharded``),
+    or on the replicated tensors when no mesh axis splits the plane.
+    Returns (y2d, plane)."""
     batch, n_heads, sq, sk = mask_shape
     m, kdim = x2d.shape
     n = w2d.shape[1]
@@ -252,22 +346,63 @@ def gemm_with_mask(x2d: torch.Tensor, w2d: torch.Tensor, plan: DropoutPlan,
         return y, mask
     if how not in (HOW_GEMM, HOW_STANDALONE):
         raise ValueError(f"no GEMM producer {how!r}")
-    blocks = pick_gemm_blocks(m, n, kdim)
+    shard = shard_exec(policy, batch, n_heads)
+    m_loc, n_loc, _ = (shard_host_gemm(m, n, kdim, shard.batch_shards,
+                                       shard.head_shards)
+                       if shard is not None else (m, n, kdim))
+    blocks = pick_gemm_blocks(m_loc, n_loc, kdim)
     if blocks is None:
-        raise ValueError(f"producer {how!r} planned for GEMM ({m},{n},"
-                         f"{kdim}), which does not tile")
-    y, mask = _fused_gemm_call(x2d, w2d, plan, mask_shape,
-                               plan.step_seed(step), plan.salt(layer_idx),
-                               blocks, plan.cfg.gemm_dtype)
-    if (mask is None) != (how == HOW_STANDALONE):
-        raise RuntimeError(
-            f"producer {how!r} planned, but the GEMM+RNG kernel's layout "
-            f"for GEMM ({m},{n},{kdim}) and mask {mask_shape} "
-            f"{'is Region 3' if mask is None else 'emits the plane'}")
-    if mask is None:
-        mask = standalone_packed_mask(plan, batch, n_heads, sq, sk,
-                                      layer_idx, step, device=x2d.device)
-    return y, mask
+        raise ValueError(f"producer {how!r} planned for GEMM ({m_loc},"
+                         f"{n_loc},{kdim}), which does not tile")
+    seed, salt = plan.step_seed(step), plan.salt(layer_idx)
+
+    def body(x_, w_):
+        local_shape, hg, off = shard_mask_tile(shard, batch, n_heads, sq,
+                                               sk)
+        y, mask = _fused_gemm_call(x_, w_, plan, local_shape, seed, salt,
+                                   blocks, plan.cfg.gemm_dtype,
+                                   heads_global=hg, bh_offset=off)
+        if (mask is None) != (how == HOW_STANDALONE):
+            raise RuntimeError(
+                f"producer {how!r} planned, but the GEMM+RNG kernel's "
+                f"layout for GEMM ({x_.shape[0]},{w_.shape[1]},{kdim}) and "
+                f"mask {local_shape} "
+                f"{'is Region 3' if mask is None else 'emits the plane'}")
+        if mask is None:
+            # Region 3: the remainder runs in the standalone kernel
+            mask = ops.dropout_mask(local_shape[0], local_shape[1], sq, sk,
+                                    plan.cfg.p, seed, salt,
+                                    plan.cfg.philox_rounds, heads_global=hg,
+                                    bh_offset=off, device=x_.device)
+        return y, mask
+
+    if policy is None:
+        return body(x2d, w2d)
+    from repro_torch.compat import P, shard_map
+    if shard is None:
+        # no mesh axis splits the plane: the kernel runs on the replicated
+        # tensors, as GSPMD replicates it
+        return shard_map(body, mesh=policy.mesh,
+                         in_specs=(P(None, None), P(None, None)),
+                         out_specs=(P(None, None),
+                                    P(None, None, None, None)))(x2d, w2d)
+    return _gemm_with_mask_sharded(body, x2d, w2d, n_loc != n, shard)
+
+
+def _gemm_with_mask_sharded(body, x2d, w2d, split_cols: bool,
+                            shard: ShardExec):
+    """Shard-local fused GEMM+RNG: each rank runs the kernel on its batch
+    rows x head-axis columns of the GEMM and makes its (b_loc, h_loc) tile
+    of the plane (global-position counters, bitwise slices). Rows follow
+    the batch shards and -- when N divides -- columns follow the head
+    shards, so a head-only mesh computes a distinct N-slice per rank; an
+    indivisible N keeps replicated columns."""
+    from repro_torch.compat import P, shard_map
+    h = shard.h_spec if split_cols else None
+    return shard_map(body, mesh=shard.mesh,
+                     in_specs=(P(shard.b_spec, None), P(None, h)),
+                     out_specs=(P(shard.b_spec, h), _plane_spec(shard)))(
+        x2d, w2d)
 
 
 # --------------------------------------------------------------------------
@@ -347,25 +482,53 @@ def grouped_gemm_seeded(a3: torch.Tensor, b3: torch.Tensor,
 def grouped_gemm_with_mask(a3: torch.Tensor, b3: torch.Tensor,
                            plan: DropoutPlan,
                            mask_shape: Tuple[int, int, int, int],
-                           layer_idx, step, how: str
+                           layer_idx, step, how: str, policy=None
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Whole-plane grouped host: y[e] = a3[e] @ b3[e] plus the packed plane
     for ``mask_shape``, made by the schedule's planned producer ``how``:
     HOW_XLA (the tensor-op product and producer), or a grouped-kernel
     producer as in ``grouped_gemm_seeded``. The direct-call / RWKV
     channel-mix (E=1) entry point; the MoE dispatch calls
-    ``grouped_gemm_seeded``. Returns (y, plane). JAX's shard-local grouped
-    host (a policy) is not ported (ROADMAP: port queue item 13)."""
+    ``grouped_gemm_seeded`` inside its own shard_map body. With a
+    ``policy`` the kernel runs shard-local: the C rows follow the batch
+    shards (token-ordered, E=1), the plane's tile the (batch, heads)
+    shards. Returns (y, plane)."""
+    batch, n_heads, sq, sk = mask_shape
     if how == HOW_XLA:
-        batch, n_heads, sq, sk = mask_shape
         mask = dropout_rng.packed_mask(
             batch, n_heads, sq, sk, plan.cfg.p, plan.step_seed(step),
             plan.salt(layer_idx), plan.cfg.philox_rounds,
             plan.cfg.philox_bits, device=a3.device)
         return grouped_einsum(a3, b3), mask
-    return grouped_gemm_seeded(a3, b3, plan, mask_shape,
-                               plan.step_seed(step), plan.salt(layer_idx),
-                               how)
+    seed, salt = plan.step_seed(step), plan.salt(layer_idx)
+    if policy is None:
+        return grouped_gemm_seeded(a3, b3, plan, mask_shape, seed, salt,
+                                   how)
+    from repro_torch.compat import P, shard_map
+    shard = shard_exec(policy, batch, n_heads)
+
+    def body(a_, b_):
+        local_shape, hg, off = shard_mask_tile(shard, batch, n_heads, sq,
+                                               sk)
+        return grouped_gemm_seeded(a_, b_, plan, local_shape, seed, salt,
+                                   how, heads_global=hg, bh_offset=off)
+
+    rep3 = P(None, None, None)
+    if shard is None:
+        return shard_map(body, mesh=policy.mesh, in_specs=(rep3, rep3),
+                         out_specs=(rep3, P(None, None, None, None)))(a3, b3)
+    return _grouped_gemm_with_mask_sharded(body, a3, b3, shard)
+
+
+def _grouped_gemm_with_mask_sharded(body, a3, b3, shard: ShardExec):
+    """Shard-local grouped host (E=1 channel-mix): each rank runs the
+    grouped kernel on its batch rows of the token-ordered C dim and emits
+    its (b_loc, h_loc) tile of the plane."""
+    from repro_torch.compat import P, shard_map
+    xs = P(None, shard.b_spec, None)
+    return shard_map(body, mesh=shard.mesh,
+                     in_specs=(xs, P(None, None, None)),
+                     out_specs=(xs, _plane_spec(shard)))(a3, b3)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -376,13 +539,14 @@ class FFNHost:
     models/moe.moe_apply for MoE expert FFNs (the grouped kernel over the
     expert einsum). ``layer_idx`` is the CONSUMER layer (the next attention
     layer: the plane rides the carry there); ``how`` is the schedule's
-    planned producer for the emission."""
+    planned producer for the emission; ``policy`` runs it shard-local."""
     plan: DropoutPlan
     site: str                           # "ffn_up" | "ffn_down"
     mask_shape: Tuple[int, int, int, int]
     layer_idx: Any
     step: Any
     how: str = HOW_GEMM
+    policy: Any = None
 
 
 def block_gemm_shapes(cfg: ModelConfig, batch: int, seq: int,
@@ -431,7 +595,7 @@ def grouped_host_shapes(cfg: ModelConfig, batch: int, seq: int,
     arithmetic (tokens chunked over the batch shards, and over the head
     shards too under ``seq_dispatch``; experts split over the batch shards,
     an expert's width over the head shards): the counter layer proves the
-    topology-2 cells on it. The port runs one device."""
+    topology-2 cells on it, and a sharded run walks the same grid."""
     d = cfg.d_model
     tok_shards = max(1, batch_shards) * (max(1, head_shards)
                                          if seq_dispatch else 1)
@@ -463,7 +627,9 @@ def rank_host_sites(cfg: ModelConfig, plan: DropoutPlan, batch: int,
     hardware, negated net added cost under calibrated hardware. The JAX
     package's function, but the hardware when none is passed is the
     active tuned table's calibrated one, else ``GH100`` -- the card the
-    port runs on (JAX falls back to ``TPU_V5E``). MoE expert and RWKV
+    port runs on (JAX falls back to ``TPU_V5E``) -- and a site whose GEMM
+    the active column block puts in Region 3 is left out while another
+    can host the plane (JAX ranks it as hosted). MoE expert and RWKV
     channel-mix blocks contribute their grouped FFN hosts, ranked on the
     grid the per-layer capability later judges."""
     from repro_torch.perfmodel.hardware import GH100
@@ -472,19 +638,37 @@ def rank_host_sites(cfg: ModelConfig, plan: DropoutPlan, batch: int,
         hw = _tuned_tables().active_hardware(plan.cfg.gemm_dtype)
     mask_elems = float(batch) * cfg.n_heads * seq * seq
     dtype_bytes = _DTYPE_BYTES.get(plan.cfg.gemm_dtype, 4)
-    shapes = {}
+    b_loc = batch // batch_shards if batch % batch_shards == 0 else batch
+    h_loc = (cfg.n_heads // head_shards if cfg.n_heads % head_shards == 0
+             else cfg.n_heads)
+    shapes, hosts = {}, set()
     for site, (m, n, k) in block_gemm_shapes(cfg, batch, seq).items():
         m_loc = m // batch_shards
         if pick_gemm_blocks(m_loc, n, k) is not None:
             shapes[site] = (m_loc, n, k)
+            mg, ng, _ = shard_host_gemm(m, n, k, batch_shards, head_shards)
+            blocks = pick_gemm_blocks(mg, ng, k)
+            if blocks is not None and mask_layout_feasible(
+                    (mg // blocks[0]) * (ng // blocks[1]), b_loc, h_loc,
+                    seq, seq, mask_block_cols=mask_cols_cap(seq, seq)):
+                hosts.add(site)
     grouped = {}
     for site, (e, c, k, n) in grouped_host_shapes(
             cfg, batch, seq, batch_shards=batch_shards,
             head_shards=head_shards, seq_dispatch=seq_dispatch).items():
         if pick_gemm_blocks(c, n, k) is not None:
             grouped[site] = (e, c, n, k)
+            if grouped_layout_feasible(e, c, k, n, b_loc, h_loc, seq,
+                                       seq)[0]:
+                hosts.add(site)
     if not shapes and not grouped:
         return ()
+    if hosts and len(hosts) < len(shapes) + len(grouped):
+        # a Region-3 GEMM cannot emit the plane: its producer runs
+        # exposed whatever the model says of hosting there, and premask
+        # and replay compute that GEMM in different kernels
+        shapes = {s_: v for s_, v in shapes.items() if s_ in hosts}
+        grouped = {s_: v for s_, v in grouped.items() if s_ in hosts}
     return rank_host_gemms(shapes, mask_elems, hw=hw or GH100,
                            rounds=plan.cfg.philox_rounds,
                            dtype_bytes=dtype_bytes, grouped=grouped)

@@ -15,10 +15,11 @@ hosting "ffn_up" / "ffn_down" through the grouped kernel; ``gemm_dtype``
 "f32", "bf16" and "fp8" (dense and grouped hosts); ``attn_impl`` "xla" and
 "pallas"; the replay upgrade. ``attn_impl="pallas"`` keeps the knob's JAX
 name: in the port it selects the hand-written CUDA kernels (fused and
-grouped GEMM+RNG hosts, flash forward and backward). A ``ShardInfo``
-plans a mesh's shard-local producers as JAX's compiler does (the lint's
-topology sweep proves those plans); running one, and a sharding policy,
-is not ported. ``site="auto"`` resolves as JAX's does: the block's
+grouped GEMM+RNG hosts, flash forward and backward). A sharding
+``policy`` (or a bare ``ShardInfo``, for a mesh this process does not hold)
+plans the mesh's shard-local producers as JAX's compiler does, from
+``mask_plane_shards`` (``shard_info``); the lint's topology sweep proves
+those plans. ``site="auto"`` resolves as JAX's does: the block's
 candidate host GEMMs ranked by the perf model (``producer.rank_host_sites``
 on ``hw``, the active tuned table's calibrated hardware, or ``GH100``),
 the ranking shown in ``explain()``. ``compile_schedule(..., verify=True)``
@@ -65,6 +66,16 @@ class ShardInfo:
     @property
     def active(self) -> bool:
         return self.batch_shards * self.head_shards > 1
+
+
+def shard_info(policy, batch: int, n_heads: int) -> ShardInfo:
+    """Distill a ShardingPolicy into the mask plane's shard layout."""
+    if policy is None:
+        return ShardInfo()
+    from repro_torch.distributed.sharding import mask_plane_shards
+    (b_axes, nb), (h_axes, nh) = mask_plane_shards(policy, batch, n_heads)
+    return ShardInfo(batch_shards=nb, head_shards=nh, batch_axes=b_axes,
+                     head_axes=h_axes, policy_installed=True)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -234,12 +245,6 @@ class DropoutSchedule:
                 for a in self.assignments if a.consumes
             ],
         }
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP: port queue, sharding "
-        "policies)")
 
 
 def _next_attn_stride(kinds: Tuple[AttentionKind, ...], period: int,
@@ -571,18 +576,20 @@ def compile_schedule(model_cfg: ModelConfig, plan, batch: int, seq: int,
     ``repro_torch.analysis.MaskSafetyError`` on any finding: integer
     arithmetic over the kernels' walks, no kernel runs.
 
-    ``shard`` plans for a mesh this process does not hold (the pure
-    arithmetic the lint's topology sweep and a resharded restore's
-    contract check use). Such a schedule is for analysis: the model's
-    forward refuses it, as it refuses a sharding ``policy``, which is not
-    ported."""
+    ``policy`` is the installed ShardingPolicy (or None): its mask-plane
+    layout (``shard_info``) plans the shard-local producers the forward
+    then runs under it. ``shard`` plans for a mesh this process does not
+    hold (the pure arithmetic the lint's topology sweep and a resharded
+    restore's contract check use); the two are mutually exclusive."""
     plan_cfg = plan.cfg if isinstance(plan, DropoutPlan) else plan
     if plan_cfg is None:
         raise ValueError("compile_schedule requires a dropout plan")
-    if policy is not None:
-        raise _not_ported("a sharding policy")
-    sched = _compile(model_cfg, plan_cfg, batch, seq, shard or ShardInfo(),
-                     attn_impl, hw, moe_seq_dispatch)
+    if shard is not None and policy is not None:
+        raise ValueError("pass either policy or shard, not both")
+    if shard is None:
+        shard = shard_info(policy, batch, model_cfg.n_heads)
+    sched = _compile(model_cfg, plan_cfg, batch, seq, shard, attn_impl, hw,
+                     moe_seq_dispatch)
     if verify:
         # imported lazily: the analysis imports this module
         from repro_torch.analysis import verify_schedule

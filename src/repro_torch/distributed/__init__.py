@@ -1,3 +1,6 @@
-"""Fault tolerance on one device: the crash-recovering TrainRunner,
-straggler detection, heartbeats and the fault-injection harness (the JAX
-package's ``distributed``; its meshes and sharding are not ported)."""
+"""Meshes, sharding and fault tolerance (the JAX package's
+``distributed``): the logical-axis sharding rules (``sharding``), the
+partition specs of every tree (``specs``), GPipe over a 'pp' axis
+(``pipeline``), the crash-recovering TrainRunner, straggler detection and
+heartbeats (``fault``) and the fault-injection harness with the elastic
+re-mesh (``chaos``)."""

@@ -1,6 +1,6 @@
-"""Fault-injection harness for the determinism guarantee (the
-single-device parts of the JAX package's ``repro/distributed/chaos.py``;
-its elastic re-mesh waits for the port's multi-device item).
+"""Fault-injection harness for the determinism guarantee (the JAX
+package's ``repro/distributed/chaos.py``, with the elastic re-mesh of its
+tests as ``remesh_segment``).
 
 The paper's counter-based RNG makes dropout masks pure functions of
 (seed, salt, layer, step, b, h, q, k), so a crashed-and-recovered run
@@ -17,6 +17,13 @@ This module injects the failures and proves the bits:
     both the atomicity guarantee (no partial checkpoint is ever visible)
     and TrainRunner's failed-save fallback path (CheckpointWriteError is
     counted, not charged to the restart budget).
+  * ``remesh_segment`` runs one topology's stretch of an elastic run:
+    restore the last checkpoint onto this topology (a mesh, or one
+    device), gate it on the dropout contract (``verify_resume`` returns
+    "recompiled" when the topology changed: same bits, new producers,
+    proven by the static verifier), train, and save with this topology's
+    contract. 1 rank -> 2 ranks -> 1 rank lands on the uninterrupted
+    single-device run (bitwise planes, floats to the last ulps).
   * ``TrajectoryRecorder`` captures the bitwise observables per executed
     step -- the float32 loss bit pattern and a sha256 digest of the probe
     layer's packed dropout mask (made by the standalone producer:
@@ -214,6 +221,41 @@ class TrajectoryRecorder:
             if self.mask_digest[step] != other.mask_digest[step]:
                 raise TrajectoryMismatch(
                     f"step {step}: mask digests differ")
+
+
+def remesh_segment(cfg, run, directory: str, start: int, stop: int,
+                   batch_fn, policy=None, seed: int = 0, device=None):
+    """Steps [start, stop) of an elastic run on this topology (``policy``'s
+    mesh, or one device): restore checkpoint ``start`` from ``directory``
+    (none at step 0) placed by ``train_state_specs``, gated by
+    ``verify_resume`` against this topology's contract; train; save
+    checkpoint ``stop`` with that contract (every rank of a mesh calls
+    this; rank 0 writes). Returns (the gate's verdict or None, the losses,
+    the final state)."""
+    from repro_torch.checkpoint import (Checkpointer, contract_from_schedule,
+                                        verify_resume)
+    from repro_torch.distributed.specs import to_shardings, \
+        train_state_specs
+    from repro_torch.train.loop import (compile_run_schedule,
+                                        init_train_state, make_train_step)
+    sched = compile_run_schedule(cfg, run, policy)
+    contract = contract_from_schedule(cfg, sched)
+    ckpt = Checkpointer(directory, async_save=False)
+    state = init_train_state(cfg, seed=seed, device=device, policy=policy)
+    verdict = None
+    if start > 0:
+        verdict = verify_resume(ckpt.load_contract(start), contract,
+                                cfg=cfg, sched=sched)
+        shardings = None if policy is None else to_shardings(
+            train_state_specs(state, policy, fsdp=False), policy.mesh)
+        state = ckpt.restore(start, state, shardings=shardings)
+    step_fn = make_train_step(cfg, run, policy=policy)
+    losses = []
+    for s in range(start, stop):
+        state, m = step_fn(state, *batch_fn(s))
+        losses.append(float(m["loss"]))
+    ckpt.save(stop, state, contract=contract)
+    return verdict, losses, state
 
 
 def main(argv=None) -> int:

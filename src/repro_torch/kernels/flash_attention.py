@@ -49,6 +49,7 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import _disable_current_modes
 
 from repro_torch.kernels import build
 from repro_torch.kernels.philox_common import (
@@ -188,8 +189,11 @@ def resolve_dropout(mode: str, mask_packed, *, batch: int, n_heads: int,
         if mask_packed is None:
             k0, k1, salt_w, off = seed_salt_words(seed, salt)
         else:
-            k0, k1, salt_w, off = from_int32_bits(
-                _check_replay_operand(mask_packed)).tolist()
+            # the word is a host constant of the call: read it as one, also
+            # under a fake-tensor trace (analysis.dataflow)
+            with _disable_current_modes():
+                k0, k1, salt_w, off = from_int32_bits(
+                    _check_replay_operand(mask_packed)).tolist()
         return Dropout("replay", key_lo=k0, key_hi=k1, salt=salt_w,
                        bh_offset=off, heads_global=heads_global or n_heads,
                        **common)

@@ -19,6 +19,7 @@ from __future__ import annotations
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils._python_dispatch import _disable_current_modes
 
 from repro_torch.config.base import (
     CARRIED_DROPOUT_SITES,
@@ -28,6 +29,7 @@ from repro_torch.config.base import (
 from repro_torch.core import producer
 from repro_torch.core.attention import _NEG, attention_xla
 from repro_torch.core.overlap import DropoutPlan
+from repro_torch.distributed.sharding import constrain, current_policy
 from repro_torch.kernels.flash_attention import (
     flash_attention_mosaic,
     kernel_shape_unsupported_reason,
@@ -54,6 +56,20 @@ def attn_init(gen: torch.Generator, cfg: ModelConfig,
     return p
 
 
+def _split_heads(t, b: int, s: int, n: int, hd: int, logical: str):
+    """(B, S, n*hd) -> (B, S, n, hd), constrained to ("batch", None,
+    ``logical``, None). Under a policy the flat projection is first put in
+    that layout (its last dim split where the heads split): DTensor cannot
+    view a dim split mid-head into heads."""
+    policy = current_policy()
+    if policy is not None and hasattr(t, "device_mesh"):
+        from repro_torch.compat import P, placements
+        sp = policy.spec(("batch", None, logical, None), (b, s, n, hd))
+        t = t.redistribute(policy.mesh,
+                           placements(P(sp[0], sp[1], sp[2]), policy.mesh))
+    return constrain(t.reshape(b, s, n, hd), "batch", None, logical, None)
+
+
 def _finish_qkv(p, q, k, v, b, s, cfg: ModelConfig, positions):
     """Post-GEMM half of the projection: bias, head split, qk-norm, rope.
     q/k/v arrive as (B, S, dim)."""
@@ -63,9 +79,9 @@ def _finish_qkv(p, q, k, v, b, s, cfg: ModelConfig, positions):
         q = q + p["b_q"].to(dt)
         k = k + p["b_k"].to(dt)
         v = v + p["b_v"].to(dt)
-    q = q.reshape(b, s, nq, hd).transpose(1, 2)
-    k = k.reshape(b, s, nkv, hd).transpose(1, 2)
-    v = v.reshape(b, s, nkv, hd).transpose(1, 2)
+    q = _split_heads(q, b, s, nq, hd, "heads").transpose(1, 2)
+    k = _split_heads(k, b, s, nkv, hd, "kv_heads").transpose(1, 2)
+    v = _split_heads(v, b, s, nkv, hd, "kv_heads").transpose(1, 2)
     if cfg.qk_norm:
         q = rms_head_norm(p["q_norm"], q, cfg.norm_eps)
         k = rms_head_norm(p["k_norm"], k, cfg.norm_eps)
@@ -86,10 +102,11 @@ def _project_qkv(p, x, cfg: ModelConfig, positions):
 
 
 def _project_qkv_fused(p, x, cfg: ModelConfig, positions, plan, layer_idx,
-                       step, how):
+                       step, how, policy=None):
     """Fused QKV projection: one concatenated GEMM with this layer's packed
     dropout plane made under it (the paper's ``qkv+RNG`` site) by ``how``,
-    the schedule's planned producer. Returns (q, k, v, plane)."""
+    the schedule's planned producer (shard-local under ``policy``).
+    Returns (q, k, v, plane)."""
     b, s, d = x.shape
     nq, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     dt = x.dtype
@@ -97,7 +114,7 @@ def _project_qkv_fused(p, x, cfg: ModelConfig, positions, plan, layer_idx,
                       dim=1)
     y2d, packed = producer.gemm_with_mask(
         x.reshape(b * s, d), w_qkv, plan, (b, nq, s, s), layer_idx, step,
-        how=how)
+        how=how, policy=policy)
     y = y2d.reshape(b, s, -1)
     q = y[..., :nq * hd]
     k = y[..., nq * hd:(nq + nkv) * hd]
@@ -110,7 +127,8 @@ def attn_apply(p, x, cfg: ModelConfig, *, kind: AttentionKind,
                plan: Optional[DropoutPlan], layer_idx, step,
                chunk_q: int = 1024, probs_dtype=torch.float32,
                impl: str = "xla",
-               mask_in=None, emit_next: bool = False, asg=None):
+               mask_in=None, emit_next: bool = False, asg=None,
+               policy=None):
     """Training forward of one attention layer over the full sequence;
     x (B, S, D) -> (B, S, D).
 
@@ -130,8 +148,11 @@ def attn_apply(p, x, cfg: ModelConfig, *, kind: AttentionKind,
     ``impl="pallas"`` (the JAX knob's name) runs the CUDA flash kernels,
     and raises where they cannot take the call; ``"xla"`` runs the
     chunked tensor-op attention. Direct calls may omit ``asg``: a
-    single-layer assignment is compiled on the spot. Sharding policies
-    are not ported (the schedule compiler refuses them). Returns y, or
+    single-layer assignment is compiled on the spot. Under a sharding
+    ``policy`` the producers run shard-local and the attention runs in a
+    shard_map body over the (batch, heads) shards (``_attn_pallas_sharded``;
+    the tensor-op attention where ``_pallas_ok`` refuses the mesh, as in
+    JAX: heads split but kv-heads do not). Returns y, or
     (y, next plane) when ``emit_next``. A fused-mode plan makes no plane
     and takes no producer: the keep bits are drawn inside attention, by
     the flash kernels under ``impl="pallas"`` (mode "fused"; the JAX
@@ -148,7 +169,7 @@ def attn_apply(p, x, cfg: ModelConfig, *, kind: AttentionKind,
     if overlap and asg is None:
         from repro_torch.core import schedule as schedule_mod
         asg = schedule_mod.inline_assignment(cfg, plan, b, s,
-                                             attn_impl=impl)
+                                             policy=policy, attn_impl=impl)
     site = asg.site if overlap else "xla"
     replay = overlap and asg.how == producer.HOW_REPLAY
     if replay and impl != "pallas":
@@ -161,12 +182,13 @@ def attn_apply(p, x, cfg: ModelConfig, *, kind: AttentionKind,
             # the RNG still runs under the GEMM; its plane is discarded
             q, k, v, _discarded = _project_qkv_fused(
                 p, x, cfg, positions, plan, layer_idx, step,
-                how=asg.host_how)
+                how=asg.host_how, policy=policy)
         else:
             q, k, v = _project_qkv(p, x, cfg, positions)
     elif overlap and site == "qkv":
         q, k, v, packed = _project_qkv_fused(
-            p, x, cfg, positions, plan, layer_idx, step, how=asg.how)
+            p, x, cfg, positions, plan, layer_idx, step, how=asg.how,
+            policy=policy)
     else:
         q, k, v = _project_qkv(p, x, cfg, positions)
         if overlap and (site in CARRIED_DROPOUT_SITES
@@ -178,27 +200,33 @@ def attn_apply(p, x, cfg: ModelConfig, *, kind: AttentionKind,
                 packed = producer.standalone_packed_mask(
                     plan, b, cfg.n_heads, s, s, layer_idx, step,
                     use_kernel=asg.how == producer.HOW_STANDALONE,
+                    policy=policy if asg.sharded else None,
                     device=x.device)
         elif overlap:
             packed = plan.precompute_mask(b, cfg.n_heads, s, s, layer_idx,
                                           step, device=x.device)
 
-    if impl == "pallas":
+    if impl == "pallas" and _pallas_ok(policy, cfg):
         out = _attn_pallas_sharded(q, k, v, packed, plan, local, layer_idx,
-                                   step, replay=replay)
+                                   step, replay=replay, policy=policy)
+    elif policy is not None:
+        out = _attn_xla_sharded(q, k, v, packed, plan, local, layer_idx,
+                                step, chunk_q, probs_dtype, policy)
     else:
         out = attention_xla(
             q, k, v, causal=True, local_window=local, plan=plan,
             layer_idx=layer_idx, step=step, packed_mask=packed,
             chunk_q=chunk_q, probs_dtype=probs_dtype)
-    out = out.transpose(1, 2).reshape(b, s, -1)
+    out = constrain(out.transpose(1, 2).reshape(b, s, -1), "batch", None,
+                    "heads")
     w_o = p["w_o"].to(x.dtype)
     if emit_next and overlap and asg.emit_site == "prev_gemm":
         # the next attention layer's plane under this out-projection (the
         # paper's "previous GEMM layers" site)
         y2d, mask_next = producer.gemm_with_mask(
             out.reshape(b * s, -1), w_o, plan, (b, cfg.n_heads, s, s),
-            layer_idx + asg.emit_stride, step, how=asg.emit_how)
+            layer_idx + asg.emit_stride, step, how=asg.emit_how,
+            policy=policy)
         return y2d.reshape(b, s, -1), mask_next
     y = out @ w_o
     return (y, mask_in) if emit_next else y
@@ -222,13 +250,38 @@ def _flash_unsupported_reason(plan, s: int, head_dim: int,
     return kernel_shape_unsupported_reason(s, s, head_dim, dtype)
 
 
+def _pallas_ok(policy, cfg: ModelConfig) -> bool:
+    """The policy clause of the JAX package's ``_pallas_ok``: the flash
+    kernels need shard-local full kv, so a mesh that splits the heads
+    must split the kv-heads too. Its other clauses are the TPU grid's
+    (``_flash_unsupported_reason`` holds the CUDA kernels' own)."""
+    if policy is None:
+        return True
+    h_ax = policy.mesh_axes_for("heads", cfg.n_heads)
+    kv_ax = policy.mesh_axes_for("kv_heads", cfg.n_kv_heads)
+    return h_ax is None or kv_ax is not None
+
+
+def _attn_specs(policy, q, k):
+    from repro_torch.compat import P
+    b_ax = policy.mesh_axes_for("batch", q.shape[0])
+    qs = P(b_ax, policy.mesh_axes_for("heads", q.shape[1]), None, None)
+    kvs = P(b_ax, policy.mesh_axes_for("kv_heads", k.shape[1]), None, None)
+    return qs, kvs
+
+
 def _attn_pallas_sharded(q, k, v, packed, plan, local, layer_idx, step,
-                         replay: bool = False):
-    """The flash kernels on one device (the no-policy branch of the JAX
-    function). ``replay`` selects mode "replay": the only dropout operand
-    is the (4,) seed-salt word. A fused-mode plan runs mode "fused": the
+                         replay: bool = False, policy=None):
+    """The flash kernels: on one device, or under ``policy`` in a shard_map
+    body over the (batch, heads) shards, each rank on its local q / k / v
+    and its tile of the plane. ``replay`` selects mode "replay": the only
+    dropout operand is the seed-salt word, and under a policy each rank
+    folds its tile's global (b, h) offset into it
+    (``producer.shard_mask_tile``), so shard-local replay is the global
+    plane's slice exactly. A fused-mode plan runs mode "fused": the
     kernels take the step seed and the layer salt and draw the bits
-    themselves."""
+    themselves (one device only: its counters carry no tile offset)."""
+    from repro_torch.kernels.philox_common import seed_salt_smem
     p_drop = plan.cfg.p if (plan is not None and plan.enabled) else 0.0
     seed, salt = 0, 0
     if replay and p_drop > 0.0:
@@ -245,9 +298,70 @@ def _attn_pallas_sharded(q, k, v, packed, plan, local, layer_idx, step,
         # the kernels take the seed-salt word's four words by value, made
         # here from the step seed and the layer salt
         seed, salt = plan.step_seed(step), plan.salt(layer_idx)
-    operand = packed if mode == "premask" else None
-    return flash_attention_mosaic(q, k, v, operand, True, local, p_drop,
-                                  mode, seed, salt, rounds)
+    if policy is None:
+        operand = packed if mode == "premask" else None
+        return flash_attention_mosaic(q, k, v, operand, True, local, p_drop,
+                                      mode, seed, salt, rounds)
+    if mode == "fused":
+        raise NotImplementedError(
+            "fused-mode dropout under a sharding policy: the flash kernels' "
+            "fused draw has no tile offset (plan mode='overlap' instead)")
+    from repro_torch.compat import shard_map
+    bsz, n_heads, sq = q.shape[0], q.shape[1], q.shape[2]
+    sk = k.shape[2]
+    qs, kvs = _attn_specs(policy, q, k)
+    shard = producer.shard_exec(policy, bsz, n_heads)
+
+    def body(q_, k_, v_, m_=None):
+        if mode != "replay":
+            return flash_attention_mosaic(q_, k_, v_, m_, True, local,
+                                          p_drop, mode, 0, 0, rounds)
+        _shape, hg, off = producer.shard_mask_tile(shard, bsz, n_heads, sq,
+                                                   sk)
+        with _disable_current_modes():
+            # a host constant of the call, also under a fake-tensor trace
+            word = seed_salt_smem(seed, salt, off)
+        return flash_attention_mosaic(q_, k_, v_, word, True, local, p_drop,
+                                      mode, 0, 0, rounds, hg or n_heads)
+
+    if mode == "premask":
+        return shard_map(body, mesh=policy.mesh, in_specs=(qs, kvs, kvs, qs),
+                         out_specs=qs)(q, k, v, packed)
+    return shard_map(body, mesh=policy.mesh, in_specs=(qs, kvs, kvs),
+                     out_specs=qs)(q, k, v)
+
+
+def _attn_xla_sharded(q, k, v, packed, plan, local, layer_idx, step,
+                      chunk_q, probs_dtype, policy):
+    """The tensor-op attention under a policy, in a shard_map body over the
+    batch shards (the heads stay whole: this is the path of a mesh whose
+    heads split but whose kv-heads do not). The plane comes in whole and
+    each rank reads its rows; a fused-mode plan's bits are made first, by
+    the tensor-op producer, the same bits."""
+    from repro_torch.compat import P, shard_map
+    b, h, s = q.shape[0], q.shape[1], q.shape[2]
+    enabled = plan is not None and plan.enabled
+    if enabled and packed is None:
+        from repro_torch.core import dropout_rng
+        packed = dropout_rng.packed_mask(
+            b, h, s, k.shape[2], plan.cfg.p, plan.step_seed(step),
+            plan.salt(layer_idx), plan.cfg.philox_rounds,
+            plan.cfg.philox_bits, device=q.device)
+    b_ax = policy.mesh_axes_for("batch", b)
+    spec = P(b_ax, None, None, None)
+
+    def body(q_, k_, v_, m_=None):
+        return attention_xla(q_, k_, v_, causal=True, local_window=local,
+                             plan=plan if enabled else None,
+                             layer_idx=layer_idx, step=step, packed_mask=m_,
+                             chunk_q=chunk_q, probs_dtype=probs_dtype)
+
+    if enabled:
+        return shard_map(body, mesh=policy.mesh,
+                         in_specs=(spec, spec, spec, spec),
+                         out_specs=spec)(q, k, v, packed)
+    return shard_map(body, mesh=policy.mesh, in_specs=(spec, spec, spec),
+                     out_specs=spec)(q, k, v)
 
 
 def attn_cache_init(cfg: ModelConfig, kind: AttentionKind, batch: int,
@@ -296,8 +410,13 @@ def attn_prefill(p, x, cfg: ModelConfig, *, kind: AttentionKind,
     positions = torch.arange(s, dtype=torch.int32, device=x.device)
     q, k, v = _project_qkv(p, x, cfg, positions)
     local = cfg.local_window if kind == AttentionKind.LOCAL else 0
-    out = attention_xla(q, k, v, causal=True, local_window=local, plan=None,
-                        chunk_q=chunk_q)
+    policy = current_policy()
+    if policy is not None:
+        out = _attn_xla_sharded(q, k, v, None, None, local, layer_idx, step,
+                                chunk_q, torch.float32, policy)
+    else:
+        out = attention_xla(q, k, v, causal=True, local_window=local,
+                            plan=None, chunk_q=chunk_q)
     out = out.transpose(1, 2).reshape(b, s, -1)
     y = out @ p["w_o"].to(x.dtype)
     if kind == AttentionKind.LOCAL and s >= local:
@@ -310,7 +429,14 @@ def attn_prefill(p, x, cfg: ModelConfig, *, kind: AttentionKind,
         pad = (0, 0, 0, size - s)
         k_cache = torch.nn.functional.pad(k, pad)
         v_cache = torch.nn.functional.pad(v, pad)
-    cache = {"k": k_cache, "v": v_cache,
+    # kv-heads on 'model' when they divide, else the cache sequence
+    # (flash-decoding)
+    kv_ax = ("kv_heads", None)
+    if policy is not None and policy.mesh_axes_for(
+            "kv_heads", cfg.n_kv_heads) is None:
+        kv_ax = (None, "kv_seq")
+    cache = {"k": constrain(k_cache, "batch", kv_ax[0], kv_ax[1], None),
+             "v": constrain(v_cache, "batch", kv_ax[0], kv_ax[1], None),
              "len": torch.tensor(s, dtype=torch.int32)}
     return y, cache
 
@@ -379,28 +505,88 @@ def attention_decode_appended(q, k_cache, v_cache, k_new, v_new, pos: int,
                               v_scale=None, policy=None):
     """Decode attention over the read-only cache plus the current token,
     whose key and value are folded in as a virtual slot: the softmax over
-    cache ++ self. q (B, H, 1, D); caches (B, KV, size, D). The JAX
-    package's single-device branch; its sequence-sharded flash-decoding
-    branch (a sharding policy) is not ported."""
-    if policy is not None:
-        raise NotImplementedError(
-            "sequence-sharded decode attention under a sharding policy is "
-            "not ported yet (ROADMAP queue 1 item 8, multi-device)")
-    b, h, _, d = q.shape
-    kv = k_cache.shape[1]
-    f32 = torch.float32
+    cache ++ self. q (B, H, 1, D); caches (B, KV, size, D). Under a
+    sharding policy (``policy``, else the installed one) it runs in a
+    shard_map body: when the cache's sequence dim is split over 'model'
+    (kv-heads that do not divide it), as flash-decoding -- each rank's
+    unnormalized partial softmax over its cache slice, the (m, l, num)
+    triples combined with a max and two sums over the axis."""
+    policy = policy if policy is not None else current_policy()
+    if policy is None:
+        return _decode_appended(q, k_cache, v_cache, k_new, v_new, pos,
+                                size, is_local, k_scale, v_scale)
+    from repro_torch.compat import P, axis_index, pmax, psum, shard_map
+    b, h, kv = q.shape[0], q.shape[1], k_cache.shape[1]
+    batch_ax = policy.mesh_axes_for("batch", b)
+    kv_ax = policy.mesh_axes_for("kv_heads", kv)
+    seq_ax = (policy.mesh_axes_for("kv_seq", size) if kv_ax is None
+              else None)
+    quant = k_scale is not None
+    if not quant:
+        # stand-in scales keep one body signature for both cache kinds
+        k_scale = v_scale = torch.ones(k_cache.shape[:3] + (1,),
+                                       dtype=torch.float32, device=q.device)
+    if seq_ax is None:
+        qs = P(batch_ax, kv_ax, None, None)
+
+        def body(q_, kc, vc, kn, vn, ks, vs):
+            return _decode_appended(q_, kc, vc, kn, vn, pos, size, is_local,
+                                    ks if quant else None,
+                                    vs if quant else None)
+
+        return shard_map(body, mesh=policy.mesh,
+                         in_specs=(qs,) * 7, out_specs=qs)(
+            q, k_cache, v_cache, k_new, v_new, k_scale, v_scale)
+    seq_name = seq_ax if isinstance(seq_ax, str) else seq_ax[0]
+    rep = P(batch_ax, None, None, None)
+    cache_spec = P(batch_ax, None, seq_name, None)
+    d = q.shape[3]
     scale = 1.0 / (d ** 0.5)
-    qg = q.reshape(b, kv, h // kv, d)
+
+    def fbody(q_, kc, vc, kn, vn, ks, vs):
+        n_loc = kc.shape[2]
+        qg = q_.reshape(q_.shape[0], kv, h // kv, d)
+        m_loc, l_loc, num_loc = _decode_scores_partial(
+            qg, kc, vc, axis_index(seq_name) * n_loc, n_loc, pos, size,
+            is_local, scale, ks if quant else None, vs if quant else None)
+        m_g = pmax(m_loc, seq_name)
+        corr = torch.exp(m_loc - m_g)
+        l_g = psum(l_loc * corr, seq_name)
+        num_g = psum(num_loc * corr, seq_name)
+        return _fold_self(q_, qg, kn, vn, m_g, l_g, num_g, scale)
+
+    return shard_map(fbody, mesh=policy.mesh,
+                     in_specs=(rep, cache_spec, cache_spec, rep, rep,
+                               cache_spec, cache_spec), out_specs=rep)(
+        q, k_cache, v_cache, k_new, v_new, k_scale, v_scale)
+
+
+def _fold_self(q, qg, k_new, v_new, m, l, num, scale: float):
+    """Fold the current token into a cache's (m, l, num): the softmax over
+    cache ++ self, normalized."""
+    b, h, _, d = q.shape
+    f32 = torch.float32
     s_self = torch.einsum("bkgd,bkxd->bkgx", qg.to(f32),
                           k_new[:, :, 0:1].to(q.dtype).to(f32)) * scale
-    m, l, num = _decode_scores_partial(qg, k_cache, v_cache, 0, size, pos,
-                                       size, is_local, scale, k_scale,
-                                       v_scale)
     m_all = torch.maximum(m, s_self)
     num = (num * torch.exp(m - m_all)
            + torch.exp(s_self - m_all) * v_new[:, :, 0:1].to(f32))
     den = l * torch.exp(m - m_all) + torch.exp(s_self - m_all)
     return (num / den).to(q.dtype).reshape(b, h, 1, d)
+
+
+def _decode_appended(q, k_cache, v_cache, k_new, v_new, pos: int, size: int,
+                     is_local: bool, k_scale=None, v_scale=None):
+    """``attention_decode_appended`` on one device (or one rank's whole
+    cache sequence)."""
+    b, h, _, d = q.shape
+    kv = k_cache.shape[1]
+    scale = 1.0 / (d ** 0.5)
+    qg = q.reshape(b, kv, h // kv, d)
+    m, l, num = _decode_scores_partial(qg, k_cache, v_cache, 0, size, pos,
+                                       size, is_local, scale, k_scale,
+                                       v_scale)
+    return _fold_self(q, qg, k_new, v_new, m, l, num, scale)
 
 
 def attn_decode_paged(p, x, cfg: ModelConfig, pool_k, pool_v, phys_idx,

@@ -111,6 +111,9 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     else:
         ang = (pos[:, :, None] * freqs)[:, None]            # (B,1,S,d/2)
     sin, cos = torch.sin(ang), torch.cos(ang)
+    # host-made angles meet a sharded activation as replicated values
+    from repro_torch.distributed.sharding import replicate_like
+    sin, cos = replicate_like(sin, x), replicate_like(cos, x)
     x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
@@ -217,7 +220,7 @@ def _ffn_apply_hosted(p, x: torch.Tensor, cfg: ModelConfig, host,
     def host_gemm(a2d, w):
         return producer.gemm_with_mask(
             a2d, w.to(dt), host.plan, host.mask_shape, host.layer_idx,
-            host.step, how=host.how)
+            host.step, how=host.how, policy=host.policy)
 
     if cfg.ffn in (FFNKind.SWIGLU, FFNKind.GEGLU):
         act = _ffn_act(cfg)
@@ -257,7 +260,7 @@ def _ffn_apply_hosted(p, x: torch.Tensor, cfg: ModelConfig, host,
         def grouped(a2d, w):
             y3, mask = producer.grouped_gemm_with_mask(
                 a2d[None], w.to(dt)[None], host.plan, host.mask_shape,
-                host.layer_idx, host.step, how=host.how)
+                host.layer_idx, host.step, how=host.how, policy=host.policy)
             return y3[0], mask
 
         xk2d = xk.reshape(-1, xk.shape[-1])
@@ -278,7 +281,8 @@ def _ffn_apply_hosted(p, x: torch.Tensor, cfg: ModelConfig, host,
     b, h_, sq, sk = host.mask_shape
     mask = producer.standalone_packed_mask(
         host.plan, b, h_, sq, sk, host.layer_idx, host.step,
-        use_kernel=host.how == producer.HOW_STANDALONE, device=x.device)
+        use_kernel=host.how == producer.HOW_STANDALONE, policy=host.policy,
+        device=x.device)
     return ffn_apply(p, x, cfg, shifted=shifted), mask
 
 

@@ -22,6 +22,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.config.base import AttentionKind, FFNKind, ModelConfig
 from repro_torch.core.overlap import DropoutPlan
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.distributed.sharding import constrain, use_policy
 from repro_torch.models.attention import (
     attn_apply,
     attn_cache_init,
@@ -64,7 +65,9 @@ class Runtime:
     the compiled DropoutSchedule; when None and a plan is set, ``forward``
     compiles one from the plan's site sugar. ``attn_impl="pallas"`` runs
     the CUDA flash kernels. ``probs_dtype`` is the tensor-op attention's
-    probability dtype (bf16 for ``attn_probs_bf16``)."""
+    probability dtype (bf16 for ``attn_probs_bf16``). ``policy`` is the
+    ShardingPolicy the call runs under: the parameters and inputs are then
+    DTensors on its mesh, the producers and kernels run shard-local."""
     plan: Optional[DropoutPlan] = None
     step: int = 0
     compute_dtype: Any = torch.float32
@@ -73,6 +76,8 @@ class Runtime:
     remat: str = "none"            # none | block
     attn_impl: str = "xla"         # xla | pallas
     schedule: Optional[Any] = None
+    policy: Optional[Any] = None
+    moe_seq_dispatch: bool = False
 
 
 @dataclasses.dataclass(frozen=True)
@@ -175,20 +180,60 @@ def model_init(cfg: ModelConfig, seed: int = 0,
 # embed / unembed
 # --------------------------------------------------------------------------
 
+def _lookup(ids: torch.Tensor, table: torch.Tensor, policy):
+    """Embedding rows of ``ids``. Under a policy the lookup runs in a
+    shard_map body over the batch shards and, where the table's vocab dim
+    is split, vocab-parallel: each rank looks up the ids in its slice of
+    the vocab, zeros the others, and the rows are summed over the vocab
+    axes (one non-zero a row: exact). DTensor's own embedding strategy
+    shards the table over any free axis and leaves a masked partial whose
+    backward it cannot redistribute."""
+    if policy is None:
+        return F.embedding(ids, table)
+    from repro_torch.compat import P, axis_index, psum, shard_map
+    b_ax = policy.mesh_axes_for("batch", ids.shape[0])
+    v_ax = _vocab_axes(policy, table.shape[0], b_ax)
+    rest = (None,) * (ids.ndim - 1)
+
+    def body(ids_, tab_):
+        if v_ax is None:
+            return F.embedding(ids_, tab_)
+        local = ids_ - axis_index(v_ax) * tab_.shape[0]
+        inside = (local >= 0) & (local < tab_.shape[0])
+        rows = F.embedding(torch.where(inside, local, 0), tab_)
+        return psum(rows * inside[..., None].to(rows.dtype), v_ax)
+
+    return shard_map(body, mesh=policy.mesh,
+                     in_specs=(P(b_ax, *rest), P(v_ax, None)),
+                     out_specs=P(b_ax, *rest, None))(ids, table)
+
+
+def _vocab_axes(policy, vocab: int, b_ax):
+    """The mesh axes a vocab dim splits over beside the batch's, or None."""
+    v = policy.mesh_axes_for("vocab", vocab)
+    b = set(() if b_ax is None else (b_ax,) if isinstance(b_ax, str)
+            else b_ax)
+    v = tuple(a for a in ((v,) if isinstance(v, str) else (v or ()))
+              if a not in b)
+    return None if not v else (v[0] if len(v) == 1 else v)
+
+
 def embed_inputs(params, cfg: ModelConfig, inputs: torch.Tensor,
                  rt: Runtime) -> torch.Tensor:
     if cfg.frontend == "token":
         # F.embedding's backward sums rows without atomics: bitwise
         # reproducible on the card
-        x = F.embedding(inputs.long(), params["embed"])
+        x = _lookup(inputs.long(), params["embed"], rt.policy)
     else:
         x = inputs                                  # precomputed embeddings
-    return x.to(rt.compute_dtype)
+    x = x.to(rt.compute_dtype)
+    return constrain(x, "batch", "seq", "embed") if x.ndim == 3 else x
 
 
 def unembed(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     w = params["embed"].T if cfg.tie_embeddings else params["unembed"]
-    return x.to(torch.float32) @ w.to(torch.float32)
+    return constrain(x.to(torch.float32) @ w.to(torch.float32), "batch",
+                     None, "vocab")
 
 
 # --------------------------------------------------------------------------
@@ -208,7 +253,7 @@ def _mix_forward(p, x, cfg: ModelConfig, rt: Runtime, kind, layer_idx,
                    step=rt.step, chunk_q=rt.chunk_q,
                    probs_dtype=rt.probs_dtype,
                    impl=rt.attn_impl, mask_in=mask_in, emit_next=emit_next,
-                   asg=asg)
+                   asg=asg, policy=rt.policy)
     return y if emit_next else (y, None)
 
 
@@ -234,18 +279,21 @@ def _ffn_forward(p, x, cfg: ModelConfig, rt: Runtime, tag, layer_idx=0,
         host = producer.FFNHost(
             plan=rt.plan, site=asg.emit_site, mask_shape=mask_shape,
             layer_idx=layer_idx + asg.emit_stride, step=rt.step,
-            how=asg.emit_how)
+            how=asg.emit_how, policy=rt.policy)
     if tag == "moe":
         if host is not None and host.how == producer.HOW_GEMM_GROUPED:
-            y, aux, mask_next = moe_apply(p["moe"], x, cfg, host=host)
+            y, aux, mask_next = moe_apply(p["moe"], x, cfg, rt.policy,
+                                          seq_dispatch=rt.moe_seq_dispatch,
+                                          host=host)
         else:
-            y, aux = moe_apply(p["moe"], x, cfg)
+            y, aux = moe_apply(p["moe"], x, cfg, rt.policy,
+                               seq_dispatch=rt.moe_seq_dispatch)
             if host is not None:
                 b, h_, sq, sk = mask_shape
                 mask_next = producer.standalone_packed_mask(
                     rt.plan, b, h_, sq, sk, host.layer_idx, rt.step,
                     use_kernel=host.how == producer.HOW_STANDALONE,
-                    device=x.device)
+                    policy=rt.policy, device=x.device)
         if "shared" in p:
             y = y + ffn_apply(p["shared"], x, cfg)
         if "dense_res" in p:
@@ -338,6 +386,15 @@ def _add_aux(total, aux):
 
 def forward(params, cfg: ModelConfig, rt: Runtime, inputs
             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Training / eval forward (``_forward``) under ``rt.policy``: its
+    ``constrain`` annotations pin the layouts there, and are no-ops
+    without one."""
+    with use_policy(rt.policy):
+        return _forward(params, cfg, rt, inputs)
+
+
+def _forward(params, cfg: ModelConfig, rt: Runtime, inputs
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Training / eval forward. inputs: tokens (B, S) or embeddings
     (B, S, D). Returns (logits f32 (B, S, V), aux loss: the MoE layers'
     router loss, summed).
@@ -363,12 +420,12 @@ def forward(params, cfg: ModelConfig, rt: Runtime, inputs
     if sched is None and rt.plan is not None:
         from repro_torch.core import schedule as schedule_mod
         sched = schedule_mod.compile_schedule(
-            cfg, rt.plan.cfg, x.shape[0], x.shape[1],
-            attn_impl=rt.attn_impl)
-    if sched is not None and sched.shard.policy_installed:
-        raise NotImplementedError(
-            "a schedule planned for a sharded mesh does not run on one "
-            "device (ROADMAP: port queue, sharding policies)")
+            cfg, rt.plan.cfg, x.shape[0], x.shape[1], policy=rt.policy,
+            attn_impl=rt.attn_impl, moe_seq_dispatch=rt.moe_seq_dispatch)
+    if (sched is not None and sched.shard.policy_installed
+            and rt.policy is None):
+        raise ValueError("a schedule planned for a sharded mesh runs under "
+                         "its policy (Runtime.policy)")
     active = sched is not None and sched.active
     carry_mask = active and sched.carried
     mask_buf = None
@@ -380,7 +437,7 @@ def forward(params, cfg: ModelConfig, rt: Runtime, inputs
         mask_buf = producer.standalone_packed_mask(
             rt.plan, b, cfg.n_heads, s, s, sched.first_consumer, rt.step,
             use_kernel=basg.how == producer.HOW_STANDALONE,
-            device=x.device)
+            policy=rt.policy if basg.sharded else None, device=x.device)
     for spec, stack_params in zip(build_stacks(cfg), params["stacks"]):
         unit_len = len(spec.unit)
         unit_asgs = tuple(sched.for_layer(spec.base + j) if active else None
@@ -407,7 +464,9 @@ def forward(params, cfg: ModelConfig, rt: Runtime, inputs
             aux_total = _add_aux(aux_total, a)
     x = norm_apply(params["final_norm"], x, cfg)
     if aux_total is None:          # no MoE layer: no router loss
-        aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+        from repro_torch.distributed.sharding import replicate_like
+        aux_total = replicate_like(
+            torch.zeros((), dtype=torch.float32, device=x.device), x)
     return unembed(params, cfg, x), aux_total
 
 
@@ -481,6 +540,14 @@ def _layer_prefill(p, x, cfg, rt: Runtime, kind, tag, layer_idx, capacity):
 def prefill(params, cfg: ModelConfig, rt: Runtime, inputs,
             capacity: int = 0, last_pos: Optional[int] = None
             ) -> Tuple[torch.Tensor, List[Any]]:
+    """``_prefill`` under ``rt.policy``."""
+    with use_policy(rt.policy):
+        return _prefill(params, cfg, rt, inputs, capacity, last_pos)
+
+
+def _prefill(params, cfg: ModelConfig, rt: Runtime, inputs,
+             capacity: int = 0, last_pos: Optional[int] = None
+             ) -> Tuple[torch.Tensor, List[Any]]:
     """Returns (logits (B,1,V) at ``last_pos`` or the last position,
     caches): per stack, per unit position, the layer's cache fields
     stacked over ``count`` (FULL k / v (count,B,KV,cap,hd) with cap =
@@ -534,6 +601,32 @@ def _layer_decode(p, x1, cache, cfg, rt: Runtime, kind, tag):
     return x1 + f, update
 
 
+def _token_column_write(cache_arr, tok, slot: int) -> None:
+    """cache_arr[:, :, :, slot] = tok[:, :, :, 0], in place. A DTensor
+    cache is written shard-locally (the JAX package's
+    ``_token_column_write``): the column comes to the cache's layout with
+    its sequence dim whole, and only the rank whose slice of a
+    sequence-sharded cache holds ``slot`` writes it."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    if not isinstance(cache_arr, DTensor):
+        cache_arr[:, :, :, slot] = tok[:, :, :, 0].to(cache_arr.dtype)
+        return
+    mesh = cache_arr.device_mesh
+    pls = list(cache_arr.placements)
+    col = tok if isinstance(tok, DTensor) else DTensor.from_local(
+        tok, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    col = col.redistribute(mesh, [Replicate() if p == Shard(3) else p
+                                  for p in pls]).to_local()
+    local = cache_arr.to_local()
+    seq_dims = [d for d, p in enumerate(pls) if p == Shard(3)]
+    off, n_loc = 0, cache_arr.shape[3]
+    if seq_dims:                  # kv_seq maps to one mesh axis
+        n_loc //= mesh.size(seq_dims[0])
+        off = mesh.get_local_rank(seq_dims[0]) * n_loc
+    if off <= slot < off + n_loc:
+        local[:, :, :, slot - off] = col[:, :, :, 0].to(local.dtype)
+
+
 def _apply_cache_updates(spec: StackSpec, stack_cache, updates):
     """Merge a stack's per-layer decode updates into its caches: one
     token-column write for each attention cache and field, in place, at
@@ -552,7 +645,7 @@ def _apply_cache_updates(spec: StackSpec, stack_cache, updates):
         slot = pos % size if kind == AttentionKind.LOCAL else pos
         for f in ("k", "v", "k_scale", "v_scale"):
             if f in cache:
-                cache[f][:, :, :, slot] = upd[f + "_tok"][:, :, :, 0]
+                _token_column_write(cache[f], upd[f + "_tok"], slot)
         cache["len"] = upd["len"]
         new_stack[key] = cache
     return new_stack
@@ -560,6 +653,13 @@ def _apply_cache_updates(spec: StackSpec, stack_cache, updates):
 
 def decode_step(params, cfg: ModelConfig, rt: Runtime, inputs, caches
                 ) -> Tuple[torch.Tensor, List[Any]]:
+    """``_decode_step`` under ``rt.policy``."""
+    with use_policy(rt.policy):
+        return _decode_step(params, cfg, rt, inputs, caches)
+
+
+def _decode_step(params, cfg: ModelConfig, rt: Runtime, inputs, caches
+                 ) -> Tuple[torch.Tensor, List[Any]]:
     """One token for every sequence. inputs (B, 1) tokens or (B, 1, D)
     embeddings. Returns (logits (B, 1, V), the caches): the attention
     caches take the token column in place (the JAX version returns new

@@ -40,9 +40,10 @@ def schedule_lr(cfg: OptimizerConfig, step: int) -> float:
 
 
 def adamw_init(params) -> Dict[str, Any]:
+    # zeros_like keeps a DTensor's layout (a sharded master's moments are
+    # sharded as it is)
     zeros = lambda p: tree_map(
-        lambda a: torch.zeros(a.shape, dtype=torch.float32,
-                              device=a.device), p)
+        lambda a: torch.zeros_like(a, dtype=torch.float32), p)
     return {"m": zeros(params), "v": zeros(params)}
 
 

@@ -472,8 +472,9 @@ def test_lint_cell_skips_indivisible_topology():
 
 
 def test_sharded_schedule_does_not_run():
-    """A schedule planned for a mesh is analysis only: the forward refuses
-    it."""
+    """A schedule planned for a mesh this process does not hold (a bare
+    ShardInfo) is analysis only: the forward refuses it without the
+    policy it was planned for."""
     import torch
 
     from repro_torch.models import Runtime, forward, model_init
@@ -482,7 +483,7 @@ def test_sharded_schedule_does_not_run():
     sched = compile_schedule(cfg, _plan("qkv"), 2, 64, attn_impl="pallas",
                              shard=lint.topology_shards(2)[0])
     params = model_init(cfg, seed=0, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="under its policy"):
         forward(params, cfg, Runtime(plan=DropoutPlan(_plan("qkv")),
                                      attn_impl="pallas", schedule=sched),
                 torch.zeros((2, 64), dtype=torch.int64))

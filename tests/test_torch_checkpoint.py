@@ -553,8 +553,12 @@ def test_device_batch_and_prefetcher():
     x, y = device_batch(cfg, shape, 3, device="cpu")
     wx, wy = batch_for_step(cfg, shape, 3)
     assert np.array_equal(x.numpy(), wx) and np.array_equal(y.numpy(), wy)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        device_batch(cfg, shape, 3, policy=object(), device="cpu")
+    # a rank makes only its rows of a sharded batch, bitwise the whole's
+    # (device_batch under a policy: tests/test_torch_multirank.py)
+    for rows in ((0, 1), (1, 2)):
+        rx, ry = batch_for_step(cfg, shape, 3, rows=rows)
+        assert np.array_equal(rx, wx[rows[0]:rows[1]])
+        assert np.array_equal(ry, wy[rows[0]:rows[1]])
     pf = Prefetcher(cfg, shape, start_step=5, depth=2, device="cpu")
     try:
         for want in (5, 6, 7):

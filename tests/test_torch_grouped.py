@@ -633,12 +633,24 @@ def test_first_dense_channel_mix_plans_on_its_own_grid():
     assert emits_b[1].emit_reason == ""
 
 
+def _abstract_policies(shape=(2, 2), axes=("data", "model")):
+    """The port's and JAX's ShardingPolicy on a device-free mesh of
+    ``shape`` (the schedule's planning reads only axis names and sizes)."""
+    from jax.sharding import AbstractMesh as JAbstractMesh
+
+    from repro.distributed.sharding import ShardingPolicy as JPolicy
+    from repro_torch.distributed.sharding import ShardingPolicy
+    from repro_torch.launch.mesh import AbstractMesh
+    return (ShardingPolicy(AbstractMesh(shape, axes)),
+            JPolicy(JAbstractMesh(shape, axes)))
+
+
 def test_grouped_bf16_plan_raises():
     """A grouped bf16 plan plans (its text is JAX's:
     ``test_schedule_text_equals_jax[bf16]``), ``site="auto"`` included
     since the perf model is ported (its text JAX's at the same hardware);
-    what the port still refuses for it raises, naming the ROADMAP: a
-    sharding policy (multi-device)."""
+    under a sharding policy (it raised before multi-device was ported) its
+    shard-local plan is JAX's too."""
     jcfg, cfg = _moe_cfgs()
     kw = _plan_kw("auto", gemm_dtype="bf16")
     assert compile_schedule(
@@ -646,7 +658,10 @@ def test_grouped_bf16_plan_raises():
         hw=GH100).explain() == j_compile(
         jcfg, JPlanConfig(**kw), 2, 128, attn_impl="pallas",
         hw=J_GH100).explain()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        compile_schedule(cfg, DropoutPlanConfig(
-            **_plan_kw("ffn_up", gemm_dtype="bf16")), 2, 128,
-            policy=object(), attn_impl="pallas")
+    pol, jpol = _abstract_policies()
+    kw = _plan_kw("ffn_up", gemm_dtype="bf16")
+    got = compile_schedule(cfg, DropoutPlanConfig(**kw), 2, 128,
+                           policy=pol, attn_impl="pallas")
+    assert got.sharded and got.explain() == j_compile(
+        jcfg, JPlanConfig(**kw), 2, 128, policy=jpol,
+        attn_impl="pallas").explain()

@@ -245,10 +245,27 @@ def test_mask_invariant_to_routing(perturb):
     np.testing.assert_array_equal(_u32(mask_ref), np.asarray(want))
 
 
-def test_moe_apply_policy_raises():
+def test_moe_apply_policy_raises(tmp_path):
+    """``moe_apply`` under a policy (it raised before multi-device was
+    ported) runs the dispatch body with its collectives: on one rank's
+    (data=1, model=1) mesh it is bitwise the single-device body (the three
+    bodies against JAX on four ranks: test_torch_multirank4.py)."""
+    import torch_multirank
+    from repro_torch.distributed.sharding import (ShardingPolicy,
+                                                  gather_full, use_policy)
+    from repro_torch.launch.mesh import make_host_mesh
     _, cfg = _moe_cfgs()
-    with pytest.raises(NotImplementedError, match="item 13"):
-        moe.moe_apply({}, torch.zeros((1, 8, 64)), cfg, policy=object())
+    gen = torch.Generator().manual_seed(0)
+    params = moe.moe_init(gen, cfg)
+    x = torch.randn((2, 8, 64), generator=gen)
+    y_ref, aux_ref = moe.moe_apply(params, x, cfg)
+    with torch_multirank.one_rank_group(tmp_path):
+        pol = ShardingPolicy(make_host_mesh((1, 1), ("data", "model"),
+                                            device="cpu"))
+        with use_policy(pol):
+            y, aux = moe.moe_apply(params, x, cfg, pol)
+        assert torch.equal(gather_full(y), y_ref)
+        assert torch.equal(gather_full(aux), aux_ref)
 
 
 # ------------------------------------------------------------------ RWKV

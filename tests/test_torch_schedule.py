@@ -122,16 +122,28 @@ def test_gemm_planning_helpers_equal_jax(shape):
 
 
 def test_unported_sites_and_dtypes_raise():
-    """A sharding policy raises; site="auto" plans since the perf model is
-    ported (it raised before), at f32 and with a grouped bf16 host (a MoE
-    expert einsum), as JAX's does on the same hardware; dense and grouped
-    bf16 hosts are ported and plan."""
+    """A sharding policy plans shard-local producers as JAX's does (it
+    raised before multi-device was ported); site="auto" plans since the
+    perf model is ported (it raised before), at f32 and with a grouped bf16
+    host (a MoE expert einsum), as JAX's does on the same hardware; dense
+    and grouped bf16 hosts are ported and plan."""
     from repro.perfmodel.hardware import GH100 as J_GH100
     from repro_torch.perfmodel.hardware import GH100
     cfg = get_arch("llama2-7b", reduced=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        compile_schedule(cfg, DropoutPlanConfig(mode="overlap"), 2, 128,
-                         policy=object(), attn_impl="pallas")
+    from jax.sharding import AbstractMesh as JAbstractMesh
+
+    from repro.distributed.sharding import ShardingPolicy as JPolicy
+    from repro_torch.distributed.sharding import ShardingPolicy
+    from repro_torch.launch.mesh import AbstractMesh
+    got = compile_schedule(
+        cfg, DropoutPlanConfig(mode="overlap"), 2, 128,
+        policy=ShardingPolicy(AbstractMesh((2,), ("model",))),
+        attn_impl="pallas")
+    want = j_compile(j_get_arch("llama2-7b", reduced=True),
+                     JPlanConfig(mode="overlap"), 2, 128,
+                     policy=JPolicy(JAbstractMesh((2,), ("model",))),
+                     attn_impl="pallas")
+    assert got.sharded and got.explain() == want.explain()
     moe = get_arch("moonshot-v1-16b-a3b", reduced=True)
     for c, jc, dtype in ((cfg, j_get_arch("llama2-7b", reduced=True), "f32"),
                          (moe, j_get_arch("moonshot-v1-16b-a3b",

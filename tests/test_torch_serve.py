@@ -246,9 +246,14 @@ def test_unported_options_raise():
     assert compile_schedule(_cfg(), DropoutPlanConfig(
         mode="overlap", site="prev_gemm", gemm_dtype="bf16"), 1, 256,
         attn_impl="pallas").plan.gemm_dtype == "bf16"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        compile_schedule(_cfg(), DropoutPlanConfig(mode="overlap"), 1, 64,
-                         policy=object())
+    # a sharding policy plans shard-local producers (it raised before)
+    from repro_torch.distributed.sharding import ShardingPolicy
+    from repro_torch.launch.mesh import AbstractMesh
+    sched = compile_schedule(
+        _cfg(), DropoutPlanConfig(mode="overlap", site="qkv"), 2, 128,
+        policy=ShardingPolicy(AbstractMesh((2,), ("data",))),
+        attn_impl="pallas")
+    assert sched.sharded and sched.shard.batch_shards == 2
     inert = compile_schedule(_cfg(), DropoutPlanConfig(mode="none"), 1, 64,
                              attn_impl="pallas")
     assert not inert.active

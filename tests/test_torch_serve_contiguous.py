@@ -195,7 +195,7 @@ def test_cache_init_equals_jax(arch, prefilled, kv_bits):
 
 
 @pytest.mark.parametrize("arch", ["recurrentgemma-9b", "moonshot-v1-16b-a3b"])
-def test_step_makers_equal_jax(arch):
+def test_step_makers_equal_jax(arch, tmp_path):
     """``make_prefill_step(capacity=)`` and ``make_serve_step`` against
     JAX's: logits and caches."""
     jcfg, cfg, jparams, tparams = _models(arch)
@@ -213,8 +213,26 @@ def test_step_makers_equal_jax(arch):
         lg, c = serve(tparams, torch.from_numpy(tok), c)
         np.testing.assert_allclose(lg.numpy(), np.asarray(jlg), **TOL)
         _assert_caches_equal(c, jc, f"serve step {t}")
-    with pytest.raises(NotImplementedError, match="serving under a sharding"):
-        make_serve_step(cfg, policy=object())
+    # under a policy (one rank here: tests/test_torch_multirank4.py runs
+    # four) the step places the token batch and runs the same decode
+    import torch_multirank
+    from repro_torch.distributed.sharding import ShardingPolicy, gather_full
+    from repro_torch.distributed.specs import param_specs, place_tree
+    from repro_torch.launch.mesh import make_host_mesh
+    with torch_multirank.one_rank_group(tmp_path):
+        pol = ShardingPolicy(make_host_mesh((1, 1), ("data", "model"),
+                                            device="cpu"))
+        _, c0 = make_prefill_step(cfg, capacity=S + 2)(
+            tparams, torch.from_numpy(inp[:, :S]))
+        tok = torch.from_numpy(inp[:, S:S + 1])
+        want, _ = make_serve_step(cfg)(tparams, tok, c0)
+        _, c1 = make_prefill_step(cfg, policy=pol, capacity=S + 2)(
+            place_tree(tparams, param_specs(tparams, pol), pol.mesh),
+            torch.from_numpy(inp[:, :S]))
+        got, _ = make_serve_step(cfg, policy=pol)(
+            place_tree(tparams, param_specs(tparams, pol), pol.mesh), tok, c1)
+        np.testing.assert_allclose(gather_full(got).numpy(), want.numpy(),
+                                   **TOL)
 
 
 def test_paged_decode_matches_contiguous_decode():
@@ -315,9 +333,11 @@ def test_quantize_kv_bitwise():
 
 
 @pytest.mark.parametrize("local_window", [0, 5])
-def test_attention_decode_equals_jax(local_window):
+def test_attention_decode_equals_jax(local_window, tmp_path):
     """``core.attention_decode`` (GQA 2:1, 11 of 16 slots valid) against
-    JAX's; ``attention_decode_appended`` under a sharding policy raises."""
+    JAX's; ``attention_decode_appended`` under a sharding policy (one rank
+    here; the sequence-sharded branch on four: test_torch_multirank4.py)
+    gives the unsharded result."""
     rng = np.random.default_rng(5)
     q = rng.standard_normal((2, 4, 1, 16)).astype(np.float32)
     k, v = (rng.standard_normal((2, 2, 16, 16)).astype(np.float32)
@@ -328,9 +348,13 @@ def test_attention_decode_equals_jax(local_window):
                               local_window=local_window)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5,
                                rtol=1e-5)
-    # the sequence-sharded flash-decoding branch is not ported
+    import torch_multirank
+    from repro_torch.distributed.sharding import ShardingPolicy, gather_full
+    from repro_torch.launch.mesh import make_host_mesh
     tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        tattn.attention_decode_appended(tq, tk, tv, tk[:, :, :1],
-                                        tv[:, :, :1], 11, 16, False,
-                                        policy=object())
+    args = (tq, tk, tv, tk[:, :, :1], tv[:, :, :1], 11, 16, False)
+    want = tattn.attention_decode_appended(*args)
+    with torch_multirank.one_rank_group(tmp_path):
+        pol = ShardingPolicy(make_host_mesh((1,), ("model",), device="cpu"))
+        got = tattn.attention_decode_appended(*args, policy=pol)
+    np.testing.assert_array_equal(gather_full(got).numpy(), want.numpy())

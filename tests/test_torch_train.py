@@ -178,19 +178,21 @@ def test_eval_step_and_unported_knobs():
         master, torch.from_numpy(x), torch.from_numpy(y))
     assert float(ce16) == pytest.approx(float(ce), rel=1e-2)
     # bf16 compute, dense bf16 hosts and the grouped bf16 host of a MoE
-    # block are ported; what is not -- a sharding policy -- raises
+    # block are ported, and so is a sharding policy (it raised before): the
+    # step's schedule plans shard-local producers
     make_train_step(cfg, dataclasses.replace(run, dropout=dataclasses.replace(
         run.dropout, gemm_dtype="bf16")), compute_dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_train_step(cfg, run, policy=object(),
-                        compute_dtype=torch.bfloat16)
+    from repro_torch.distributed.sharding import ShardingPolicy
+    from repro_torch.launch.mesh import AbstractMesh
+    from repro_torch.train import compile_run_schedule
+    pol = ShardingPolicy(AbstractMesh((2,), ("model",)))
+    make_train_step(cfg, run, policy=pol, compute_dtype=torch.bfloat16)
+    assert compile_run_schedule(cfg, run, pol).sharded
     moe = get_arch("moonshot-v1-16b-a3b", reduced=True)
     grouped = dataclasses.replace(run, model=moe, dropout=dataclasses.replace(
         run.dropout, site="ffn_up", gemm_dtype="bf16"))
     make_train_step(moe, grouped, compute_dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_train_step(moe, grouped, policy=object(),
-                        compute_dtype=torch.bfloat16)
+    make_train_step(moe, grouped, policy=pol, compute_dtype=torch.bfloat16)
     fused = dataclasses.replace(run, dropout=dataclasses.replace(
         run.dropout, mode="fused"))
     with pytest.raises(ValueError, match="overlap"):

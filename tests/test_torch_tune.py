@@ -5,7 +5,7 @@ cases mirrored.
 Tuned-table persistence, the ``tuned_torch/v1`` schema and the refusal
 of the JAX package's ``TUNED.json``, the hooks' defaults, install /
 overlay / uninstall, the producer's tuned lookups, the calibrated
-ranking; the calibration fit (NNLS, a fit that beats the closed form on
+ranking and its skipping of sites a tuned column block puts in Region 3; the calibration fit (NNLS, a fit that beats the closed form on
 synthetic cells, a calibrated Hardware needs a source); the search space
 (the shipped defaults, aligned divisors, legal neighbours, the flash
 coordinate's one value, an illegal point scores inf); gate 1 rejecting
@@ -191,6 +191,33 @@ def test_rank_host_sites_uses_calibrated_hw_from_table():
     assert all(score <= 0.0 for _, score in cal)
     assert closed == producer.rank_host_sites(cfg, plan, 256, 4096,
                                               hw=GH100)
+
+
+def test_rank_host_sites_skips_sites_in_region_3():
+    """A tuned column block that puts a site's GEMM in Region 3 takes the
+    site out of the ranking while another site can host the plane, under
+    both objectives (llama2-7b at B=2, S=2048: 64 columns leave the
+    out-projection and down-projection grids too small), so site="auto"
+    resolves to a site whose host runs under replay and premask alike;
+    with the shipped column block all four rank."""
+    from repro_torch.core.schedule import compile_schedule
+    cfg = get_arch("llama2-7b")
+    plan = DropoutPlan(DropoutPlanConfig(mode="overlap", p=0.1,
+                                         site="auto"))
+    assert {s for s, _ in producer.rank_host_sites(cfg, plan, 2, 2048)} \
+        == {"qkv", "prev_gemm", "ffn_up", "ffn_down"}
+    for table in (TunedTable(mask_cols={(2048, 2048): 64}),
+                  TunedTable(calibration=_CAL,
+                             mask_cols={(2048, 2048): 64})):
+        with overlay(table):
+            ranked = producer.rank_host_sites(cfg, plan, 2, 2048)
+            assert {s for s, _ in ranked} == {"qkv", "ffn_up"}
+            for replay in ("auto", "off"):
+                sched = compile_schedule(cfg, dataclasses.replace(
+                    plan.cfg, attn_replay=replay), 2, 2048,
+                    attn_impl="pallas")
+                assert sched.resolved_site == ranked[0][0]
+                assert "Region 3" not in sched.explain()
 
 
 # -- calibration fit ------------------------------------------------------
